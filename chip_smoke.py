@@ -18,22 +18,41 @@ result.  Phases, each of which fails the run on any mismatch:
     `.eci`, encode a small volume with large rows, delete and rebuild four
     shards (hashes must match), and serve 200 degraded needle reads with
     two data shards gone (bytes and CRC must match);
- 4. numbers from the card: leg times and rates, read latency, kernel
+ 4. the HTTP path through an in-process ``VolumeServer(device="cuda")``:
+    write a 2 GiB volume with HTTP PUTs (names, mime types and gzip bodies
+    among them), ``/admin/ec/generate``, check parity and `.eci` again,
+    GETs through EC (ETag, type, Range, If-None-Match), delete and
+    ``/admin/ec/rebuild`` four shards (hashes must match), 200 degraded
+    GETs from one client and 200 from eight at once with shards 2 and 7
+    gone, then ``/admin/ec/to_volume`` and GETs from the decoded volume;
+ 5. the CLI: ``python -m seaweedfs_tpu_torch volume -ec.engine tpu`` in a
+    subprocess, whose start line must name the card, serves a 64 MiB
+    volume's degraded GETs and exits 0 on SIGTERM, printing the kernel
+    launches of its process;
+ 6. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
-The last line is {"ok": true, "device": {...}}; the line before it is the
-card's name and power limit; before that the {"kernels": [...]} line.
+Each path runs with gf_matmul.launches set to 0 just before it and read
+just after (the CLI's server counts from 0 in its own process), and fails
+if it launched no kernel.  The last line is
+{"ok": true, "device": {...}}; the line before it is the card's name and
+power limit; before that the {"kernels": [...]} line.
 """
 
 from __future__ import annotations
 
 import hashlib
+import http.client
 import json
 import os
+import select
 import shutil
+import signal
+import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -49,6 +68,10 @@ LARGE_ROW_BLOCK = 4 << 20
 NEEDLE_MIN, NEEDLE_MAX = 1 << 10, 4 << 20
 DEGRADED_READS = 200
 PARITY_STRIPES = 32
+HTTP_THREADS, HTTP_READS_PER_THREAD = 8, 25
+DECODED_READS = 50
+CLI_VOLUME_BYTES = 64 << 20
+CLI_READS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
@@ -321,6 +344,314 @@ def run_main_path(device: str, work: str, volume_bytes: int,
     return res
 
 
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+class Conn:
+    """One keep-alive HTTP/1.1 connection to a volume server, as a reader
+    or an operator's tool holds it."""
+
+    def __init__(self, url: str):
+        host, port = url.split(":")
+        self.c = http.client.HTTPConnection(host, int(port), timeout=600)
+        self.c.connect()
+        self.c.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+
+    def call(self, method: str, path: str, body=None, headers=None):
+        self.c.request(method, path, body=body, headers=headers or {})
+        r = self.c.getresponse()
+        return r.status, r.read(), r
+
+    def admin(self, path: str, payload: dict) -> dict:
+        status, body, _ = self.call("POST", path, json.dumps(payload).encode(),
+                                    {"Content-Type": "application/json"})
+        if status != 200:
+            raise AssertionError(f"{path}: {status} {body[:300]!r}")
+        return json.loads(body)
+
+    def close(self) -> None:
+        self.c.close()
+
+
+def http_needle(seed: int, i: int, nid: int, cookie: int, size: int) -> dict:
+    """The PUT of needle ``nid`` and what a GET must give back: every
+    tenth needle carries, in turn, a gzip body, a name or a mime type."""
+    from seaweedfs_tpu_torch.storage.crc import crc32c
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils.compression import gzip_data
+
+    data = needle_data(seed, nid, size)
+    n = {"path": "/" + str(FileId(1, nid, cookie)), "data": data,
+         "body": data, "headers": {}, "query": "",
+         "type": "application/octet-stream", "name": None}
+    kind = (i // 10) % 3 if i % 10 == 0 else None
+    if kind == 0:
+        n["body"] = gzip_data(data)
+        n["headers"]["Content-Encoding"] = "gzip"
+    elif kind == 1:
+        n["name"] = f"needle-{nid}.bin"
+        n["query"] = f"?name={n['name']}"
+    elif kind == 2:
+        n["type"] = n["headers"]["Content-Type"] = "image/jpeg"
+    n["etag"] = '"%08x"' % crc32c(n["body"])
+    return n
+
+
+def check_get(conn: Conn, n: dict) -> float:
+    """GET one needle: bytes, ETag, Content-Type and name must be the
+    written ones.  Returns the latency in seconds."""
+    t0 = time.perf_counter()
+    status, body, r = conn.call("GET", n["path"])
+    lat = time.perf_counter() - t0
+    disp = r.getheader("Content-Disposition")
+    if status != 200 or body != n["data"] or r.getheader("ETag") != n["etag"] \
+            or r.getheader("Content-Type") != n["type"] \
+            or (n["name"] is not None) != (disp is not None):
+        raise AssertionError(f"GET {n['path']}: {status}, "
+                             f"{len(body)} bytes, {dict(r.getheaders())}")
+    return lat
+
+
+def check_gzip_served_as_stored(conn: Conn, n: dict) -> None:
+    """A gzip-stored needle goes out gzipped to a client that accepts it."""
+    from seaweedfs_tpu_torch.utils.compression import (is_gzipped_content,
+                                                       ungzip_data)
+
+    status, body, r = conn.call("GET", n["path"],
+                                headers={"Accept-Encoding": "gzip"})
+    if status != 200 or r.getheader("Content-Encoding") != "gzip" or \
+            not is_gzipped_content(body) or ungzip_data(body) != n["data"]:
+        raise AssertionError(f"gzip GET of {n['path']}: {status}")
+
+
+def check_conditional_and_range(conn: Conn, n: dict) -> None:
+    status, _, _ = conn.call("GET", n["path"],
+                             headers={"If-None-Match": n["etag"]})
+    if status != 304:
+        raise AssertionError(f"If-None-Match on {n['path']}: {status}")
+    size = len(n["data"])
+    status, body, r = conn.call("GET", n["path"],
+                                headers={"Range": "bytes=7-1030"})
+    end = min(1030, size - 1)
+    if status != 206 or body != n["data"][7:end + 1] or \
+            r.getheader("Content-Range") != f"bytes 7-{end}/{size}":
+        raise AssertionError(f"Range on {n['path']}: {status}")
+
+
+def concurrent_gets(url: str, needles: list[dict], threads: int,
+                    per_thread: int, seed: int) -> list[float]:
+    """``threads`` readers at once, each on its own connection, each GETting
+    ``per_thread`` seeded needles, byte-checked.  Returns the latencies."""
+    lat: list[float] = []
+    errors: list[BaseException] = []
+
+    def reader(t: int) -> None:
+        c = Conn(url)
+        try:
+            picks = np.random.default_rng([seed, t]).choice(
+                len(needles), size=per_thread)
+            lat.extend(check_get(c, needles[int(i)]) for i in picks)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+        finally:
+            c.close()
+
+    workers = [threading.Thread(target=reader, args=(t,))
+               for t in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=600)
+    if errors or any(w.is_alive() for w in workers) or \
+            len(lat) != threads * per_thread:
+        raise AssertionError(f"concurrent degraded GETs: {errors[:1]}")
+    return lat
+
+
+def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
+                  threads: int, per_thread: int, decoded_reads: int,
+                  stripes: int) -> dict:
+    """The EC lifecycle through the volume server's own HTTP entry points,
+    checked at every step.  Returns per-leg launches, times and read
+    latencies.  chip_smoke runs it on the card at full size; the CPU
+    tests rehearse it tiny."""
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    def sync():
+        if device == "cuda":
+            import torch
+
+            torch.cuda.synchronize()
+
+    res: dict = {"launches": {}, "seconds": {}}
+    seed = SEED + 2
+    # the master's address is a closed port: heartbeats and remote-shard
+    # lookups fail at once and degraded reads reconstruct locally
+    vs = VolumeServer([work], f"127.0.0.1:{free_port()}", port=free_port(),
+                      device=device).start()
+    conn = Conn(vs.url)
+    try:
+        conn.admin("/admin/assign_volume", {"volume_id": 1})
+        needles = [http_needle(seed, i, nid, cookie, size) for i, (
+            nid, cookie, size) in enumerate(needle_specs(seed, volume_bytes))]
+        t0 = time.perf_counter()
+        for n in needles:
+            status, body, _ = conn.call("PUT", n["path"] + n["query"],
+                                        n["body"], n["headers"])
+            if status != 201:
+                raise AssertionError(f"PUT {n['path']}: {status} {body!r}")
+        res["seconds"]["write"] = time.perf_counter() - t0
+        base = vs.store.get_volume(1).file_prefix
+        res["dat_bytes"] = os.path.getsize(base + ".dat")
+        res["needles"] = len(needles)
+
+        conn.admin("/admin/readonly", {"volume_id": 1})
+        before = gf_matmul.launches
+        t0 = time.perf_counter()
+        conn.admin("/admin/ec/generate", {"volume_id": 1, "engine": "tpu"})
+        sync()
+        res["seconds"]["encode"] = time.perf_counter() - t0
+        res["launches"]["encode"] = gf_matmul.launches - before
+        conn.admin("/admin/ec/mount", {"volume_id": 1})
+        conn.admin("/admin/delete_volume", {"volume_id": 1})
+        check_shards(base, stripes, seed)
+        res["shard_bytes"] = os.path.getsize(base + to_ext(0))
+
+        rng = np.random.default_rng(seed)
+        sample = [needles[int(i)] for i in rng.choice(
+            len(needles), size=min(reads, len(needles)), replace=False)]
+        for n in sample:
+            check_get(conn, n)
+        check_conditional_and_range(conn, next(
+            n for n in sample if "Content-Encoding" not in n["headers"]))
+        check_gzip_served_as_stored(conn, next(
+            n for n in needles if "Content-Encoding" in n["headers"]))
+
+        lost = [0, 3, 11, 13]
+        hashes = {i: sha256_file(base + to_ext(i)) for i in lost}
+        conn.admin("/admin/ec/delete", {"volume_id": 1, "shard_ids": lost})
+        before = gf_matmul.launches
+        t0 = time.perf_counter()
+        rebuilt = conn.admin("/admin/ec/rebuild",
+                             {"volume_id": 1})["rebuilt_shard_ids"]
+        sync()
+        res["seconds"]["rebuild"] = time.perf_counter() - t0
+        res["launches"]["rebuild"] = gf_matmul.launches - before
+        if rebuilt != lost or any(sha256_file(base + to_ext(i)) != hashes[i]
+                                  for i in lost):
+            raise AssertionError(f"rebuild of {lost} gave {rebuilt} or "
+                                 "other bytes")
+
+        conn.admin("/admin/ec/mount", {"volume_id": 1})
+        conn.admin("/admin/ec/delete", {"volume_id": 1, "shard_ids": [2, 7]})
+        before = gf_matmul.launches
+        res["latency_1_client_s"] = [check_get(conn, n) for n in sample]
+        res["latency_8_clients_s"] = concurrent_gets(
+            vs.url, needles, threads, per_thread, seed)
+        res["launches"]["degraded_get"] = gf_matmul.launches - before
+
+        if conn.admin("/admin/ec/rebuild",
+                      {"volume_id": 1})["rebuilt_shard_ids"] != [2, 7]:
+            raise AssertionError("second rebuild")
+        t0 = time.perf_counter()
+        conn.admin("/admin/ec/to_volume", {"volume_id": 1})
+        res["seconds"]["to_volume"] = time.perf_counter() - t0
+        if 1 not in vs.store.volumes or 1 in vs.store.ec_volumes:
+            raise AssertionError("to_volume did not mount the volume")
+        for i in rng.choice(len(needles), size=min(decoded_reads,
+                                                    len(needles)),
+                            replace=False):
+            check_get(conn, needles[int(i)])
+    finally:
+        conn.close()
+        vs.stop()
+    return res
+
+
+def run_cli_phase(engine: str, work: str, volume_bytes: int, reads: int,
+                  threads: int, per_thread: int) -> dict:
+    """``python -m seaweedfs_tpu_torch volume -ec.engine <engine>`` in a
+    subprocess: its start line, a volume written, encoded and read with
+    data shards 2 and 7 gone (by one client, then by ``threads`` at once),
+    and a clean exit on SIGTERM."""
+    port = free_port()
+    log_path = os.path.join(work, "server.log")
+    os.makedirs(os.path.join(work, "data"))
+    t_start = time.perf_counter()
+    with open(log_path, "w") as log_file:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", "-dir",
+             os.path.join(work, "data"), "-port", str(port), "-mserver",
+             f"127.0.0.1:{free_port()}", "-ec.engine", engine],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=log_file, text=True)
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)
+        line = proc.stdout.readline().strip() if ready else ""
+        want = "cuda" if engine == "tpu" else "cpu"
+        if not line.startswith("volume server listening") or \
+                f"ec on {want}" not in line:
+            raise AssertionError(f"start line {line!r}; log: "
+                                 f"{open(log_path).read()[-2000:]}")
+        res = {"start_line": line,
+               "start_seconds": time.perf_counter() - t_start}
+        conn = Conn(f"127.0.0.1:{port}")
+        try:
+            conn.admin("/admin/assign_volume", {"volume_id": 1})
+            seed = SEED + 3
+            needles = [http_needle(seed, i, nid, cookie, size)
+                       for i, (nid, cookie, size)
+                       in enumerate(needle_specs(seed, volume_bytes))]
+            for n in needles:
+                if conn.call("PUT", n["path"] + n["query"], n["body"],
+                             n["headers"])[0] != 201:
+                    raise AssertionError(f"PUT {n['path']}")
+            for path, body in (("/admin/readonly", {}),
+                               ("/admin/ec/generate", {"engine": "tpu"}),
+                               ("/admin/ec/mount", {}),
+                               ("/admin/delete_volume", {}),
+                               ("/admin/ec/delete", {"shard_ids": [2, 7]})):
+                conn.admin(path, {"volume_id": 1, **body})
+            rng = np.random.default_rng(seed)
+            res["latency_s"] = [check_get(conn, needles[int(i)]) for i in
+                                rng.choice(len(needles), size=reads)]
+        finally:
+            conn.close()
+        # the same eight readers as the in-process phase, here in another
+        # process than the server's interpreter
+        res["latency_8_clients_s"] = concurrent_gets(
+            f"127.0.0.1:{port}", needles, threads, per_thread, seed)
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=10)
+        res["stop_seconds"] = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"server exited {rc}")
+        # the server's own count: its process started from 0
+        stop_line = proc.stdout.read().strip()
+        prefix = "volume server stopped, ec kernel launches "
+        if not stop_line.startswith(prefix):
+            raise AssertionError(f"stop line {stop_line!r}")
+        res["launches"] = int(stop_line[len(prefix):])
+        return res
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+
+
+def percentiles(seconds: list[float]) -> dict:
+    ms = np.array(seconds) * 1e3
+    return {"p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99)), "n": len(ms)}
+
+
 def time_cuda(fn, reps: int) -> float:
     """Milliseconds per call of ``fn`` by CUDA events, after a warm-up."""
     import torch
@@ -489,6 +820,58 @@ def main() -> int:
     log({"phase": "pipeline_stats", **res["stats"]})
     log({"phase": "profiled_encode", **prof})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-http-", dir=_build.BUILD_DIR)
+    try:
+        log({"phase": "http_path", "reduced": {
+            "volume_bytes": VOLUME_BYTES,
+            "from": "30,000 MB default volume size limit (weed master "
+                    "-volumeSizeLimitMB)",
+            "why": "run time limit"}})
+        gf_matmul.launches = 0
+        http = run_http_path("cuda", work, VOLUME_BYTES, DEGRADED_READS,
+                             HTTP_THREADS, HTTP_READS_PER_THREAD,
+                             DECODED_READS, PARITY_STRIPES)
+        http_launches = gf_matmul.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    for leg, n in http["launches"].items():
+        if n <= 0:
+            raise AssertionError(f"http leg {leg} launched no kernel")
+    log({"phase": "http_path_done", "dat_bytes": http["dat_bytes"],
+         "needles": http["needles"], "shard_bytes": http["shard_bytes"],
+         "launches": http["launches"], "seconds": http["seconds"],
+         "encode_GBps": http["dat_bytes"] / http["seconds"]["encode"] / 1e9,
+         "rebuild_GBps": 10 * http["shard_bytes"]
+         / http["seconds"]["rebuild"] / 1e9,
+         "degraded_get_ms_1_client": percentiles(
+             http["latency_1_client_s"]),
+         "degraded_get_ms_8_clients": percentiles(
+             http["latency_8_clients_s"]),
+         "http_over_store": {
+             "encode_s": http["seconds"]["encode"]
+             - res["seconds"]["encode"],
+             "rebuild_s": http["seconds"]["rebuild"]
+             - res["seconds"]["rebuild"],
+             "degraded_p50_ms": percentiles(http["latency_1_client_s"])["p50"]
+             - float(np.percentile(lat, 50))},
+         "nvidia_smi": card})
+
+    work = tempfile.mkdtemp(prefix="chip_smoke-cli-", dir=_build.BUILD_DIR)
+    try:
+        cli = run_cli_phase("tpu", work, CLI_VOLUME_BYTES, CLI_READS,
+                            HTTP_THREADS, HTTP_READS_PER_THREAD)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if cli["launches"] <= 0:
+        raise AssertionError("the CLI's server launched no kernel")
+    log({"phase": "cli", "start_line": cli["start_line"],
+         "launches": cli["launches"],
+         "start_seconds": cli["start_seconds"],
+         "stop_seconds": cli["stop_seconds"],
+         "degraded_get_ms": percentiles(cli["latency_s"]),
+         "degraded_get_ms_8_clients": percentiles(
+             cli["latency_8_clients_s"])})
+
     cases = dict(kernel_cases())
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
@@ -503,7 +886,7 @@ def main() -> int:
         "name": "gf_matmul", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
-        "launches": launches,
+        "launches": launches + http_launches + cli["launches"],
         "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

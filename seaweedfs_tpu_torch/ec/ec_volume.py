@@ -3,20 +3,25 @@
 Equivalent of weed/storage/erasure_coding/ec_volume.go + ec_shard.go, by
 way of seaweedfs_tpu/ec/ec_volume.py.  The `.ecx` file is searched on disk
 by binary search over its sorted 16-byte entries (ec_volume.go:226-251).
-Reads that meet a missing or corrupt shard reconstruct the interval from
-the local survivors through the codec, whose GF product runs on the card.
+Reads that meet a missing or corrupt shard ask a remote holder for the
+interval, then reconstruct it from the local survivors through the codec,
+whose GF product runs on the card.  Deletes tombstone the `.ecx` entry in
+place and append the needle id to the `.ecj` journal
+(ec_volume_delete.go).
 """
 
 from __future__ import annotations
 
 import os
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 
 from ..storage import idx as idx_mod
 from ..storage.needle import get_actual_size
-from ..storage.types import NEEDLE_MAP_ENTRY_SIZE, Version, size_is_deleted
+from ..storage.types import (NEEDLE_ID_SIZE, NEEDLE_MAP_ENTRY_SIZE,
+                             TOMBSTONE_FILE_SIZE, Version, size_is_deleted,
+                             u64_to_bytes)
 from .codec import ReedSolomon
 from .integrity import (EciSidecar, ShardCorruptError, note_corruption,
                         sidecar_is_stale)
@@ -36,8 +41,10 @@ class NeedleNotFoundError(KeyError):
 
 
 def search_needle_from_sorted_index(ecx_fd: int, ecx_size: int,
-                                    needle_id: int) -> tuple[int, int, int]:
-    """Binary search the sorted `.ecx` (ec_volume.go:227-251).
+                                    needle_id: int, mark_deleted: bool = False
+                                    ) -> tuple[int, int, int]:
+    """Binary search the sorted `.ecx` (ec_volume.go:227-251); with
+    ``mark_deleted`` the found entry's size becomes the tombstone in place.
     Returns (entry_file_pos, byte_offset, size); raises NeedleNotFoundError."""
     lo, hi = 0, ecx_size // NEEDLE_MAP_ENTRY_SIZE
     while lo < hi:
@@ -46,6 +53,10 @@ def search_needle_from_sorted_index(ecx_fd: int, ecx_size: int,
         entry = idx_mod.parse_entries(buf)[0]
         key = int(entry["key"])
         if key == needle_id:
+            if mark_deleted:
+                os.pwrite(ecx_fd,
+                          (TOMBSTONE_FILE_SIZE & 0xFFFFFFFF).to_bytes(4, "big"),
+                          mid * NEEDLE_MAP_ENTRY_SIZE + NEEDLE_ID_SIZE + 4)
             return (mid * NEEDLE_MAP_ENTRY_SIZE,
                     int(entry["offset"]) * 8, int(entry["size"]))
         if key < needle_id:
@@ -90,8 +101,9 @@ class EcVolume:
         self.total_shards = DATA_SHARDS_COUNT + PARITY_SHARDS_COUNT
         self.large_block_size = large_block_size
         self.small_block_size = small_block_size
-        self._ecx = open(base_file_name + ".ecx", "rb")
+        self._ecx = open(base_file_name + ".ecx", "r+b")
         self.ecx_size = os.fstat(self._ecx.fileno()).st_size
+        self._ecj = open(base_file_name + ".ecj", "a+b")
         self.shards: dict[int, EcVolumeShard] = {}
         for i in range(self.total_shards):
             if os.path.exists(base_file_name + to_ext(i)):
@@ -141,6 +153,20 @@ class EcVolume:
             get_actual_size(size, self.version) if not size_is_deleted(size) else 0,
             self.data_shards)
         return offset, size, intervals
+
+    # --- deletes (ec_volume_delete.go) -----------------------------------
+    def delete_needle(self, needle_id: int) -> None:
+        """Tombstone the needle's `.ecx` entry and journal its id in the
+        `.ecj`; a needle not in the index is a no-op."""
+        try:
+            search_needle_from_sorted_index(
+                self._ecx.fileno(), self.ecx_size, needle_id,
+                mark_deleted=True)
+        except NeedleNotFoundError:
+            return
+        self._ecj.seek(0, os.SEEK_END)
+        self._ecj.write(u64_to_bytes(needle_id))
+        self._ecj.flush()
 
     # --- interval reads ---------------------------------------------------
     def _padded_read(self, shard_id: int, length: int,
@@ -195,12 +221,17 @@ class EcVolume:
             self.corrupt_shards.add(shard_id)
             note_corruption("read", shard_id, self.base_file_name)
 
-    def read_interval(self, interval: Interval, rs: ReedSolomon) -> bytes:
-        """Read one interval: local shard if present, else on-the-fly
-        reconstruction from >= data_shards local shards
-        (store_ec.go:188-218 local branch + :328-382 recovery math).
-        A crc-mismatching local shard is demoted to an erasure and the
-        interval reconstructs from the clean survivors instead."""
+    def read_interval(self, interval: Interval, rs: ReedSolomon,
+                      fetch_remote: Optional[
+                          Callable[[int, int, int, int], bytes]] = None
+                      ) -> bytes:
+        """Read one interval (store_ec.go:188-218, the order of
+        seaweedfs_tpu's Store.read_ec_needle): the local shard, verified
+        against the `.eci`; else ``fetch_remote(vid, shard, offset,
+        size)``, whose exceptions count as an absent shard; else
+        reconstruction from >= data_shards local shards on the card
+        (:328-382).  A crc-mismatching local shard is demoted to an
+        erasure."""
         shard_id, shard_offset = interval.to_shard_id_and_offset(
             self.large_block_size, self.small_block_size, self.data_shards)
         if shard_id in self.shards and shard_id not in self.corrupt_shards:
@@ -210,10 +241,15 @@ class EcVolume:
             except ShardCorruptError:
                 self._note_corrupt(shard_id)
             except OSError:
-                # bad sector/dying disk on the direct read: same erasure
-                # treatment the store layer gives remote shard fetches —
-                # reconstruct from the other locals (not demoted: the
-                # next read retries the disk)
+                # bad sector/dying disk on the direct read: treat the
+                # shard as absent (not demoted: the next read retries
+                # the disk)
+                pass
+        if fetch_remote is not None:
+            try:
+                return fetch_remote(self.vid, shard_id, shard_offset,
+                                    interval.size)
+            except Exception:  # noqa: BLE001 - any remote failure = absent
                 pass
         return self.reconstruct_interval(shard_id, shard_offset, interval.size, rs)
 
@@ -297,5 +333,6 @@ class EcVolume:
 
     def close(self) -> None:
         self._ecx.close()
+        self._ecj.close()
         for s in self.shards.values():
             s.close()

@@ -1,5 +1,6 @@
 """File-level erasure coding, serial row by row: `.dat` -> `.ec00`..`.ec13`
-(+ `.ecx`, `.eci`), and rebuild of missing shards.
+(+ `.ecx`, `.eci`), rebuild of missing shards, and the decode back to a
+volume (`.ec00`..`.ec09` + `.ecx`/`.ecj` -> `.dat` + `.idx`).
 
 Semantics ported from weed/storage/erasure_coding/ec_encoder.go through
 seaweedfs_tpu/ec/encoder.py.  This is the plain serial path the streaming
@@ -21,7 +22,11 @@ from typing import Optional
 
 import numpy as np
 
+from ..storage import idx as idx_mod
+from ..storage.needle import get_actual_size
 from ..storage.needle_map import MemDb
+from ..storage.super_block import SUPER_BLOCK_SIZE, SuperBlock
+from ..storage.types import NEEDLE_ID_SIZE, size_is_deleted
 from ..utils.ioutil import pread_padded
 from .codec import ReedSolomon
 from .integrity import (
@@ -32,7 +37,7 @@ from .integrity import (
     note_corruption,
     sidecar_path,
 )
-from .layout import LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, to_ext
+from .layout import DATA_SHARDS_COUNT, LARGE_BLOCK_SIZE, SMALL_BLOCK_SIZE, to_ext
 
 DEFAULT_CHUNK = 4 * 1024 * 1024  # IO chunk; output is invariant to this
 
@@ -195,3 +200,82 @@ def _rebuild_ec_attempt(base_file_name: str, rs: ReedSolomon, chunk: int,
         if not ok:  # no partial shards under the final names
             _remove_quietly(base_file_name + to_ext(i) for i in generated)
     return generated
+
+
+# --- decode back to a normal volume (ec_decoder.go) -------------------------
+
+def write_dat_file(base_file_name: str, dat_file_size: int) -> None:
+    """WriteDatFile (ec_decoder.go:154-195): concatenate data-shard blocks
+    into `.dat`.  No GF math: data shards hold the original bytes.  Rows
+    are `>=` comparisons here against `>` in write_ec_files, as in the
+    reference (ec_decoder.go:173 vs ec_encoder.go:214)."""
+    k = DATA_SHARDS_COUNT
+    inputs = [open(base_file_name + to_ext(i), "rb") for i in range(k)]
+    positions = [0] * k
+    try:
+        with open(base_file_name + ".dat", "wb") as dat:
+            remaining = dat_file_size
+            while remaining >= k * LARGE_BLOCK_SIZE:
+                for i in range(k):
+                    buf = os.pread(inputs[i].fileno(), LARGE_BLOCK_SIZE,
+                                   positions[i])
+                    if len(buf) != LARGE_BLOCK_SIZE:
+                        raise IOError(f"short read on shard {i}")
+                    dat.write(buf)
+                    positions[i] += LARGE_BLOCK_SIZE
+                    remaining -= LARGE_BLOCK_SIZE
+            while remaining > 0:
+                for i in range(k):
+                    to_read = min(remaining, SMALL_BLOCK_SIZE)
+                    buf = os.pread(inputs[i].fileno(), to_read, positions[i])
+                    if len(buf) != to_read:
+                        raise IOError(f"short read on shard {i}")
+                    dat.write(buf)
+                    positions[i] += to_read
+                    remaining -= to_read
+                    if remaining <= 0:
+                        break
+    finally:
+        for f in inputs:
+            f.close()
+
+
+def iterate_ecj_file(base_file_name: str):
+    """The needle ids journalled as deleted in `.ecj`, in order."""
+    path = base_file_name + ".ecj"
+    if not os.path.exists(path):
+        return
+    with open(path, "rb") as f:
+        while True:
+            buf = f.read(NEEDLE_ID_SIZE)
+            if len(buf) != NEEDLE_ID_SIZE:
+                return
+            yield int.from_bytes(buf, "big")
+
+
+def write_idx_file_from_ec_index(base_file_name: str) -> None:
+    """WriteIdxFileFromEcIndex (ec_decoder.go:18-43): `.idx` = `.ecx`
+    copied verbatim + one tombstone entry per `.ecj` key."""
+    with open(base_file_name + ".ecx", "rb") as ecx, \
+            open(base_file_name + ".idx", "wb") as out:
+        out.write(ecx.read())
+        for key in iterate_ecj_file(base_file_name):
+            out.write(idx_mod.pack_entry(key, 0, -1))
+
+
+def find_dat_file_size(base_file_name: str) -> int:
+    """FindDatFileSize (ec_decoder.go:48-70): the end of the last live
+    `.ecx` entry's record."""
+    with open(base_file_name + to_ext(0), "rb") as f:
+        version = SuperBlock.from_bytes(
+            f.read(SUPER_BLOCK_SIZE + 0xFFFF)).version
+    with open(base_file_name + ".ecx", "rb") as f:
+        entries = idx_mod.parse_entries(f.read())
+    dat_size = 0
+    for i in range(len(entries)):
+        size = int(entries["size"][i])
+        if size_is_deleted(size):
+            continue
+        dat_size = max(dat_size, int(entries["offset"][i]) * 8
+                       + get_actual_size(size, version))
+    return dat_size

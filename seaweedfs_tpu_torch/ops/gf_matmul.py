@@ -22,6 +22,7 @@ is the byte stream the host writes.
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
 
 import numpy as np
@@ -92,17 +93,20 @@ def gf_matmul_plain(m: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
 
 
 _tables: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
+# guards _tables and gf_matmul.launches: request threads launch at once
+_lock = threading.Lock()
 
 
 def _device_tables(device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
     """GF exp/log tables resident on the card (constants, one per device)."""
-    t = _tables.get(device)
-    if t is None:
-        t = (torch.from_numpy(EXP_TABLE.copy()).to(device),
-             torch.from_numpy(LOG_TABLE.astype(np.uint8)).to(device))
-        torch.cuda.synchronize(device)  # ready before any stream reads them
-        _tables[device] = t
-    return t
+    with _lock:
+        t = _tables.get(device)
+        if t is None:
+            t = (torch.from_numpy(EXP_TABLE.copy()).to(device),
+                 torch.from_numpy(LOG_TABLE.astype(np.uint8)).to(device))
+            torch.cuda.synchronize(device)  # ready before any stream reads
+            _tables[device] = t
+        return t
 
 
 def _check(m: torch.Tensor, data: torch.Tensor,
@@ -160,16 +164,20 @@ def gf_matmul(m: torch.Tensor, data: torch.Tensor,
     chunks = -(-width // COLS_PER_THREAD)
     grid = max(1, min(-(-chunks // THREADS), 8 * sms))
     stream = torch.cuda.current_stream(data.device).cuda_stream
-    for r0 in range(0, r, ROWS_PER_LAUNCH):
-        err = lib.gf_matmul_launch(
-            m[r0].data_ptr(), min(ROWS_PER_LAUNCH, r - r0), k,
-            data.data_ptr(), data.stride(0), out[r0].data_ptr(),
-            out.stride(0), width, exp_t.data_ptr(), log_t.data_ptr(),
-            grid, THREADS, stream)
-        if err:
-            raise RuntimeError(f"gf_matmul kernel launch failed: CUDA "
-                               f"error {err}")
-        gf_matmul.launches += 1
+    # the launch goes to the calling thread's current device, which for a
+    # fresh request thread is card 0 whatever card the tensors are on
+    with torch.cuda.device(data.device):
+        for r0 in range(0, r, ROWS_PER_LAUNCH):
+            err = lib.gf_matmul_launch(
+                m[r0].data_ptr(), min(ROWS_PER_LAUNCH, r - r0), k,
+                data.data_ptr(), data.stride(0), out[r0].data_ptr(),
+                out.stride(0), width, exp_t.data_ptr(), log_t.data_ptr(),
+                grid, THREADS, stream)
+            if err:
+                raise RuntimeError(f"gf_matmul kernel launch failed: CUDA "
+                                   f"error {err}")
+            with _lock:
+                gf_matmul.launches += 1
     return out
 
 
@@ -180,7 +188,8 @@ class TorchEngine:
     """GfMatmulEngine for the codec: ``matmul(m, shards)`` takes and
     returns host numpy uint8 arrays; the product runs through gf_matmul on
     ``device``.  The GF matrices stay resident on the device in a small
-    LRU (every erasure pattern is its own decode matrix)."""
+    LRU (every erasure pattern is its own decode matrix).  Safe to share
+    between threads."""
 
     _CACHE_MAX = 16
 
@@ -188,18 +197,24 @@ class TorchEngine:
         self.device = resolve_device(device)
         self.name = f"torch-{self.device.type}"
         self._matrices: OrderedDict[bytes, torch.Tensor] = OrderedDict()
+        self._matrices_lock = threading.Lock()
 
     def matrix(self, m: np.ndarray) -> torch.Tensor:
         m = np.ascontiguousarray(m, dtype=np.uint8)
         key = m.tobytes() + repr(m.shape).encode()
-        t = self._matrices.get(key)
-        if t is None:
-            t = torch.from_numpy(m.copy()).to(self.device)
+        with self._matrices_lock:
+            t = self._matrices.get(key)
+            if t is not None:
+                self._matrices.move_to_end(key)
+                return t
+        # the upload runs outside the lock; two threads that miss on one
+        # key both upload it and the later insert wins
+        t = torch.from_numpy(m.copy()).to(self.device)
+        with self._matrices_lock:
             self._matrices[key] = t
-            if len(self._matrices) > self._CACHE_MAX:
-                self._matrices.popitem(last=False)
-        else:
             self._matrices.move_to_end(key)
+            while len(self._matrices) > self._CACHE_MAX:
+                self._matrices.popitem(last=False)
         return t
 
     def _product(self, m: np.ndarray, shards: np.ndarray,

@@ -109,6 +109,17 @@ class Needle:
     def has(self, flag: int) -> bool:
         return bool(self.flags & flag)
 
+    def set_flag(self, flag: int) -> None:
+        self.flags |= flag
+
+    @property
+    def is_compressed(self) -> bool:
+        return self.has(FLAG_IS_COMPRESSED)
+
+    def etag(self) -> str:
+        """The HTTP ETag: the raw crc32c of the stored data, 8 hex digits."""
+        return "%08x" % self.checksum
+
     # --- size computation (needle_read_write.go:62-88) ----------------
     def computed_size(self, version: Version) -> int:
         if len(self.data) == 0:

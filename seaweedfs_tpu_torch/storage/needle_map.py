@@ -7,6 +7,7 @@ replaying the `.idx` log (needle_map_memory.go:35-56).
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import Iterator, Optional
 
@@ -70,6 +71,18 @@ class MemoryNeedleMap:
         if old is not None and size_is_valid(old.size):
             self.deletion_counter += 1
             self.deletion_byte_counter += old.size
+        self._append_index(key, offset, size)
+
+    def delete(self, key: int, tombstone_offset: int) -> None:
+        """Drop the entry and log (key, tombstone_offset, -1) in the index
+        (needle_map_memory.go:67-71)."""
+        old = self._m.pop(key, None)
+        if old is not None and size_is_valid(old.size):
+            self.deletion_counter += 1
+            self.deletion_byte_counter += old.size
+        self._append_index(key, tombstone_offset, TOMBSTONE_FILE_SIZE)
+
+    def _append_index(self, key: int, offset: int, size: int) -> None:
         if self._index_file is not None:
             self._index_file.write(idx_mod.pack_entry(key, offset, size))
             self._index_file.flush()
@@ -87,6 +100,10 @@ class MemoryNeedleMap:
     @property
     def content_size(self) -> int:
         return self.file_byte_counter
+
+    def sync(self) -> None:
+        if self._index_file is not None:
+            os.fsync(self._index_file.fileno())
 
     def close(self) -> None:
         if self._index_file is not None:

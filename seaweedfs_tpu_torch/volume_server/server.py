@@ -1,0 +1,643 @@
+"""Volume server: object HTTP IO, admin and EC routes, heartbeat loop.
+
+The subset of seaweedfs_tpu/volume_server/server.py (weed/server/
+volume_server*.go) that a cluster's EC lifecycle drives: objects are
+written, read and deleted at ``/<vid>,<fid>`` with replication fan-out
+(topology/store_replicate.go, ``?type=replicate`` loop guard); the admin
+"RPCs" are HTTP POSTs named after volume_server.proto: volume assign,
+delete, mount, unmount and readonly, and the EC set Generate, Rebuild,
+Copy, Download, Delete, Mount, Unmount, ShardRead, BlobDelete and
+ToVolume.  Heartbeats go to the master, full every FULL_SYNC_EVERY
+pulses and as deltas between.
+
+EC work runs on ``device``: "cuda" (the default, the reference's
+``-ec.engine tpu``) launches the GF(2^8) kernel on the card; "cpu" (the
+reference's ``-ec.engine cpu``) runs the plain versions.  A request's
+``engine`` field never moves the work to another engine: an engine other
+than the server's own answers 400.
+
+Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
+native planes, mmap and the needle cache, heat, ledger, admission,
+tracing and metrics, debug, scrub, vacuum and tier routes, batch routes,
+volume copy and tail, image resize, and the partial-range fast path (a
+Range GET slices the full body).
+"""
+
+from __future__ import annotations
+
+import logging
+import os
+import threading
+import time
+import urllib.parse
+
+import numpy as np
+
+from ..ec.ec_volume import NeedleNotFoundError
+from ..ec.integrity import EciSidecar, note_corruption, verify_shard_file
+from ..ec.layout import TOTAL_SHARDS_COUNT, to_ext
+from ..storage.file_id import FileId
+from ..storage.needle import (
+    FLAG_HAS_LAST_MODIFIED,
+    FLAG_HAS_MIME,
+    FLAG_HAS_NAME,
+    FLAG_HAS_TTL,
+    FLAG_IS_COMPRESSED,
+    Needle,
+)
+from ..storage.ttl import TTL
+from ..storage.volume import (
+    CookieMismatchError,
+    DeletedError,
+    NotFoundError,
+    volume_file_prefix,
+)
+from ..utils.compression import ungzip_data
+from ..utils.httpd import (
+    UNSATISFIABLE_RANGE,
+    HttpError,
+    Request,
+    Response,
+    Router,
+    extract_upload,
+    http_bytes,
+    http_download,
+    http_json,
+    parse_range,
+    qint,
+    serve,
+    stop_server,
+)
+from ..utils.ioutil import pread_padded
+from .store import Store
+
+FID_PATTERN = r"/(\d+),([0-9a-f]+)"
+# delta heartbeats between full syncs: every Nth pulse resends the whole
+# state so drifting stats (sizes, counters) converge
+FULL_SYNC_EVERY = 12
+VERSION = "seaweedfs-tpu 0.1"
+
+
+class VolumeServer:
+    def __init__(self, directories: list[str], master_url: str,
+                 host: str = "127.0.0.1", port: int = 8080,
+                 public_url: str = "", data_center: str = "",
+                 rack: str = "", max_volume_count: int = 8,
+                 pulse_seconds: float = 5.0, device="cuda"):
+        """A volume server for ``directories`` at host:port, heartbeating
+        to ``master_url`` (comma-separated masters; heartbeats follow the
+        raft leader).  ``device`` runs the EC work: "cuda" needs a card
+        and raises without one; only "cpu" selects the plain versions."""
+        self.masters = [m.strip() for m in master_url.split(",")
+                        if m.strip()]
+        self.master_url = self.masters[0]
+        self.data_center = data_center
+        self.rack = rack
+        self.pulse_seconds = pulse_seconds
+        self.store = Store(directories, host, port, public_url,
+                           max_volume_count, device=device)
+        self.engine = "cpu" if self.store.device.type == "cpu" else "tpu"
+        self.router = Router("volume")
+        self._register_routes()
+        self._server = None
+        self._stop = threading.Event()
+        # vid -> (replica urls, expiry); see _lookup_replicas
+        self._vid_lock = threading.Lock()
+        self._vid_cache: dict[int, tuple[list, float]] = {}
+        self.vid_cache_ttl = 10.0
+
+    @property
+    def url(self) -> str:
+        return f"{self.store.ip}:{self.store.port}"
+
+    # --- lifecycle --------------------------------------------------------
+    def start(self) -> "VolumeServer":
+        self._server = serve(self.router, self.store.ip, self.store.port)
+        threading.Thread(target=self._heartbeat_loop, daemon=True,
+                         name=f"heartbeat:{self.url}").start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._server is not None:
+            stop_server(self._server)
+        self.store.close()
+
+    def _rotate_master(self) -> None:
+        if len(self.masters) > 1:
+            i = (self.masters.index(self.master_url) + 1) \
+                if self.master_url in self.masters else 0
+            self.master_url = self.masters[i % len(self.masters)]
+
+    def _heartbeat_loop(self) -> None:
+        """Full state on the first pulse, every FULL_SYNC_EVERY after and
+        whenever the master asks for a resync; small delta heartbeats in
+        between (volume_grpc_client_to_master.go:48-120).  A master that
+        cannot be reached is retried every pulse; the server serves its
+        local volumes meanwhile."""
+        pulse = 0
+        while not self._stop.is_set():
+            delta = None
+            try:
+                # a volume deleted while the payload is built must not
+                # end the thread: that would unregister the whole server
+                if pulse % FULL_SYNC_EVERY == 0:
+                    payload = self.heartbeat_payload()
+                else:
+                    delta = self.store.pop_heartbeat_delta()
+                    payload = {"ip": self.store.ip, "port": self.store.port,
+                               "public_url": self.store.public_url,
+                               "delta": True, **(delta or {})}
+            except Exception:  # noqa: BLE001 - retried next pulse
+                logging.getLogger(__name__).exception("heartbeat payload")
+                self._stop.wait(self.pulse_seconds)
+                continue
+            try:
+                resp = http_json("POST", f"http://{self.master_url}/heartbeat",
+                                 payload,
+                                 timeout=max(3.0, self.pulse_seconds * 2))
+            except (HttpError, ValueError):  # unreachable, or not JSON
+                if delta:
+                    self.store.requeue_heartbeat_delta(delta)
+                self._rotate_master()
+                pulse = 0
+                self._stop.wait(self.pulse_seconds)
+                continue
+            if resp.get("not_leader"):
+                if delta:
+                    self.store.requeue_heartbeat_delta(delta)
+                leader = resp.get("leader")
+                pulse = 0
+                if leader and leader != self.master_url:
+                    # follower redirect: re-target now, opening with a
+                    # full sync (the new leader may be fresh)
+                    self.master_url = leader
+                    continue
+                self._rotate_master()  # leaderless: wait out the pulse
+                self._stop.wait(self.pulse_seconds)
+                continue
+            if resp.get("resync"):
+                # the master does not know us (it restarted): full sync now
+                if delta:
+                    self.store.requeue_heartbeat_delta(delta)
+                pulse = 0
+                continue
+            self.store.volume_size_limit = int(
+                resp.get("volumeSizeLimit", self.store.volume_size_limit))
+            pulse += 1
+            self._stop.wait(self.pulse_seconds)
+
+    def heartbeat_payload(self) -> dict:
+        hb = self.store.collect_heartbeat()
+        hb["data_center"] = self.data_center
+        hb["rack"] = self.rack
+        return hb
+
+    def heartbeat_now(self) -> None:
+        resp = http_json("POST", f"http://{self.master_url}/heartbeat",
+                         self.heartbeat_payload(), timeout=30.0)
+        if resp.get("not_leader") and resp.get("leader"):
+            self.master_url = resp["leader"]
+            http_json("POST", f"http://{self.master_url}/heartbeat",
+                      self.heartbeat_payload(), timeout=30.0)
+
+    # --- helpers ----------------------------------------------------------
+    def _lookup_replicas(self, vid: int) -> list[str]:
+        """Replica locations with a short TTL cache
+        (operation/lookup_vid_cache.go; shorter than the reference's 10
+        minutes because membership moves with heartbeat pulses).  Without
+        it every replicated write pays a master round trip."""
+        now = time.monotonic()
+        with self._vid_lock:
+            hit = self._vid_cache.get(vid)
+        if hit is not None and hit[1] > now:
+            return hit[0]
+        try:
+            # the master round trip runs outside the lock: a slow master
+            # must not stall every replicated write behind one lookup
+            r = http_json(
+                "GET", f"http://{self.master_url}/dir/lookup?volumeId={vid}",
+                timeout=30.0)
+            locs = [loc["url"] for loc in r.get("locations", [])]
+        except HttpError:
+            return []
+        with self._vid_lock:
+            self._vid_cache[vid] = (locs, now + self.vid_cache_ttl)
+            if len(self._vid_cache) > 10_000:  # bound growth on churn
+                self._vid_cache = {k: v for k, v in self._vid_cache.items()
+                                   if v[1] > now}
+        return locs
+
+    def _verify_copied_shards(self, vid: int, collection: str,
+                              base: str, shard_ids: list[int]) -> None:
+        """/admin/ec/copy: check every fetched shard's blocks against the
+        `.eci` that came with it before the copy is acknowledged.  A
+        mismatching shard is deleted with the other shards this copy
+        brought and the copy answers 502, so the caller retries from
+        another holder.  No sidecar, or no row for a shard: the copy
+        stands unverified."""
+        sc = EciSidecar.load(base)
+        if sc is None:
+            return
+        bad: list[int] = []
+        for sid in shard_ids:
+            path = base + to_ext(sid)
+            if not os.path.exists(path):
+                continue
+            try:
+                blocks = verify_shard_file(sc, path, sid)
+            except OSError:
+                continue  # unreadable local disk: not wire corruption
+            if blocks:
+                note_corruption("wire", sid, base, block=blocks[0])
+                bad.append(sid)
+        if bad:
+            # shards this server already served before the request stay:
+            # their overwritten bytes just verified clean
+            ev = self.store.ec_volumes.get(vid)
+            mounted = set(ev.shards) if ev is not None else set()
+            self.store.ec_delete_shards(
+                vid, [s for s in shard_ids if s in bad or s not in mounted],
+                collection)
+            raise HttpError(
+                502, f"shards {bad} of volume {vid} failed .eci "
+                     f"sidecar verification after copy; rejected")
+
+    def _shard_read_url(self, url: str, vid: int, shard_id: int,
+                        offset: int, length: int) -> str:
+        return (f"http://{url}/admin/ec/shard_read?volume_id={vid}"
+                f"&shard={shard_id}&offset={offset}&size={length}")
+
+    def _fetch_remote_shard(self, vid: int, shard_id: int, offset: int,
+                            length: int) -> bytes:
+        """store_ec.go:188-218: the interval from a server that holds the
+        shard, else reconstructed from any data_shards distinct shards,
+        local or remote, through this server's codec on its device."""
+        r = http_json(
+            "GET", f"http://{self.master_url}/dir/lookup_ec?volumeId={vid}",
+            timeout=30.0)
+        holders = r.get("shards", {})
+        for url in holders.get(str(shard_id), []):
+            if url == self.url:
+                continue
+            status, body, _ = http_bytes(
+                "GET", self._shard_read_url(url, vid, shard_id, offset,
+                                            length), timeout=60.0)
+            if status == 200:
+                return body
+        rs = self.store.rs()
+        bufs: list = [None] * TOTAL_SHARDS_COUNT
+        have = 0
+        ev = self.store.ec_volumes.get(vid)
+        for sid in range(TOTAL_SHARDS_COUNT):
+            if have >= rs.data_shards:
+                break
+            if ev is not None and sid in ev.shards:
+                bufs[sid] = pread_padded(ev.shards[sid]._f, length, offset)
+                have += 1
+                continue
+            for url in holders.get(str(sid), []):
+                if url == self.url:
+                    continue
+                status, body, _ = http_bytes(
+                    "GET", self._shard_read_url(url, vid, sid, offset,
+                                                length), timeout=60.0)
+                if status == 200:
+                    arr = np.zeros(length, dtype=np.uint8)
+                    arr[: len(body)] = np.frombuffer(body, dtype=np.uint8)
+                    bufs[sid] = arr
+                    have += 1
+                    break
+        if have < rs.data_shards:
+            raise HttpError(404, f"cannot recover shard {shard_id} of {vid}")
+        rs.reconstruct(bufs)
+        return bufs[shard_id].tobytes()
+
+    def _check_engine(self, body: dict) -> None:
+        """An EC request may name the reference's engines: absent or "tpu"
+        is this server's own device; "cpu" only where the server itself
+        runs on the CPU.  Anything else answers 400 and runs nothing."""
+        engine = body.get("engine")
+        if engine in (None, "", "tpu", self.engine):
+            return
+        raise HttpError(400, f"engine {engine!r} is not served here: this "
+                             f"server runs -ec.engine {self.engine} on "
+                             f"{self.store.device}")
+
+    def _replicate(self, fid_path: str, qs: str, method: str, vid: int,
+                   data=None, headers=None) -> None:
+        """Fan a write or delete out to the volume's other replicas."""
+        for url in self._lookup_replicas(vid):
+            if url == self.url:
+                continue
+            status, _, _ = http_bytes(
+                method, "http://%s%s?%s" % (
+                    url, urllib.parse.quote(fid_path, safe="/,"), qs),
+                data, headers=headers, timeout=60.0)
+            if method != "DELETE" and status not in (200, 201):
+                raise HttpError(500, f"replication to {url} failed: {status}")
+
+    # --- routes -----------------------------------------------------------
+    def _register_routes(self) -> None:
+        r = self.router
+
+        @r.route("GET", FID_PATTERN)
+        @r.route("HEAD", FID_PATTERN)
+        def read_object(req: Request) -> Response:
+            fid = FileId.parse(f"{req.match.group(1)},{req.match.group(2)}")
+            vid = fid.volume_id
+            if vid in self.store.volumes:
+                try:
+                    n = self.store.read_needle(vid, fid.key, fid.cookie)
+                except (NotFoundError, DeletedError):
+                    raise HttpError(404, "not found")
+                except CookieMismatchError:
+                    raise HttpError(404, "cookie mismatch")
+            elif vid in self.store.ec_volumes:
+                try:
+                    blob, size = self.store.read_ec_needle(
+                        vid, fid.key, self._fetch_remote_shard)
+                except NeedleNotFoundError:
+                    raise HttpError(404, "not found")
+                n = Needle.from_bytes(blob, size,
+                                      self.store.ec_volumes[vid].version)
+                if n.cookie != fid.cookie:
+                    raise HttpError(404, "cookie mismatch")
+            else:
+                others = [u for u in self._lookup_replicas(vid)
+                          if u != self.url]
+                if not others:
+                    raise HttpError(404, f"volume {vid} not found")
+                return Response(None, status=302, raw=b"", headers={
+                    "Location": "http://%s%s" % (
+                        others[0], urllib.parse.quote(req.path, safe="/,"))})
+            etag = f'"{n.etag()}"'
+            if req.headers.get("If-None-Match") == etag:
+                return Response(None, status=304, raw=b"")
+            headers = {"ETag": etag, "Accept-Ranges": "bytes"}
+            if n.has(FLAG_HAS_NAME) and n.name:
+                headers["Content-Disposition"] = \
+                    'inline; filename="%s"' % n.name.decode(errors="replace")
+            headers["Content-Type"] = (
+                n.mime.decode(errors="replace")
+                if n.has(FLAG_HAS_MIME) and n.mime
+                else "application/octet-stream")
+            body = n.data
+            # gzip-stored needles go out as they are to a client that
+            # accepts gzip, decompressed to any other
+            # (volume_server_handlers_read.go:122-137)
+            if n.is_compressed:
+                if "gzip" in req.headers.get("Accept-Encoding", ""):
+                    headers["Content-Encoding"] = "gzip"
+                else:
+                    body = ungzip_data(body)
+            rng_hdr = req.headers.get("Range", "")
+            if rng_hdr and "Content-Encoding" not in headers:
+                rng = parse_range(rng_hdr, len(body))
+                if rng == UNSATISFIABLE_RANGE:
+                    return Response(raw=b"", status=416, headers={
+                        "Content-Range": f"bytes */{len(body)}"})
+                if rng is not None:
+                    off, sz = rng
+                    headers["Content-Range"] = \
+                        f"bytes {off}-{off + sz - 1}/{len(body)}"
+                    return Response(raw=body[off:off + sz], status=206,
+                                    headers=headers)
+            return Response(raw=body, headers=headers)
+
+        @r.route("POST", FID_PATTERN)
+        @r.route("PUT", FID_PATTERN)
+        def write_object(req: Request) -> Response:
+            try:
+                fid = FileId.parse(
+                    f"{req.match.group(1)},{req.match.group(2)}")
+            except ValueError as e:
+                raise HttpError(400, str(e))
+            # form uploads arrive multipart-wrapped; POST unwraps the file
+            # part, PUT bodies are raw (needle_parse_upload.go:46-50)
+            if req.handler.command == "POST":
+                data, part_name, part_mime = extract_upload(
+                    req.body, req.headers.get("Content-Type") or "")
+            else:
+                data, part_name, part_mime = req.body, "", ""
+            n = Needle(cookie=fid.cookie, id=fid.key, data=data)
+            if req.headers.get("Content-Encoding") == "gzip":
+                n.set_flag(FLAG_IS_COMPRESSED)  # the client gzipped it
+            name = (req.query.get("name") or req.headers.get("X-File-Name")
+                    or part_name)
+            if name:
+                n.set_flag(FLAG_HAS_NAME)
+                n.name = name.encode()[:255]
+            mime = req.headers.get("Content-Type")
+            if mime and mime.lower().startswith("multipart/form-data"):
+                mime = part_mime or None
+            if mime == "application/x-www-form-urlencoded":  # client default
+                mime = None
+            if mime and mime != "application/octet-stream":
+                n.set_flag(FLAG_HAS_MIME)
+                n.mime = mime.encode()[:255]
+            # every upload is stamped (needle.go:89-92): ec.encode's
+            # quietFor guard and TTL expiry read it
+            n.set_flag(FLAG_HAS_LAST_MODIFIED)
+            n.last_modified = qint(req.query, "ts", int(time.time()))
+            if req.query.get("ttl"):
+                ttl = TTL.parse(req.query["ttl"])
+                if ttl.count:
+                    n.set_flag(FLAG_HAS_TTL)
+                    n.ttl = ttl
+            try:
+                self.store.write_needle(
+                    fid.volume_id, n, fsync=req.query.get("fsync") == "true")
+            except KeyError:
+                raise HttpError(404, f"volume {fid.volume_id} not found")
+            except PermissionError as e:
+                raise HttpError(409, str(e))
+            if req.query.get("type") != "replicate":
+                # replicas store byte-identical needles: forward the
+                # original parameters, the name and the timestamp
+                params = {k: v for k, v in req.query.items() if k != "type"}
+                params["type"] = "replicate"
+                if name and "name" not in params:
+                    params["name"] = name
+                params.setdefault("ts", str(n.last_modified))
+                headers = {"Content-Type": mime or ""}
+                if req.headers.get("Content-Encoding"):
+                    headers["Content-Encoding"] = \
+                        req.headers["Content-Encoding"]
+                self._replicate(req.path, urllib.parse.urlencode(params),
+                                "POST", fid.volume_id, data, headers)
+            return Response({"name": name or "", "size": len(n.data),
+                             "eTag": n.etag()}, status=201)
+
+        @r.route("DELETE", FID_PATTERN)
+        def delete_object(req: Request) -> Response:
+            fid = FileId.parse(f"{req.match.group(1)},{req.match.group(2)}")
+            vid = fid.volume_id
+            if vid in self.store.ec_volumes:
+                self.store.ec_delete_needle(vid, fid.key)
+                size = 0
+            else:
+                try:
+                    size = self.store.delete_needle(
+                        vid, Needle(cookie=fid.cookie, id=fid.key),
+                        fsync=req.query.get("fsync") == "true")
+                except KeyError:
+                    raise HttpError(404, f"volume {vid} not found")
+            if req.query.get("type") != "replicate":
+                self._replicate(req.path, "type=replicate", "DELETE", vid)
+            return Response({"size": size})
+
+        @r.route("POST", "/admin/heartbeat_now")
+        def heartbeat_now(req: Request) -> Response:
+            self.heartbeat_now()
+            return Response({})
+
+        @r.route("GET", "/status")
+        def status(req: Request) -> Response:
+            return Response({
+                "Version": VERSION,
+                "Volumes": [v.to_volume_information()
+                            for v in list(self.store.volumes.values())],
+                "EcVolumes": sorted(self.store.ec_volumes),
+                "Master": self.master_url,
+                "DataCenter": self.data_center,
+                "Rack": self.rack,
+            })
+
+        # --- admin: volume lifecycle ---------------------------------
+        @r.route("POST", "/admin/assign_volume")
+        def assign_volume(req: Request) -> Response:
+            b = req.json()
+            if b.get("offset_5"):
+                raise HttpError(400, "5-byte offsets are not supported: "
+                                     "volumes use 4-byte offsets")
+            self.store.add_volume(int(b["volume_id"]), b.get("collection", ""),
+                                  b.get("replication", "000"),
+                                  b.get("ttl", ""))
+            return Response({})
+
+        @r.route("POST", "/admin/delete_volume")
+        def delete_volume(req: Request) -> Response:
+            self.store.delete_volume(int(req.json()["volume_id"]))
+            return Response({})
+
+        @r.route("POST", "/admin/mount")
+        def mount(req: Request) -> Response:
+            self.store.mount_volume(int(req.json()["volume_id"]))
+            return Response({})
+
+        @r.route("POST", "/admin/unmount")
+        def unmount(req: Request) -> Response:
+            self.store.unmount_volume(int(req.json()["volume_id"]))
+            return Response({})
+
+        @r.route("POST", "/admin/readonly")
+        def readonly(req: Request) -> Response:
+            b = req.json()
+            vid = int(b["volume_id"])
+            self.store.get_volume(vid).read_only = bool(
+                b.get("readonly", True))
+            # the writable set must reach the master within one pulse
+            self.store.note_volume_change(vid)
+            return Response({})
+
+        # --- admin: EC -----------------------------------------------
+        @r.route("POST", "/admin/ec/generate")
+        def ec_generate(req: Request) -> Response:
+            b = req.json()
+            self._check_engine(b)
+            self.store.ec_generate(int(b["volume_id"]))
+            return Response({})
+
+        @r.route("POST", "/admin/ec/rebuild")
+        def ec_rebuild(req: Request) -> Response:
+            b = req.json()
+            self._check_engine(b)
+            rebuilt = self.store.ec_rebuild(int(b["volume_id"]),
+                                            b.get("collection", ""))
+            return Response({"rebuilt_shard_ids": rebuilt})
+
+        @r.route("POST", "/admin/ec/copy")
+        def ec_copy(req: Request) -> Response:
+            """VolumeEcShardsCopy: pull shard files (and the `.ecx`, `.ecj`
+            and `.eci` that go with them) from the source server, each
+            shard verified against the `.eci` before anything mounts it."""
+            b = req.json()
+            vid = int(b["volume_id"])
+            collection = b.get("collection", "")
+            source = b["source_data_node"]
+            base = volume_file_prefix(self.store.directories[0], collection,
+                                      vid)
+            shard_ids = [int(s) for s in b.get("shard_ids", [])]
+            exts = [to_ext(s) for s in shard_ids]
+            if b.get("copy_ecx_file", True):
+                exts.append(".ecx")
+            if b.get("copy_ecj_file", True):
+                exts.append(".ecj")
+            exts.append(".eci")  # absent on a volume without a sidecar
+            for ext in exts:
+                status = http_download(
+                    "GET", f"http://{source}/admin/ec/download?volume_id={vid}"
+                           f"&collection={collection}&ext={ext}",
+                    base + ext, timeout=3600)
+                if status != 200 and ext not in (".ecj", ".eci"):
+                    raise HttpError(500, f"copy {ext} from {source}: {status}")
+            self._verify_copied_shards(vid, collection, base, shard_ids)
+            return Response({})
+
+        @r.route("GET", "/admin/ec/download")
+        def ec_download(req: Request) -> Response:
+            vid = qint(req.query, "volume_id")
+            ext = req.query.get("ext", "")
+            if ext not in {to_ext(i) for i in range(TOTAL_SHARDS_COUNT)} \
+                    | {".ecx", ".ecj", ".eci"}:
+                raise HttpError(400, f"bad ext {ext!r}")
+            path = self.store._ec_base(vid, req.query.get("collection", "")) \
+                + ext
+            if not os.path.exists(path):
+                raise HttpError(404, f"{path} not found")
+            # streamed from the file (VolumeEcShardRead streaming,
+            # volume_grpc_erasure_coding.go:284-350)
+            return Response(file_path=path)
+
+        @r.route("POST", "/admin/ec/delete")
+        def ec_delete(req: Request) -> Response:
+            b = req.json()
+            self.store.ec_delete_shards(
+                int(b["volume_id"]), [int(s) for s in b.get("shard_ids", [])],
+                b.get("collection", ""))
+            return Response({})
+
+        @r.route("POST", "/admin/ec/mount")
+        def ec_mount(req: Request) -> Response:
+            b = req.json()
+            self.store.ec_mount(int(b["volume_id"]), b.get("collection", ""))
+            return Response({})
+
+        @r.route("POST", "/admin/ec/unmount")
+        def ec_unmount(req: Request) -> Response:
+            self.store.ec_unmount(int(req.json()["volume_id"]))
+            return Response({})
+
+        @r.route("GET", "/admin/ec/shard_read")
+        def ec_shard_read(req: Request) -> Response:
+            try:
+                data = self.store.ec_shard_read(
+                    qint(req.query, "volume_id"), qint(req.query, "shard"),
+                    qint(req.query, "offset"), qint(req.query, "size"))
+            except NeedleNotFoundError as e:
+                raise HttpError(404, str(e))
+            return Response(raw=data)
+
+        @r.route("POST", "/admin/ec/blob_delete")
+        def ec_blob_delete(req: Request) -> Response:
+            b = req.json()
+            self.store.ec_delete_needle(int(b["volume_id"]), int(b["key"]))
+            return Response({})
+
+        @r.route("POST", "/admin/ec/to_volume")
+        def ec_to_volume(req: Request) -> Response:
+            b = req.json()
+            self.store.ec_to_volume(int(b["volume_id"]),
+                                    b.get("collection", ""))
+            return Response({})

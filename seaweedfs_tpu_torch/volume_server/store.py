@@ -1,11 +1,15 @@
-"""Volume-server store: data directories, volumes and EC volumes.
+"""Volume-server store: data directories, volumes, EC volumes, heartbeats.
 
 The subset of seaweedfs_tpu/volume_server/store.py (weed/storage/store.go +
-store_ec.go) that runs the EC main path on the card: write a volume,
-EC-encode it (`-ec.engine=tpu` in the reference: the streaming pipeline),
-delete and rebuild shards, and serve needle reads from the shards,
-reconstructing any interval whose shard is missing or corrupt.  Every GF
+store_ec.go) that the volume server's HTTP surface calls: create, mount,
+delete and describe volumes, write, read and delete needles, EC-encode a
+volume (`-ec.engine=tpu` in the reference: the streaming pipeline),
+delete, rebuild and serve shards, read needles from the shards with
+remote fetch or reconstruction of what is missing, decode back to a
+volume, and build the master's full and delta heartbeats.  Every GF
 product goes through ops.gf_matmul on ``device``.
+
+Not ported: the native data plane, mmap volumes and the needle cache.
 """
 
 from __future__ import annotations
@@ -14,7 +18,7 @@ import glob
 import os
 import re
 import threading
-from typing import Optional
+from typing import Callable, Optional
 
 from ..ec import encoder as ec_encoder
 from ..ec.codec import ReedSolomon
@@ -23,8 +27,11 @@ from ..ec.layout import DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT, to_ext
 from ..ec.streaming import StreamingEncoder
 from ..ops.gf_matmul import resolve_device
 from ..storage.needle import Needle
+from ..storage.super_block import ReplicaPlacement
+from ..storage.ttl import TTL
 from ..storage.types import size_is_deleted
 from ..storage.volume import Volume, volume_file_prefix
+from .shard_bits import ShardBits
 
 _VOLUME_NAME = re.compile(r"(?:[\w.-]+_)?\d+")
 
@@ -48,18 +55,35 @@ def _discover(directory: str, ext: str) -> list[tuple[str, int]]:
 
 
 class Store:
-    def __init__(self, directories: list[str], device="cuda"):
-        """Volumes under ``directories``; EC work on ``device`` ("cuda"
-        needs a card, "cpu" runs the plain versions)."""
+    def __init__(self, directories: list[str], ip: str = "127.0.0.1",
+                 port: int = 8080, public_url: str = "",
+                 max_volume_count: int = 8, device="cuda"):
+        """Volumes under ``directories``, served at ``ip:port``; EC work on
+        ``device`` ("cuda" needs a card, "cpu" runs the plain versions)."""
         self.device = resolve_device(device)
+        self.ip, self.port = ip, port
+        self.public_url = public_url or f"{ip}:{port}"
+        self.max_volume_count = max_volume_count
+        self.volume_size_limit = 30 * 1000 * 1000 * 1000
         self.directories = list(directories)
         for d in self.directories:
             os.makedirs(d, exist_ok=True)
         self.volumes: dict[int, Volume] = {}
         self.volume_locks: dict[int, threading.Lock] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
+        self.ec_collections: dict[int, str] = {}
+        # request threads ask for the codec and the encoder at once: each
+        # is made once, under this lock
+        self._init_lock = threading.Lock()
         self._rs: Optional[ReedSolomon] = None
         self._encoder: Optional[StreamingEncoder] = None
+        # delta-heartbeat bookkeeping (volume_grpc_client_to_master.go:48
+        # streams new/deleted volume and EC-shard lists between full syncs)
+        self._delta_lock = threading.Lock()
+        self._new_vids: set[int] = set()
+        self._gone_vids: set[int] = set()
+        self._new_ec_vids: set[int] = set()
+        self._gone_ec_vids: set[int] = set()
         for d in self.directories:
             for collection, vid in _discover(d, ".dat"):
                 if vid not in self.volumes:
@@ -70,35 +94,121 @@ class Store:
 
     def rs(self) -> ReedSolomon:
         """The RS(10,4) codec on this store's device."""
-        if self._rs is None:
-            self._rs = ReedSolomon(DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT,
-                                   device=self.device)
-        return self._rs
+        with self._init_lock:
+            if self._rs is None:
+                self._rs = ReedSolomon(DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT,
+                                       device=self.device)
+            return self._rs
 
     def streaming_encoder(self) -> StreamingEncoder:
-        if self._encoder is None:
-            self._encoder = StreamingEncoder(device=self.device)
-        return self._encoder
+        with self._init_lock:
+            if self._encoder is None:
+                self._encoder = StreamingEncoder(device=self.device)
+            return self._encoder
 
     def _open_volume(self, v: Volume) -> Volume:
         self.volumes[v.id] = v
         self.volume_locks[v.id] = threading.Lock()
+        self.note_volume_change(v.id)
         return v
 
     def _open_ec_volume(self, directory: str, collection: str,
                         vid: int) -> EcVolume:
         ev = EcVolume(volume_file_prefix(directory, collection, vid), vid)
         self.ec_volumes[vid] = ev
+        self.ec_collections[vid] = collection
+        self.note_ec_change(vid)
         return ev
 
+    # --- delta heartbeat ---------------------------------------------------
+    def note_volume_change(self, vid: int, gone: bool = False) -> None:
+        with self._delta_lock:
+            if gone:
+                self._new_vids.discard(vid)
+                self._gone_vids.add(vid)
+            else:
+                self._gone_vids.discard(vid)
+                self._new_vids.add(vid)
+
+    def note_ec_change(self, vid: int, gone: bool = False) -> None:
+        with self._delta_lock:
+            if gone:
+                self._new_ec_vids.discard(vid)
+                self._gone_ec_vids.add(vid)
+            else:
+                self._gone_ec_vids.discard(vid)
+                self._new_ec_vids.add(vid)
+
+    def _ec_shard_info(self, vid: int, ev: EcVolume) -> dict:
+        return {"volume_id": vid,
+                "collection": self.ec_collections.get(vid, ""),
+                "ec_index_bits": ShardBits.of(ev.shards).bits}
+
+    def pop_heartbeat_delta(self) -> Optional[dict]:
+        """Changes since the last pop as an incremental heartbeat body;
+        None when nothing changed.  A caller whose send fails must
+        requeue_heartbeat_delta, so no change is lost."""
+        with self._delta_lock:
+            if not (self._new_vids or self._gone_vids
+                    or self._new_ec_vids or self._gone_ec_vids):
+                return None
+            new_vids, self._new_vids = self._new_vids, set()
+            gone_vids, self._gone_vids = self._gone_vids, set()
+            new_ec, self._new_ec_vids = self._new_ec_vids, set()
+            gone_ec, self._gone_ec_vids = self._gone_ec_vids, set()
+        new_volumes = []
+        for vid in sorted(new_vids):
+            v = self.volumes.get(vid)
+            if v is None:  # raced with a delete after the note
+                gone_vids.add(vid)
+            else:
+                new_volumes.append(v.to_volume_information())
+        new_ec_shards = []
+        for vid in sorted(new_ec):
+            ev = self.ec_volumes.get(vid)
+            if ev is None:
+                gone_ec.add(vid)
+            else:
+                new_ec_shards.append(self._ec_shard_info(vid, ev))
+        return {"new_volumes": new_volumes,
+                "deleted_volumes": sorted(gone_vids),
+                "new_ec_shards": new_ec_shards,
+                "deleted_ec_shards": sorted(gone_ec)}
+
+    def requeue_heartbeat_delta(self, delta: dict) -> None:
+        with self._delta_lock:
+            for v in delta.get("new_volumes", []):
+                self._new_vids.add(int(v["id"]))
+            self._gone_vids.update(delta.get("deleted_volumes", []))
+            for e in delta.get("new_ec_shards", []):
+                self._new_ec_vids.add(int(e["volume_id"]))
+            self._gone_ec_vids.update(delta.get("deleted_ec_shards", []))
+
+    def collect_heartbeat(self) -> dict:
+        """The full heartbeat (store.go:216 CollectHeartbeat)."""
+        return {
+            "ip": self.ip, "port": self.port, "public_url": self.public_url,
+            "max_volume_count": self.max_volume_count,
+            "volumes": [v.to_volume_information()
+                        for v in list(self.volumes.values())],
+            "ec_shards": [self._ec_shard_info(vid, ev)
+                          for vid, ev in list(self.ec_volumes.items())],
+        }
+
     # --- volumes ------------------------------------------------------------
-    def add_volume(self, vid: int, collection: str = "") -> Volume:
+    def add_volume(self, vid: int, collection: str = "",
+                   replication: str = "000", ttl: str = "") -> Volume:
+        """AllocateVolume: a new volume with this replica placement and
+        TTL in its superblock (an existing volume is returned as is)."""
         if vid in self.volumes:
             return self.volumes[vid]
         directory = min(self.directories,
                         key=lambda d: sum(1 for v in self.volumes.values()
                                           if v.directory == d))
-        return self._open_volume(Volume(directory, collection, vid))
+        return self._open_volume(Volume(
+            directory, collection, vid,
+            replica_placement=ReplicaPlacement.parse(replication),
+            ttl=TTL.parse(ttl)))
 
     def get_volume(self, vid: int) -> Volume:
         v = self.volumes.get(vid)
@@ -106,10 +216,50 @@ class Store:
             raise KeyError(f"volume {vid} not found")
         return v
 
-    def write_needle(self, vid: int, n: Needle) -> tuple[int, bool]:
-        """Append a needle; returns (size, unchanged)."""
-        _, size, unchanged = self.get_volume(vid).write_needle(n)
+    def delete_volume(self, vid: int) -> None:
+        v = self.volumes.pop(vid, None)
+        self.volume_locks.pop(vid, None)
+        if v is not None:
+            v.destroy()
+            self.note_volume_change(vid, gone=True)
+
+    def unmount_volume(self, vid: int) -> None:
+        v = self.volumes.pop(vid, None)
+        self.volume_locks.pop(vid, None)
+        if v is not None:
+            v.close()
+            self.note_volume_change(vid, gone=True)
+
+    def mount_volume(self, vid: int) -> None:
+        for d in self.directories:
+            for collection, found in _discover(d, ".dat"):
+                if found == vid:
+                    self._open_volume(Volume(d, collection, vid))
+                    return
+        raise KeyError(f"volume {vid} not found on disk")
+
+    def write_needle(self, vid: int, n: Needle,
+                     fsync: bool = False) -> tuple[int, bool]:
+        """Append a needle, durable on return with ``fsync``; returns
+        (size, unchanged)."""
+        v = self.get_volume(vid)
+        _, size, unchanged = v.write_needle(n)
+        if fsync:
+            v.sync()
+        self.note_volume_change(vid)
         return size, unchanged
+
+    def delete_needle(self, vid: int, n: Needle, fsync: bool = False) -> int:
+        v = self.get_volume(vid)
+        size = v.delete_needle(n)
+        if fsync:
+            v.sync()
+        self.note_volume_change(vid)
+        return size
+
+    def read_needle(self, vid: int, key: int,
+                    cookie: Optional[int] = None) -> Needle:
+        return self.get_volume(vid).read_needle(key, cookie)
 
     # --- EC (store_ec.go + volume_grpc_erasure_coding.go backends) --------
     def ec_generate(self, vid: int) -> None:
@@ -146,8 +296,10 @@ class Store:
 
     def ec_unmount(self, vid: int) -> None:
         ev = self.ec_volumes.pop(vid, None)
+        self.ec_collections.pop(vid, None)
         if ev is not None:
             ev.close()
+            self.note_ec_change(vid, gone=True)
 
     def ec_delete_shards(self, vid: int, shard_ids: list[int],
                          collection: str = "") -> None:
@@ -159,18 +311,28 @@ class Store:
             if os.path.exists(p):
                 os.remove(p)
         if not glob.glob(base + ".ec[0-9][0-9]"):
-            # last shard gone: the index and crc sidecar go with it
+            # last shard gone: the index, journal and crc sidecar go too
             for ext in (".ecx", ".ecj", ".eci"):
                 if os.path.exists(base + ext):
                     os.remove(base + ext)
         elif was_mounted:
             self.ec_mount(vid, collection)
 
-    def read_ec_needle(self, vid: int, key: int) -> tuple[bytes, int]:
-        """ReadEcShardNeedle (store_ec.go:125-163) for local shards: each
-        interval comes from its shard, verified against the `.eci`
-        sidecar, or is reconstructed from the local survivors on the card.
-        Returns (record, size)."""
+    def ec_shard_read(self, vid: int, shard_id: int, offset: int,
+                      length: int) -> bytes:
+        ev = self.ec_volumes.get(vid)
+        if ev is None or shard_id not in ev.shards:
+            raise NeedleNotFoundError(f"shard {vid}.{shard_id} not here")
+        return ev.shards[shard_id].read_at(length, offset)
+
+    def read_ec_needle(self, vid: int, key: int,
+                       fetch_remote: Optional[
+                           Callable[[int, int, int, int], bytes]] = None,
+                       ) -> tuple[bytes, int]:
+        """ReadEcShardNeedle (store_ec.go:125-163): each interval from its
+        local shard, verified against the `.eci`, else from
+        ``fetch_remote(vid, shard, offset, size)``, else reconstructed
+        from the local survivors on the card.  Returns (record, size)."""
         ev = self.ec_volumes.get(vid)
         if ev is None:
             raise KeyError(f"ec volume {vid} not found")
@@ -178,7 +340,25 @@ class Store:
         if size_is_deleted(size):
             raise NeedleNotFoundError(f"needle {key} deleted")
         rs = self.rs()
-        return b"".join(ev.read_interval(iv, rs) for iv in intervals), size
+        return b"".join(ev.read_interval(iv, rs, fetch_remote)
+                        for iv in intervals), size
+
+    def ec_delete_needle(self, vid: int, key: int) -> None:
+        ev = self.ec_volumes.get(vid)
+        if ev is None:
+            raise KeyError(f"ec volume {vid} not found")
+        ev.delete_needle(key)
+
+    def ec_to_volume(self, vid: int, collection: str = "") -> None:
+        """VolumeEcShardsToVolume (volume_grpc_erasure_coding.go:382-413):
+        `.ec00`..`.ec09` + `.ecx`/`.ecj` back into a `.dat` + `.idx`, which
+        is then mounted in place of the EC volume."""
+        base = self._ec_base(vid, collection)
+        self.unmount_volume(vid)  # a still-mounted original is rewritten
+        ec_encoder.write_dat_file(base, ec_encoder.find_dat_file_size(base))
+        ec_encoder.write_idx_file_from_ec_index(base)
+        self.ec_unmount(vid)
+        self._open_volume(Volume(os.path.dirname(base), collection, vid))
 
     def close(self) -> None:
         for v in self.volumes.values():

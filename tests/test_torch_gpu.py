@@ -98,3 +98,61 @@ def test_streaming_card_equals_cpu(cuda, tmp_path):
     for i in (1, 5, 10, 12):
         assert open(bases["cuda"] + to_ext(i), "rb").read() == want[i]
     assert enc.stats["dispatches"] >= 2
+
+
+def test_volume_server_on_the_card(cuda, tmp_path):
+    """VolumeServer(device="cuda"): an encode over HTTP, eight threads of
+    degraded GETs with data shards 2 and 7 gone, and a request for the
+    CPU engine refused with 400."""
+    import json
+    import socket
+    import threading
+
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    vs = VolumeServer([str(tmp_path)], f"127.0.0.1:{free_port()}",
+                      port=free_port()).start()
+    url = f"http://{vs.url}"
+    rng = np.random.default_rng(7)
+    blobs = {str(FileId(1, i + 1, 0x5EED0000 + i)):
+             rng.bytes(int(rng.integers(1, 3 << 20))) for i in range(40)}
+    try:
+        http_json("POST", url + "/admin/assign_volume", {"volume_id": 1})
+        for fid, data in blobs.items():
+            assert http_bytes("PUT", f"{url}/{fid}", data)[0] == 201
+        status, body, _ = http_bytes(
+            "POST", url + "/admin/ec/generate",
+            json.dumps({"volume_id": 1, "engine": "cpu"}).encode())
+        assert status == 400 and "-ec.engine tpu" in body.decode()
+        assert not os.path.exists(tmp_path / "1.ec00")
+        before = gf_matmul.launches
+        for path in ("/admin/readonly", "/admin/ec/generate",
+                     "/admin/ec/mount", "/admin/delete_volume"):
+            http_json("POST", url + path, {"volume_id": 1})
+        http_json("POST", url + "/admin/ec/delete",
+                  {"volume_id": 1, "shard_ids": [2, 7]})
+        bad = []
+
+        def reader(t):
+            for fid in list(blobs)[t::8]:
+                status, body, _ = http_bytes("GET", f"{url}/{fid}")
+                if (status, body) != (200, blobs[fid]):
+                    bad.append(fid)
+
+        threads = [threading.Thread(target=reader, args=(t,))
+                   for t in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        assert not any(t.is_alive() for t in threads) and not bad
+        assert gf_matmul.launches > before
+    finally:
+        vs.stop()

@@ -51,7 +51,8 @@ def test_no_jax_or_reference_imports(path):
 
 def test_import_loads_no_jax():
     code = ("import sys\n"
-            "import seaweedfs_tpu_torch.volume_server.store\n"
+            "import seaweedfs_tpu_torch.volume_server.server\n"
+            "import seaweedfs_tpu_torch.__main__\n"
             "import seaweedfs_tpu_torch.interop\n"
             "mods = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'seaweedfs_tpu')]\n"
@@ -66,15 +67,20 @@ def test_import_loads_no_jax():
 def test_default_device_raises_without_a_card(tmp_path):
     import torch
 
+    from seaweedfs_tpu_torch.__main__ import main as cli_main
     from seaweedfs_tpu_torch.ec.codec import ReedSolomon
     from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
     from seaweedfs_tpu_torch.ops.gf_matmul import TorchEngine
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
     from seaweedfs_tpu_torch.volume_server.store import Store
 
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is usable")
     for make in (lambda: Store([str(tmp_path)]), StreamingEncoder,
-                 TorchEngine, lambda: ReedSolomon(10, 4)):
+                 TorchEngine, lambda: ReedSolomon(10, 4),
+                 lambda: VolumeServer([str(tmp_path)], "127.0.0.1:1"),
+                 lambda: cli_main(["volume", "-dir", str(tmp_path),
+                                   "-port", "1"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     assert not os.listdir(tmp_path)

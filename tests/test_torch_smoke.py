@@ -46,6 +46,32 @@ def test_main_path_on_cpu(tmp_path):
     assert res["stats"]["encode"]["dispatches"] >= 1
 
 
+def test_http_path_on_cpu(tmp_path):
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+
+    before = gf_matmul.launches
+    res = chip_smoke.run_http_path("cpu", str(tmp_path), 2 << 20, reads=12,
+                                   threads=3, per_thread=4, decoded_reads=5,
+                                   stripes=3)
+    assert res["dat_bytes"] >= 2 << 20
+    assert set(res["launches"]) == {"encode", "rebuild", "degraded_get"}
+    assert gf_matmul.launches == before  # the plain version launches nothing
+    assert len(res["latency_1_client_s"]) == min(12, res["needles"])
+    assert len(res["latency_8_clients_s"]) == 12
+    # the decoded volume is back on disk; the shards stay until deleted
+    assert os.path.exists(tmp_path / "1.dat") and os.path.exists(
+        tmp_path / "1.ec13")
+
+
+def test_cli_phase_on_cpu(tmp_path):
+    res = chip_smoke.run_cli_phase("cpu", str(tmp_path), 1 << 20, reads=4,
+                                   threads=2, per_thread=3)
+    assert "ec on cpu" in res["start_line"]
+    assert len(res["latency_s"]) == 4 and res["stop_seconds"] < 10
+    assert len(res["latency_8_clients_s"]) == 6
+    assert res["launches"] == 0  # the plain version launches nothing
+
+
 def test_refuses_without_a_card_or_a_checkout(tmp_path):
     # no card here: exits non-zero, prints no result
     r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
