@@ -29,12 +29,23 @@ result.  Phases, each of which fails the run on any mismatch:
     subprocess, whose start line must name the card, serves a 64 MiB
     volume's degraded GETs and exits 0 on SIGTERM, printing the kernel
     launches of its process;
- 6. numbers from the card: leg times and rates, read latency, kernel
+ 6. a whole cluster through the CLI: ``master`` and five ``volume
+    -ec.engine tpu`` processes on the card; a 2 GiB volume uploaded
+    through WeedClient from eight threads, ``shell -c "ec.encode"`` (shard
+    sha256 recorded), the holder of the most shards SIGKILLed and dropped
+    by the master, 200 + 8x25 degraded GETs classed by whether the shard
+    they need lies on another live server (a remote shard read) or was
+    lost (a reconstruction), ``ec.rebuild`` (the rebuilt shards must
+    match their sha256), ``ec.decode`` and 50 GETs of the decoded volume.
+    Each server's stop line must count exactly the remote reads and
+    reconstructions its GETs needed, and the encode and rebuild hosts
+    must have launched the kernel;
+ 7. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
 Each path runs with gf_matmul.launches set to 0 just before it and read
-just after (the CLI's server counts from 0 in its own process), and fails
-if it launched no kernel.  The last line is
+just after (the CLI's servers count from 0 in their own processes), and
+fails if it launched no kernel.  The last line is
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit; before that the {"kernels": [...]} line.
 """
@@ -45,6 +56,7 @@ import hashlib
 import http.client
 import json
 import os
+import re
 import select
 import shutil
 import signal
@@ -73,6 +85,8 @@ DECODED_READS = 50
 CLI_VOLUME_BYTES = 64 << 20
 CLI_READS = 20
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+# the CLI's -ec.engine names -> the device its start line names
+ENGINES = {"tpu": "cuda", "cpu": "cpu"}
 
 
 def log(obj) -> None:
@@ -573,6 +587,27 @@ def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
     return res
 
 
+def start_cli(args: list[str], log_path: str) -> subprocess.Popen:
+    """``python -m seaweedfs_tpu_torch <args>`` from the checkout; its
+    standard error goes to ``log_path``."""
+    with open(log_path, "w") as log_file:
+        return subprocess.Popen(
+            [sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
+            stderr=log_file, text=True)
+
+
+def read_start_line(proc: subprocess.Popen, log_path: str, want: str,
+                    timeout: float = 300) -> str:
+    """The server's first line, which must start with ``want``."""
+    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    line = proc.stdout.readline().strip() if ready else ""
+    if not line.startswith(want):
+        raise AssertionError(f"start line {line!r}; log: "
+                             f"{open(log_path).read()[-2000:]}")
+    return line
+
+
 def run_cli_phase(engine: str, work: str, volume_bytes: int, reads: int,
                   threads: int, per_thread: int) -> dict:
     """``python -m seaweedfs_tpu_torch volume -ec.engine <engine>`` in a
@@ -583,21 +618,13 @@ def run_cli_phase(engine: str, work: str, volume_bytes: int, reads: int,
     log_path = os.path.join(work, "server.log")
     os.makedirs(os.path.join(work, "data"))
     t_start = time.perf_counter()
-    with open(log_path, "w") as log_file:
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "seaweedfs_tpu_torch", "volume", "-dir",
-             os.path.join(work, "data"), "-port", str(port), "-mserver",
-             f"127.0.0.1:{free_port()}", "-ec.engine", engine],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
-            stdout=subprocess.PIPE, stderr=log_file, text=True)
+    proc = start_cli(["volume", "-dir", os.path.join(work, "data"), "-port",
+                      str(port), "-mserver", f"127.0.0.1:{free_port()}",
+                      "-ec.engine", engine], log_path)
     try:
-        ready, _, _ = select.select([proc.stdout], [], [], 300)
-        line = proc.stdout.readline().strip() if ready else ""
-        want = "cuda" if engine == "tpu" else "cpu"
-        if not line.startswith("volume server listening") or \
-                f"ec on {want}" not in line:
-            raise AssertionError(f"start line {line!r}; log: "
-                                 f"{open(log_path).read()[-2000:]}")
+        line = read_start_line(proc, log_path, "volume server listening")
+        if f"ec on {ENGINES[engine]}" not in line:
+            raise AssertionError(f"start line {line!r}")
         res = {"start_line": line,
                "start_seconds": time.perf_counter() - t_start}
         conn = Conn(f"127.0.0.1:{port}")
@@ -627,23 +654,345 @@ def run_cli_phase(engine: str, work: str, volume_bytes: int, reads: int,
         res["latency_8_clients_s"] = concurrent_gets(
             f"127.0.0.1:{port}", needles, threads, per_thread, seed)
         t0 = time.perf_counter()
-        proc.send_signal(signal.SIGTERM)
-        rc = proc.wait(timeout=10)
+        res["launches"] = stop_volume_server(proc)["launches"]
         res["stop_seconds"] = time.perf_counter() - t0
-        if rc != 0:
-            raise AssertionError(f"server exited {rc}")
-        # the server's own count: its process started from 0
-        stop_line = proc.stdout.read().strip()
-        prefix = "volume server stopped, ec kernel launches "
-        if not stop_line.startswith(prefix):
-            raise AssertionError(f"stop line {stop_line!r}")
-        res["launches"] = int(stop_line[len(prefix):])
         return res
     finally:
         if proc.poll() is None:
             proc.kill()
             proc.wait()
         proc.stdout.close()
+
+
+STOP_LINE = re.compile(r"volume server stopped, ec kernel launches (\d+), "
+                       r"remote shard reads (\d+), "
+                       r"reconstructed intervals (\d+)")
+
+
+def stop_volume_server(proc: subprocess.Popen) -> dict:
+    """SIGTERM a CLI volume server; it must exit 0 within 10 s.  Returns
+    the counts of its stop line, counted in its own process from 0."""
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=10)
+    stop_line = proc.stdout.read().strip().splitlines()
+    m = STOP_LINE.fullmatch(stop_line[-1]) if stop_line else None
+    if rc != 0 or m is None:
+        raise AssertionError(f"volume server exited {rc}: {stop_line!r}")
+    return {"launches": int(m.group(1)), "remote": int(m.group(2)),
+            "reconstructed": int(m.group(3))}
+
+
+# --- the cluster phase --------------------------------------------------
+
+def cluster_needle(seed: int, i: int, nid: int, size: int) -> dict:
+    """Needle ``nid`` of the spec as WeedClient uploads it: every tenth
+    carries, in turn, a gzip body (bytes that compress, gzipped by the
+    client), a name or a mime type.  ``data`` is what a GET gives back."""
+    kind = (i // 10) % 3 if i % 10 == 0 else None
+    if kind == 0:
+        data = np.random.default_rng([seed, nid]).integers(
+            0, 4, size, dtype=np.uint8).tobytes()
+        return {"data": data, "upload": {"compress": True}}
+    upload = ({"name": f"needle-{nid}.bin"} if kind == 1 else
+              {"mime": "image/jpeg"} if kind == 2 else {})
+    return {"data": needle_data(seed, nid, size), "upload": upload}
+
+
+def run_threads(target, count: int, timeout: float) -> None:
+    """``target(t)`` on ``count`` threads at once; re-raises the first
+    error, and fails if a thread outlives ``timeout``."""
+    errors: list[BaseException] = []
+
+    def run(t: int) -> None:
+        try:
+            target(t)
+        except BaseException as e:  # noqa: BLE001 - re-raised below
+            errors.append(e)
+
+    workers = [threading.Thread(target=run, args=(t,)) for t in range(count)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join(timeout=timeout)
+    if errors:
+        raise errors[0]
+    if any(w.is_alive() for w in workers):
+        raise AssertionError("a worker thread did not finish")
+
+
+def run_shell(master: str, commands: str) -> tuple[str, float]:
+    """``python -m seaweedfs_tpu_torch shell -c``; -> (output, wall s)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
+                        "-master", master, "-c", commands], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=1800)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0 or "FAILED" in r.stdout:
+        raise AssertionError(f"shell {commands!r}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    return r.stdout.strip(), wall
+
+
+def master_status(master: str) -> dict:
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return http_json("GET", f"http://{master}/dir/status")["Topology"]
+
+
+def node_urls(topology: dict) -> set[str]:
+    return {n["Url"] for dc in topology["DataCenters"]
+            for rack in dc["Racks"] for n in rack["DataNodes"]}
+
+
+def wait_for(what: str, ok, timeout: float) -> float:
+    """Poll ``ok()`` until it holds; -> seconds waited."""
+    t0 = time.perf_counter()
+    while not ok():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.05)
+    return time.perf_counter() - t0
+
+
+def shard_holders(master: str, vid: int) -> dict[int, list[str]]:
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    doc = http_json("GET", f"http://{master}/dir/lookup_ec?volumeId={vid}")
+    return {int(s): urls for s, urls in doc["shards"].items() if urls}
+
+
+def needle_shards(base: str, vid: int, keys: list[int]) -> list[list[int]]:
+    """The shard of each interval of each needle, from a holder's `.ecx`
+    and shard geometry: what a GET of it must read."""
+    from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+
+    ev = EcVolume(base, vid)
+    try:
+        return [[iv.to_shard_id_and_offset(ev.large_block_size,
+                                           ev.small_block_size,
+                                           ev.data_shards)[0]
+                 for iv in ev.locate_ec_shard_needle(key)[2]]
+                for key in keys]
+    finally:
+        ev.close()
+
+
+def timed_gets(master: str, picks, needles: list[dict], fids: list[str],
+               seed: int) -> list[tuple[str, int, float]]:
+    """GET each picked needle through one WeedClient, byte-checked;
+    -> [(server that answered, needle index, seconds)]."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+
+    client = WeedClient(master)
+    client.rng.seed(seed)
+    out = []
+    for i in picks:
+        t0 = time.perf_counter()
+        body = client.download(fids[i])
+        lat = time.perf_counter() - t0
+        if body != needles[i]["data"]:
+            raise AssertionError(f"GET {fids[i]}: {len(body)} bytes, wrong")
+        out.append((client.last_read_from, int(i), lat))
+    return out
+
+
+def run_cluster_phase(engine: str, work: str, volume_bytes: int,
+                      reads: int, threads: int, per_thread: int,
+                      decoded_reads: int, servers: int = 5,
+                      pulse_seconds: float = 0.5) -> dict:
+    """A whole EC cluster through the port's CLI: a master and
+    ``servers`` volume servers (``-ec.engine <engine>``), each its own
+    process.  One volume of collection "ec" is uploaded through
+    WeedClient from ``threads`` threads, then the shell's ec.encode; the
+    server holding the most shards (not the encode's source) is
+    SIGKILLed and dropped by the master; ``reads`` single-client and
+    ``threads`` x ``per_thread`` concurrent degraded GETs; ec.rebuild
+    (rebuilt shards equal to their sha256 before the loss); ec.decode and
+    ``decoded_reads`` GETs of the decoded volume.  Each GET is classed by
+    the server that answered it: (a) a shard alive on another server,
+    (b) a lost shard, or local.  Every server's stop line must count
+    exactly the remote shard reads and reconstructions its GETs needed."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.ec.layout import TOTAL_SHARDS_COUNT, to_ext
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    collection = "ec"
+    seed = SEED + 4
+    res: dict = {"seconds": {}}
+    procs: list[subprocess.Popen] = []
+    mport = free_port()
+    master = f"127.0.0.1:{mport}"
+    try:
+        log = os.path.join(work, "master.log")
+        procs.append(start_cli(
+            ["master", "-port", str(mport), "-volumeSizeLimitMB",
+             str((volume_bytes >> 20) + 64), "-pulseSeconds",
+             str(pulse_seconds)], log))
+        read_start_line(procs[0], log, "master listening")
+        t0 = time.perf_counter()
+        vs: dict[str, dict] = {}
+        for k in range(servers):
+            port = free_port()
+            d = os.path.join(work, f"vs{k}")
+            os.makedirs(d)
+            log = os.path.join(work, f"vs{k}.log")
+            p = start_cli(["volume", "-dir", d, "-port", str(port),
+                           "-mserver", master, "-pulseSeconds",
+                           str(pulse_seconds), "-ec.engine", engine], log)
+            procs.append(p)
+            vs[f"127.0.0.1:{port}"] = {"proc": p, "dir": d, "log": log}
+        for info in vs.values():  # they start side by side
+            line = read_start_line(info["proc"], info["log"],
+                                   "volume server listening")
+            if f"ec on {ENGINES[engine]}" not in line:
+                raise AssertionError(f"start line {line!r}")
+        wait_for("every volume server to register",
+                 lambda: node_urls(master_status(master)) == set(vs), 60)
+        res["seconds"]["start"] = time.perf_counter() - t0
+
+        vid = http_json("GET", f"http://{master}/vol/grow?collection="
+                               f"{collection}&count=1")["volumeIds"][0]
+        source = WeedClient(master).master.lookup(vid)[0]
+        needles = [cluster_needle(seed, i, nid, size) for i, (nid, _, size)
+                   in enumerate(needle_specs(seed, volume_bytes))]
+        fids: list[str] = [""] * len(needles)
+
+        def upload(t: int) -> None:
+            client = WeedClient(master)
+            for i in range(t, len(needles), threads):
+                fids[i] = client.upload(needles[i]["data"],
+                                        collection=collection,
+                                        **needles[i]["upload"])
+
+        t0 = time.perf_counter()
+        run_threads(upload, threads, 1800)
+        res["seconds"]["upload"] = time.perf_counter() - t0
+        if {FileId.parse(f).volume_id for f in fids} != {vid}:
+            raise AssertionError("needles landed outside the grown volume")
+        res["needles"] = len(needles)
+        res["upload_bytes"] = sum(len(n["data"]) for n in needles)
+        res["dat_bytes"] = os.path.getsize(volume_file_prefix(
+            vs[source]["dir"], collection, vid) + ".dat")
+
+        out, res["seconds"]["ec.encode"] = run_shell(
+            master, f"ec.encode -volumeId {vid} -collection {collection}")
+        m = re.search(r"generate ([\d.]+) s, spread ([\d.]+) s", out)
+        if f"ec encoded volume {vid} via tpu engine" not in out or not m:
+            raise AssertionError(f"ec.encode: {out}")
+        res["seconds"]["encode_generate"] = float(m.group(1))
+        res["seconds"]["encode_spread"] = float(m.group(2))
+        holders = shard_holders(master, vid)
+        if sorted(holders) != list(range(TOTAL_SHARDS_COUNT)):
+            raise AssertionError(f"after ec.encode: {holders}")
+
+        def shard_path(url: str, sid: int) -> str:
+            return volume_file_prefix(vs[url]["dir"], collection,
+                                      vid) + to_ext(sid)
+
+        hashes = {sid: sha256_file(shard_path(urls[0], sid))
+                  for sid, urls in holders.items()}
+        held = {url: sorted(s for s, us in holders.items() if url in us)
+                for url in vs}
+        # the most shards, not the source; ties to the lowest shard id
+        victim = min((u for u in vs if u != source),
+                     key=lambda u: (-len(held[u]), held[u]))
+        lost = held[victim]
+        vs[victim]["proc"].kill()
+        vs[victim]["proc"].wait()
+        res["seconds"]["drop"] = wait_for(
+            "the master to drop the killed server",
+            lambda: victim not in node_urls(master_status(master)), 120)
+        alive = [u for u in vs if u != victim]
+        holders = shard_holders(master, vid)
+        shards_of = needle_shards(
+            volume_file_prefix(vs[source]["dir"], collection, vid), vid,
+            [FileId.parse(f).key for f in fids])
+
+        rng = np.random.default_rng(seed)
+        gets = {"1_client": timed_gets(
+            master, rng.choice(len(needles), size=min(reads, len(needles)),
+                               replace=False), needles, fids, seed)}
+        concurrent: list = []
+        run_threads(lambda t: concurrent.extend(timed_gets(
+            master, np.random.default_rng([seed, t]).choice(
+                len(needles), size=per_thread), needles, fids, seed + t)),
+            threads, 600)
+        gets[f"{threads}_clients"] = concurrent
+        expect = {u: {"remote": 0, "reconstructed": 0} for u in alive}
+        classes: dict = {}
+        for run, done in gets.items():
+            for asked, i, lat in done:
+                cls = "local"
+                for sid in shards_of[i]:
+                    if sid in lost:
+                        expect[asked]["reconstructed"] += 1
+                        cls = "b"
+                    elif asked not in holders[sid]:
+                        expect[asked]["remote"] += 1
+                        cls = "a" if cls == "local" else cls
+                classes.setdefault(f"{cls}_{run}", []).append(lat)
+        if not classes.get(f"a_{threads}_clients") or \
+                not classes.get(f"b_{threads}_clients") or \
+                not classes.get("a_1_client") or not classes.get("b_1_client"):
+            raise AssertionError(f"a GET class is empty: "
+                                 f"{ {k: len(v) for k, v in classes.items()} }")
+        res["gets_ms"] = {k: percentiles(v) for k, v in sorted(classes.items())}
+
+        out, res["seconds"]["ec.rebuild"] = run_shell(
+            master, f"ec.rebuild -volumeId {vid}")
+        m = re.search(r"rebuilt shards \[([\d, ]*)\] on (\S+?)[;\s]", out)
+        t = re.search(r"copy ([\d.]+) s, rebuild ([\d.]+) s, "
+                      r"spread ([\d.]+) s", out)
+        if not m or not t or \
+                [int(x) for x in m.group(1).split(",")] != lost:
+            raise AssertionError(f"ec.rebuild: {out}")
+        rebuild_host = m.group(2)
+        for leg, g in (("copy", 1), ("rebuild", 2), ("spread", 3)):
+            res["seconds"][f"rebuild_{leg}"] = float(t.group(g))
+        holders = shard_holders(master, vid)
+        for sid in lost:
+            if not holders.get(sid) or any(
+                    sha256_file(shard_path(u, sid)) != hashes[sid]
+                    for u in holders[sid]):
+                raise AssertionError(f"rebuilt shard {sid} differs")
+
+        out, res["seconds"]["ec.decode"] = run_shell(
+            master, f"ec.decode -volumeId {vid}")
+        if f"decoded ec volume {vid}" not in out:
+            raise AssertionError(f"ec.decode: {out}")
+        timed_gets(master, rng.choice(len(needles), size=min(
+            decoded_reads, len(needles)), replace=False), needles, fids,
+            seed)
+
+        res["servers"] = {}
+        for url in alive:
+            counts = stop_volume_server(vs[url]["proc"])
+            if {k: counts[k] for k in expect[url]} != expect[url]:
+                raise AssertionError(f"{url} counted {counts}, its GETs "
+                                     f"needed {expect[url]}")
+            roles = [r for r, u in (("encode", source),
+                                    ("rebuild", rebuild_host)) if u == url]
+            res["servers"][url] = {"shards": held[url], "roles": roles,
+                                   **counts}
+        res["servers"][victim] = {"shards": lost, "roles": ["killed"]}
+        if engine == "tpu" and not (
+                res["servers"][source]["launches"] > 0
+                and res["servers"][rebuild_host]["launches"] > 0):
+            raise AssertionError(f"the encode or rebuild host launched no "
+                                 f"kernel: {res['servers']}")
+        procs[0].send_signal(signal.SIGTERM)
+        if procs[0].wait(timeout=10) != 0:
+            raise AssertionError("the master did not exit 0")
+        return res
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
 
 
 def percentiles(seconds: list[float]) -> dict:
@@ -865,12 +1214,46 @@ def main() -> int:
     if cli["launches"] <= 0:
         raise AssertionError("the CLI's server launched no kernel")
     log({"phase": "cli", "start_line": cli["start_line"],
+         "reduced": {"volume_bytes": CLI_VOLUME_BYTES,
+                     "from": "30,000 MB default volume size limit",
+                     "why": "run time limit; the cluster phase covers "
+                            "the CLI at 2 GiB"},
          "launches": cli["launches"],
          "start_seconds": cli["start_seconds"],
          "stop_seconds": cli["stop_seconds"],
          "degraded_get_ms": percentiles(cli["latency_s"]),
          "degraded_get_ms_8_clients": percentiles(
              cli["latency_8_clients_s"])})
+
+    work = tempfile.mkdtemp(prefix="chip_smoke-cluster-",
+                            dir=_build.BUILD_DIR)
+    try:
+        log({"phase": "cluster", "reduced": [
+            {"volume_bytes": VOLUME_BYTES,
+             "from": "30,000 MB default volume size limit (weed master "
+                     "-volumeSizeLimitMB)",
+             "why": "run time limit"},
+            {"pulse_seconds": 0.5,
+             "from": "5 s default heartbeat pulse (weed master/volume "
+                     "-pulseSeconds)",
+             "why": "the master drops a killed server after ten pulses: "
+                    "5 s in place of 50 s"}]})
+        cluster = run_cluster_phase("tpu", work, VOLUME_BYTES,
+                                    DEGRADED_READS, HTTP_THREADS,
+                                    HTTP_READS_PER_THREAD, DECODED_READS)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    cluster_launches = sum(s.get("launches", 0)
+                           for s in cluster["servers"].values())
+    s = cluster["seconds"]
+    log({"phase": "cluster_done", "needles": cluster["needles"],
+         "upload_bytes": cluster["upload_bytes"],
+         "dat_bytes": cluster["dat_bytes"],
+         "upload_MBps": cluster["upload_bytes"] / s["upload"] / 1e6,
+         "encode_GBps": cluster["dat_bytes"] / s["encode_generate"] / 1e9,
+         "seconds": s, "gets_ms": cluster["gets_ms"],
+         "servers": cluster["servers"], "launches": cluster_launches,
+         "nvidia_smi": card})
 
     cases = dict(kernel_cases())
     shapes = [
@@ -886,7 +1269,8 @@ def main() -> int:
         "name": "gf_matmul", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
-        "launches": launches + http_launches + cli["launches"],
+        "launches": launches + http_launches + cli["launches"]
+        + cluster_launches,
         "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -1,14 +1,23 @@
-"""Command line: ``python -m seaweedfs_tpu_torch volume [flags]``.
+"""Command line: ``python -m seaweedfs_tpu_torch master|volume|shell``.
 
-The ``weed volume`` subcommand (weed.py) with the flags this port serves:
+The ``weed master``, ``weed volume`` and ``weed shell`` subcommands
+(weed.py) with the flags this port serves:
 
+    python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000
     python -m seaweedfs_tpu_torch volume -dir /data -port 8080 \\
         -mserver 127.0.0.1:9333 -ec.engine tpu
+    python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \\
+        -c "ec.encode -volumeId 3; ec.rebuild -volumeId 3"
 
-``-ec.engine tpu`` (the default) runs EC on the CUDA card and fails
-without one; ``-ec.engine cpu`` runs the plain PyTorch versions.  The
-server runs until SIGINT or SIGTERM, then stops, prints how many GF
-kernels it launched, and exits 0.
+``-ec.engine tpu`` (the default) runs EC on the CUDA card: the server
+builds its kernel before it listens and fails without a card;
+``-ec.engine cpu`` runs the plain PyTorch versions.  The servers run
+until SIGINT or SIGTERM, a signal taken during start-up included, then
+stop and exit 0; the volume server's last line counts the GF kernels it
+launched and the EC intervals it lacked, fetched from a holder or
+reconstructed.  ``shell -c`` takes the admin lock, runs the
+``;``-separated commands, prints what each returns and unlocks; without
+``-c`` it reads commands from standard input.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ import argparse
 import signal
 import sys
 import threading
+from typing import Callable
 
 # the reference's engine names -> the port's devices ("mesh" is not ported)
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -25,6 +35,14 @@ ENGINES = {"tpu": "cuda", "cpu": "cpu"}
 def parse_args(argv: list[str]) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seaweedfs_tpu_torch")
     sub = p.add_subparsers(dest="command", required=True)
+    m = sub.add_parser("master", help="start a master")
+    m.add_argument("-ip", default="127.0.0.1")
+    m.add_argument("-port", type=int, default=9333)
+    m.add_argument("-volumeSizeLimitMB", type=int, default=30000)
+    m.add_argument("-defaultReplication", default="000")
+    m.add_argument("-pulseSeconds", type=float, default=5.0,
+                   help="heartbeat interval; a volume server silent for "
+                        "ten pulses is dropped")
     v = sub.add_parser("volume", help="start a volume server")
     v.add_argument("-dir", default="./data",
                    help="comma-separated data directories")
@@ -36,44 +54,115 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     v.add_argument("-rack", default="")
     v.add_argument("-max", type=int, default=8,
                    help="maximum number of volumes")
+    v.add_argument("-pulseSeconds", type=float, default=5.0,
+                   help="heartbeat interval")
     v.add_argument("-ec.engine", dest="ec_engine", default="tpu",
                    choices=sorted(ENGINES),
                    help="tpu: EC on the CUDA card; cpu: the plain versions")
+    s = sub.add_parser("shell", help="run admin shell commands")
+    s.add_argument("-master", default="127.0.0.1:9333")
+    s.add_argument("-c", default="",
+                   help="run these commands (; separated) and exit")
     return p.parse_args(argv)
 
 
-def cmd_volume(args: argparse.Namespace) -> int:
-    import torch
-
-    from .ops.gf_matmul import gf_matmul
-    from .volume_server.server import VolumeServer
-
-    vs = VolumeServer(args.dir.split(","), args.mserver, host=args.ip,
-                      port=args.port, data_center=args.dataCenter,
-                      rack=args.rack, max_volume_count=args.max,
-                      device=ENGINES[args.ec_engine]).start()
-    device = vs.store.device
-    card = (torch.cuda.get_device_name(device) if device.type == "cuda"
-            else "plain PyTorch")
-    print(f"volume server listening on {vs.url}, dirs {args.dir}, "
-          f"ec on {device} ({card})", flush=True)
+def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
+    """Install the SIGINT/SIGTERM handlers, then ``start()`` the server
+    (it returns the server's stop), run until a signal, and stop.  A
+    signal taken while the server starts stops it once it is up.  The
+    caller's handlers come back on the way out, a failed start's too."""
     stop = threading.Event()
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
-    # Python runs a handler on the main thread only.  When the kernel hands
-    # the signal to another thread (request, heartbeat or torch threads), an
-    # untimed wait here would never wake to run it, so wake every half second
-    while not stop.wait(0.5):
-        pass
-    vs.stop()
-    print(f"volume server stopped, ec kernel launches {gf_matmul.launches}",
-          flush=True)
+    previous = {sig: signal.signal(sig, lambda *_: stop.set())
+                for sig in (signal.SIGINT, signal.SIGTERM)}
+    try:
+        shutdown = start()
+        # Python runs a handler on the main thread only.  When the kernel
+        # hands the signal to another thread (request, heartbeat or torch
+        # threads), an untimed wait here would never wake to run it, so
+        # wake every half second
+        while not stop.wait(0.5):
+            pass
+        shutdown()
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+
+
+def cmd_master(args: argparse.Namespace) -> int:
+    from .master.server import MasterServer
+
+    def start():
+        ms = MasterServer(host=args.ip, port=args.port,
+                          volume_size_limit_mb=args.volumeSizeLimitMB,
+                          default_replication=args.defaultReplication,
+                          pulse_seconds=args.pulseSeconds).start()
+        print(f"master listening on {ms.url}", flush=True)
+        return ms.stop
+
+    _serve_until_signalled(start)
+    print("master stopped", flush=True)
+    return 0
+
+
+def cmd_volume(args: argparse.Namespace) -> int:
+    state = {}
+
+    def start():
+        import torch
+
+        from .ops import _build
+        from .volume_server.server import VolumeServer
+
+        vs = VolumeServer(args.dir.split(","), args.mserver, host=args.ip,
+                          port=args.port, data_center=args.dataCenter,
+                          rack=args.rack, max_volume_count=args.max,
+                          pulse_seconds=args.pulseSeconds,
+                          device=ENGINES[args.ec_engine])
+        device = vs.store.device
+        if device.type == "cuda":
+            # a kernel that does not build stops the server here, before
+            # it serves any request
+            _build.build(["crc32c", "gf_matmul"])
+        vs.start()
+        card = (torch.cuda.get_device_name(device) if device.type == "cuda"
+                else "plain PyTorch")
+        print(f"volume server listening on {vs.url}, dirs {args.dir}, "
+              f"ec on {device} ({card})", flush=True)
+        state["vs"] = vs
+        return vs.stop
+
+    _serve_until_signalled(start)
+    from .ops.gf_matmul import gf_matmul
+
+    reads = state["vs"].ec_reads
+    print(f"volume server stopped, ec kernel launches {gf_matmul.launches}, "
+          f"remote shard reads {reads['remote']}, "
+          f"reconstructed intervals {reads['reconstructed']}", flush=True)
+    return 0
+
+
+def cmd_shell(args: argparse.Namespace) -> int:
+    from .shell import CommandEnv, repl, run_command
+
+    if not args.c:
+        repl(args.master)
+        return 0
+    env = CommandEnv(args.master)
+    env.lock()
+    try:
+        for line in args.c.split(";"):
+            out = run_command(env, line.strip())
+            if out is not None:
+                print(out, flush=True)
+    finally:
+        env.unlock()
     return 0
 
 
 def main(argv: list[str]) -> int:
     args = parse_args(argv)
-    return cmd_volume(args)
+    return {"master": cmd_master, "volume": cmd_volume,
+            "shell": cmd_shell}[args.command](args)
 
 
 if __name__ == "__main__":

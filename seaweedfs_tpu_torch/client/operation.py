@@ -1,0 +1,201 @@
+"""Client verbs: assign, upload, lookup, download, delete.
+
+The port's copy of the HTTP verbs of seaweedfs_tpu/client/operation.py
+(weed/operation/ assign_file_id.go:37, upload_content.go, lookup.go,
+delete_content.go, submit.go) with its vid -> locations TTL cache
+(wdclient/vid_map.go).
+
+Not ported: the framed-TCP verbs (``upload_tcp``, ``download_tcp``), the
+push-updated location map (``keep_connected``, wdclient.py) and JWTs.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+import urllib.parse
+from dataclasses import dataclass
+from typing import Optional
+
+from ..utils.compression import (is_compressable_file_type,
+                                 maybe_decompress_data, maybe_gzip_data)
+from ..utils.httpd import HttpError, http_bytes, http_json
+
+
+@dataclass
+class Assignment:
+    fid: str
+    url: str
+    public_url: str
+    count: int
+
+
+class MasterClient:
+    """vid -> locations cache with TTL (wdclient/vid_map.go:44-160)."""
+
+    CACHE_SECONDS = 10.0
+
+    def __init__(self, master_url: str):
+        self.master_url = master_url
+        self._cache: dict[int, tuple[float, list[str]]] = {}
+
+    def assign(self, count: int = 1, collection: str = "",
+               replication: str = "", ttl: str = "",
+               data_center: str = "") -> Assignment:
+        q = urllib.parse.urlencode({
+            "count": count, "collection": collection,
+            "replication": replication, "ttl": ttl,
+            "dataCenter": data_center})
+        r = http_json("GET", f"http://{self.master_url}/dir/assign?{q}",
+                      timeout=30.0)
+        if r.get("error"):
+            raise HttpError(500, r["error"])
+        return Assignment(r["fid"], r["url"], r.get("publicUrl", r["url"]),
+                          int(r.get("count", count)))
+
+    def lookup(self, vid: int) -> list[str]:
+        cached = self._cache.get(vid)
+        now = time.time()
+        if cached and now - cached[0] < self.CACHE_SECONDS:
+            return cached[1]
+        urls = self.lookup_uncached(vid)
+        self._cache[vid] = (now, urls)
+        return urls
+
+    def lookup_uncached(self, vid: int) -> list[str]:
+        r = http_json("GET",
+                      f"http://{self.master_url}/dir/lookup?volumeId={vid}",
+                      timeout=30.0)
+        return [loc["url"] for loc in r.get("locations", [])]
+
+    def invalidate(self, vid: int) -> None:
+        self._cache.pop(vid, None)
+
+
+class WeedClient:
+    """One-shot operations against a master and its volume servers
+    (operation/submit.go flavor).  Reads pick a holder at random from
+    ``rng`` and fail over to the next; ``last_read_from`` names the
+    server that answered the last read."""
+
+    def __init__(self, master_url: str):
+        self.master = MasterClient(master_url)
+        self.rng = random.Random()
+        self.last_read_from = ""
+
+    def upload(self, data: bytes, name: str = "", mime: str = "",
+               collection: str = "", replication: str = "",
+               ttl: str = "", compress: Optional[bool] = None) -> str:
+        """Assign + POST; returns the fid.
+
+        compress=None sniffs the name/mime the way the reference client
+        does (upload_content.go:116, IsCompressableFileType); a gzip win
+        goes out with Content-Encoding so the volume server flags the
+        needle compressed."""
+        a = self.master.assign(collection=collection, replication=replication,
+                               ttl=ttl)
+        params = {}
+        if name:
+            params["name"] = name
+        if ttl:
+            params["ttl"] = ttl
+        q = "?" + urllib.parse.urlencode(params) if params else ""
+        headers = {"Content-Type": mime} if mime else {}
+        if compress is None and (name or mime):
+            ext = os.path.splitext(name)[1] if name else ""
+            compress, _ = is_compressable_file_type(ext, mime)
+        if compress:
+            gz = maybe_gzip_data(data)
+            if gz is not data:
+                data = gz
+                headers["Content-Encoding"] = "gzip"
+        last_err = None
+        for attempt in range(5):
+            status, body, _ = http_bytes(
+                "POST", f"http://{a.url}/{a.fid}{q}", data,
+                headers=headers or None, timeout=60.0)
+            if status in (200, 201):
+                return a.fid
+            last_err = HttpError(status, body.decode(errors="replace"))
+            if status == 409 or b"read only" in body:
+                # the volume went readonly (ec.encode, an operator fence)
+                # between assign and write: a FRESH assignment routes to a
+                # writable volume once the readonly delta reaches the
+                # master, within one heartbeat pulse
+                time.sleep(0.15 * (attempt + 1))
+                a = self.master.assign(collection=collection,
+                                       replication=replication, ttl=ttl)
+                continue
+            break
+        raise last_err
+
+    def download(self, fid: str) -> bytes:
+        """Full-blob GET; a gzip-encoded reply is decompressed."""
+        body, headers = self._get(fid, None)
+        if headers.get("Content-Encoding") == "gzip":
+            return maybe_decompress_data(body)
+        return body
+
+    def download_range(self, fid: str, offset: int, size: int) -> bytes:
+        """Ranged GET: only [offset, offset+size) travels the wire."""
+        if size <= 0:
+            return b""
+        body, _ = self._get(
+            fid, {"Range": f"bytes={offset}-{offset + size - 1}"},
+            ok=(200, 206))
+        return body
+
+    def _locate_retry(self, vid: int) -> list[str]:
+        """The volume's holders, riding out transient unregistration: a
+        starved heartbeat can drop a node for a pulse and the next pulse
+        re-registers it."""
+        for attempt in range(3):
+            try:
+                urls = self.master.lookup(vid)
+            except HttpError as e:
+                if e.status != 404 or attempt == 2:
+                    raise
+                urls = []
+            if urls:
+                return urls
+            time.sleep(0.3)
+            self.master.invalidate(vid)
+        return []
+
+    def _get(self, fid: str, extra_headers: Optional[dict],
+             ok: tuple = (200,)) -> tuple[bytes, dict]:
+        vid = int(fid.split(",")[0])
+        urls = self._locate_retry(vid)
+        if not urls:
+            raise HttpError(404, f"volume {vid} has no locations")
+        last_err = None
+        for url in self.rng.sample(urls, len(urls)):
+            status, body, rhdrs = http_bytes("GET", f"http://{url}/{fid}",
+                                             headers=extra_headers,
+                                             timeout=60.0)
+            if status in ok:
+                self.last_read_from = url
+                return body, rhdrs
+            if status == 302:
+                continue
+            if status == 0:  # dead server: fail over to the next holder
+                self.master.invalidate(vid)
+            last_err = HttpError(status or 503, body.decode(errors="replace"))
+        raise last_err or HttpError(404, "not found")
+
+    def delete(self, fid: str) -> None:
+        vid = int(fid.split(",")[0])
+        urls: list = []
+        for attempt in range(3):
+            try:
+                urls = self.master.lookup_uncached(vid)
+            except HttpError as e:
+                if e.status != 404 or attempt == 2:
+                    raise
+            if urls:
+                break
+            time.sleep(0.3)  # transient unregistration: next pulse heals
+        if not urls:
+            raise HttpError(404, f"volume {vid} has no locations")
+        http_bytes("DELETE", f"http://{urls[0]}/{fid}", timeout=60.0)

@@ -1,0 +1,360 @@
+"""Master server: assign, lookup, growth, heartbeat ingest, admin lock.
+
+The port's copy of the single-master core of seaweedfs_tpu/master/
+server.py (weed/server/master_server*.go + master_grpc_server*.go):
+
+  GET  /dir/assign      fid allocation (pick a writable volume, else grow)
+  GET  /dir/lookup      vid -> locations (normal and EC volumes)
+  GET  /dir/lookup_ec   vid -> shard id -> holders
+  GET  /dir/status      topology dump
+  GET  /cluster/status  leader info: a single master is always the leader
+  POST /heartbeat       volume-server full sync, or a delta between syncs
+  GET  /vol/grow        force growth;  GET /vol/status  volume inventory
+  GET|POST /col/delete  drop a collection's volumes and EC shards
+  POST|PUT /submit      assign + upload in one call
+  GET|HEAD /<vid>,<fid> redirect to a holder
+  POST /admin/lease, /admin/release   the shell's exclusive lock
+                        (master_grpc_server_admin.go:73-150)
+
+A janitor thread unregisters volume servers that stopped heartbeating.
+
+Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/*
+telemetry, alert, trace, heat, ledger, workload, capacity, autoscale,
+coordinator and watch routes, /metrics, /vol/vacuum and the maintenance
+scripts, the framed-TCP assign front, and security (guard, JWT, TLS,
+admission control).
+"""
+
+from __future__ import annotations
+
+import secrets
+import threading
+import time
+import urllib.parse
+from typing import Optional
+
+from ..storage.file_id import format_needle_id_cookie
+from ..storage.super_block import ReplicaPlacement
+from ..storage.ttl import TTL
+from ..utils.httpd import (HttpError, Request, Response, Router,
+                           extract_upload, http_json, qint, serve,
+                           stop_server)
+from .sequence import MemorySequencer
+from .topology import EcVolumeInfo, ShardBits, Topology, VolumeInfo
+from .volume_growth import grow_volume
+
+VERSION = "seaweedfs-tpu 0.1"
+
+
+def _ec_infos(entries: list[dict]) -> list[EcVolumeInfo]:
+    return [EcVolumeInfo(int(e["volume_id"]), e.get("collection", ""),
+                         ShardBits(int(e["ec_index_bits"])))
+            for e in entries]
+
+
+def _max_file_key(volumes: list[dict]) -> int:
+    return max((int(v.get("max_file_key", 0)) for v in volumes), default=0)
+
+
+class MasterServer:
+    def __init__(self, host: str = "127.0.0.1", port: int = 9333,
+                 volume_size_limit_mb: int = 30000,
+                 default_replication: str = "000",
+                 pulse_seconds: float = 5.0):
+        """A master at host:port.  Volume servers silent for ten pulses
+        are dropped."""
+        self.host, self.port = host, port
+        self.topo = Topology(volume_size_limit_mb * 1024 * 1024,
+                             pulse_seconds)
+        self.default_replication = default_replication
+        self.seq = MemorySequencer()
+        self.router = Router("master")
+        self._register_routes()
+        self._server = None
+        self._stop = threading.Event()
+        # admin lock (shell exclusivity), guarded by topo.lock
+        self._admin_token: Optional[int] = None
+        self._admin_lock_ts = 0.0
+        self._admin_client = ""
+        # lazy self-client for /submit (assign + upload in one call)
+        self._submit_client = None
+
+    # --- lifecycle --------------------------------------------------------
+    @property
+    def url(self) -> str:
+        return f"{self.host}:{self.port}"
+
+    def start(self) -> "MasterServer":
+        self._server = serve(self.router, self.host, self.port)
+        threading.Thread(target=self._janitor_loop, daemon=True,
+                         name="master-janitor").start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._server is not None:
+            stop_server(self._server)
+
+    def _janitor_loop(self) -> None:
+        while not self._stop.wait(self.topo.pulse_seconds):
+            for node in self.topo.dead_nodes():
+                self.topo.unregister_node(node)
+
+    def assign_fid(self, count: int = 1, collection: str = "",
+                   replication: str = "", ttl_str: str = "",
+                   preferred_dc: str = "") -> dict:
+        """fid allocation (master_grpc_server_volume.go:102 Assign): pick
+        a writable volume, growing one when there is none."""
+        replication = replication or self.default_replication
+        ttl = TTL.parse(ttl_str)
+        rp = ReplicaPlacement.parse(replication)
+        layout = self.topo.get_layout(collection, rp, ttl)
+        try:
+            vid, nodes = layout.pick_for_write()
+        except LookupError:
+            grow_volume(self.topo, collection, rp, ttl, self._allocate_rpc,
+                        preferred_dc=preferred_dc)
+            vid, nodes = layout.pick_for_write()
+        key = self.seq.next_file_id(count)
+        cookie = secrets.randbits(32)
+        node = self.topo.rng.choice(nodes)
+        return {"fid": f"{vid},{format_needle_id_cookie(key, cookie)}",
+                "url": node.url, "publicUrl": node.public_url,
+                "count": count}
+
+    def _allocate_rpc(self, node, vid: int, collection: str,
+                      replication: str, ttl: str) -> None:
+        http_json("POST", f"http://{node.url}/admin/assign_volume", {
+            "volume_id": vid, "collection": collection,
+            "replication": replication, "ttl": ttl,
+        }, timeout=30.0)
+
+    def _heartbeat(self, hb: dict) -> dict:
+        """One heartbeat (master_grpc_server.go:21-180): a full sync
+        registers the node and replaces its volumes and EC shards; a
+        delta applies only the changes, and from an unknown node asks for
+        a full resync.  Either re-seeds the key sequencer from the
+        largest needle key seen, so a restarted master never re-issues a
+        key."""
+        reply = {"volumeSizeLimit": self.topo.volume_size_limit,
+                 "leader": self.url}
+        if hb.get("delta"):
+            node = self.topo.find_node(hb["ip"], int(hb["port"]))
+            if node is None:
+                return {"resync": True, "leader": self.url}
+            new_volumes = hb.get("new_volumes", [])
+            self.topo.apply_volume_deltas(
+                node, [VolumeInfo.from_dict(v) for v in new_volumes],
+                [int(v) for v in hb.get("deleted_volumes", [])])
+            self.topo.apply_ec_deltas(
+                node, _ec_infos(hb.get("new_ec_shards", [])),
+                [int(v) for v in hb.get("deleted_ec_shards", [])])
+        else:
+            node = self.topo.register_node(
+                hb["ip"], int(hb["port"]), hb.get("public_url", ""),
+                hb.get("data_center") or "DefaultDataCenter",
+                hb.get("rack") or "DefaultRack",
+                int(hb.get("max_volume_count", 8)))
+            new_volumes = hb.get("volumes", [])
+            self.topo.sync_node_volumes(
+                node, [VolumeInfo.from_dict(v) for v in new_volumes])
+            self.topo.sync_node_ec_shards(node,
+                                          _ec_infos(hb.get("ec_shards", [])))
+        max_key = _max_file_key(new_volumes)
+        if max_key:
+            self.seq.set_max(max_key)
+        return reply
+
+    # --- routes -----------------------------------------------------------
+    def _register_routes(self) -> None:
+        r = self.router
+
+        @r.route("GET", "/dir/assign")
+        def assign(req: Request) -> Response:
+            return Response(self.assign_fid(
+                count=qint(req.query, "count", 1),
+                collection=req.query.get("collection", ""),
+                replication=req.query.get("replication", ""),
+                ttl_str=req.query.get("ttl", ""),
+                preferred_dc=req.query.get("dataCenter", "")))
+
+        @r.route("GET", "/dir/lookup")
+        def lookup(req: Request) -> Response:
+            vid_str = req.query.get("volumeId", "")
+            vid = int(vid_str.split(",")[0])
+            nodes = self.topo.lookup(vid, req.query.get("collection", ""))
+            if not nodes:
+                return Response({"volumeId": vid_str,
+                                 "error": "volume id not found"}, status=404)
+            return Response({
+                "volumeId": vid_str,
+                "locations": [{"url": n.url, "publicUrl": n.public_url}
+                              for n in nodes]})
+
+        @r.route("GET", "/dir/lookup_ec")
+        def lookup_ec(req: Request) -> Response:
+            vid = qint(req.query, "volumeId")
+            locs = self.topo.lookup_ec_shards(vid)
+            if locs is None:
+                raise HttpError(404, f"ec volume {vid} not found")
+            return Response({
+                "volumeId": vid,
+                "collection": self.topo.ec_collections.get(vid, ""),
+                "shards": {str(sid): [n.url for n in nodes]
+                           for sid, nodes in locs.items()},
+            })
+
+        @r.route("GET", "/dir/status")
+        def dir_status(req: Request) -> Response:
+            return Response({"Topology": self.topo.to_map(),
+                             "Version": VERSION,
+                             "VolumeSizeLimitMB":
+                                 self.topo.volume_size_limit >> 20})
+
+        @r.route("GET", "/cluster/status")
+        def cluster_status(req: Request) -> Response:
+            return Response({"IsLeader": True, "Leader": self.url,
+                             "Peers": []})
+
+        @r.route("POST", "/heartbeat")
+        def heartbeat(req: Request) -> Response:
+            return Response(self._heartbeat(req.json()))
+
+        @r.route("GET", "/vol/grow")
+        def vol_grow(req: Request) -> Response:
+            rp = ReplicaPlacement.parse(req.query.get("replication")
+                                        or self.default_replication)
+            ttl = TTL.parse(req.query.get("ttl", ""))
+            collection = req.query.get("collection", "")
+            # one at a time, so a failure mid-batch still reports the
+            # volumes that did grow (they are live on the servers)
+            grown: list[int] = []
+            grow_err = None
+            for _ in range(qint(req.query, "count", 1)):
+                try:
+                    grown += grow_volume(self.topo, collection, rp, ttl,
+                                         self._allocate_rpc)
+                except HttpError as e:
+                    if not grown:
+                        raise
+                    grow_err = e.message or str(e)
+                    break
+            result = {"count": len(grown), "volumeIds": grown}
+            if grow_err:
+                result["error"] = grow_err
+            return Response(result)
+
+        @r.route("GET", "/vol/status")
+        def vol_status(req: Request) -> Response:
+            """volumeStatusHandler: per-node volume inventory keyed
+            dc -> rack -> server."""
+            vols: dict = {}
+            with self.topo.lock:
+                for dc in self.topo.data_centers.values():
+                    d = vols.setdefault(dc.name, {})
+                    for rack in dc.racks.values():
+                        rk = d.setdefault(rack.name, {})
+                        for n in rack.nodes.values():
+                            rk[n.url] = n.to_map()["VolumeInfos"]
+            return Response({"Version": VERSION, "Volumes": vols})
+
+        @r.route("GET", "/col/delete")
+        @r.route("POST", "/col/delete")
+        def col_delete(req: Request) -> Response:
+            """collectionDeleteHandler: drop every volume and EC shard of
+            a collection on its servers, then forget its layouts."""
+            name = req.query.get("collection", "")
+            with self.topo.lock:
+                keys = [k for k in self.topo.layouts if k[0] == name]
+                vid_nodes = [
+                    (vid, [n.url for n in nodes])
+                    for k in keys
+                    for vid, nodes in self.topo.layouts[k].vid_to_nodes.items()]
+                ec_vids = [vid for vid, c in self.topo.ec_collections.items()
+                           if c == name]
+                ec_holders = [
+                    (vid, sid, [n.url for n in nodes])
+                    for vid in ec_vids
+                    for sid, nodes in
+                    (self.topo.ec_shard_locations.get(vid) or {}).items()]
+            if not keys and not ec_vids:
+                raise HttpError(400, f"collection {name!r} does not exist")
+            for vid, urls in vid_nodes:
+                for url in urls:
+                    http_json("POST", f"http://{url}/admin/delete_volume",
+                              {"volume_id": vid}, timeout=30.0)
+            for vid, sid, urls in ec_holders:
+                for url in urls:
+                    http_json("POST", f"http://{url}/admin/ec/delete",
+                              {"volume_id": vid, "collection": name,
+                               "shard_ids": [sid]}, timeout=30.0)
+            with self.topo.lock:
+                for k in keys:
+                    self.topo.layouts.pop(k, None)
+                for vid in ec_vids:
+                    self.topo.ec_shard_locations.pop(vid, None)
+                    self.topo.ec_collections.pop(vid, None)
+            return Response(None, status=204, raw=b"")
+
+        @r.route("POST", "/submit")
+        @r.route("PUT", "/submit")
+        def submit(req: Request) -> Response:
+            """submitFromMasterServerHandler: assign + upload in one call,
+            through WeedClient.upload and its reassign-on-readonly loop."""
+            data, fname, mime = extract_upload(
+                req.body, req.headers.get("Content-Type") or "")
+            if self._submit_client is None:
+                from ..client.operation import WeedClient
+
+                self._submit_client = WeedClient(self.url)
+            collection = req.query.get("collection", "")
+            fid = self._submit_client.upload(
+                data, name=fname, mime=mime, collection=collection,
+                replication=req.query.get("replication", ""),
+                ttl=req.query.get("ttl", ""))
+            nodes = self.topo.lookup(int(fid.split(",")[0]), collection)
+            public = nodes[0].public_url if nodes else ""
+            return Response({"fid": fid, "fileName": fname,
+                             "fileUrl": f"{public}/{fid}",
+                             "size": len(data)}, status=201)
+
+        @r.route("GET", r"/(\d+),([0-9a-f]+)")
+        @r.route("HEAD", r"/(\d+),([0-9a-f]+)")
+        def redirect_to_volume(req: Request) -> Response:
+            """redirectHandler: a permanent redirect to a holder, with the
+            query string kept."""
+            vid = int(req.match.group(1))
+            nodes = self.topo.lookup(vid, req.query.get("collection", ""))
+            if not nodes:
+                raise HttpError(404, f"volume id {vid} not found")
+            n = self.topo.rng.choice(nodes)
+            raw_query = urllib.parse.urlparse(req.handler.path).query
+            loc = (f"http://{n.public_url}"
+                   f"{urllib.parse.quote(req.path, safe='/,')}")
+            if raw_query:
+                loc += "?" + raw_query
+            return Response(None, status=308, raw=b"",
+                            headers={"Location": loc})
+
+        @r.route("POST", "/admin/lease")
+        def admin_lease(req: Request) -> Response:
+            body = req.json()
+            now = time.time()
+            prev = body.get("previous_token") or None
+            with self.topo.lock:
+                expired = now - self._admin_lock_ts > 60
+                if self._admin_token is None or expired \
+                        or prev == self._admin_token:
+                    self._admin_token = secrets.randbits(63)
+                    self._admin_lock_ts = now
+                    self._admin_client = body.get("client_name", "")
+                    return Response({"token": self._admin_token,
+                                     "lock_ts_ns": int(now * 1e9)})
+            raise HttpError(423, f"already locked by {self._admin_client}")
+
+        @r.route("POST", "/admin/release")
+        def admin_release(req: Request) -> Response:
+            with self.topo.lock:
+                if req.json().get("previous_token") == self._admin_token:
+                    self._admin_token = None
+            return Response({})

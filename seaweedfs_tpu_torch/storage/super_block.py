@@ -42,6 +42,10 @@ class ReplicaPlacement:
     def to_byte(self) -> int:
         return self.diff_dc * 100 + self.diff_rack * 10 + self.same_rack
 
+    @property
+    def copy_count(self) -> int:
+        return self.diff_dc + self.diff_rack + self.same_rack + 1
+
     def __str__(self) -> str:
         return f"{self.diff_dc}{self.diff_rack}{self.same_rack}"
 

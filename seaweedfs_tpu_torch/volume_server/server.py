@@ -105,6 +105,11 @@ class VolumeServer:
         self._vid_lock = threading.Lock()
         self._vid_cache: dict[int, tuple[list, float]] = {}
         self.vid_cache_ttl = 10.0
+        # EC intervals this server lacked: served by a holder's
+        # /admin/ec/shard_read ("remote") or rebuilt here
+        # ("reconstructed"); the CLI prints both when it stops
+        self._ec_reads_lock = threading.Lock()
+        self.ec_reads = {"remote": 0, "reconstructed": 0}
 
     @property
     def url(self) -> str:
@@ -284,6 +289,7 @@ class VolumeServer:
                 "GET", self._shard_read_url(url, vid, shard_id, offset,
                                             length), timeout=60.0)
             if status == 200:
+                self._count_ec_read("remote")
                 return body
         rs = self.store.rs()
         bufs: list = [None] * TOTAL_SHARDS_COUNT
@@ -310,8 +316,13 @@ class VolumeServer:
                     break
         if have < rs.data_shards:
             raise HttpError(404, f"cannot recover shard {shard_id} of {vid}")
+        self._count_ec_read("reconstructed")
         rs.reconstruct(bufs)
         return bufs[shard_id].tobytes()
+
+    def _count_ec_read(self, how: str) -> None:
+        with self._ec_reads_lock:
+            self.ec_reads[how] += 1
 
     def _check_engine(self, body: dict) -> None:
         """An EC request may name the reference's engines: absent or "tpu"

@@ -25,13 +25,13 @@ from ..ec.codec import ReedSolomon
 from ..ec.ec_volume import EcVolume, NeedleNotFoundError
 from ..ec.layout import DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT, to_ext
 from ..ec.streaming import StreamingEncoder
+from ..master.topology import ShardBits
 from ..ops.gf_matmul import resolve_device
 from ..storage.needle import Needle
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..storage.types import size_is_deleted
 from ..storage.volume import Volume, volume_file_prefix
-from .shard_bits import ShardBits
 
 _VOLUME_NAME = re.compile(r"(?:[\w.-]+_)?\d+")
 

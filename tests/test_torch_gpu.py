@@ -1,5 +1,5 @@
-"""The port on a CUDA card: kernel against plain version, and the card's
-pipeline against the CPU one, byte for byte.
+"""The port on a CUDA card: kernel against plain version, the card's
+pipeline against the CPU one, byte for byte, and a two-server cluster.
 
 Marked ``gpu``; each test skips when no card is present.  This file
 imports no jax, so it also runs on a machine with a card and no JAX:
@@ -156,3 +156,71 @@ def test_volume_server_on_the_card(cuda, tmp_path):
         assert gf_matmul.launches > before
     finally:
         vs.stop()
+
+
+def test_two_server_cluster_on_the_card(cuda, tmp_path):
+    """The port's master, two card servers and the shell: upload through
+    WeedClient, ec.encode, two shards deleted, GETs from both servers
+    (each fetches what the other holds and reconstructs what is gone),
+    ec.rebuild, ec.decode."""
+    import socket
+    import time
+
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    master = MasterServer(port=free_port(), pulse_seconds=0.3).start()
+    servers = []
+    try:
+        for i in range(2):
+            d = tmp_path / f"vs{i}"
+            d.mkdir()
+            servers.append(VolumeServer([str(d)], master.url,
+                                        port=free_port(),
+                                        pulse_seconds=0.3).start())
+        deadline = time.monotonic() + 30
+        while len(master.topo.all_nodes()) < 2:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        client = WeedClient(master.url)
+        rng = np.random.default_rng(11)
+        blobs = [rng.bytes(int(rng.integers(1, 1 << 20))) for _ in range(30)]
+        fids = [client.upload(b, collection="ec") for b in blobs]
+        vid = int(fids[0].split(",")[0])
+        env = CommandEnv(master.url)
+        env.lock()
+        before = gf_matmul.launches
+        assert "via tpu engine" in run_command(
+            env, f"ec.encode -volumeId {vid} -collection ec")
+        assert gf_matmul.launches > before
+        holder = next(vs for vs in servers
+                      if 0 in vs.store.ec_volumes[vid].shards)
+        http_json("POST", f"http://{holder.url}/admin/ec/delete",
+                  {"volume_id": vid, "collection": "ec", "shard_ids": [0, 2]})
+        for vs in servers:
+            vs.heartbeat_now()
+        before = gf_matmul.launches
+        for vs in servers:
+            for fid, blob in zip(fids, blobs):
+                assert http_bytes("GET", f"http://{vs.url}/{fid}")[1] == blob
+        assert gf_matmul.launches > before
+        assert all(vs.ec_reads["remote"] > 0 for vs in servers)
+        assert "rebuilt shards [0, 2]" in run_command(
+            env, f"ec.rebuild -volumeId {vid}")
+        assert "decoded ec volume" in run_command(
+            env, f"ec.decode -volumeId {vid}")
+        env.unlock()
+        for fid, blob in zip(fids, blobs):
+            assert client.download(fid) == blob
+    finally:
+        for vs in servers:
+            vs.stop()
+        master.stop()

@@ -72,6 +72,30 @@ def test_cli_phase_on_cpu(tmp_path):
     assert res["launches"] == 0  # the plain version launches nothing
 
 
+def test_cluster_phase_on_cpu(tmp_path):
+    """The master, five volume servers and the shell through the CLI, on
+    the plain versions: upload, ec.encode, a SIGKILLed holder, degraded
+    GETs of both classes, ec.rebuild, ec.decode."""
+    res = chip_smoke.run_cluster_phase(
+        "cpu", str(tmp_path), 12 << 20, reads=16, threads=3, per_thread=5,
+        decoded_reads=6, pulse_seconds=0.3)
+    assert res["dat_bytes"] >= 12 << 20
+    assert {"a_1_client", "b_1_client", "a_3_clients",
+            "b_3_clients"} <= set(res["gets_ms"])
+    for leg in ("upload", "ec.encode", "encode_generate", "encode_spread",
+                "drop", "ec.rebuild", "rebuild_copy", "rebuild_rebuild",
+                "rebuild_spread", "ec.decode"):
+        assert res["seconds"][leg] >= 0, leg
+    roles = [r for s in res["servers"].values() for r in s["roles"]]
+    assert sorted(roles) == ["encode", "killed", "rebuild"]
+    # every server counted exactly the remote reads and reconstructions
+    # its GETs needed (checked inside); some of each happened
+    alive = [s for s in res["servers"].values() if "killed" not in s["roles"]]
+    assert sum(s["remote"] for s in alive) > 0
+    assert sum(s["reconstructed"] for s in alive) > 0
+    assert all(s["launches"] == 0 for s in alive)  # the plain versions
+
+
 def test_refuses_without_a_card_or_a_checkout(tmp_path):
     # no card here: exits non-zero, prints no result
     r = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
