@@ -13,18 +13,27 @@ result.  Phases, each of which fails the run on any mismatch:
     byte for byte, at every shape the main path gives it, plus one shape
     against the host multiplication table;
  3. the main path through ``Store(device="cuda")``: write a 2 GiB volume
-    of seeded needles (log-uniform 1 KiB - 4 MiB), EC-encode it, check
+    of seeded needles (log-uniform 1 KiB - 4 MiB), EC-encode it (the
+    parity drained and written on the encoder's drain threads), check
     sampled parity against the host table and every shard against its
     `.eci`, encode a small volume with large rows, delete and rebuild four
     shards (hashes must match), and serve 200 degraded needle reads with
-    two data shards gone (bytes and CRC must match);
+    two data shards gone (bytes and CRC must match); then the resume: the
+    same volume encoded again with the ``ec.dispatch`` fault point failing
+    the middle dispatch once, which must resume from its checkpoint (one
+    retry, at most depth + 1 dispatches redone) to the clean encode's
+    sha256 of every shard and the `.eci`;
  4. the HTTP path through an in-process ``VolumeServer(device="cuda")``:
     write a 2 GiB volume with HTTP PUTs (names, mime types and gzip bodies
     among them), ``/admin/ec/generate``, check parity and `.eci` again,
     GETs through EC (ETag, type, Range, If-None-Match), delete and
     ``/admin/ec/rebuild`` four shards (hashes must match), 200 degraded
     GETs from one client and 200 from eight at once with shards 2 and 7
-    gone, then ``/admin/ec/to_volume`` and GETs from the decoded volume;
+    gone, the scrubber (``/ec/scrub/start`` and ``/ec/scrub/status``): a
+    clean pass, then a bit flipped in shards 3 and 12 and a pass that must
+    quarantine both to ``.bad`` and rebuild them on the card to their
+    sha256 while a reader's GETs keep returning the written bytes, then
+    ``/admin/ec/to_volume`` and GETs from the decoded volume;
  5. the CLI: ``python -m seaweedfs_tpu_torch volume -ec.engine tpu`` in a
     subprocess, whose start line must name the card, serves a 64 MiB
     volume's degraded GETs and exits 0 on SIGTERM, printing the kernel
@@ -36,7 +45,11 @@ result.  Phases, each of which fails the run on any mismatch:
     by the master, 200 + 8x25 degraded GETs classed by whether the shard
     they need lies on another live server (a remote shard read) or was
     lost (a reconstruction), ``ec.rebuild`` (the rebuilt shards must
-    match their sha256), ``ec.decode`` and 50 GETs of the decoded volume.
+    match their sha256), a bit flipped in a shard of a server holding
+    fewer than 10 (``ec.scrub -all`` must call it unrepairable and
+    quarantine it, ``ec.rebuild`` heal it to its sha256, and a second
+    ``ec.scrub -all`` find nothing unrepairable), ``ec.decode`` and 50
+    GETs of the decoded volume.
     Each server's stop line must count exactly the remote reads and
     reconstructions its GETs needed, and the encode and rebuild hosts
     must have launched the kernel;
@@ -316,6 +329,9 @@ def run_main_path(device: str, work: str, volume_bytes: int,
 
         store.ec_mount(1)
         hashes = {i: sha256_file(base + to_ext(i)) for i in range(14)}
+        # the clean encode's bytes, which the resume phase must reproduce
+        res["hashes"] = {**{to_ext(i): h for i, h in hashes.items()},
+                         ".eci": sha256_file(base + ".eci")}
         lost = [0, 3, 11, 13]
         store.ec_delete_shards(1, lost)
         before = gf_matmul.launches
@@ -356,6 +372,69 @@ def run_main_path(device: str, work: str, volume_bytes: int,
     finally:
         store.close()
     return res
+
+
+def run_resume_phase(device: str, work: str, hashes: dict,
+                     dispatch_b: int = 0) -> dict:
+    """The main path's volume encoded again through Store(device=...)
+    with ``ec.dispatch`` failing once, before the middle dispatch is
+    launched: the encode must resume from its checkpoint (one retry, a
+    resume byte past 0) and write the clean encode's bytes, every shard
+    and the `.eci` by sha256.  ``dispatch_b`` overrides the dispatch
+    width (the CPU rehearsal's volume is a few dispatches wide only at
+    a narrow one).  Returns the dispatch the fault hit, launches and
+    stats."""
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+    from seaweedfs_tpu_torch.utils import faultinject
+    from seaweedfs_tpu_torch.volume_server.store import Store
+
+    store = Store([work], device=device)
+    try:
+        enc = store.streaming_encoder()
+        if dispatch_b:
+            enc.dispatch_b = dispatch_b
+        base = store.get_volume(1).file_prefix
+        # every plan entry fills a dispatch evenly at these widths
+        dispatches = -(-os.path.getsize(base + to_ext(0)) // enc.dispatch_b)
+        fail_at = dispatches // 2
+        if fail_at <= enc.depth + 1:
+            raise AssertionError(f"{dispatches} dispatches: too few for a "
+                                 "checkpoint before the fault")
+        faultinject.enable("ec.dispatch", error_rate=1.0, max_hits=1,
+                           after=fail_at - 1)
+        try:
+            before = gf_matmul.launches
+            t0 = time.perf_counter()
+            store.ec_generate(1)
+            if device == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = gf_matmul.launches - before
+            fired = faultinject.fired("ec.dispatch")
+        finally:
+            faultinject.clear()
+        st = dict(enc.stats)
+        got = {ext: sha256_file(base + ext) for ext in hashes}
+    finally:
+        store.close()
+    if fired != 1 or st["retries"] != 1 or st["resume_byte"] <= 0:
+        raise AssertionError(f"resume: fault fired {fired}, stats {st}")
+    if got != hashes:
+        raise AssertionError("resumed encode differs from the clean one: "
+                             f"{sorted(e for e in got if got[e] != hashes[e])}")
+    # a resume redoes at most the dispatches in flight at the fault; a
+    # restart from byte 0 would redo all those before it
+    bound = dispatches + enc.depth + 1
+    if device == "cuda" and not 0 < launches <= bound:
+        raise AssertionError(f"resume launched {launches} kernels for "
+                             f"{dispatches} dispatches")
+    return {"dispatches": dispatches, "failed_dispatch": fail_at,
+            "launch_bound": bound,
+            "launches": launches, "seconds": seconds,
+            "resume_byte": st["resume_byte"], "stats": st}
 
 
 def free_port() -> int:
@@ -572,6 +651,10 @@ def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
         if conn.admin("/admin/ec/rebuild",
                       {"volume_id": 1})["rebuilt_shard_ids"] != [2, 7]:
             raise AssertionError("second rebuild")
+        conn.admin("/admin/ec/mount", {"volume_id": 1})
+        before = gf_matmul.launches
+        res["scrub"] = scrub_and_repair(vs, base, needles, seed)
+        res["launches"]["scrub_repair"] = gf_matmul.launches - before
         t0 = time.perf_counter()
         conn.admin("/admin/ec/to_volume", {"volume_id": 1})
         res["seconds"]["to_volume"] = time.perf_counter() - t0
@@ -585,6 +668,103 @@ def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
         conn.close()
         vs.stop()
     return res
+
+
+def flip_byte(path: str, offset: int) -> None:
+    """Rot on the medium: one bit of ``path`` at ``offset`` flipped."""
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        c = f.read(1)
+        f.seek(offset)
+        f.write(bytes([c[0] ^ 0x10]))
+
+
+def scrub_pass(conn: Conn) -> tuple[dict, float]:
+    """``POST /ec/scrub/start`` one unthrottled pass and poll
+    ``/ec/scrub/status`` until it ends; -> (status, seconds)."""
+    t0 = time.perf_counter()
+    if not conn.admin("/ec/scrub/start", {"rate_mb_s": 0,
+                                          "interval_s": 0})["started"]:
+        raise AssertionError("a scrub was already running")
+    while True:
+        status, body, _ = conn.call("GET", "/ec/scrub/status")
+        st = json.loads(body)
+        if status != 200:
+            raise AssertionError(f"/ec/scrub/status: {status}")
+        if not st["running"]:
+            return st, time.perf_counter() - t0
+        if time.perf_counter() - t0 > 600:
+            raise AssertionError("scrub pass did not end")
+        time.sleep(0.1)
+
+
+def scrub_and_repair(vs, base: str, needles: list[dict], seed: int) -> dict:
+    """The scrubber on a volume server holding all 14 shards: a clean
+    pass (its scan rate), then a bit flipped in data shard 3 and parity
+    shard 12 and a second pass, which must quarantine both to `.bad`,
+    rebuild them on the server's device to their original sha256, and
+    leave the volume mounted whole.  A reader GETs needles throughout the
+    repair, under the server's 50 requests/s scrub gate; each must come
+    back as written."""
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+
+    conn = Conn(vs.url)
+    try:
+        st, clean_s = scrub_pass(conn)
+        blocks = st["verdicts"]["1"].get("blocks", 0)
+        if st["verdicts"]["1"]["status"] != "clean" or not blocks:
+            raise AssertionError(f"clean scrub pass: {st['verdicts']}")
+        scanned = sum(os.path.getsize(base + to_ext(i)) for i in range(14))
+        rotted = [3, 12]
+        hashes = {i: sha256_file(base + to_ext(i)) for i in rotted}
+        for i in rotted:
+            flip_byte(base + to_ext(i),
+                      os.path.getsize(base + to_ext(i)) // 3)
+        stop = threading.Event()
+        gets: list = []
+        errors: list = []
+
+        def reader() -> None:
+            c = Conn(vs.url)
+            rng = np.random.default_rng([seed, 99])
+            try:
+                while not stop.is_set():
+                    n = needles[int(rng.integers(len(needles)))]
+                    gets.append(check_get(c, n))
+                    time.sleep(0.05)
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                errors.append(e)
+            finally:
+                c.close()
+
+        t = threading.Thread(target=reader)
+        t.start()
+        try:
+            st, repair_s = scrub_pass(conn)
+        finally:
+            stop.set()
+            t.join(timeout=120)
+        if errors or t.is_alive():
+            raise AssertionError(f"GET during the repair: {errors[:1]}")
+        verdict = st["verdicts"]["1"]
+        if verdict["status"] != "repaired" or \
+                verdict["corrupt_shards"] != rotted:
+            raise AssertionError(f"scrub of rotted shards: {verdict}")
+        for i in rotted:
+            if not os.path.exists(base + to_ext(i) + ".bad") or \
+                    sha256_file(base + to_ext(i)) != hashes[i]:
+                raise AssertionError(f"shard {i} not quarantined or "
+                                     "not repaired to its bytes")
+        if sorted(vs.store.ec_volumes[1].shards) != list(range(14)):
+            raise AssertionError("the repaired volume is not whole")
+        return {"clean_pass_s": clean_s, "scanned_bytes": scanned,
+                "scan_GBps": scanned / clean_s / 1e9, "blocks": blocks,
+                "repair_pass_s": repair_s, "verdict": verdict,
+                "gets_during_repair": len(gets),
+                "get_ms_during_repair": percentiles(gets) if gets else None,
+                "rebuild_stats": dict(vs.store.streaming_encoder().stats)}
+    finally:
+        conn.close()
 
 
 def start_cli(args: list[str], log_path: str) -> subprocess.Popen:
@@ -959,6 +1139,43 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                     for u in holders[sid]):
                 raise AssertionError(f"rebuilt shard {sid} differs")
 
+        # bit rot on one server that holds fewer than 10 shards: its
+        # scrubber can only quarantine, and ec.rebuild heals the set
+        holders = shard_holders(master, vid)
+        held_now = {u: sorted(s for s, us in holders.items() if u in us)
+                    for u in alive}
+        rot_host = min((u for u in alive if len(held_now[u]) >= 2),
+                       key=lambda u: (-len(held_now[u]), u))
+        rot_shard = held_now[rot_host][-1]
+        rot_path = shard_path(rot_host, rot_shard)
+        flip_byte(rot_path, os.path.getsize(rot_path) // 2)
+        out, res["seconds"]["ec.scrub"] = run_shell(
+            master, "ec.scrub -all -rate 0")
+        want = (f"  volume {vid}: unrepairable "
+                f"corrupt_shards=[{rot_shard}]")
+        if not out.startswith("cluster scrub: DEGRADED") or \
+                want not in out.splitlines() or \
+                not os.path.exists(rot_path + ".bad"):
+            raise AssertionError(f"ec.scrub -all: {out}")
+        wait_for("the master to drop the quarantined shard",
+                 lambda: rot_host not in shard_holders(master, vid).get(
+                     rot_shard, []), 60)
+        out, res["seconds"]["ec.rebuild_after_scrub"] = run_shell(
+            master, f"ec.rebuild -volumeId {vid}")
+        if f"rebuilt shards [{rot_shard}]" not in out:
+            raise AssertionError(f"ec.rebuild after the scrub: {out}")
+        holders = shard_holders(master, vid)
+        if not holders.get(rot_shard) or any(
+                sha256_file(shard_path(u, rot_shard)) != hashes[rot_shard]
+                for u in holders[rot_shard]):
+            raise AssertionError(f"healed shard {rot_shard} differs")
+        out, res["seconds"]["ec.scrub_again"] = run_shell(
+            master, "ec.scrub -all -rate 0")
+        if not re.search(r"unrepairable=0$", out.splitlines()[0]):
+            raise AssertionError(f"ec.scrub -all after the heal: {out}")
+        res["scrub"] = {"host": rot_host, "shard": rot_shard,
+                        "healed_on": holders[rot_shard]}
+
         out, res["seconds"]["ec.decode"] = run_shell(
             master, f"ec.decode -volumeId {vid}")
         if f"decoded ec volume {vid}" not in out:
@@ -1089,6 +1306,7 @@ def profile_encode(dat_path: str, out_base: str) -> dict:
     by_name = device_ms(prof)
     busy_ms = sum(by_name.values())
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_busy_share": busy_ms / wall_ms,
             "device_idle_share": 1 - busy_ms / wall_ms if busy_ms else None,
             "device_ms": by_name, "stats": enc.stats}
 
@@ -1149,6 +1367,9 @@ def main() -> int:
         launches = gf_matmul.launches
         prof = profile_encode(os.path.join(work, "1.dat"),
                               os.path.join(work, "profiled"))
+        gf_matmul.launches = 0
+        resume = run_resume_phase("cuda", work, res["hashes"])
+        resume_launches = gf_matmul.launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
     for leg, n in res["launches"].items():
@@ -1168,6 +1389,15 @@ def main() -> int:
          "nvidia_smi": card})
     log({"phase": "pipeline_stats", **res["stats"]})
     log({"phase": "profiled_encode", **prof})
+    if resume_launches <= 0:
+        raise AssertionError("the resumed encode launched no kernel")
+    log({"phase": "resume", "dispatches": resume["dispatches"],
+         "failed_dispatch": resume["failed_dispatch"],
+         "launches": resume_launches,
+         "launch_bound": resume["launch_bound"],
+         "resume_byte": resume["resume_byte"], "seconds": resume["seconds"],
+         "sha256_equal_to_clean": True, "stats": resume["stats"],
+         "nvidia_smi": card})
 
     work = tempfile.mkdtemp(prefix="chip_smoke-http-", dir=_build.BUILD_DIR)
     try:
@@ -1196,6 +1426,7 @@ def main() -> int:
              http["latency_1_client_s"]),
          "degraded_get_ms_8_clients": percentiles(
              http["latency_8_clients_s"]),
+         "scrub": http["scrub"],
          "http_over_store": {
              "encode_s": http["seconds"]["encode"]
              - res["seconds"]["encode"],
@@ -1252,6 +1483,7 @@ def main() -> int:
          "upload_MBps": cluster["upload_bytes"] / s["upload"] / 1e6,
          "encode_GBps": cluster["dat_bytes"] / s["encode_generate"] / 1e9,
          "seconds": s, "gets_ms": cluster["gets_ms"],
+         "scrub": cluster["scrub"],
          "servers": cluster["servers"], "launches": cluster_launches,
          "nvidia_smi": card})
 
@@ -1269,8 +1501,8 @@ def main() -> int:
         "name": "gf_matmul", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
-        "launches": launches + http_launches + cli["launches"]
-        + cluster_launches,
+        "launches": launches + resume_launches + http_launches
+        + cli["launches"] + cluster_launches,
         "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

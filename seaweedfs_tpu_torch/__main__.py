@@ -18,6 +18,10 @@ launched and the EC intervals it lacked, fetched from a holder or
 reconstructed.  ``shell -c`` takes the admin lock, runs the
 ``;``-separated commands, prints what each returns and unlocks; without
 ``-c`` it reads commands from standard input.
+
+Every subcommand first arms the fault points named in ``WEED_FAULTS``
+(utils/faultinject.py ``arm_from_env``), e.g.
+``WEED_FAULTS="ec.dispatch:error_rate=1,max_hits=1,after=12"``.
 """
 
 from __future__ import annotations
@@ -160,7 +164,10 @@ def cmd_shell(args: argparse.Namespace) -> int:
 
 
 def main(argv: list[str]) -> int:
+    from .utils import faultinject
+
     args = parse_args(argv)
+    faultinject.arm_from_env()
     return {"master": cmd_master, "volume": cmd_volume,
             "shell": cmd_shell}[args.command](args)
 

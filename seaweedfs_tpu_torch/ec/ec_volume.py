@@ -22,6 +22,7 @@ from ..storage.needle import get_actual_size
 from ..storage.types import (NEEDLE_ID_SIZE, NEEDLE_MAP_ENTRY_SIZE,
                              TOMBSTONE_FILE_SIZE, Version, size_is_deleted,
                              u64_to_bytes)
+from ..utils import faultinject
 from .codec import ReedSolomon
 from .integrity import (EciSidecar, ShardCorruptError, note_corruption,
                         sidecar_is_stale)
@@ -76,7 +77,13 @@ class EcVolumeShard:
         self.size = os.fstat(self._f.fileno()).st_size
 
     def read_at(self, length: int, offset: int) -> bytes:
-        return os.pread(self._f.fileno(), length, offset)
+        data = os.pread(self._f.fileno(), length, offset)
+        if faultinject._points:
+            # bit-rot drill: a deterministic flip the sidecar verify
+            # paths must catch and demote
+            data = faultinject.corrupt_block("ec.shard.corrupt",
+                                             self.shard_id, data, offset)
+        return data
 
     def close(self) -> None:
         self._f.close()
@@ -200,7 +207,7 @@ class EcVolume:
         bs = sc.block_size
         b0 = offset // bs
         b1 = -(-(offset + length) // bs)
-        if self._verified is not None \
+        if self._verified is not None and not faultinject._points \
                 and bool(self._verified[shard_id, b0:b1].all()):
             # every covering block already passed its crc this mount:
             # serve the narrow read without re-widening/re-hashing

@@ -52,7 +52,10 @@ from typing import Optional
 
 import numpy as np
 
+from ..stats import ec_integrity_metrics
 from ..storage.crc import crc32c, masked_value
+from ..utils import faultinject
+from .layout import TOTAL_SHARDS_COUNT, to_ext
 
 ECI_EXT = ".eci"
 ECI_MAGIC = b"ECI1"
@@ -93,8 +96,10 @@ def sidecar_path(base_file_name: str) -> str:
 
 def note_corruption(source: str, shard_id: int, base: str = "",
                     block: int = -1) -> None:
-    """One corrupt-shard detection, logged as a warning (the counters and
-    events of the reference's observability layer are not ported yet)."""
+    """One corrupt-shard detection: counted on
+    SeaweedFS_ec_corrupt_shards_total{source=...} and logged as a warning
+    (the reference's trace event and journal entry are not ported)."""
+    ec_integrity_metrics().corrupt_shards.inc(source)
     logging.getLogger(__name__).warning(
         "corrupt shard %d of %s (block %d) detected by %s", shard_id, base,
         block, source)
@@ -131,6 +136,12 @@ class EciSidecar:
     @property
     def block_count(self) -> int:
         return int(self.crcs.shape[1])
+
+    def block_len(self, block_idx: int) -> int:
+        """Bytes the stored crc for this block covers (the tail may be
+        short)."""
+        start = block_idx * self.block_size
+        return max(0, min(self.block_size, self.shard_size - start))
 
     def has_row(self, shard_id: int) -> bool:
         return bool((self.present_mask >> shard_id) & 1)
@@ -203,11 +214,19 @@ class EciSidecar:
         return cls(bs, shard_size, crcs, mask)
 
 
+# bytes read per call when a sidecar row is computed from a file
+_IO_CHUNK = 1 << 20
+
+
 class SidecarBuilder:
     """Streaming crc accumulation: feed each shard's bytes IN WRITE
     ORDER (any chunking) and finalize into an EciSidecar — the encode
     paths build the sidecar as shard bytes stream out, no second read
-    pass."""
+    pass.  Each shard's state is its own, so one thread may feed some
+    shards while another feeds the rest (the encode's producer feeds
+    the data shards, its writer thread the parity shards).
+    seed_from_file() re-seeds a shard from the completed prefix of an
+    output file after a checkpoint resume."""
 
     def __init__(self, total_shards: int):
         self.block_size = DEFAULT_BLOCK_SIZE
@@ -217,6 +236,13 @@ class SidecarBuilder:
         self._fill = [0] * total_shards   # bytes in the open block
         self._size = [0] * total_shards
         self._touched = [False] * total_shards
+
+    def reset_shard(self, shard_id: int) -> None:
+        self._crcs[shard_id] = []
+        self._run[shard_id] = 0
+        self._fill[shard_id] = 0
+        self._size[shard_id] = 0
+        self._touched[shard_id] = False
 
     def update(self, shard_id: int, data) -> None:
         mv = memoryview(data)
@@ -237,6 +263,21 @@ class SidecarBuilder:
                 self._run[shard_id] = 0
                 self._fill[shard_id] = 0
         self._size[shard_id] += n
+
+    def seed_from_file(self, shard_id: int, f, nbytes: int) -> None:
+        """Rebuild this shard's accumulator from bytes [0, nbytes) of an
+        open file (checkpoint-resume: the prefix survived, the tail was
+        truncated away; backfill: the whole file)."""
+        self.reset_shard(shard_id)
+        fd = f.fileno()
+        off = 0
+        while off < nbytes:
+            buf = os.pread(fd, min(_IO_CHUNK, nbytes - off), off)
+            if not buf:
+                raise IOError(f"short read seeding sidecar shard "
+                              f"{shard_id}: {off} < {nbytes}")
+            self.update(shard_id, buf)
+            off += len(buf)
 
     def finalize(self) -> EciSidecar:
         """Flush trailing partial blocks and assemble the table.  Every
@@ -261,10 +302,34 @@ class SidecarBuilder:
         return EciSidecar(self.block_size, shard_size, crcs, mask)
 
 
-def verify_shard_file(sidecar: EciSidecar, path: str,
-                      shard_id: int) -> list[int]:
+def backfill_sidecar(base_file_name: str) -> Optional[EciSidecar]:
+    """Compute and save a sidecar from whatever `.ecNN` files exist
+    locally: the adoption path for shard sets that predate sidecars (rows
+    for absent shards stay masked invalid).  Records the CURRENT bytes as
+    the baseline: backfill cannot detect rot that happened before it ran.
+    Returns the saved sidecar, or None when no shard file is present."""
+    sb = SidecarBuilder(TOTAL_SHARDS_COUNT)
+    found = False
+    for i in range(TOTAL_SHARDS_COUNT):
+        path = base_file_name + to_ext(i)
+        if not os.path.exists(path):
+            continue
+        found = True
+        with open(path, "rb") as f:
+            sb.seed_from_file(i, f, os.fstat(f.fileno()).st_size)
+    if not found:
+        return None
+    sc = sb.finalize()
+    sc.save(base_file_name)
+    return sc
+
+
+def verify_shard_file(sidecar: EciSidecar, path: str, shard_id: int,
+                      pace=None, on_block=None) -> list[int]:
     """Scan one shard file against its sidecar row; returns the corrupt
-    block indices.  Shards without a valid row scan as clean-vacuous."""
+    block indices.  ``pace(nbytes)`` is called before each block read
+    (the scrubber's rate limiter and pause hook), ``on_block(ok)`` after
+    each verification.  Shards without a valid row scan as clean."""
     if not sidecar.has_row(shard_id):
         return []
     bad: list[int] = []
@@ -284,7 +349,15 @@ def verify_shard_file(sidecar: EciSidecar, path: str,
             return list(range(min(first, sidecar.block_count - 1),
                               sidecar.block_count))
         for bi in range(sidecar.block_count):
+            if pace is not None:
+                pace(sidecar.block_len(bi))
             raw = os.pread(fd, bs, bi * bs)
-            if sidecar.verify_range(shard_id, bi * bs, raw) is not None:
+            if faultinject._points:
+                raw = faultinject.corrupt_block(
+                    "ec.shard.corrupt", shard_id, raw, bi * bs)
+            ok = sidecar.verify_range(shard_id, bi * bs, raw) is None
+            if not ok:
                 bad.append(bi)
+            if on_block is not None:
+                on_block(ok)
     return bad

@@ -14,9 +14,24 @@ over fixed-shape dispatches.
     kernel on a compute stream, and copies the parity back on the copy
     stream into a pinned parity slot; a CUDA event marks the parity home.
     While the card works, the host fills the next slot and writes the data
-    shards, which are host bytes passing through.  Parity is drained
-    (event wait, write) DEPTH dispatches behind, in submission order,
-    so the `.eci` crc stream is sequential.
+    shards, which are host bytes passing through.
+  - The encode drains asynchronously (``overlap.AsyncDrainer``, the
+    reference's ``_encode_file_staged`` drain, streaming.py:1301-1480):
+    fetch threads wait on each dispatch's event and one writer thread
+    writes the parity shards and feeds their `.eci` crc stream in
+    submission order, so the producer thread keeps only the fill, the
+    launch and the data shards.  A slot returns to the producer once its
+    parity is written.  With ``async_drain`` False the caller's thread
+    drains inline, DEPTH dispatches behind.
+  - The encode checkpoints the last dispatch whose data AND parity are
+    written (entries of the plan, bytes per shard; only the drain
+    advances it) and retries a failed attempt up to MAX_ENCODE_RETRIES
+    times from there: every `.ecNN` is truncated to the checkpoint byte,
+    the `.eci` crc state re-seeded from the surviving prefix, and the plan
+    fast-forwarded (streaming.py:1142-1200).  Host faults resume (IO, an
+    injected fault point, a writer error); a CUDA error does not, since
+    the card's context may be lost after one, and nothing falls back to
+    the CPU.
   - Only parity crosses back, as [parity_shards, n] u8 straight into the
     pinned slot.  The TPU pipeline fetched it packed four bytes to a u32
     lane (seaweedfs_tpu/ops/gf_matmul.py:118-153) because its tunnelled
@@ -25,18 +40,19 @@ over fixed-shape dispatches.
     rows into ONE [missing, k] matrix, so every missing shard, data or
     parity, comes out of the same single pass.
 
-With ``device="cpu"`` the same pipeline runs the plain version in place of
-the copies and the kernel, synchronously; the tests use it.  A kernel or
-copy that fails raises, and the partial outputs are removed: there is no
-CPU fallback.
+With ``device="cpu"`` the same pipeline, drain threads included, runs the
+plain version in place of the copies and the kernel; the tests use it.
 
-Not ported yet: the mmap host path, host and process workers, the
-AsyncDrainer threads, checkpoint-resume retries and the mesh plane.
+Not ported: the mmap host path, the host codec's worker threads and
+processes, the per-dispatch CPU fallback and the mesh plane.
 """
 
 from __future__ import annotations
 
+import logging
 import os
+import queue
+import threading
 import time
 from collections import deque
 from typing import Callable, Iterator, Optional
@@ -44,7 +60,8 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
-from ..ops.gf_matmul import gf_matmul, resolve_device
+from ..ops.gf_matmul import KernelError, gf_matmul, resolve_device
+from ..utils import faultinject
 from ..utils.ioutil import pread_padded, preadv_into
 from .gf256 import build_encoding_matrix, mat_invert, mat_mul
 from .integrity import (
@@ -63,10 +80,25 @@ from .layout import (
     SMALL_BLOCK_SIZE,
     to_ext,
 )
+from .overlap import AsyncDrainer
 
 # dispatches in flight before the oldest is drained: enough to overlap the
 # fill of one slot with the copies and kernel of the next
 DEPTH = 3
+# resumes of one encode from its last written checkpoint
+MAX_ENCODE_RETRIES = 2
+# the producer's wait for a free slot before the attempt fails as stalled
+DRAIN_TIMEOUT_S = 30.0
+
+# errors of the card itself: never retried
+_DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError) + (
+    (torch.AcceleratorError,) if hasattr(torch, "AcceleratorError") else ())
+
+
+def default_drain_pool() -> int:
+    """Drain fetch threads: one per spare core, bounded to [1, 4]
+    (streaming.py:80-87).  A fetch only waits on a CUDA event."""
+    return max(1, min(4, (os.cpu_count() or 1) - 1))
 
 
 def _shard_size(file_size: int, k: int, large: int, small: int) -> int:
@@ -112,6 +144,17 @@ def _remove_quietly(paths) -> None:
             pass
 
 
+class _Checkpoint:
+    """Resume point of one encode: plan entries and bytes per shard whose
+    data and parity are all written.  Only the drain advances it, in
+    submission order, so the completed prefix is contiguous; the producer
+    reads it once the drain threads are joined."""
+
+    def __init__(self):
+        self.entries = 0
+        self.bytes = 0
+
+
 class _Slot:
     """One dispatch slot: a pinned host input [rows_in, b] and a pinned
     parity buffer, plus on the card their device twins and the event that
@@ -134,84 +177,202 @@ class _Slot:
 
 
 class _Pipeline:
-    """Depth-N dispatch pipeline for one matrix ``rows`` [rows_out, rows_in]:
-    ``acquire`` a slot, fill ``slot.buf``, ``submit`` it; the parity of
-    each dispatch reaches ``drain(parity[rows_out, n])`` in
-    submission order, at most DEPTH dispatches late."""
+    """Depth-N dispatch pipeline for one matrix ``rows`` [rows_out,
+    rows_in]: ``acquire`` a slot, fill ``slot.buf``, ``launch`` it, then
+    ``enqueue`` it with a tag; ``drain(parity[rows_out, n], tag)`` gets
+    each dispatch's parity in submission order.
+
+    Inline (``drain_pool=0``) the caller's thread drains, at most ``depth``
+    dispatches late.  Async, an AsyncDrainer waits for the parity on
+    ``drain_pool`` fetch threads and runs ``drain`` on its writer thread;
+    a slot comes back to ``acquire`` once its parity is written, and the
+    time ``acquire`` blocks for one is ``drain_wait_s``.  ``drain_point``
+    names the fault point hit at each fetch."""
 
     def __init__(self, rows: np.ndarray, b: int, device: torch.device,
-                 st: dict,
-                 drain: Callable[[np.ndarray], None]):
+                 st: dict, drain: Callable[[np.ndarray, object], None],
+                 depth: int = DEPTH, drain_pool: int = 0,
+                 drain_point: Optional[str] = None,
+                 drain_timeout_s: float = DRAIN_TIMEOUT_S):
         self.rows_out, rows_in = rows.shape
         self.device = device
         self.st = st
+        self.depth = depth
         self._drain = drain
+        self._drain_point = drain_point
+        self._timeout = drain_timeout_s
         self.m = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
         self._shape = (rows_in, self.rows_out, b)
-        # up to DEPTH + 1 slots, made as the pipeline fills: a small file
+        # up to depth + 1 slots, made as the pipeline fills: a small file
         # never pays for the full ring
         self._made = 0
         self.free: deque[_Slot] = deque()
-        self.pending: deque[tuple[_Slot, int]] = deque()
+        self.pending: deque[tuple[_Slot, int, object]] = deque()
         self.copy = self.compute = None
         if device.type == "cuda":
             self.copy = torch.cuda.Stream(device)
             self.compute = torch.cuda.Stream(device)
             # the matrix upload above ran on the current stream
             self.copy.wait_stream(torch.cuda.current_stream(device))
+        # the drain threads' own counters, folded into st by close()
+        self._ds = {"drain_s": 0.0, "parity_bytes": 0}
+        self._ds_lock = threading.Lock()
+        self.drainer: Optional[AsyncDrainer] = None
+        if drain_pool:
+            self._written: queue.Queue = queue.Queue()
+            self.drainer = AsyncDrainer(self._fetch, self._write,
+                                        pool_size=drain_pool,
+                                        queue_depth=depth + 3)
+            st["drain_pool"] = self.drainer.pool_size
+
+    def _new_slot(self) -> Optional[_Slot]:
+        if self._made > self.depth:
+            return None
+        self._made += 1
+        return _Slot(*self._shape, self.device)
 
     def acquire(self) -> _Slot:
-        if not self.free:
-            if self._made <= DEPTH:
-                self._made += 1
-                return _Slot(*self._shape, self.device)
-            self._drain_one()
-        return self.free.popleft()
+        if self.drainer is None:
+            if not self.free:
+                slot = self._new_slot()
+                if slot is not None:
+                    return slot
+                self._drain_one()
+            return self.free.popleft()
+        err = self.drainer.error
+        if err is not None:
+            raise err
+        try:
+            return self._written.get_nowait()
+        except queue.Empty:
+            pass
+        slot = self._new_slot()
+        if slot is not None:
+            return slot
+        # every slot is in flight: the producer's residual drain stall
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + self._timeout
+        try:
+            while True:
+                try:
+                    return self._written.get(timeout=0.2)
+                except queue.Empty:
+                    err = self.drainer.error
+                    if err is not None:
+                        raise err
+                    if time.monotonic() >= deadline:
+                        raise RuntimeError("async drain stalled: no free "
+                                           "dispatch slot")
+        finally:
+            self.st["drain_wait_s"] += time.perf_counter() - t0
 
-    def submit(self, slot: _Slot, n: int) -> None:
+    def launch(self, slot: _Slot, n: int) -> None:
+        """Queue the dispatch of ``slot``'s first n columns: on the card
+        the copy in, the kernel and the copy home, then the event."""
         r = self.rows_out
         t0 = time.perf_counter()
         if self.copy is None:
             gf_matmul(self.m, slot.dev_in[:, :n],
                       out=slot.dev_out[:r * n].view(r, n))
         else:
-            with torch.cuda.stream(self.copy):
-                slot.dev_in.copy_(slot.host_in, non_blocking=True)
-            self.compute.wait_stream(self.copy)
-            with torch.cuda.stream(self.compute):
-                gf_matmul(self.m, slot.dev_in[:, :n],
-                          out=slot.dev_out[:r * n].view(r, n))
-            self.copy.wait_stream(self.compute)
-            with torch.cuda.stream(self.copy):
-                slot.host_out[:r * n].copy_(slot.dev_out[:r * n],
-                                            non_blocking=True)
-                slot.done.record()
+            try:
+                with torch.cuda.stream(self.copy):
+                    slot.dev_in.copy_(slot.host_in, non_blocking=True)
+                self.compute.wait_stream(self.copy)
+                with torch.cuda.stream(self.compute):
+                    gf_matmul(self.m, slot.dev_in[:, :n],
+                              out=slot.dev_out[:r * n].view(r, n))
+                self.copy.wait_stream(self.compute)
+                with torch.cuda.stream(self.copy):
+                    slot.host_out[:r * n].copy_(slot.dev_out[:r * n],
+                                                non_blocking=True)
+                    slot.done.record()
+            except KernelError:
+                raise
+            except RuntimeError as e:
+                raise KernelError(f"dispatch on {self.device}: {e}") from e
         self.st["dispatch_s"] += time.perf_counter() - t0
         self.st["dispatches"] += 1
-        self.pending.append((slot, n))
-        if len(self.pending) > DEPTH:
-            self._drain_one()
+
+    def enqueue(self, slot: _Slot, n: int, tag=None) -> None:
+        """Hand a launched dispatch to the drain."""
+        if self.drainer is None:
+            self.pending.append((slot, n, tag))
+            if len(self.pending) > self.depth:
+                self._drain_one()
+            return
+        t0 = time.perf_counter()
+        self.drainer.submit((slot, n, tag))
+        self.st["drain_wait_s"] += time.perf_counter() - t0
+
+    def submit(self, slot: _Slot, n: int, tag=None) -> None:
+        self.launch(slot, n)
+        self.enqueue(slot, n, tag)
+
+    def _parity(self, slot: _Slot, n: int) -> np.ndarray:
+        """Wait until the dispatch's parity is home; its [rows_out, n]
+        host view."""
+        if self._drain_point and faultinject._points:
+            faultinject.hit(self._drain_point)
+        if slot.done is not None:
+            try:
+                slot.done.synchronize()
+            except RuntimeError as e:
+                raise KernelError(f"parity fetch on {self.device}: "
+                                  f"{e}") from e
+        return slot.host_out.numpy()[:self.rows_out * n].reshape(
+            self.rows_out, n)
 
     def _drain_one(self) -> None:
-        slot, n = self.pending.popleft()
-        if slot.done is not None:
-            t0 = time.perf_counter()
-            slot.done.synchronize()
-            self.st["drain_wait_s"] += time.perf_counter() - t0
-        parity = slot.host_out.numpy()[:self.rows_out * n].reshape(
-            self.rows_out, n)
-        self._drain(parity)
+        slot, n, tag = self.pending.popleft()
+        t0 = time.perf_counter()
+        parity = self._parity(slot, n)
+        self.st["drain_wait_s"] += time.perf_counter() - t0
+        self.st["parity_bytes_drained"] += parity.nbytes
+        self._drain(parity, tag)
         self.free.append(slot)
 
+    def _fetch(self, meta) -> np.ndarray:  # a drainer fetch thread
+        slot, n, _ = meta
+        t0 = time.perf_counter()
+        parity = self._parity(slot, n)
+        with self._ds_lock:
+            self._ds["drain_s"] += time.perf_counter() - t0
+            self._ds["parity_bytes"] += parity.nbytes
+        return parity
+
+    def _write(self, meta, parity: np.ndarray) -> None:  # the writer thread
+        slot, _, tag = meta
+        self._drain(parity, tag)
+        self._written.put(slot)
+
     def finish(self) -> None:
-        while self.pending:
-            self._drain_one()
+        """Drain everything still in flight; re-raises a drain error."""
+        if self.drainer is None:
+            while self.pending:
+                self._drain_one()
+            return
+        t0 = time.perf_counter()
+        try:
+            self.drainer.finish()
+        finally:
+            self.st["drain_wait_s"] += time.perf_counter() - t0
 
     def close(self) -> None:
-        """Wait out anything still queued on the card (an aborted run)
-        before the slots are freed."""
+        """Join the drain threads (dropping what an aborted run left
+        queued), fold their counters into the stats, and wait out
+        anything still queued on the card before the slots are freed."""
+        if self.drainer is not None:
+            self.drainer.abort()
+            with self._ds_lock:
+                self.st["drain_s"] += self._ds["drain_s"]
+                self.st["parity_bytes_drained"] += self._ds["parity_bytes"]
         if self.copy is not None:
-            torch.cuda.synchronize(self.device)
+            try:
+                torch.cuda.synchronize(self.device)
+            except RuntimeError as e:
+                raise KernelError(f"pipeline close on {self.device}: "
+                                  f"{e}") from e
 
 
 class StreamingEncoder:
@@ -220,29 +381,52 @@ class StreamingEncoder:
 
     def __init__(self, dispatch_mb: int = 8, device="cuda"):
         """RS(10,4), the one EC geometry.  dispatch_mb: the fixed dispatch
-        width per shard.  Encodes write the `.eci` block-crc
-        sidecar; rebuilds verify survivors against it, demoting
-        crc-mismatching shards to erasures."""
+        width per shard.  Encodes write the `.eci` block-crc sidecar;
+        rebuilds verify survivors against it, demoting crc-mismatching
+        shards to erasures."""
         self.device = resolve_device(device)
         self.k = DATA_SHARDS_COUNT
         self.r = PARITY_SHARDS_COUNT
         self.dispatch_b = dispatch_mb << 20
+        # the pipeline's settings, from the module's constants (tests set
+        # the attributes): dispatches in flight (depth + 1 slots), resumes
+        # of one encode, the producer's longest wait for a free slot,
+        # whether drain threads fetch and write the parity (False: inline
+        # on the caller's thread) and how many fetch threads they run
+        self.depth = DEPTH
+        self.max_encode_retries = MAX_ENCODE_RETRIES
+        self.drain_timeout_s = DRAIN_TIMEOUT_S
+        self.async_drain = True
+        self.drain_pool = default_drain_pool()
         # the systematic Vandermonde matrix ReedSolomon uses by default
         self.matrix = build_encoding_matrix(self.k, self.k + self.r)
         # per-call counters (host clock, seconds):
+        #   setup_s      output opens (and a resume's crc re-seed) before
+        #                the first fill
         #   fill_s       reading input bytes from disk into the slots
         #   dispatch_s   queueing copies + kernel (returns before the card
         #                finishes; on the CPU, the whole plain product)
-        #   drain_wait_s blocked until a dispatch's parity was home
-        #   write_s      shard writes, including sidecar_s of crc work
+        #   drain_wait_s the producer blocked on the drain: waiting for a
+        #                free slot or, inline, for a dispatch's parity
+        #   drain_s      async drain: fetch threads waiting for parity
+        #                (concurrent with the producer)
+        #   write_s      shard writes, including sidecar_s of crc work;
+        #                parity_write_s of it ran on the drain's writer
+        #                thread when drain_pool > 0
         #   verify_s     rebuild survivors checked against the sidecar
-        #   wall_s       the whole call
+        #   close_s      closing the outputs
+        #   wall_s       the whole call (the last attempt, after a retry)
+        # and parity_bytes_drained, drain_pool (0: inline), retries and
+        # resume_byte (where the last attempt started)
         self.stats: dict[str, float] = {}
 
     def _reset_stats(self) -> dict:
         self.stats = {"dispatches": 0, "bytes_in": 0, "fill_s": 0.0,
                       "dispatch_s": 0.0, "drain_wait_s": 0.0, "write_s": 0.0,
-                      "sidecar_s": 0.0, "verify_s": 0.0, "wall_s": 0.0}
+                      "sidecar_s": 0.0, "verify_s": 0.0, "setup_s": 0.0,
+                      "close_s": 0.0, "wall_s": 0.0, "drain_s": 0.0,
+                      "parity_write_s": 0.0, "parity_bytes_drained": 0,
+                      "drain_pool": 0, "retries": 0, "resume_byte": 0}
         return self.stats
 
     # --- encode -----------------------------------------------------------
@@ -250,34 +434,107 @@ class StreamingEncoder:
                     large_block_size: int = LARGE_BLOCK_SIZE,
                     small_block_size: int = SMALL_BLOCK_SIZE) -> None:
         """dat_path -> out_base.ec00..ecNN + out_base.eci, byte-identical to
-        encoder.write_ec_files (WriteEcFiles, ec_encoder.go:57).  A failed
-        encode leaves no shard or sidecar behind."""
+        encoder.write_ec_files (WriteEcFiles, ec_encoder.go:57).
+
+        A failed attempt resumes from its checkpoint up to
+        self.max_encode_retries times; dispatch packing after a resume may
+        differ from a clean run, but the product is column-independent,
+        so the bytes cannot.  A CUDA error is raised at once.  An encode
+        that fails for good leaves no shard or sidecar behind."""
+        ckpt = _Checkpoint()
+        retries = 0
+        try:
+            while True:
+                try:
+                    return self._encode_file_staged(
+                        dat_path, out_base, large_block_size,
+                        small_block_size, ckpt.entries, ckpt.bytes, retries,
+                        ckpt)
+                except _DEVICE_ERRORS:
+                    raise
+                except Exception as e:  # noqa: BLE001 - a host fault
+                    if retries >= self.max_encode_retries:
+                        raise
+                    retries += 1
+                    logging.getLogger(__name__).warning(
+                        "encode of %s: attempt %d failed (%s: %s); resuming "
+                        "at plan entry %d, shard byte %d", dat_path, retries,
+                        type(e).__name__, e, ckpt.entries, ckpt.bytes)
+        except BaseException:
+            _remove_quietly([out_base + to_ext(i)
+                             for i in range(self.k + self.r)]
+                            + [sidecar_path(out_base)])
+            raise
+
+    def _encode_file_staged(self, dat_path: str, out_base: str,
+                            large_block_size: int, small_block_size: int,
+                            start_entry: int = 0, start_byte: int = 0,
+                            retries: int = 0,
+                            ckpt: Optional[_Checkpoint] = None) -> None:
+        """One attempt, starting at plan entry start_entry and shard byte
+        start_byte over outputs whose first start_byte bytes are whole.
+        Advances ``ckpt`` as dispatches are written; a failure leaves the
+        outputs for the next attempt."""
         k, r, b = self.k, self.r, self.dispatch_b
         st = self._reset_stats()
+        st["retries"] = retries
+        st["resume_byte"] = start_byte
+        if ckpt is None:
+            ckpt = _Checkpoint()
+        ckpt.entries, ckpt.bytes = start_entry, start_byte
         clock = time.perf_counter
         t_start = clock()
         file_size = os.path.getsize(dat_path)
-        out_paths = [out_base + to_ext(i) for i in range(k + r)]
         sb = SidecarBuilder(k + r)
         outputs: list = []
+        # the parity side's counters: touched only by the thread that
+        # drains (the writer thread, or the producer when inline)
+        pw = {"write_s": 0.0, "sidecar_s": 0.0}
 
-        def write_rows(first: int, rows) -> None:
+        def write_data(rows) -> None:
             t0 = clock()
-            for j, row in enumerate(rows):
-                outputs[first + j].write(memoryview(row))
+            for i in range(k):
+                outputs[i].write(memoryview(rows[i]))
             t1 = clock()
-            for j, row in enumerate(rows):
-                sb.update(first + j, row)
+            for i in range(k):
+                sb.update(i, rows[i])
             st["sidecar_s"] += clock() - t1
             st["write_s"] += clock() - t0
 
+        def write_parity(parity: np.ndarray, tag) -> None:
+            t0 = clock()
+            for j in range(r):
+                outputs[k + j].write(memoryview(parity[j]))
+            t1 = clock()
+            for j in range(r):
+                sb.update(k + j, parity[j])
+            pw["sidecar_s"] += clock() - t1
+            pw["write_s"] += clock() - t0
+            # this dispatch's data and parity are on every shard now
+            nfills, used = tag
+            ckpt.entries += nfills
+            ckpt.bytes += used
+
         pipe = None
-        ok = False
         try:
-            for p in out_paths:
-                outputs.append(open(p, "wb"))
-            pipe = _Pipeline(self.matrix[k:], b, self.device,
-                             st, lambda parity: write_rows(k, parity))
+            for i in range(k + r):
+                p = out_base + to_ext(i)
+                if start_byte and os.path.exists(p):
+                    # resume: drop the bytes past the checkpoint (data
+                    # shards run ahead of it, parity lags), keep the
+                    # prefix, and re-seed its crc state from it
+                    f = open(p, "r+b")
+                    outputs.append(f)
+                    f.truncate(start_byte)
+                    f.seek(start_byte)
+                    sb.seed_from_file(i, f, start_byte)
+                else:
+                    outputs.append(open(p, "wb"))
+            pipe = _Pipeline(
+                self.matrix[k:], b, self.device, st, write_parity,
+                depth=self.depth,
+                drain_pool=self.drain_pool if self.async_drain else 0,
+                drain_point="ec.drain", drain_timeout_s=self.drain_timeout_s)
             with open(dat_path, "rb") as dat:
                 fills: list[tuple[int, int, int, int, int]] = []
                 used = 0
@@ -303,16 +560,24 @@ class StreamingEncoder:
                     if used < b:
                         buf[:, used:] = 0
                     st["fill_s"] += clock() - t0
-                    pipe.submit(slot, used)
+                    if faultinject._points:
+                        faultinject.hit("ec.dispatch")
+                    pipe.launch(slot, used)
                     st["bytes_in"] += k * used
                     # data shards pass through from the host slot while
-                    # the card computes parity; packed entries make each
-                    # shard's bytes one contiguous slice
-                    write_rows(0, buf[:, :used])
+                    # the card computes parity, and are written before the
+                    # dispatch reaches the drain, so the checkpoint never
+                    # counts a dispatch whose data is not on disk
+                    write_data(buf[:, :used])
+                    pipe.enqueue(slot, used, (len(fills), used))
                     fills, used = [], 0
 
-                for n, row_start, block, off in _plan_entries(
-                        file_size, k, large_block_size, small_block_size, b):
+                st["setup_s"] = clock() - t_start
+                entries = _plan_entries(file_size, k, large_block_size,
+                                        small_block_size, b)
+                for _ in range(start_entry):  # resume: skip what is done
+                    next(entries, None)
+                for n, row_start, block, off in entries:
                     if used + n > b:
                         flush()
                     fills.append((used, n, row_start, block, off))
@@ -327,15 +592,21 @@ class StreamingEncoder:
             t0 = clock()
             sb.finalize().save(out_base)
             st["sidecar_s"] += clock() - t0
-            ok = True
         finally:
-            if pipe is not None:
-                pipe.close()
-            for f in outputs:
-                f.close()
-            if not ok:
-                _remove_quietly(out_paths + [sidecar_path(out_base)])
-            st["wall_s"] = clock() - t_start
+            try:
+                if pipe is not None:
+                    pipe.close()
+            finally:
+                # closed even when the pipeline's close raises: a writer
+                # left open could flush over the next attempt's shards
+                st["write_s"] += pw["write_s"]
+                st["sidecar_s"] += pw["sidecar_s"]
+                st["parity_write_s"] = pw["write_s"]
+                t0 = clock()
+                for f in outputs:
+                    f.close()
+                st["close_s"] = clock() - t0
+                st["wall_s"] = clock() - t_start
 
     # --- rebuild ----------------------------------------------------------
     def rebuild_files(self, base_file_name: str) -> list[int]:
@@ -432,7 +703,7 @@ class StreamingEncoder:
         outputs = {}
         pipe = None
 
-        def write_rebuilt(out: np.ndarray) -> None:
+        def write_rebuilt(out: np.ndarray, _tag) -> None:
             t0 = clock()
             for row_i, m in enumerate(missing):
                 outputs[m].write(memoryview(out[row_i]))
@@ -459,7 +730,11 @@ class StreamingEncoder:
                     # aborts this attempt, the caller demotes and retries
                     t0 = clock()
                     for row_i, s in enumerate(survivors):
-                        bad = sidecar.verify_range(s, offset, buf[row_i, :n])
+                        raw = buf[row_i, :n]
+                        if faultinject._points:
+                            raw = faultinject.corrupt_block(
+                                "ec.shard.corrupt", s, raw, offset)
+                        bad = sidecar.verify_range(s, offset, raw)
                         if bad is not None:
                             raise CorruptSurvivor(s, bad)
                     st["verify_s"] += clock() - t0
@@ -468,15 +743,18 @@ class StreamingEncoder:
             pipe.finish()
             ok = True
         finally:
-            if pipe is not None:
-                pipe.close()
-            for f in inputs.values():
-                f.close()
-            for f in outputs.values():
-                f.close()
-            if not ok:
-                # partial outputs must not survive: the next rebuild would
-                # see them as present shards
-                _remove_quietly(base_file_name + to_ext(m) for m in missing)
-            st["wall_s"] = clock() - t_start
+            try:
+                if pipe is not None:
+                    pipe.close()
+            finally:
+                for f in inputs.values():
+                    f.close()
+                for f in outputs.values():
+                    f.close()
+                if not ok:
+                    # partial outputs must not survive: the next rebuild
+                    # would see them as present shards
+                    _remove_quietly(base_file_name + to_ext(m)
+                                    for m in missing)
+                st["wall_s"] = clock() - t_start
         return missing

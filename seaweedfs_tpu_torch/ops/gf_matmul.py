@@ -41,6 +41,11 @@ _SMEM_STATIC = 768
 PLAIN_CHUNK = 1 << 18
 
 
+class KernelError(RuntimeError):
+    """A CUDA error from a kernel launch, a copy or an event.  The card's
+    context may be lost after one, so no caller retries it."""
+
+
 def resolve_device(device="cuda") -> torch.device:
     """The torch.device for an entry point's ``device`` argument.  "cuda"
     needs a card and raises without one; only an explicit "cpu" selects
@@ -174,8 +179,8 @@ def gf_matmul(m: torch.Tensor, data: torch.Tensor,
                 out.stride(0), width, exp_t.data_ptr(), log_t.data_ptr(),
                 grid, THREADS, stream)
             if err:
-                raise RuntimeError(f"gf_matmul kernel launch failed: CUDA "
-                                   f"error {err}")
+                raise KernelError(f"gf_matmul kernel launch failed: CUDA "
+                                  f"error {err}")
             with _lock:
                 gf_matmul.launches += 1
     return out

@@ -1,4 +1,5 @@
-"""EC command family: ec.encode / ec.rebuild / ec.balance / ec.decode.
+"""EC command family: ec.encode / ec.rebuild / ec.balance / ec.scrub /
+ec.decode.
 
 The port's copy of seaweedfs_tpu/shell/ec_commands.py (weed/shell/
 command_ec_encode.go, command_ec_rebuild.go, command_ec_balance.go,
@@ -6,9 +7,9 @@ command_ec_decode.go, command_ec_common.go).  ``-engine`` names the
 volume servers' EC engine and defaults to ``tpu``, which every port
 server runs (on the card, or on the CPU where the server was started
 with ``-ec.engine cpu``).  ec.encode and ec.rebuild report the wall time
-of each leg.
-
-Not ported: ec.scrub (it needs the scrub routes).
+of each leg.  ec.scrub drives the servers' ``/ec/scrub`` routes; the
+port's master has no ``/cluster/health`` yet, so ``ec.scrub -all`` ends
+with the reference's line for an unavailable health rollup.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import time
 
 from ..ec.layout import TOTAL_SHARDS_COUNT
 from ..ops import coordinator as coord
+from ..utils.httpd import http_json
 from .commands import CommandEnv, command
 
 
@@ -225,6 +227,147 @@ def cmd_ec_balance(env: CommandEnv, flags: dict) -> str:
     if touched:
         ex.refresh_heartbeats(touched)
     return "\n".join(lines) or "already balanced"
+
+
+def _data_node_urls(env: CommandEnv) -> list[str]:
+    return [n["Url"] for dc in env.topology()["DataCenters"]
+            for rack in dc["Racks"] for n in rack["DataNodes"]]
+
+
+def _scrub_start_body(flags: dict) -> dict:
+    body: dict = {}
+    if "rate" in flags:
+        body["rate_mb_s"] = float(flags["rate"])
+    if "interval" in flags:
+        body["interval_s"] = float(flags["interval"])
+    if flags.get("backfill") == "true":
+        body["backfill"] = True
+    return body
+
+
+def _scrub_all(env: CommandEnv, flags: dict) -> str:
+    """ec.scrub -all: one scrub pass on every registered volume server,
+    polled to completion, the verdicts rolled up."""
+    servers = sorted(_data_node_urls(env))
+    if not servers:
+        return "no volume servers registered"
+    body = _scrub_start_body(flags)
+    body.setdefault("interval_s", 0.0)  # one pass then stop
+    lines = []
+    started: list[str] = []
+    failed: list[str] = []
+    for url in servers:
+        try:
+            env.volume_post(url, "/ec/scrub/start", body, timeout=30)
+            started.append(url)
+        except Exception as e:  # noqa: BLE001 - per-server audit trail
+            failed.append(url)
+            lines.append(f"{url}: START FAILED {e}")
+    deadline = time.monotonic() + float(flags.get("timeout", "300"))
+    pending = set(started)
+    statuses: dict[str, dict] = {}
+    while pending and time.monotonic() < deadline:
+        for url in sorted(pending):
+            try:
+                st = http_json("GET", f"http://{url}/ec/scrub/status",
+                               timeout=30)
+            except Exception:  # noqa: BLE001 - polled until the deadline
+                continue
+            statuses[url] = st
+            if not st.get("running"):
+                pending.discard(url)
+        if pending:
+            time.sleep(0.25)
+    totals = {"volumes": 0, "corrupt": 0, "repairs": 0, "unrepairable": 0}
+    for url in started:
+        st = statuses.get(url, {})
+        verdicts = st.get("verdicts", {})
+        t = st.get("totals", {})
+        unrep = sum(1 for d in verdicts.values()
+                    if (d or {}).get("status") == "unrepairable")
+        totals["volumes"] += len(verdicts)
+        totals["corrupt"] += int(t.get("corrupt_shards", 0))
+        totals["repairs"] += int(t.get("scrub_repairs", 0))
+        totals["unrepairable"] += unrep
+        state = "TIMED OUT (still running)" if url in pending else "done"
+        lines.append(f"{url}: {state} volumes={len(verdicts)} "
+                     f"corrupt={t.get('corrupt_shards', 0)} "
+                     f"repairs={t.get('scrub_repairs', 0)} "
+                     f"unrepairable={unrep}")
+        for v, d in sorted(verdicts.items()):
+            if (d or {}).get("status") not in ("clean", None):
+                lines.append(f"  volume {v}: {d.get('status')}"
+                             f" corrupt_shards={d.get('corrupt_shards', [])}")
+    # an unreachable server is unverified: a partial scrub must never
+    # read as a clean cluster
+    verdict = "DEGRADED" if (totals["unrepairable"] or pending
+                             or failed) else (
+        "repaired" if totals["repairs"] else "clean")
+    if failed:
+        verdict += f" (UNVERIFIED: {len(failed)} server(s) not scrubbed)"
+    lines.insert(0, f"cluster scrub: {verdict} — "
+                    f"{len(started)}/{len(servers)} servers, "
+                    f"{totals['volumes']} volumes, "
+                    f"corrupt={totals['corrupt']} "
+                    f"repairs={totals['repairs']} "
+                    f"unrepairable={totals['unrepairable']}")
+    try:
+        health = env.master_get("/cluster/health")
+        lines.append(f"/cluster/health: degraded={health['degraded']} "
+                     f"scrub_unrepairable="
+                     f"{health['totals'].get('scrub_unrepairable', 0)}")
+    except Exception as e:  # noqa: BLE001 - the rollup stands alone
+        lines.append(f"/cluster/health: unavailable ({e})")
+    return "\n".join(lines)
+
+
+@command("ec.scrub")
+def cmd_ec_scrub(env: CommandEnv, flags: dict) -> str:
+    """ec.scrub [-all [-timeout 300]] [-server host:port]
+    [-action start|stop|status] [-rate 64] [-interval 0] [-backfill]
+    # drive the volume servers' EC bit-rot scrubbers (/ec/scrub routes):
+    # start launches a paced sidecar-verification scan (rate MB/s,
+    # interval seconds between passes, -backfill adopts pre-sidecar
+    # volumes); corrupt shards are quarantined to .ecNN.bad and rebuilt
+    # while >= 10 clean shards remain.  -all runs one pass on every
+    # registered server, polls to completion and rolls the verdicts up"""
+    if flags.get("all") == "true":
+        return _scrub_all(env, flags)
+    action = flags.get("action", "status")
+    if action not in ("start", "stop", "status"):
+        raise ValueError(f"unknown -action {action!r}")
+    servers = [flags["server"]] if "server" in flags else _data_node_urls(env)
+    if not servers:
+        return "no volume servers registered"
+    lines = []
+    for url in sorted(servers):
+        try:
+            if action == "status":
+                st = http_json("GET", f"http://{url}/ec/scrub/status",
+                               timeout=30)
+            else:
+                body = _scrub_start_body(flags) if action == "start" else {}
+                st = env.volume_post(url, f"/ec/scrub/{action}", body,
+                                     timeout=30)
+        except Exception as e:  # noqa: BLE001 - per-server audit trail
+            lines.append(f"{url}: ERROR {e}")
+            continue
+        verdicts = st.get("verdicts", {})
+        bad = {v: d for v, d in verdicts.items()
+               if d.get("status") not in ("clean", None)}
+        totals = st.get("totals", {})
+        lines.append(
+            f"{url}: running={st.get('running')} paused={st.get('paused')} "
+            f"passes={st.get('passes')} cursor={st.get('cursor')} "
+            f"volumes={len(verdicts)} "
+            f"blocks={totals.get('scrub_blocks', 0)} "
+            f"corrupt={totals.get('corrupt_shards', 0)} "
+            f"repairs={totals.get('scrub_repairs', 0)}")
+        for v, d in sorted(bad.items()):
+            lines.append(f"  volume {v}: {d.get('status')}"
+                         f" corrupt_shards={d.get('corrupt_shards', [])}"
+                         + (f" error={d['error']}" if d.get("error") else ""))
+    return "\n".join(lines)
 
 
 @command("ec.decode")

@@ -158,6 +158,9 @@ class Router:
     def __init__(self, name: str = "httpd"):
         self.name = name
         self.routes: list[tuple[str, re.Pattern, Callable]] = []
+        # requests dispatched so far (a server's load gate reads it)
+        self.requests = 0
+        self._count_lock = threading.Lock()
 
     def route(self, method: str, pattern: str):
         compiled = re.compile("^" + pattern + "$")
@@ -169,6 +172,8 @@ class Router:
         return deco
 
     def dispatch(self, handler: BaseHTTPRequestHandler, method: str) -> None:
+        with self._count_lock:
+            self.requests += 1
         if getattr(handler.server, "_stopping", False):
             # a stopped server's keep-alive connections outlive
             # server_close(): send their clients elsewhere

@@ -7,8 +7,11 @@ written, read and deleted at ``/<vid>,<fid>`` with replication fan-out
 "RPCs" are HTTP POSTs named after volume_server.proto: volume assign,
 delete, mount, unmount and readonly, and the EC set Generate, Rebuild,
 Copy, Download, Delete, Mount, Unmount, ShardRead, BlobDelete and
-ToVolume.  Heartbeats go to the master, full every FULL_SYNC_EVERY
-pulses and as deltas between.
+ToVolume.  ``/ec/scrub/start|stop|status`` drive the EC bit-rot scrubber
+(scrubber.py), which pauses while the server takes more than 50 requests
+a second.  Heartbeats go to the master, full every FULL_SYNC_EVERY pulses
+and as deltas between; a scrub's quarantine reaches the master as the
+volume's new shard set.
 
 EC work runs on ``device``: "cuda" (the default, the reference's
 ``-ec.engine tpu``) launches the GF(2^8) kernel on the card; "cpu" (the
@@ -18,7 +21,7 @@ than the server's own answers 400.
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
 native planes, mmap and the needle cache, heat, ledger, admission,
-tracing and metrics, debug, scrub, vacuum and tier routes, batch routes,
+tracing and /metrics, debug, vacuum and tier routes, batch routes,
 volume copy and tail, image resize, and the partial-range fast path (a
 Range GET slices the full body).
 """
@@ -36,6 +39,7 @@ import numpy as np
 from ..ec.ec_volume import NeedleNotFoundError
 from ..ec.integrity import EciSidecar, note_corruption, verify_shard_file
 from ..ec.layout import TOTAL_SHARDS_COUNT, to_ext
+from ..stats import ec_integrity_metrics
 from ..storage.file_id import FileId
 from ..storage.needle import (
     FLAG_HAS_LAST_MODIFIED,
@@ -69,6 +73,7 @@ from ..utils.httpd import (
     stop_server,
 )
 from ..utils.ioutil import pread_padded
+from .scrubber import EcScrubber
 from .store import Store
 
 FID_PATTERN = r"/(\d+),([0-9a-f]+)"
@@ -76,6 +81,13 @@ FID_PATTERN = r"/(\d+),([0-9a-f]+)"
 # state so drifting stats (sizes, counters) converge
 FULL_SYNC_EVERY = 12
 VERSION = "seaweedfs-tpu 0.1"
+# the reference's EC pipeline health under its names: the port has no
+# parity worker processes, no CPU fallback and no framed-TCP plane, so
+# nothing of it can rise.  /status carries the totals, and each admin
+# EC call its change.
+_EC_PIPELINE_TOTALS = {"worker_restarts": 0, "engine_fallbacks": 0,
+                       "degraded_binds": 0}
+_EC_CALL_HEALTH = {"worker_restarts": 0, "engine_fallbacks": 0}
 
 
 class VolumeServer:
@@ -110,6 +122,11 @@ class VolumeServer:
         # ("reconstructed"); the CLI prints both when it stops
         self._ec_reads_lock = threading.Lock()
         self.ec_reads = {"remote": 0, "reconstructed": 0}
+        # idle until /ec/scrub/start (or the shell's ec.scrub)
+        self.scrubber = EcScrubber(self.store, busy_fn=self._scrub_busy)
+        self._req_lock = threading.Lock()
+        self._req_sample = (0, time.monotonic())
+        self._req_busy = False
 
     @property
     def url(self) -> str:
@@ -124,6 +141,7 @@ class VolumeServer:
 
     def stop(self) -> None:
         self._stop.set()
+        self.scrubber.stop(join_timeout=0.5)
         if self._server is not None:
             stop_server(self._server)
         self.store.close()
@@ -207,6 +225,21 @@ class VolumeServer:
                       self.heartbeat_payload(), timeout=30.0)
 
     # --- helpers ----------------------------------------------------------
+    def _scrub_busy(self) -> bool:
+        """The scrubber's load gate: True while this server takes more
+        than 50 requests a second, over windows of at least 0.5 s (the
+        scrubber asks before every 256 KiB block)."""
+        with self._req_lock:
+            prev_total, prev_t = self._req_sample
+            now = time.monotonic()
+            dt = now - prev_t
+            if dt < 0.5:
+                return self._req_busy
+            total = self.router.requests
+            self._req_sample = (total, now)
+            self._req_busy = (total - prev_total) / dt > 50.0
+            return self._req_busy
+
     def _lookup_replicas(self, vid: int) -> list[str]:
         """Replica locations with a short TTL cache
         (operation/lookup_vid_cache.go; shorter than the reference's 10
@@ -364,24 +397,28 @@ class VolumeServer:
                     raise HttpError(404, "not found")
                 except CookieMismatchError:
                     raise HttpError(404, "cookie mismatch")
-            elif vid in self.store.ec_volumes:
-                try:
-                    blob, size = self.store.read_ec_needle(
-                        vid, fid.key, self._fetch_remote_shard)
-                except NeedleNotFoundError:
-                    raise HttpError(404, "not found")
-                n = Needle.from_bytes(blob, size,
-                                      self.store.ec_volumes[vid].version)
+            else:
+                # the volume found stays open for the whole read; a
+                # scrub's quarantine swaps it whole, never leaving it absent
+                with self.store.ec_volume_held(vid) as ev:
+                    if ev is not None:
+                        try:
+                            blob, size = self.store.read_ec_needle(
+                                vid, fid.key, self._fetch_remote_shard)
+                        except NeedleNotFoundError:
+                            raise HttpError(404, "not found")
+                        n = Needle.from_bytes(blob, size, ev.version)
+                if ev is None:
+                    others = [u for u in self._lookup_replicas(vid)
+                              if u != self.url]
+                    if not others:
+                        raise HttpError(404, f"volume {vid} not found")
+                    return Response(None, status=302, raw=b"", headers={
+                        "Location": "http://%s%s" % (
+                            others[0],
+                            urllib.parse.quote(req.path, safe="/,"))})
                 if n.cookie != fid.cookie:
                     raise HttpError(404, "cookie mismatch")
-            else:
-                others = [u for u in self._lookup_replicas(vid)
-                          if u != self.url]
-                if not others:
-                    raise HttpError(404, f"volume {vid} not found")
-                return Response(None, status=302, raw=b"", headers={
-                    "Location": "http://%s%s" % (
-                        others[0], urllib.parse.quote(req.path, safe="/,"))})
             etag = f'"{n.etag()}"'
             if req.headers.get("If-None-Match") == etag:
                 return Response(None, status=304, raw=b"")
@@ -505,6 +542,7 @@ class VolumeServer:
 
         @r.route("GET", "/status")
         def status(req: Request) -> Response:
+            scrub = self.scrubber.status()
             return Response({
                 "Version": VERSION,
                 "Volumes": [v.to_volume_information()
@@ -513,6 +551,15 @@ class VolumeServer:
                 "Master": self.master_url,
                 "DataCenter": self.data_center,
                 "Rack": self.rack,
+                "EcPipeline": dict(_EC_PIPELINE_TOTALS),
+                "EcIntegrity": ec_integrity_metrics().totals(),
+                "EcScrub": {
+                    "running": scrub["running"],
+                    "passes": scrub["passes"],
+                    "cursor": scrub["cursor"],
+                    "verdicts": {v: d.get("status", "?")
+                                 for v, d in scrub["verdicts"].items()},
+                },
             })
 
         # --- admin: volume lifecycle ---------------------------------
@@ -558,7 +605,7 @@ class VolumeServer:
             b = req.json()
             self._check_engine(b)
             self.store.ec_generate(int(b["volume_id"]))
-            return Response({})
+            return Response({"pipeline": dict(_EC_CALL_HEALTH)})
 
         @r.route("POST", "/admin/ec/rebuild")
         def ec_rebuild(req: Request) -> Response:
@@ -566,7 +613,42 @@ class VolumeServer:
             self._check_engine(b)
             rebuilt = self.store.ec_rebuild(int(b["volume_id"]),
                                             b.get("collection", ""))
-            return Response({"rebuilt_shard_ids": rebuilt})
+            return Response({"rebuilt_shard_ids": rebuilt,
+                             "pipeline": dict(_EC_CALL_HEALTH)})
+
+        # --- EC bit-rot scrubber (scrubber.py) -------------------------
+        @r.route("POST", "/ec/scrub/start")
+        def ec_scrub_start(req: Request) -> Response:
+            """Launch the scan (or retune a running one).  Body knobs:
+            rate_mb_s (0 unthrottled), interval_s (0: one pass), backfill,
+            volume_id (a targeted one-pass scan of that volume)."""
+            try:
+                b = req.json()
+            except ValueError:  # not JSON: the defaults
+                b = {}
+            vid = b.get("volume_id")
+            try:
+                vid = int(vid) if vid is not None else None
+            except (TypeError, ValueError):
+                raise HttpError(400, f"bad volume_id {vid!r}")
+            started = self.scrubber.start(
+                rate_mb_s=(float(b["rate_mb_s"])
+                           if "rate_mb_s" in b else None),
+                interval_s=(float(b["interval_s"])
+                            if "interval_s" in b else None),
+                backfill=(bool(b["backfill"]) if "backfill" in b else None),
+                volume_id=vid)
+            return Response({"started": started, **self.scrubber.status()})
+
+        @r.route("POST", "/ec/scrub/stop")
+        def ec_scrub_stop(req: Request) -> Response:
+            """Stop the scan; the cursor survives for the next start."""
+            self.scrubber.stop()
+            return Response(self.scrubber.status())
+
+        @r.route("GET", "/ec/scrub/status")
+        def ec_scrub_status(req: Request) -> Response:
+            return Response(self.scrubber.status())
 
         @r.route("POST", "/admin/ec/copy")
         def ec_copy(req: Request) -> Response:

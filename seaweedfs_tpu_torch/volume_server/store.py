@@ -9,11 +9,19 @@ remote fetch or reconstruction of what is missing, decode back to a
 volume, and build the master's full and delta heartbeats.  Every GF
 product goes through ops.gf_matmul on ``device``.
 
+EC volumes are mounted, unmounted and swapped under ``ec_swap()``, so a
+reader never finds a volume briefly absent while the scrubber quarantines
+a shard.  A reader holds the volume it found (``ec_volume_held``) for the
+whole read, remote fetch and reconstruction included, without holding the
+swap back: an unmounted volume closes its files when its last reader
+leaves.
+
 Not ported: the native data plane, mmap volumes and the needle cache.
 """
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import os
 import re
@@ -72,6 +80,12 @@ class Store:
         self.volume_locks: dict[int, threading.Lock] = {}
         self.ec_volumes: dict[int, EcVolume] = {}
         self.ec_collections: dict[int, str] = {}
+        # held to find a volume in ec_volumes and to change the table; a
+        # reader holds only the volume it found (_ec_holders), so a swap
+        # never waits on a read's IO or kernel launch
+        self._ec_lock = threading.RLock()
+        self._ec_holders: dict[EcVolume, int] = {}
+        self._ec_unmounted: set[EcVolume] = set()
         # request threads ask for the codec and the encoder at once: each
         # is made once, under this lock
         self._init_lock = threading.Lock()
@@ -289,41 +303,78 @@ class Store:
                 return base
         return volume_file_prefix(self.directories[0], collection, vid)
 
+    @contextlib.contextmanager
+    def ec_volume_held(self, vid: int):
+        """The EC volume mounted as ``vid`` (None if there is none), kept
+        open until the block ends even if a swap unmounts it meanwhile."""
+        with self._ec_lock:
+            ev = self.ec_volumes.get(vid)
+            if ev is not None:
+                self._ec_holders[ev] = self._ec_holders.get(ev, 0) + 1
+        try:
+            yield ev
+        finally:
+            if ev is not None:
+                with self._ec_lock:
+                    left = self._ec_holders.pop(ev) - 1
+                    if left:
+                        self._ec_holders[ev] = left
+                    elif ev in self._ec_unmounted:
+                        self._ec_unmounted.discard(ev)
+                        ev.close()
+
+    def _close_ec_volume(self, ev: EcVolume) -> None:
+        """Under _ec_lock: close now, or when the last reader leaves."""
+        if ev in self._ec_holders:
+            self._ec_unmounted.add(ev)
+        else:
+            ev.close()
+
+    def ec_swap(self):
+        """Context in which mounts, unmounts and file renames of EC
+        volumes happen as one step for readers."""
+        return self._ec_lock
+
     def ec_mount(self, vid: int, collection: str = "") -> None:
-        self.ec_unmount(vid)
-        base = self._ec_base(vid, collection)
-        self._open_ec_volume(os.path.dirname(base), collection, vid)
+        with self.ec_swap():
+            self.ec_unmount(vid)
+            base = self._ec_base(vid, collection)
+            self._open_ec_volume(os.path.dirname(base), collection, vid)
 
     def ec_unmount(self, vid: int) -> None:
-        ev = self.ec_volumes.pop(vid, None)
-        self.ec_collections.pop(vid, None)
-        if ev is not None:
-            ev.close()
-            self.note_ec_change(vid, gone=True)
+        with self.ec_swap():
+            ev = self.ec_volumes.pop(vid, None)
+            self.ec_collections.pop(vid, None)
+            if ev is not None:
+                self._close_ec_volume(ev)
+                self.note_ec_change(vid, gone=True)
 
     def ec_delete_shards(self, vid: int, shard_ids: list[int],
                          collection: str = "") -> None:
-        base = self._ec_base(vid, collection)
-        was_mounted = vid in self.ec_volumes
-        self.ec_unmount(vid)
-        for sid in shard_ids:
-            p = base + to_ext(sid)
-            if os.path.exists(p):
-                os.remove(p)
-        if not glob.glob(base + ".ec[0-9][0-9]"):
-            # last shard gone: the index, journal and crc sidecar go too
-            for ext in (".ecx", ".ecj", ".eci"):
-                if os.path.exists(base + ext):
-                    os.remove(base + ext)
-        elif was_mounted:
-            self.ec_mount(vid, collection)
+        with self.ec_swap():
+            base = self._ec_base(vid, collection)
+            was_mounted = vid in self.ec_volumes
+            self.ec_unmount(vid)
+            for sid in shard_ids:
+                p = base + to_ext(sid)
+                if os.path.exists(p):
+                    os.remove(p)
+            if not glob.glob(base + ".ec[0-9][0-9]"):
+                # last shard gone: the index, journal, crc sidecar and any
+                # quarantined .bad evidence go too
+                for path in [base + ext for ext in (".ecx", ".ecj", ".eci")] \
+                        + glob.glob(base + ".ec[0-9][0-9].bad"):
+                    if os.path.exists(path):
+                        os.remove(path)
+            elif was_mounted:
+                self.ec_mount(vid, collection)
 
     def ec_shard_read(self, vid: int, shard_id: int, offset: int,
                       length: int) -> bytes:
-        ev = self.ec_volumes.get(vid)
-        if ev is None or shard_id not in ev.shards:
-            raise NeedleNotFoundError(f"shard {vid}.{shard_id} not here")
-        return ev.shards[shard_id].read_at(length, offset)
+        with self.ec_volume_held(vid) as ev:
+            if ev is None or shard_id not in ev.shards:
+                raise NeedleNotFoundError(f"shard {vid}.{shard_id} not here")
+            return ev.shards[shard_id].read_at(length, offset)
 
     def read_ec_needle(self, vid: int, key: int,
                        fetch_remote: Optional[
@@ -333,21 +384,21 @@ class Store:
         local shard, verified against the `.eci`, else from
         ``fetch_remote(vid, shard, offset, size)``, else reconstructed
         from the local survivors on the card.  Returns (record, size)."""
-        ev = self.ec_volumes.get(vid)
-        if ev is None:
-            raise KeyError(f"ec volume {vid} not found")
-        _, size, intervals = ev.locate_ec_shard_needle(key)
-        if size_is_deleted(size):
-            raise NeedleNotFoundError(f"needle {key} deleted")
         rs = self.rs()
-        return b"".join(ev.read_interval(iv, rs, fetch_remote)
-                        for iv in intervals), size
+        with self.ec_volume_held(vid) as ev:
+            if ev is None:
+                raise KeyError(f"ec volume {vid} not found")
+            _, size, intervals = ev.locate_ec_shard_needle(key)
+            if size_is_deleted(size):
+                raise NeedleNotFoundError(f"needle {key} deleted")
+            return b"".join(ev.read_interval(iv, rs, fetch_remote)
+                            for iv in intervals), size
 
     def ec_delete_needle(self, vid: int, key: int) -> None:
-        ev = self.ec_volumes.get(vid)
-        if ev is None:
-            raise KeyError(f"ec volume {vid} not found")
-        ev.delete_needle(key)
+        with self.ec_volume_held(vid) as ev:
+            if ev is None:
+                raise KeyError(f"ec volume {vid} not found")
+            ev.delete_needle(key)
 
     def ec_to_volume(self, vid: int, collection: str = "") -> None:
         """VolumeEcShardsToVolume (volume_grpc_erasure_coding.go:382-413):
@@ -363,7 +414,8 @@ class Store:
     def close(self) -> None:
         for v in self.volumes.values():
             v.close()
-        for ev in self.ec_volumes.values():
-            ev.close()
         self.volumes.clear()
-        self.ec_volumes.clear()
+        with self.ec_swap():
+            for ev in self.ec_volumes.values():
+                self._close_ec_volume(ev)
+            self.ec_volumes.clear()

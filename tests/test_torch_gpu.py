@@ -224,3 +224,69 @@ def test_two_server_cluster_on_the_card(cuda, tmp_path):
         for vs in servers:
             vs.stop()
         master.stop()
+
+
+def test_resumed_encode_on_the_card(cuda, tmp_path):
+    """ec.dispatch fails once mid-encode on the card: the encode resumes
+    from its checkpoint (fewer launches than a restart from byte 0) to
+    the CPU encode's bytes, `.eci` included."""
+    from seaweedfs_tpu_torch.utils import faultinject
+
+    size = 40 * 1024 * 1024 + 777
+    base = str(tmp_path / "v")
+    with open(base + ".dat", "wb") as f:
+        f.write(_rand(size, seed=8).numpy().tobytes())
+    exts = [to_ext(i) for i in range(14)] + [".eci"]
+    StreamingEncoder(dispatch_mb=1, device="cpu").encode_file(
+        base + ".dat", str(tmp_path / "cpu"))
+    enc = StreamingEncoder(dispatch_mb=1, device="cuda")
+    faultinject.enable("ec.dispatch", error_rate=1.0, max_hits=1, after=2)
+    try:
+        before = gf_matmul.launches
+        enc.encode_file(base + ".dat", str(tmp_path / "cuda"))
+        launches = gf_matmul.launches - before
+    finally:
+        faultinject.clear()
+    assert enc.stats["retries"] == 1 and enc.stats["resume_byte"] > 0
+    # 1 MiB small rows: one 1 MiB dispatch per 10 MiB of the file
+    dispatches = -(-size // (10 << 20))
+    assert 0 < launches <= dispatches + enc.depth + 1
+    for ext in exts:
+        assert open(str(tmp_path / "cuda") + ext, "rb").read() == \
+            open(str(tmp_path / "cpu") + ext, "rb").read(), ext
+
+
+def test_scrub_repairs_on_the_card(cuda, tmp_path):
+    """The scrubber over Store(device="cuda"): rot in shards 3 and 12 is
+    quarantined and rebuilt by the kernel to the original bytes."""
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.volume_server.scrubber import EcScrubber
+    from seaweedfs_tpu_torch.volume_server.store import Store
+
+    store = Store([str(tmp_path)])
+    try:
+        store.add_volume(1)
+        rng = np.random.default_rng(9)
+        for i in range(1, 40):
+            store.write_needle(1, Needle(cookie=i, id=i, data=rng.bytes(
+                int(rng.integers(1, 1 << 20)))))
+        store.ec_generate(1)
+        store.ec_mount(1)
+        base = store.ec_volumes[1].base_file_name
+        orig = {s: open(base + to_ext(s), "rb").read() for s in (3, 12)}
+        for s in (3, 12):
+            with open(base + to_ext(s), "r+b") as f:
+                f.seek(1000)
+                c = f.read(1)
+                f.seek(1000)
+                f.write(bytes([c[0] ^ 1]))
+        before = gf_matmul.launches
+        st = EcScrubber(store, rate_mb_s=0).run_pass()
+        assert gf_matmul.launches > before
+        assert st["verdicts"]["1"]["status"] == "repaired"
+        assert st["verdicts"]["1"]["corrupt_shards"] == [3, 12]
+        for s in (3, 12):
+            assert open(base + to_ext(s), "rb").read() == orig[s]
+            assert os.path.exists(base + to_ext(s) + ".bad")
+    finally:
+        store.close()

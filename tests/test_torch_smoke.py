@@ -44,6 +44,16 @@ def test_main_path_on_cpu(tmp_path):
     assert gf_matmul.launches == before
     assert len(res["read_latency_s"]) == min(12, res["needles"])
     assert res["stats"]["encode"]["dispatches"] >= 1
+    assert res["stats"]["encode"]["drain_pool"] >= 1  # the drain threads
+    assert set(res["hashes"]) == {f".ec{i:02d}" for i in range(14)} | {".eci"}
+    # the resume phase on the same volume, at a dispatch narrow enough
+    # for a checkpoint before the middle dispatch
+    resume = chip_smoke.run_resume_phase("cpu", str(tmp_path), res["hashes"],
+                                         dispatch_b=16 << 10)
+    assert resume["dispatches"] >= 16
+    assert resume["stats"]["retries"] == 1 and resume["resume_byte"] > 0
+    assert resume["stats"]["dispatches"] < resume["dispatches"]
+    assert gf_matmul.launches == before
 
 
 def test_http_path_on_cpu(tmp_path):
@@ -54,7 +64,12 @@ def test_http_path_on_cpu(tmp_path):
                                    threads=3, per_thread=4, decoded_reads=5,
                                    stripes=3)
     assert res["dat_bytes"] >= 2 << 20
-    assert set(res["launches"]) == {"encode", "rebuild", "degraded_get"}
+    assert set(res["launches"]) == {"encode", "rebuild", "degraded_get",
+                                    "scrub_repair"}
+    scrub = res["scrub"]
+    assert scrub["verdict"]["status"] == "repaired"
+    assert scrub["verdict"]["corrupt_shards"] == [3, 12]
+    assert scrub["blocks"] > 0 and scrub["gets_during_repair"] > 0
     assert gf_matmul.launches == before  # the plain version launches nothing
     assert len(res["latency_1_client_s"]) == min(12, res["needles"])
     assert len(res["latency_8_clients_s"]) == 12
@@ -75,7 +90,8 @@ def test_cli_phase_on_cpu(tmp_path):
 def test_cluster_phase_on_cpu(tmp_path):
     """The master, five volume servers and the shell through the CLI, on
     the plain versions: upload, ec.encode, a SIGKILLed holder, degraded
-    GETs of both classes, ec.rebuild, ec.decode."""
+    GETs of both classes, ec.rebuild, a rotted shard that ec.scrub -all
+    quarantines and ec.rebuild heals, ec.decode."""
     res = chip_smoke.run_cluster_phase(
         "cpu", str(tmp_path), 12 << 20, reads=16, threads=3, per_thread=5,
         decoded_reads=6, pulse_seconds=0.3)
@@ -84,7 +100,8 @@ def test_cluster_phase_on_cpu(tmp_path):
             "b_3_clients"} <= set(res["gets_ms"])
     for leg in ("upload", "ec.encode", "encode_generate", "encode_spread",
                 "drop", "ec.rebuild", "rebuild_copy", "rebuild_rebuild",
-                "rebuild_spread", "ec.decode"):
+                "rebuild_spread", "ec.scrub", "ec.rebuild_after_scrub",
+                "ec.scrub_again", "ec.decode"):
         assert res["seconds"][leg] >= 0, leg
     roles = [r for s in res["servers"].values() for r in s["roles"]]
     assert sorted(roles) == ["encode", "killed", "rebuild"]
@@ -94,6 +111,8 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert sum(s["remote"] for s in alive) > 0
     assert sum(s["reconstructed"] for s in alive) > 0
     assert all(s["launches"] == 0 for s in alive)  # the plain versions
+    assert res["scrub"]["host"] in res["servers"]
+    assert res["scrub"]["healed_on"]
 
 
 def test_refuses_without_a_card_or_a_checkout(tmp_path):

@@ -281,7 +281,11 @@ def test_port_answers_its_own_routes(servers):
     status, body, _ = exchange(url, "GET", "/status")
     doc = json.loads(body)
     assert status == 200 and set(doc) == {"Version", "Volumes", "EcVolumes",
-                                          "Master", "DataCenter", "Rack"}
+                                          "Master", "DataCenter", "Rack",
+                                          "EcPipeline", "EcIntegrity",
+                                          "EcScrub"}
+    assert doc["EcScrub"] == {"running": False, "passes": 0,
+                              "cursor": [0, 0], "verdicts": {}}
     assert {v["id"] for v in doc["Volumes"]} >= {2}
     # 5-byte offsets are refused: the port's volumes use 4-byte offsets
     status, body, _ = exchange(url, "POST", "/admin/assign_volume", json.dumps(
