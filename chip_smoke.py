@@ -38,8 +38,10 @@ result.  Phases, each of which fails the run on any mismatch:
     subprocess, whose start line must name the card, serves a 64 MiB
     volume's degraded GETs and exits 0 on SIGTERM, printing the kernel
     launches of its process;
- 6. a whole cluster through the CLI: ``master`` and five ``volume
-    -ec.engine tpu`` processes on the card; a 2 GiB volume uploaded
+ 6. a whole cluster through the CLI: ``master -coordinatorSeconds 1
+    -metricsAggregationSeconds 1`` (its coordinator paused by the shell's
+    ``coordinator.pause``) and five ``volume -ec.engine tpu`` processes
+    on the card; a 2 GiB volume uploaded
     through WeedClient from eight threads, ``shell -c "ec.encode"`` (shard
     sha256 recorded), the holder of the most shards SIGKILLed and dropped
     by the master, 200 + 8x25 degraded GETs classed by whether the shard
@@ -48,11 +50,21 @@ result.  Phases, each of which fails the run on any mismatch:
     match their sha256), a bit flipped in a shard of a server holding
     fewer than 10 (``ec.scrub -all`` must call it unrepairable and
     quarantine it, ``ec.rebuild`` heal it to its sha256, and a second
-    ``ec.scrub -all`` find nothing unrepairable), ``ec.decode`` and 50
-    GETs of the decoded volume.
+    ``ec.scrub -all`` find nothing unrepairable); then the repair drill:
+    ``coordinator.resume`` and no shell command until each heal is
+    checked: a byte of a shard on that server flipped and ``ec.scrub
+    -all`` (unrepairable, quarantined) until the coordinator's rebuild
+    and re-scrub leave every shard's sha256 equal and /cluster/health
+    with no unrepairable verdict (``rot_to_heal_s``), then that server
+    SIGKILLed until every shard has a live holder with its sha256
+    (``kill_to_heal_s``) and /cluster/health reads ``degraded: false``;
+    /cluster/coordinator must show two repairs or more, none failed;
+    last ``ec.decode`` and 50 GETs of the decoded volume.
     Each server's stop line must count exactly the remote reads and
     reconstructions its GETs needed, and the encode and rebuild hosts
-    must have launched the kernel;
+    must have launched the kernel; each coordinator repair's host, by its
+    live /status count read around the heal, at least as many kernels
+    a repair as a typed ``ec.rebuild`` launched;
  7. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
@@ -977,22 +989,273 @@ def timed_gets(master: str, picks, needles: list[dict], fids: list[str],
     return out
 
 
+def coordinator_status(master: str) -> dict:
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return http_json("GET", f"http://{master}/cluster/coordinator")
+
+
+def kernel_launches(urls) -> dict[str, int]:
+    """The GF(2^8) kernels each volume server's process has launched so
+    far (its /status ``EcKernelLaunches``)."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return {u: http_json("GET", f"http://{u}/status")["EcKernelLaunches"]
+            for u in urls}
+
+
+def cluster_health(master: str) -> dict:
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return http_json("GET", f"http://{master}/cluster/health")
+
+
+def wait_healed(master: str, vid: int, dead: tuple, shard_path, hashes: dict,
+                done_before: int, t0: float, timeout: float
+                ) -> tuple[float, float]:
+    """Poll until the coordinator has finished a repair since
+    ``done_before``, its queue is empty and every shard has a holder
+    outside ``dead``; then every such holder's copy must equal its sha256
+    from before any loss.  -> (seconds from ``t0`` until the registry
+    showed the heal that the check then confirmed, seconds the sha256
+    check took)."""
+    from seaweedfs_tpu_torch.ec.layout import TOTAL_SHARDS_COUNT
+
+    while True:
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"volume {vid} not healed in {timeout} s: "
+                                 f"{coordinator_status(master)}")
+        st = coordinator_status(master)
+        live = {sid: [u for u in us if u not in dead]
+                for sid, us in shard_holders(master, vid).items()}
+        if st["repairs"]["done"] > done_before and not st["queue"] and \
+                all(live.get(sid) for sid in range(TOTAL_SHARDS_COUNT)):
+            seen = time.perf_counter() - t0
+            try:
+                bad = sorted({sid for sid, us in live.items() for u in us
+                              if sha256_file(shard_path(u, sid))
+                              != hashes[sid]})
+            except FileNotFoundError:
+                bad = None  # a move's source dropped its copy before its
+                # heartbeat told the master: look again
+            if bad:
+                raise AssertionError(f"healed shards {bad} of volume {vid} "
+                                     f"differ from their sha256")
+            if bad == []:
+                return seen, time.perf_counter() - t0 - seen
+        time.sleep(0.05)
+
+
+class Watch:
+    """Times, on a thread of its own, how long after ``t0`` ``ok()`` first
+    holds, so other waits and checks do not sit inside the time."""
+
+    def __init__(self, what: str, ok, t0: float, timeout: float):
+        self.what = what
+        self.seconds: float | None = None
+
+        def watch() -> None:
+            while time.perf_counter() - t0 < timeout:
+                try:
+                    if ok():
+                        self.seconds = time.perf_counter() - t0
+                        return
+                except Exception:  # noqa: BLE001 - polled until the timeout
+                    pass
+                time.sleep(0.05)
+
+        self._t = threading.Thread(target=watch, daemon=True)
+        self._t.start()
+
+    def wait(self) -> float:
+        self._t.join()
+        if self.seconds is None:
+            raise AssertionError(f"timed out waiting for {self.what}")
+        return self.seconds
+
+
+REPAIR_LINE = re.compile(r"coordinator: repaired volume (\d+) on (\S+): "
+                         r".* legs (\{.*\})$")
+
+
+def repair_legs(master_log: str) -> list[dict]:
+    """Each coordinator repair's copy / rebuild / spread seconds, from the
+    master's log lines."""
+    import ast
+
+    with open(master_log) as f:
+        return [{"host": m.group(2), **ast.literal_eval(m.group(3))}
+                for m in map(REPAIR_LINE.search, f) if m]
+
+
+def coordinator_drill(master: str, vid: int, host: str, vs: dict,
+                      alive: list, shard_path, hashes: dict,
+                      rebuild_launches: int) -> dict:
+    """The coordinator heals alone: coordinator.resume, then no shell
+    command between a fault and its check.  (1) Rot: a byte of one of
+    ``host``'s shards flipped, ``ec.scrub -all`` must call it
+    unrepairable and quarantine it; the coordinator rebuilds it on the
+    card and re-scrubs, until every shard's holders match their sha256
+    and /cluster/health counts no unrepairable verdict.  (2) Loss:
+    ``host`` SIGKILLed; the coordinator rebuilds its shards, until every
+    shard has a live holder matching its sha256 and /cluster/health
+    reads ``degraded: false`` (the killed host was the only server whose
+    counters had seen rot).  (3) /cluster/coordinator: at least two
+    repairs done, none failed, no error, an empty queue.  The live launch
+    counts of the ``alive`` servers, read before the resume, after the
+    rot's heal and after the loss's, must show each repair's host
+    launching at least ``rebuild_launches`` kernels (a typed ec.rebuild's
+    count) for each repair it ran in that window: nothing else launches
+    there, since a clean scrub pass verifies checksums only."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    res: dict = {"seconds": {}, "repair_launches": {}}
+
+    def check_launches(window: str, before: dict, after: dict,
+                       since_wall: float) -> None:
+        ran: dict[str, int] = {}
+        for r in coordinator_status(master)["recent"]:
+            if r["action"] == "repair_done" and r["at"] >= since_wall:
+                ran[r["host"]] = ran.get(r["host"], 0) + 1
+        res["repair_launches"][window] = {
+            h: {"repairs": n, "launches": after[h] - before[h]}
+            for h, n in ran.items()}
+        if not ran or any(after[h] - before[h] < rebuild_launches * n
+                          for h, n in ran.items()):
+            raise AssertionError(
+                f"the {window} repair hosts launched fewer kernels than "
+                f"{rebuild_launches} a repair: {res['repair_launches']}")
+
+    pre = kernel_launches(alive)
+    pre_wall = time.time()
+    out, _ = run_shell(master, "coordinator.resume")
+    if not out.startswith("coordinator:"):
+        raise AssertionError(f"coordinator.resume: {out}")
+    held = sorted(s for s, us in shard_holders(master, vid).items()
+                  if host in us)
+    if not 2 <= len(held) <= 4:
+        raise AssertionError(f"{host} holds shards {held}: the drill needs "
+                             f"2-4, so it can lose one and then die")
+    # 1. rot
+    rot_shard = held[0]
+    path = shard_path(host, rot_shard)
+    flip_byte(path, os.path.getsize(path) // 3)
+    done = coordinator_status(master)["repairs"]["done"]
+    # ec.scrub -all adds one pass on the host, its re-scrub another
+    passes = http_json("GET", f"http://{host}/ec/scrub/status")["passes"] + 1
+    out, res["seconds"]["ec.scrub"] = run_shell(master,
+                                                "ec.scrub -all -rate 0")
+    if f"  volume {vid}: unrepairable corrupt_shards=[{rot_shard}]" \
+            not in out.splitlines() or not os.path.exists(path + ".bad"):
+        raise AssertionError(f"ec.scrub -all of the drill's rot: {out}")
+    t0, t0_wall = time.perf_counter(), time.time()
+
+    def verdict_cleared() -> bool:
+        # a scrape from after the host's re-scrub pass: one from before the
+        # scrub's verdict reached the aggregator would read clean too
+        doc = cluster_health(master)
+        scrub = doc["peers"].get(host, {}).get("scrub") or {}
+        t = doc["totals"]
+        return scrub.get("passes", 0) > passes and not scrub["running"] \
+            and t["scrub_unrepairable"] == 0 \
+            and t["ec_under_replicated"] == 0 \
+            and t["coordinator_repair_failures"] == 0
+
+    # the verdict clears (re-scrub) only after the repair: wait for it
+    # first, so the sha256 check below is not inside either time
+    res["seconds"]["rot_to_health_clear"] = wait_for(
+        "/cluster/health to count no unrepairable verdict",
+        verdict_cleared, 300)
+    res["seconds"]["rot_to_sha256_equal"], res["seconds"]["rot_verify"] = \
+        wait_healed(master, vid, (), shard_path, hashes, done, t0, 300)
+    res["rot_to_heal_s"] = max(res["seconds"]["rot_to_health_clear"],
+                               res["seconds"]["rot_to_sha256_equal"])
+    health = cluster_health(master)
+    # the counters of detection (corrupt_shards, scrub_repairs) never fall:
+    # the host that saw the rot keeps `degraded` true while it is a peer
+    res["health_after_rot"] = {
+        "degraded": health["degraded"],
+        "nonzero": {k: v for k, v in health["totals"].items() if v}}
+    st = coordinator_status(master)
+    rot_repair = next(r for r in st["recent"]
+                      if r["action"] == "repair_done")
+    res["rot_repair"] = {k: rot_repair[k] for k in
+                         ("host", "rebuilt", "spread", "rescrubbed")}
+    res["seconds"]["rot_scrub_end_to_repair_done"] = \
+        rot_repair["at"] - t0_wall
+
+    mid = kernel_launches(alive)
+    check_launches("rot", pre, mid, pre_wall)
+
+    # 2. loss: the host that saw both rots
+    done = st["repairs"]["done"]
+    left = sorted(s for s, us in shard_holders(master, vid).items()
+                  if any(u != host for u in us))
+    if len(left) < 10:
+        raise AssertionError(f"killing {host} would leave shards {left}")
+    t0, t0_wall = time.perf_counter(), time.time()
+    vs[host]["proc"].kill()
+    vs[host]["proc"].wait()
+    drop = Watch("the master to drop the killed server",
+                 lambda: host not in node_urls(master_status(master)),
+                 t0, 120)
+    clean = Watch("/cluster/health to read degraded: false",
+                  lambda: cluster_health(master)["degraded"] is False,
+                  t0, 300)
+    res["seconds"]["kill_to_sha256_equal"], res["seconds"]["loss_verify"] = \
+        wait_healed(master, vid, (host,), shard_path, hashes, done, t0, 300)
+    res["kill_to_heal_s"] = res["seconds"]["kill_to_sha256_equal"]
+    res["seconds"]["drop"] = drop.wait()
+    res["seconds"]["kill_to_health_clean"] = clean.wait()
+
+    # 3. the coordinator's own account
+    st = coordinator_status(master)
+    if st["repairs"]["done"] < 2 or st["repairs"]["failed"] or \
+            st["last_error"] or st["queue"]:
+        raise AssertionError(f"/cluster/coordinator after the drill: {st}")
+    check_launches("loss", mid, kernel_launches(
+        [u for u in alive if u != host]), t0_wall)
+    loss = [r for r in st["replicated"]["log"] if r["at"] >= t0_wall]
+    planned = next(r["at"] for r in loss if r["op"] == "planned")
+    done_at = next(r["at"] for r in loss if r["op"] == "done")
+    loss_repair = next(r for r in st["recent"]
+                       if r["action"] == "repair_done")
+    res["loss_repair"] = {k: loss_repair[k] for k in
+                          ("host", "rebuilt", "spread", "rescrubbed")}
+    res["seconds"]["kill_to_repair_planned"] = planned - t0_wall
+    res["seconds"]["loss_repair"] = done_at - planned
+    res["repair_hosts"] = sorted({r["host"] for r in st["recent"]
+                                  if r["action"] == "repair_done"})
+    res["coordinator"] = {"cycles": st["cycles"], "repairs": st["repairs"],
+                          "moves": st["moves"],
+                          "recent": [r["action"] for r in st["recent"]]}
+    return res
+
+
 def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                       reads: int, threads: int, per_thread: int,
                       decoded_reads: int, servers: int = 5,
-                      pulse_seconds: float = 0.5) -> dict:
-    """A whole EC cluster through the port's CLI: a master and
-    ``servers`` volume servers (``-ec.engine <engine>``), each its own
-    process.  One volume of collection "ec" is uploaded through
-    WeedClient from ``threads`` threads, then the shell's ec.encode; the
-    server holding the most shards (not the encode's source) is
-    SIGKILLed and dropped by the master; ``reads`` single-client and
-    ``threads`` x ``per_thread`` concurrent degraded GETs; ec.rebuild
-    (rebuilt shards equal to their sha256 before the loss); ec.decode and
+                      pulse_seconds: float = 0.5,
+                      coordinator_seconds: float = 1.0) -> dict:
+    """A whole EC cluster through the port's CLI: a master
+    (``-coordinatorSeconds`` and ``-metricsAggregationSeconds``
+    ``coordinator_seconds``, its coordinator paused at once with the
+    shell's coordinator.pause) and ``servers`` volume servers
+    (``-ec.engine <engine>``), each its own process.  One volume of
+    collection "ec" is uploaded through WeedClient from ``threads``
+    threads, then the shell's ec.encode; the server holding the most
+    shards (not the encode's source) is SIGKILLed and dropped by the
+    master; ``reads`` single-client and ``threads`` x ``per_thread``
+    concurrent degraded GETs; ec.rebuild (rebuilt shards equal to their
+    sha256 before the loss); a rotted shard that ec.scrub -all quarantines
+    and ec.rebuild heals.  Then the drill (``coordinator_drill``):
+    coordinator.resume, and the coordinator alone heals a second rotted
+    shard and a second SIGKILLed server.  Last, ec.decode and
     ``decoded_reads`` GETs of the decoded volume.  Each GET is classed by
     the server that answered it: (a) a shard alive on another server,
-    (b) a lost shard, or local.  Every server's stop line must count
-    exactly the remote shard reads and reconstructions its GETs needed."""
+    (b) a lost shard, or local.  Every server's stop line (the second
+    killed one has none) must count exactly the remote shard reads and
+    reconstructions its GETs needed."""
     from seaweedfs_tpu_torch.client.operation import WeedClient
     from seaweedfs_tpu_torch.ec.layout import TOTAL_SHARDS_COUNT, to_ext
     from seaweedfs_tpu_torch.storage.file_id import FileId
@@ -1010,8 +1273,15 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         procs.append(start_cli(
             ["master", "-port", str(mport), "-volumeSizeLimitMB",
              str((volume_bytes >> 20) + 64), "-pulseSeconds",
-             str(pulse_seconds)], log))
+             str(pulse_seconds), "-coordinatorSeconds",
+             str(coordinator_seconds), "-metricsAggregationSeconds",
+             str(coordinator_seconds)], log))
         read_start_line(procs[0], log, "master listening")
+        # the lost shards of the first kill must stay lost for the class
+        # (b) GETs: the coordinator waits until the drill
+        out, _ = run_shell(master, "coordinator.pause")
+        if not out.startswith("coordinator: paused"):
+            raise AssertionError(f"coordinator.pause: {out}")
         t0 = time.perf_counter()
         vs: dict[str, dict] = {}
         for k in range(servers):
@@ -1121,6 +1391,7 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                                  f"{ {k: len(v) for k, v in classes.items()} }")
         res["gets_ms"] = {k: percentiles(v) for k, v in sorted(classes.items())}
 
+        before = kernel_launches(alive)
         out, res["seconds"]["ec.rebuild"] = run_shell(
             master, f"ec.rebuild -volumeId {vid}")
         m = re.search(r"rebuilt shards \[([\d, ]*)\] on (\S+?)[;\s]", out)
@@ -1130,6 +1401,9 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                 [int(x) for x in m.group(1).split(",")] != lost:
             raise AssertionError(f"ec.rebuild: {out}")
         rebuild_host = m.group(2)
+        # a rebuild launches one kernel a dispatch, whatever its row count
+        rebuild_launches = [kernel_launches([rebuild_host])[rebuild_host]
+                            - before[rebuild_host]]
         for leg, g in (("copy", 1), ("rebuild", 2), ("spread", 3)):
             res["seconds"][f"rebuild_{leg}"] = float(t.group(g))
         holders = shard_holders(master, vid)
@@ -1140,11 +1414,14 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                 raise AssertionError(f"rebuilt shard {sid} differs")
 
         # bit rot on one server that holds fewer than 10 shards: its
-        # scrubber can only quarantine, and ec.rebuild heals the set
+        # scrubber can only quarantine, and ec.rebuild heals the set.  Not
+        # the encode or rebuild host: the drill kills it later, and their
+        # stop lines must count their launches
         holders = shard_holders(master, vid)
         held_now = {u: sorted(s for s, us in holders.items() if u in us)
                     for u in alive}
-        rot_host = min((u for u in alive if len(held_now[u]) >= 2),
+        rot_host = min((u for u in alive if len(held_now[u]) >= 2
+                        and u not in (source, rebuild_host)),
                        key=lambda u: (-len(held_now[u]), u))
         rot_shard = held_now[rot_host][-1]
         rot_path = shard_path(rot_host, rot_shard)
@@ -1160,10 +1437,18 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         wait_for("the master to drop the quarantined shard",
                  lambda: rot_host not in shard_holders(master, vid).get(
                      rot_shard, []), 60)
+        before = kernel_launches(alive)
         out, res["seconds"]["ec.rebuild_after_scrub"] = run_shell(
             master, f"ec.rebuild -volumeId {vid}")
-        if f"rebuilt shards [{rot_shard}]" not in out:
+        m = re.search(rf"rebuilt shards \[{rot_shard}\] on (\S+?)[;\s]", out)
+        if not m:
             raise AssertionError(f"ec.rebuild after the scrub: {out}")
+        rebuild_launches.append(kernel_launches([m.group(1)])[m.group(1)]
+                                - before[m.group(1)])
+        res["rebuild_launches"] = rebuild_launches
+        if engine == "tpu" and min(rebuild_launches) <= 0:
+            raise AssertionError(f"a typed ec.rebuild launched no kernel: "
+                                 f"{rebuild_launches}")
         holders = shard_holders(master, vid)
         if not holders.get(rot_shard) or any(
                 sha256_file(shard_path(u, rot_shard)) != hashes[rot_shard]
@@ -1175,6 +1460,13 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
             raise AssertionError(f"ec.scrub -all after the heal: {out}")
         res["scrub"] = {"host": rot_host, "shard": rot_shard,
                         "healed_on": holders[rot_shard]}
+
+        res["drill"] = coordinator_drill(master, vid, rot_host, vs, alive,
+                                         shard_path, hashes,
+                                         min(rebuild_launches))
+        res["drill"]["repair_legs"] = repair_legs(
+            os.path.join(work, "master.log"))
+        alive.remove(rot_host)
 
         out, res["seconds"]["ec.decode"] = run_shell(
             master, f"ec.decode -volumeId {vid}")
@@ -1195,9 +1487,16 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
             res["servers"][url] = {"shards": held[url], "roles": roles,
                                    **counts}
         res["servers"][victim] = {"shards": lost, "roles": ["killed"]}
-        if engine == "tpu" and not (
-                res["servers"][source]["launches"] > 0
-                and res["servers"][rebuild_host]["launches"] > 0):
+        res["servers"][rot_host] = {"shards": held[rot_host],
+                                    "roles": ["rotted", "killed"]}
+        repair_hosts = sorted({h for h in res["drill"]["repair_hosts"]
+                               if h != rot_host})
+        for url in repair_hosts:
+            res["servers"][url]["roles"].append("coordinator_repair")
+        # each coordinator repair's launches were held in the drill
+        if engine == "tpu" and not all(
+                res["servers"][u]["launches"] > 0
+                for u in (source, rebuild_host)):
             raise AssertionError(f"the encode or rebuild host launched no "
                                  f"kernel: {res['servers']}")
         procs[0].send_signal(signal.SIGTERM)
@@ -1468,7 +1767,17 @@ def main() -> int:
              "from": "5 s default heartbeat pulse (weed master/volume "
                      "-pulseSeconds)",
              "why": "the master drops a killed server after ten pulses: "
-                    "5 s in place of 50 s"}]})
+                    "5 s in place of 50 s"},
+            {"coordinator_seconds": 1.0,
+             "from": "weed master -coordinatorSeconds 0 (off) by default; "
+                     "the loop's interval falls back to 15 s",
+             "why": "the drill needs the coordinator on; one cycle a "
+                    "second in place of 15 s"},
+            {"metrics_aggregation_seconds": 1.0,
+             "from": "weed master -metricsAggregationSeconds 0 (scrape "
+                     "on demand) by default",
+             "why": "a scrape a second lets the coordinator count a "
+                    "killed server as down before the master drops it"}]})
         cluster = run_cluster_phase("tpu", work, VOLUME_BYTES,
                                     DEGRADED_READS, HTTP_THREADS,
                                     HTTP_READS_PER_THREAD, DECODED_READS)
@@ -1484,6 +1793,10 @@ def main() -> int:
          "encode_GBps": cluster["dat_bytes"] / s["encode_generate"] / 1e9,
          "seconds": s, "gets_ms": cluster["gets_ms"],
          "scrub": cluster["scrub"],
+         "rot_to_heal_s": cluster["drill"]["rot_to_heal_s"],
+         "kill_to_heal_s": cluster["drill"]["kill_to_heal_s"],
+         "drill": cluster["drill"],
+         "rebuild_launches": cluster["rebuild_launches"],
          "servers": cluster["servers"], "launches": cluster_launches,
          "nvidia_smi": card})
 

@@ -3,7 +3,8 @@
 The ``weed master``, ``weed volume`` and ``weed shell`` subcommands
 (weed.py) with the flags this port serves:
 
-    python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000
+    python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000 \\
+        -coordinatorSeconds 15 -metricsAggregationSeconds 5
     python -m seaweedfs_tpu_torch volume -dir /data -port 8080 \\
         -mserver 127.0.0.1:9333 -ec.engine tpu
     python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \\
@@ -11,11 +12,15 @@ The ``weed master``, ``weed volume`` and ``weed shell`` subcommands
 
 ``-ec.engine tpu`` (the default) runs EC on the CUDA card: the server
 builds its kernel before it listens and fails without a card;
-``-ec.engine cpu`` runs the plain PyTorch versions.  The servers run
-until SIGINT or SIGTERM, a signal taken during start-up included, then
-stop and exit 0; the volume server's last line counts the GF kernels it
-launched and the EC intervals it lacked, fetched from a holder or
-reconstructed.  ``shell -c`` takes the admin lock, runs the
+``-ec.engine cpu`` runs the plain PyTorch versions.  ``master
+-coordinatorSeconds N`` repairs EC volumes that lack shards on its own,
+every N seconds (0, the default, leaves repair to the shell's
+ec.rebuild), and logs each repair and move on standard error;
+``-metricsAggregationSeconds N`` scrapes the volume servers every N
+seconds, so it finds a dead one sooner than the heartbeat timeout.  The servers run until SIGINT or SIGTERM, a signal taken during
+start-up included, then stop and exit 0; the volume server's last line
+counts the GF kernels it launched and the EC intervals it lacked, fetched
+from a holder or reconstructed.  ``shell -c`` takes the admin lock, runs the
 ``;``-separated commands, prints what each returns and unlocks; without
 ``-c`` it reads commands from standard input.
 
@@ -27,6 +32,7 @@ Every subcommand first arms the fault points named in ``WEED_FAULTS``
 from __future__ import annotations
 
 import argparse
+import logging
 import signal
 import sys
 import threading
@@ -47,6 +53,17 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     m.add_argument("-pulseSeconds", type=float, default=5.0,
                    help="heartbeat interval; a volume server silent for "
                         "ten pulses is dropped")
+    m.add_argument("-metricsAggregationSeconds", type=float, default=0.0,
+                   help="scrape registered volume-server /metrics every N "
+                        "seconds for /cluster/metrics + /cluster/health "
+                        "(0 = on demand only)")
+    m.add_argument("-coordinatorSeconds", type=float, default=0.0,
+                   help="run the autonomous EC rebuild/rebalance "
+                        "coordinator with this planning interval: "
+                        "repair volumes short of clean shards (below "
+                        "k+1 first) and rebalance shard placement "
+                        "rack-aware on server join/leave (0 = off; "
+                        "status at GET /cluster/coordinator)")
     v = sub.add_parser("volume", help="start a volume server")
     v.add_argument("-dir", default="./data",
                    help="comma-separated data directories")
@@ -95,11 +112,19 @@ def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
 def cmd_master(args: argparse.Namespace) -> int:
     from .master.server import MasterServer
 
+    # the coordinator's repairs and moves, and the servers it finds down,
+    # are log lines (the reference journals them as events)
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s "
+                        "%(levelname)s %(name)s: %(message)s")
+
     def start():
         ms = MasterServer(host=args.ip, port=args.port,
                           volume_size_limit_mb=args.volumeSizeLimitMB,
                           default_replication=args.defaultReplication,
-                          pulse_seconds=args.pulseSeconds).start()
+                          pulse_seconds=args.pulseSeconds,
+                          coordinator_seconds=args.coordinatorSeconds,
+                          metrics_aggregation_seconds=(
+                              args.metricsAggregationSeconds)).start()
         print(f"master listening on {ms.url}", flush=True)
         return ms.stop
 

@@ -15,14 +15,26 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
   GET|HEAD /<vid>,<fid> redirect to a holder
   POST /admin/lease, /admin/release   the shell's exclusive lock
                         (master_grpc_server_admin.go:73-150)
+  GET  /cluster/metrics the registered volume servers' /metrics merged
+                        (stats/aggregate.py ClusterAggregator)
+  GET  /cluster/health  their health counters and scrub verdicts, the
+                        coordinator's totals, and a rollup `degraded`
+  GET  /cluster/coordinator, POST /cluster/coordinator/pause|resume
+                        the EC repair coordinator (ops/coordinator.py)
 
 A janitor thread unregisters volume servers that stopped heartbeating.
+``coordinator_seconds`` > 0 starts the coordinator's loop with that
+interval (the routes answer either way); it pauses while the shell's
+admin lock is held, and it counts a registered server the aggregator
+cannot scrape as down.  ``metrics_aggregation_seconds`` > 0 scrapes every
+server that often, so the coordinator sees a dead server within a
+scrape; otherwise the /cluster/* routes scrape on demand.
 
-Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/*
-telemetry, alert, trace, heat, ledger, workload, capacity, autoscale,
-coordinator and watch routes, /metrics, /vol/vacuum and the maintenance
-scripts, the framed-TCP assign front, and security (guard, JWT, TLS,
-admission control).
+Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/ alert,
+trace, event, heat, ledger, workload, capacity, autoscale and watch
+routes (so the aggregation loop evaluates no alert rules), the master's
+own /metrics, /vol/vacuum and the maintenance scripts, the framed-TCP
+assign front, and security (guard, JWT, TLS, admission control).
 """
 
 from __future__ import annotations
@@ -33,6 +45,8 @@ import time
 import urllib.parse
 from typing import Optional
 
+from ..ops.coordinator import EcCoordinator
+from ..stats.aggregate import ClusterAggregator
 from ..storage.file_id import format_needle_id_cookie
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
@@ -60,7 +74,9 @@ class MasterServer:
     def __init__(self, host: str = "127.0.0.1", port: int = 9333,
                  volume_size_limit_mb: int = 30000,
                  default_replication: str = "000",
-                 pulse_seconds: float = 5.0):
+                 pulse_seconds: float = 5.0,
+                 coordinator_seconds: float = 0.0,
+                 metrics_aggregation_seconds: float = 0.0):
         """A master at host:port.  Volume servers silent for ten pulses
         are dropped."""
         self.host, self.port = host, port
@@ -78,6 +94,14 @@ class MasterServer:
         self._admin_client = ""
         # lazy self-client for /submit (assign + upload in one call)
         self._submit_client = None
+        self.metrics_aggregation_seconds = metrics_aggregation_seconds
+        self.aggregator = ClusterAggregator(peers_fn=self._peer_urls)
+        self.coordinator_seconds = coordinator_seconds
+        self.coordinator = EcCoordinator(
+            topo=self.topo, stale_peers_fn=self._stale_peers,
+            admin_locked_fn=self._admin_locked,
+            interval_s=coordinator_seconds or 15.0)
+        self.aggregator.local_fn = self.coordinator.health_contribution
 
     # --- lifecycle --------------------------------------------------------
     @property
@@ -88,10 +112,16 @@ class MasterServer:
         self._server = serve(self.router, self.host, self.port)
         threading.Thread(target=self._janitor_loop, daemon=True,
                          name="master-janitor").start()
+        if self.metrics_aggregation_seconds > 0:
+            self.aggregator.start_loop(self.metrics_aggregation_seconds)
+        if self.coordinator_seconds > 0:
+            self.coordinator.start()
         return self
 
     def stop(self) -> None:
         self._stop.set()
+        self.coordinator.stop()
+        self.aggregator.stop_loop()
         if self._server is not None:
             stop_server(self._server)
 
@@ -99,6 +129,24 @@ class MasterServer:
         while not self._stop.wait(self.topo.pulse_seconds):
             for node in self.topo.dead_nodes():
                 self.topo.unregister_node(node)
+
+    def _peer_urls(self) -> list[str]:
+        with self.topo.lock:
+            return [n.url for n in self.topo.all_nodes()]
+
+    def _stale_peers(self) -> list[str]:
+        """Registered servers the aggregator's last scrape could not reach:
+        the coordinator counts neither their shards nor them as targets."""
+        return [u for u, s in self.aggregator.peer_status().items()
+                if s["stale"]]
+
+    def _admin_locked(self) -> bool:
+        """True while the shell's admin lock is validly held: the
+        coordinator waits, so an operator's ec.rebuild or ec.balance never
+        duels it."""
+        with self.topo.lock:
+            return self._admin_token is not None and \
+                time.time() - self._admin_lock_ts <= 60
 
     def assign_fid(self, count: int = 1, collection: str = "",
                    replication: str = "", ttl_str: str = "",
@@ -215,6 +263,33 @@ class MasterServer:
         def cluster_status(req: Request) -> Response:
             return Response({"IsLeader": True, "Leader": self.url,
                              "Peers": []})
+
+        @r.route("GET", "/cluster/metrics")
+        def cluster_metrics(req: Request) -> Response:
+            self.aggregator.scrape()
+            return Response(raw=self.aggregator.expose().encode(), headers={
+                "Content-Type": "text/plain; version=0.0.4; charset=utf-8"})
+
+        @r.route("GET", "/cluster/health")
+        def cluster_health(req: Request) -> Response:
+            self.aggregator.scrape(include_scrub=True)
+            return Response(self.aggregator.health())
+
+        @r.route("GET", "/cluster/coordinator")
+        def cluster_coordinator(req: Request) -> Response:
+            return Response(self.coordinator.status())
+
+        @r.route("POST", "/cluster/coordinator/pause")
+        def cluster_coordinator_pause(req: Request) -> Response:
+            """An operator's hold that outlives the admin lock: no new
+            repair or move starts until resume."""
+            self.coordinator.pause("api")
+            return Response(self.coordinator.status())
+
+        @r.route("POST", "/cluster/coordinator/resume")
+        def cluster_coordinator_resume(req: Request) -> Response:
+            self.coordinator.resume()
+            return Response(self.coordinator.status())
 
         @r.route("POST", "/heartbeat")
         def heartbeat(req: Request) -> Response:

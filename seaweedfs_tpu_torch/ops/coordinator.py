@@ -1,34 +1,63 @@
-"""EC repair and rebalance planning, and the executor of its plans.
+"""EC repair and rebalance: the planner, the executor of its plans, and
+the master's autonomous coordinator loop.
 
-The port's copy of the planner and executor of seaweedfs_tpu/ops/
-coordinator.py, which the shell's ec.rebuild and ec.balance drive:
+The port's copy of seaweedfs_tpu/ops/coordinator.py:
 
   ClusterView + planner   pure functions over a neutral topology snapshot
-                          (the master's /dir/status document): clean-shard
-                          deficits, a rack/DC-aware placement ranking
-                          (volume growth's same-rack / other-rack /
-                          other-DC tiers), the rebuild host, and dedupe /
-                          rack-diversity / skew rebalance plans.
+                          (the master's /dir/status document, or its live
+                          Topology): clean-shard deficits, a rack/DC-aware
+                          placement ranking (volume growth's same-rack /
+                          other-rack / other-DC tiers), the rebuild host,
+                          and dedupe / rack-diversity / skew rebalance
+                          plans.  Shared by the shell's ec.rebuild and
+                          ec.balance and by the coordinator, so manual and
+                          autonomous moves agree.
   PlanExecutor            the HTTP legs (/admin/ec/copy -> mount ->
-                          delete, /admin/ec/rebuild), with the transport
-                          injected (the shell passes CommandEnv's).
+                          delete, /admin/ec/rebuild, the post-repair
+                          /ec/scrub/start), with the transport injected
+                          (the shell passes CommandEnv's, the coordinator
+                          the default http_json one).  Every leg passes
+                          the ``coord.exec`` fault point.
+  EcCoordinator           the master's loop (``-coordinatorSeconds``):
+                          each cycle re-derives the degraded EC volumes
+                          from the heartbeat registry (servers the
+                          aggregator cannot scrape count as down), queues
+                          them by clean-shard deficit, repairs them on the
+                          best host under one propagated deadline each,
+                          re-scrubs the healed volume's holders, and runs
+                          a token-bucket-budgeted rebalance.  It pauses
+                          while the shell's admin lock is held and on
+                          POST /cluster/coordinator/pause.
 
 EC work is asked of the servers' own engine, ``"tpu"`` by default: a
 card server refuses ``"cpu"`` (the reference's default), a CPU server
 takes either.
 
-Not ported: the master's autonomous ``EcCoordinator`` loop, the targeted
-re-scrub after a repair (``rescrub``, it needs the scrub routes), and
-the fault-injection points.
+The reference's trace spans and journal events around each cycle, repair
+and move are log lines here; nothing feeds ``on_events`` until the port
+has an event journal, and the repair records (``status()["replicated"]``)
+stay local until it has raft (no ``replicate_fn``, no export, import or
+resume of them).
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import logging
+import threading
 import time
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..ec.layout import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
+from ..stats import coordinator_metrics
+from ..utils import deadline as _deadline
+from ..utils import faultinject
+from ..utils.backoff import retry_allowed
+from ..utils.httpd import http_json
+
+_log = logging.getLogger(__name__)
 
 
 @dataclass
@@ -108,6 +137,14 @@ def clone_view(view: ClusterView) -> ClusterView:
         shards={vid: {s: list(us) for s, us in m.items()}
                 for vid, m in view.shards.items()},
         collections=dict(view.collections))
+
+
+def view_from_topology(topo, stale: tuple = ()) -> ClusterView:
+    """A view straight off the master's live Topology (under its lock, no
+    HTTP); ``stale`` names registered servers the aggregator could not
+    scrape, which must not count as holders or targets."""
+    with topo.lock:
+        return view_from_status(topo.to_map(), stale=stale)
 
 
 @dataclass
@@ -321,19 +358,28 @@ class UnrepairableError(RuntimeError):
     enough survivors."""
 
 
+def _default_post(server: str, path: str, payload: dict,
+                  timeout: float = 600.0) -> dict:
+    return http_json("POST", f"http://{server}{path}", payload,
+                     timeout=timeout)
+
+
 class PlanExecutor:
     """Execute repair and move plans over HTTP.  ``post_fn(server, path,
     payload, timeout)`` is the transport (CommandEnv.volume_post for the
-    shell, a recorder in tests).  Stateless: safe to share across
-    concurrent repairs."""
+    shell, ``http_json`` for the coordinator, a recorder in tests).
+    Stateless: safe to share across concurrent repairs."""
 
     TIMEOUT = 600.0
 
-    def __init__(self, post_fn: Callable[[str, str, dict, float], dict]):
-        self._post_fn = post_fn
+    def __init__(self, post_fn: Optional[Callable[[str, str, dict, float],
+                                                  dict]] = None):
+        self._post_fn = post_fn or _default_post
 
-    def _post(self, server: str, path: str, payload: dict) -> dict:
-        return self._post_fn(server, path, payload, self.TIMEOUT)
+    def _post(self, server: str, path: str, payload: dict,
+              timeout: Optional[float] = None) -> dict:
+        faultinject.hit("coord.exec")
+        return self._post_fn(server, path, payload, timeout or self.TIMEOUT)
 
     def refresh_heartbeats(self, servers) -> None:
         """Nudge touched servers to re-heartbeat so the master registry
@@ -343,6 +389,25 @@ class PlanExecutor:
                 self._post_fn(url, "/admin/heartbeat_now", {}, 30.0)
             except Exception:  # noqa: BLE001 - the next pulse converges
                 pass
+
+    def rescrub(self, view: ClusterView, vid: int) -> list[str]:
+        """After a repair, every alive holder of the volume re-verifies it
+        against its sidecar now, so a stale `unrepairable` verdict clears
+        without waiting for the next full pass.  Best-effort; returns the
+        holders that started."""
+        holders = sorted({
+            u for us in view.shards.get(vid, {}).values() for u in us
+            if view.nodes.get(u) and view.nodes[u].alive})
+        started: list[str] = []
+        for url in holders:
+            try:
+                # no knob overrides: the scrubber keeps any rate it is
+                # sent, so a rate here would change the operator's IO cap
+                self._post(url, "/ec/scrub/start", {"volume_id": vid}, 30.0)
+                started.append(url)
+            except Exception:  # noqa: BLE001 - its next pass converges
+                pass
+        return started
 
     # --- moves ------------------------------------------------------------
     def execute_move(self, view: ClusterView, mv: Move) -> None:
@@ -515,3 +580,500 @@ class PlanExecutor:
         return {"host": host, "rebuilt": rebuilt, "moves": moves,
                 "copied": copied, "move_errors": move_errors,
                 "seconds": seconds}
+
+
+# journal event types that wake the planner at once (everything else rides
+# the periodic scan)
+_WAKE_EVENT_TYPES = ("shard_corrupt", "scrub_unrepairable",
+                     "scrub_repair_failed", "peer_stale", "alert_fired",
+                     "degraded_bind")
+# alert rule name by the event type whose moments it watches: attaches the
+# firing alert to the repairs it caused
+_ALERT_FOR_TYPE = {
+    "shard_corrupt": "corrupt_shards_increase",
+    "scrub_unrepairable": "scrub_unrepairable",
+    "scrub_repair_failed": "scrub_unrepairable",
+    "ec_under_replicated": "ec_under_replicated_increase",
+}
+
+
+class EcCoordinator:
+    """The master's repair/rebalance loop.  Reached concurrently: its own
+    cycle thread, the repair pool threads and the HTTP request threads
+    (status, pause, resume).  All mutable state rides _lock; the HTTP legs
+    run strictly outside it.
+
+    The reference's defaults are constants here, set by no caller: two
+    repairs at once, at most four a cycle and 16 moves; a rebalance token
+    bucket of one move a second and a burst of eight (copied to
+    attributes that tests set); one 900 s budget per repair, every leg
+    drawing from it, so a wedged peer cannot pin a repair slot for the
+    sum of every leg's timeout; and the servers' own engine, "tpu".  A
+    port master is always the leader (no raft)."""
+
+    MAX_CONCURRENT = 2
+    MAX_REPAIRS_PER_CYCLE = 4
+    MAX_MOVES_PER_CYCLE = 16
+    MOVE_RATE = 1.0
+    MOVE_BURST = 8.0
+    REPAIR_DEADLINE_S = 900.0
+    ENGINE = "tpu"
+
+    def __init__(self, topo,
+                 stale_peers_fn: Optional[Callable[[], list]] = None,
+                 admin_locked_fn: Optional[Callable[[], bool]] = None,
+                 interval_s: float = 15.0,
+                 post_fn: Optional[Callable] = None):
+        """``stale_peers_fn``: registered servers to count as down;
+        ``admin_locked_fn``: True while the shell's lock is held."""
+        self.topo = topo
+        self.stale_peers_fn = stale_peers_fn or (lambda: [])
+        self.admin_locked_fn = admin_locked_fn or (lambda: False)
+        self.interval_s = float(interval_s)
+        self.move_rate = self.MOVE_RATE
+        self.move_burst = self.MOVE_BURST
+        self.engine = self.ENGINE
+        self.executor = PlanExecutor(post_fn=post_fn)
+        self.metrics = coordinator_metrics()
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._wake = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        # repair queue: vid -> {deficit, critical, attempts, cause...}
+        self._queue: dict[int, dict] = {}  # guarded-by: _lock
+        # degraded-event causes by vid, and the alerts firing now
+        self._causes: dict[int, dict] = {}  # guarded-by: _lock
+        self._alerts: dict[str, dict] = {}  # guarded-by: _lock
+        # volumes already logged as under-replicated (once per transition)
+        self._under_notified: set[int] = set()  # guarded-by: _lock
+        self.paused = False  # guarded-by: _lock
+        self.pause_reason = ""  # guarded-by: _lock
+        self.cycles = 0  # guarded-by: _lock
+        self.last_cycle_at = 0.0  # guarded-by: _lock
+        self.last_error = ""  # guarded-by: _lock
+        self.repairs_done = 0  # guarded-by: _lock
+        self.repairs_failed = 0  # guarded-by: _lock
+        self.moves_done = 0  # guarded-by: _lock
+        self.recent: deque = deque(maxlen=64)  # guarded-by: _lock
+        # token-bucket move budget
+        self._tokens = self.MOVE_BURST  # guarded-by: _lock
+        self._tokens_at = time.monotonic()  # guarded-by: _lock
+        # repair records, as the reference replicates them: vid -> the
+        # latest unfinished record (planned / failed), and the history
+        self._replicated: dict[int, dict] = {}  # guarded-by: _lock
+        self._replog: "OrderedDict[str, dict]" = OrderedDict()  # guarded-by: _lock
+
+    # --- lifecycle --------------------------------------------------------
+    def start(self) -> "EcCoordinator":
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._loop, daemon=True, name="ec-coordinator")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._wake.set()
+        t = self._thread
+        if t is not None and t.is_alive():
+            t.join(timeout=2.0)
+
+    @property
+    def enabled(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def pause(self, reason: str = "api") -> None:
+        with self._lock:
+            self.paused = True
+            self.pause_reason = reason
+
+    def resume(self) -> None:
+        with self._lock:
+            self.paused = False
+            self.pause_reason = ""
+        self._wake.set()
+
+    # --- event subscription ----------------------------------------------
+    def on_events(self, events: list[dict]) -> None:
+        """Cluster-journal ingest hook: record which alert, event and trace
+        made each volume urgent, and wake the planner.  Lock-only, never
+        HTTP.  Nothing in the port calls it yet: it has no event
+        journal."""
+        wake = False
+        with self._lock:
+            for e in events:
+                etype = e.get("type") or ""
+                det = e.get("details") or {}
+                if etype == "alert_fired":
+                    self._alerts[str(det.get("alert") or "")] = {
+                        "event": e.get("id", ""),
+                        "trace": det.get("exemplar_trace")
+                        or e.get("trace") or ""}
+                    wake = True
+                elif etype == "alert_resolved":
+                    self._alerts.pop(str(det.get("alert") or ""), None)
+                elif etype in _WAKE_EVENT_TYPES:
+                    vid = _vid_from_event(det)
+                    if vid is not None:
+                        self._causes[vid] = {
+                            "event": e.get("id", ""), "type": etype,
+                            "trace": e.get("trace") or "",
+                            "alert": _ALERT_FOR_TYPE.get(etype, "")}
+                    wake = True
+        if wake:
+            self._wake.set()
+
+    # --- repair records ---------------------------------------------------
+    def _record(self, op: str, vid: int, entry: dict, **extra) -> None:
+        """Keep one repair lifecycle record (planned / done / failed)."""
+        at = round(time.time(), 3)
+        self.apply_replicated({
+            "id": f"{vid}:{op}:{at:.3f}", "op": op, "vid": vid, "at": at,
+            "alert": entry.get("alert", ""),
+            "cause_trace": entry.get("cause_trace", ""),
+            "cause_event": entry.get("cause_event", ""), **extra})
+
+    def apply_replicated(self, rec: dict) -> None:
+        """Land one plan/done/failed record.  Idempotent: records dedup by
+        id and the pending map is last-write-wins per volume."""
+        try:
+            vid = int(rec.get("vid"))
+        except (TypeError, ValueError):
+            return
+        op = str(rec.get("op") or "")
+        with self._lock:
+            rid = str(rec.get("id") or f"{vid}:{op}:{rec.get('at')}")
+            self._replog[rid] = dict(rec)
+            while len(self._replog) > 256:
+                self._replog.popitem(last=False)
+            if op == "done":
+                self._replicated.pop(vid, None)
+            elif op in ("planned", "failed"):
+                self._replicated[vid] = dict(rec)
+
+    # --- the loop ---------------------------------------------------------
+    def _loop(self) -> None:
+        while not self._stop.is_set():
+            self._wake.wait(self.interval_s)
+            self._wake.clear()
+            if self._stop.is_set():
+                break
+            with self._lock:
+                paused = self.paused
+            if paused or self.admin_locked_fn():
+                # an operator holds the shell's admin lock: their
+                # migrations must not duel with ours
+                continue
+            try:
+                self.run_cycle()
+                with self._lock:
+                    self.last_error = ""
+            except Exception as e:  # noqa: BLE001 - the loop survives
+                self.metrics.cycles.inc("error")
+                _log.exception("coordinator cycle failed")
+                with self._lock:
+                    self.last_error = f"{type(e).__name__}: {e}"[:300]
+
+    def run_cycle(self) -> dict:
+        """One planning and execution round (synchronous: tests call it
+        directly)."""
+        faultinject.hit("coord.plan")
+        view = self._snapshot_view()
+        deficits = clean_deficits(view)
+        self._update_queue(deficits)
+        repaired = self._run_repairs()
+        moved = self._run_rebalance()
+        with self._lock:
+            self.cycles += 1
+            self.last_cycle_at = time.time()
+        self.metrics.cycles.inc("ok")
+        return {"deficits": len(deficits), "repaired": repaired,
+                "moved": moved}
+
+    def _snapshot_view(self) -> ClusterView:
+        try:
+            stale = tuple(self.stale_peers_fn() or ())
+        except Exception:  # noqa: BLE001 - plan without staleness
+            _log.exception("stale peers unavailable")
+            stale = ()
+        return view_from_topology(self.topo, stale=stale)
+
+    def _update_queue(self, deficits: dict[int, dict]) -> None:
+        """Refresh the repair queue and the under-replication gauge from
+        this cycle's deficits; log each volume that newly fell below k+1
+        clean shards."""
+        newly_under: list[tuple[int, int]] = []
+        with self._lock:
+            for vid in list(self._queue):
+                if vid not in deficits:
+                    self._queue.pop(vid)  # healed, by us or otherwise
+                    self._causes.pop(vid, None)
+                    self._under_notified.discard(vid)
+            for vid, d in deficits.items():
+                entry = self._queue.setdefault(
+                    vid, {"attempts": 0, "queued_at": time.time()})
+                entry.update(d)
+                cause = self._causes.get(vid, {})
+                entry["cause_trace"] = cause.get("trace", "")
+                entry["cause_event"] = cause.get("event", "")
+                entry["alert"] = self._cause_alert_locked(vid)
+                if d["under_replicated"] and \
+                        vid not in self._under_notified:
+                    self._under_notified.add(vid)
+                    newly_under.append((vid, d["clean"]))
+            under = sum(1 for d in deficits.values()
+                        if d["under_replicated"])
+            self.metrics.under_replicated.set(float(under))
+            self.metrics.queue_depth.set(float(len(self._queue)))
+        for vid, clean in newly_under:
+            _log.warning("ec volume %d under-replicated: %d clean shards, "
+                         "threshold %d", vid, clean, DATA_SHARDS_COUNT + 1)
+
+    def _cause_alert_locked(self, vid: int) -> str:  # holds: _lock
+        """The firing alert this volume's repair answers: the cause
+        event's mapped rule when that alert fires, else any relevant
+        firing alert, else the cause's static mapping."""
+        mapped = self._causes.get(vid, {}).get("alert", "")
+        if mapped and mapped in self._alerts:
+            return mapped
+        for name in self._alerts:
+            if name in _ALERT_FOR_TYPE.values() or name == "peer_down":
+                return name
+        return mapped
+
+    def _forget_locked(self, vid: int) -> None:  # holds: _lock
+        self._queue.pop(vid, None)
+        self._causes.pop(vid, None)
+        self._under_notified.discard(vid)
+
+    # --- repairs ----------------------------------------------------------
+    def _run_repairs(self) -> int:
+        now = time.time()
+        with self._lock:
+            snapshot = [(vid, dict(e)) for vid, e in self._queue.items()]
+        ready = []
+        for vid, e in snapshot:
+            attempts = e.get("attempts", 0)
+            if attempts:
+                # a failing repair re-copies up to k survivors per attempt:
+                # hold it back exponentially, and count each re-attempt
+                # against the retry budget
+                hold = min(self.interval_s * (2 ** attempts), 600.0)
+                if now - e.get("last_attempt_at", 0.0) < hold:
+                    continue
+                if not retry_allowed(f"repair:{vid}", "coordinator"):
+                    continue
+            ready.append((vid, e))
+        with self._lock:
+            batch = sorted(
+                ready,
+                key=lambda kv: (not kv[1].get("critical", False),
+                                -kv[1].get("deficit", 0), kv[0]))
+            batch = batch[:self.MAX_REPAIRS_PER_CYCLE]
+            for vid, _e in batch:
+                q = self._queue.get(vid)
+                if q is not None:
+                    q["last_attempt_at"] = now
+        if not batch:
+            return 0
+        with concurrent.futures.ThreadPoolExecutor(
+                max_workers=self.MAX_CONCURRENT,
+                thread_name_prefix="coord-repair") as pool:
+            return sum(pool.map(lambda kv: self._run_repair(*kv), batch))
+
+    def _run_repair(self, vid: int, entry: dict) -> bool:
+        """One repair of volume ``vid``; the outcome lands in the counters,
+        ``recent``, the repair records and the log."""
+        cause = {"alert": entry.get("alert", ""),
+                 "cause_trace": entry.get("cause_trace", ""),
+                 "cause_event": entry.get("cause_event", "")}
+        view = self._snapshot_view()
+        if len(view.present_shards(vid)) >= TOTAL_SHARDS_COUNT:
+            # healed between queueing and execution: drop the entry
+            # without recording a repair that never ran
+            with self._lock:
+                self._forget_locked(vid)
+                stale_plan = vid in self._replicated
+            if stale_plan:
+                self._record("done", vid, entry, host="", rebuilt=[],
+                             healed_elsewhere=True)
+            return True
+        _log.info("coordinator: repair planned for volume %d, deficit %d%s",
+                  vid, entry.get("deficit", 0),
+                  " (critical)" if entry.get("critical") else "")
+        self._record("planned", vid, entry,
+                     deficit=entry.get("deficit", 0),
+                     critical=entry.get("critical", False))
+        try:
+            # ONE deadline for the whole repair: every leg (copies,
+            # rebuild, mounts, spread) draws from the same budget
+            with _deadline.scope(self.REPAIR_DEADLINE_S):
+                res = self.executor.execute_repair(view, vid,
+                                                   engine=self.engine)
+        except Exception as e:  # noqa: BLE001 - counted, shown, re-planned
+            err = f"{type(e).__name__}: {e}"[:200]
+            self.metrics.repairs.inc("failed")
+            self.metrics.repair_failures.inc(type(e).__name__[:40])
+            with self._lock:
+                self.repairs_failed += 1
+                q = self._queue.get(vid)
+                if q is not None:
+                    q["attempts"] = q.get("attempts", 0) + 1
+                self.recent.appendleft({
+                    "at": round(time.time(), 3), "vid": vid,
+                    "action": "repair_failed", "error": err, **cause})
+            _log.error("coordinator: repair of volume %d failed: %s",
+                       vid, err)
+            self._record("failed", vid, entry, error=err)
+            return False
+        if not res["host"] and not res["rebuilt"]:
+            # healed between queueing and execution: not our repair
+            with self._lock:
+                self._forget_locked(vid)
+            self._record("done", vid, entry, host="", rebuilt=[],
+                         healed_elsewhere=True)
+            return True
+        # the holders re-verify the healed volume now, so a stale
+        # unrepairable verdict clears (best-effort, its own budget)
+        rescrubbed: list[str] = []
+        try:
+            with _deadline.scope(min(60.0, self.REPAIR_DEADLINE_S)):
+                rescrubbed = self.executor.rescrub(view, vid)
+        except Exception:  # noqa: BLE001 - the repair already landed
+            _log.exception("coordinator: re-scrub of volume %d", vid)
+        self.metrics.repairs.inc("done")
+        with self._lock:
+            self.repairs_done += 1
+            self._forget_locked(vid)
+            self.recent.appendleft({
+                "at": round(time.time(), 3), "vid": vid,
+                "action": "repair_done", "host": res["host"],
+                "rebuilt": res["rebuilt"],
+                "spread": [list(m) for m in res["moves"]],
+                "rescrubbed": rescrubbed, **cause})
+        _log.info("coordinator: repaired volume %d on %s: rebuilt %s, "
+                  "spread %s, move errors %s, re-scrubbed %s, legs %s", vid,
+                  res["host"], res["rebuilt"], res["moves"],
+                  res["move_errors"], rescrubbed, res["seconds"])
+        self._record("done", vid, entry, host=res["host"],
+                     rebuilt=res["rebuilt"])
+        return True
+
+    # --- rebalance --------------------------------------------------------
+    def _take_move_token(self) -> bool:
+        with self._lock:
+            now = time.monotonic()
+            self._tokens = min(
+                self.move_burst,
+                self._tokens + (now - self._tokens_at) * self.move_rate)
+            self._tokens_at = now
+            if self._tokens >= 1.0:
+                self._tokens -= 1.0
+                return True
+            return False
+
+    def _run_rebalance(self) -> int:
+        """Token-budgeted rebalance (dedupe, rack diversity, skew), planned
+        every cycle: a server joining or leaving needs no edge detection,
+        it just yields a plan."""
+        view = self._snapshot_view()
+        plan = plan_rebalance(clone_view(view),
+                              max_moves=self.MAX_MOVES_PER_CYCLE)
+        executed = 0
+        touched: set[str] = set()
+        for mv in plan:
+            if self._stop.is_set() or not self._take_move_token():
+                break  # the rest waits for the next cycle's tokens
+            try:
+                self.executor.execute_move(view, mv)
+            except Exception as e:  # noqa: BLE001 - shown, re-planned
+                with self._lock:
+                    self.recent.appendleft({
+                        "at": round(time.time(), 3),
+                        "vid": mv.vid, "sid": mv.sid,
+                        "action": "move_failed",
+                        "error": f"{type(e).__name__}: {e}"[:200]})
+                continue
+            executed += 1
+            touched.update((mv.src, mv.dst) if mv.dst else (mv.src,))
+            self.metrics.moves.inc(mv.reason)
+            with self._lock:
+                self.moves_done += 1
+                self.recent.appendleft({
+                    "at": round(time.time(), 3),
+                    "vid": mv.vid, "sid": mv.sid,
+                    "action": mv.kind, "reason": mv.reason,
+                    "src": mv.src, "dst": mv.dst})
+            _log.info("coordinator: %s volume %d shard %d %s -> %s (%s)",
+                      mv.kind, mv.vid, mv.sid, mv.src, mv.dst or "-",
+                      mv.reason)
+        if touched:
+            self.executor.refresh_heartbeats(touched)
+        return executed
+
+    # --- views ------------------------------------------------------------
+    def health_contribution(self) -> dict:
+        """Master-local additions to /cluster/health totals: volume servers
+        cannot know cluster-wide shard counts."""
+        m = self.metrics
+        return {
+            "ec_under_replicated": int(m.under_replicated.value()),
+            "coordinator_repair_failures":
+                int(sum(m.repair_failures.snapshot().values())),
+        }
+
+    def status(self) -> dict:
+        try:
+            admin_locked = bool(self.admin_locked_fn())
+        except Exception:  # noqa: BLE001 - status still answers
+            admin_locked = False
+        with self._lock:
+            queue = [
+                {"vid": vid, **e}
+                for vid, e in sorted(
+                    self._queue.items(),
+                    key=lambda kv: (not kv[1].get("critical", False),
+                                    -kv[1].get("deficit", 0), kv[0]))]
+            return {
+                "enabled": self.enabled,
+                "paused": self.paused or admin_locked,
+                "pause_reason": self.pause_reason or (
+                    "admin_lock" if admin_locked else ""),
+                "interval_s": self.interval_s,
+                "cycles": self.cycles,
+                "last_cycle_at": round(self.last_cycle_at, 3),
+                "last_error": self.last_error,
+                "queue": queue,
+                "under_replicated":
+                    int(self.metrics.under_replicated.value()),
+                "repairs": {"done": self.repairs_done,
+                            "failed": self.repairs_failed},
+                "moves": self.moves_done,
+                "move_budget": {"rate_per_s": self.move_rate,
+                                "burst": self.move_burst,
+                                "tokens": round(self._tokens, 2)},
+                "recent": list(self.recent),
+                "replicated": {
+                    "pending": {str(v): dict(r)
+                                for v, r in self._replicated.items()},
+                    "log": [dict(r) for r in self._replog.values()]},
+            }
+
+
+def _vid_from_event(details: dict) -> Optional[int]:
+    """Volume id out of a journal event's details: explicit ``vid``, else
+    parsed from the shard base ``path`` (``.../[coll_]vid``)."""
+    if "vid" in details:
+        try:
+            return int(details["vid"])
+        except (TypeError, ValueError):
+            return None
+    path = str(details.get("path") or "")
+    if not path:
+        return None
+    name = path.replace("\\", "/").rsplit("/", 1)[-1]
+    try:
+        return int(name.rsplit("_", 1)[-1])
+    except ValueError:
+        return None

@@ -7,9 +7,8 @@ command_ec_decode.go, command_ec_common.go).  ``-engine`` names the
 volume servers' EC engine and defaults to ``tpu``, which every port
 server runs (on the card, or on the CPU where the server was started
 with ``-ec.engine cpu``).  ec.encode and ec.rebuild report the wall time
-of each leg.  ec.scrub drives the servers' ``/ec/scrub`` routes; the
-port's master has no ``/cluster/health`` yet, so ``ec.scrub -all`` ends
-with the reference's line for an unavailable health rollup.
+of each leg.  ec.scrub drives the servers' ``/ec/scrub`` routes;
+``ec.scrub -all`` ends with the master's ``/cluster/health`` verdict.
 """
 
 from __future__ import annotations

@@ -1,3 +1,11 @@
-from .metrics import ec_integrity_metrics
+from .aggregate import (ClusterAggregator, merge_families,
+                        parse_prometheus_text)
+from .metrics import (REGISTRY, Counter, Gauge, Histogram, Registry,
+                      coordinator_metrics, ec_integrity_metrics,
+                      volume_server_metrics)
 
-__all__ = ["ec_integrity_metrics"]
+__all__ = [
+    "Counter", "Gauge", "Histogram", "Registry", "REGISTRY",
+    "volume_server_metrics", "ec_integrity_metrics", "coordinator_metrics",
+    "ClusterAggregator", "merge_families", "parse_prometheus_text",
+]

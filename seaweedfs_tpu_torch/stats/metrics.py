@@ -1,21 +1,53 @@
-"""Counters of shard integrity.
+"""Prometheus-format metrics: counters, gauges, histograms and exposition.
 
-The port's copy of the part of seaweedfs_tpu/stats/metrics.py that the EC
-path counts into: ``Counter`` (metrics.py:38), the ``ECIntegrityMetrics``
-family (:470-503) and its process-wide accessor (:783-786), which is the
-port's registry until it has a ``/metrics`` exposition to walk one.
-Family names, labels and the keys of ``totals()`` are the reference's, so
-the volume server's ``/status`` and its scrub routes carry the same
-numbers under the same names.
+The port's copy of seaweedfs_tpu/stats/metrics.py (weed/stats/
+metrics.go): ``Counter``, ``Gauge`` and ``Histogram`` (each with the
+``merge`` the master's cluster aggregator folds peers with), the
+``Registry`` and its text exposition (``text/plain; version=0.0.4``, the
+wire contract any Prometheus scraper reads), the process-wide
+``REGISTRY`` that a volume server's ``GET /metrics`` exposes, and these
+families under the reference's names:
 
-Not ported: gauges, histograms, the other families (among them
-``ECPipelineMetrics``, whose parity-worker restarts and CPU fallbacks the
-port cannot have), the ``Registry`` and the ``/metrics`` text exposition.
+  - ``VolumeServerMetrics``: requests by route (count, latency, 5xx) and
+    the volume / EC-shard / disk-size gauges;
+  - ``ECIntegrityMetrics``: scrub blocks by verdict, corrupt shards by
+    where they were caught, the scrubber's repairs by outcome (the keys
+    of ``totals()`` are what ``/status`` and the scrub routes carry);
+  - ``CoordinatorMetrics``: the master's repairs, moves, cycles, the
+    under-replication gauge and the repair queue depth.
+
+Not ported: OpenMetrics exemplars (the port has no tracer), the push
+gateway loop, and the families the port cannot have or has not ported:
+``ECPipelineMetrics`` (parity-worker restarts and CPU fallbacks), the
+volume server's native-plane gauge, the master's heartbeat and leader
+families, the request plane (shed, deadline and retry-budget counters),
+the dataplane, the needle cache, heat and the resource ledger.
 """
 
 from __future__ import annotations
 
 import threading
+from bisect import bisect_left
+
+DEFAULT_BUCKETS = (0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03,
+                   0.1, 0.3, 1.0, 3.0, 10.0)
+
+
+def _escape_label_value(v: str) -> str:
+    """Prometheus text-format label escaping (backslash, quote, newline)."""
+    return v.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _fmt_labels(label_names: tuple, label_values: tuple) -> str:
+    if not label_names:
+        return ""
+    pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
+                     for k, v in zip(label_names, label_values))
+    return "{" + pairs + "}"
+
+
+def _num(v: float) -> str:
+    return str(int(v)) if float(v).is_integer() else repr(float(v))
 
 
 class Counter:
@@ -30,6 +62,13 @@ class Counter:
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
+    def labels(self, *label_values) -> None:
+        """Pre-touch a label set: it is exposed at 0 before the first
+        ``inc``."""
+        key = tuple(str(v) for v in label_values)
+        with self._lock:
+            self._values.setdefault(key, 0.0)
+
     def value(self, *label_values) -> float:
         with self._lock:
             return self._values.get(tuple(str(v) for v in label_values), 0.0)
@@ -39,6 +78,205 @@ class Counter:
         with self._lock:
             return dict(self._values)
 
+    def merge(self, other: "Counter") -> None:
+        """Fold another counter's samples in (per-label-set sum)."""
+        for key, v in other.snapshot().items():
+            with self._lock:
+                self._values[key] = self._values.get(key, 0.0) + v
+
+    def expose(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}",
+               f"# TYPE {self.name} counter"]
+        for lv, v in sorted(self.snapshot().items()):
+            out.append(f"{self.name}{_fmt_labels(self.label_names, lv)} "
+                       f"{_num(v)}")
+        return out
+
+
+class Gauge:
+    def __init__(self, name: str, help_: str = "", labels: tuple = ()):
+        self.name, self.help = name, help_
+        self.label_names = tuple(labels)
+        self._values: dict[tuple, float] = {}
+        self._lock = threading.Lock()
+
+    def set(self, *label_values_then_value) -> None:
+        *label_values, value = label_values_then_value
+        key = tuple(str(v) for v in label_values)
+        with self._lock:
+            self._values[key] = float(value)
+
+    def add(self, *label_values_then_delta) -> None:
+        *label_values, delta = label_values_then_delta
+        key = tuple(str(v) for v in label_values)
+        with self._lock:
+            self._values[key] = self._values.get(key, 0.0) + float(delta)
+
+    def value(self, *label_values) -> float:
+        with self._lock:
+            return self._values.get(tuple(str(v) for v in label_values), 0.0)
+
+    def snapshot(self) -> dict[tuple, float]:
+        with self._lock:
+            return dict(self._values)
+
+    def merge(self, other: "Gauge") -> None:
+        """Per-label-set SUM: cluster gauges (volume counts, disk bytes)
+        add up across peers."""
+        for key, v in other.snapshot().items():
+            with self._lock:
+                self._values[key] = self._values.get(key, 0.0) + v
+
+    def clear(self) -> None:
+        with self._lock:
+            self._values.clear()
+
+    def expose(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}",
+               f"# TYPE {self.name} gauge"]
+        for lv, v in sorted(self.snapshot().items()):
+            out.append(f"{self.name}{_fmt_labels(self.label_names, lv)} "
+                       f"{_num(v)}")
+        return out
+
+
+class Histogram:
+    def __init__(self, name: str, help_: str = "", labels: tuple = (),
+                 buckets: tuple = DEFAULT_BUCKETS):
+        self.name, self.help = name, help_
+        self.label_names = tuple(labels)
+        self.buckets = tuple(buckets)
+        self._counts: dict[tuple, list[int]] = {}
+        self._sums: dict[tuple, float] = {}
+        self._totals: dict[tuple, int] = {}
+        self._lock = threading.Lock()
+
+    def observe(self, *label_values_then_obs) -> None:
+        *label_values, obs = label_values_then_obs
+        key = tuple(str(v) for v in label_values)
+        with self._lock:
+            counts = self._counts.setdefault(key, [0] * len(self.buckets))
+            # the smallest bucket whose le >= obs owns the observation; the
+            # cumulative form is computed at exposition time
+            i = bisect_left(self.buckets, obs)
+            if i < len(self.buckets):
+                counts[i] += 1
+            self._sums[key] = self._sums.get(key, 0.0) + obs
+            self._totals[key] = self._totals.get(key, 0) + 1
+
+    def labels(self, *label_values) -> None:
+        """Pre-touch a label set: every bucket, _sum and _count are exposed
+        at 0 before the first ``observe``."""
+        key = tuple(str(v) for v in label_values)
+        with self._lock:
+            self._counts.setdefault(key, [0] * len(self.buckets))
+            self._sums.setdefault(key, 0.0)
+            self._totals.setdefault(key, 0)
+
+    def snapshot(self) -> dict[tuple, tuple[list[int], float, int]]:
+        """Per-label-set (bucket counts, sum, count) copy."""
+        with self._lock:
+            return {key: (list(self._counts[key]),
+                          self._sums.get(key, 0.0),
+                          self._totals.get(key, 0))
+                    for key in self._counts}
+
+    def merge(self, other: "Histogram") -> None:
+        """Fold another histogram in: per-label-set bucket sums plus _sum
+        and _count sums, exactly as if one had observed both streams.
+        Bucket grids must be equal; mismatched grids would misbin, so they
+        raise instead."""
+        if tuple(other.buckets) != self.buckets:
+            raise ValueError(
+                f"bucket mismatch: {other.buckets} vs {self.buckets}")
+        for key, (counts, s, total) in other.snapshot().items():
+            with self._lock:
+                mine = self._counts.setdefault(key,
+                                               [0] * len(self.buckets))
+                for i, c in enumerate(counts):
+                    mine[i] += c
+                self._sums[key] = self._sums.get(key, 0.0) + s
+                self._totals[key] = self._totals.get(key, 0) + total
+
+    def expose(self) -> list[str]:
+        out = [f"# HELP {self.name} {self.help}",
+               f"# TYPE {self.name} histogram"]
+        for lv, (counts, total_sum, total) in sorted(self.snapshot().items()):
+            cumulative = 0
+            for i, bound in enumerate(self.buckets):
+                cumulative += counts[i]
+                labels = dict(zip(self.label_names, lv))
+                labels["le"] = _num(bound)
+                pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
+                                 for k, v in labels.items())
+                out.append(f"{self.name}_bucket{{{pairs}}} {cumulative}")
+            labels = dict(zip(self.label_names, lv))
+            labels["le"] = "+Inf"
+            pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
+                             for k, v in labels.items())
+            out.append(f"{self.name}_bucket{{{pairs}}} {total}")
+            plain = _fmt_labels(self.label_names, lv)
+            out.append(f"{self.name}_sum{plain} {_num(total_sum)}")
+            out.append(f"{self.name}_count{plain} {total}")
+        return out
+
+
+class Registry:
+    def __init__(self):
+        self._collectors: list = []
+        self._lock = threading.Lock()
+
+    def register(self, collector):
+        with self._lock:
+            self._collectors.append(collector)
+        return collector
+
+    def counter(self, name, help_="", labels=()):
+        return self.register(Counter(name, help_, labels))
+
+    def gauge(self, name, help_="", labels=()):
+        return self.register(Gauge(name, help_, labels))
+
+    def histogram(self, name, help_="", labels=(), buckets=DEFAULT_BUCKETS):
+        return self.register(Histogram(name, help_, labels, buckets))
+
+    def expose(self) -> str:
+        with self._lock:
+            collectors = list(self._collectors)
+        lines: list[str] = []
+        for c in collectors:
+            lines.extend(c.expose())
+        return "\n".join(lines) + "\n"
+
+
+REGISTRY = Registry()
+
+
+class VolumeServerMetrics:
+    """The volume server's bundle, namespaced SeaweedFS_volumeServer_*."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.request_counter = registry.counter(
+            "SeaweedFS_volumeServer_request_total",
+            "Counter of volumeServer requests.", labels=("type",))
+        self.request_histogram = registry.histogram(
+            "SeaweedFS_volumeServer_request_seconds",
+            "Bucketed volumeServer request latency.", labels=("type",))
+        self.request_errors = registry.counter(
+            "SeaweedFS_volumeServer_request_errors_total",
+            "Counter of volumeServer requests answered 5xx.",
+            labels=("type",))
+        self.volume_counter = registry.gauge(
+            "SeaweedFS_volumeServer_volumes",
+            "Number of volumes or EC shards.",
+            labels=("collection", "type"))
+        self.max_volume_counter = registry.gauge(
+            "SeaweedFS_volumeServer_max_volumes", "Maximum volume count.")
+        self.disk_size_gauge = registry.gauge(
+            "SeaweedFS_volumeServer_total_disk_size",
+            "Actual disk size used by volumes.",
+            labels=("collection", "type"))
+
 
 def _total(c: Counter) -> int:
     return int(sum(c.snapshot().values()))
@@ -47,18 +285,19 @@ def _total(c: Counter) -> int:
 class ECIntegrityMetrics:
     """Shard bit-rot counters: blocks the scrubber verified (by verdict),
     corrupt shards detected (by where: scrub, rebuild, read, wire) and the
-    scrubber's quarantine-and-rebuild outcomes."""
+    scrubber's quarantine-and-rebuild outcomes.  The master's
+    /cluster/health reads the last two from every server's /metrics."""
 
-    def __init__(self):
-        self.scrub_blocks = Counter(
+    def __init__(self, registry: Registry = REGISTRY):
+        self.scrub_blocks = registry.counter(
             "SeaweedFS_ec_scrub_blocks_total",
             "EC shard blocks verified against .eci sidecars.",
             labels=("verdict",))
-        self.corrupt_shards = Counter(
+        self.corrupt_shards = registry.counter(
             "SeaweedFS_ec_corrupt_shards_total",
             "Corrupt EC shards detected (sidecar block crc mismatch).",
             labels=("source",))
-        self.repairs = Counter(
+        self.repairs = registry.counter(
             "SeaweedFS_ec_scrub_repairs_total",
             "Corrupt EC shards quarantined and rebuilt by the scrubber.",
             labels=("outcome",))
@@ -67,6 +306,38 @@ class ECIntegrityMetrics:
         return {"scrub_blocks": _total(self.scrub_blocks),
                 "corrupt_shards": _total(self.corrupt_shards),
                 "scrub_repairs": _total(self.repairs)}
+
+
+class CoordinatorMetrics:
+    """The master's EC repair coordinator (ops/coordinator.py).
+    ``under_replicated`` (volumes below k+1 clean shards) and
+    ``repair_failures`` only the master can count; they reach
+    /cluster/health through the aggregator's ``local_fn``."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.repairs = registry.counter(
+            "SeaweedFS_coordinator_repairs_total",
+            "EC volume repairs the coordinator executed.",
+            labels=("outcome",))
+        self.repair_failures = registry.counter(
+            "SeaweedFS_coordinator_repair_failures_total",
+            "Coordinator repair attempts that failed (by error type).",
+            labels=("reason",))
+        self.moves = registry.counter(
+            "SeaweedFS_coordinator_moves_total",
+            "EC shard moves the coordinator executed "
+            "(dedupe/rack/skew/spread).",
+            labels=("reason",))
+        self.cycles = registry.counter(
+            "SeaweedFS_coordinator_cycles_total",
+            "Coordinator planning cycles.", labels=("outcome",))
+        self.under_replicated = registry.gauge(
+            "SeaweedFS_ec_under_replicated",
+            "EC volumes below k+1 clean reachable shards.")
+        self.queue_depth = registry.gauge(
+            "SeaweedFS_coordinator_queue_depth",
+            "EC volumes queued for repair.")
+
 
 
 _singletons: dict[str, object] = {}
@@ -80,5 +351,13 @@ def _singleton(name: str, cls):
         return _singletons[name]
 
 
+def volume_server_metrics() -> VolumeServerMetrics:
+    return _singleton("volume", VolumeServerMetrics)
+
+
 def ec_integrity_metrics() -> ECIntegrityMetrics:
     return _singleton("ec_integrity", ECIntegrityMetrics)
+
+
+def coordinator_metrics() -> CoordinatorMetrics:
+    return _singleton("coordinator", CoordinatorMetrics)

@@ -1,8 +1,9 @@
 """Fault injection: named fault points that raise on chosen hits.
 
 The port's copy of seaweedfs_tpu/utils/faultinject.py, with the points the
-port's EC pipeline hits.  A point is free when nothing is armed (one
-dict-emptiness check at each site); tests and drills arm it:
+port's EC pipeline and its repair coordinator hit.  A point is free when
+nothing is armed (one dict-emptiness check at each site); tests and
+drills arm it:
 
     from seaweedfs_tpu_torch.utils import faultinject as fi
 
@@ -43,6 +44,13 @@ FAULT_POINTS: dict[str, str] = {
                         "bit-rot drill behind verify-on-use and the "
                         "scrubber (ec/ec_volume.py, ec/integrity.py, "
                         "ec/streaming.py rebuild)",
+    "coord.plan": "the coordinator's planning cycle: an injected error "
+                  "is contained (the loop survives, last_error shows it, "
+                  "the next cycle re-plans) (ops/coordinator.py)",
+    "coord.exec": "every /admin/ec/* and /ec/scrub/start leg the plan "
+                  "executor posts: an injected error fails the current "
+                  "repair or move, so the re-plan and no-orphan cleanup "
+                  "paths run (ops/coordinator.py)",
 }
 
 

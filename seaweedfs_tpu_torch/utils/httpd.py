@@ -12,9 +12,18 @@ The subset of seaweedfs_tpu/utils/httpd.py that a volume server needs:
     ``http.client``, one connection per call;
   - ``parse_range``, ``extract_upload``, ``qint``: request parsing.
 
-Not ported: metrics, admission control, heat and ledger accounting,
-tracing, deadlines, TLS, the event-loop reactor and the pooled raw-socket
-client.
+Deadlines (``utils/deadline.py``): ``dispatch`` adopts a request's
+``X-Weed-Deadline`` for the handler's thread, answers 504 before the
+handler runs when the budget is already spent (and when a handler raises
+``DeadlineExceeded``), and restores the thread's previous deadline
+afterwards.  The client calls clamp their timeout to the remaining budget,
+re-send the header with what is left, and raise ``DeadlineExceeded``
+without sending when it is spent.  A ``Router`` given a server's metrics
+bundle counts each route's requests, latency and 5xx answers.
+
+Not ported: admission control, heat and ledger accounting, tracing, the
+counter and journal event of a 504, TLS, the event-loop reactor and the
+pooled raw-socket client.
 """
 
 from __future__ import annotations
@@ -25,9 +34,13 @@ import os
 import re
 import socket
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
+
+from . import deadline as _deadline
+from .deadline import DeadlineExceeded
 
 
 class HttpError(Exception):
@@ -155,8 +168,12 @@ _FILE_PIECE = 1 << 20
 class Router:
     """Method + regex route table; routes match in registration order."""
 
-    def __init__(self, name: str = "httpd"):
+    def __init__(self, name: str = "httpd", metrics=None):
+        """``metrics``: a server's bundle (stats/metrics.py
+        ``_ServerMetrics``) counting each route's requests, latency and
+        5xx answers, or None."""
         self.name = name
+        self.metrics = metrics
         self.routes: list[tuple[str, re.Pattern, Callable]] = []
         # requests dispatched so far (a server's load gate reads it)
         self.requests = 0
@@ -167,6 +184,11 @@ class Router:
 
         def deco(fn):
             self.routes.append((method, compiled, fn))
+            if self.metrics is not None:
+                # each route's series exist at 0 before its first request
+                self.metrics.request_counter.labels(fn.__name__)
+                self.metrics.request_histogram.labels(fn.__name__)
+                self.metrics.request_errors.labels(fn.__name__)
             return fn
 
         return deco
@@ -184,36 +206,62 @@ class Router:
                                          headers={"Connection": "close"}))
             return
         path = urllib.parse.unquote(urllib.parse.urlparse(handler.path).path)
-        for m, pattern, fn in self.routes:
-            if m != method:
-                continue
-            match = pattern.match(path)
-            if not match:
-                continue
-            req = Request(handler, match)
-            try:
+        # the caller's budget governs this request only: the thread serves
+        # its connection's next request too
+        ddl, prev_ddl = _deadline.begin_request(handler.headers)
+        try:
+            for m, pattern, fn in self.routes:
+                if m != method:
+                    continue
+                match = pattern.match(path)
+                if not match:
+                    continue
+                self._run(handler, Request(handler, match), fn, ddl)
+                return
+            self._drain_body(handler)
+            self._send(handler, Response(
+                {"error": f"no route {method} {path}"}, status=404))
+        finally:
+            _deadline.end_request(prev_ddl)
+
+    def _run(self, handler: BaseHTTPRequestHandler, req: Request,
+             fn: Callable, ddl) -> None:
+        t0 = time.perf_counter()
+        try:
+            if ddl is not None and ddl.expired():
+                # the caller has given up: answering now beats work nobody
+                # will read
+                resp = Response({"error": "deadline exceeded before "
+                                          "dispatch"}, status=504)
+            else:
                 resp = fn(req)
-            except HttpError as e:
-                # a synthetic status 0 (unreachable peer) must not become
-                # an invalid "HTTP/1.1 0" status line
-                resp = Response({"error": e.message or str(e)},
-                                status=e.status if e.status >= 100 else 502,
-                                headers=e.headers or None)
-            except LookupError as e:
-                resp = Response({"error": str(e)}, status=404)
-            except Exception as e:  # noqa: BLE001 - the server must not die
-                resp = Response({"error": f"{type(e).__name__}: {e}"},
-                                status=500)
-            if req._body is None:
-                # answering mid-upload would reset the connection and
-                # lose the status; an unread body must not be parsed as
-                # the next request either
-                self._drain_body(handler)
-            self._send(handler, resp)
-            return
-        self._drain_body(handler)
-        self._send(handler, Response({"error": f"no route {method} {path}"},
-                                     status=404))
+        except DeadlineExceeded as e:
+            # the budget ran out inside the handler, at a downstream call
+            resp = Response({"error": str(e) or "deadline exceeded"},
+                            status=504)
+        except HttpError as e:
+            # a synthetic status 0 (unreachable peer) must not become an
+            # invalid "HTTP/1.1 0" status line
+            resp = Response({"error": e.message or str(e)},
+                            status=e.status if e.status >= 100 else 502,
+                            headers=e.headers or None)
+        except LookupError as e:
+            resp = Response({"error": str(e)}, status=404)
+        except Exception as e:  # noqa: BLE001 - the server must not die
+            resp = Response({"error": f"{type(e).__name__}: {e}"},
+                            status=500)
+        if self.metrics is not None:
+            self.metrics.request_counter.inc(fn.__name__)
+            if resp.status >= 500:
+                self.metrics.request_errors.inc(fn.__name__)
+            self.metrics.request_histogram.observe(
+                fn.__name__, time.perf_counter() - t0)
+        if req._body is None:
+            # answering mid-upload would reset the connection and lose the
+            # status; an unread body must not be parsed as the next
+            # request either
+            self._drain_body(handler)
+        self._send(handler, resp)
 
     @staticmethod
     def _drain_body(handler: BaseHTTPRequestHandler) -> None:
@@ -336,19 +384,31 @@ def _request(method: str, url: str, body: Optional[bytes],
              headers: Optional[dict], timeout: float,
              follow_redirects: bool) -> tuple[int, bytes, dict]:
     """One exchange, following up to 5 redirects; raises OSError (or
-    http.client.HTTPException) when the peer cannot be reached."""
+    http.client.HTTPException) when the peer cannot be reached, and
+    DeadlineExceeded when the thread's deadline is spent before the send
+    or cuts the wait for the answer."""
     for _ in range(5):
-        conn, target = _connect(url, timeout)
+        # the budget left, re-read at every hop
+        call_timeout = _deadline.clamp(timeout)
+        hdrs = _deadline.inject_deadline_headers(dict(headers or {}))
+        if body is None and method in ("POST", "PUT"):
+            hdrs.setdefault("Content-Length", "0")
         try:
-            hdrs = dict(headers or {})
-            if body is None and method in ("POST", "PUT"):
-                hdrs.setdefault("Content-Length", "0")
-            conn.request(method, target, body=body, headers=hdrs)
-            resp = conn.getresponse()
-            data = resp.read()
-            rhdrs = dict(resp.getheaders())
-        finally:
-            conn.close()
+            conn, target = _connect(url, call_timeout)
+            try:
+                conn.request(method, target, body=body, headers=hdrs)
+                resp = conn.getresponse()
+                data = resp.read()
+                rhdrs = dict(resp.getheaders())
+            finally:
+                conn.close()
+        except TimeoutError:
+            ddl = _deadline.current()
+            if ddl is not None and ddl.expired():
+                # the deadline, not the peer, bound the wait
+                raise DeadlineExceeded(
+                    f"deadline exceeded awaiting {url}") from None
+            raise
         if follow_redirects and resp.status in (301, 302, 303, 307, 308) \
                 and rhdrs.get("Location"):
             url = urllib.parse.urljoin(url, rhdrs["Location"])
@@ -362,7 +422,8 @@ def _request(method: str, url: str, body: Optional[bytes],
 def http_json(method: str, url: str, payload: Optional[dict] = None,
               timeout: float = 30.0) -> dict:
     """A JSON call.  A status >= 400 raises HttpError with the peer's
-    error message; an unreachable peer raises HttpError(503)."""
+    error message; an unreachable peer raises HttpError(503); a spent
+    deadline raises DeadlineExceeded."""
     data = json.dumps(payload).encode() if payload is not None else None
     headers = {"Content-Type": "application/json"} if data is not None else {}
     try:
@@ -395,11 +456,15 @@ def http_download(method: str, url: str, dest_path: str,
     ``dest_path.part`` renamed on success, so a dropped transfer never
     leaves a torn file under the final name.  Returns the HTTP status
     (0 when the peer cannot be reached); only a 200 writes the file."""
+    # a budgeted caller's bulk fetch inherits the remaining budget, never
+    # the hour's default
+    timeout = _deadline.clamp(timeout)
+    headers = _deadline.inject_deadline_headers({})
     tmp = dest_path + ".part"
     try:
         conn, target = _connect(url, timeout)
         try:
-            conn.request(method, target)
+            conn.request(method, target, headers=headers)
             resp = conn.getresponse()
             if resp.status != 200:
                 resp.read()

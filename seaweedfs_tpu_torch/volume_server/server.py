@@ -9,21 +9,26 @@ delete, mount, unmount and readonly, and the EC set Generate, Rebuild,
 Copy, Download, Delete, Mount, Unmount, ShardRead, BlobDelete and
 ToVolume.  ``/ec/scrub/start|stop|status`` drive the EC bit-rot scrubber
 (scrubber.py), which pauses while the server takes more than 50 requests
-a second.  Heartbeats go to the master, full every FULL_SYNC_EVERY pulses
-and as deltas between; a scrub's quarantine reaches the master as the
-volume's new shard set.
+a second.  ``GET /metrics`` is the process's Prometheus exposition (the
+master's cluster aggregator scrapes it): requests by route, the volume
+and EC-shard gauges refreshed from the live store, and the shard
+integrity counters.  Heartbeats go to the master, full every
+FULL_SYNC_EVERY pulses and as deltas between; a scrub's quarantine
+reaches the master as the volume's new shard set.
 
 EC work runs on ``device``: "cuda" (the default, the reference's
 ``-ec.engine tpu``) launches the GF(2^8) kernel on the card; "cpu" (the
 reference's ``-ec.engine cpu``) runs the plain versions.  A request's
 ``engine`` field never moves the work to another engine: an engine other
-than the server's own answers 400.
+than the server's own answers 400.  ``/status`` carries
+``EcKernelLaunches``, the GF(2^8) kernels this process has launched (a
+port-only key: a drill reads it to see which server ran a repair).
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
 native planes, mmap and the needle cache, heat, ledger, admission,
-tracing and /metrics, debug, vacuum and tier routes, batch routes,
-volume copy and tail, image resize, and the partial-range fast path (a
-Range GET slices the full body).
+tracing, debug, vacuum and tier routes, batch routes, volume copy and
+tail, image resize, and the partial-range fast path (a Range GET slices
+the full body).
 """
 
 from __future__ import annotations
@@ -39,7 +44,8 @@ import numpy as np
 from ..ec.ec_volume import NeedleNotFoundError
 from ..ec.integrity import EciSidecar, note_corruption, verify_shard_file
 from ..ec.layout import TOTAL_SHARDS_COUNT, to_ext
-from ..stats import ec_integrity_metrics
+from ..ops.gf_matmul import gf_matmul
+from ..stats import REGISTRY, ec_integrity_metrics, volume_server_metrics
 from ..storage.file_id import FileId
 from ..storage.needle import (
     FLAG_HAS_LAST_MODIFIED,
@@ -109,7 +115,10 @@ class VolumeServer:
         self.store = Store(directories, host, port, public_url,
                            max_volume_count, device=device)
         self.engine = "cpu" if self.store.device.type == "cpu" else "tpu"
-        self.router = Router("volume")
+        self.metrics = volume_server_metrics()
+        self.metrics.max_volume_counter.set(max_volume_count)
+        ec_integrity_metrics()  # its families exist at 0 on /metrics
+        self.router = Router("volume", metrics=self.metrics)
         self._register_routes()
         self._server = None
         self._stop = threading.Event()
@@ -553,6 +562,7 @@ class VolumeServer:
                 "Rack": self.rack,
                 "EcPipeline": dict(_EC_PIPELINE_TOTALS),
                 "EcIntegrity": ec_integrity_metrics().totals(),
+                "EcKernelLaunches": gf_matmul.launches,
                 "EcScrub": {
                     "running": scrub["running"],
                     "passes": scrub["passes"],
@@ -561,6 +571,21 @@ class VolumeServer:
                                  for v, d in scrub["verdicts"].items()},
                 },
             })
+
+        @r.route("GET", "/metrics")
+        def metrics(req: Request) -> Response:
+            # the volume and EC-shard gauges from the live store
+            m = self.metrics
+            m.volume_counter.clear()
+            m.disk_size_gauge.clear()
+            for v in list(self.store.volumes.values()):
+                m.volume_counter.add(v.collection, "volume", 1)
+                m.disk_size_gauge.add(v.collection, "volume", v.data_size)
+            for vid, ev in list(self.store.ec_volumes.items()):
+                m.volume_counter.add(self.store.ec_collections.get(vid, ""),
+                                     "ec_shards", len(ev.shards))
+            return Response(raw=REGISTRY.expose().encode(), headers={
+                "Content-Type": "text/plain; version=0.0.4; charset=utf-8"})
 
         # --- admin: volume lifecycle ---------------------------------
         @r.route("POST", "/admin/assign_volume")

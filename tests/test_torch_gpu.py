@@ -226,6 +226,97 @@ def test_two_server_cluster_on_the_card(cuda, tmp_path):
         master.stop()
 
 
+def test_coordinator_repair_on_the_card(cuda, tmp_path):
+    """The master's coordinator heals a stopped card server's shards with
+    no shell command: its rebuild runs on the card (engine "tpu"), the
+    rebuilt shards equal their bytes from before the loss, nothing
+    fails."""
+    import hashlib
+    import socket
+    import time
+
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def sha(vs, vid, sid):
+        path = volume_file_prefix(vs.store.directories[0], "ec", vid) + \
+            to_ext(sid)
+        with open(path, "rb") as f:
+            return hashlib.sha256(f.read()).hexdigest()
+
+    master = MasterServer(port=free_port(), pulse_seconds=0.3,
+                          coordinator_seconds=0.3,
+                          metrics_aggregation_seconds=0.3).start()
+    master.coordinator.pause("setup")
+    servers = {}
+    stopped = None
+    try:
+        for i in range(3):
+            d = tmp_path / f"vs{i}"
+            d.mkdir()
+            vs = VolumeServer([str(d)], master.url, port=free_port(),
+                              pulse_seconds=0.3).start()
+            servers[vs.url] = vs
+        deadline = time.monotonic() + 30
+        while len(master.topo.all_nodes()) < 3:
+            assert time.monotonic() < deadline
+            time.sleep(0.05)
+        client = WeedClient(master.url)
+        rng = np.random.default_rng(12)
+        blobs = [rng.bytes(int(rng.integers(1, 1 << 20))) for _ in range(30)]
+        fids = [client.upload(b, collection="ec") for b in blobs]
+        vid = int(fids[0].split(",")[0])
+        env = CommandEnv(master.url)
+        env.lock()
+        assert "via tpu engine" in run_command(
+            env, f"ec.encode -volumeId {vid} -collection ec")
+        env.unlock()
+        holders = {s: us for s, us in http_json(
+            "GET", f"http://{master.url}/dir/lookup_ec?volumeId={vid}"
+        )["shards"].items()}
+        hashes = {int(s): sha(servers[us[0]], vid, int(s))
+                  for s, us in holders.items()}
+        # the server holding the fewest shards, so at least ten are left
+        stopped = min(servers, key=lambda u: (
+            sum(u in us for us in holders.values()), u))
+        servers[stopped].stop()
+        before = gf_matmul.launches
+        master.coordinator.resume()
+        deadline = time.monotonic() + 120
+        while True:
+            st = master.coordinator.status()
+            shards = {int(s): [u for u in us if u != stopped]
+                      for s, us in http_json(
+                          "GET", f"http://{master.url}/dir/lookup_ec"
+                                 f"?volumeId={vid}")["shards"].items()}
+            if st["repairs"]["done"] and not st["queue"] and all(
+                    shards.get(s) for s in range(14)):
+                break
+            assert time.monotonic() < deadline, st
+            time.sleep(0.1)
+        assert st["repairs"]["failed"] == 0 and not st["last_error"]
+        assert gf_matmul.launches > before  # the rebuild ran on the card
+        for s, us in shards.items():
+            for u in us:
+                assert sha(servers[u], vid, s) == hashes[s]
+        for fid, blob in zip(fids, blobs):
+            assert client.download(fid) == blob
+    finally:
+        for url, vs in servers.items():
+            if url != stopped:
+                vs.stop()
+        master.stop()
+
+
 def test_resumed_encode_on_the_card(cuda, tmp_path):
     """ec.dispatch fails once mid-encode on the card: the encode resumes
     from its checkpoint (fewer launches than a restart from byte 0) to

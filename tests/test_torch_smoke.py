@@ -91,7 +91,9 @@ def test_cluster_phase_on_cpu(tmp_path):
     """The master, five volume servers and the shell through the CLI, on
     the plain versions: upload, ec.encode, a SIGKILLed holder, degraded
     GETs of both classes, ec.rebuild, a rotted shard that ec.scrub -all
-    quarantines and ec.rebuild heals, ec.decode."""
+    quarantines and ec.rebuild heals, the coordinator's drill (a second
+    rot and a second SIGKILLed server healed with no shell command),
+    ec.decode."""
     res = chip_smoke.run_cluster_phase(
         "cpu", str(tmp_path), 12 << 20, reads=16, threads=3, per_thread=5,
         decoded_reads=6, pulse_seconds=0.3)
@@ -104,7 +106,33 @@ def test_cluster_phase_on_cpu(tmp_path):
                 "ec.scrub_again", "ec.decode"):
         assert res["seconds"][leg] >= 0, leg
     roles = [r for s in res["servers"].values() for r in s["roles"]]
-    assert sorted(roles) == ["encode", "killed", "rebuild"]
+    assert sorted(r for r in roles if r != "coordinator_repair") == [
+        "encode", "killed", "killed", "rebuild", "rotted"]
+    assert "coordinator_repair" in roles  # a repair host that lived on
+    drill = res["drill"]
+    assert drill["rot_to_heal_s"] > 0 and drill["kill_to_heal_s"] > 0
+    assert drill["coordinator"]["repairs"]["done"] >= 2
+    assert drill["coordinator"]["repairs"]["failed"] == 0
+    assert drill["rot_repair"]["rescrubbed"]
+    # each heal's repairs, by host, with the launches read live around it
+    # (the plain versions launch none, as the typed rebuilds did)
+    assert res["rebuild_launches"] == [0, 0]
+    for window in ("rot", "loss"):
+        ran = drill["repair_launches"][window]
+        assert sum(h["repairs"] for h in ran.values()) >= 1, window
+        assert all(h["launches"] == 0 for h in ran.values()), window
+    # the master's log line of each repair carries its legs
+    assert [set(r) for r in drill["repair_legs"]] == \
+        [{"host", "copy", "rebuild", "spread"}] * 2
+    # the host that saw the rot keeps the detection counters, so health
+    # stays degraded until it is gone
+    assert drill["health_after_rot"]["degraded"] is True
+    assert set(drill["health_after_rot"]["nonzero"]) <= {"corrupt_shards",
+                                                         "scrub_repairs"}
+    for leg in ("ec.scrub", "rot_to_sha256_equal", "kill_to_sha256_equal",
+                "drop", "kill_to_health_clean", "kill_to_repair_planned",
+                "loss_repair"):
+        assert drill["seconds"][leg] >= 0, leg
     # every server counted exactly the remote reads and reconstructions
     # its GETs needed (checked inside); some of each happened
     alive = [s for s in res["servers"].values() if "killed" not in s["roles"]]

@@ -283,9 +283,11 @@ def test_port_answers_its_own_routes(servers):
     assert status == 200 and set(doc) == {"Version", "Volumes", "EcVolumes",
                                           "Master", "DataCenter", "Rack",
                                           "EcPipeline", "EcIntegrity",
-                                          "EcScrub"}
+                                          "EcKernelLaunches", "EcScrub"}
     assert doc["EcScrub"] == {"running": False, "passes": 0,
                               "cursor": [0, 0], "verdicts": {}}
+    # the process's kernel count: a CPU server launches none
+    assert doc["EcKernelLaunches"] == 0
     assert {v["id"] for v in doc["Volumes"]} >= {2}
     # 5-byte offsets are refused: the port's volumes use 4-byte offsets
     status, body, _ = exchange(url, "POST", "/admin/assign_volume", json.dumps(
