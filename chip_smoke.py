@@ -41,7 +41,17 @@ result.  Phases, each of which fails the run on any mismatch:
  6. a whole cluster through the CLI: ``master -coordinatorSeconds 1
     -metricsAggregationSeconds 1`` (its coordinator paused by the shell's
     ``coordinator.pause``) and five ``volume -ec.engine tpu`` processes
-    on the card; a 2 GiB volume uploaded
+    on the card.  First the vacuum leg: a ``001`` volume of its own on
+    two servers, 1 GiB uploaded from eight threads, 40% of its bytes
+    deleted, ``shell -c "volume.vacuum -garbageThreshold 0.3"`` while a
+    reader GETs survivors (no error allowed), each replica's compacted
+    `.dat` equal to the plain compaction of its own pre-vacuum files at
+    compaction revision 1, /dir/status showing the new size, every live
+    needle read back and every deleted one 404; then ``ec.encode`` of the
+    compacted volume (parity against the host table, every shard against
+    its `.eci`, GETs through EC), whose host must launch exactly the
+    kernels the encoder's dispatch rule gives for the compacted size;
+    the leg's collection is dropped at its end.  Then a 2 GiB volume uploaded
     through WeedClient from eight threads, ``shell -c "ec.encode"`` (shard
     sha256 recorded), the holder of the most shards SIGKILLed and dropped
     by the master, 200 + 8x25 degraded GETs classed by whether the shard
@@ -109,6 +119,8 @@ HTTP_THREADS, HTTP_READS_PER_THREAD = 8, 25
 DECODED_READS = 50
 CLI_VOLUME_BYTES = 64 << 20
 CLI_READS = 20
+# the vacuum leg's volume: cut from the same 30,000 MB limit to 1 GiB
+VAC_BYTES = 1 << 30
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -223,18 +235,23 @@ def write_volume(store, vid: int, seed: int, total: int):
     return specs
 
 
-def check_shards(base: str, stripes: int, seed: int) -> None:
+def check_shards(base: str, stripes: int, seed: int,
+                 shard_path=None) -> None:
     """Sampled 1 MiB stripes: parity shards == host-LUT product of the
-    data shards; then every shard against its `.eci` row."""
+    data shards; then every shard against its `.eci` row.  The shards
+    are ``base`` + .ecNN, or ``shard_path(i)`` where they are spread over
+    servers (``base`` then names a holder's `.eci`)."""
     from seaweedfs_tpu_torch.ec.gf256 import build_encoding_matrix
     from seaweedfs_tpu_torch.ec.integrity import EciSidecar, verify_shard_file
     from seaweedfs_tpu_torch.ec.layout import to_ext
 
+    paths = [shard_path(i) if shard_path else base + to_ext(i)
+             for i in range(14)]
     parity_rows = build_encoding_matrix(10, 14)[10:]
-    shard_size = os.path.getsize(base + to_ext(0))
+    shard_size = os.path.getsize(paths[0])
     rng = np.random.default_rng(seed)
     n = min(1 << 20, shard_size)
-    fds = [os.open(base + to_ext(i), os.O_RDONLY) for i in range(14)]
+    fds = [os.open(p, os.O_RDONLY) for p in paths]
     try:
         for _ in range(stripes):
             off = int(rng.integers(0, shard_size - n + 1))
@@ -249,10 +266,10 @@ def check_shards(base: str, stripes: int, seed: int) -> None:
     sidecar = EciSidecar.load(base)
     if sidecar is None or sidecar.shard_size != shard_size:
         raise AssertionError(f"{base}: no valid .eci")
-    for i in range(14):
-        bad = verify_shard_file(sidecar, base + to_ext(i), i)
+    for i, path in enumerate(paths):
+        bad = verify_shard_file(sidecar, path, i)
         if bad:
-            raise AssertionError(f"{base}{to_ext(i)}: .eci blocks {bad[:4]}")
+            raise AssertionError(f"{path}: .eci blocks {bad[:4]}")
 
 
 def sha256_file(path: str) -> str:
@@ -932,9 +949,13 @@ def master_status(master: str) -> dict:
     return http_json("GET", f"http://{master}/dir/status")["Topology"]
 
 
+def data_nodes(topology: dict) -> list[dict]:
+    return [n for dc in topology["DataCenters"] for rack in dc["Racks"]
+            for n in rack["DataNodes"]]
+
+
 def node_urls(topology: dict) -> set[str]:
-    return {n["Url"] for dc in topology["DataCenters"]
-            for rack in dc["Racks"] for n in rack["DataNodes"]}
+    return {n["Url"] for n in data_nodes(topology)}
 
 
 def wait_for(what: str, ok, timeout: float) -> float:
@@ -1232,16 +1253,322 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
     return res
 
 
+# --- the vacuum leg of the cluster phase ---------------------------------
+
+def plain_compaction(dat_path: str, idx_path: str) -> dict:
+    """Vacuum's plain version, independent of the port's Volume: replay
+    the `.idx` (the last put of a key wins, a tombstone or zero offset
+    drops it), then the live records in the order of their offsets after
+    the superblock, its compaction revision one on.  -> the sha256 and
+    size of that `.dat`, and {key: needle size} of what it holds."""
+    with open(idx_path, "rb") as f:
+        raw = f.read()
+    entries = np.frombuffer(raw[:len(raw) - len(raw) % 16], dtype=[
+        ("key", ">u8"), ("offset", ">u4"), ("size", ">i4")])
+    live: dict[int, tuple[int, int]] = {}
+    for key, off, size in entries.tolist():
+        if off and size > 0:
+            live[key] = (off * 8, size)
+        else:
+            live.pop(key, None)
+    with open(dat_path, "rb") as f:
+        sb = bytearray(f.read(8))
+        if sb[6:8] != b"\x00\x00":
+            raise AssertionError(f"{dat_path}: superblock with extra bytes")
+        rev = int.from_bytes(sb[4:6], "big")
+        sb[4:6] = ((rev + 1) & 0xFFFF).to_bytes(2, "big")
+        h = hashlib.sha256(sb)
+        total = len(sb)
+        for off, size in sorted(live.values()):
+            used = 16 + size + 4 + 8  # header, data, crc, append_at_ns
+            n = used + 8 - used % 8  # padding of 1-8 bytes
+            f.seek(off)
+            blob = f.read(n)
+            if len(blob) != n:
+                raise AssertionError(f"{dat_path}: record at {off} cut")
+            h.update(blob)
+            total += n
+    return {"sha256": h.hexdigest(), "size": total,
+            "live": {k: s for k, (_, s) in live.items()}}
+
+
+def idx_live(idx_path: str) -> dict[int, int]:
+    """{key: size} of a compacted `.idx`: one put per live needle."""
+    with open(idx_path, "rb") as f:
+        raw = f.read()
+    entries = np.frombuffer(raw, dtype=[("key", ">u8"), ("offset", ">u4"),
+                                        ("size", ">i4")])
+    return {int(k): int(s) for k, s in zip(entries["key"], entries["size"])}
+
+
+class LoopReader:
+    """One thread GETting surviving needles through one WeedClient, in a
+    seeded order, until ``stop()``; each body must be the bytes written.
+    Keeps (start, seconds) of every GET and every error."""
+
+    def __init__(self, master: str, needles: list[dict], fids: list[str],
+                 picks: list[int], seed: int):
+        from seaweedfs_tpu_torch.client.operation import WeedClient
+
+        self.gets: list[tuple[float, float]] = []
+        self.errors: list[str] = []
+        self._stop = threading.Event()
+        client = WeedClient(master)
+        client.rng.seed(seed)
+        order = np.random.default_rng(seed).permutation(picks).tolist()
+
+        def run() -> None:
+            k = 0
+            while not self._stop.is_set():
+                i = order[k % len(order)]
+                k += 1
+                t0 = time.perf_counter()
+                try:
+                    body = client.download(fids[i])
+                except Exception as e:  # noqa: BLE001 - counted as a fault
+                    self.errors.append(f"GET {fids[i]}: {e}")
+                    continue
+                self.gets.append((t0, time.perf_counter() - t0))
+                if body != needles[i]["data"]:
+                    self.errors.append(f"GET {fids[i]}: wrong bytes")
+
+        self._t = threading.Thread(target=run, daemon=True)
+        self._t.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._t.join(timeout=120)
+        if self._t.is_alive():
+            raise AssertionError("the reader thread did not stop")
+
+
+def run_vacuum_leg(master: str, vs: dict, engine: str, vac_bytes: int,
+                   threads: int, work: str) -> dict:
+    """Vacuum a replicated volume, then EC-encode it: a 001 volume of
+    collection "vac" grown on two servers, ``vac_bytes`` of needles
+    uploaded from ``threads`` threads, deletes in a seeded order until
+    40% of the bytes are gone, ``volume.vacuum -garbageThreshold 0.3``
+    through the shell while one reader GETs survivors, checks of both
+    replicas' files (each against the plain compaction of its own
+    pre-vacuum files), of /dir/status and of every GET, then ``ec.encode``
+    of the compacted volume: parity against the host table, every shard
+    against its `.eci`, GETs through EC, and the encode host's kernel
+    launches against the dispatches the encoder's rule gives for the
+    compacted size.  Last, the collection is dropped and the master's
+    view left as before the leg.  Returns the numbers and each server's
+    remote shard reads from its EC GETs."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+    from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
+    from seaweedfs_tpu_torch.ops.gf_matmul import ROWS_PER_LAUNCH
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+
+    collection = "vac"
+    seed = SEED + 8
+    res: dict = {"seconds": {}}
+    vid = http_json("GET", f"http://{master}/vol/grow?collection={collection}"
+                           f"&replication=001&count=1")["volumeIds"][0]
+    replicas = WeedClient(master).master.lookup(vid)
+    if len(replicas) != 2:
+        raise AssertionError(f"volume {vid} of 001 on {replicas}")
+    bases = {u: volume_file_prefix(vs[u]["dir"], collection, vid)
+             for u in replicas}
+    needles = [cluster_needle(seed, i, nid, size) for i, (nid, _, size)
+               in enumerate(needle_specs(seed, vac_bytes))]
+    fids: list[str] = [""] * len(needles)
+
+    def upload(t: int) -> None:
+        client = WeedClient(master)
+        for i in range(t, len(needles), threads):
+            fids[i] = client.upload(needles[i]["data"], collection=collection,
+                                    replication="001", **needles[i]["upload"])
+
+    t0 = time.perf_counter()
+    run_threads(upload, threads, 1800)
+    res["seconds"]["upload"] = time.perf_counter() - t0
+    if {FileId.parse(f).volume_id for f in fids} != {vid}:
+        raise AssertionError("needles landed outside the vacuum's volume")
+    written = sum(len(n["data"]) for n in needles)
+    order = np.random.default_rng(seed).permutation(len(needles)).tolist()
+    gone: list[int] = []
+    deleted = 0
+    client = WeedClient(master)
+    t0 = time.perf_counter()
+    for i in order:
+        if deleted >= 0.4 * written:
+            break
+        client.delete(fids[i])
+        gone.append(i)
+        deleted += len(needles[i]["data"])
+    res["seconds"]["delete"] = time.perf_counter() - t0
+    gone_set = set(gone)
+    live = [i for i in range(len(needles)) if i not in gone_set]
+    res.update(needles=len(needles), written_bytes=written,
+               deleted_needles=len(gone), deleted_bytes=deleted)
+    res["garbage_ratio"] = {u: http_json(
+        "POST", f"http://{u}/admin/vacuum_check",
+        {"volume_id": vid})["garbage_ratio"] for u in replicas}
+    print(json.dumps({"vacuum_check": res["garbage_ratio"]}), flush=True)
+    if min(res["garbage_ratio"].values()) < 0.3:
+        raise AssertionError(f"garbage below the threshold: {res}")
+
+    # the files as the vacuum finds them, kept by hard links: the swap
+    # renames new files over these names, the links keep the old ones
+    snap = os.path.join(work, "vac_snapshot")
+    os.makedirs(snap)
+    plain = {}
+    for k, (u, base) in enumerate(bases.items()):
+        for ext in (".dat", ".idx"):
+            os.link(base + ext, os.path.join(snap, f"{k}{ext}"))
+        plain[u] = plain_compaction(os.path.join(snap, f"{k}.dat"),
+                                    os.path.join(snap, f"{k}.idx"))
+    res["bytes_before"] = {u: os.path.getsize(b + ".dat")
+                           for u, b in bases.items()}
+
+    reader = LoopReader(master, needles, fids, live, seed)
+    try:
+        t0 = time.perf_counter()
+        out, wall = run_shell(master, "volume.vacuum -garbageThreshold 0.3")
+        t1 = time.perf_counter()
+    finally:
+        reader.stop()
+    res["seconds"]["vacuum"] = wall
+    if not re.fullmatch(r"compacted volumes: \[[\d, ]*\]", out) or \
+            vid not in [int(x) for x in re.findall(r"\d+", out)]:
+        raise AssertionError(f"volume.vacuum: {out}")
+    if reader.errors:
+        raise AssertionError(f"the reader saw {len(reader.errors)} errors: "
+                             f"{reader.errors[:3]}")
+    during = [lat for start, lat in reader.gets if t0 <= start <= t1]
+    if not during:
+        raise AssertionError("the reader made no GET during the vacuum")
+    res["reader"] = {"gets": len(reader.gets), "gets_during_vacuum":
+                     len(during), "ms": percentiles(
+                         [lat for _, lat in reader.gets]),
+                     "ms_during_vacuum": percentiles(during)}
+
+    # both replicas: the plain compaction of their own files, the live
+    # needles and nothing else, compaction revision 1
+    want_keys = {FileId.parse(fids[i]).key for i in live}
+    res["bytes_after"] = {}
+    res["sha256"] = {}
+    for u, base in bases.items():
+        got = sha256_file(base + ".dat")
+        size = os.path.getsize(base + ".dat")
+        keys = idx_live(base + ".idx")
+        if got != plain[u]["sha256"] or size != plain[u]["size"]:
+            raise AssertionError(f"{u}: compacted .dat differs from the "
+                                 f"plain compaction of its files")
+        if set(keys) != want_keys or keys != plain[u]["live"] or \
+                keys != idx_live(bases[replicas[0]] + ".idx"):
+            raise AssertionError(f"{u}: compacted .idx holds other needles")
+        record = sum(16 + s + 12 + 8 - (16 + s + 12) % 8
+                     for s in keys.values())
+        if size != 8 + record:
+            raise AssertionError(f"{u}: {size} bytes, not the superblock "
+                                 f"and {record} bytes of live records")
+        with open(base + ".dat", "rb") as f:
+            if int.from_bytes(f.read(8)[4:6], "big") != 1:
+                raise AssertionError(f"{u}: compaction revision not 1")
+        res["bytes_after"][u] = size
+        res["sha256"][u] = got
+    if len(set(res["bytes_after"].values())) != 1:
+        raise AssertionError(f"the replicas differ: {res['bytes_after']}")
+    # replicas append in the order requests reach them and stamp their own
+    # append times, so their .dat files match in size and needles; the
+    # bytes match only if both saw one order
+    res["replica_dat_sha256_equal"] = len(set(res["sha256"].values())) == 1
+
+    def shown() -> bool:
+        infos = {n["Url"]: v for n in data_nodes(master_status(master))
+                 for v in n["VolumeInfos"] if v["id"] == vid}
+        return set(infos) == set(replicas) and all(
+            v["size"] == res["bytes_after"][u] and not v["read_only"]
+            and not v["delete_count"] for u, v in infos.items())
+
+    res["seconds"]["dir_status"] = wait_for(
+        "/dir/status to show the compacted size", shown, 60)
+    run_threads(lambda t: timed_gets(master, live[t::threads], needles,
+                                     fids, seed + t), threads, 600)
+    for i in gone:
+        for u in replicas:
+            status, _, _ = http_bytes("GET", f"http://{u}/{fids[i]}")
+            if status != 404:
+                raise AssertionError(f"deleted {fids[i]} on {u}: {status}")
+
+    # the compacted volume on the card
+    source = WeedClient(master).master.lookup(vid)[0]
+    dat_size = res["bytes_after"][source]
+    rows = 4  # parity rows a dispatch computes
+    want = (StreamingEncoder(device="cpu").dispatches_for(dat_size)
+            * -(-rows // ROWS_PER_LAUNCH)) if engine == "tpu" else 0
+    before = kernel_launches([source])[source]
+    out, res["seconds"]["ec.encode"] = run_shell(
+        master, f"ec.encode -collection {collection} -volumeId {vid}")
+    m = re.search(r"generate ([\d.]+) s, spread ([\d.]+) s", out)
+    if f"ec encoded volume {vid} via tpu engine" not in out or not m:
+        raise AssertionError(f"ec.encode of the compacted volume: {out}")
+    res["seconds"]["encode_generate"] = float(m.group(1))
+    res["launches"] = kernel_launches([source])[source] - before
+    res["launches_expected"] = want
+    res["encode_host"] = source
+    if res["launches"] != want:
+        raise AssertionError(f"{source} launched {res['launches']} kernels "
+                             f"encoding {dat_size} bytes, not {want}")
+    holders = shard_holders(master, vid)
+    if sorted(holders) != list(range(14)):
+        raise AssertionError(f"after ec.encode: {holders}")
+
+    def shard_path(sid: int) -> str:
+        return volume_file_prefix(vs[holders[sid][0]]["dir"], collection,
+                                  vid) + to_ext(sid)
+
+    holder_base = volume_file_prefix(vs[holders[0][0]]["dir"], collection, vid)
+    check_shards(holder_base, PARITY_STRIPES, seed, shard_path)
+    shards_of = dict(zip(live, needle_shards(
+        holder_base, vid, [FileId.parse(fids[i]).key for i in live])))
+    done: list = []
+    run_threads(lambda t: done.extend(timed_gets(
+        master, live[t::threads], needles, fids, seed + t)), threads, 600)
+    remote: dict[str, int] = {}
+    for asked, i, _ in done:
+        for sid in shards_of[i]:
+            if asked not in holders[sid]:
+                remote[asked] = remote.get(asked, 0) + 1
+    res["ec_remote_reads"] = remote
+    urls = sorted({u for us in holders.values() for u in us})
+    for k, i in enumerate(gone):
+        status, _, _ = http_bytes("GET", f"http://{urls[k % len(urls)]}/"
+                                         f"{fids[i]}")
+        if status != 404:
+            raise AssertionError(f"deleted {fids[i]} through EC: {status}")
+
+    # the later legs find the cluster as they would without this one
+    status, body, _ = http_bytes(
+        "GET", f"http://{master}/col/delete?collection={collection}")
+    if status != 204:
+        raise AssertionError(f"/col/delete: {status} {body[:200]!r}")
+    res["seconds"]["drop"] = wait_for(
+        "the master to forget the vacuum's volume", lambda: all(
+            n["Volumes"] == 0 and n["EcShards"] == 0
+            for n in data_nodes(master_status(master))), 60)
+    return res
+
+
 def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                       reads: int, threads: int, per_thread: int,
-                      decoded_reads: int, servers: int = 5,
+                      decoded_reads: int, vac_bytes: int, servers: int = 5,
                       pulse_seconds: float = 0.5,
                       coordinator_seconds: float = 1.0) -> dict:
     """A whole EC cluster through the port's CLI: a master
     (``-coordinatorSeconds`` and ``-metricsAggregationSeconds``
     ``coordinator_seconds``, its coordinator paused at once with the
     shell's coordinator.pause) and ``servers`` volume servers
-    (``-ec.engine <engine>``), each its own process.  One volume of
+    (``-ec.engine <engine>``), each its own process.  First the vacuum
+    leg (``run_vacuum_leg``, ``vac_bytes`` on a 001 volume of its own,
+    dropped at its end).  Then one volume of
     collection "ec" is uploaded through WeedClient from ``threads``
     threads, then the shell's ec.encode; the server holding the most
     shards (not the encode's source) is SIGKILLed and dropped by the
@@ -1255,7 +1582,8 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
     the server that answered it: (a) a shard alive on another server,
     (b) a lost shard, or local.  Every server's stop line (the second
     killed one has none) must count exactly the remote shard reads and
-    reconstructions its GETs needed."""
+    reconstructions its GETs needed, the vacuum leg's EC GETs
+    included."""
     from seaweedfs_tpu_torch.client.operation import WeedClient
     from seaweedfs_tpu_torch.ec.layout import TOTAL_SHARDS_COUNT, to_ext
     from seaweedfs_tpu_torch.storage.file_id import FileId
@@ -1302,6 +1630,8 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         wait_for("every volume server to register",
                  lambda: node_urls(master_status(master)) == set(vs), 60)
         res["seconds"]["start"] = time.perf_counter() - t0
+        res["vacuum"] = run_vacuum_leg(master, vs, engine, vac_bytes, threads,
+                                       work)
 
         vid = http_json("GET", f"http://{master}/vol/grow?collection="
                                f"{collection}&count=1")["volumeIds"][0]
@@ -1371,7 +1701,9 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                 len(needles), size=per_thread), needles, fids, seed + t)),
             threads, 600)
         gets[f"{threads}_clients"] = concurrent
-        expect = {u: {"remote": 0, "reconstructed": 0} for u in alive}
+        vac_remote = res["vacuum"]["ec_remote_reads"]
+        expect = {u: {"remote": vac_remote.get(u, 0), "reconstructed": 0}
+                  for u in alive}
         classes: dict = {}
         for run, done in gets.items():
             for asked, i, lat in done:
@@ -1780,11 +2112,31 @@ def main() -> int:
                     "killed server as down before the master drops it"}]})
         cluster = run_cluster_phase("tpu", work, VOLUME_BYTES,
                                     DEGRADED_READS, HTTP_THREADS,
-                                    HTTP_READS_PER_THREAD, DECODED_READS)
+                                    HTTP_READS_PER_THREAD, DECODED_READS,
+                                    VAC_BYTES)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     cluster_launches = sum(s.get("launches", 0)
                            for s in cluster["servers"].values())
+    vac = cluster["vacuum"]
+    log({"phase": "vacuum_done", "reduced": {
+        "volume_bytes": VAC_BYTES,
+        "from": "30,000 MB default volume size limit (weed master "
+                "-volumeSizeLimitMB)",
+        "why": "run time limit"},
+        "needles": vac["needles"], "written_bytes": vac["written_bytes"],
+        "deleted_needles": vac["deleted_needles"],
+        "deleted_bytes": vac["deleted_bytes"],
+        "garbage_ratio": vac["garbage_ratio"],
+        "bytes_before": vac["bytes_before"],
+        "bytes_after": vac["bytes_after"],
+        "replica_dat_sha256_equal": vac["replica_dat_sha256_equal"],
+        "vacuum_s": vac["seconds"]["vacuum"], "reader": vac["reader"],
+        "encode_s": vac["seconds"]["ec.encode"],
+        "encode_generate_s": vac["seconds"]["encode_generate"],
+        "encode_host": vac["encode_host"], "launches": vac["launches"],
+        "launches_expected": vac["launches_expected"],
+        "seconds": vac["seconds"], "nvidia_smi": card})
     s = cluster["seconds"]
     log({"phase": "cluster_done", "needles": cluster["needles"],
          "upload_bytes": cluster["upload_bytes"],

@@ -1,7 +1,7 @@
-"""Command line: ``python -m seaweedfs_tpu_torch master|volume|shell``.
+"""Command line: ``python -m seaweedfs_tpu_torch master|volume|shell|compact``.
 
-The ``weed master``, ``weed volume`` and ``weed shell`` subcommands
-(weed.py) with the flags this port serves:
+The ``weed master``, ``weed volume``, ``weed shell`` and ``weed compact``
+subcommands (weed.py) with the flags this port serves:
 
     python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000 \\
         -coordinatorSeconds 15 -metricsAggregationSeconds 5
@@ -9,6 +9,7 @@ The ``weed master``, ``weed volume`` and ``weed shell`` subcommands
         -mserver 127.0.0.1:9333 -ec.engine tpu
     python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \\
         -c "ec.encode -volumeId 3; ec.rebuild -volumeId 3"
+    python -m seaweedfs_tpu_torch compact -dir /data -collection c -volumeId 3
 
 ``-ec.engine tpu`` (the default) runs EC on the CUDA card: the server
 builds its kernel before it listens and fails without a card;
@@ -22,7 +23,10 @@ start-up included, then stop and exit 0; the volume server's last line
 counts the GF kernels it launched and the EC intervals it lacked, fetched
 from a holder or reconstructed.  ``shell -c`` takes the admin lock, runs the
 ``;``-separated commands, prints what each returns and unlocks; without
-``-c`` it reads commands from standard input.
+``-c`` it reads commands from standard input.  ``compact`` vacuums one
+volume offline (no server may hold it) and prints its size before and
+after.  The master vacuums volumes with 30% garbage or more every 900 s,
+as the reference's does; neither knob is a flag there, so none is here.
 
 Every subcommand first arms the fault points named in ``WEED_FAULTS``
 (utils/faultinject.py ``arm_from_env``), e.g.
@@ -84,6 +88,10 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     s.add_argument("-master", default="127.0.0.1:9333")
     s.add_argument("-c", default="",
                    help="run these commands (; separated) and exit")
+    c = sub.add_parser("compact", help="vacuum one volume offline")
+    c.add_argument("-dir", default=".")
+    c.add_argument("-collection", default="")
+    c.add_argument("-volumeId", type=int, required=True)
     return p.parse_args(argv)
 
 
@@ -188,13 +196,29 @@ def cmd_shell(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_compact(args: argparse.Namespace) -> int:
+    """Offline vacuum of one volume (command/compact.go)."""
+    from .storage.volume import Volume
+
+    v = Volume(args.dir, args.collection, args.volumeId)
+    try:
+        before = v.data_size
+        v.compact()
+        v.commit_compact()
+        print(f"compact: volume {args.volumeId} {before} -> {v.data_size} "
+              f"bytes")
+    finally:
+        v.close()
+    return 0
+
+
 def main(argv: list[str]) -> int:
     from .utils import faultinject
 
     args = parse_args(argv)
     faultinject.arm_from_env()
     return {"master": cmd_master, "volume": cmd_volume,
-            "shell": cmd_shell}[args.command](args)
+            "shell": cmd_shell, "compact": cmd_compact}[args.command](args)
 
 
 if __name__ == "__main__":

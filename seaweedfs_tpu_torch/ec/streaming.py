@@ -136,6 +136,25 @@ def _plan_entries(file_size: int, k: int, large: int, small: int,
         start += small * k
 
 
+def _pack_dispatches(entries, b: int
+                     ) -> Iterator[tuple[list[tuple[int, int, int, int, int]],
+                                         int]]:
+    """Plan entries packed in order into dispatches of at most ``b``
+    columns: a new dispatch starts whenever the next entry would overflow
+    the current one.  Yields (fills, used), each fill (column, n,
+    row_start, block_size, chunk_off)."""
+    fills: list[tuple[int, int, int, int, int]] = []
+    used = 0
+    for n, row_start, block, off in entries:
+        if used + n > b and used:
+            yield fills, used
+            fills, used = [], 0
+        fills.append((used, n, row_start, block, off))
+        used += n
+    if used:
+        yield fills, used
+
+
 def _remove_quietly(paths) -> None:
     for p in paths:
         try:
@@ -430,6 +449,16 @@ class StreamingEncoder:
         return self.stats
 
     # --- encode -----------------------------------------------------------
+    def dispatches_for(self, file_size: int,
+                       large_block_size: int = LARGE_BLOCK_SIZE,
+                       small_block_size: int = SMALL_BLOCK_SIZE) -> int:
+        """The dispatches, one kernel launch each, that a clean encode of
+        a ``file_size``-byte `.dat` makes."""
+        return sum(1 for _ in _pack_dispatches(
+            _plan_entries(file_size, self.k, large_block_size,
+                          small_block_size, self.dispatch_b),
+            self.dispatch_b))
+
     def encode_file(self, dat_path: str, out_base: str,
                     large_block_size: int = LARGE_BLOCK_SIZE,
                     small_block_size: int = SMALL_BLOCK_SIZE) -> None:
@@ -536,13 +565,8 @@ class StreamingEncoder:
                 drain_pool=self.drain_pool if self.async_drain else 0,
                 drain_point="ec.drain", drain_timeout_s=self.drain_timeout_s)
             with open(dat_path, "rb") as dat:
-                fills: list[tuple[int, int, int, int, int]] = []
-                used = 0
 
-                def flush() -> None:
-                    nonlocal fills, used
-                    if not used:
-                        return
+                def flush(fills, used: int) -> None:
                     slot = pipe.acquire()
                     buf = slot.buf
                     t0 = clock()
@@ -570,19 +594,14 @@ class StreamingEncoder:
                     # counts a dispatch whose data is not on disk
                     write_data(buf[:, :used])
                     pipe.enqueue(slot, used, (len(fills), used))
-                    fills, used = [], 0
 
                 st["setup_s"] = clock() - t_start
                 entries = _plan_entries(file_size, k, large_block_size,
                                         small_block_size, b)
                 for _ in range(start_entry):  # resume: skip what is done
                     next(entries, None)
-                for n, row_start, block, off in entries:
-                    if used + n > b:
-                        flush()
-                    fills.append((used, n, row_start, block, off))
-                    used += n
-                flush()
+                for fills, used in _pack_dispatches(entries, b):
+                    flush(fills, used)
                 pipe.finish()
             want = _shard_size(file_size, k, large_block_size,
                                small_block_size)

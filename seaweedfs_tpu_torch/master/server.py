@@ -10,6 +10,7 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
   GET  /cluster/status  leader info: a single master is always the leader
   POST /heartbeat       volume-server full sync, or a delta between syncs
   GET  /vol/grow        force growth;  GET /vol/status  volume inventory
+  GET  /vol/vacuum      compact every volume past ?garbageThreshold=
   GET|POST /col/delete  drop a collection's volumes and EC shards
   POST|PUT /submit      assign + upload in one call
   GET|HEAD /<vid>,<fid> redirect to a holder
@@ -28,17 +29,22 @@ interval (the routes answer either way); it pauses while the shell's
 admin lock is held, and it counts a registered server the aggregator
 cannot scrape as down.  ``metrics_aggregation_seconds`` > 0 scrapes every
 server that often, so the coordinator sees a dead server within a
-scrape; otherwise the /cluster/* routes scrape on demand.
+scrape; otherwise the /cluster/* routes scrape on demand.  Every
+``VACUUM_SCAN_SECONDS`` (900, as in the reference) the master vacuums
+every volume whose replicas all carry ``GARBAGE_THRESHOLD`` (0.3) or more
+of garbage.  Like the reference's master CLI, the port sets neither by a
+flag; tests set the attributes before ``start()``.
 
 Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/ alert,
 trace, event, heat, ledger, workload, capacity, autoscale and watch
 routes (so the aggregation loop evaluates no alert rules), the master's
-own /metrics, /vol/vacuum and the maintenance scripts, the framed-TCP
+own /metrics and the maintenance scripts, the framed-TCP
 assign front, and security (guard, JWT, TLS, admission control).
 """
 
 from __future__ import annotations
 
+import logging
 import secrets
 import threading
 import time
@@ -51,13 +57,15 @@ from ..storage.file_id import format_needle_id_cookie
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..utils.httpd import (HttpError, Request, Response, Router,
-                           extract_upload, http_json, qint, serve,
+                           extract_upload, http_json, qfloat, qint, serve,
                            stop_server)
 from .sequence import MemorySequencer
 from .topology import EcVolumeInfo, ShardBits, Topology, VolumeInfo
 from .volume_growth import grow_volume
 
 VERSION = "seaweedfs-tpu 0.1"
+
+log = logging.getLogger(__name__)
 
 
 def _ec_infos(entries: list[dict]) -> list[EcVolumeInfo]:
@@ -71,6 +79,10 @@ def _max_file_key(volumes: list[dict]) -> int:
 
 
 class MasterServer:
+    # the periodic vacuum (master/server.py defaults of the reference)
+    GARBAGE_THRESHOLD = 0.3
+    VACUUM_SCAN_SECONDS = 900.0
+
     def __init__(self, host: str = "127.0.0.1", port: int = 9333,
                  volume_size_limit_mb: int = 30000,
                  default_replication: str = "000",
@@ -80,6 +92,8 @@ class MasterServer:
         """A master at host:port.  Volume servers silent for ten pulses
         are dropped."""
         self.host, self.port = host, port
+        self.garbage_threshold = self.GARBAGE_THRESHOLD
+        self.vacuum_scan_seconds = self.VACUUM_SCAN_SECONDS
         self.topo = Topology(volume_size_limit_mb * 1024 * 1024,
                              pulse_seconds)
         self.default_replication = default_replication
@@ -116,6 +130,9 @@ class MasterServer:
             self.aggregator.start_loop(self.metrics_aggregation_seconds)
         if self.coordinator_seconds > 0:
             self.coordinator.start()
+        if self.vacuum_scan_seconds > 0:
+            threading.Thread(target=self._vacuum_scan_loop, daemon=True,
+                             name="master-vacuum-scan").start()
         return self
 
     def stop(self) -> None:
@@ -129,6 +146,57 @@ class MasterServer:
         while not self._stop.wait(self.topo.pulse_seconds):
             for node in self.topo.dead_nodes():
                 self.topo.unregister_node(node)
+
+    def _vacuum_scan_loop(self) -> None:
+        """The periodic garbage scan (topology_event_handling.go ticker):
+        compact every volume past the threshold with no operator.  A
+        failed pass is logged and the next one runs on time."""
+        while not self._stop.wait(self.vacuum_scan_seconds):
+            try:
+                self.vacuum(self.garbage_threshold)
+            except Exception as e:  # noqa: BLE001 - keep scanning
+                log.warning("vacuum-scan: %s", e)
+
+    def vacuum(self, threshold: float) -> list[int]:
+        """topology_vacuum.go: ask each replica its garbage ratio; when
+        the smallest reaches ``threshold``, take the volume out of the
+        writable set, compact every replica, then commit every replica.
+        A failed compact commits nothing and leaves the `.cpd`/`.cpx` for
+        /admin/vacuum_cleanup.  Returns the volumes compacted."""
+        compacted = []
+        with self.topo.lock:
+            layouts = list(self.topo.layouts.values())
+        for layout in layouts:
+            with self.topo.lock:
+                vid_nodes = [(vid, list(nodes)) for vid, nodes
+                             in layout.vid_to_nodes.items()]
+            for vid, nodes in vid_nodes:
+                try:
+                    ratios = [
+                        http_json("POST", f"http://{n.url}/admin/vacuum_check",
+                                  {"volume_id": vid},
+                                  timeout=30.0)["garbage_ratio"]
+                        for n in nodes]
+                    if not ratios or min(ratios) < threshold:
+                        continue
+                    with self.topo.lock:
+                        layout.set_readonly(vid, True)
+                    try:
+                        for n in nodes:
+                            http_json("POST",
+                                      f"http://{n.url}/admin/vacuum_compact",
+                                      {"volume_id": vid}, timeout=600)
+                        for n in nodes:
+                            http_json("POST",
+                                      f"http://{n.url}/admin/vacuum_commit",
+                                      {"volume_id": vid}, timeout=600)
+                        compacted.append(vid)
+                    finally:
+                        with self.topo.lock:
+                            layout.set_readonly(vid, False)
+                except HttpError:
+                    continue
+        return compacted
 
     def _peer_urls(self) -> list[str]:
         with self.topo.lock:
@@ -318,6 +386,12 @@ class MasterServer:
             if grow_err:
                 result["error"] = grow_err
             return Response(result)
+
+        @r.route("GET", "/vol/vacuum")
+        def vol_vacuum(req: Request) -> Response:
+            threshold = qfloat(req.query, "garbageThreshold",
+                               float(self.garbage_threshold))
+            return Response({"compacted": self.vacuum(threshold)})
 
         @r.route("GET", "/vol/status")
         def vol_status(req: Request) -> Response:

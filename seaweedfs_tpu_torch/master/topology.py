@@ -229,6 +229,16 @@ class VolumeLayout:
         else:
             self.writables.discard(vid)
 
+    def set_readonly(self, vid: int, readonly: bool) -> None:
+        """Take a volume out of the writable set (a vacuum in progress),
+        or put it back where its replicas allow."""
+        if readonly:
+            self.readonly.add(vid)
+            self.writables.discard(vid)
+        else:
+            self.readonly.discard(vid)
+            self.ensure_correct_writables(vid)
+
     def pick_for_write(self) -> tuple[int, list[DataNode]]:
         """volume_layout.go:275: random writable volume."""
         if not self.writables:

@@ -5,8 +5,7 @@ commands.go + shell_liner.go).  Commands register into COMMANDS via
 @command; mutating commands must hold the master's admin lock
 (command_lock_unlock.go semantics via env.confirm_is_locked).
 
-Not ported: the tracer around each command, ``fault.list`` and
-``volume.vacuum``.
+Not ported: the tracer around each command and ``fault.list``.
 """
 
 from __future__ import annotations
@@ -37,9 +36,10 @@ class CommandEnv:
         self.admin_token: Optional[int] = None
 
     # --- master helpers ---------------------------------------------------
-    def master_get(self, path: str) -> dict:
+    def master_get(self, path: str,
+                   timeout: Optional[float] = 30.0) -> dict:
         return http_json("GET", f"http://{self.master_url}{path}",
-                         timeout=30.0)
+                         timeout=timeout)
 
     def master_post(self, path: str, payload: dict) -> dict:
         return http_json("POST", f"http://{self.master_url}{path}", payload,
@@ -183,6 +183,17 @@ def cmd_volume_list(env: CommandEnv, flags: dict) -> str:
             shards.items(), key=lambda kv: int(kv[0])))
         lines.append(f"  ec volume {vid}: {locs}")
     return "\n".join(lines)
+
+
+@command("volume.vacuum")
+def cmd_volume_vacuum(env: CommandEnv, flags: dict) -> str:
+    """volume.vacuum [-garbageThreshold 0.3]  # compact volumes with garbage"""
+    t = flags.get("garbageThreshold", "0.3")
+    # the master bounds each replica's compact and commit itself; a
+    # full-size volume takes minutes, so the shell waits for its answer
+    # (the reference's shell gives up after 30 s)
+    r = env.master_get(f"/vol/vacuum?garbageThreshold={t}", timeout=None)
+    return f"compacted volumes: {r['compacted']}"
 
 
 @command("collection.list")

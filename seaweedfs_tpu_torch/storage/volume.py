@@ -1,12 +1,32 @@
 """Volume: one append-only `.dat` + `.idx` pair with superblock and needle map.
 
 The subset of seaweedfs_tpu/storage/volume.py (weed/storage/volume.go +
-volume_write.go + volume_read.go) that the volume server needs: create or
-open, append and delete needles, read them back, and describe the volume
-to the master.  Version 3 needles, 4-byte `.idx` offsets and the
-in-memory needle map replayed from the `.idx` log.  The files are
-byte-compatible with the reference's, so either package reads volumes the
-other wrote.
+volume_write.go + volume_read.go + volume_vacuum.go + volume_checking.go)
+that the volume server needs: create or open, append and delete needles,
+read them back, describe the volume to the master, and vacuum it.
+Version 3 needles, 4-byte `.idx` offsets and the in-memory needle map
+replayed from the `.idx` log.  The files are byte-compatible with the
+reference's, so either package reads volumes the other wrote.
+
+Every open ends with the crash check (CheckAndFixVolumeDataIntegrity): a
+torn `.idx` entry is cut, index entries that point past the `.dat` or at
+another needle are dropped from the tail, and the `.dat` is truncated past
+the furthest record the kept entries name.
+
+Vacuum copies the live needles into `.cpd`/`.cpx` (``compact``), then
+``commit_compact`` replays what was appended meanwhile and swaps the
+files in.  Reads take no lock, so the swap is made safe for them this
+way: readers use the (needle map, `.dat` handle) pair published last.
+The commit builds the new pair over the compacted files, crash check
+included, before it publishes it, and the old handle closes only when its
+last reader has left: a read sees either the old files whole or the new
+ones whole, never a closed or reused descriptor.  A read that took the old
+pair just as its handle closed retries on the new one, already published;
+so no read waits out a swap, where the reference's ``_read_at`` retries
+for up to 2 s.
+
+Not ported: the group-commit worker, the other needle-map kinds and their
+`.ldb` snapshot, mmap, tiering, and 5-byte offsets.
 """
 
 from __future__ import annotations
@@ -14,13 +34,24 @@ from __future__ import annotations
 import os
 import threading
 import time
-from typing import Optional
+from typing import Callable, Optional, TypeVar
 
-from .needle import Needle, get_actual_size
+import numpy as np
+
+from . import idx as idx_mod
+from .needle import Needle, get_actual_size, needle_body_length
 from .needle_map import MemoryNeedleMap
 from .super_block import SUPER_BLOCK_SIZE, ReplicaPlacement, SuperBlock
 from .ttl import TTL
-from .types import MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_HEADER_SIZE, Version, size_is_valid
+from .types import (MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_CHECKSUM_SIZE,
+                    NEEDLE_HEADER_SIZE, NEEDLE_MAP_ENTRY_SIZE,
+                    NEEDLE_PADDING_SIZE, TIMESTAMP_SIZE, Version,
+                    size_is_valid)
+
+T = TypeVar("T")
+
+# index entries parsed at a time by the crash check's walk from the tail
+_CHECK_BLOCK_ENTRIES = 1024
 
 
 class NotFoundError(KeyError):
@@ -35,9 +66,52 @@ class CookieMismatchError(ValueError):
     pass
 
 
+class HandleClosedError(ValueError):
+    """The `.dat` handle a read took was closed: the volume is closed, or
+    a compaction commit swapped the files."""
+
+
 def volume_file_prefix(directory: str, collection: str, vid: int) -> str:
     name = f"{collection}_{vid}" if collection else str(vid)
     return os.path.join(directory, name)
+
+
+class _DatFile:
+    """One descriptor of a `.dat`.  ``close`` closes it at once when no
+    read is in flight, else when the last one leaves, so a pread never
+    meets a closed descriptor or one reused by another open."""
+
+    def __init__(self, path: str):
+        self.fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
+        self._lock = threading.Lock()
+        self._readers = 0
+        self._closing = False
+
+    def size(self) -> int:
+        return os.fstat(self.fd).st_size
+
+    def read_at(self, offset: int, length: int) -> bytes:
+        with self._lock:
+            if self._closing:
+                raise HandleClosedError("volume file handle closed")
+            self._readers += 1
+        try:
+            return os.pread(self.fd, length, offset)
+        finally:
+            with self._lock:
+                self._readers -= 1
+                last = self._closing and not self._readers
+            if last:
+                os.close(self.fd)
+
+    def close(self) -> None:
+        with self._lock:
+            if self._closing:
+                return
+            self._closing = True
+            last = not self._readers
+        if last:
+            os.close(self.fd)
 
 
 class Volume:
@@ -53,29 +127,14 @@ class Volume:
         self.read_only = False
         self.last_modified_ts_seconds = 0
         self.file_prefix = volume_file_prefix(directory, collection, vid)
-        # serializes appends to .dat/.idx (dataFileAccessLock)
+        # serializes appends to .dat/.idx and the commit's file swap
+        # (dataFileAccessLock)
         self.write_lock = threading.Lock()
-        self._fd = os.open(self.dat_path, os.O_RDWR | os.O_CREAT, 0o644)
-        size = os.fstat(self._fd).st_size
-        if size < SUPER_BLOCK_SIZE:
-            self.super_block = SuperBlock(
-                version=Version.V3,
-                replica_placement=replica_placement or ReplicaPlacement(),
-                ttl=ttl or TTL())
-            os.pwrite(self._fd, self.super_block.to_bytes(), 0)
-        else:
-            self.super_block = SuperBlock.from_bytes(
-                os.pread(self._fd, SUPER_BLOCK_SIZE + 0xFFFF, 0))
-            # a loaded volume is as old as its file (volume_loading.go:63)
-            self.last_modified_ts_seconds = int(os.path.getmtime(
-                self.dat_path))
-        self.version = self.super_block.version
-        if self.version != Version.V3 or self.super_block.offset_size != 4:
-            os.close(self._fd)
-            raise ValueError(f"volume {vid}: only version 3 volumes with "
-                             "4-byte offsets are supported")
-        self._size = os.fstat(self._fd).st_size
-        self.nm = MemoryNeedleMap.load(self.idx_path)
+        # the (needle map, .dat handle) pair readers use; None once closed
+        self._live: Optional[tuple[MemoryNeedleMap, _DatFile]] = None
+        # the .idx size when the last compact began (makeupDiff's start)
+        self._compact_idx_size: Optional[int] = None
+        self._open(replica_placement, ttl)
 
     @property
     def dat_path(self) -> str:
@@ -86,47 +145,198 @@ class Volume:
         return self.file_prefix + ".idx"
 
     @property
+    def nm(self) -> Optional[MemoryNeedleMap]:
+        live = self._live
+        return live[0] if live is not None else None
+
+    @property
     def data_size(self) -> int:
         return self._size
 
+    @property
+    def content_size(self) -> int:
+        return self.nm.content_size
+
+    # --- lifecycle ------------------------------------------------------
+    def _open(self, replica_placement: Optional[ReplicaPlacement] = None,
+              ttl: Optional[TTL] = None) -> None:
+        """_load_or_create (volume.py): open the files, write a new
+        volume's superblock, run the crash check, replay the index, then
+        publish the pair to readers."""
+        dat = _DatFile(self.dat_path)
+        try:
+            if dat.size() < SUPER_BLOCK_SIZE:
+                sb = SuperBlock(
+                    version=Version.V3,
+                    replica_placement=replica_placement or ReplicaPlacement(),
+                    ttl=ttl or TTL())
+                os.pwrite(dat.fd, sb.to_bytes(), 0)
+            else:
+                sb = SuperBlock.from_bytes(
+                    os.pread(dat.fd, SUPER_BLOCK_SIZE + 0xFFFF, 0))
+                # a loaded volume is as old as its file (volume_loading.go:63)
+                self.last_modified_ts_seconds = int(os.path.getmtime(
+                    self.dat_path))
+            if sb.version != Version.V3 or sb.offset_size != 4:
+                raise ValueError(f"volume {self.id}: only version 3 volumes "
+                                 "with 4-byte offsets are supported")
+            self._check_integrity(dat, sb.version)
+            nm = MemoryNeedleMap.load(self.idx_path)
+        except BaseException:
+            dat.close()
+            raise
+        self.super_block = sb
+        self.version = sb.version
+        self._size = dat.size()
+        self._live = (nm, dat)
+
+    def _entry_is_healthy(self, dat: _DatFile, version: Version, key: int,
+                          offset: int, size: int, dat_size: int) -> bool:
+        """Does this index entry point at a whole record of its needle?"""
+        if offset == 0:
+            return True  # no .dat record to verify
+        body = needle_body_length(size if size_is_valid(size) else 0, version)
+        if offset + NEEDLE_HEADER_SIZE + body > dat_size:
+            return False  # torn .dat tail: the record is cut short
+        header = dat.read_at(offset, NEEDLE_HEADER_SIZE)
+        if len(header) < NEEDLE_HEADER_SIZE:
+            return False
+        n = Needle()
+        n.parse_header(header)
+        if n.id != key:
+            return False
+        return not size_is_valid(size) or n.size == size
+
+    def _check_integrity(self, dat: _DatFile, version: Version) -> None:
+        """CheckAndFixVolumeDataIntegrity (volume_checking.go:17-45): cut a
+        torn index entry, walk the index from its tail dropping entries
+        that point at torn or mismatched records (the .idx append outlived
+        a crash the .dat pages did not), then truncate the .dat past the
+        last healthy record.  With no healthy entry left, or a tail entry
+        that names no record, the .dat stays as it is: its needles may
+        still be recovered by a scan.
+
+        "Past the last record" is the furthest record any kept entry
+        names.  In an index in append order that is the tail entry's, the
+        reference's rule; an index sorted by key (what ec.decode writes)
+        can name later records before its tail, and the reference's rule
+        would cut them off (ROADMAP Queue 3)."""
+        if not os.path.exists(self.idx_path):
+            return
+        es = NEEDLE_MAP_ENTRY_SIZE
+        idx_size = os.path.getsize(self.idx_path)
+        if idx_size % es:
+            idx_size -= idx_size % es
+            with open(self.idx_path, "r+b") as f:
+                f.truncate(idx_size)
+        dat_size = dat.size()
+        healthy_idx_size = idx_size
+        last_healthy = None
+        with open(self.idx_path, "rb") as f:
+            while healthy_idx_size > 0 and last_healthy is None:
+                start = max(0, healthy_idx_size - _CHECK_BLOCK_ENTRIES * es)
+                f.seek(start)
+                entries = idx_mod.parse_entries(
+                    f.read(healthy_idx_size - start))
+                for i in range(len(entries) - 1, -1, -1):
+                    key = int(entries["key"][i])
+                    offset = int(entries["offset"][i]) * NEEDLE_PADDING_SIZE
+                    size = int(entries["size"][i])
+                    if self._entry_is_healthy(dat, version, key, offset,
+                                              size, dat_size):
+                        last_healthy = (offset, size)
+                        break
+                    healthy_idx_size -= es
+        if healthy_idx_size != idx_size:
+            with open(self.idx_path, "r+b") as f:
+                f.truncate(healthy_idx_size)
+        if last_healthy is not None and last_healthy[0]:
+            end = self._furthest_record_end(healthy_idx_size)
+            if dat_size > end:
+                os.ftruncate(dat.fd, end)
+
+    def _furthest_record_end(self, idx_size: int) -> int:
+        """The end of the furthest `.dat` record the first ``idx_size``
+        bytes of the index name (version 3 records: header, data, CRC,
+        append time, 1-8 bytes of padding; a tombstone's data is empty)."""
+        with open(self.idx_path, "rb") as f:
+            e = idx_mod.parse_entries(f.read(idx_size))
+        offset = e["offset"].astype(np.int64) * NEEDLE_PADDING_SIZE
+        size = np.maximum(e["size"].astype(np.int64), 0)
+        used = NEEDLE_HEADER_SIZE + size + NEEDLE_CHECKSUM_SIZE + TIMESTAMP_SIZE
+        ends = offset + used + NEEDLE_PADDING_SIZE - used % NEEDLE_PADDING_SIZE
+        return int(ends[offset != 0].max(initial=0))
+
+    def _writable(self) -> tuple[MemoryNeedleMap, _DatFile]:
+        """The live pair, for a caller holding write_lock."""
+        if self._live is None:
+            raise HandleClosedError(f"volume {self.id} is closed")
+        return self._live
+
     def close(self) -> None:
         with self.write_lock:
-            if self.nm is not None:
-                self.nm.close()
-                self.nm = None
-            if self._fd >= 0:
-                os.fsync(self._fd)
-                os.close(self._fd)
-                self._fd = -1
+            live, self._live = self._live, None
+            if live is not None:
+                nm, dat = live
+                nm.close()
+                os.fsync(dat.fd)
+                dat.close()
 
     def sync(self) -> None:
         """Make every append so far durable: `.dat`, then `.idx`."""
         with self.write_lock:
-            os.fsync(self._fd)
-            self.nm.sync()
+            nm, dat = self._writable()
+            os.fsync(dat.fd)
+            nm.sync()
 
     def destroy(self) -> None:
-        """Close and remove the volume's files."""
+        """Close and remove the volume's files, a vacuum's included."""
         self.close()
-        for path in (self.dat_path, self.idx_path):
+        for ext in (".dat", ".idx", ".cpd", ".cpx"):
+            path = self.file_prefix + ext
             if os.path.exists(path):
                 os.remove(path)
 
-    # --- write path (volume_write.go) ---------------------------------
-    def _read_needle_at(self, offset: int, size: int) -> Needle:
-        blob = os.pread(self._fd, get_actual_size(size, self.version), offset)
+    # --- reads that survive the swap (volume.py _read_at) ---------------
+    def _with_live(self, fn: Callable[[MemoryNeedleMap, _DatFile], T]) -> T:
+        """``fn(nm, dat)`` on the live pair.  A commit publishes the new
+        pair before it closes the old one, so a read whose pair closed
+        under it retries on the pair published since; a closed volume
+        fails at once."""
+        while True:
+            live = self._live
+            if live is None:
+                raise HandleClosedError(f"volume {self.id} is closed")
+            try:
+                return fn(*live)
+            except HandleClosedError:
+                if self._live is live or self._live is None:
+                    raise
+
+    def _read_at(self, offset: int, length: int) -> bytes:
+        return self._with_live(lambda nm, dat: dat.read_at(offset, length))
+
+    def read_needle_blob(self, offset: int, size: int) -> bytes:
+        """The whole record of a needle of ``size`` at ``offset``."""
+        return self._read_at(offset, get_actual_size(size, self.version))
+
+    def _read_needle_at(self, dat: _DatFile, offset: int,
+                        size: int) -> Needle:
+        blob = dat.read_at(offset, get_actual_size(size, self.version))
         return Needle.from_bytes(blob, size, self.version)
 
-    def _is_file_unchanged(self, n: Needle) -> bool:
+    # --- write path (volume_write.go) ---------------------------------
+    def _is_file_unchanged(self, nm: MemoryNeedleMap, dat: _DatFile,
+                           n: Needle) -> bool:
         if str(self.super_block.ttl):
             return False
-        nv = self.nm.get(n.id)
+        nv = nm.get(n.id)
         if nv is None or nv.offset == 0 or not size_is_valid(nv.size):
             return False
-        old = self._read_needle_at(nv.offset, nv.size)
+        old = self._read_needle_at(dat, nv.offset, nv.size)
         return old.cookie == n.cookie and old.data == n.data
 
-    def _append(self, n: Needle) -> int:
+    def _append(self, dat: _DatFile, n: Needle) -> int:
         """Append n's record at EOF (write_lock held); returns its offset.
         A failed write is truncated back (needle_read_write.go:136-166)."""
         if not n.append_at_ns:
@@ -134,11 +344,11 @@ class Volume:
         blob = n.to_bytes(self.version)
         offset = self._size
         try:
-            written = os.pwrite(self._fd, blob, offset)
+            written = os.pwrite(dat.fd, blob, offset)
             if written != len(blob):
                 raise OSError(f"short write {written} != {len(blob)}")
         except OSError:
-            os.ftruncate(self._fd, offset)
+            os.ftruncate(dat.fd, offset)
             raise
         self._size = offset + len(blob)
         return offset
@@ -149,22 +359,23 @@ class Volume:
         with self.write_lock:
             if self.read_only:
                 raise PermissionError(f"volume {self.id} is read only")
+            nm, dat = self._writable()
             actual = get_actual_size(len(n.data), self.version)
-            if MAX_POSSIBLE_VOLUME_SIZE < self.nm.content_size + actual:
+            if MAX_POSSIBLE_VOLUME_SIZE < nm.content_size + actual:
                 raise OSError(f"volume size limit {MAX_POSSIBLE_VOLUME_SIZE} "
                               "exceeded")
-            if self._is_file_unchanged(n):
+            if self._is_file_unchanged(nm, dat, n):
                 return 0, len(n.data), True
-            nv = self.nm.get(n.id)
+            nv = nm.get(n.id)
             if nv is not None:
                 existing = Needle()
                 existing.parse_header(
-                    os.pread(self._fd, NEEDLE_HEADER_SIZE, nv.offset))
+                    dat.read_at(nv.offset, NEEDLE_HEADER_SIZE))
                 if existing.cookie != n.cookie:
                     raise CookieMismatchError(
                         f"mismatching cookie {n.cookie:x}")
-            offset = self._append(n)
-            self.nm.put(n.id, offset, n.size)
+            offset = self._append(dat, n)
+            nm.put(n.id, offset, n.size)
             if self.last_modified_ts_seconds < n.last_modified:
                 self.last_modified_ts_seconds = n.last_modified
             return offset, n.size, False
@@ -176,22 +387,27 @@ class Volume:
         with self.write_lock:
             if self.read_only:
                 raise PermissionError(f"volume {self.id} is read only")
-            nv = self.nm.get(n.id)
+            nm, dat = self._writable()
+            nv = nm.get(n.id)
             if nv is None or not size_is_valid(nv.size):
                 return 0
             n.data = b""
-            self.nm.delete(n.id, self._append(n))
+            nm.delete(n.id, self._append(dat, n))
             return nv.size
 
     # --- read path (volume_read.go) ------------------------------------
     def read_needle(self, key: int, cookie: Optional[int] = None) -> Needle:
         """readNeedle (volume_read.go:16-63) + handler-level cookie check."""
-        nv = self.nm.get(key)
-        if nv is None or nv.offset == 0:
-            raise NotFoundError(key)
-        if not size_is_valid(nv.size):
-            raise DeletedError(key)
-        n = self._read_needle_at(nv.offset, nv.size)
+
+        def lookup_and_read(nm: MemoryNeedleMap, dat: _DatFile) -> Needle:
+            nv = nm.get(key)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(key)
+            if not size_is_valid(nv.size):
+                raise DeletedError(key)
+            return self._read_needle_at(dat, nv.offset, nv.size)
+
+        n = self._with_live(lookup_and_read)
         if cookie is not None and n.cookie != cookie:
             raise CookieMismatchError(f"cookie mismatch for {key}")
         if n.ttl is not None and n.ttl.minutes and n.last_modified:
@@ -200,22 +416,120 @@ class Volume:
                 raise NotFoundError(key)
         return n
 
+    # --- vacuum (volume_vacuum.go) --------------------------------------
+    def garbage_ratio(self) -> float:
+        cs = self.content_size
+        if cs == 0:
+            return 0.0
+        return self.nm.deletion_byte_counter / cs
+
+    def compact(self) -> None:
+        """Copy the live needles, in the order of their offsets, into
+        `.cpd`/`.cpx` under a superblock one compaction revision on
+        (copyDataBasedOnIndexFile, volume_vacuum.go:396-470).  The index
+        size at the start is kept, so commit_compact can replay what is
+        appended meanwhile."""
+        with self.write_lock:
+            nm, _ = self._writable()
+            self._compact_idx_size = os.path.getsize(self.idx_path)
+            live = sorted(nm, key=lambda nv: nv.offset)
+            sb = self.super_block
+        new_sb = SuperBlock(
+            version=sb.version, replica_placement=sb.replica_placement,
+            ttl=sb.ttl,
+            compaction_revision=(sb.compaction_revision + 1) & 0xFFFF,
+            extra=sb.extra)
+        with open(self.file_prefix + ".cpd", "wb") as dat_out, \
+                open(self.file_prefix + ".cpx", "wb") as idx_out:
+            dat_out.write(new_sb.to_bytes())
+            new_offset = new_sb.block_size
+            for nv in live:
+                blob = self.read_needle_blob(nv.offset, nv.size)
+                dat_out.write(blob)
+                idx_out.write(idx_mod.pack_entry(nv.key, new_offset, nv.size))
+                new_offset += len(blob)
+
+    def _makeup_diff(self, cpd: str, cpx: str) -> None:
+        """makeupDiff (volume_vacuum.go:181): replay the index entries
+        appended since compact began into the compacted files, so a write
+        or delete that landed in between is not lost."""
+        start = self._compact_idx_size
+        if start is None:
+            return
+        idx_size = os.path.getsize(self.idx_path)
+        if idx_size <= start:
+            return
+        with open(self.idx_path, "rb") as f:
+            f.seek(start)
+            entries = idx_mod.parse_entries(f.read(idx_size - start))
+        with open(cpd, "r+b") as dat_out, open(cpx, "ab") as idx_out:
+            new_offset = dat_out.seek(0, os.SEEK_END)
+            for i in range(len(entries)):
+                key = int(entries["key"][i])
+                offset = int(entries["offset"][i]) * NEEDLE_PADDING_SIZE
+                size = int(entries["size"][i])
+                if offset != 0 and size_is_valid(size):
+                    blob = self.read_needle_blob(offset, size)
+                    dat_out.write(blob)
+                    idx_out.write(idx_mod.pack_entry(key, new_offset, size))
+                    new_offset += len(blob)
+                else:
+                    idx_out.write(idx_mod.pack_entry(key, 0, -1))
+
+    def commit_compact(self) -> None:
+        """CommitCompact (volume_vacuum.go:91-160): under write_lock,
+        catch up on what was appended since compact began, make the
+        compacted files durable, swap them in and reopen (crash check
+        included).  Readers keep the old pair until the new one is
+        published."""
+        cpd, cpx = self.file_prefix + ".cpd", self.file_prefix + ".cpx"
+        if not (os.path.exists(cpd) and os.path.exists(cpx)):
+            raise FileNotFoundError("no compacted files to commit")
+        with self.write_lock:
+            nm, dat = self._writable()
+            self._makeup_diff(cpd, cpx)
+            for path in (cpd, cpx):
+                fd = os.open(path, os.O_RDONLY)
+                try:
+                    os.fsync(fd)
+                finally:
+                    os.close(fd)
+            try:
+                os.replace(cpd, self.dat_path)
+                os.replace(cpx, self.idx_path)
+                self._compact_idx_size = None
+                self._open()
+            except BaseException:
+                self._live = None  # the old pair may name replaced files
+                raise
+            finally:
+                nm.close()
+                dat.close()
+
+    def cleanup_compact(self) -> None:
+        """Drop a compaction's `.cpd`/`.cpx` without committing them."""
+        for ext in (".cpd", ".cpx"):
+            path = self.file_prefix + ext
+            if os.path.exists(path):
+                os.remove(path)
+
     # --- info -----------------------------------------------------------
     def to_volume_information(self) -> dict:
         """The volume as the master's heartbeat handler reads it (the
         keys of seaweedfs_tpu/storage/volume.py to_volume_information)."""
+        nm = self.nm
         return {
             "id": self.id,
             "size": self.data_size,
             "collection": self.collection,
-            "file_count": self.nm.file_counter,
-            "delete_count": self.nm.deletion_counter,
-            "deleted_byte_count": self.nm.deletion_byte_counter,
+            "file_count": nm.file_counter,
+            "delete_count": nm.deletion_counter,
+            "deleted_byte_count": nm.deletion_byte_counter,
             "read_only": self.read_only,
             "replica_placement": self.super_block.replica_placement.to_byte(),
             "version": int(self.version),
             "ttl": self.super_block.ttl.to_u32(),
             "compact_revision": self.super_block.compaction_revision,
             "modified_at_second": self.last_modified_ts_seconds,
-            "max_file_key": self.nm.max_file_key,
+            "max_file_key": nm.max_file_key,
         }

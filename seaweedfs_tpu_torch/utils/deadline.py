@@ -137,10 +137,11 @@ class scope:
         return False
 
 
-def clamp(timeout: float) -> float:
-    """The timeout for one outbound call: min(timeout, remaining budget).
-    Raises DeadlineExceeded when the budget is already spent; with no
-    active deadline ``timeout`` passes through untouched."""
+def clamp(timeout: Optional[float]) -> Optional[float]:
+    """The timeout for one outbound call: min(timeout, remaining budget),
+    where a ``timeout`` of None waits without end.  Raises
+    DeadlineExceeded when the budget is already spent; with no active
+    deadline ``timeout`` passes through untouched."""
     ddl = getattr(_tls, "deadline", None)
     if ddl is None:
         return timeout
@@ -148,7 +149,7 @@ def clamp(timeout: float) -> float:
     if rem < MIN_BUDGET_S:
         raise DeadlineExceeded(
             f"deadline exceeded before send ({rem:.3f}s remaining)")
-    return min(float(timeout), rem)
+    return rem if timeout is None else min(float(timeout), rem)
 
 
 def inject_deadline_headers(headers: dict) -> dict:

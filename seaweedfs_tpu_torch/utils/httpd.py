@@ -67,6 +67,22 @@ def qint(query: dict, name: str, default: Optional[int] = None) -> int:
                              f"expected an integer")
 
 
+def qfloat(query: dict, name: str,
+           default: Optional[float] = None) -> float:
+    """Float twin of qint: malformed or missing-required input answers
+    400, never 500."""
+    raw = query.get(name)
+    if raw is None or raw == "":
+        if default is None:
+            raise HttpError(400, f"missing query parameter {name}")
+        return default
+    try:
+        return float(raw)
+    except (TypeError, ValueError):
+        raise HttpError(400, f"bad query parameter {name}={raw!r}: "
+                             f"expected a number")
+
+
 class Request:
     def __init__(self, handler: BaseHTTPRequestHandler, match: re.Match):
         self.handler = handler
@@ -366,7 +382,7 @@ def stop_server(server: ThreadingHTTPServer) -> None:
 
 # --- client calls -----------------------------------------------------------
 
-def _connect(url: str, timeout: float
+def _connect(url: str, timeout: Optional[float]
              ) -> tuple[http.client.HTTPConnection, str]:
     parsed = urllib.parse.urlsplit(url)
     if parsed.scheme != "http":
@@ -381,7 +397,7 @@ def _connect(url: str, timeout: float
 
 
 def _request(method: str, url: str, body: Optional[bytes],
-             headers: Optional[dict], timeout: float,
+             headers: Optional[dict], timeout: Optional[float],
              follow_redirects: bool) -> tuple[int, bytes, dict]:
     """One exchange, following up to 5 redirects; raises OSError (or
     http.client.HTTPException) when the peer cannot be reached, and
@@ -420,10 +436,10 @@ def _request(method: str, url: str, body: Optional[bytes],
 
 
 def http_json(method: str, url: str, payload: Optional[dict] = None,
-              timeout: float = 30.0) -> dict:
-    """A JSON call.  A status >= 400 raises HttpError with the peer's
-    error message; an unreachable peer raises HttpError(503); a spent
-    deadline raises DeadlineExceeded."""
+              timeout: Optional[float] = 30.0) -> dict:
+    """A JSON call; a ``timeout`` of None waits without end.  A status
+    >= 400 raises HttpError with the peer's error message; an unreachable
+    peer raises HttpError(503); a spent deadline raises DeadlineExceeded."""
     data = json.dumps(payload).encode() if payload is not None else None
     headers = {"Content-Type": "application/json"} if data is not None else {}
     try:

@@ -5,7 +5,8 @@ volume_server*.go) that a cluster's EC lifecycle drives: objects are
 written, read and deleted at ``/<vid>,<fid>`` with replication fan-out
 (topology/store_replicate.go, ``?type=replicate`` loop guard); the admin
 "RPCs" are HTTP POSTs named after volume_server.proto: volume assign,
-delete, mount, unmount and readonly, and the EC set Generate, Rebuild,
+delete, mount, unmount and readonly, the vacuum set Check, Compact,
+Commit and Cleanup (``/admin/vacuum_*``), and the EC set Generate, Rebuild,
 Copy, Download, Delete, Mount, Unmount, ShardRead, BlobDelete and
 ToVolume.  ``/ec/scrub/start|stop|status`` drive the EC bit-rot scrubber
 (scrubber.py), which pauses while the server takes more than 50 requests
@@ -26,7 +27,7 @@ port-only key: a drill reads it to see which server ran a repair).
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
 native planes, mmap and the needle cache, heat, ledger, admission,
-tracing, debug, vacuum and tier routes, batch routes, volume copy and
+tracing, debug and tier routes, batch routes, volume copy and
 tail, image resize, and the partial-range fast path (a Range GET slices
 the full body).
 """
@@ -622,6 +623,29 @@ class VolumeServer:
                 b.get("readonly", True))
             # the writable set must reach the master within one pulse
             self.store.note_volume_change(vid)
+            return Response({})
+
+        # --- admin: vacuum -------------------------------------------
+        @r.route("POST", "/admin/vacuum_check")
+        def vacuum_check(req: Request) -> Response:
+            vid = int(req.json()["volume_id"])
+            return Response({"garbage_ratio":
+                             self.store.get_volume(vid).garbage_ratio()})
+
+        @r.route("POST", "/admin/vacuum_compact")
+        def vacuum_compact(req: Request) -> Response:
+            self.store.vacuum_compact(int(req.json()["volume_id"]))
+            return Response({})
+
+        @r.route("POST", "/admin/vacuum_commit")
+        def vacuum_commit(req: Request) -> Response:
+            self.store.vacuum_commit(int(req.json()["volume_id"]))
+            return Response({})
+
+        @r.route("POST", "/admin/vacuum_cleanup")
+        def vacuum_cleanup(req: Request) -> Response:
+            vid = int(req.json()["volume_id"])
+            self.store.get_volume(vid).cleanup_compact()
             return Response({})
 
         # --- admin: EC -----------------------------------------------

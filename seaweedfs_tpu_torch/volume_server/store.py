@@ -4,6 +4,7 @@ The subset of seaweedfs_tpu/volume_server/store.py (weed/storage/store.go +
 store_ec.go) that the volume server's HTTP surface calls: create, mount,
 delete and describe volumes, write, read and delete needles, EC-encode a
 volume (`-ec.engine=tpu` in the reference: the streaming pipeline),
+compact a volume and commit the compaction,
 delete, rebuild and serve shards, read needles from the shards with
 remote fetch or reconstruction of what is missing, decode back to a
 volume, and build the master's full and delta heartbeats.  Every GF
@@ -274,6 +275,20 @@ class Store:
     def read_needle(self, vid: int, key: int,
                     cookie: Optional[int] = None) -> Needle:
         return self.get_volume(vid).read_needle(key, cookie)
+
+    # --- vacuum (volume_grpc_vacuum.go) -------------------------------------
+    def vacuum_compact(self, vid: int) -> None:
+        """Compact under the volume's lock, so an EC encode never reads
+        half-written files."""
+        with self.volume_locks[vid]:
+            self.get_volume(vid).compact()
+
+    def vacuum_commit(self, vid: int) -> None:
+        """Swap the compacted files in under the volume's lock; the next
+        heartbeat carries the new size, revision and counters."""
+        with self.volume_locks[vid]:
+            self.get_volume(vid).commit_compact()
+        self.note_volume_change(vid)
 
     # --- EC (store_ec.go + volume_grpc_erasure_coding.go backends) --------
     def ec_generate(self, vid: int) -> None:

@@ -96,8 +96,18 @@ def test_cluster_phase_on_cpu(tmp_path):
     ec.decode."""
     res = chip_smoke.run_cluster_phase(
         "cpu", str(tmp_path), 12 << 20, reads=16, threads=3, per_thread=5,
-        decoded_reads=6, pulse_seconds=0.3)
+        decoded_reads=6, vac_bytes=6 << 20, pulse_seconds=0.3)
     assert res["dat_bytes"] >= 12 << 20
+    # the vacuum leg: both replicas shrank, the reader crossed the
+    # vacuum, the plain versions launched nothing on the encode host
+    vac = res["vacuum"]
+    assert min(vac["garbage_ratio"].values()) >= 0.3
+    assert len(vac["bytes_after"]) == 2
+    assert all(vac["bytes_after"][u] < vac["bytes_before"][u]
+               for u in vac["bytes_after"])
+    assert vac["reader"]["gets_during_vacuum"] > 0
+    assert vac["launches"] == vac["launches_expected"] == 0
+    assert sum(vac["ec_remote_reads"].values()) > 0
     assert {"a_1_client", "b_1_client", "a_3_clients",
             "b_3_clients"} <= set(res["gets_ms"])
     for leg in ("upload", "ec.encode", "encode_generate", "encode_spread",
