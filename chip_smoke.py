@@ -51,7 +51,16 @@ result.  Phases, each of which fails the run on any mismatch:
     compacted volume (parity against the host table, every shard against
     its `.eci`, GETs through EC), whose host must launch exactly the
     kernels the encoder's dispatch rule gives for the compacted size;
-    the leg's collection is dropped at its end.  Then a 2 GiB volume uploaded
+    between the vacuum and the encode, the volume shell on the same
+    volume (``run_volume_ops``): ``volume.fsck`` and ``volume.check.disk``
+    clean, then a flipped byte in one replica that both report, that
+    replica dropped with ``volume.delete -node`` and re-replicated by
+    ``volume.fix.replication`` (sha256 equal to the healthy replica's), a
+    replica moved by ``volume.move`` under a reader (no error),
+    ``volume.configure.replication`` 000 and back (superblocks, master
+    layouts), ``volume.mark`` read-only and writable; at the leg's end
+    ``ec.decode`` and ``collection.delete`` drop the collection.  Then a
+    2 GiB volume uploaded
     through WeedClient from eight threads, ``shell -c "ec.encode"`` (shard
     sha256 recorded), the holder of the most shards SIGKILLed and dropped
     by the master, 200 + 8x25 degraded GETs classed by whether the shard
@@ -69,6 +78,13 @@ result.  Phases, each of which fails the run on any mismatch:
     SIGKILLed until every shard has a live holder with its sha256
     (``kill_to_heal_s``) and /cluster/health reads ``degraded: false``;
     /cluster/coordinator must show two repairs or more, none failed;
+    then the drain (``run_drain_leg``, coordinator paused):
+    ``volume.server.evacuate`` of a live shard holder and
+    ``volume.server.leave`` until the master drops it, every moved
+    shard's sha256 on its new holder, its SIGTERM and stop line, 50 GETs
+    of needles on moved shards with no reconstruction, one moved data
+    shard deleted on its new holder and 25 GETs there reconstructed on
+    its card, ``ec.rebuild`` of it to its sha256;
     last ``ec.decode`` and 50 GETs of the decoded volume.
     Each server's stop line must count exactly the remote reads and
     reconstructions its GETs needed, and the encode and rebuild hosts
@@ -121,6 +137,9 @@ CLI_VOLUME_BYTES = 64 << 20
 CLI_READS = 20
 # the vacuum leg's volume: cut from the same 30,000 MB limit to 1 GiB
 VAC_BYTES = 1 << 30
+# the drain leg's GETs: of needles on moved shards, then of needles on a
+# moved data shard deleted on its new holder
+DRAIN_READS, DRAIN_DELETED_READS = 50, 25
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -1253,6 +1272,164 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
     return res
 
 
+def pause_coordinator(master: str) -> None:
+    """coordinator.pause, then wait until no cycle is running: one that
+    began before the pause finishes its repairs and moves."""
+    out, _ = run_shell(master, "coordinator.pause")
+    if not out.startswith("coordinator: paused"):
+        raise AssertionError(f"coordinator.pause: {out}")
+
+    def settled() -> bool:
+        cycles = coordinator_status(master)["cycles"]
+        time.sleep(1.5)  # longer than the loop's one-second interval
+        return coordinator_status(master)["cycles"] == cycles
+
+    wait_for("the paused coordinator to finish its cycle", settled, 120)
+
+
+def run_drain_leg(master: str, collection: str, vid: int, vs: dict,
+                  alive: list, shard_path, hashes: dict, shards_of: list,
+                  needles: list[dict], fids: list[str], expect: dict,
+                  seed: int, engine: str, reads: int,
+                  deleted_reads: int) -> dict:
+    """Drain a server that holds shards of the EC volume, with the
+    coordinator paused: ``volume.server.evacuate`` (each of its shards
+    copied to another live server, mounted there and deleted here) and
+    ``volume.server.leave``, until the master drops it; every moved
+    shard's sha256 on its new holder, under the collection's file name,
+    equal to the one recorded at the encode; the drained server SIGTERMed
+    (its stop line counts exactly what its GETs needed, exit 0); ``reads``
+    GETs of needles with an interval on a moved shard, with no kernel
+    launched anywhere (no reconstruction); then one moved data shard
+    deleted on its new holder and ``deleted_reads`` GETs from that holder
+    of needles with an interval on it, reconstructed there (its kernel
+    launches rise; bytes and CRC right); last, ``ec.rebuild`` restores the
+    shard to its sha256.  ``expect`` gains what each GET needed and the
+    drained server leaves ``alive``."""
+    from seaweedfs_tpu_torch.storage.crc import crc32c
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+
+    res: dict = {"seconds": {}}
+    secs = res["seconds"]
+    pause_coordinator(master)
+    holders = shard_holders(master, vid)
+    held = {u: sorted(s for s, us in holders.items() if u in us)
+            for u in alive}
+    node = min((u for u in alive if any(s < 10 for s in held[u])),
+               key=lambda u: (-len(held[u]), u))
+    out, secs["evacuate"] = run_shell(
+        master, f"volume.server.evacuate -node {node}")
+    moves: dict[int, str] = {}
+    for line in out.splitlines():
+        m = re.fullmatch(rf"ec {vid}\.(\d+) -> (\S+)", line)
+        if not m:
+            raise AssertionError(f"volume.server.evacuate: {out}")
+        moves[int(m.group(1))] = m.group(2)
+    if sorted(moves) != held[node]:
+        raise AssertionError(f"evacuated {sorted(moves)}, {node} held "
+                             f"{held[node]}: {out}")
+    out, secs["leave"] = run_shell(master,
+                                   f"volume.server.leave -node {node}")
+    if out != f"{node} left the cluster (process still running; " \
+              "data intact)":
+        raise AssertionError(f"volume.server.leave: {out}")
+    secs["leave_to_drop"] = wait_for(
+        "the master to drop the server that left",
+        lambda: node not in node_urls(master_status(master)), 120)
+    holders = shard_holders(master, vid)
+    for sid, dst in moves.items():
+        if holders.get(sid) != [dst] or \
+                sha256_file(shard_path(dst, sid)) != hashes[sid]:
+            raise AssertionError(f"moved shard {sid} on {dst} differs, or "
+                                 f"the master shows {holders.get(sid)}")
+    base = volume_file_prefix(vs[node]["dir"], collection, vid)
+    if [n for n in os.listdir(vs[node]["dir"])
+            if n.startswith(os.path.basename(base) + ".")]:
+        raise AssertionError(f"{node} kept files of volume {vid}")
+    t0 = time.perf_counter()
+    counts = stop_volume_server(vs[node]["proc"])
+    secs["stop"] = time.perf_counter() - t0
+    if {k: counts[k] for k in expect[node]} != expect[node]:
+        raise AssertionError(f"{node} counted {counts}, its GETs needed "
+                             f"{expect[node]}")
+    alive.remove(node)
+    res["drained"] = {"url": node, "shards": held[node], "moves": moves,
+                      **counts}
+
+    # GETs of needles with an interval on a moved shard: remote shard
+    # reads and local ones, no reconstruction (no kernel anywhere)
+    rng = np.random.default_rng([seed, 9])
+    touched = [i for i, sids in enumerate(shards_of) if set(sids) & set(moves)]
+    before = kernel_launches(alive)
+    done = timed_gets(master, rng.choice(touched, size=min(reads, len(
+        touched)), replace=False), needles, fids, seed + 9)
+    if kernel_launches(alive) != before:
+        raise AssertionError("a GET of a moved shard was reconstructed")
+    for asked, i, _ in done:
+        for sid in shards_of[i]:
+            if asked not in holders[sid]:
+                expect[asked]["remote"] += 1
+    res["moved_gets"] = len(done)
+    res["moved_gets_ms"] = percentiles([lat for _, _, lat in done])
+
+    # a moved data shard lost on its new holder: its GETs there are
+    # reconstructed on that server's card
+    sid = min(s for s in moves if s < 10)
+    host = moves[sid]
+    http_json("POST", f"http://{host}/admin/ec/delete",
+              {"volume_id": vid, "collection": collection,
+               "shard_ids": [sid]})
+    # the holder's remount of its other shards can reach the master as a
+    # delta that drops them all for a pulse: wait for every other shard
+    wait_for(f"the master to drop shard {sid} of {host} alone", lambda: (
+        sorted(shard_holders(master, vid))
+        == [s for s in range(14) if s != sid]), 60)
+    holders = shard_holders(master, vid)
+    plain = [i for i, sids in enumerate(shards_of) if sid in sids
+             and not needles[i]["upload"].get("compress")]
+    picks = rng.choice(plain, size=min(deleted_reads, len(plain)),
+                       replace=False).tolist()
+    before = kernel_launches([host])[host]
+    lats = []
+    rebuilt = 0
+    for i in picks:
+        t0 = time.perf_counter()
+        status, body, headers = http_bytes("GET", f"http://{host}/{fids[i]}")
+        lats.append(time.perf_counter() - t0)
+        etag = {k.lower(): v for k, v in headers.items()}.get("etag")
+        if status != 200 or body != needles[i]["data"] or \
+                etag != '"%08x"' % crc32c(body):
+            raise AssertionError(f"GET {fids[i]} from {host}: {status}, "
+                                 f"{len(body)} bytes, ETag {etag}")
+        for s in shards_of[i]:
+            if s == sid:
+                expect[host]["reconstructed"] += 1
+                rebuilt += 1
+            elif host not in holders[s]:
+                expect[host]["remote"] += 1
+    launches = kernel_launches([host])[host] - before
+    if engine == "tpu" and launches <= 0:
+        raise AssertionError(f"{host} reconstructed shard {sid} with no "
+                             "kernel launch")
+    res["deleted_shard"] = {"sid": sid, "host": host, "gets": len(picks),
+                            "reconstructed_intervals": rebuilt,
+                            "ms": percentiles(lats), "launches": launches}
+    before = kernel_launches(alive)
+    out, secs["ec.rebuild"] = run_shell(master, f"ec.rebuild -volumeId {vid}")
+    m = re.search(rf"rebuilt shards \[{sid}\] on (\S+?)[;\s]", out)
+    if not m:
+        raise AssertionError(f"ec.rebuild of shard {sid}: {out}")
+    res["deleted_shard"]["rebuild_launches"] = \
+        kernel_launches([m.group(1)])[m.group(1)] - before[m.group(1)]
+    holders = shard_holders(master, vid)
+    if not holders.get(sid) or any(sha256_file(shard_path(u, sid))
+                                   != hashes[sid] for u in holders[sid]):
+        raise AssertionError(f"rebuilt shard {sid} differs")
+    res["deleted_shard"]["rebuilt_on"] = m.group(1)
+    return res
+
+
 # --- the vacuum leg of the cluster phase ---------------------------------
 
 def plain_compaction(dat_path: str, idx_path: str) -> dict:
@@ -1292,13 +1469,19 @@ def plain_compaction(dat_path: str, idx_path: str) -> dict:
             "live": {k: s for k, (_, s) in live.items()}}
 
 
-def idx_live(idx_path: str) -> dict[int, int]:
-    """{key: size} of a compacted `.idx`: one put per live needle."""
+def idx_records(idx_path: str) -> list[tuple[int, int, int]]:
+    """(key, offset, size) of every entry of a compacted `.idx` (one put
+    per live needle), in file order."""
     with open(idx_path, "rb") as f:
         raw = f.read()
     entries = np.frombuffer(raw, dtype=[("key", ">u8"), ("offset", ">u4"),
                                         ("size", ">i4")])
-    return {int(k): int(s) for k, s in zip(entries["key"], entries["size"])}
+    return [(int(k), int(o) * 8, int(s)) for k, o, s in entries]
+
+
+def idx_live(idx_path: str) -> dict[int, int]:
+    """{key: size} of a compacted `.idx`."""
+    return {k: s for k, _, s in idx_records(idx_path)}
 
 
 class LoopReader:
@@ -1342,6 +1525,188 @@ class LoopReader:
             raise AssertionError("the reader thread did not stop")
 
 
+def vac_layouts(master: str, collection: str, vid: int) -> dict:
+    """{replication: (vid in volumes, vid in writables)} of the
+    collection's layouts on the master."""
+    return {lay["replication"]: (vid in lay["volumes"],
+                                 vid in lay["writables"])
+            for lay in master_status(master)["Layouts"]
+            if lay["collection"] == collection}
+
+
+def volume_infos(master: str, vid: int) -> dict[str, dict]:
+    """url -> the master's VolumeInfo of ``vid`` on that server."""
+    return {n["Url"]: v for n in data_nodes(master_status(master))
+            for v in n["VolumeInfos"] if v["id"] == vid}
+
+
+def run_volume_ops(master: str, vs: dict, collection: str, vid: int,
+                   needles: list[dict], fids: list[str], live: list[int],
+                   seed: int) -> dict:
+    """The volume shell on a 001 volume's two replicas, through
+    ``shell -c``: volume.fsck and volume.check.disk (OK, in sync), one
+    byte flipped in a live needle of one replica (fsck: CORRUPT on that
+    replica only; check.disk: CORRUPT), volume.delete -node of that
+    replica, volume.fix.replication (the copy's `.dat` and `.idx` equal
+    the healthy replica's by sha256), volume.move of one replica to a
+    server holding none while a reader GETs survivors (no error allowed),
+    volume.configure.replication 000 and back to 001 (byte 1 of each
+    replica's `.dat`, and the master's layouts), volume.mark -readonly
+    and -writable (the master's VolumeInfos and writable set).  Returns
+    the walls and the reader's numbers."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    res: dict = {"seconds": {}}
+    secs = res["seconds"]
+
+    def base(url: str) -> str:
+        return volume_file_prefix(vs[url]["dir"], collection, vid)
+
+    def replicas() -> list[str]:
+        return sorted(WeedClient(master).master.lookup_uncached(vid))
+
+    held = replicas()
+    res["dat_bytes"] = os.path.getsize(base(held[0]) + ".dat")
+    fsck_line = re.compile(rf"volume {vid} @ (\S+): indexed=(\d+) "
+                           rf"live=(\d+) crc_errors=(\d+) (OK|CORRUPT)")
+
+    def fsck() -> dict[str, tuple]:
+        out, wall = run_shell(master, f"volume.fsck -volumeId {vid}")
+        found = {m.group(1): (int(m.group(2)), int(m.group(3)),
+                              int(m.group(4)), m.group(5))
+                 for m in map(fsck_line.fullmatch, out.splitlines()) if m}
+        if sorted(found) != held or len(out.splitlines()) != len(held):
+            raise AssertionError(f"volume.fsck: {out}")
+        secs.setdefault("fsck", []).append(wall)
+        return found
+
+    def check_disk(state: str) -> None:
+        out, wall = run_shell(master, f"volume.check.disk -volumeId {vid}")
+        if not (out.startswith(f"volume {vid}: ")
+                and out.endswith(f"[{state}]")):
+            raise AssertionError(f"volume.check.disk, not {state}: {out}")
+        secs.setdefault("check_disk", []).append(wall)
+
+    # 1. both replicas clean; the scan's own rate, route by route
+    n_live = len(live)
+    if set(fsck().values()) != {(n_live, n_live, 0, "OK")}:
+        raise AssertionError("volume.fsck of the clean replicas")
+    check_disk("in sync")
+    secs["scan"] = {}
+    for u in held:
+        t0 = time.perf_counter()
+        r = http_json("POST", f"http://{u}/admin/volume_check",
+                      {"volume_id": vid}, timeout=600)
+        secs["scan"][u] = time.perf_counter() - t0
+        if r != {"indexed": n_live, "scanned_live": n_live,
+                 "crc_errors": 0}:
+            raise AssertionError(f"/admin/volume_check on {u}: {r}")
+
+    # 2. one byte of a live needle's data flipped on one replica
+    bad, good = held
+    key, offset, size = idx_records(base(bad) + ".idx")[n_live // 2]
+    flip_byte(base(bad) + ".dat", offset + 20)  # header 16, data size 4
+    want = {bad: (n_live, n_live, 1, "CORRUPT"),
+            good: (n_live, n_live, 0, "OK")}
+    if fsck() != want:
+        raise AssertionError(f"volume.fsck after the flip, not {want}")
+    check_disk("CORRUPT")
+    res["corrupt"] = {"replica": bad, "needle": key, "offset": offset + 20}
+
+    # 3. the rotted replica dropped and re-replicated
+    out, secs["delete"] = run_shell(master,
+                                    f"volume.delete -volumeId {vid} "
+                                    f"-node {bad}")
+    if out != f"deleted volume {vid} on ['{bad}']" or \
+            os.path.exists(base(bad) + ".dat") or replicas() != [good]:
+        raise AssertionError(f"volume.delete -node: {out}")
+    out, secs["fix_replication"] = run_shell(master,
+                                             "volume.fix.replication")
+    m = re.fullmatch(rf"replicated {vid} -> (\S+)", out)
+    if not m or sorted([good, m.group(1)]) != replicas():
+        raise AssertionError(f"volume.fix.replication: {out}")
+    copy = m.group(1)
+    for ext in (".dat", ".idx"):
+        if sha256_file(base(copy) + ext) != sha256_file(base(good) + ext):
+            raise AssertionError(f"the copy's {ext} on {copy} differs from "
+                                 f"the healthy replica's")
+    res["fix_replication"] = {"source": good, "target": copy,
+                              "sha256_equal": True}
+
+    # 4. a replica moved to a server that held none, under a reader
+    held = replicas()
+    src = good
+    dst = min(u for u in vs if u not in held
+              and vs[u]["proc"].poll() is None)
+    reader = LoopReader(master, needles, fids, live, seed)
+    try:
+        t0 = time.perf_counter()
+        out, secs["move"] = run_shell(master,
+                                      f"volume.move -volumeId {vid} "
+                                      f"-source {src} -target {dst}")
+        t1 = time.perf_counter()
+    finally:
+        reader.stop()
+    if out != f"moved volume {vid} from {src} to {dst}":
+        raise AssertionError(f"volume.move: {out}")
+    if reader.errors:
+        raise AssertionError(f"the reader saw {len(reader.errors)} errors "
+                             f"during the move: {reader.errors[:3]}")
+    during = [lat for start, lat in reader.gets if t0 <= start <= t1]
+    if not during:
+        raise AssertionError("the reader made no GET during the move")
+    held = replicas()
+    if held != sorted([copy, dst]) or os.path.exists(base(src) + ".dat") \
+            or sha256_file(base(dst) + ".dat") != \
+            sha256_file(base(copy) + ".dat"):
+        raise AssertionError(f"after volume.move: replicas {held}")
+    res["move"] = {"source": src, "target": dst,
+                   "reader": {"gets": len(reader.gets),
+                              "gets_during_move": len(during),
+                              "ms": percentiles([lat for _, lat
+                                                 in reader.gets]),
+                              "ms_during_move": percentiles(during)}}
+
+    # 5. the placement rewritten in both superblocks, and back
+    for rp in ("000", "001"):
+        out, secs[f"configure_{rp}"] = run_shell(
+            master, f"volume.configure.replication -volumeId {vid} "
+                    f"-replication {rp}")
+        m = re.fullmatch(rf"volume {vid} replication set to {rp} on "
+                         rf"(\S+), (\S+)", out)
+        if not m or sorted(m.groups()) != held:
+            raise AssertionError(f"volume.configure.replication: {out}")
+        for u in held:
+            with open(base(u) + ".dat", "rb") as f:
+                if f.read(2)[1] != int(rp):
+                    raise AssertionError(f"{u}: superblock not {rp}")
+        wait_for(f"the master's {rp} layout to hold volume {vid}",
+                 lambda: vac_layouts(master, collection, vid).get(
+                     rp, (False,))[0], 30)
+    # the master keeps the volume in its 000 layout too (the reference's
+    # heartbeat registers a new placement without leaving the old one)
+    res["layouts"] = vac_layouts(master, collection, vid)
+    if res["layouts"].get("001") != (True, True):
+        raise AssertionError(f"layouts after 001: {res['layouts']}")
+
+    # 6. both replicas marked read-only, then writable again
+    for flag, ro in (("-readonly", True), ("-writable", False)):
+        out, secs[f"mark{flag}"] = run_shell(master, "; ".join(
+            f"volume.mark -volumeId {vid} -node {u} {flag}" for u in held))
+        if out.splitlines() != [f"marked {flag[1:]}"] * 2:
+            raise AssertionError(f"volume.mark {flag}: {out}")
+        wait_for(f"/dir/status to show volume {vid} {flag[1:]}", lambda: (
+            sorted(volume_infos(master, vid)) == held
+            and all(v["read_only"] is ro
+                    for v in volume_infos(master, vid).values())
+            and vac_layouts(master, collection, vid)["001"][1] is not ro),
+            30)
+    res["replicas"] = held
+    return res
+
+
 def run_vacuum_leg(master: str, vs: dict, engine: str, vac_bytes: int,
                    threads: int, work: str) -> dict:
     """Vacuum a replicated volume, then EC-encode it: a 001 volume of
@@ -1354,8 +1719,10 @@ def run_vacuum_leg(master: str, vs: dict, engine: str, vac_bytes: int,
     of the compacted volume: parity against the host table, every shard
     against its `.eci`, GETs through EC, and the encode host's kernel
     launches against the dispatches the encoder's rule gives for the
-    compacted size.  Last, the collection is dropped and the master's
-    view left as before the leg.  Returns the numbers and each server's
+    compacted size.  Between the vacuum's checks and the encode, the
+    volume shell's leg (``run_volume_ops``).  Last, ``ec.decode`` and
+    ``collection.delete`` drop the collection and leave the master's
+    view as before the leg.  Returns the numbers and each server's
     remote shard reads from its EC GETs."""
     from seaweedfs_tpu_torch.client.operation import WeedClient
     from seaweedfs_tpu_torch.ec.layout import to_ext
@@ -1498,9 +1865,15 @@ def run_vacuum_leg(master: str, vs: dict, engine: str, vac_bytes: int,
             if status != 404:
                 raise AssertionError(f"deleted {fids[i]} on {u}: {status}")
 
+    t0 = time.perf_counter()
+    res["volume_ops"] = run_volume_ops(master, vs, collection, vid, needles,
+                                       fids, live, seed)
+    res["seconds"]["volume_ops"] = time.perf_counter() - t0
+
     # the compacted volume on the card
     source = WeedClient(master).master.lookup(vid)[0]
-    dat_size = res["bytes_after"][source]
+    dat_size = os.path.getsize(volume_file_prefix(
+        vs[source]["dir"], collection, vid) + ".dat")
     rows = 4  # parity rows a dispatch computes
     want = (StreamingEncoder(device="cpu").dispatches_for(dat_size)
             * -(-rows // ROWS_PER_LAUNCH)) if engine == "tpu" else 0
@@ -1545,11 +1918,18 @@ def run_vacuum_leg(master: str, vs: dict, engine: str, vac_bytes: int,
         if status != 404:
             raise AssertionError(f"deleted {fids[i]} through EC: {status}")
 
-    # the later legs find the cluster as they would without this one
-    status, body, _ = http_bytes(
-        "GET", f"http://{master}/col/delete?collection={collection}")
-    if status != 204:
-        raise AssertionError(f"/col/delete: {status} {body[:200]!r}")
+    # the later legs find the cluster as they would without this one.
+    # collection.delete drops a collection's volumes, not its EC shards
+    # (the reference's too): the volume is decoded first
+    out, res["seconds"]["ec.decode"] = run_shell(
+        master, f"ec.decode -volumeId {vid}")
+    if f"decoded ec volume {vid}" not in out:
+        raise AssertionError(f"ec.decode of the vacuum's volume: {out}")
+    out, res["seconds"]["collection.delete"] = run_shell(
+        master, f"collection.delete -collection {collection}")
+    if not re.fullmatch(rf"deleted collection {collection}: volumes "
+                        rf"\[{vid}(, {vid})*\]", out):
+        raise AssertionError(f"collection.delete: {out}")
     res["seconds"]["drop"] = wait_for(
         "the master to forget the vacuum's volume", lambda: all(
             n["Volumes"] == 0 and n["EcShards"] == 0
@@ -1577,7 +1957,8 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
     sha256 before the loss); a rotted shard that ec.scrub -all quarantines
     and ec.rebuild heals.  Then the drill (``coordinator_drill``):
     coordinator.resume, and the coordinator alone heals a second rotted
-    shard and a second SIGKILLed server.  Last, ec.decode and
+    shard and a second SIGKILLed server.  Then the drain
+    (``run_drain_leg``) of one more server.  Last, ec.decode and
     ``decoded_reads`` GETs of the decoded volume.  Each GET is classed by
     the server that answered it: (a) a shard alive on another server,
     (b) a lost shard, or local.  Every server's stop line (the second
@@ -1799,6 +2180,11 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         res["drill"]["repair_legs"] = repair_legs(
             os.path.join(work, "master.log"))
         alive.remove(rot_host)
+        res["drain"] = run_drain_leg(
+            master, collection, vid, vs, alive, shard_path, hashes,
+            shards_of, needles, fids, expect, seed, engine, DRAIN_READS,
+            DRAIN_DELETED_READS)
+        drained = res["drain"]["drained"]["url"]
 
         out, res["seconds"]["ec.decode"] = run_shell(
             master, f"ec.decode -volumeId {vid}")
@@ -1808,15 +2194,22 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
             decoded_reads, len(needles)), replace=False), needles, fids,
             seed)
 
+        def roles(url: str) -> list[str]:
+            return [r for r, u in (("encode", source),
+                                   ("rebuild", rebuild_host)) if u == url]
+
         res["servers"] = {}
         for url in alive:
             counts = stop_volume_server(vs[url]["proc"])
             if {k: counts[k] for k in expect[url]} != expect[url]:
                 raise AssertionError(f"{url} counted {counts}, its GETs "
                                      f"needed {expect[url]}")
-            roles = [r for r, u in (("encode", source),
-                                    ("rebuild", rebuild_host)) if u == url]
-            res["servers"][url] = {"shards": held[url], "roles": roles,
+            res["servers"][url] = {"shards": held[url], "roles": roles(url),
+                                   **counts}
+        counts = {k: res["drain"]["drained"][k]
+                  for k in ("launches", "remote", "reconstructed")}
+        res["servers"][drained] = {"shards": held[drained],
+                                   "roles": roles(drained) + ["drained"],
                                    **counts}
         res["servers"][victim] = {"shards": lost, "roles": ["killed"]}
         res["servers"][rot_host] = {"shards": held[rot_host],
@@ -2137,6 +2530,31 @@ def main() -> int:
         "encode_host": vac["encode_host"], "launches": vac["launches"],
         "launches_expected": vac["launches_expected"],
         "seconds": vac["seconds"], "nvidia_smi": card})
+    ops = vac["volume_ops"]
+    log({"phase": "volume_ops_done", "reduced": {
+        "volume_bytes": ops["dat_bytes"],
+        "from": "30,000 MB default volume size limit (weed master "
+                "-volumeSizeLimitMB)",
+        "why": "run time limit: the vacuum leg's compacted 001 volume"},
+        "seconds": ops["seconds"], "dat_bytes": ops["dat_bytes"],
+        "scan_GBps": {u: ops["dat_bytes"] / t / 1e9
+                      for u, t in ops["seconds"]["scan"].items()},
+        "fix_replication_GBps": ops["dat_bytes"]
+        / ops["seconds"]["fix_replication"] / 1e9,
+        "corrupt": ops["corrupt"], "fix_replication": ops["fix_replication"],
+        "move": ops["move"], "layouts": ops["layouts"],
+        "replicas": ops["replicas"], "nvidia_smi": card})
+    drain = cluster["drain"]
+    log({"phase": "evacuate_done", "reduced": {
+        "volume_bytes": VOLUME_BYTES,
+        "from": "30,000 MB default volume size limit (weed master "
+                "-volumeSizeLimitMB)",
+        "why": "run time limit"},
+        "seconds": drain["seconds"], "drained": drain["drained"],
+        "moved_shards": len(drain["drained"]["moves"]),
+        "moved_gets": drain["moved_gets"],
+        "moved_gets_ms": drain["moved_gets_ms"],
+        "deleted_shard": drain["deleted_shard"], "nvidia_smi": card})
     s = cluster["seconds"]
     log({"phase": "cluster_done", "needles": cluster["needles"],
          "upload_bytes": cluster["upload_bytes"],

@@ -91,8 +91,9 @@ class MemoryNeedleMap:
         return self._m.get(key)
 
     def __iter__(self) -> Iterator[NeedleValue]:
-        for key in sorted(self._m):
-            yield self._m[key]
+        # one copy of the values, taken at once: a reader that locks
+        # nothing (volume.fsck's scan) may iterate while a write deletes
+        return iter(sorted(self._m.values(), key=lambda nv: nv.key))
 
     def __len__(self) -> int:
         return len(self._m)

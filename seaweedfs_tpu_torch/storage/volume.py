@@ -15,8 +15,11 @@ the furthest record the kept entries name.
 
 Vacuum copies the live needles into `.cpd`/`.cpx` (``compact``), then
 ``commit_compact`` replays what was appended meanwhile and swaps the
-files in.  Reads take no lock, so the swap is made safe for them this
-way: readers use the (needle map, `.dat` handle) pair published last.
+files in.  ``check_needles`` is volume.fsck's scan of every live record
+against its stored CRC; ``configure_replication`` rewrites the
+superblock's replica placement in place.  Reads take no lock, so the
+swap is made safe for them this way: readers use the (needle map, `.dat`
+handle) pair published last.
 The commit builds the new pair over the compacted files, crash check
 included, before it publishes it, and the old handle closes only when its
 last reader has left: a read sees either the old files whole or the new
@@ -31,6 +34,7 @@ Not ported: the group-commit worker, the other needle-map kinds and their
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -433,12 +437,7 @@ class Volume:
             nm, _ = self._writable()
             self._compact_idx_size = os.path.getsize(self.idx_path)
             live = sorted(nm, key=lambda nv: nv.offset)
-            sb = self.super_block
-        new_sb = SuperBlock(
-            version=sb.version, replica_placement=sb.replica_placement,
-            ttl=sb.ttl,
-            compaction_revision=(sb.compaction_revision + 1) & 0xFFFF,
-            extra=sb.extra)
+            new_sb = self._compacted_super_block()
         with open(self.file_prefix + ".cpd", "wb") as dat_out, \
                 open(self.file_prefix + ".cpx", "wb") as idx_out:
             dat_out.write(new_sb.to_bytes())
@@ -448,6 +447,12 @@ class Volume:
                 dat_out.write(blob)
                 idx_out.write(idx_mod.pack_entry(nv.key, new_offset, nv.size))
                 new_offset += len(blob)
+
+    def _compacted_super_block(self) -> SuperBlock:
+        """This volume's superblock one compaction revision on."""
+        sb = self.super_block
+        return dataclasses.replace(
+            sb, compaction_revision=(sb.compaction_revision + 1) & 0xFFFF)
 
     def _makeup_diff(self, cpd: str, cpx: str) -> None:
         """makeupDiff (volume_vacuum.go:181): replay the index entries
@@ -488,6 +493,10 @@ class Volume:
         with self.write_lock:
             nm, dat = self._writable()
             self._makeup_diff(cpd, cpx)
+            # a configure_replication since compact began reaches the new
+            # files too (the reference's commit keeps the old placement)
+            with open(cpd, "r+b") as f:
+                f.write(self._compacted_super_block().to_bytes())
             for path in (cpd, cpx):
                 fd = os.open(path, os.O_RDONLY)
                 try:
@@ -512,6 +521,43 @@ class Volume:
             path = self.file_prefix + ext
             if os.path.exists(path):
                 os.remove(path)
+
+    # --- upkeep: volume.fsck, volume.configure.replication -------------
+    def check_needles(self) -> dict:
+        """The fsck scan (/admin/volume_check): parse every live needle's
+        whole record, which checks its stored CRC.  Reads the live pair as
+        reads do, locking nothing; a commit's swap restarts the scan on
+        the new files.  -> indexed, scanned_live, crc_errors."""
+
+        def scan(nm: MemoryNeedleMap, dat: _DatFile) -> dict:
+            live = list(nm)
+            errors = 0
+            for nv in live:
+                try:
+                    self._read_needle_at(dat, nv.offset, nv.size)
+                except HandleClosedError:
+                    raise  # a commit swapped the files: rescan the new ones
+                except ValueError:  # CRC, size or header mismatch
+                    errors += 1
+            return {"indexed": len(live), "scanned_live": len(live),
+                    "crc_errors": errors}
+
+        return self._with_live(scan)
+
+    def configure_replication(self, rp: ReplicaPlacement) -> None:
+        """VolumeConfigure (volume_grpc_admin.go): rewrite the
+        superblock's replica placement at offset 0 of the `.dat`, on disk
+        before in memory, so a failed write leaves the old placement in
+        both.  Under write_lock: a compaction's commit writes the
+        placement in force into the compacted files."""
+        with self.write_lock:
+            _, dat = self._writable()
+            sb = dataclasses.replace(self.super_block, replica_placement=rp)
+            blob = sb.to_bytes()
+            written = os.pwrite(dat.fd, blob, 0)
+            if written != len(blob):
+                raise OSError(f"short write {written} != {len(blob)}")
+            self.super_block = sb
 
     # --- info -----------------------------------------------------------
     def to_volume_information(self) -> dict:

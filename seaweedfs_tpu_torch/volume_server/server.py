@@ -5,8 +5,11 @@ volume_server*.go) that a cluster's EC lifecycle drives: objects are
 written, read and deleted at ``/<vid>,<fid>`` with replication fan-out
 (topology/store_replicate.go, ``?type=replicate`` loop guard); the admin
 "RPCs" are HTTP POSTs named after volume_server.proto: volume assign,
-delete, mount, unmount and readonly, the vacuum set Check, Compact,
-Commit and Cleanup (``/admin/vacuum_*``), and the EC set Generate, Rebuild,
+delete, mount, unmount and readonly, Configure (replica placement), the
+fsck scan (``/admin/volume_check``), Copy (``/admin/volume_copy``
+pulling the source's ``/admin/volume_download``), Leave (the heartbeat
+stops), the vacuum set Check, Compact, Commit and Cleanup
+(``/admin/vacuum_*``), and the EC set Generate, Rebuild,
 Copy, Download, Delete, Mount, Unmount, ShardRead, BlobDelete and
 ToVolume.  ``/ec/scrub/start|stop|status`` drive the EC bit-rot scrubber
 (scrubber.py), which pauses while the server takes more than 50 requests
@@ -27,9 +30,8 @@ port-only key: a drill reads it to see which server ran a repair).
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
 native planes, mmap and the needle cache, heat, ledger, admission,
-tracing, debug and tier routes, batch routes, volume copy and
-tail, image resize, and the partial-range fast path (a Range GET slices
-the full body).
+tracing, debug and tier routes, batch routes, tail, image resize, and
+the partial-range fast path (a Range GET slices the full body).
 """
 
 from __future__ import annotations
@@ -545,6 +547,14 @@ class VolumeServer:
                 self._replicate(req.path, "type=replicate", "DELETE", vid)
             return Response({"size": size})
 
+        @r.route("POST", "/admin/leave")
+        def leave(req: Request) -> Response:
+            """volume.server.leave: stop heartbeating so the master's
+            janitor unregisters this node; data and the HTTP surface stay
+            up until the process exits (VolumeServerLeave RPC)."""
+            self._stop.set()
+            return Response({"left": True})
+
         @r.route("POST", "/admin/heartbeat_now")
         def heartbeat_now(req: Request) -> Response:
             self.heartbeat_now()
@@ -623,6 +633,74 @@ class VolumeServer:
                 b.get("readonly", True))
             # the writable set must reach the master within one pulse
             self.store.note_volume_change(vid)
+            return Response({})
+
+        @r.route("POST", "/admin/configure_replication")
+        def configure_replication(req: Request) -> Response:
+            """VolumeConfigure (volume_grpc_admin.go): rewrite the
+            superblock's replica placement in place."""
+            b = req.json()
+            vid = int(b["volume_id"])
+            if vid not in self.store.volumes:
+                raise HttpError(404, f"volume {vid} not found")
+            rp = self.store.configure_replication(vid, b["replication"])
+            self.heartbeat_now()
+            return Response({"replication": str(rp)})
+
+        @r.route("POST", "/admin/volume_check")
+        def volume_check(req: Request) -> Response:
+            """fsck backend: scan the volume, verify needle CRCs against the
+            index (volume.fsck / volume.check.disk analog)."""
+            return Response(self.store.check_volume(
+                int(req.json()["volume_id"])))
+
+        # --- admin: volume copy/move (volume_grpc_copy.go) -----------
+        @r.route("GET", "/admin/volume_download")
+        def volume_download(req: Request) -> Response:
+            vid = qint(req.query, "volume_id")
+            ext = req.query["ext"]
+            if ext not in (".dat", ".idx", ".vif"):
+                raise HttpError(400, f"bad ext {ext}")
+            path = self.store.get_volume(vid).file_prefix + ext
+            if not os.path.exists(path):
+                raise HttpError(404, f"{path} not found")
+            # streamed from the file (the CopyFile streaming RPC): a 30 GB
+            # .dat never lands in memory.  The source is read-only during
+            # a copy, so no lock is held across the transfer.
+            return Response(file_path=path)
+
+        @r.route("POST", "/admin/volume_copy")
+        def volume_copy(req: Request) -> Response:
+            """VolumeCopy: pull .dat/.idx from the source server, then mount.
+            The source is marked readonly for a consistent snapshot, then
+            given back the read-only state it had."""
+            b = req.json()
+            vid = int(b["volume_id"])
+            collection = b.get("collection", "")
+            source = b["source_data_node"]
+            if vid in self.store.volumes:
+                raise HttpError(409, f"volume {vid} already here")
+            src_status = http_json("GET", f"http://{source}/status",
+                                   timeout=30.0)
+            was_readonly = any(v["id"] == vid and v["read_only"]
+                               for v in src_status.get("Volumes", []))
+            http_json("POST", f"http://{source}/admin/readonly",
+                      {"volume_id": vid, "readonly": True}, timeout=30.0)
+            try:
+                base = volume_file_prefix(self.store.directories[0],
+                                          collection, vid)
+                for ext in (".dat", ".idx"):
+                    status = http_download(
+                        "GET", f"http://{source}/admin/volume_download"
+                               f"?volume_id={vid}&ext={ext}",
+                        base + ext, timeout=3600)
+                    if status != 200:
+                        raise HttpError(500, f"download {ext}: {status}")
+                self.store.open_copied_volume(collection, vid)
+            finally:
+                http_json("POST", f"http://{source}/admin/readonly",
+                          {"volume_id": vid, "readonly": was_readonly},
+                          timeout=30.0)
             return Response({})
 
         # --- admin: vacuum -------------------------------------------

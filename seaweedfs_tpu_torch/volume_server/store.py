@@ -4,7 +4,8 @@ The subset of seaweedfs_tpu/volume_server/store.py (weed/storage/store.go +
 store_ec.go) that the volume server's HTTP surface calls: create, mount,
 delete and describe volumes, write, read and delete needles, EC-encode a
 volume (`-ec.engine=tpu` in the reference: the streaming pipeline),
-compact a volume and commit the compaction,
+compact a volume and commit the compaction, check a volume's needles and
+rewrite its replica placement, open a volume copied from another server,
 delete, rebuild and serve shards, read needles from the shards with
 remote fetch or reconstruction of what is missing, decode back to a
 volume, and build the master's full and delta heartbeats.  Every GF
@@ -289,6 +290,32 @@ class Store:
         with self.volume_locks[vid]:
             self.get_volume(vid).commit_compact()
         self.note_volume_change(vid)
+
+    def open_copied_volume(self, collection: str, vid: int) -> Volume:
+        """/admin/volume_copy: mount the `.dat`/`.idx` it downloaded into
+        the first directory, through the crash check every open runs."""
+        return self._open_volume(Volume(self.directories[0], collection, vid))
+
+    # --- volume.fsck and volume.configure.replication backends ------------
+    def check_volume(self, vid: int) -> dict:
+        """/admin/volume_check: every live needle of the volume parsed with
+        its CRC, with no lock (``Volume.check_needles``); the scanned
+        volume's counts go out with the next heartbeat."""
+        result = self.get_volume(vid).check_needles()
+        self.note_volume_change(vid)
+        return result
+
+    def configure_replication(self, vid: int,
+                              replication: str) -> ReplicaPlacement:
+        """/admin/configure_replication: the superblock's placement
+        rewritten under the volume's lock (no EC encode or compact reads
+        it meanwhile), then queued for the heartbeat."""
+        v = self.get_volume(vid)
+        rp = ReplicaPlacement.parse(replication)
+        with self.volume_locks[vid]:
+            v.configure_replication(rp)
+        self.note_volume_change(vid)
+        return rp
 
     # --- EC (store_ec.go + volume_grpc_erasure_coding.go backends) --------
     def ec_generate(self, vid: int) -> None:

@@ -66,6 +66,35 @@ def test_volume_cli_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):
     assert os.path.exists(tmp_path / "3.dat")
 
 
+def test_volume_cli_stops_on_sigterm_after_leave(tmp_path):
+    """/admin/leave stops the heartbeat only: the server still serves,
+    its scrubber still starts, and SIGTERM still stops it with its stop
+    line and exit 0."""
+    port = free_port()
+    proc = _start(["-dir", str(tmp_path), "-port", str(port), "-mserver",
+                   f"127.0.0.1:{free_port()}", "-ec.engine", "cpu"])
+    try:
+        assert _first_line(proc, 120).startswith("volume server listening")
+        url = f"http://127.0.0.1:{port}"
+        http_json("POST", url + "/admin/assign_volume", {"volume_id": 3})
+        assert http_json("POST", url + "/admin/leave", {}) == {"left": True}
+        assert http_bytes("PUT", url + "/3,01cafef00d", b"after leave")[0] \
+            == 201
+        assert http_json("POST", url + "/ec/scrub/start",
+                         {"interval_s": 60})["started"] is True
+        proc.send_signal(signal.SIGTERM)
+        assert proc.wait(timeout=10) == 0
+        assert proc.stdout.read().strip() == (
+            "volume server stopped, ec kernel launches 0, "
+            "remote shard reads 0, reconstructed intervals 0")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+        proc.stderr.close()
+
+
 # a helper thread waits until the server's handlers are in and its port
 # answers, then sends SIGTERM to itself: the signal lands on a thread other
 # than the main one

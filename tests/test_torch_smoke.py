@@ -89,11 +89,12 @@ def test_cli_phase_on_cpu(tmp_path):
 
 def test_cluster_phase_on_cpu(tmp_path):
     """The master, five volume servers and the shell through the CLI, on
-    the plain versions: upload, ec.encode, a SIGKILLed holder, degraded
-    GETs of both classes, ec.rebuild, a rotted shard that ec.scrub -all
-    quarantines and ec.rebuild heals, the coordinator's drill (a second
-    rot and a second SIGKILLed server healed with no shell command),
-    ec.decode."""
+    the plain versions: the vacuum leg with the volume shell's leg, then
+    upload, ec.encode, a SIGKILLed holder, degraded GETs of both classes,
+    ec.rebuild, a rotted shard that ec.scrub -all quarantines and
+    ec.rebuild heals, the coordinator's drill (a second rot and a second
+    SIGKILLed server healed with no shell command), the drain of a third
+    server (evacuate, leave, GETs, a deleted moved shard), ec.decode."""
     res = chip_smoke.run_cluster_phase(
         "cpu", str(tmp_path), 12 << 20, reads=16, threads=3, per_thread=5,
         decoded_reads=6, vac_bytes=6 << 20, pulse_seconds=0.3)
@@ -108,6 +109,26 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert vac["reader"]["gets_during_vacuum"] > 0
     assert vac["launches"] == vac["launches_expected"] == 0
     assert sum(vac["ec_remote_reads"].values()) > 0
+    # the volume shell on the compacted volume (its checks are inside)
+    ops = vac["volume_ops"]
+    assert ops["fix_replication"]["sha256_equal"]
+    assert ops["move"]["reader"]["gets_during_move"] > 0
+    assert ops["layouts"] == {"001": (True, True), "000": (True, True)}
+    for leg in ("fsck", "check_disk", "delete", "fix_replication", "move",
+                "configure_000", "configure_001", "mark-readonly",
+                "mark-writable"):
+        assert ops["seconds"][leg], leg
+    for leg in ("volume_ops", "ec.decode", "collection.delete"):
+        assert vac["seconds"][leg] > 0, leg
+    # the drain: every shard of the drained server moved and kept its
+    # bytes, GETs of a moved shard deleted on its new holder rebuilt there
+    drain = res["drain"]
+    assert sorted(drain["drained"]["moves"]) == drain["drained"]["shards"]
+    assert drain["moved_gets"] > 0
+    assert drain["deleted_shard"]["gets"] > 0
+    assert drain["deleted_shard"]["launches"] == 0  # the plain versions
+    for leg in ("evacuate", "leave", "leave_to_drop", "stop", "ec.rebuild"):
+        assert drain["seconds"][leg] >= 0, leg
     assert {"a_1_client", "b_1_client", "a_3_clients",
             "b_3_clients"} <= set(res["gets_ms"])
     for leg in ("upload", "ec.encode", "encode_generate", "encode_spread",
@@ -117,7 +138,7 @@ def test_cluster_phase_on_cpu(tmp_path):
         assert res["seconds"][leg] >= 0, leg
     roles = [r for s in res["servers"].values() for r in s["roles"]]
     assert sorted(r for r in roles if r != "coordinator_repair") == [
-        "encode", "killed", "killed", "rebuild", "rotted"]
+        "drained", "encode", "killed", "killed", "rebuild", "rotted"]
     assert "coordinator_repair" in roles  # a repair host that lived on
     drill = res["drill"]
     assert drill["rot_to_heal_s"] > 0 and drill["kill_to_heal_s"] > 0

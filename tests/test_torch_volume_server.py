@@ -17,6 +17,8 @@ import http.client
 import json
 import os
 import shutil
+import threading
+import time
 import uuid
 
 import numpy as np
@@ -338,3 +340,111 @@ def test_port_serves_a_directory_the_reference_wrote(tmp_path):
             [{k: v[k] for k in keys} for v in info]
     finally:
         port.stop()
+
+
+def test_volume_copy_check_configure_and_leave_routes(tmp_path):
+    """/admin/volume_copy, /admin/volume_download, /admin/volume_check,
+    /admin/configure_replication and /admin/leave: a reference server and
+    a port server, heartbeating to one master, each copy a volume from a
+    third server and answer the same requests with the same status and
+    body (a path in a body names the server's own directory), and end
+    with byte-identical copies."""
+    from seaweedfs_tpu_torch.master.server import MasterServer
+
+    master = MasterServer(port=free_port(), pulse_seconds=0.5).start()
+    dirs = {k: str(tmp_path / k) for k in ("src", "ref", "port")}
+    src = VolumeServer([dirs["src"]], master.url, port=free_port(),
+                       pulse_seconds=0.5, device="cpu").start()
+    ref = RefVolumeServer([dirs["ref"]], master.url, port=free_port(),
+                          pulse_seconds=0.5, ec_engine="cpu", tcp=False,
+                          heat=False, ledger=False,
+                          needle_cache_mb=0).start()
+    port = VolumeServer([dirs["port"]], master.url, port=free_port(),
+                        pulse_seconds=0.5, device="cpu").start()
+    try:
+        assert exchange(src.url, *_post("/admin/assign_volume", {
+            "volume_id": 5, "collection": "c"})[:3])[0] == 200
+        needles = _needles(11, 5, 12)
+        for n in needles:
+            path = n["path"] + "&type=replicate"
+            assert exchange(src.url, n["method"], path, n["body"],
+                            n["headers"])[0] == 201
+
+        def both(requests) -> list:
+            out = []
+            for method, path, body, headers, *_ in requests:
+                got = {}
+                for side, vs in (("ref", ref), ("port", port)):
+                    status, data, _ = exchange(vs.url, method, path, body,
+                                               headers)
+                    got[side] = (status, data.replace(
+                        dirs[side].encode(), b"<dir>"))
+                assert got["port"] == got["ref"], (method, path)
+                out.append(got["port"])
+            return out
+
+        copy = _post("/admin/volume_copy", {"volume_id": 5, "collection": "c",
+                                            "source_data_node": src.url})
+        out = both([
+            copy, copy,
+            _post("/admin/volume_copy", {"volume_id": 77,
+                                         "source_data_node": src.url}),
+            ("GET", "/admin/volume_download?volume_id=5&ext=.dat", None, {}),
+            ("GET", "/admin/volume_download?volume_id=5&ext=.idx", None, {}),
+            ("GET", "/admin/volume_download?volume_id=5&ext=.vif", None, {}),
+            ("GET", "/admin/volume_download?volume_id=5&ext=.ecx", None, {}),
+            ("GET", "/admin/volume_download?volume_id=5", None, {}),
+            ("GET", "/admin/volume_download?volume_id=9&ext=.dat", None, {}),
+            ("GET", "/admin/volume_download?volume_id=x&ext=.dat", None, {}),
+            _post("/admin/volume_check", {"volume_id": 5}),
+            _post("/admin/volume_check", {"volume_id": 9}),
+        ])
+        assert [s for s, _ in out] == [200, 409, 404, 200, 200, 404, 400,
+                                       404, 404, 400, 200, 404]
+        src_dat = _read(os.path.join(dirs["src"], "c_5.dat"))
+        assert out[3][1] == src_dat
+        assert out[4][1] == _read(os.path.join(dirs["src"], "c_5.idx"))
+        assert json.loads(out[10][1]) == {"indexed": 12, "scanned_live": 12,
+                                          "crc_errors": 0}
+        for side in ("ref", "port"):
+            assert _read(os.path.join(dirs[side], "c_5.dat")) == src_dat
+            # the source was writable before each copy, and is again
+            doc = json.loads(exchange(src.url, "GET", "/status")[1])
+            assert [v["read_only"] for v in doc["Volumes"]] == [False]
+            # a flipped byte in the first needle's data
+            with open(os.path.join(dirs[side], "c_5.dat"), "r+b") as f:
+                f.seek(8 + 20)
+                b = f.read(1)
+                f.seek(8 + 20)
+                f.write(bytes([b[0] ^ 0xFF]))
+        out = both([
+            _post("/admin/volume_check", {"volume_id": 5}),
+            _post("/admin/configure_replication", {"volume_id": 5,
+                                                   "replication": "010"}),
+            _post("/admin/configure_replication", {"volume_id": 9,
+                                                   "replication": "010"}),
+            _post("/admin/configure_replication", {"volume_id": 5,
+                                                   "replication": "3"}),
+            _post("/admin/leave", {}),
+        ])
+        assert [s for s, _ in out] == [200, 200, 404, 500, 200]
+        assert json.loads(out[0][1])["crc_errors"] == 1
+        assert json.loads(out[1][1]) == {"replication": "010"}
+        assert json.loads(out[4][1]) == {"left": True}
+        ref_dat = _read(os.path.join(dirs["ref"], "c_5.dat"))
+        assert ref_dat[1] == 10
+        assert _read(os.path.join(dirs["port"], "c_5.dat")) == ref_dat
+        # leave stops the heartbeat only: the server still answers
+        deadline = time.monotonic() + 10
+        while any(t.name == f"heartbeat:{port.url}"
+                  for t in threading.enumerate()):
+            assert time.monotonic() < deadline, "heartbeat still running"
+            time.sleep(0.05)
+        got = exchange(port.url, "GET", f"/{needles[1]['fid']}")
+        assert got[:2] == (200, needles[1]["data"])
+        assert exchange(port.url, "GET", "/status")[0] == 200
+    finally:
+        port.stop()
+        ref.stop()
+        src.stop()
+        master.stop()
