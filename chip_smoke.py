@@ -22,7 +22,12 @@ result.  Phases, each of which fails the run on any mismatch:
     same volume encoded again with the ``ec.dispatch`` fault point failing
     the middle dispatch once, which must resume from its checkpoint (one
     retry, at most depth + 1 dispatches redone) to the clean encode's
-    sha256 of every shard and the `.eci`;
+    sha256 of every shard and the `.eci`; then the trace A/B
+    (``run_trace_ab``): the same volume encoded twice more, the span
+    tracer off and then on at head-sampling rate 1, both to the clean
+    encode's sha256 and with the same kernel launches (the encoder's
+    dispatch rule), the traced run's spans read by ``analyze()`` into a
+    stage attribution printed beside the encoder's own counters;
  4. the HTTP path through an in-process ``VolumeServer(device="cuda")``:
     write a 2 GiB volume with HTTP PUTs (names, mime types and gzip bodies
     among them), ``/admin/ec/generate``, check parity and `.eci` again,
@@ -65,7 +70,20 @@ result.  Phases, each of which fails the run on any mismatch:
     sha256 recorded), the holder of the most shards SIGKILLed and dropped
     by the master, 200 + 8x25 degraded GETs classed by whether the shard
     they need lies on another live server (a remote shard read) or was
-    lost (a reconstruction), ``ec.rebuild`` (the rebuilt shards must
+    lost (a reconstruction), then the same GETs again with tracing turned
+    on live on the master and every server (``/debug/traces?enable=1``,
+    off again after), each under a sampled Traceparent of its own: every
+    GET's trace must be stitched at the master's /cluster/traces/<id>,
+    each class (b) trace hold an ``ec.reconstruct`` span on the server
+    that answered (whose launch count must equal its reconstruct spans),
+    each class (a) trace the holder's /admin/ec/shard_read hop and no
+    reconstruction; per-hop p50/p99 (front end, lookup_ec, remote shard
+    read, reconstruct) and the bounding hop of the five slowest traces
+    are printed (``traced_gets``), beside three more eight-client passes
+    that weigh the tracer's cost against the host's drift: GETs sampled
+    at 5% at their root, all at rate 1 again, untraced again, each
+    pass's CPU per process and each traced period's spans counted from
+    every ring; ``ec.rebuild`` (the rebuilt shards must
     match their sha256), a bit flipped in a shard of a server holding
     fewer than 10 (``ec.scrub -all`` must call it unrepairable and
     quarantine it, ``ec.rebuild`` heal it to its sha256, and a second
@@ -77,7 +95,14 @@ result.  Phases, each of which fails the run on any mismatch:
     with no unrepairable verdict (``rot_to_heal_s``), then that server
     SIGKILLed until every shard has a live holder with its sha256
     (``kill_to_heal_s``) and /cluster/health reads ``degraded: false``;
-    /cluster/coordinator must show two repairs or more, none failed;
+    /cluster/coordinator must show two repairs or more, none failed; the
+    master's /cluster/events must hold the rot's ``shard_corrupt`` and
+    ``scrub_unrepairable`` from the rotted server, then ``repair_planned``
+    and ``repair_done`` from the master, in that order, with the rot
+    repair's ``cause_event`` naming one of the first two, and the
+    killed server's ``peer_stale`` before the loss repair's
+    ``repair_planned``; ``events.tail`` through the shell shows them
+    (``journal``);
     then the drain (``run_drain_leg``, coordinator paused):
     ``volume.server.evacuate`` of a live shard holder and
     ``volume.server.leave`` until the master drops it, every moved
@@ -483,6 +508,104 @@ def run_resume_phase(device: str, work: str, hashes: dict,
             "launch_bound": bound,
             "launches": launches, "seconds": seconds,
             "resume_byte": st["resume_byte"], "stats": st}
+
+
+def run_trace_ab(device: str, work: str, hashes: dict) -> dict:
+    """The main path's volume encoded four times more through
+    Store(device=...), the process tracer off, on (head-sampling rate 1),
+    on, off.  Each must write the clean encode's bytes (every shard and
+    the `.eci` by sha256) and launch the same kernels, the encoder's
+    dispatch rule on the card.  Returns each run's wall and counters, and
+    the last traced run's span count and analyze()'s stage attribution."""
+    from seaweedfs_tpu_torch.observability import (analyze,
+                                                   attribution_summary,
+                                                   disable_tracing,
+                                                   enable_tracing, get_tracer,
+                                                   sample_rate,
+                                                   set_sample_rate)
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+    from seaweedfs_tpu_torch.stats import ec_integrity_metrics
+    from seaweedfs_tpu_torch.volume_server.store import Store
+
+    tracer = get_tracer()
+    was_rate = sample_rate()
+    store = Store([work], device=device)
+    runs: list = []
+    try:
+        enc = store.streaming_encoder()
+        base = store.get_volume(1).file_prefix
+        dispatches = enc.dispatches_for(os.path.getsize(base + ".dat"))
+        for mode in ("off", "on", "on", "off"):
+            if mode == "on":
+                tracer.clear()
+                enable_tracing()
+                set_sample_rate(1.0)
+            before = gf_matmul.launches
+            t0 = time.perf_counter()
+            store.ec_generate(1)
+            if device == "cuda":
+                import torch
+
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append({"mode": mode, "wall_s": wall,
+                         "launches": gf_matmul.launches - before,
+                         "stats": dict(enc.stats)})
+            if mode == "on":
+                disable_tracing()
+                spans = tracer.snapshot()
+                report = analyze(tracer,
+                                 counters=ec_integrity_metrics().totals())
+            got = {ext: sha256_file(base + ext) for ext in hashes}
+            if got != hashes:
+                raise AssertionError(
+                    f"encode with tracing {mode} differs from the clean "
+                    f"one: {sorted(e for e in got if got[e] != hashes[e])}")
+    finally:
+        disable_tracing()
+        set_sample_rate(was_rate)
+        tracer.clear()
+        store.close()
+    launches = [r["launches"] for r in runs]
+    if len(set(launches)) != 1 or (device == "cuda"
+                                   and launches[0] != dispatches):
+        raise AssertionError(f"launches off, on, on, off: {launches}; "
+                             f"dispatch rule {dispatches}")
+    names: dict[str, int] = {}
+    for sp in spans:
+        names[sp.name] = names.get(sp.name, 0) + 1
+    if names.get("pipeline.encode_file") != 1 or \
+            names.get("pipeline.dispatch") != runs[2]["stats"]["dispatches"]:
+        raise AssertionError(f"traced encode spans: {names}")
+    return {"runs": runs, "dispatches": dispatches, "spans": len(spans),
+            "span_names": names, "dropped": report["spans_dropped"],
+            "attribution": attribution_summary(report),
+            "span_cost_us": span_cost_us()}
+
+
+def span_cost_us(n: int = 20000) -> dict:
+    """Host microseconds per span on this machine: a disabled tracer's
+    shared no-op, an enabled one's span outside any trace, and one under
+    a sampled trace context with a shipping hook that only buffers."""
+    from seaweedfs_tpu_torch.observability import context
+    from seaweedfs_tpu_torch.observability.tracer import Tracer
+
+    out = {}
+    for name in ("disabled", "enabled", "sampled"):
+        tr = Tracer(enabled=name != "disabled", capacity=n)
+        shipped: list = []
+        tr.on_record = shipped.append
+        prev = context.activate(context.TraceContext(context.new_trace_id())
+                                if name == "sampled" else None)
+        try:
+            t0 = time.perf_counter()
+            for i in range(n):
+                with tr.span("pipeline.fill", dispatch=i, bytes=1):
+                    pass
+            out[name] = 1e6 * (time.perf_counter() - t0) / n
+        finally:
+            context.activate(prev)
+    return out
 
 
 def free_port() -> int:
@@ -1029,6 +1152,172 @@ def timed_gets(master: str, picks, needles: list[dict], fids: list[str],
     return out
 
 
+def traced_gets(master: str, picks, needles: list[dict], fids: list[str],
+                seed: int, rate: float = 1.0
+                ) -> list[tuple[str, int, float, str]]:
+    """timed_gets with each GET under a trace context of its own: sampled
+    (a fresh trace id sent as the Traceparent of every call it makes) for
+    a seeded ``rate`` share of them, decided unsampled for the rest (a
+    Traceparent that tells each server not to record, as a front that
+    samples at ``rate`` sends on); -> [(server that answered, needle
+    index, seconds, trace id or "")]."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.observability import context
+
+    client = WeedClient(master)
+    client.rng.seed(seed)
+    coin = np.random.default_rng([seed, 1])
+    out = []
+    for i in picks:
+        ctx = context.TraceContext(context.new_trace_id()) \
+            if rate >= 1.0 or coin.random() < rate else context.NOT_SAMPLED
+        prev = context.activate(ctx)
+        try:
+            t0 = time.perf_counter()
+            body = client.download(fids[i])
+            lat = time.perf_counter() - t0
+        finally:
+            context.activate(prev)
+        if body != needles[i]["data"]:
+            raise AssertionError(f"GET {fids[i]}: {len(body)} bytes, wrong")
+        out.append((client.last_read_from, int(i), lat,
+                    getattr(ctx, "trace_id", "")))
+    return out
+
+
+def process_cpu(pids: dict) -> dict:
+    """CPU seconds each process has used so far, user + system and the
+    system part alone, from /proc/<pid>/stat."""
+    tick = os.sysconf("SC_CLK_TCK")
+    out = {}
+    for name, pid in pids.items():
+        with open(f"/proc/{pid}/stat") as f:
+            fields = f.read().rsplit(")", 1)[1].split()
+        out[name] = {"cpu_s": (int(fields[11]) + int(fields[12])) / tick,
+                     "sys_s": int(fields[12]) / tick}
+    return out
+
+
+def set_tracing(urls, flag: str) -> dict[str, int]:
+    """/debug/traces?<flag> on each server: enable=1 turns its tracer on
+    live, clear=1 empties its ring, disable=1&clear=1 both turns it off
+    and empties it.  -> the spans each ring held (and dropped) before."""
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes
+
+    spans = {}
+    for u in urls:
+        status, body, _ = http_bytes("GET", f"http://{u}/debug/traces?{flag}")
+        if status != 200:
+            raise AssertionError(f"{u}/debug/traces?{flag}: {status} {body}")
+        doc = json.loads(body)
+        spans[u] = sum(e.get("ph") == "X" for e in doc["traceEvents"]) \
+            + doc["spansDropped"]
+    return spans
+
+
+def stitched(doc: dict, root: str, server: str) -> bool:
+    """True once a trace is whole: ``server``'s ``root`` span is in, and
+    so is the far side of every ``rpc.client`` hop (each server ships its
+    own spans, so the pieces arrive in any order)."""
+    spans = doc["spans"]
+    parents = {sp.get("parent") for sp in spans}
+    return any(sp["name"] == root and sp.get("server") == server
+               for sp in spans) and all(
+        sp["id"] in parents for sp in spans if sp["name"] == "rpc.client")
+
+
+def collect_traces(master: str, gets, timeout: float = 60.0) -> dict:
+    """Each GET's stitched trace from the master's collector, once it is
+    whole; -> trace id -> document."""
+    from seaweedfs_tpu_torch.utils.httpd import HttpError, http_json
+
+    docs: dict = {}
+    t0 = time.perf_counter()
+    for asked, _, _, tid in gets:
+        while True:
+            try:
+                doc = http_json("GET", f"http://{master}/cluster/traces/{tid}")
+                if stitched(doc, "http.volume.read_object", asked):
+                    docs[tid] = doc
+                    break
+            except HttpError as e:
+                if e.status != 404:
+                    raise
+            if time.perf_counter() - t0 > timeout:
+                raise AssertionError(f"trace {tid} of a GET on {asked} was "
+                                     "not collected")
+            time.sleep(0.05)
+    return docs
+
+
+# hops of a degraded GET, by span: the answering server's request, its
+# rpc.client calls (the master's lookup_ec, a holder's shard_read), and
+# the codec's reconstruction
+HOPS = {"front": lambda sp: sp["name"] == "http.volume.read_object",
+        "lookup_ec": lambda sp: sp["name"] == "rpc.client"
+        and sp["attrs"].get("path") == "/dir/lookup_ec",
+        "remote_shard_read": lambda sp: sp["name"] == "rpc.client"
+        and sp["attrs"].get("path") == "/admin/ec/shard_read",
+        "reconstruct": lambda sp: sp["name"] == "ec.reconstruct"}
+
+
+def check_traced_gets(gets, docs: dict, classify, holders: dict,
+                      launches: dict) -> dict:
+    """Every traced GET's stitched trace against its class: (b) holds an
+    ``ec.reconstruct`` span on the server that answered, (a) the holder's
+    /admin/ec/shard_read hop and no reconstruction, a local read neither.
+    ``launches``: each server's kernel launches over the traced GETs, or
+    None on the plain versions; on the card they must equal its
+    ``ec.reconstruct`` spans, one kernel each.  -> per-hop p50/p99 and
+    the bounding hop of the five slowest traces."""
+    hop_s: dict[str, list[float]] = {k: [] for k in HOPS}
+    # the client's wait outside the front's request span: its connect,
+    # the request's and the answer's transfer, the client's own work
+    hop_s["outside_front"] = []
+    recon_on: dict[str, int] = {}
+    slow = []
+    for asked, i, lat, tid in gets:
+        cls, remote = classify(asked, i)
+        spans = docs[tid]["spans"]
+        for hop, match in HOPS.items():
+            hop_s[hop] += [sp["t1"] - sp["t0"] for sp in spans if match(sp)]
+        front = max(sp["t1"] - sp["t0"] for sp in spans
+                    if HOPS["front"](sp) and sp.get("server") == asked)
+        hop_s["outside_front"].append(max(0.0, lat - front))
+        recon = [sp for sp in spans if sp["name"] == "ec.reconstruct"]
+        reads = [sp for sp in spans
+                 if sp["name"] == "http.volume.ec_shard_read"]
+        for sp in recon:
+            recon_on[sp["server"]] = recon_on.get(sp["server"], 0) + 1
+        if cls == "b" and not any(sp["server"] == asked for sp in recon):
+            raise AssertionError(f"class (b) GET {tid}: no ec.reconstruct "
+                                 f"on {asked}")
+        if cls != "b" and recon:
+            raise AssertionError(f"class ({cls}) GET {tid} reconstructed")
+        if cls == "a" and not any(
+                sp["server"] in {u for s in remote for u in holders[s]}
+                and sp["attrs"].get("path") == "/admin/ec/shard_read"
+                for sp in reads):
+            raise AssertionError(f"class (a) GET {tid}: no shard_read hop "
+                                 f"on a holder of {remote}")
+        slow.append((lat, tid, cls, asked, front))
+    if launches is not None and any(
+            launches.get(u, 0) != recon_on.get(u, 0)
+            for u in set(launches) | set(recon_on)):
+        raise AssertionError(f"kernel launches {launches} != ec.reconstruct "
+                             f"spans {recon_on}")
+    slow.sort(reverse=True)
+    return {
+        "traces": len(gets),
+        "hops_ms": {hop: percentiles(v) if v else {"n": 0}
+                    for hop, v in hop_s.items()},
+        "reconstruct_spans": recon_on,
+        "slowest": [{"trace": tid, "class": cls, "server": asked,
+                     "ms": 1e3 * lat, "front_ms": 1e3 * front,
+                     "bounding_hop": docs[tid]["analysis"]["bounding_hop"]}
+                    for lat, tid, cls, asked, front in slow[:5]]}
+
+
 def coordinator_status(master: str) -> dict:
     from seaweedfs_tpu_torch.utils.httpd import http_json
 
@@ -1179,6 +1468,7 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
     # 1. rot
     rot_shard = held[0]
     path = shard_path(host, rot_shard)
+    rot_wall = time.time()
     flip_byte(path, os.path.getsize(path) // 3)
     done = coordinator_status(master)["repairs"]["done"]
     # ec.scrub -all adds one pass on the host, its re-scrub another
@@ -1220,7 +1510,33 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
     rot_repair = next(r for r in st["recent"]
                       if r["action"] == "repair_done")
     res["rot_repair"] = {k: rot_repair[k] for k in
-                         ("host", "rebuilt", "spread", "rescrubbed")}
+                         ("host", "rebuilt", "spread", "rescrubbed",
+                          "cause_event", "cause_trace")}
+    # the journal: the rotted server's detection and verdict, then the
+    # master's plan and repair, and the repair names one of the two
+    want = [("shard_corrupt", host), ("scrub_unrepairable", host),
+            ("repair_planned", master), ("repair_done", master)]
+
+    def rot_journal() -> list[dict]:
+        return [e for e in journal(master, rot_wall) if e["type"] in (
+            "shard_corrupt", "scrub_unrepairable", "repair_planned",
+            "repair_done")]
+
+    # the master's own events reach its journal at the next flush
+    wait_for("the rot's events in /cluster/events",
+             lambda: len(rot_journal()) >= len(want), 30)
+    rot_events = rot_journal()
+    if [(e["type"], e.get("server")) for e in rot_events[:4]] != want:
+        raise AssertionError(f"/cluster/events after the rot: {rot_events}")
+    if rot_repair["cause_event"] not in (rot_events[0]["id"],
+                                         rot_events[1]["id"]):
+        raise AssertionError(f"the rot repair's cause {rot_repair} is not "
+                             f"its scrub's event: {rot_events[:2]}")
+    res["journal"] = {"rot": [(e["type"], e.get("server"))
+                              for e in rot_events],
+                      "rot_cause": next(e["type"] for e in rot_events
+                                        if e["id"] ==
+                                        rot_repair["cause_event"])}
     res["seconds"]["rot_scrub_end_to_repair_done"] = \
         rot_repair["at"] - t0_wall
 
@@ -1245,6 +1561,27 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
     res["seconds"]["kill_to_sha256_equal"], res["seconds"]["loss_verify"] = \
         wait_healed(master, vid, (host,), shard_path, hashes, done, t0, 300)
     res["kill_to_heal_s"] = res["seconds"]["kill_to_sha256_equal"]
+    # the master journaled the lost peer before it planned the repair
+    wait_for("the loss's events in /cluster/events", lambda: {
+        "peer_stale", "repair_planned"} <= {e["type"] for e in journal(
+            master, t0_wall)}, 30)
+    loss_events = journal(master, t0_wall)
+    stale = [e for e in loss_events if e["type"] == "peer_stale"
+             and e["details"].get("peer") == host]
+    planned = [e for e in loss_events if e["type"] == "repair_planned"]
+    if not stale or not planned or \
+            _journal_seq(stale[0])[0] != _journal_seq(planned[0])[0] or \
+            _journal_seq(stale[0]) > _journal_seq(planned[0]):
+        raise AssertionError(f"/cluster/events after the kill: "
+                             f"{loss_events}")
+    res["journal"]["loss"] = [(e["type"], e.get("server"))
+                              for e in loss_events]
+    out, _ = run_shell(master, "events.tail -n 200")
+    for t in ("shard_corrupt", "scrub_unrepairable", "repair_planned",
+              "repair_done", "peer_stale"):
+        if f" {t} " not in out:
+            raise AssertionError(f"events.tail shows no {t}: {out}")
+    res["journal"]["events_tail_lines"] = len(out.splitlines())
     res["seconds"]["drop"] = drop.wait()
     res["seconds"]["kill_to_health_clean"] = clean.wait()
 
@@ -1270,6 +1607,21 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
                           "moves": st["moves"],
                           "recent": [r["action"] for r in st["recent"]]}
     return res
+
+
+def journal(master: str, since_wall: float) -> list[dict]:
+    """The master's cluster journal from ``since_wall`` on, by time."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return http_json("GET", f"http://{master}/cluster/events?limit=0&"
+                            f"since={since_wall}")["events"]
+
+
+def _journal_seq(e: dict) -> tuple[str, int]:
+    """(journal namespace, sequence) of an event id ``<ns>.<hex seq>``:
+    one journal's events in the order it took them."""
+    ns, _, seq = e["id"].rpartition(".")
+    return ns, int(seq, 16)
 
 
 def pause_coordinator(master: str) -> None:
@@ -2073,29 +2425,106 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
             [FileId.parse(f).key for f in fids])
 
         rng = np.random.default_rng(seed)
-        gets = {"1_client": timed_gets(
-            master, rng.choice(len(needles), size=min(reads, len(needles)),
-                               replace=False), needles, fids, seed)}
-        concurrent: list = []
-        run_threads(lambda t: concurrent.extend(timed_gets(
-            master, np.random.default_rng([seed, t]).choice(
-                len(needles), size=per_thread), needles, fids, seed + t)),
-            threads, 600)
-        gets[f"{threads}_clients"] = concurrent
+        picks = rng.choice(len(needles), size=min(reads, len(needles)),
+                           replace=False)
+
+        def thread_picks(t: int):
+            return np.random.default_rng([seed, t]).choice(
+                len(needles), size=per_thread)
+
+        # each GET pass's wall and the CPU seconds each process spent in it
+        pids = {"master": procs[0].pid,
+                **{u: vs[u]["proc"].pid for u in alive}}
+        passes: dict = {}
+
+        def run_pass(name: str, gets_fn, one: bool) -> list:
+            c0, t0 = process_cpu(pids), time.perf_counter()
+            if one:
+                done = gets_fn(master, picks, needles, fids, seed)
+            else:
+                done = []
+                run_threads(lambda t: done.extend(gets_fn(
+                    master, thread_picks(t), needles, fids, seed + t)),
+                    threads, 600)
+            wall = time.perf_counter() - t0
+            c1 = process_cpu(pids)
+            passes[name] = {"wall_s": wall, "gets": len(done), **{
+                key: {k: c1[k][key] - c0[k][key] for k in pids}
+                for key in ("cpu_s", "sys_s")}}
+            return done
+
+        eight = f"{threads}_clients"
+        gets = {"1_client": run_pass("1_client", timed_gets, True),
+                eight: run_pass(eight, timed_gets, False)}
+
+        def classify(asked: str, i: int) -> tuple[str, list[int]]:
+            """(b) a lost shard, else (a) a shard on another server, else
+            local; and the remote shards it reads."""
+            remote = [s for s in shards_of[i]
+                      if s not in lost and asked not in holders[s]]
+            if any(s in lost for s in shards_of[i]):
+                return "b", remote
+            return ("a" if remote else "local"), remote
+
+        # the same GETs again with tracing on live on the master and every
+        # live server, each GET under a sampled trace context of its own;
+        # each batch's traces are collected right after it, before the
+        # collector's 512-trace ring could evict them
+        set_tracing([master] + alive, "enable=1")
+        try:
+            before = kernel_launches(alive)
+            t0 = time.perf_counter()
+            traced = run_pass("1_client_traced", traced_gets, True)
+            docs = collect_traces(master, traced)
+            traced_8 = run_pass(f"{eight}_traced", traced_gets, False)
+            docs.update(collect_traces(master, traced_8))
+            after = kernel_launches(alive)
+            res["seconds"]["traced_gets"] = time.perf_counter() - t0
+        finally:
+            spans = {"traced": set_tracing([master] + alive,
+                                           "disable=1&clear=1")}
+        res["traced_gets"] = check_traced_gets(
+            traced + traced_8, docs, classify, holders,
+            {u: after[u] - before[u] for u in alive
+             if after[u] != before[u]} if engine == "tpu" else None)
+        gets["1_client_traced"] = [g[:3] for g in traced]
+        gets[f"{eight}_traced"] = [g[:3] for g in traced_8]
+        # and once more untraced: a pass after the traced ones tells the
+        # tracer's cost from the order of the passes
+        gets[f"{eight}_after"] = run_pass(f"{eight}_after", timed_gets,
+                                          False)
+        # the tracer's cost apart from the host's drift, pass by pass:
+        # GETs sampled at 5% at their root (heartbeats and scrapes still
+        # at rate 1), all at rate 1 again, and untraced again; each
+        # traced pass's spans counted from every ring
+        set_tracing([master] + alive, "enable=1")
+        try:
+            gets[f"{eight}_sampled_5pct"] = [g[:3] for g in run_pass(
+                f"{eight}_sampled_5pct",
+                lambda *a: traced_gets(*a, rate=0.05), False)]
+            spans["sampled_5pct"] = set_tracing([master] + alive,
+                                                "clear=1")
+            gets[f"{eight}_traced_again"] = [g[:3] for g in run_pass(
+                f"{eight}_traced_again", traced_gets, False)]
+        finally:
+            spans["traced_again"] = set_tracing([master] + alive,
+                                                "disable=1&clear=1")
+        gets[f"{eight}_after_again"] = run_pass(f"{eight}_after_again",
+                                                timed_gets, False)
+        res["traced_spans"] = {k: sum(v.values()) for k, v in spans.items()}
+        res["get_passes"] = passes
         vac_remote = res["vacuum"]["ec_remote_reads"]
         expect = {u: {"remote": vac_remote.get(u, 0), "reconstructed": 0}
                   for u in alive}
         classes: dict = {}
         for run, done in gets.items():
             for asked, i, lat in done:
-                cls = "local"
+                cls, _ = classify(asked, i)
                 for sid in shards_of[i]:
                     if sid in lost:
                         expect[asked]["reconstructed"] += 1
-                        cls = "b"
                     elif asked not in holders[sid]:
                         expect[asked]["remote"] += 1
-                        cls = "a" if cls == "local" else cls
                 classes.setdefault(f"{cls}_{run}", []).append(lat)
         if not classes.get(f"a_{threads}_clients") or \
                 not classes.get(f"b_{threads}_clients") or \
@@ -2394,8 +2823,13 @@ def main() -> int:
         gf_matmul.launches = 0
         resume = run_resume_phase("cuda", work, res["hashes"])
         resume_launches = gf_matmul.launches
+        gf_matmul.launches = 0
+        trace_ab = run_trace_ab("cuda", work, res["hashes"])
+        trace_ab_launches = gf_matmul.launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    if trace_ab_launches <= 0:
+        raise AssertionError("the trace A/B encodes launched no kernel")
     for leg, n in res["launches"].items():
         if n <= 0:
             raise AssertionError(f"leg {leg} launched no kernel")
@@ -2421,6 +2855,22 @@ def main() -> int:
          "launch_bound": resume["launch_bound"],
          "resume_byte": resume["resume_byte"], "seconds": resume["seconds"],
          "sha256_equal_to_clean": True, "stats": resume["stats"],
+         "nvidia_smi": card})
+    ab = trace_ab["runs"]
+    walls = {m: [r["wall_s"] for r in ab if r["mode"] == m]
+             for m in ("off", "on")}
+    log({"phase": "trace_ab", "dispatches": trace_ab["dispatches"],
+         "order": [r["mode"] for r in ab],
+         "launches": [r["launches"] for r in ab], "wall_s": walls,
+         "traced_over_untraced": sum(walls["on"]) / sum(walls["off"]),
+         "sha256_equal_to_clean": True, "spans": trace_ab["spans"],
+         "spans_dropped": trace_ab["dropped"],
+         "span_names": trace_ab["span_names"],
+         "attribution": trace_ab["attribution"],
+         "span_cost_us": trace_ab["span_cost_us"],
+         "stats": [{k: r["stats"][k] for k in (
+             "wall_s", "setup_s", "fill_s", "dispatch_s", "write_s",
+             "drain_wait_s", "drain_s", "close_s")} for r in ab],
          "nvidia_smi": card})
 
     work = tempfile.mkdtemp(prefix="chip_smoke-http-", dir=_build.BUILD_DIR)
@@ -2544,6 +2994,14 @@ def main() -> int:
         "corrupt": ops["corrupt"], "fix_replication": ops["fix_replication"],
         "move": ops["move"], "layouts": ops["layouts"],
         "replicas": ops["replicas"], "nvidia_smi": card})
+    log({"phase": "traced_gets", **cluster["traced_gets"],
+         "seconds": cluster["seconds"]["traced_gets"],
+         "get_passes": cluster["get_passes"],
+         "spans": cluster["traced_spans"],
+         "gets_ms": {k: v for k, v in cluster["gets_ms"].items()},
+         "nvidia_smi": card})
+    log({"phase": "journal", **cluster["drill"]["journal"],
+         "rot_repair": cluster["drill"]["rot_repair"], "nvidia_smi": card})
     drain = cluster["drain"]
     log({"phase": "evacuate_done", "reduced": {
         "volume_bytes": VOLUME_BYTES,
@@ -2584,8 +3042,8 @@ def main() -> int:
         "name": "gf_matmul", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
-        "launches": launches + resume_launches + http_launches
-        + cli["launches"] + cluster_launches,
+        "launches": launches + resume_launches + trace_ab_launches
+        + http_launches + cli["launches"] + cluster_launches,
         "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

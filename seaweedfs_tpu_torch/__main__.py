@@ -16,7 +16,7 @@ builds its kernel before it listens and fails without a card;
 ``-ec.engine cpu`` runs the plain PyTorch versions.  ``master
 -coordinatorSeconds N`` repairs EC volumes that lack shards on its own,
 every N seconds (0, the default, leaves repair to the shell's
-ec.rebuild), and logs each repair and move on standard error;
+ec.rebuild), logs each repair on standard error and journals it;
 ``-metricsAggregationSeconds N`` scrapes the volume servers every N
 seconds, so it finds a dead one sooner than the heartbeat timeout.  The servers run until SIGINT or SIGTERM, a signal taken during
 start-up included, then stop and exit 0; the volume server's last line
@@ -31,12 +31,19 @@ as the reference's does; neither knob is a flag there, so none is here.
 Every subcommand first arms the fault points named in ``WEED_FAULTS``
 (utils/faultinject.py ``arm_from_env``), e.g.
 ``WEED_FAULTS="ec.dispatch:error_rate=1,max_hits=1,after=12"``.
+
+``-trace.sample R`` (before or after the subcommand of ``master``,
+``volume`` or ``shell``), or ``WEED_TRACE_SAMPLE=R``, turns the span
+tracer on with head sampling at rate R in [0, 1], as weed.py does;
+negative or unset leaves it off (``/debug/traces?enable=1`` turns it on
+live, and a request whose caller sampled it records anyway once on).
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 import signal
 import sys
 import threading
@@ -48,6 +55,10 @@ ENGINES = {"tpu": "cuda", "cpu": "cpu"}
 
 def parse_args(argv: list[str]) -> argparse.Namespace:
     p = argparse.ArgumentParser(prog="python -m seaweedfs_tpu_torch")
+    trace_help = ("enable tracing with this head sampling rate (0..1); "
+                  "negative/unset = off (WEED_TRACE_SAMPLE works too)")
+    p.add_argument("-trace.sample", dest="trace_sample", type=float,
+                   default=-1.0, metavar="RATE", help=trace_help)
     sub = p.add_subparsers(dest="command", required=True)
     m = sub.add_parser("master", help="start a master")
     m.add_argument("-ip", default="127.0.0.1")
@@ -88,11 +99,32 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     s.add_argument("-master", default="127.0.0.1:9333")
     s.add_argument("-c", default="",
                    help="run these commands (; separated) and exit")
+    for sp in (m, v, s):
+        # SUPPRESS: absent here, the value before the subcommand stands
+        sp.add_argument("-trace.sample", dest="trace_sample", type=float,
+                        default=argparse.SUPPRESS, metavar="RATE",
+                        help=trace_help)
     c = sub.add_parser("compact", help="vacuum one volume offline")
     c.add_argument("-dir", default=".")
     c.add_argument("-collection", default="")
     c.add_argument("-volumeId", type=int, required=True)
     return p.parse_args(argv)
+
+
+def _maybe_enable_tracing(rate: float) -> None:
+    """-trace.sample R, else WEED_TRACE_SAMPLE: turn the tracer on with
+    head sampling at rate R; negative or unset leaves it off."""
+    if rate < 0:
+        try:
+            rate = float(os.environ.get("WEED_TRACE_SAMPLE", ""))
+        except ValueError:
+            return
+        if rate < 0:
+            return
+    from .observability import enable_tracing, set_sample_rate
+
+    enable_tracing()
+    set_sample_rate(rate)
 
 
 def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
@@ -120,8 +152,8 @@ def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
 def cmd_master(args: argparse.Namespace) -> int:
     from .master.server import MasterServer
 
-    # the coordinator's repairs and moves, and the servers it finds down,
-    # are log lines (the reference journals them as events)
+    # the coordinator's repairs (with each leg's seconds) are log lines;
+    # /cluster/events journals them
     logging.basicConfig(level=logging.INFO, format="%(asctime)s "
                         "%(levelname)s %(name)s: %(message)s")
 
@@ -217,6 +249,8 @@ def main(argv: list[str]) -> int:
 
     args = parse_args(argv)
     faultinject.arm_from_env()
+    if args.command != "compact":
+        _maybe_enable_tracing(args.trace_sample)
     return {"master": cmd_master, "volume": cmd_volume,
             "shell": cmd_shell, "compact": cmd_compact}[args.command](args)
 

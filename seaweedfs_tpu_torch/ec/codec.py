@@ -10,7 +10,10 @@ kernel for ``device="cuda"``, the plain PyTorch version for "cpu".
 
 Port of seaweedfs_tpu/ec/codec.py's ReedSolomon without its engine
 fallback: a kernel that fails raises to the caller, it is never replaced
-by a CPU recomputation.
+by a CPU recomputation (so there is no ``engine_fallback`` event either).
+
+The ``ec.encode`` and ``ec.reconstruct`` spans bound the card's time too:
+TorchEngine hands back host bytes, so the copy home ends inside them.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from ..observability import get_tracer
 from ..ops.gf_matmul import TorchEngine
 from .gf256 import build_cauchy_matrix, build_encoding_matrix, mat_invert, mat_mul
 
@@ -48,7 +52,10 @@ class ReedSolomon:
         """data[data_shards, B] -> parity[parity_shards, B]."""
         if data.shape[0] != self.data_shards:
             raise ValueError(f"expected {self.data_shards} data shards")
-        return self.engine.matmul(self.parity_matrix, data)
+        with get_tracer().span("ec.encode", k=self.data_shards,
+                               r=self.parity_shards, bytes=int(data.nbytes),
+                               backend=self.engine.name):
+            return self.engine.matmul(self.parity_matrix, data)
 
     def encode_into(self, data: np.ndarray, out: np.ndarray) -> np.ndarray:
         """Parity-only output variant of encode(): the product lands in
@@ -60,7 +67,10 @@ class ReedSolomon:
                 or out.dtype != np.uint8 or out.strides[1] != 1:
             raise ValueError("out must be uint8 [parity_shards, B] "
                              "with contiguous rows")
-        return self.engine.matmul_into(self.parity_matrix, data, out)
+        with get_tracer().span("ec.encode", k=self.data_shards,
+                               r=self.parity_shards, bytes=int(data.nbytes),
+                               backend=self.engine.name):
+            return self.engine.matmul_into(self.parity_matrix, data, out)
 
     def encode_shards(self, shards: list[np.ndarray]) -> None:
         """klauspost Encode: shards[0:data] in, shards[data:total] overwritten."""
@@ -102,13 +112,17 @@ class ReedSolomon:
         missing = [i for i in range(upto) if shards[i] is None]
         if not missing:
             return
-        sub = [[int(v) for v in self.matrix[i]] for i in sub_rows]
-        want = [[int(v) for v in self.matrix[m]] for m in missing]
-        rows = np.array(mat_mul(want, mat_invert(sub)), dtype=np.uint8)
-        restored = self.engine.matmul(
-            rows, np.stack([shards[i] for i in sub_rows]))
-        for out_i, shard_i in enumerate(missing):
-            shards[shard_i] = restored[out_i]
+        with get_tracer().span(
+                "ec.reconstruct", k=self.data_shards,
+                r=self.parity_shards, missing=len(missing),
+                bytes=size * self.data_shards, backend=self.engine.name):
+            sub = [[int(v) for v in self.matrix[i]] for i in sub_rows]
+            want = [[int(v) for v in self.matrix[m]] for m in missing]
+            rows = np.array(mat_mul(want, mat_invert(sub)), dtype=np.uint8)
+            restored = self.engine.matmul(
+                rows, np.stack([shards[i] for i in sub_rows]))
+            for out_i, shard_i in enumerate(missing):
+                shards[shard_i] = restored[out_i]
 
     def reconstruct_data(self, shards: list[Optional[np.ndarray]]) -> None:
         self.reconstruct(shards, data_only=True)

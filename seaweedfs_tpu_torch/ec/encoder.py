@@ -22,6 +22,7 @@ from typing import Optional
 
 import numpy as np
 
+from ..observability import get_tracer
 from ..storage import idx as idx_mod
 from ..storage.needle import get_actual_size
 from ..storage.needle_map import MemDb
@@ -87,7 +88,11 @@ def write_ec_files(base_file_name: str, rs: ReedSolomon,
     processed = 0
     builder = SidecarBuilder(rs.total_shards)
     out_paths = [base_file_name + to_ext(i) for i in range(rs.total_shards)]
-    with open(dat_path, "rb") as dat:
+    with get_tracer().span("ec.write_ec_files", path=dat_path,
+                           bytes=remaining, k=rs.data_shards,
+                           r=rs.parity_shards,
+                           backend=rs.engine.name), \
+            open(dat_path, "rb") as dat:
         outputs = []
         ok = False
         try:
@@ -174,23 +179,28 @@ def _rebuild_ec_attempt(base_file_name: str, rs: ReedSolomon, chunk: int,
     outputs = {i: open(base_file_name + to_ext(i), "wb") for i in generated}
     ok = False
     try:
-        offset = 0
-        while offset < shard_size:
-            n = min(chunk, shard_size - offset)
-            shards: list[Optional[np.ndarray]] = [None] * rs.total_shards
-            for i, f in inputs.items():
-                raw = os.pread(f.fileno(), n, offset)
-                if len(raw) != n:
-                    raise IOError(f"short read on shard {i}: {len(raw)} < {n}")
-                if sidecar is not None:
-                    bad = sidecar.verify_range(i, offset, raw)
-                    if bad is not None:
-                        raise CorruptSurvivor(i, bad)
-                shards[i] = np.frombuffer(raw, dtype=np.uint8)
-            rs.reconstruct(shards)
-            for i in generated:
-                outputs[i].write(shards[i].tobytes())
-            offset += n
+        with get_tracer().span("ec.rebuild_ec_files", path=base_file_name,
+                               missing=len(generated), k=rs.data_shards,
+                               r=rs.parity_shards, backend=rs.engine.name,
+                               demoted=len(demoted)):
+            offset = 0
+            while offset < shard_size:
+                n = min(chunk, shard_size - offset)
+                shards: list[Optional[np.ndarray]] = [None] * rs.total_shards
+                for i, f in inputs.items():
+                    raw = os.pread(f.fileno(), n, offset)
+                    if len(raw) != n:
+                        raise IOError(f"short read on shard {i}: "
+                                      f"{len(raw)} < {n}")
+                    if sidecar is not None:
+                        bad = sidecar.verify_range(i, offset, raw)
+                        if bad is not None:
+                            raise CorruptSurvivor(i, bad)
+                    shards[i] = np.frombuffer(raw, dtype=np.uint8)
+                rs.reconstruct(shards)
+                for i in generated:
+                    outputs[i].write(shards[i].tobytes())
+                offset += n
         ok = True
     finally:
         for f in inputs.values():

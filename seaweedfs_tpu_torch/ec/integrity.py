@@ -45,13 +45,14 @@ after encode can never launder itself into the baseline.
 
 from __future__ import annotations
 
-import logging
 import os
 import struct
 from typing import Optional
 
 import numpy as np
 
+from ..observability import events as _events
+from ..observability import get_tracer
 from ..stats import ec_integrity_metrics
 from ..storage.crc import crc32c, masked_value
 from ..utils import faultinject
@@ -97,12 +98,16 @@ def sidecar_path(base_file_name: str) -> str:
 def note_corruption(source: str, shard_id: int, base: str = "",
                     block: int = -1) -> None:
     """One corrupt-shard detection: counted on
-    SeaweedFS_ec_corrupt_shards_total{source=...} and logged as a warning
-    (the reference's trace event and journal entry are not ported)."""
+    SeaweedFS_ec_corrupt_shards_total{source=...}, recorded on the trace
+    as a ``pipeline.retry`` event with reason corrupt_shard (the
+    analyzer's degraded verdict keys on it) and journaled as
+    ``shard_corrupt``."""
     ec_integrity_metrics().corrupt_shards.inc(source)
-    logging.getLogger(__name__).warning(
-        "corrupt shard %d of %s (block %d) detected by %s", shard_id, base,
-        block, source)
+    get_tracer().event(
+        "pipeline.retry", reason="corrupt_shard", source=source,
+        shard=shard_id, path=base, block=block)
+    _events.emit("shard_corrupt", source=source, shard=shard_id,
+                 path=base, block=block)
 
 
 def sidecar_is_stale(sidecar: Optional["EciSidecar"],
@@ -210,6 +215,7 @@ class EciSidecar:
             crcs = np.frombuffer(table, dtype=">u4").reshape(
                 total, nblocks).astype(np.uint32)
         except (ValueError, struct.error):
+            get_tracer().event("ec.sidecar.invalid", path=path)
             return None
         return cls(bs, shard_size, crcs, mask)
 

@@ -43,15 +43,27 @@ over fixed-shape dispatches.
 With ``device="cpu"`` the same pipeline, drain threads included, runs the
 plain version in place of the copies and the kernel; the tests use it.
 
+Spans (observability/tracer.py; one attribute check each while the tracer
+is off) carry the reference's names, so its analyzer reads them:
+``pipeline.encode_file`` (the root of each attempt) over ``setup``,
+``fill``, ``dispatch``, ``write`` (kind data) and ``close`` on the
+producer, ``drain_wait`` where the producer blocks on the drain, and
+``pipeline.drain`` / ``pipeline.write`` (kind parity) on the drain
+threads; ``pipeline.rebuild_files`` over ``fill``, ``dispatch``,
+``drain`` and ``write`` (kind rebuilt).  ``dispatch`` covers the enqueue
+of the copies and the kernel only: the card's time shows in ``drain``,
+where a fetch waits on the dispatch's event.  A resume is a
+``pipeline.retry`` event.
+
 Not ported: the mmap host path, the host codec's worker threads and
 processes, the per-dispatch CPU fallback and the mesh plane.
 """
 
 from __future__ import annotations
 
-import logging
 import os
 import queue
+import sys
 import threading
 import time
 from collections import deque
@@ -60,6 +72,7 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..observability import get_tracer
 from ..ops.gf_matmul import KernelError, gf_matmul, resolve_device
 from ..utils import faultinject
 from ..utils.ioutil import pread_padded, preadv_into
@@ -193,6 +206,7 @@ class _Slot:
                                     device=device) if cuda else self.host_out)
         self.done = torch.cuda.Event() if cuda else None
         self.buf = self.host_in.numpy()  # the host fill target
+        self.dispatch = 0  # the index of the dispatch it carries
 
 
 class _Pipeline:
@@ -206,16 +220,23 @@ class _Pipeline:
     ``drain_pool`` fetch threads and runs ``drain`` on its writer thread;
     a slot comes back to ``acquire`` once its parity is written, and the
     time ``acquire`` blocks for one is ``drain_wait_s``.  ``drain_point``
-    names the fault point hit at each fetch."""
+    names the fault point hit at each fetch.  ``tracer`` records the
+    ``pipeline.drain_wait``, ``pipeline.drain`` and ``pipeline.write``
+    spans; ``write_kind`` names what the drain writes ("parity" for an
+    encode, whose drain spans also carry their bytes, as the
+    reference's do)."""
 
     def __init__(self, rows: np.ndarray, b: int, device: torch.device,
                  st: dict, drain: Callable[[np.ndarray, object], None],
-                 depth: int = DEPTH, drain_pool: int = 0,
+                 tracer, depth: int = DEPTH, drain_pool: int = 0,
                  drain_point: Optional[str] = None,
-                 drain_timeout_s: float = DRAIN_TIMEOUT_S):
+                 drain_timeout_s: float = DRAIN_TIMEOUT_S,
+                 write_kind: str = "parity"):
         self.rows_out, rows_in = rows.shape
         self.device = device
         self.st = st
+        self.tr = tracer
+        self._write_kind = write_kind
         self.depth = depth
         self._drain = drain
         self._drain_point = drain_point
@@ -272,16 +293,17 @@ class _Pipeline:
         t0 = time.perf_counter()
         deadline = time.monotonic() + self._timeout
         try:
-            while True:
-                try:
-                    return self._written.get(timeout=0.2)
-                except queue.Empty:
-                    err = self.drainer.error
-                    if err is not None:
-                        raise err
-                    if time.monotonic() >= deadline:
-                        raise RuntimeError("async drain stalled: no free "
-                                           "dispatch slot")
+            with self.tr.span("pipeline.drain_wait"):
+                while True:
+                    try:
+                        return self._written.get(timeout=0.2)
+                    except queue.Empty:
+                        err = self.drainer.error
+                        if err is not None:
+                            raise err
+                        if time.monotonic() >= deadline:
+                            raise RuntimeError("async drain stalled: no "
+                                               "free dispatch slot")
         finally:
             self.st["drain_wait_s"] += time.perf_counter() - t0
 
@@ -289,6 +311,7 @@ class _Pipeline:
         """Queue the dispatch of ``slot``'s first n columns: on the card
         the copy in, the kernel and the copy home, then the event."""
         r = self.rows_out
+        slot.dispatch = self.st["dispatches"]
         t0 = time.perf_counter()
         if self.copy is None:
             gf_matmul(self.m, slot.dev_in[:, :n],
@@ -324,10 +347,6 @@ class _Pipeline:
         self.drainer.submit((slot, n, tag))
         self.st["drain_wait_s"] += time.perf_counter() - t0
 
-    def submit(self, slot: _Slot, n: int, tag=None) -> None:
-        self.launch(slot, n)
-        self.enqueue(slot, n, tag)
-
     def _parity(self, slot: _Slot, n: int) -> np.ndarray:
         """Wait until the dispatch's parity is home; its [rows_out, n]
         host view."""
@@ -342,19 +361,32 @@ class _Pipeline:
         return slot.host_out.numpy()[:self.rows_out * n].reshape(
             self.rows_out, n)
 
+    def _drain_span(self, slot: _Slot, n: int):
+        if self._write_kind == "parity":
+            return self.tr.span("pipeline.drain", dispatch=slot.dispatch,
+                                bytes=self.rows_out * n)
+        return self.tr.span("pipeline.drain", dispatch=slot.dispatch)
+
+    def _write_out(self, slot: _Slot, parity: np.ndarray, tag) -> None:
+        with self.tr.span("pipeline.write", dispatch=slot.dispatch,
+                          kind=self._write_kind):
+            self._drain(parity, tag)
+
     def _drain_one(self) -> None:
         slot, n, tag = self.pending.popleft()
         t0 = time.perf_counter()
-        parity = self._parity(slot, n)
+        with self._drain_span(slot, n):
+            parity = self._parity(slot, n)
         self.st["drain_wait_s"] += time.perf_counter() - t0
         self.st["parity_bytes_drained"] += parity.nbytes
-        self._drain(parity, tag)
+        self._write_out(slot, parity, tag)
         self.free.append(slot)
 
     def _fetch(self, meta) -> np.ndarray:  # a drainer fetch thread
         slot, n, _ = meta
         t0 = time.perf_counter()
-        parity = self._parity(slot, n)
+        with self._drain_span(slot, n):
+            parity = self._parity(slot, n)
         with self._ds_lock:
             self._ds["drain_s"] += time.perf_counter() - t0
             self._ds["parity_bytes"] += parity.nbytes
@@ -362,7 +394,7 @@ class _Pipeline:
 
     def _write(self, meta, parity: np.ndarray) -> None:  # the writer thread
         slot, _, tag = meta
-        self._drain(parity, tag)
+        self._write_out(slot, parity, tag)
         self._written.put(slot)
 
     def finish(self) -> None:
@@ -373,7 +405,8 @@ class _Pipeline:
             return
         t0 = time.perf_counter()
         try:
-            self.drainer.finish()
+            with self.tr.span("pipeline.drain_wait", final=True):
+                self.drainer.finish()
         finally:
             self.st["drain_wait_s"] += time.perf_counter() - t0
 
@@ -485,10 +518,11 @@ class StreamingEncoder:
                     if retries >= self.max_encode_retries:
                         raise
                     retries += 1
-                    logging.getLogger(__name__).warning(
-                        "encode of %s: attempt %d failed (%s: %s); resuming "
-                        "at plan entry %d, shard byte %d", dat_path, retries,
-                        type(e).__name__, e, ckpt.entries, ckpt.bytes)
+                    get_tracer().event(
+                        "pipeline.retry", scope="encode_file",
+                        attempt=retries, resume_entry=ckpt.entries,
+                        resume_byte=ckpt.bytes,
+                        error=f"{type(e).__name__}: {e}")
         except BaseException:
             _remove_quietly([out_base + to_ext(i)
                              for i in range(self.k + self.r)]
@@ -514,20 +548,30 @@ class StreamingEncoder:
         clock = time.perf_counter
         t_start = clock()
         file_size = os.path.getsize(dat_path)
+        tr = get_tracer()
+        root = tr.span("pipeline.encode_file", path=dat_path,
+                       bytes=file_size, mode="staged", engine="device",
+                       resume_entry=start_entry)
+        root.__enter__()
+        # output opens, a resume's crc re-seed and the pipeline's set-up,
+        # until the first entry is planned
+        setup = tr.span("pipeline.setup")
+        setup.__enter__()
         sb = SidecarBuilder(k + r)
         outputs: list = []
         # the parity side's counters: touched only by the thread that
         # drains (the writer thread, or the producer when inline)
         pw = {"write_s": 0.0, "sidecar_s": 0.0}
 
-        def write_data(rows) -> None:
+        def write_data(rows, d_idx: int) -> None:
             t0 = clock()
-            for i in range(k):
-                outputs[i].write(memoryview(rows[i]))
-            t1 = clock()
-            for i in range(k):
-                sb.update(i, rows[i])
-            st["sidecar_s"] += clock() - t1
+            with tr.span("pipeline.write", dispatch=d_idx, kind="data"):
+                for i in range(k):
+                    outputs[i].write(memoryview(rows[i]))
+                t1 = clock()
+                for i in range(k):
+                    sb.update(i, rows[i])
+                st["sidecar_s"] += clock() - t1
             st["write_s"] += clock() - t0
 
         def write_parity(parity: np.ndarray, tag) -> None:
@@ -545,6 +589,7 @@ class StreamingEncoder:
             ckpt.bytes += used
 
         pipe = None
+        ok = False
         try:
             for i in range(k + r):
                 p = out_base + to_ext(i)
@@ -563,39 +608,49 @@ class StreamingEncoder:
                 self.matrix[k:], b, self.device, st, write_parity,
                 depth=self.depth,
                 drain_pool=self.drain_pool if self.async_drain else 0,
-                drain_point="ec.drain", drain_timeout_s=self.drain_timeout_s)
+                drain_point="ec.drain", drain_timeout_s=self.drain_timeout_s,
+                tracer=tr)
             with open(dat_path, "rb") as dat:
 
                 def flush(fills, used: int) -> None:
                     slot = pipe.acquire()
                     buf = slot.buf
+                    d_idx = st["dispatches"]
                     t0 = clock()
-                    for col, n, row_start, block, off in fills:
-                        if off == 0 and n == block:
-                            # whole-block entry: the k per-shard reads are
-                            # contiguous in the file ([row_start, +k*block))
-                            preadv_into(
-                                dat, [buf[i, col:col + n] for i in range(k)],
-                                row_start)
-                        else:
-                            for i in range(k):
-                                buf[i, col:col + n] = pread_padded(
-                                    dat, n, row_start + i * block + off)
-                    if used < b:
-                        buf[:, used:] = 0
+                    with tr.span("pipeline.fill", dispatch=d_idx,
+                                 bytes=k * used):
+                        for col, n, row_start, block, off in fills:
+                            if off == 0 and n == block:
+                                # whole-block entry: the k per-shard reads
+                                # are contiguous in the file
+                                # ([row_start, +k*block))
+                                preadv_into(
+                                    dat,
+                                    [buf[i, col:col + n] for i in range(k)],
+                                    row_start)
+                            else:
+                                for i in range(k):
+                                    buf[i, col:col + n] = pread_padded(
+                                        dat, n, row_start + i * block + off)
+                        if used < b:
+                            buf[:, used:] = 0
                     st["fill_s"] += clock() - t0
                     if faultinject._points:
                         faultinject.hit("ec.dispatch")
-                    pipe.launch(slot, used)
+                    with tr.span("pipeline.dispatch", dispatch=d_idx,
+                                 bytes=k * used):
+                        pipe.launch(slot, used)
                     st["bytes_in"] += k * used
                     # data shards pass through from the host slot while
                     # the card computes parity, and are written before the
                     # dispatch reaches the drain, so the checkpoint never
                     # counts a dispatch whose data is not on disk
-                    write_data(buf[:, :used])
+                    write_data(buf[:, :used], d_idx)
                     pipe.enqueue(slot, used, (len(fills), used))
 
                 st["setup_s"] = clock() - t_start
+                setup.__exit__(None, None, None)
+                setup = None
                 entries = _plan_entries(file_size, k, large_block_size,
                                         small_block_size, b)
                 for _ in range(start_entry):  # resume: skip what is done
@@ -611,7 +666,11 @@ class StreamingEncoder:
             t0 = clock()
             sb.finalize().save(out_base)
             st["sidecar_s"] += clock() - t0
+            ok = True
         finally:
+            exc = sys.exc_info() if not ok else (None, None, None)
+            if setup is not None:  # failed before the first fill
+                setup.__exit__(*exc)
             try:
                 if pipe is not None:
                     pipe.close()
@@ -622,10 +681,12 @@ class StreamingEncoder:
                 st["sidecar_s"] += pw["sidecar_s"]
                 st["parity_write_s"] = pw["write_s"]
                 t0 = clock()
-                for f in outputs:
-                    f.close()
+                with tr.span("pipeline.close"):
+                    for f in outputs:
+                        f.close()
                 st["close_s"] = clock() - t0
                 st["wall_s"] = clock() - t_start
+                root.__exit__(*exc)
 
     # --- rebuild ----------------------------------------------------------
     def rebuild_files(self, base_file_name: str) -> list[int]:
@@ -721,6 +782,10 @@ class StreamingEncoder:
         t_start = clock()
         outputs = {}
         pipe = None
+        tr = get_tracer()
+        root = tr.span("pipeline.rebuild_files", path=base_file_name,
+                       mode="staged", missing=len(missing), engine="device")
+        root.__enter__()
 
         def write_rebuilt(out: np.ndarray, _tag) -> None:
             t0 = clock()
@@ -733,16 +798,19 @@ class StreamingEncoder:
             for m in missing:
                 outputs[m] = open(base_file_name + to_ext(m), "wb")
             pipe = _Pipeline(rec, b, self.device, st,
-                             write_rebuilt)
+                             write_rebuilt, tracer=tr, write_kind="rebuilt")
             for offset in range(0, shard_size, b):
                 n = min(b, shard_size - offset)
                 slot = pipe.acquire()
                 buf = slot.buf
+                d_idx = st["dispatches"]
                 t0 = clock()
-                for row_i, s in enumerate(survivors):
-                    preadv_into(inputs[s], [buf[row_i, :n]], offset)
-                if n < b:
-                    buf[:, n:] = 0
+                with tr.span("pipeline.fill", dispatch=d_idx,
+                             bytes=len(survivors) * n):
+                    for row_i, s in enumerate(survivors):
+                        preadv_into(inputs[s], [buf[row_i, :n]], offset)
+                    if n < b:
+                        buf[:, n:] = 0
                 st["fill_s"] += clock() - t0
                 if sidecar is not None:
                     # corrupt bytes must never reach the kernel: the raise
@@ -757,7 +825,10 @@ class StreamingEncoder:
                         if bad is not None:
                             raise CorruptSurvivor(s, bad)
                     st["verify_s"] += clock() - t0
-                pipe.submit(slot, n)
+                with tr.span("pipeline.dispatch", dispatch=d_idx,
+                             bytes=len(survivors) * n):
+                    pipe.launch(slot, n)
+                pipe.enqueue(slot, n)
                 st["bytes_in"] += k * n
             pipe.finish()
             ok = True
@@ -776,4 +847,6 @@ class StreamingEncoder:
                     _remove_quietly(base_file_name + to_ext(m)
                                     for m in missing)
                 st["wall_s"] = clock() - t_start
+                root.__exit__(*(sys.exc_info() if not ok
+                                else (None, None, None)))
         return missing

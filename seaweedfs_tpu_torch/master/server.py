@@ -22,6 +22,17 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         coordinator's totals, and a rollup `degraded`
   GET  /cluster/coordinator, POST /cluster/coordinator/pause|resume
                         the EC repair coordinator (ops/coordinator.py)
+  POST /cluster/traces/ingest, GET /cluster/traces, /cluster/traces/<id>
+                        the trace collector: servers ship the spans of
+                        sampled traces, the master stitches them by trace
+                        id and serves each with analyze_cluster's report
+                        (?format=chrome: Chrome trace-event JSON)
+  POST /cluster/events/ingest, GET /cluster/events
+                        the cluster event journal; each accepted batch
+                        goes to the coordinator's on_events
+  GET  /debug/traces, /debug/traces/analyze, /debug/events
+                        this process's span ring and journal
+                        (utils/debug.py)
 
 A janitor thread unregisters volume servers that stopped heartbeating.
 ``coordinator_seconds`` > 0 starts the coordinator's loop with that
@@ -35,9 +46,13 @@ every volume whose replicas all carry ``GARBAGE_THRESHOLD`` (0.3) or more
 of garbage.  Like the reference's master CLI, the port sets neither by a
 flag; tests set the attributes before ``start()``.
 
+The master's own spans and events reach its collector and journal without
+HTTP (the shippers' local short-circuit).
+
 Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/ alert,
-trace, event, heat, ledger, workload, capacity, autoscale and watch
-routes (so the aggregation loop evaluates no alert rules), the master's
+heat, ledger, workload, capacity, autoscale and watch routes (so the
+aggregation loop evaluates no alert rules, and no journal batch is
+replicated or handed to an autoscaler), the master's
 own /metrics and the maintenance scripts, the framed-TCP
 assign front, and security (guard, JWT, TLS, admission control).
 """
@@ -51,11 +66,16 @@ import time
 import urllib.parse
 from typing import Optional
 
+from ..observability import analyze_cluster, get_tracer
+from ..observability.collector import TraceCollector, TraceShipper
+from ..observability.events import (ClusterEventJournal, EventShipper,
+                                    get_journal)
 from ..ops.coordinator import EcCoordinator
 from ..stats.aggregate import ClusterAggregator
 from ..storage.file_id import format_needle_id_cookie
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
+from ..utils.debug import register_debug_routes
 from ..utils.httpd import (HttpError, Request, Response, Router,
                            extract_upload, http_json, qfloat, qint, serve,
                            stop_server)
@@ -99,6 +119,7 @@ class MasterServer:
         self.default_replication = default_replication
         self.seq = MemorySequencer()
         self.router = Router("master")
+        self.router.server_url = self.url
         self._register_routes()
         self._server = None
         self._stop = threading.Event()
@@ -112,10 +133,22 @@ class MasterServer:
         self.aggregator = ClusterAggregator(peers_fn=self._peer_urls)
         self.coordinator_seconds = coordinator_seconds
         self.coordinator = EcCoordinator(
-            topo=self.topo, stale_peers_fn=self._stale_peers,
+            topo=self.topo, server=self.url,
+            stale_peers_fn=self._stale_peers,
             admin_locked_fn=self._admin_locked,
             interval_s=coordinator_seconds or 15.0)
         self.aggregator.local_fn = self.coordinator.health_contribution
+        # servers ship sampled spans and journal events here; the
+        # master's own take the local short-circuit
+        self.trace_collector = TraceCollector()
+        self._trace_shipper = TraceShipper(
+            get_tracer(), server=self.url,
+            local_collector=self.trace_collector)
+        self.event_journal = ClusterEventJournal()
+        self._event_shipper = EventShipper(
+            get_journal(), server=self.url,
+            local_journal=self.event_journal)
+        self.event_journal.on_ingest = self._on_cluster_events
 
     # --- lifecycle --------------------------------------------------------
     @property
@@ -123,6 +156,8 @@ class MasterServer:
         return f"{self.host}:{self.port}"
 
     def start(self) -> "MasterServer":
+        self._trace_shipper.attach()
+        self._event_shipper.attach()
         self._server = serve(self.router, self.host, self.port)
         threading.Thread(target=self._janitor_loop, daemon=True,
                          name="master-janitor").start()
@@ -141,6 +176,15 @@ class MasterServer:
         self.aggregator.stop_loop()
         if self._server is not None:
             stop_server(self._server)
+        # detached, or a later master in this process would receive this
+        # one's spans and events through the chained hooks
+        self._trace_shipper.detach()
+        self._event_shipper.detach()
+
+    def _on_cluster_events(self, accepted: list[dict]) -> None:
+        """The cluster journal's ingest hook: each batch of newly accepted
+        events wakes the coordinator with their causes."""
+        self.coordinator.on_events(accepted)
 
     def _janitor_loop(self) -> None:
         while not self._stop.wait(self.topo.pulse_seconds):
@@ -358,6 +402,79 @@ class MasterServer:
         def cluster_coordinator_resume(req: Request) -> Response:
             self.coordinator.resume()
             return Response(self.coordinator.status())
+
+        @r.route("GET", "/cluster/events")
+        def cluster_events(req: Request) -> Response:
+            """The cluster event journal, filtered: ?type=, ?severity=,
+            ?min_severity=, ?server=, ?since=<unix ts>, ?limit=N."""
+            try:
+                since_ts = float(req.query.get("since") or 0.0)
+                limit = min(int(req.query.get("limit") or 256), 2048)
+            except ValueError as e:
+                raise HttpError(400, f"bad query parameter: {e}")
+            events = self.event_journal.query(
+                type_=req.query.get("type") or None,
+                severity=req.query.get("severity") or None,
+                min_severity=req.query.get("min_severity") or None,
+                server=req.query.get("server") or None,
+                since_ts=since_ts, limit=limit)
+            return Response({"events": events, "count": len(events),
+                             "total": len(self.event_journal),
+                             "dropped": self.event_journal.dropped})
+
+        @r.route("POST", "/cluster/events/ingest")
+        def cluster_events_ingest(req: Request) -> Response:
+            """EventShipper's sink (a single master is always the
+            leader)."""
+            b = req.json()
+            accepted = self.event_journal.ingest(
+                str(b.get("server") or ""), b.get("events") or [])
+            return Response({"accepted": accepted, "leader": self.url})
+
+        @r.route("POST", "/cluster/traces/ingest")
+        def cluster_traces_ingest(req: Request) -> Response:
+            """TraceShipper's sink: spans of sampled traces, stitched by
+            trace id; ``lost`` counts spans a shipper already dropped."""
+            b = req.json()
+            accepted = self.trace_collector.ingest(
+                str(b.get("server") or ""), b.get("spans") or [],
+                lost=b.get("lost") or {})
+            return Response({"accepted": accepted, "leader": self.url})
+
+        @r.route("GET", "/cluster/traces")
+        def cluster_traces_index(req: Request) -> Response:
+            """Most recent first: id, root span, servers, wall seconds."""
+            limit = min(qint(req.query, "limit", 64), 256)
+            return Response(
+                {"traces": self.trace_collector.summaries(limit=limit)})
+
+        @r.route("GET", r"/cluster/traces/([0-9a-f]{32})")
+        def cluster_trace_get(req: Request) -> Response:
+            """One stitched trace with its cross-server analysis (per-hop
+            occupancy, network versus server, the bounding hop, a
+            degraded verdict over the servers' health counters);
+            ?format=chrome answers the Chrome trace-event view."""
+            trace_id = req.match.group(1)
+            if req.query.get("format", "").lower() == "chrome":
+                doc = self.trace_collector.chrome(trace_id)
+                if doc is None:
+                    raise HttpError(404, f"trace {trace_id} not collected")
+                return Response(doc)
+            doc = self.trace_collector.get(trace_id)
+            if doc is None:
+                raise HttpError(404, f"trace {trace_id} not collected")
+            health: dict = {}
+            try:
+                self.aggregator.scrape()
+                for url, peer in self.aggregator.health()["peers"].items():
+                    if url in doc["servers"]:
+                        health[url] = peer.get("pipeline_health") or {}
+            except Exception:  # noqa: BLE001 - health only garnishes
+                pass
+            doc["analysis"] = analyze_cluster(doc, health=health)
+            return Response(doc)
+
+        register_debug_routes(r)
 
         @r.route("POST", "/heartbeat")
         def heartbeat(req: Request) -> Response:

@@ -33,11 +33,16 @@ EC work is asked of the servers' own engine, ``"tpu"`` by default: a
 card server refuses ``"cpu"`` (the reference's default), a CPU server
 takes either.
 
-The reference's trace spans and journal events around each cycle, repair
-and move are log lines here; nothing feeds ``on_events`` until the port
-has an event journal, and the repair records (``status()["replicated"]``)
-stay local until it has raft (no ``replicate_fn``, no export, import or
-resume of them).
+Each repair and each rebalance round runs under a trace root of its own
+while the tracer is on (``coord.repair``, ``coord.rebalance``), so its
+copy, rebuild and mount hops stitch into one cluster trace, and journals
+``ec_under_replicated``, ``repair_planned``, ``repair_done``,
+``repair_failed`` and ``rebalance_move`` events carrying both that trace
+and the cause.  The master's cluster journal feeds ``on_events``: the
+event, alert and trace that made a volume urgent land in its queue entry
+(``cause_event``, ``cause_trace``).  The repair records
+(``status()["replicated"]``) stay local until the port has raft (no
+``replicate_fn``, no export, import or resume of them).
 """
 
 from __future__ import annotations
@@ -51,6 +56,9 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 from ..ec.layout import DATA_SHARDS_COUNT, TOTAL_SHARDS_COUNT
+from ..observability import context as _trace_context
+from ..observability import events as _events
+from ..observability import get_tracer
 from ..stats import coordinator_metrics
 from ..utils import deadline as _deadline
 from ..utils import faultinject
@@ -619,14 +627,16 @@ class EcCoordinator:
     REPAIR_DEADLINE_S = 900.0
     ENGINE = "tpu"
 
-    def __init__(self, topo,
+    def __init__(self, topo, server: str = "",
                  stale_peers_fn: Optional[Callable[[], list]] = None,
                  admin_locked_fn: Optional[Callable[[], bool]] = None,
                  interval_s: float = 15.0,
                  post_fn: Optional[Callable] = None):
-        """``stale_peers_fn``: registered servers to count as down;
+        """``server``: the master's url, stamped on spans and events;
+        ``stale_peers_fn``: registered servers to count as down;
         ``admin_locked_fn``: True while the shell's lock is held."""
         self.topo = topo
+        self.server = server
         self.stale_peers_fn = stale_peers_fn or (lambda: [])
         self.admin_locked_fn = admin_locked_fn or (lambda: False)
         self.interval_s = float(interval_s)
@@ -696,10 +706,10 @@ class EcCoordinator:
 
     # --- event subscription ----------------------------------------------
     def on_events(self, events: list[dict]) -> None:
-        """Cluster-journal ingest hook: record which alert, event and trace
-        made each volume urgent, and wake the planner.  Lock-only, never
-        HTTP.  Nothing in the port calls it yet: it has no event
-        journal."""
+        """Cluster-journal ingest hook (the master's
+        ``_on_cluster_events``): record which alert, event and trace made
+        each volume urgent, and wake the planner.  Lock-only, never
+        HTTP."""
         wake = False
         with self._lock:
             for e in events:
@@ -801,8 +811,8 @@ class EcCoordinator:
 
     def _update_queue(self, deficits: dict[int, dict]) -> None:
         """Refresh the repair queue and the under-replication gauge from
-        this cycle's deficits; log each volume that newly fell below k+1
-        clean shards."""
+        this cycle's deficits; journal each volume that newly fell below
+        k+1 clean shards."""
         newly_under: list[tuple[int, int]] = []
         with self._lock:
             for vid in list(self._queue):
@@ -827,8 +837,9 @@ class EcCoordinator:
             self.metrics.under_replicated.set(float(under))
             self.metrics.queue_depth.set(float(len(self._queue)))
         for vid, clean in newly_under:
-            _log.warning("ec volume %d under-replicated: %d clean shards, "
-                         "threshold %d", vid, clean, DATA_SHARDS_COUNT + 1)
+            _events.emit("ec_under_replicated", server=self.server
+                         or None, vid=vid, clean_shards=clean,
+                         threshold=DATA_SHARDS_COUNT + 1)
 
     def _cause_alert_locked(self, vid: int) -> str:  # holds: _lock
         """The firing alert this volume's repair answers: the cause
@@ -883,15 +894,36 @@ class EcCoordinator:
             return sum(pool.map(lambda kv: self._run_repair(*kv), batch))
 
     def _run_repair(self, vid: int, entry: dict) -> bool:
-        """One repair of volume ``vid``; the outcome lands in the counters,
-        ``recent``, the repair records and the log."""
+        """One repair of volume ``vid`` under a trace root of its own: the
+        copy, rebuild and mount hops stitch into one cluster trace, and
+        each event carries both this trace and the cause.  The outcome
+        lands in the counters, ``recent``, the repair records and the
+        journal."""
+        tr = get_tracer()
+        ctx = prev = None
+        if tr.enabled and _trace_context.current() is None:
+            ctx = _trace_context.TraceContext(_trace_context.new_trace_id())
+            prev = _trace_context.activate(ctx)
+        prev_srv = _trace_context.swap_server(self.server or None)
+        try:
+            with tr.span("coord.repair", vid=vid,
+                         deficit=entry.get("deficit", 0),
+                         alert=entry.get("alert", "")):
+                return self._repair(vid, entry)
+        finally:
+            _trace_context.swap_server(prev_srv)
+            if ctx is not None:
+                _trace_context.activate(prev)
+
+    def _repair(self, vid: int, entry: dict) -> bool:
         cause = {"alert": entry.get("alert", ""),
                  "cause_trace": entry.get("cause_trace", ""),
                  "cause_event": entry.get("cause_event", "")}
+        server = self.server or None
         view = self._snapshot_view()
         if len(view.present_shards(vid)) >= TOTAL_SHARDS_COUNT:
             # healed between queueing and execution: drop the entry
-            # without recording a repair that never ran
+            # without journaling a repair that never ran
             with self._lock:
                 self._forget_locked(vid)
                 stale_plan = vid in self._replicated
@@ -899,9 +931,9 @@ class EcCoordinator:
                 self._record("done", vid, entry, host="", rebuilt=[],
                              healed_elsewhere=True)
             return True
-        _log.info("coordinator: repair planned for volume %d, deficit %d%s",
-                  vid, entry.get("deficit", 0),
-                  " (critical)" if entry.get("critical") else "")
+        _events.emit("repair_planned", server=server, vid=vid,
+                     deficit=entry.get("deficit", 0),
+                     critical=entry.get("critical", False), **cause)
         self._record("planned", vid, entry,
                      deficit=entry.get("deficit", 0),
                      critical=entry.get("critical", False))
@@ -923,8 +955,8 @@ class EcCoordinator:
                 self.recent.appendleft({
                     "at": round(time.time(), 3), "vid": vid,
                     "action": "repair_failed", "error": err, **cause})
-            _log.error("coordinator: repair of volume %d failed: %s",
-                       vid, err)
+            _events.emit("repair_failed", server=server, vid=vid,
+                         error=err, **cause)
             self._record("failed", vid, entry, error=err)
             return False
         if not res["host"] and not res["rebuilt"]:
@@ -935,7 +967,8 @@ class EcCoordinator:
                          healed_elsewhere=True)
             return True
         # the holders re-verify the healed volume now, so a stale
-        # unrepairable verdict clears (best-effort, its own budget)
+        # unrepairable verdict clears (best-effort, its own budget); the
+        # scrub route adopts this repair's trace context
         rescrubbed: list[str] = []
         try:
             with _deadline.scope(min(60.0, self.REPAIR_DEADLINE_S)):
@@ -952,6 +985,12 @@ class EcCoordinator:
                 "rebuilt": res["rebuilt"],
                 "spread": [list(m) for m in res["moves"]],
                 "rescrubbed": rescrubbed, **cause})
+        _events.emit("repair_done", server=server, vid=vid,
+                     host=res["host"], rebuilt=res["rebuilt"],
+                     moves=len(res["moves"]),
+                     move_errors=res.get("move_errors") or [],
+                     rescrubbed=rescrubbed, **cause)
+        # the legs' seconds are in no event: the log line keeps them
         _log.info("coordinator: repaired volume %d on %s: rebuilt %s, "
                   "spread %s, move errors %s, re-scrubbed %s, legs %s", vid,
                   res["host"], res["rebuilt"], res["moves"],
@@ -976,10 +1015,28 @@ class EcCoordinator:
     def _run_rebalance(self) -> int:
         """Token-budgeted rebalance (dedupe, rack diversity, skew), planned
         every cycle: a server joining or leaving needs no edge detection,
-        it just yields a plan."""
+        it just yields a plan.  A non-empty plan runs under a trace root
+        of its own (``coord.rebalance``)."""
         view = self._snapshot_view()
         plan = plan_rebalance(clone_view(view),
                               max_moves=self.MAX_MOVES_PER_CYCLE)
+        if not plan:
+            return 0
+        tr = get_tracer()
+        ctx = prev = None
+        if tr.enabled and _trace_context.current() is None:
+            ctx = _trace_context.TraceContext(_trace_context.new_trace_id())
+            prev = _trace_context.activate(ctx)
+        prev_srv = _trace_context.swap_server(self.server or None)
+        try:
+            with tr.span("coord.rebalance", planned=len(plan)):
+                return self._rebalance(view, plan)
+        finally:
+            _trace_context.swap_server(prev_srv)
+            if ctx is not None:
+                _trace_context.activate(prev)
+
+    def _rebalance(self, view: ClusterView, plan: list) -> int:
         executed = 0
         touched: set[str] = set()
         for mv in plan:
@@ -1005,9 +1062,9 @@ class EcCoordinator:
                     "vid": mv.vid, "sid": mv.sid,
                     "action": mv.kind, "reason": mv.reason,
                     "src": mv.src, "dst": mv.dst})
-            _log.info("coordinator: %s volume %d shard %d %s -> %s (%s)",
-                      mv.kind, mv.vid, mv.sid, mv.src, mv.dst or "-",
-                      mv.reason)
+            _events.emit("rebalance_move", server=self.server or None,
+                         vid=mv.vid, sid=mv.sid, src=mv.src, dst=mv.dst,
+                         reason=mv.reason)
         if touched:
             self.executor.refresh_heartbeats(touched)
         return executed

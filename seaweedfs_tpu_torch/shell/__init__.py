@@ -3,5 +3,6 @@
 from . import commands as commands  # noqa: F401
 from . import coordinator_commands as coordinator_commands  # noqa: F401
 from . import ec_commands as ec_commands  # noqa: F401
+from . import trace_commands as trace_commands  # noqa: F401
 from . import volume_commands as volume_commands  # noqa: F401
 from .commands import COMMANDS, CommandEnv, repl, run_command  # noqa: F401

@@ -5,7 +5,13 @@ commands.go + shell_liner.go).  Commands register into COMMANDS via
 @command; mutating commands must hold the master's admin lock
 (command_lock_unlock.go semantics via env.confirm_is_locked).
 
-Not ported: the tracer around each command and ``fault.list``.
+Every command is a force-sampled trace root: its Traceparent reaches
+every server it calls, ``env.last_trace_id`` names it, and a bare
+``trace.fetch`` shows the previous command's stitched trace.  With the
+tracer on (``-trace.sample``) the command records a ``shell.<name>``
+span.
+
+Not ported: ``fault.list``.
 """
 
 from __future__ import annotations
@@ -14,6 +20,8 @@ import shlex
 from typing import Callable, Optional
 
 from ..client.operation import MasterClient
+from ..observability import context as _trace_context
+from ..observability import get_tracer
 from ..utils.httpd import HttpError, http_json
 
 COMMANDS: dict[str, Callable] = {}
@@ -34,6 +42,9 @@ class CommandEnv:
         self.master_url = master_url
         self.master = MasterClient(master_url)
         self.admin_token: Optional[int] = None
+        # the trace ids of the last command and the one before it
+        self.last_trace_id = ""
+        self.prev_trace_id = ""
 
     # --- master helpers ---------------------------------------------------
     def master_get(self, path: str,
@@ -112,7 +123,20 @@ def run_command(env: CommandEnv, line: str) -> object:
     fn = COMMANDS.get(name)
     if fn is None:
         raise KeyError(f"unknown command {name!r}; try `help`")
-    return fn(env, parse_flags(args))
+    # force-sampled: operator commands are rare, and the decision
+    # travels in the Traceparent to every server the command reaches
+    ctx = _trace_context.TraceContext(_trace_context.new_trace_id())
+    prev = _trace_context.activate(ctx)
+    env.prev_trace_id = env.last_trace_id
+    env.last_trace_id = ctx.trace_id
+    try:
+        tracer = get_tracer()
+        if tracer.enabled:
+            with tracer.span(f"shell.{name}"):
+                return fn(env, parse_flags(args))
+        return fn(env, parse_flags(args))
+    finally:
+        _trace_context.activate(prev)
 
 
 def repl(master_url: str) -> None:
@@ -129,6 +153,12 @@ def repl(master_url: str) -> None:
             out = run_command(env, line)
             if out is not None:
                 print(out)
+            # the command's trace id, for `trace.fetch`; only with the
+            # tracer on (with it off nothing is collected)
+            if (env.last_trace_id and get_tracer().enabled
+                    and not line.strip().startswith("trace.")):
+                print(f"[trace {env.last_trace_id} — `trace.fetch` "
+                      "shows the cluster view]")
         except (HttpError, RuntimeError, KeyError, ValueError) as e:
             print(f"error: {e}")
     env.unlock()

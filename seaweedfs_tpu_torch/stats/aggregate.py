@@ -19,9 +19,10 @@ A peer that leaves the registry drops out.  The endpoints scrape on
 demand through a short TTL (``min_interval``); ``start_loop`` adds the
 master's ``-metricsAggregationSeconds`` background scrape.
 
-A peer's up -> down transition is logged; the reference also journals it
-as a ``peer_stale`` event and carries the request's trace context onto the
-scrape threads, which wait for the port's tracer and event journal.
+A peer's up -> down transition is journaled as a ``peer_stale`` event
+(once per loss, not per scrape), and a scrape carries the calling
+request's trace context onto its pool threads, so a sampled GET
+/cluster/health shows its fan-out as ``rpc.client`` hops.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..observability import context as _trace_context
+from ..observability import events as _events
 from ..utils.httpd import http_bytes
 from .metrics import Counter, Gauge, Histogram
 
@@ -312,19 +315,22 @@ class ClusterAggregator:
                 del self._peers[gone]
         if not urls:
             return
+        # the pool's requests nest under the caller's open span
+        ctx = _trace_context.fork_for_thread()
 
         def one(url: str):
-            try:
-                fams = parse_prometheus_text(self._fetch(url))
-            except Exception as e:  # noqa: BLE001 - the peer is marked down
-                return url, None, f"{type(e).__name__}: {e}"[:200], None
-            scrub = None
-            if include_scrub:
+            with _trace_context.scope(ctx):
                 try:
-                    scrub = self._scrub_fetch(url)
-                except Exception:  # noqa: BLE001 - scrub state is optional
-                    scrub = None
-            return url, fams, "", scrub
+                    fams = parse_prometheus_text(self._fetch(url))
+                except Exception as e:  # noqa: BLE001 - marked down
+                    return url, None, f"{type(e).__name__}: {e}"[:200], None
+                scrub = None
+                if include_scrub:
+                    try:
+                        scrub = self._scrub_fetch(url)
+                    except Exception:  # noqa: BLE001 - optional state
+                        scrub = None
+                return url, fams, "", scrub
 
         with concurrent.futures.ThreadPoolExecutor(
                 max_workers=min(8, len(urls)),
@@ -347,7 +353,7 @@ class ClusterAggregator:
                         lost.append((url, err))
                     st.up, st.error = False, err
         for url, err in lost:
-            _log.warning("peer stale: %s (%s)", url, err)
+            _events.emit("peer_stale", peer=url, error=err)
 
     def start_loop(self, interval: float) -> threading.Thread:
         """The periodic scraper (the master's -metricsAggregationSeconds);

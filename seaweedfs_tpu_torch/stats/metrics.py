@@ -16,7 +16,8 @@ families under the reference's names:
   - ``CoordinatorMetrics``: the master's repairs, moves, cycles, the
     under-replication gauge and the repair queue depth.
 
-Not ported: OpenMetrics exemplars (the port has no tracer), the push
+Not ported: OpenMetrics exemplars (a sampled request's trace id on its
+latency bucket), the push
 gateway loop, and the families the port cannot have or has not ported:
 ``ECPipelineMetrics`` (parity-worker restarts and CPU fallbacks), the
 volume server's native-plane gauge, the master's heartbeat and leader

@@ -8,20 +8,19 @@ peer drains its bucket once and every further retry is denied.  The
 coordinator draws from it before re-attempting a failed repair
 (``retry_allowed(f"repair:{vid}", "coordinator")``).
 
-A denial is logged, at most once per destination per
-``_EVENT_MIN_INTERVAL_S``; the reference also counts it and journals a
-``retry_budget_exhausted`` event, which wait for the port's event journal.
+A denial is journaled as a ``retry_budget_exhausted`` event, at most once
+per destination per ``_EVENT_MIN_INTERVAL_S``; the reference also counts
+it on a request-plane counter the port does not have.
 """
 
 from __future__ import annotations
 
-import logging
 import random
 import threading
 import time
 from typing import Optional
 
-_log = logging.getLogger(__name__)
+from ..observability import events as _events
 
 
 def jittered_backoff(base: float, cap: float, attempt: int) -> float:
@@ -87,7 +86,7 @@ class RetryBudget:
 # a peer hammered by one subsystem denies retries to all of them
 _GLOBAL: Optional[RetryBudget] = None
 _global_lock = threading.Lock()
-# at most one log line per destination per window
+# at most one journal event per destination per window
 _EVENT_MIN_INTERVAL_S = 5.0
 _last_event: dict[str, float] = {}  # guarded-by: _global_lock
 
@@ -102,8 +101,8 @@ def get_retry_budget() -> RetryBudget:
 
 def retry_allowed(dest: str, kind: str = "http") -> bool:
     """The call every retry site makes before re-attempting: draw from the
-    process-wide budget; on denial log the destination (rate-limited) and
-    return False, and the caller keeps what it already did."""
+    process-wide budget; on denial journal the destination (rate-limited)
+    and return False, and the caller keeps what it already did."""
     if get_retry_budget().allow(dest):
         return True
     now = time.monotonic()
@@ -112,5 +111,5 @@ def retry_allowed(dest: str, kind: str = "http") -> bool:
         if emit:
             _last_event[dest] = now
     if emit:
-        _log.warning("retry budget exhausted: dest=%s kind=%s", dest, kind)
+        _events.emit("retry_budget_exhausted", dest=dest, kind=kind)
     return False

@@ -1,0 +1,124 @@
+"""The tracing and journal routes every server registers.
+
+The port's copy of three routes of seaweedfs_tpu/utils/debug.py:
+
+  GET /debug/traces            the process's span ring as Chrome
+                               trace-event JSON; ?enable=1 / ?disable=1
+                               turn the tracer on / off, ?clear=1 drains
+                               the ring after the dump, ?trace_id= and
+                               ?root= return one trace / one subtree
+  GET /debug/traces/analyze    the critical-path report of the ring
+                               (observability/analysis.py); ?format=text
+                               renders what the shell's trace.analyze
+                               prints
+  GET /debug/events            the process's event journal; ?type=,
+                               ?severity=, ?min_severity=, ?since_seq=,
+                               ?since=<unix ts>, ?limit=N
+
+Not ported: pprof, the sampling profiler, the request log, the flight
+recorder and the status UI.
+"""
+
+from __future__ import annotations
+
+import json
+
+from ..observability import (analyze, disable_tracing, enable_tracing,
+                             get_tracer, render_report)
+from ..observability.events import get_journal
+from ..stats import ec_integrity_metrics
+from .httpd import HttpError, Request, Response, Router
+
+# the reference's pipeline-health counters the port has no path to bump:
+# it runs no worker processes (worker_restarts), never falls back to
+# another engine (engine_fallbacks) and has no framed-TCP plane
+# (degraded_binds)
+_NO_PIPELINE_FAULTS = {"worker_restarts": 0, "engine_fallbacks": 0,
+                       "degraded_binds": 0}
+
+
+def register_debug_routes(router: Router) -> None:
+    r = router
+
+    @r.route("GET", "/debug/traces/analyze")
+    def debug_traces_analyze(req: Request) -> Response:
+        """Critical-path attribution report over the process's span ring;
+        the integrity counters ride in as ``health``, so a run that met
+        and healed shard rot reads DEGRADED even after the ring rotated
+        its retry events out."""
+        report = analyze(get_tracer(),
+                         counters={**_NO_PIPELINE_FAULTS,
+                                   **ec_integrity_metrics().totals()})
+        if req.query.get("format", "").lower() == "text":
+            return Response(raw=render_report(report).encode(),
+                            headers={"Content-Type":
+                                     "text/plain; charset=utf-8"})
+        return Response(report)
+
+    @r.route("GET", "/debug/traces")
+    def debug_traces(req: Request) -> Response:
+        """The span ring as Chrome trace-event JSON (chrome://tracing,
+        ui.perfetto.dev).  A filter never drains the ring: clear is
+        ignored with ?trace_id= or ?root=."""
+
+        def flag(name: str) -> bool:
+            # only explicit affirmatives act: ?clear=off must not drain
+            return req.query.get(name, "").lower() in \
+                ("1", "true", "yes", "on")
+
+        if flag("enable"):
+            enable_tracing()
+        tracer = get_tracer()
+        trace_id = req.query.get("trace_id", "")
+        root_id = req.query.get("root", "")
+        spans = None
+        if trace_id or root_id:
+            spans = tracer.snapshot()
+            if trace_id:
+                spans = [sp for sp in spans if sp.trace_id == trace_id]
+            if root_id:
+                by_id = {sp.span_id: sp for sp in spans}
+                children: dict = {}
+                for sp in spans:
+                    if sp.parent_id:
+                        children.setdefault(sp.parent_id, []).append(sp)
+                keep, stack, seen = [], [root_id], set()
+                while stack:
+                    sid = stack.pop()
+                    if sid in seen:
+                        continue
+                    seen.add(sid)
+                    sp = by_id.get(sid)
+                    if sp is not None:
+                        keep.append(sp)
+                    stack.extend(c.span_id
+                                 for c in children.get(sid, []))
+                spans = keep
+        # the drops of the capture returned, read before a clear=1 drain
+        # re-baselines them
+        spans_dropped = tracer.dropped
+        doc = tracer.to_chrome(clear=flag("clear"), spans=spans)
+        doc["spansDropped"] = spans_dropped
+        if flag("disable"):
+            disable_tracing()
+        return Response(raw=json.dumps(doc).encode(),
+                        headers={"Content-Type": "application/json"})
+
+    @r.route("GET", "/debug/events")
+    def debug_events(req: Request) -> Response:
+        """This process's event journal, filtered."""
+        j = get_journal()
+        try:
+            since_seq = int(req.query.get("since_seq") or 0)
+            since_ts = float(req.query.get("since") or 0.0)
+            limit = min(int(req.query.get("limit") or 256), 2048)
+        except ValueError as e:
+            raise HttpError(400, f"bad query parameter: {e}")
+        events = j.query(
+            type_=req.query.get("type") or None,
+            severity=req.query.get("severity") or None,
+            min_severity=req.query.get("min_severity") or None,
+            since_seq=since_seq, since_ts=since_ts, limit=limit)
+        return Response({"events": events, "count": len(events),
+                         "namespace": j.namespace,
+                         "dropped": j.dropped})

@@ -12,6 +12,18 @@ The subset of seaweedfs_tpu/utils/httpd.py that a volume server needs:
     ``http.client``, one connection per call;
   - ``parse_range``, ``extract_upload``, ``qint``: request parsing.
 
+Traces (``observability/``): with the process tracer enabled, ``dispatch``
+makes the request's head sampling decision (``context.begin_request``:
+adopt the caller's Traceparent, or decide afresh), stamps the thread with
+the server's identity (``Router.server_url``), records the request span
+``http.<router name>.<handler name>`` when sampled and answers with its
+``X-Trace-Id``; the thread's context is restored afterwards, so a
+connection's next request starts clean.  A disabled tracer costs one
+attribute check.  Every client call under a sampled context records an
+``rpc.client`` span and sends the Traceparent with it as the parent (the
+edge the master's collector stitches on); under an unsampled decision it
+sends the not-sampled header.
+
 Deadlines (``utils/deadline.py``): ``dispatch`` adopts a request's
 ``X-Weed-Deadline`` for the handler's thread, answers 504 before the
 handler runs when the budget is already spent (and when a handler raises
@@ -21,9 +33,9 @@ re-send the header with what is left, and raise ``DeadlineExceeded``
 without sending when it is spent.  A ``Router`` given a server's metrics
 bundle counts each route's requests, latency and 5xx answers.
 
-Not ported: admission control, heat and ledger accounting, tracing, the
-counter and journal event of a 504, TLS, the event-loop reactor and the
-pooled raw-socket client.
+Not ported: admission control, heat and ledger accounting, the request
+log, metric exemplars, the counter and journal event of a 504, TLS, the
+event-loop reactor and the pooled raw-socket client.
 """
 
 from __future__ import annotations
@@ -39,6 +51,9 @@ import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Callable, Optional
 
+from ..observability import context as _trace_context
+from ..observability.tracer import NOOP_SPAN as _NOOP_SPAN
+from ..observability.tracer import get_tracer as _get_tracer
 from . import deadline as _deadline
 from .deadline import DeadlineExceeded
 
@@ -194,6 +209,10 @@ class Router:
         # requests dispatched so far (a server's load gate reads it)
         self.requests = 0
         self._count_lock = threading.Lock()
+        # the owning server's advertised host:port, stamped on the spans
+        # of its requests (several servers may share one process tracer);
+        # None: the request's Host header stands in
+        self.server_url: Optional[str] = None
 
     def route(self, method: str, pattern: str):
         compiled = re.compile("^" + pattern + "$")
@@ -222,6 +241,17 @@ class Router:
                                          headers={"Connection": "close"}))
             return
         path = urllib.parse.unquote(urllib.parse.urlparse(handler.path).path)
+        # the trace context governs this request only, like the deadline
+        # below: gated on tracer.enabled, so a dormant tracer costs one
+        # attribute check
+        tracer = _get_tracer()
+        tctx = prev_ctx = prev_srv = None
+        traced = False
+        if tracer.enabled:
+            tctx, prev_ctx = _trace_context.begin_request(handler.headers)
+            traced = True
+            prev_srv = _trace_context.swap_server(
+                self.server_url or handler.headers.get("Host"))
         # the caller's budget governs this request only: the thread serves
         # its connection's next request too
         ddl, prev_ddl = _deadline.begin_request(handler.headers)
@@ -232,16 +262,21 @@ class Router:
                 match = pattern.match(path)
                 if not match:
                     continue
-                self._run(handler, Request(handler, match), fn, ddl)
+                self._run(handler, Request(handler, match), fn, ddl, tctx)
                 return
             self._drain_body(handler)
             self._send(handler, Response(
                 {"error": f"no route {method} {path}"}, status=404))
         finally:
             _deadline.end_request(prev_ddl)
+            if traced:
+                _trace_context.end_request(prev_ctx)
+                _trace_context.swap_server(prev_srv)
 
     def _run(self, handler: BaseHTTPRequestHandler, req: Request,
-             fn: Callable, ddl) -> None:
+             fn: Callable, ddl, tctx=None) -> None:
+        """``tctx``: a sampled request's trace context; the handler then
+        runs inside its request span."""
         t0 = time.perf_counter()
         try:
             if ddl is not None and ddl.expired():
@@ -249,6 +284,11 @@ class Router:
                 # will read
                 resp = Response({"error": "deadline exceeded before "
                                           "dispatch"}, status=504)
+            elif tctx is not None:
+                with _get_tracer().span(f"http.{self.name}.{fn.__name__}",
+                                        method=req.handler.command,
+                                        path=req.path):
+                    resp = fn(req)
             else:
                 resp = fn(req)
         except DeadlineExceeded as e:
@@ -272,6 +312,9 @@ class Router:
                 self.metrics.request_errors.inc(fn.__name__)
             self.metrics.request_histogram.observe(
                 fn.__name__, time.perf_counter() - t0)
+        if tctx is not None:
+            # the caller can fetch the stitched trace by this id
+            resp.headers.setdefault("X-Trace-Id", tctx.trace_id)
         if req._body is None:
             # answering mid-upload would reset the connection and lose the
             # status; an unread body must not be parsed as the next
@@ -396,6 +439,23 @@ def _connect(url: str, timeout: Optional[float]
     return conn, target
 
 
+def _egress_span(method: str, url: str, **attrs):
+    """The trace egress of every client call: an ``rpc.client`` span when
+    this thread holds a sampled trace context and the tracer is enabled
+    (its id becomes the callee's parent, so the Traceparent is injected
+    inside it), else the shared no-op.  -> (span, ctx); ctx None means
+    the thread has no decision at all and nothing is injected."""
+    ctx = _trace_context.current()
+    if ctx is None:
+        return _NOOP_SPAN, None
+    tracer = _get_tracer()
+    if tracer.enabled and _trace_context.current_sampled() is not None:
+        parsed = urllib.parse.urlsplit(url)
+        return tracer.span("rpc.client", method=method, peer=parsed.netloc,
+                           path=parsed.path, **attrs), ctx
+    return _NOOP_SPAN, ctx
+
+
 def _request(method: str, url: str, body: Optional[bytes],
              headers: Optional[dict], timeout: Optional[float],
              follow_redirects: bool) -> tuple[int, bytes, dict]:
@@ -403,6 +463,18 @@ def _request(method: str, url: str, body: Optional[bytes],
     http.client.HTTPException) when the peer cannot be reached, and
     DeadlineExceeded when the thread's deadline is spent before the send
     or cuts the wait for the answer."""
+    span, ctx = _egress_span(method, url)
+    with span:
+        if ctx is not None:
+            headers = _trace_context.inject_trace_headers(
+                dict(headers or {}))
+        return _request_hops(method, url, body, headers, timeout,
+                             follow_redirects)
+
+
+def _request_hops(method: str, url: str, body: Optional[bytes],
+                  headers: Optional[dict], timeout: Optional[float],
+                  follow_redirects: bool) -> tuple[int, bytes, dict]:
     for _ in range(5):
         # the budget left, re-read at every hop
         call_timeout = _deadline.clamp(timeout)
@@ -476,6 +548,15 @@ def http_download(method: str, url: str, dest_path: str,
     # the hour's default
     timeout = _deadline.clamp(timeout)
     headers = _deadline.inject_deadline_headers({})
+    span, ctx = _egress_span(method, url, download=True)
+    with span:
+        if ctx is not None:
+            _trace_context.inject_trace_headers(headers)
+        return _download_body(method, url, dest_path, timeout, headers)
+
+
+def _download_body(method: str, url: str, dest_path: str, timeout,
+                   headers: dict) -> int:
     tmp = dest_path + ".part"
     try:
         conn, target = _connect(url, timeout)

@@ -21,9 +21,15 @@ and the next start() continues from the same (volume, shard).
 
 The unmount, rename and remount of a quarantine happen inside the store's
 ``ec_swap()``, so later reads find the volume remounted degraded, never
-absent; reads in flight finish on the files they opened.  The reference's trace spans and
-journal events are logged instead, until the port has an observability
-layer; its targeted re-scrub trace context is not ported.
+absent; reads in flight finish on the files they opened.
+
+Each pass is a force-sampled trace root while the tracer is on
+(``ec.scrub.pass`` over ``ec.scrub.volume`` and ``ec.scrub.repair``), its
+spans and events stamped with this server's url; a targeted pass adopts
+the trace context of the request that started it, so a coordinator's
+re-scrub journals under the repair.  Each corrupt shard is a
+``shard_corrupt`` event and each volume's outcome a ``scrub_repair``,
+``scrub_unrepairable`` or ``scrub_repair_failed`` event.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ from typing import Callable, Optional
 from ..ec.integrity import (EciSidecar, backfill_sidecar, note_corruption,
                             sidecar_is_stale, verify_shard_file)
 from ..ec.layout import to_ext
+from ..observability import context as _trace_context
+from ..observability import events as _events
+from ..observability import get_tracer
 from ..stats import ec_integrity_metrics
 
 _log = logging.getLogger(__name__)
@@ -66,8 +75,10 @@ class EcScrubber:
         # the next (volume id, shard id) to verify
         self.cursor: tuple[int, int] = (0, 0)
         self.verdicts: dict[int, dict] = {}
-        # a targeted one-pass scan of one volume (start(volume_id=))
+        # a targeted one-pass scan of one volume (start(volume_id=)), and
+        # the trace context it adopts
         self.only_vid: Optional[int] = None
+        self._ctx = None
         self.passes = 0
         self.running = False
         self.paused = False
@@ -78,10 +89,11 @@ class EcScrubber:
     def start(self, rate_mb_s: Optional[float] = None,
               interval_s: Optional[float] = None,
               backfill: Optional[bool] = None,
-              volume_id: Optional[int] = None) -> bool:
+              volume_id: Optional[int] = None, ctx=None) -> bool:
         """Launch the scan thread; False when one is already running (the
         knobs still apply to the live scan).  volume_id asks for a
-        targeted one-pass scan of that volume."""
+        targeted one-pass scan of that volume, under the trace context
+        ``ctx``."""
         with self._lock:
             if rate_mb_s is not None:
                 self.rate_mb_s = float(rate_mb_s)
@@ -93,11 +105,13 @@ class EcScrubber:
                 return False
             if volume_id is not None:
                 self.only_vid = int(volume_id)
+                self._ctx = ctx
                 # a cursor left mid-volume by an interrupted full scan
                 # must not skip the target's first shards
                 self.cursor = (int(volume_id), 0)
             else:
                 self.only_vid = None
+                self._ctx = None
             self._stop.clear()
             self._debt, self._t0 = 0.0, None
             # running from here: a status poll right after start() must
@@ -139,6 +153,7 @@ class EcScrubber:
                     interval = self.interval_s
                     targeted = self.only_vid is not None
                     self.only_vid = None
+                    self._ctx = None
                 if targeted or self._stop.is_set() or not interval:
                     break  # targeted scans are always one pass
                 if self._stop.wait(interval):
@@ -153,25 +168,55 @@ class EcScrubber:
     # --- scanning ---------------------------------------------------------
     def run_pass(self) -> dict:
         """One scan over every mounted EC volume, resuming from the
-        cursor.  Synchronous: the tests and the scan thread call it."""
+        cursor.  Synchronous: the tests and the scan thread call it.
+        With the tracer on, the pass is a force-sampled trace root (or
+        adopts a targeted scan's context), so its spans ship and its
+        events carry the pass's trace id."""
+        tr = get_tracer()
+        with self._lock:
+            inherit = self._ctx
+        ctx = prev = None
+        if inherit is not None and _trace_context.current() is None:
+            ctx = inherit
+            prev = _trace_context.activate(ctx)
+        elif tr.enabled and _trace_context.current() is None:
+            ctx = _trace_context.TraceContext(_trace_context.new_trace_id())
+            prev = _trace_context.activate(ctx)
+        # spans and events of the scan thread belong to this server, even
+        # with several servers in one process
+        ip = getattr(self.store, "ip", None)
+        port = getattr(self.store, "port", None)
+        prev_srv = _trace_context.swap_server(
+            f"{ip}:{port}" if ip and port else None)
+        try:
+            return self._run_pass_inner(tr)
+        finally:
+            _trace_context.swap_server(prev_srv)
+            if ctx is not None:
+                _trace_context.activate(prev)
+
+    def _run_pass_inner(self, tr) -> dict:
         with self._lock:
             cv = self.cursor[0]
             only = self.only_vid
-        vids = sorted(self.store.ec_volumes)
-        if only is not None:
-            vids = [v for v in vids if v == only]
-        else:
-            # rotate so the pass resumes at the cursor, then wraps
-            vids = [v for v in vids if v >= cv] + [v for v in vids if v < cv]
-        for vid in vids:
-            if self._stop.is_set():
-                return self.status()
-            self._scrub_volume(vid)
-        if not self._stop.is_set() and only is None:
-            # clean wrap: the next pass starts fresh (a stop mid-scan
-            # keeps the mid-volume cursor _scrub_volume left)
-            with self._lock:
-                self.cursor = (0, 0)
+        with tr.span("ec.scrub.pass", cursor_vid=cv,
+                     targeted=-1 if only is None else only):
+            vids = sorted(self.store.ec_volumes)
+            if only is not None:
+                vids = [v for v in vids if v == only]
+            else:
+                # rotate so the pass resumes at the cursor, then wraps
+                vids = [v for v in vids if v >= cv] + \
+                    [v for v in vids if v < cv]
+            for vid in vids:
+                if self._stop.is_set():
+                    return self.status()
+                self._scrub_volume(vid)
+            if not self._stop.is_set() and only is None:
+                # clean wrap: the next pass starts fresh (a stop mid-scan
+                # keeps the mid-volume cursor _scrub_volume left)
+                with self._lock:
+                    self.cursor = (0, 0)
         return self.status()
 
     def _pace(self, nbytes: int) -> None:
@@ -210,6 +255,7 @@ class EcScrubber:
         base = ev.base_file_name
         collection = self.store.ec_collections.get(vid, "")
         m = ec_integrity_metrics()
+        tr = get_tracer()
         sc = ev.sidecar or EciSidecar.load(base)
         present = sorted(ev.shards)
         sizes = []
@@ -248,32 +294,34 @@ class EcScrubber:
         corrupt: dict[int, list[int]] = {}
         blocks = 0
         interrupted = False
-        for sid in present:
-            if sid < start_shard:
-                continue
-            if self._stop.is_set():
-                # resume HERE next start; corruption already found in the
-                # scanned prefix is acted on below, not dropped
+        with tr.span("ec.scrub.volume", vid=vid, shards=len(present)):
+            for sid in present:
+                if sid < start_shard:
+                    continue
+                if self._stop.is_set():
+                    # resume HERE next start; corruption already found in
+                    # the scanned prefix is acted on below, not dropped
+                    with self._lock:
+                        self.cursor = (vid, sid)
+                    interrupted = True
+                    break
                 with self._lock:
                     self.cursor = (vid, sid)
-                interrupted = True
-                break
-            with self._lock:
-                self.cursor = (vid, sid)
-            counted = [0]
+                counted = [0]
 
-            def on_block(ok, _c=counted):
-                _c[0] += 1
-                m.scrub_blocks.inc("ok" if ok else "corrupt")
+                def on_block(ok, _c=counted):
+                    _c[0] += 1
+                    m.scrub_blocks.inc("ok" if ok else "corrupt")
 
-            try:
-                bad = verify_shard_file(sc, base + to_ext(sid), sid,
-                                        pace=self._pace, on_block=on_block)
-            except OSError:
-                bad = []  # unreadable file: the rebuild path's problem
-            blocks += counted[0]
-            if bad:
-                corrupt[sid] = bad
+                try:
+                    bad = verify_shard_file(sc, base + to_ext(sid), sid,
+                                            pace=self._pace,
+                                            on_block=on_block)
+                except OSError:
+                    bad = []  # unreadable file: the rebuild's problem
+                blocks += counted[0]
+                if bad:
+                    corrupt[sid] = bad
         if not interrupted:
             with self._lock:
                 self.cursor = (vid + 1, 0)
@@ -286,8 +334,8 @@ class EcScrubber:
             return
         for sid, blks in corrupt.items():
             note_corruption("scrub", sid, base, block=blks[0])
-            _log.warning("ec scrub: quarantine volume %d shard %d "
-                         "(%d corrupt blocks)", vid, sid, len(blks))
+            tr.event("ec.scrub.quarantine", vid=vid, shard=sid,
+                     blocks=len(blks))
         self._quarantine_and_repair(vid, collection, base, present,
                                     list(corrupt), blocks)
 
@@ -319,13 +367,15 @@ class EcScrubber:
                 except Exception as e:  # noqa: BLE001 - verdict carries it
                     error = f"remount: {type(e).__name__}: {e}"
             if clean_left >= k:
-                try:
-                    self.store.ec_rebuild(vid, collection)
-                    repaired = True
-                    m.repairs.inc("repaired", amount=len(corrupt))
-                except Exception as e:  # noqa: BLE001 - verdict carries it
-                    error = f"{type(e).__name__}: {e}"
-                    m.repairs.inc("failed")
+                with get_tracer().span("ec.scrub.repair", vid=vid,
+                                       shards=len(corrupt)):
+                    try:
+                        self.store.ec_rebuild(vid, collection)
+                        repaired = True
+                        m.repairs.inc("repaired", amount=len(corrupt))
+                    except Exception as e:  # noqa: BLE001 - in the verdict
+                        error = f"{type(e).__name__}: {e}"
+                        m.repairs.inc("failed")
             else:
                 m.repairs.inc("unrepairable")
         finally:
@@ -344,6 +394,9 @@ class EcScrubber:
             verdict["error"] = error[:300]
         with self._lock:
             self.verdicts[vid] = verdict
-        _log.warning("ec scrub: volume %d %s, shards %s%s", vid,
-                     verdict["status"], sorted(corrupt),
-                     f" ({error[:200]})" if error else "")
+        _events.emit(
+            {"repaired": "scrub_repair",
+             "unrepairable": "scrub_unrepairable",
+             "repair_failed": "scrub_repair_failed"}[verdict["status"]],
+            vid=vid, shards=sorted(corrupt), blocks=blocks,
+            error=error[:200] if error else "")

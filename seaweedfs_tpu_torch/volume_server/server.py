@@ -28,10 +28,17 @@ than the server's own answers 400.  ``/status`` carries
 ``EcKernelLaunches``, the GF(2^8) kernels this process has launched (a
 port-only key: a drill reads it to see which server ran a repair).
 
+``GET /debug/traces``, ``/debug/traces/analyze`` and ``/debug/events``
+serve the process's span ring and event journal (utils/debug.py); a
+TraceShipper and an EventShipper send the spans of sampled traces and
+every journal event to the master the heartbeats follow, and are
+detached when the server stops.
+
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
-native planes, mmap and the needle cache, heat, ledger, admission,
-tracing, debug and tier routes, batch routes, tail, image resize, and
-the partial-range fast path (a Range GET slices the full body).
+native planes, mmap and the needle cache, heat, ledger, admission, the
+request log, pprof, the flight recorder, tier routes, batch routes,
+tail, image resize, and the partial-range fast path (a Range GET slices
+the full body).
 """
 
 from __future__ import annotations
@@ -47,6 +54,10 @@ import numpy as np
 from ..ec.ec_volume import NeedleNotFoundError
 from ..ec.integrity import EciSidecar, note_corruption, verify_shard_file
 from ..ec.layout import TOTAL_SHARDS_COUNT, to_ext
+from ..observability import context as _trace_context
+from ..observability import get_tracer
+from ..observability.collector import TraceShipper
+from ..observability.events import EventShipper, get_journal
 from ..ops.gf_matmul import gf_matmul
 from ..stats import REGISTRY, ec_integrity_metrics, volume_server_metrics
 from ..storage.file_id import FileId
@@ -66,6 +77,7 @@ from ..storage.volume import (
     volume_file_prefix,
 )
 from ..utils.compression import ungzip_data
+from ..utils.debug import register_debug_routes
 from ..utils.httpd import (
     UNSATISFIABLE_RANGE,
     HttpError,
@@ -122,6 +134,7 @@ class VolumeServer:
         self.metrics.max_volume_counter.set(max_volume_count)
         ec_integrity_metrics()  # its families exist at 0 on /metrics
         self.router = Router("volume", metrics=self.metrics)
+        self.router.server_url = self.url
         self._register_routes()
         self._server = None
         self._stop = threading.Event()
@@ -139,6 +152,15 @@ class VolumeServer:
         self._req_lock = threading.Lock()
         self._req_sample = (0, time.monotonic())
         self._req_busy = False
+        # sampled spans and journal events go to the master the
+        # heartbeats follow; the hooks chain, so several servers in one
+        # process each ship and the master dedups
+        self._trace_shipper = TraceShipper(
+            get_tracer(), server=self.url,
+            master_url_fn=lambda: self.master_url)
+        self._event_shipper = EventShipper(
+            get_journal(), server=self.url,
+            master_url_fn=lambda: self.master_url)
 
     @property
     def url(self) -> str:
@@ -146,6 +168,8 @@ class VolumeServer:
 
     # --- lifecycle --------------------------------------------------------
     def start(self) -> "VolumeServer":
+        self._trace_shipper.attach()
+        self._event_shipper.attach()
         self._server = serve(self.router, self.store.ip, self.store.port)
         threading.Thread(target=self._heartbeat_loop, daemon=True,
                          name=f"heartbeat:{self.url}").start()
@@ -156,6 +180,8 @@ class VolumeServer:
         self.scrubber.stop(join_timeout=0.5)
         if self._server is not None:
             stop_server(self._server)
+        self._trace_shipper.detach()
+        self._event_shipper.detach()
         self.store.close()
 
     def _rotate_master(self) -> None:
@@ -187,6 +213,12 @@ class VolumeServer:
                 logging.getLogger(__name__).exception("heartbeat payload")
                 self._stop.wait(self.pulse_seconds)
                 continue
+            # the events journaled before this state was read reach the
+            # master first: a rot's shard_corrupt lands before the
+            # heartbeat that shows its quarantine, so the coordinator's
+            # repair of it names its cause
+            self._event_shipper.flush(timeout=max(3.0,
+                                                  self.pulse_seconds * 2))
             try:
                 resp = http_json("POST", f"http://{self.master_url}/heartbeat",
                                  payload,
@@ -396,6 +428,7 @@ class VolumeServer:
     # --- routes -----------------------------------------------------------
     def _register_routes(self) -> None:
         r = self.router
+        register_debug_routes(r)
 
         @r.route("GET", FID_PATTERN)
         @r.route("HEAD", FID_PATTERN)
@@ -748,7 +781,9 @@ class VolumeServer:
         def ec_scrub_start(req: Request) -> Response:
             """Launch the scan (or retune a running one).  Body knobs:
             rate_mb_s (0 unthrottled), interval_s (0: one pass), backfill,
-            volume_id (a targeted one-pass scan of that volume)."""
+            volume_id (a targeted one-pass scan of that volume, which
+            adopts this request's trace context: a coordinator's
+            re-scrub journals under its repair)."""
             try:
                 b = req.json()
             except ValueError:  # not JSON: the defaults
@@ -758,13 +793,15 @@ class VolumeServer:
                 vid = int(vid) if vid is not None else None
             except (TypeError, ValueError):
                 raise HttpError(400, f"bad volume_id {vid!r}")
+            ctx = _trace_context.fork_for_thread() if vid is not None \
+                else None
             started = self.scrubber.start(
                 rate_mb_s=(float(b["rate_mb_s"])
                            if "rate_mb_s" in b else None),
                 interval_s=(float(b["interval_s"])
                             if "interval_s" in b else None),
                 backfill=(bool(b["backfill"]) if "backfill" in b else None),
-                volume_id=vid)
+                volume_id=vid, ctx=ctx)
             return Response({"started": started, **self.scrubber.status()})
 
         @r.route("POST", "/ec/scrub/stop")

@@ -100,6 +100,55 @@ def test_streaming_card_equals_cpu(cuda, tmp_path):
     assert enc.stats["dispatches"] >= 2
 
 
+def test_traced_work_on_the_card(cuda, tmp_path):
+    """Spans on the card's paths change neither bytes nor launches: the
+    codec's ``ec.reconstruct`` and a streaming encode under a process
+    tracer of their own, against the same work untraced."""
+    from seaweedfs_tpu_torch.observability import analyze, tracer
+
+    rs = ReedSolomon(10, 4)
+    data = _rand((10, 1 << 20), seed=6).numpy()
+    shards = list(data) + list(rs.encode(data))
+    got = {}
+    for traced in (False, True):
+        tr = tracer.Tracer(enabled=traced, namespace="pgpu")
+        saved, tracer._GLOBAL = tracer._GLOBAL, tr
+        try:
+            damaged = [None if i in (0, 13) else s
+                       for i, s in enumerate(shards)]
+            before = gf_matmul.launches
+            rs.reconstruct(damaged)
+            got[traced] = (gf_matmul.launches - before,
+                           [bytes(s) for s in damaged],
+                           [sp.name for sp in tr.snapshot()])
+        finally:
+            tracer._GLOBAL = saved
+    assert got[True][:2] == got[False][:2] and got[True][0] == 1
+    assert got[True][2] == ["ec.reconstruct"] and got[False][2] == []
+
+    dat = tmp_path / "v.dat"
+    dat.write_bytes(_rand(9 * 1024 * 1024, seed=7).numpy().tobytes())
+    out = {}
+    for traced in (False, True):
+        base = str(tmp_path / f"t{int(traced)}")
+        enc = StreamingEncoder(dispatch_mb=1, device="cuda")
+        tr = tracer.Tracer(enabled=traced, namespace="pgpu")
+        saved, tracer._GLOBAL = tracer._GLOBAL, tr
+        try:
+            before = gf_matmul.launches
+            enc.encode_file(str(dat), base)
+        finally:
+            tracer._GLOBAL = saved
+        out[traced] = (gf_matmul.launches - before,
+                       [open(base + to_ext(i), "rb").read()
+                        for i in range(14)])
+        if traced:
+            report = analyze(tr)
+    assert out[True] == out[False]
+    assert out[True][0] == enc.dispatches_for(9 * 1024 * 1024)
+    assert report["runs"][0]["dispatches"] == out[True][0]
+
+
 def test_volume_server_on_the_card(cuda, tmp_path):
     """VolumeServer(device="cuda"): an encode over HTTP, eight threads of
     degraded GETs with data shards 2 and 7 gone, and a request for the

@@ -54,6 +54,21 @@ def test_main_path_on_cpu(tmp_path):
     assert resume["stats"]["retries"] == 1 and resume["resume_byte"] > 0
     assert resume["stats"]["dispatches"] < resume["dispatches"]
     assert gf_matmul.launches == before
+    # the trace A/B on the same volume: both encodes to the clean bytes
+    # (checked inside), the traced one read by the analyzer
+    ab = chip_smoke.run_trace_ab("cpu", str(tmp_path), res["hashes"])
+    assert [r["mode"] for r in ab["runs"]] == ["off", "on", "on", "off"]
+    assert [r["launches"] for r in ab["runs"]] == [0, 0, 0, 0]
+    assert ab["span_names"]["pipeline.encode_file"] == 1
+    assert ab["span_names"]["pipeline.dispatch"] == ab["dispatches"]
+    assert ab["dropped"] == 0 and ab["spans"] > 4 * ab["dispatches"]
+    assert set(ab["attribution"]["stage_s"]) >= {"setup", "fill", "dispatch",
+                                                 "write", "close"}
+    assert ab["attribution"]["degraded"] is False
+    assert set(ab["span_cost_us"]) == {"disabled", "enabled", "sampled"}
+    from seaweedfs_tpu_torch.observability import get_tracer
+
+    assert get_tracer().enabled is False and not get_tracer().snapshot()
 
 
 def test_http_path_on_cpu(tmp_path):
@@ -172,6 +187,43 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert all(s["launches"] == 0 for s in alive)  # the plain versions
     assert res["scrub"]["host"] in res["servers"]
     assert res["scrub"]["healed_on"]
+    # the traced GETs: every trace stitched and checked by class inside;
+    # both classes' hops timed, and the untraced GETs' classes again
+    traced = res["traced_gets"]
+    assert traced["traces"] == 16 + 3 * 5
+    assert traced["hops_ms"]["front"]["n"] == traced["traces"]
+    for hop in ("lookup_ec", "remote_shard_read", "reconstruct"):
+        assert traced["hops_ms"][hop]["n"] > 0, hop
+    assert traced["hops_ms"]["outside_front"]["n"] == traced["traces"]
+    assert all(s["ms"] >= s["front_ms"] for s in traced["slowest"])
+    assert len(traced["slowest"]) == 5
+    assert all(s["bounding_hop"] for s in traced["slowest"])
+    assert {"a_1_client_traced", "b_1_client_traced", "a_3_clients_traced",
+            "b_3_clients_traced", "a_3_clients_after"} <= set(res["gets_ms"])
+    passes = res["get_passes"]
+    assert list(passes) == ["1_client", "3_clients", "1_client_traced",
+                            "3_clients_traced", "3_clients_after",
+                            "3_clients_sampled_5pct",
+                            "3_clients_traced_again",
+                            "3_clients_after_again"]
+    assert all(p["gets"] in (16, 15) and p["cpu_s"]["master"] >= 0
+               and 0 <= p["sys_s"]["master"] <= p["cpu_s"]["master"]
+               for p in passes.values())
+    # every traced period recorded spans; 5% of 15 GETs sample at most a
+    # few, so that period holds mostly heartbeats and scrapes
+    spans = res["traced_spans"]
+    assert set(spans) == {"traced", "sampled_5pct", "traced_again"}
+    assert spans["traced"] > spans["traced_again"] > 0
+    assert spans["sampled_5pct"] > 0
+    # the journal of the drill, checked in order inside
+    journal = drill["journal"]
+    assert [t for t, _ in journal["rot"][:4]] == [
+        "shard_corrupt", "scrub_unrepairable", "repair_planned",
+        "repair_done"]
+    assert journal["rot_cause"] in ("shard_corrupt", "scrub_unrepairable")
+    assert drill["rot_repair"]["cause_event"]
+    assert "peer_stale" in [t for t, _ in journal["loss"]]
+    assert journal["events_tail_lines"] >= 5
 
 
 def test_refuses_without_a_card_or_a_checkout(tmp_path):
