@@ -34,7 +34,14 @@ result.  Phases, each of which fails the run on any mismatch:
     GETs through EC (ETag, type, Range, If-None-Match), delete and
     ``/admin/ec/rebuild`` four shards (hashes must match), 200 degraded
     GETs from one client and 200 from eight at once with shards 2 and 7
-    gone, the scrubber (``/ec/scrub/start`` and ``/ec/scrub/status``): a
+    gone, then the overload leg (``run_overload``): a second in-process
+    master and ``VolumeServer(device="cuda", max_inflight=4)`` over hard
+    links of the same shards, 32 readers x 25 GETs at once, every answer
+    the written bytes or the shed's 503, the 503s, the shed counter,
+    ``shed_total`` and the master's /cluster/health equal, one launch per
+    lost interval of the admitted GETs only, /metrics and /status
+    answering throughout, then a spent ``X-Weed-Deadline``'s 504; the
+    scrubber (``/ec/scrub/start`` and ``/ec/scrub/status``): a
     clean pass, then a bit flipped in shards 3 and 12 and a pass that must
     quarantine both to ``.bad`` and rebuild them on the card to their
     sha256 while a reader's GETs keep returning the written bytes, then
@@ -83,7 +90,15 @@ result.  Phases, each of which fails the run on any mismatch:
     that weigh the tracer's cost against the host's drift: GETs sampled
     at 5% at their root, all at rate 1 again, untraced again, each
     pass's CPU per process and each traced period's spans counted from
-    every ring; ``ec.rebuild`` (the rebuilt shards must
+    every ring; then the profile leg: one more untraced and one rate-1
+    8-client pass, four times as long, while the server that
+    reconstructed most and the master answer ``/debug/profile`` at 100
+    Hz, each profile's samples by thread and layer printed beside the
+    traced minus the untraced shares, the thread census
+    (``/debug/pprof/goroutine``), the sampler's own cost, and a
+    /cluster/health with nothing shed and no 504; each server's first
+    class (b) GET is printed against its later ones; ``ec.rebuild`` (the
+    rebuilt shards must
     match their sha256), a bit flipped in a shard of a server holding
     fewer than 10 (``ec.scrub -all`` must call it unrepairable and
     quarantine it, ``ec.rebuild`` heal it to its sha256, and a second
@@ -157,6 +172,8 @@ NEEDLE_MIN, NEEDLE_MAX = 1 << 10, 4 << 20
 DEGRADED_READS = 200
 PARITY_STRIPES = 32
 HTTP_THREADS, HTTP_READS_PER_THREAD = 8, 25
+# the overload leg: 32 readers x 25 degraded GETs at a -maxInflight 4 server
+OVERLOAD_THREADS, OVERLOAD_READS_PER_THREAD, OVERLOAD_MAX_INFLIGHT = 32, 25, 4
 DECODED_READS = 50
 CLI_VOLUME_BYTES = 64 << 20
 CLI_READS = 20
@@ -541,6 +558,7 @@ def run_trace_ab(device: str, work: str, hashes: dict) -> dict:
                 enable_tracing()
                 set_sample_rate(1.0)
             before = gf_matmul.launches
+            health0 = ec_integrity_metrics().totals()
             t0 = time.perf_counter()
             store.ec_generate(1)
             if device == "cuda":
@@ -554,8 +572,11 @@ def run_trace_ab(device: str, work: str, hashes: dict) -> dict:
             if mode == "on":
                 disable_tracing()
                 spans = tracer.snapshot()
-                report = analyze(tracer,
-                                 counters=ec_integrity_metrics().totals())
+                # this encode's integrity counts, not the process's:
+                # whatever rotted before it must not mark it degraded
+                health1 = ec_integrity_metrics().totals()
+                report = analyze(tracer, counters={
+                    k: health1[k] - health0[k] for k in health1})
             got = {ext: sha256_file(base + ext) for ext in hashes}
             if got != hashes:
                 raise AssertionError(
@@ -606,6 +627,198 @@ def span_cost_us(n: int = 20000) -> dict:
         finally:
             context.activate(prev)
     return out
+
+
+# a profile's samples, by frame: the port's modules have distinct file
+# names but server.py, so a frame's (file, function) tells its layer
+PROFILE_HZ = 100
+PROFILE_ROUNDS = 4
+_SHIPPER_FUNCS = {"_on_span", "_note_lost_locked", "_flush_loop", "_flush",
+                  "_on_event", "flush", "ship_batch"}
+_COLLECTOR_FUNCS = {"ingest", "_evict", "get", "summaries", "chrome",
+                    "query"}
+_JSON_FUNCS = {"dumps", "loads", "encode", "iterencode", "decode",
+               "raw_decode"}
+_HTTP_CLIENT_FUNCS = {"_connect", "_egress_span", "_request",
+                      "_request_hops", "http_json", "http_bytes",
+                      "http_download", "_download_body"}
+_EC_FILES = {"codec.py", "ec_volume.py", "encoder.py", "gf256.py",
+             "integrity.py", "layout.py", "streaming.py", "overlap.py"}
+# a thread parked here waits for work: a lock, an event, a poll, a listen
+_IDLE_LEAVES = {("threading.py", "wait"),
+                ("threading.py", "_wait_for_tstate_lock"),
+                ("selectors.py", "select"), ("socket.py", "accept")}
+_FRAME_RE = re.compile(r"^(.*) \((.*):(\d+)\)$")
+PROFILE_LAYERS = ("tracer", "shippers", "collector", "json", "http_client",
+                  "httpd", "ec", "kernel_wrapper")
+
+
+def _frame(label: str) -> tuple[str, str]:
+    m = _FRAME_RE.match(label)
+    return (m.group(2), m.group(1)) if m else ("", label)
+
+
+def frame_layer(file: str, func: str) -> str:
+    """The layer of a (file, function) frame, or "" for none: the span
+    tracer and journal, the shippers, the master's collector, json, the
+    HTTP client calls (``http.client`` and httpd's), the HTTP server,
+    ``ec/``, the kernel wrapper."""
+    if file in ("tracer.py", "context.py"):
+        return "tracer"
+    if file in ("collector.py", "events.py"):
+        return ("shippers" if func in _SHIPPER_FUNCS else
+                "collector" if func in _COLLECTOR_FUNCS else "tracer")
+    if file == "analysis.py":
+        return "collector"
+    if file in ("__init__.py", "encoder.py", "decoder.py") and \
+            func in _JSON_FUNCS:
+        return "json"
+    if file == "client.py" or (file == "httpd.py"
+                               and func in _HTTP_CLIENT_FUNCS):
+        return "http_client"
+    if file in ("httpd.py", "socketserver.py"):
+        return "httpd"
+    if file in _EC_FILES:
+        return "ec"
+    if file == "gf_matmul.py":
+        return "kernel_wrapper"
+    return ""
+
+
+def profile_summary(collapsed: str) -> dict:
+    """One /debug/profile body -> its stack samples by thread (digits
+    folded), busy ones by thread, the ten heaviest leaf frames, the
+    ticks (MainThread's samples) and the mean stack depth, and where the
+    busy samples went.  A sample whose leaf waits for work
+    (``_IDLE_LEAVES``) is idle, one whose leaf reads a socket waits on a
+    peer (``socket_read``); the rest are busy.  ``self_share``: each busy
+    sample goes to the layer of the frame nearest its leaf that has one,
+    else ``other``; ``under_share``: to every layer on its stack (the
+    request thread's whole work is under httpd).  Both are of the busy
+    samples; ``idle`` and ``socket_read`` are of all of them."""
+    threads: dict[str, int] = {}
+    busy_threads: dict[str, int] = {}
+    leaves: dict[str, int] = {}
+    self_n = dict.fromkeys(PROFILE_LAYERS + ("other",), 0)
+    under_n = dict.fromkeys(PROFILE_LAYERS, 0)
+    total = idle = socket_read = depth = 0
+    for line in collapsed.splitlines():
+        stack, _, count = line.rpartition(" ")
+        n = int(count)
+        parts = stack.split(";")
+        total += n
+        depth += n * (len(parts) - 1)
+        name = re.sub(r"\d+", "N", parts[0])
+        threads[name] = threads.get(name, 0) + n
+        frames = [_frame(p) for p in parts[1:]]
+        if not frames:
+            continue
+        leaves[parts[-1]] = leaves.get(parts[-1], 0) + n
+        if frames[-1] in _IDLE_LEAVES:
+            idle += n
+            continue
+        if frames[-1][0] == "socket.py" and \
+                frames[-1][1] in ("readinto", "recv_into", "recv"):
+            socket_read += n
+            continue
+        busy_threads[name] = busy_threads.get(name, 0) + n
+        layers = [frame_layer(*f) for f in frames]
+        self_n[next((x for x in reversed(layers) if x), "other")] += n
+        for layer in set(layers) - {""}:
+            under_n[layer] += n
+    busy = total - idle - socket_read
+    top = sorted(leaves.items(), key=lambda kv: -kv[1])[:10]
+    return {"stack_samples": total, "ticks": threads.get("MainThread", 0),
+            "mean_depth": depth / max(total, 1), "busy_samples": busy,
+            "idle_share": idle / max(total, 1),
+            "socket_read_share": socket_read / max(total, 1),
+            "threads": dict(sorted(threads.items(), key=lambda kv: -kv[1])),
+            "busy_threads": dict(sorted(busy_threads.items(),
+                                        key=lambda kv: -kv[1])),
+            "top_leaves": [{"frame": f, "samples": n} for f, n in top],
+            "self_share": {k: v / max(busy, 1) for k, v in self_n.items()},
+            "under_share": {k: v / max(busy, 1) for k, v in under_n.items()}}
+
+
+class Profiling:
+    """``with Profiling(urls, seconds, hz) as p:`` fetches ``GET
+    /debug/profile?seconds=&hz=`` from every url at once, on threads, for
+    the block's duration; ``p.texts`` holds each body after the block."""
+
+    def __init__(self, urls, seconds: float, hz: float):
+        self.urls, self.seconds, self.hz = list(urls), seconds, hz
+        self.texts: dict[str, str] = {}
+        self.errors: list[BaseException] = []
+
+    def _fetch(self, url: str) -> None:
+        from seaweedfs_tpu_torch.utils.httpd import http_bytes
+
+        try:
+            status, body, _ = http_bytes(
+                "GET", f"http://{url}/debug/profile?seconds={self.seconds}"
+                       f"&hz={self.hz}", timeout=self.seconds + 60)
+            if status != 200:
+                raise AssertionError(f"{url}/debug/profile: {status}")
+            self.texts[url] = body.decode()
+        except BaseException as e:  # noqa: BLE001 - re-raised on exit
+            self.errors.append(e)
+
+    def __enter__(self) -> "Profiling":
+        self._threads = [threading.Thread(target=self._fetch, args=(u,))
+                         for u in self.urls]
+        for t in self._threads:
+            t.start()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        for t in self._threads:
+            t.join(timeout=self.seconds + 90)
+        if exc[0] is None and (self.errors or
+                               set(self.texts) != set(self.urls)):
+            raise AssertionError(f"profiles: {self.errors[:1]}")
+        return False
+
+
+def sample_cost_us(threads: int, depth: int = 40, n: int = 200) -> float:
+    """Host microseconds one sample of ``SamplingProfiler`` takes in a
+    process with ``threads`` other threads parked ``depth`` frames deep
+    (what it takes from the GIL ``hz`` times a second)."""
+    from seaweedfs_tpu_torch.observability.profiler import SamplingProfiler
+
+    release = threading.Event()
+    ready = threading.Barrier(threads + 1)
+
+    def park(d: int) -> None:
+        if d:
+            return park(d - 1)
+        ready.wait()
+        release.wait()
+
+    parked = [threading.Thread(target=park, args=(depth,))
+              for _ in range(threads)]
+    for t in parked:
+        t.start()
+    try:
+        ready.wait()
+        prof = SamplingProfiler()
+        skip = {threading.get_ident()}
+        t0 = time.perf_counter()
+        for _ in range(n):
+            prof._sample_once(skip)
+        return 1e6 * (time.perf_counter() - t0) / n
+    finally:
+        release.set()
+        for t in parked:
+            t.join()
+
+
+def thread_census(dump: str) -> dict[str, int]:
+    """A /debug/pprof/goroutine body -> threads per name, digits folded."""
+    out: dict[str, int] = {}
+    for m in re.finditer(r"^--- (.*?)(?: daemon=\w+)? ---$", dump, re.M):
+        name = re.sub(r"\d+", "N", m.group(1))
+        out[name] = out.get(name, 0) + 1
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
 def free_port() -> int:
@@ -737,9 +950,12 @@ def concurrent_gets(url: str, needles: list[dict], threads: int,
 
 def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
                   threads: int, per_thread: int, decoded_reads: int,
-                  stripes: int) -> dict:
+                  stripes: int, overload_threads: int,
+                  overload_per_thread: int,
+                  overload_max_inflight: int) -> dict:
     """The EC lifecycle through the volume server's own HTTP entry points,
-    checked at every step.  Returns per-leg launches, times and read
+    checked at every step, with the overload leg (``run_overload``) after
+    the degraded GETs.  Returns per-leg launches, times and read
     latencies.  chip_smoke runs it on the card at full size; the CPU
     tests rehearse it tiny."""
     from seaweedfs_tpu_torch.ec.layout import to_ext
@@ -818,6 +1034,11 @@ def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
         res["latency_8_clients_s"] = concurrent_gets(
             vs.url, needles, threads, per_thread, seed)
         res["launches"]["degraded_get"] = gf_matmul.launches - before
+        before = gf_matmul.launches
+        res["overload"] = run_overload(
+            device, work, os.path.join(work, "overload"), needles, seed,
+            overload_threads, overload_per_thread, overload_max_inflight)
+        res["launches"]["overload"] = gf_matmul.launches - before
 
         if conn.admin("/admin/ec/rebuild",
                       {"volume_id": 1})["rebuilt_shard_ids"] != [2, 7]:
@@ -839,6 +1060,199 @@ def run_http_path(device: str, work: str, volume_bytes: int, reads: int,
         conn.close()
         vs.stop()
     return res
+
+
+def metric_value(url: str, family: str, *labels: str) -> float:
+    """One sample of a server's /metrics, parsed as the master's
+    aggregator parses it (0 while the family has no such sample)."""
+    from seaweedfs_tpu_torch.stats.aggregate import parse_prometheus_text
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes
+
+    status, body, _ = http_bytes("GET", f"http://{url}/metrics")
+    if status != 200:
+        raise AssertionError(f"{url}/metrics: {status}")
+    fam = parse_prometheus_text(body.decode()).get(family)
+    return 0.0 if fam is None else fam.value(*labels)
+
+
+def run_overload(device: str, src: str, dst: str, needles: list[dict],
+                 seed: int, threads: int, per_thread: int,
+                 max_inflight: int) -> dict:
+    """The overload leg: an in-process ``MasterServer`` and
+    ``VolumeServer(device=..., max_inflight=...)`` over hard links of the
+    EC volume in ``src`` (data shards 2 and 7 gone, no other holder), and
+    ``threads`` readers at once each GETting ``per_thread`` seeded needles
+    while a monitor polls /metrics and /status.  Every answer must be 200
+    with the written bytes and ETag (the needle's CRC) or the shed's 503
+    with ``Retry-After: 1`` and its body; the 503s, the change of
+    ``SeaweedFS_requests_shed_total{role="volume"}``, the controller's
+    ``shed_total`` and the change of the master's /cluster/health
+    ``requests_shed`` must be equal; the server must reconstruct exactly
+    the intervals of lost shards the admitted GETs read, and on the card
+    launch one kernel for each; the monitor must get only 200s; the
+    journal at most one ``load_shed`` a second of the storm.  Then one
+    GET whose ``X-Weed-Deadline`` is spent: a 504 that moves
+    ``SeaweedFS_deadline_exceeded_total{role="volume"}`` and the health's
+    ``deadline_exceeded`` by one and runs nothing."""
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils.httpd import HttpError, http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    os.makedirs(dst)
+    for name in os.listdir(src):
+        if name.startswith("1.") and os.path.isfile(os.path.join(src, name)):
+            os.link(os.path.join(src, name), os.path.join(dst, name))
+    shards_of = needle_shards(os.path.join(dst, "1"), 1, [
+        FileId.parse(n["path"][1:]).key for n in needles])
+    lost = (2, 7)
+    shed_body = {"error": "overloaded: request shed"}
+    ms = MasterServer(port=free_port(), pulse_seconds=0.5).start()
+    vs = None
+    try:
+        vs = VolumeServer([dst], ms.url, port=free_port(), device=device,
+                          pulse_seconds=0.5,
+                          max_inflight=max_inflight).start()
+        def listed() -> bool:
+            try:
+                return len(shard_holders(ms.url, 1)) == 12
+            except HttpError:  # before the first heartbeat
+                return False
+
+        # a lost shard's lookup must find the volume and no holder
+        wait_for("the master to list the overload server's shards", listed,
+                 30)
+
+        def counters() -> dict:
+            totals = cluster_health(ms.url)["totals"]
+            return {
+                "shed": metric_value(vs.url, "SeaweedFS_requests_shed_total",
+                                     "volume"),
+                "ddl": metric_value(vs.url,
+                                    "SeaweedFS_deadline_exceeded_total",
+                                    "volume"),
+                "health_shed": totals["requests_shed"],
+                "health_ddl": totals["deadline_exceeded"]}
+
+        def settled(c0: dict, want: dict) -> dict:
+            # the master's aggregator scrapes at most every 2 s
+            got: dict = {}
+
+            def ok() -> bool:
+                got.update({k: v - c0[k] for k, v in counters().items()})
+                return got == want
+
+            try:
+                wait_for("the counters to settle", ok, 10)
+            except AssertionError:
+                raise AssertionError(f"counters moved {got}, want {want}")
+            return got
+
+        c0 = counters()
+        launches0 = gf_matmul.launches
+        t_wall = time.time()
+        done: list[tuple[int, float, int]] = []
+        polls: list[tuple[str, int]] = []
+        storm = threading.Event()
+
+        def reader(t: int) -> None:
+            c = Conn(vs.url)
+            try:
+                for i in np.random.default_rng([seed, 7, t]).choice(
+                        len(needles), size=per_thread):
+                    n = needles[int(i)]
+                    t0 = time.perf_counter()
+                    status, body, r = c.call("GET", n["path"])
+                    lat = time.perf_counter() - t0
+                    if status == 200:
+                        if body != n["data"] or \
+                                r.getheader("ETag") != n["etag"]:
+                            raise AssertionError(f"admitted GET {n['path']}"
+                                                 f": {len(body)} bytes")
+                    elif status != 503 or \
+                            r.getheader("Retry-After") != "1" or \
+                            json.loads(body) != shed_body:
+                        raise AssertionError(f"GET {n['path']} under load: "
+                                             f"{status} {body[:200]!r}")
+                    done.append((status, lat, int(i)))
+            finally:
+                c.close()
+
+        def monitor() -> None:
+            c = Conn(vs.url)
+            try:
+                while not storm.is_set():
+                    for path in ("/metrics", "/status"):
+                        polls.append((path, c.call("GET", path)[0]))
+                    time.sleep(0.05)
+            finally:
+                c.close()
+
+        mon = threading.Thread(target=monitor)
+        mon.start()
+        t0 = time.perf_counter()
+        try:
+            run_threads(reader, threads, 600)
+        finally:
+            storm.set()
+            mon.join(timeout=60)
+        storm_s = time.perf_counter() - t0
+        launches = gf_matmul.launches - launches0
+        reconstructed = vs.ec_reads["reconstructed"]
+        admitted = [(lat, i) for status, lat, i in done if status == 200]
+        shed = [lat for status, lat, _ in done if status == 503]
+        need = sum(sid in lost for _, i in admitted for sid in shards_of[i])
+        if len(done) != threads * per_thread or not admitted or not shed:
+            raise AssertionError(f"overload: {len(admitted)} admitted, "
+                                 f"{len(shed)} shed of {len(done)} GETs")
+        moved = settled(c0, {"shed": len(shed), "ddl": 0,
+                             "health_shed": len(shed), "health_ddl": 0})
+        if vs.router.admission.shed_total != len(shed):
+            raise AssertionError(f"503s {len(shed)}, shed_total "
+                                 f"{vs.router.admission.shed_total}")
+        if vs.ec_reads["remote"] or reconstructed != need or (
+                device == "cuda" and launches != need):
+            raise AssertionError(f"admitted GETs needed {need} "
+                                 f"reconstructions: {vs.ec_reads}, "
+                                 f"{launches} launches")
+        if not polls or any(status != 200 for _, status in polls):
+            raise AssertionError(f"/metrics and /status under load: "
+                                 f"{polls[:8]}")
+        events = http_json("GET", f"http://{vs.url}/debug/events?type="
+                                  f"load_shed&since={t_wall}")["events"]
+        if not 1 <= len(events) <= int(storm_s) + 1 or any(
+                e["details"]["role"] != "volume" for e in events):
+            raise AssertionError(f"{len(events)} load_shed events over a "
+                                 f"{storm_s:.1f} s storm")
+        # a GET its caller gave up on: 504 before the handler, no work
+        c = Conn(vs.url)
+        try:
+            status, body, _ = c.call("GET", needles[0]["path"],
+                                     headers={"X-Weed-Deadline": "0"})
+        finally:
+            c.close()
+        if status != 504 or gf_matmul.launches - launches0 != launches or \
+                vs.ec_reads["reconstructed"] != reconstructed:
+            raise AssertionError(f"spent deadline: {status} {body!r}")
+        settled(c0, {**moved, "ddl": 1, "health_ddl": 1})
+    finally:
+        if vs is not None:
+            vs.stop()
+        ms.stop()
+        shutil.rmtree(dst, ignore_errors=True)
+    return {"max_inflight": max_inflight, "threads": threads,
+            "gets": len(done), "admitted": len(admitted), "shed": len(shed),
+            "shed_share": len(shed) / len(done), "storm_s": storm_s,
+            "admitted_ms": percentiles([lat for lat, _ in admitted]),
+            "shed_ms": percentiles(shed),
+            # a connect whose SYN the listen queue dropped waits ~1 s
+            "over_1s": {"admitted": sum(lat >= 1 for lat, _ in admitted),
+                        "shed": sum(lat >= 1 for lat in shed)},
+            "reconstructed": reconstructed,
+            "launches": launches, "load_shed_events": len(events),
+            "monitor_polls": len(polls), "health_moved": moved,
+            "deadline_504": True}
 
 
 def flip_byte(path: str, offset: int) -> None:
@@ -2321,7 +2735,7 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
     from seaweedfs_tpu_torch.ec.layout import TOTAL_SHARDS_COUNT, to_ext
     from seaweedfs_tpu_torch.storage.file_id import FileId
     from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
-    from seaweedfs_tpu_torch.utils.httpd import http_json
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
 
     collection = "ec"
     seed = SEED + 4
@@ -2466,6 +2880,18 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                 return "b", remote
             return ("a" if remote else "local"), remote
 
+        # each server's first class (b) GET of the 1-client pass (with no
+        # queueing) against its later ones: what first touch costs
+        first_b: dict[str, list[float]] = {}
+        for asked, i, lat in gets["1_client"]:
+            if classify(asked, i)[0] == "b":
+                first_b.setdefault(asked, []).append(1e3 * lat)
+        res["first_b_ms"] = {
+            u: {"first": v[0], "rest": percentiles([x / 1e3 for x in v[1:]])
+                if len(v) > 1 else None,
+                "rest_max": max(v[1:], default=None)}
+            for u, v in sorted(first_b.items())}
+
         # the same GETs again with tracing on live on the master and every
         # live server, each GET under a sampled trace context of its own;
         # each batch's traces are collected right after it, before the
@@ -2512,6 +2938,65 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         gets[f"{eight}_after_again"] = run_pass(f"{eight}_after_again",
                                                 timed_gets, False)
         res["traced_spans"] = {k: sum(v.values()) for k, v in spans.items()}
+        # the profile leg: one more pass untraced and one at rate 1, the
+        # server that reconstructed most and the master sampled at once
+        # through each (never inside a pass whose walls are reported above)
+        # each pass PROFILE_ROUNDS times as long as the others, so the
+        # sampler sees enough of it; the window twice the untraced
+        # passes' wall at that length, so a slower traced pass fits too
+        recon = res["traced_gets"]["reconstruct_spans"]
+        hot = max(sorted(recon), key=lambda u: recon[u]) if recon \
+            else alive[0]
+        window = min(60.0, max(1.0, round(
+            2 * PROFILE_ROUNDS * passes[f"{eight}_after_again"]["wall_s"],
+            1)))
+        profiles: dict = {}
+        for mode, name in (("untraced", f"{eight}_profiled"),
+                           ("traced", f"{eight}_traced_profiled")):
+            if mode == "traced":
+                set_tracing([master] + alive, "enable=1")
+            gets_fn = timed_gets if mode == "untraced" else traced_gets
+            try:
+                with Profiling([hot, master], window, PROFILE_HZ) as prof:
+                    done = run_pass(name, lambda m, p, *a: gets_fn(
+                        m, np.tile(p, PROFILE_ROUNDS), *a), False)
+            finally:
+                if mode == "traced":
+                    set_tracing([master] + alive, "disable=1&clear=1")
+            gets[name] = [g[:3] for g in done]
+            profiles[mode] = {"server": profile_summary(prof.texts[hot]),
+                              "master": profile_summary(prof.texts[master])}
+        status, dump, _ = http_bytes("GET",
+                                     f"http://{hot}/debug/pprof/goroutine")
+        if status != 200:
+            raise AssertionError(f"{hot}/debug/pprof/goroutine: {status}")
+        census = thread_census(dump.decode())
+        health = cluster_health(master)["totals"]
+        # no server runs admission control and nothing here sets a
+        # deadline: the request plane must read clean
+        if health["requests_shed"] or health["deadline_exceeded"]:
+            raise AssertionError(f"/cluster/health request plane: {health}")
+        # what one sample takes from the GIL in a process like the
+        # server's: its threads a tick at their mean depth
+        busiest = profiles["untraced"]["server"]
+        sample_cost = sample_cost_us(
+            max(1, round(busiest["stack_samples"]
+                         / max(busiest["ticks"], 1))),
+            round(busiest["mean_depth"]))
+        res["profile"] = {
+            "server": hot, "seconds": window, "hz": PROFILE_HZ,
+            "rounds": PROFILE_ROUNDS,
+            "profiles": profiles,
+            "traced_minus_untraced": {
+                role: {key: {k: v - profiles["untraced"][role][key][k]
+                             for k, v in profiles["traced"][role][key].items()}
+                       for key in ("self_share", "under_share")}
+                for role in ("server", "master")},
+            "thread_census": census,
+            "sample_cost_us": sample_cost,
+            "health": {k: health[k] for k in (
+                "requests_shed", "deadline_exceeded",
+                "retry_budget_exhausted")}}
         res["get_passes"] = passes
         vac_remote = res["vacuum"]["ec_remote_reads"]
         expect = {u: {"remote": vac_remote.get(u, 0), "reconstructed": 0}
@@ -2622,6 +3107,13 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         timed_gets(master, rng.choice(len(needles), size=min(
             decoded_reads, len(needles)), replace=False), needles, fids,
             seed)
+        # the heap route starts tracemalloc, which slows every allocation
+        # of its process from then on: once, after the timed legs
+        status, body, _ = http_bytes("GET",
+                                     f"http://{alive[0]}/debug/pprof/heap")
+        if status != 200 or not body.startswith(b"tracemalloc just enabled"):
+            raise AssertionError(f"/debug/pprof/heap: {status} {body[:80]!r}")
+        res["profile"]["heap"] = body.decode().strip()
 
         def roles(url: str) -> list[str]:
             return [r for r, u in (("encode", source),
@@ -2883,7 +3375,9 @@ def main() -> int:
         gf_matmul.launches = 0
         http = run_http_path("cuda", work, VOLUME_BYTES, DEGRADED_READS,
                              HTTP_THREADS, HTTP_READS_PER_THREAD,
-                             DECODED_READS, PARITY_STRIPES)
+                             DECODED_READS, PARITY_STRIPES, OVERLOAD_THREADS,
+                             OVERLOAD_READS_PER_THREAD,
+                             OVERLOAD_MAX_INFLIGHT)
         http_launches = gf_matmul.launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -2909,6 +3403,9 @@ def main() -> int:
              "degraded_p50_ms": percentiles(http["latency_1_client_s"])["p50"]
              - float(np.percentile(lat, 50))},
          "nvidia_smi": card})
+    log({"phase": "overload", **http["overload"],
+         "degraded_get_ms_8_clients_no_admission": percentiles(
+             http["latency_8_clients_s"]), "nvidia_smi": card})
 
     work = tempfile.mkdtemp(prefix="chip_smoke-cli-", dir=_build.BUILD_DIR)
     try:
@@ -3000,6 +3497,12 @@ def main() -> int:
          "spans": cluster["traced_spans"],
          "gets_ms": {k: v for k, v in cluster["gets_ms"].items()},
          "nvidia_smi": card})
+    eight = f"{HTTP_THREADS}_clients"
+    log({"phase": "profile", **cluster["profile"], "get_passes": {
+        k: cluster["get_passes"][k] for k in (
+            f"{eight}_after_again", f"{eight}_profiled",
+            f"{eight}_traced_again", f"{eight}_traced_profiled")},
+        "nvidia_smi": card})
     log({"phase": "journal", **cluster["drill"]["journal"],
          "rot_repair": cluster["drill"]["rot_repair"], "nvidia_smi": card})
     drain = cluster["drain"]
@@ -3026,7 +3529,7 @@ def main() -> int:
          "drill": cluster["drill"],
          "rebuild_launches": cluster["rebuild_launches"],
          "servers": cluster["servers"], "launches": cluster_launches,
-         "nvidia_smi": card})
+         "first_b_ms": cluster["first_b_ms"], "nvidia_smi": card})
 
     cases = dict(kernel_cases())
     shapes = [

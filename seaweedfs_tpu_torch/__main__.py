@@ -18,10 +18,14 @@ builds its kernel before it listens and fails without a card;
 every N seconds (0, the default, leaves repair to the shell's
 ec.rebuild), logs each repair on standard error and journals it;
 ``-metricsAggregationSeconds N`` scrapes the volume servers every N
-seconds, so it finds a dead one sooner than the heartbeat timeout.  The servers run until SIGINT or SIGTERM, a signal taken during
-start-up included, then stop and exit 0; the volume server's last line
-counts the GF kernels it launched and the EC intervals it lacked, fetched
-from a holder or reconstructed.  ``shell -c`` takes the admin lock, runs the
+seconds, so it finds a dead one sooner than the heartbeat timeout.
+``-maxInflight N`` on ``master`` or ``volume`` sheds requests beyond N in
+flight with a fast 503 and ``Retry-After`` (0, the default, is off; the
+operator, debug and control-plane routes are never shed).  The servers
+run until SIGINT or SIGTERM, a signal taken during start-up included,
+then stop and exit 0; the volume server's last line counts the GF
+kernels it launched and the EC intervals it lacked, fetched from a
+holder or reconstructed.  ``shell -c`` takes the admin lock, runs the
 ``;``-separated commands, prints what each returns and unlocks; without
 ``-c`` it reads commands from standard input.  ``compact`` vacuums one
 volume offline (no server may hold it) and prints its size before and
@@ -68,6 +72,10 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     m.add_argument("-pulseSeconds", type=float, default=5.0,
                    help="heartbeat interval; a volume server silent for "
                         "ten pulses is dropped")
+    m.add_argument("-maxInflight", type=int, default=0,
+                   help="admission control: shed requests early (503 + "
+                        "Retry-After) beyond this many in flight "
+                        "(0 = off; operator/debug routes exempt)")
     m.add_argument("-metricsAggregationSeconds", type=float, default=0.0,
                    help="scrape registered volume-server /metrics every N "
                         "seconds for /cluster/metrics + /cluster/health "
@@ -92,6 +100,10 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                    help="maximum number of volumes")
     v.add_argument("-pulseSeconds", type=float, default=5.0,
                    help="heartbeat interval")
+    v.add_argument("-maxInflight", type=int, default=0,
+                   help="admission control: shed object requests early "
+                        "(503 + Retry-After) beyond this many in "
+                        "flight (0 = off)")
     v.add_argument("-ec.engine", dest="ec_engine", default="tpu",
                    choices=sorted(ENGINES),
                    help="tpu: EC on the CUDA card; cpu: the plain versions")
@@ -164,7 +176,8 @@ def cmd_master(args: argparse.Namespace) -> int:
                           pulse_seconds=args.pulseSeconds,
                           coordinator_seconds=args.coordinatorSeconds,
                           metrics_aggregation_seconds=(
-                              args.metricsAggregationSeconds)).start()
+                              args.metricsAggregationSeconds),
+                          max_inflight=args.maxInflight).start()
         print(f"master listening on {ms.url}", flush=True)
         return ms.stop
 
@@ -186,7 +199,8 @@ def cmd_volume(args: argparse.Namespace) -> int:
                           port=args.port, data_center=args.dataCenter,
                           rack=args.rack, max_volume_count=args.max,
                           pulse_seconds=args.pulseSeconds,
-                          device=ENGINES[args.ec_engine])
+                          device=ENGINES[args.ec_engine],
+                          max_inflight=args.maxInflight)
         device = vs.store.device
         if device.type == "cuda":
             # a kernel that does not build stops the server here, before

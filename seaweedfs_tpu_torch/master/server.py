@@ -30,8 +30,14 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
   POST /cluster/events/ingest, GET /cluster/events
                         the cluster event journal; each accepted batch
                         goes to the coordinator's on_events
+  GET  /metrics         this process's Prometheus exposition: the
+                        master's requests by route, the coordinator's and
+                        the request plane's families (?exemplars=1 adds
+                        sampled requests' trace ids to their buckets)
   GET  /debug/traces, /debug/traces/analyze, /debug/events
                         this process's span ring and journal
+  GET  /debug/profile, /debug/pprof/profile|goroutine|heap
+                        sampling profiles, the thread dump, the heap
                         (utils/debug.py)
 
 A janitor thread unregisters volume servers that stopped heartbeating.
@@ -44,7 +50,13 @@ scrape; otherwise the /cluster/* routes scrape on demand.  Every
 ``VACUUM_SCAN_SECONDS`` (900, as in the reference) the master vacuums
 every volume whose replicas all carry ``GARBAGE_THRESHOLD`` (0.3) or more
 of garbage.  Like the reference's master CLI, the port sets neither by a
-flag; tests set the attributes before ``start()``.
+flag; tests set the attributes before ``start()``.  ``max_inflight`` > 0
+(``-maxInflight``) sheds requests beyond that many in flight with a fast
+503 (utils/admission.py); the /metrics, /debug, /cluster, /heartbeat,
+/admin and /dir/status routes are never shed.  The master's own sheds and
+504s show on its /metrics; /cluster/health sums the volume servers'
+(like the reference's, it folds in only the coordinator's totals of its
+own).
 
 The master's own spans and events reach its collector and journal without
 HTTP (the shippers' local short-circuit).
@@ -52,9 +64,8 @@ HTTP (the shippers' local short-circuit).
 Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/ alert,
 heat, ledger, workload, capacity, autoscale and watch routes (so the
 aggregation loop evaluates no alert rules, and no journal batch is
-replicated or handed to an autoscaler), the master's
-own /metrics and the maintenance scripts, the framed-TCP
-assign front, and security (guard, JWT, TLS, admission control).
+replicated or handed to an autoscaler), the maintenance scripts, the
+framed-TCP assign front, and security (guard, JWT, TLS).
 """
 
 from __future__ import annotations
@@ -71,10 +82,13 @@ from ..observability.collector import TraceCollector, TraceShipper
 from ..observability.events import (ClusterEventJournal, EventShipper,
                                     get_journal)
 from ..ops.coordinator import EcCoordinator
+from ..stats import REGISTRY, master_metrics, request_plane_metrics
 from ..stats.aggregate import ClusterAggregator
+from ..stats.metrics import exemplars_requested
 from ..storage.file_id import format_needle_id_cookie
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
+from ..utils.admission import maybe_controller
 from ..utils.debug import register_debug_routes
 from ..utils.httpd import (HttpError, Request, Response, Router,
                            extract_upload, http_json, qfloat, qint, serve,
@@ -108,9 +122,10 @@ class MasterServer:
                  default_replication: str = "000",
                  pulse_seconds: float = 5.0,
                  coordinator_seconds: float = 0.0,
-                 metrics_aggregation_seconds: float = 0.0):
+                 metrics_aggregation_seconds: float = 0.0,
+                 max_inflight: int = 0):
         """A master at host:port.  Volume servers silent for ten pulses
-        are dropped."""
+        are dropped.  ``max_inflight`` > 0 turns admission control on."""
         self.host, self.port = host, port
         self.garbage_threshold = self.GARBAGE_THRESHOLD
         self.vacuum_scan_seconds = self.VACUUM_SCAN_SECONDS
@@ -118,8 +133,11 @@ class MasterServer:
                              pulse_seconds)
         self.default_replication = default_replication
         self.seq = MemorySequencer()
-        self.router = Router("master")
+        self.metrics = master_metrics()
+        request_plane_metrics()  # its families exist on /metrics at 0
+        self.router = Router("master", metrics=self.metrics)
         self.router.server_url = self.url
+        self.router.admission = maybe_controller(max_inflight, "master")
         self._register_routes()
         self._server = None
         self._stop = threading.Event()
@@ -381,6 +399,14 @@ class MasterServer:
             self.aggregator.scrape()
             return Response(raw=self.aggregator.expose().encode(), headers={
                 "Content-Type": "text/plain; version=0.0.4; charset=utf-8"})
+
+        @r.route("GET", "/metrics")
+        def metrics(req: Request) -> Response:
+            return Response(
+                raw=REGISTRY.expose(
+                    exemplars=exemplars_requested(req)).encode(),
+                headers={"Content-Type":
+                         "text/plain; version=0.0.4; charset=utf-8"})
 
         @r.route("GET", "/cluster/health")
         def cluster_health(req: Request) -> Response:

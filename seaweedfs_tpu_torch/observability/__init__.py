@@ -16,8 +16,11 @@ spans at /cluster/traces/<id> and merges the journals at /cluster/events.
 The tracer starts disabled: ``-trace.sample R`` on the CLI, or
 ``/debug/traces?enable=1``, turns it on.
 
+``SamplingProfiler`` (profiler.py) samples every thread's stack at a
+fixed rate; servers serve it at GET /debug/profile and /debug/pprof/*.
+
 Not ported: alerts, the flight recorder, the request log, heat, the
-resource ledger and the sampling profiler.
+resource ledger and the windowed profiler.
 """
 
 from .analysis import (analyze, analyze_cluster, attribution_summary,
@@ -27,6 +30,7 @@ from .context import (ingress_context, inject_trace_headers,
                       sample_rate, set_sample_rate)
 from .events import (ClusterEventJournal, Event, EventJournal,
                      EventShipper, get_journal)
+from .profiler import SamplingProfiler, profile_collapsed
 from .tracer import (Span, Tracer, disable_tracing, enable_tracing,
                      get_tracer)
 
@@ -36,4 +40,5 @@ __all__ = ["Span", "Tracer", "get_tracer", "enable_tracing",
            "render_cluster_report", "TraceCollector", "TraceShipper",
            "ingress_context", "inject_trace_headers", "sample_rate",
            "set_sample_rate", "Event", "EventJournal",
-           "ClusterEventJournal", "EventShipper", "get_journal"]
+           "ClusterEventJournal", "EventShipper", "get_journal",
+           "SamplingProfiler", "profile_collapsed"]

@@ -24,8 +24,9 @@ The port emits these types: ``shard_corrupt`` (ec/integrity.py),
 ``scrub_repair``, ``scrub_repair_failed``, ``scrub_unrepairable``
 (volume_server/scrubber.py), ``peer_stale`` (stats/aggregate.py),
 ``ec_under_replicated``, ``repair_planned``, ``repair_done``,
-``repair_failed``, ``rebalance_move`` (ops/coordinator.py) and
-``retry_budget_exhausted`` (utils/backoff.py).  The rest of the registry
+``repair_failed``, ``rebalance_move`` (ops/coordinator.py),
+``retry_budget_exhausted`` (utils/backoff.py), ``load_shed``
+(utils/admission.py) and ``deadline_exceeded`` (utils/httpd.py).  The rest of the registry
 is carried as data, so a reference server's journal documents keep their
 severities here.
 
@@ -63,20 +64,20 @@ EVENT_TYPES = {
     "repair_failed": "error",        # plan step failed; will re-plan
     "rebalance_move": "info",        # one budgeted shard move executed
     "retry_budget_exhausted": "warning",  # token bucket denied a retry
+    "load_shed": "warning",          # admission control answered 503
+    "deadline_exceeded": "warning",  # X-Weed-Deadline budget spent: 504
 }
 
 # the reference's other event types, whose emitters the port does not
 # have (worker supervision, engine fallback, the framed-TCP plane,
-# alerting, the flight recorder, admission, deadlines' journal entry, the
-# request log, the event loop, heat, the resource ledger, the
-# autoscaler): data only, so a reference server's events keep their
-# severity in the port's journals
+# alerting, the flight recorder, the request log, the event loop, heat,
+# the resource ledger, the autoscaler): data only, so a reference
+# server's events keep their severity in the port's journals
 REFERENCE_ONLY_EVENT_TYPES = {
     "worker_restart": "warning", "engine_fallback": "warning",
     "degraded_bind": "warning", "alert_pending": "info",
     "alert_fired": "error", "alert_resolved": "info",
-    "flight_capture": "info", "load_shed": "warning",
-    "deadline_exceeded": "warning", "reqlog_dropped": "warning",
+    "flight_capture": "info", "reqlog_dropped": "warning",
     "dataplane_conn_abort": "warning", "heat_shift": "warning",
     "flash_crowd": "error", "loop_stall": "error", "replica_grow": "info",
     "replica_shrink": "info", "tier_committed": "info",
@@ -90,6 +91,8 @@ HEALTH_EVENT_TYPES = {
     "scrub_repairs": "scrub_repair",
     "ec_under_replicated": "ec_under_replicated",
     "coordinator_repair_failures": "repair_failed",
+    "requests_shed": "load_shed",
+    "deadline_exceeded": "deadline_exceeded",
     "retry_budget_exhausted": "retry_budget_exhausted",
 }
 

@@ -14,21 +14,31 @@ families under the reference's names:
     where they were caught, the scrubber's repairs by outcome (the keys
     of ``totals()`` are what ``/status`` and the scrub routes carry);
   - ``CoordinatorMetrics``: the master's repairs, moves, cycles, the
-    under-replication gauge and the repair queue depth.
+    under-replication gauge and the repair queue depth;
+  - ``MasterMetrics``: the master's requests by route (count, latency,
+    5xx), what its own ``GET /metrics`` adds;
+  - ``RequestPlaneMetrics``: requests shed by admission control and
+    answered 504 for a spent deadline (by ``role``), and retries a
+    drained retry budget denied (by ``kind``).
 
-Not ported: OpenMetrics exemplars (a sampled request's trace id on its
-latency bucket), the push
-gateway loop, and the families the port cannot have or has not ported:
-``ECPipelineMetrics`` (parity-worker restarts and CPU fallbacks), the
-volume server's native-plane gauge, the master's heartbeat and leader
-families, the request plane (shed, deadline and retry-budget counters),
-the dataplane, the needle cache, heat and the resource ledger.
+A histogram keeps the last OpenMetrics exemplar of each label set (a
+sampled request's trace id on its latency bucket); the exposition shows
+them only when asked, ``expose(exemplars=True)``, which a server's
+``GET /metrics?exemplars=1`` does (``exemplars_requested``).
+
+Not ported: the push gateway loop, and the families the port cannot have
+or has not ported: ``ECPipelineMetrics`` (parity-worker restarts and CPU
+fallbacks), the volume server's native-plane gauge, the master's
+heartbeat and leader families, the dataplane, the needle cache, heat and
+the resource ledger.
 """
 
 from __future__ import annotations
 
 import threading
+import time
 from bisect import bisect_left
+from typing import Optional
 
 DEFAULT_BUCKETS = (0.0001, 0.0003, 0.001, 0.003, 0.01, 0.03,
                    0.1, 0.3, 1.0, 3.0, 10.0)
@@ -150,9 +160,16 @@ class Histogram:
         self._counts: dict[tuple, list[int]] = {}
         self._sums: dict[tuple, float] = {}
         self._totals: dict[tuple, int] = {}
+        # the last exemplar of each label set: (bucket index, None for
+        # +Inf; the observed value; the trace id; unix seconds)
+        self._exemplars: dict[tuple, tuple[Optional[int], float, str,
+                                           float]] = {}
         self._lock = threading.Lock()
 
-    def observe(self, *label_values_then_obs) -> None:
+    def observe(self, *label_values_then_obs,
+                exemplar: Optional[str] = None) -> None:
+        """``exemplar``: the trace id of a sampled request, kept as its
+        label set's last exemplar on the bucket the value lands in."""
         *label_values, obs = label_values_then_obs
         key = tuple(str(v) for v in label_values)
         with self._lock:
@@ -164,6 +181,10 @@ class Histogram:
                 counts[i] += 1
             self._sums[key] = self._sums.get(key, 0.0) + obs
             self._totals[key] = self._totals.get(key, 0) + 1
+            if exemplar:
+                self._exemplars[key] = (
+                    i if i < len(self.buckets) else None,
+                    obs, exemplar, time.time())
 
     def labels(self, *label_values) -> None:
         """Pre-touch a label set: every bucket, _sum and _count are exposed
@@ -199,10 +220,17 @@ class Histogram:
                 self._sums[key] = self._sums.get(key, 0.0) + s
                 self._totals[key] = self._totals.get(key, 0) + total
 
-    def expose(self) -> list[str]:
+    def expose(self, exemplars: bool = False) -> list[str]:
+        """``exemplars=True`` appends each label set's exemplar to the
+        bucket line it landed on.  Off by default: exemplar syntax is not
+        legal in the text format 0.0.4 the exposition is served as, and a
+        strict parser would reject the whole scrape."""
         out = [f"# HELP {self.name} {self.help}",
                f"# TYPE {self.name} histogram"]
+        with self._lock:
+            kept = dict(self._exemplars) if exemplars else {}
         for lv, (counts, total_sum, total) in sorted(self.snapshot().items()):
+            ex = kept.get(lv)
             cumulative = 0
             for i, bound in enumerate(self.buckets):
                 cumulative += counts[i]
@@ -210,16 +238,30 @@ class Histogram:
                 labels["le"] = _num(bound)
                 pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
                                  for k, v in labels.items())
-                out.append(f"{self.name}_bucket{{{pairs}}} {cumulative}")
+                line = f"{self.name}_bucket{{{pairs}}} {cumulative}"
+                if ex is not None and ex[0] == i:
+                    line += _fmt_exemplar(ex)
+                out.append(line)
             labels = dict(zip(self.label_names, lv))
             labels["le"] = "+Inf"
             pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
                              for k, v in labels.items())
-            out.append(f"{self.name}_bucket{{{pairs}}} {total}")
+            line = f"{self.name}_bucket{{{pairs}}} {total}"
+            if ex is not None and ex[0] is None:
+                line += _fmt_exemplar(ex)
+            out.append(line)
             plain = _fmt_labels(self.label_names, lv)
             out.append(f"{self.name}_sum{plain} {_num(total_sum)}")
             out.append(f"{self.name}_count{plain} {total}")
         return out
+
+
+def _fmt_exemplar(ex: tuple) -> str:
+    """The OpenMetrics exemplar suffix of a bucket line:
+    `` # {trace_id="..."} value ts``."""
+    _i, value, trace_id, ts = ex
+    return (f' # {{trace_id="{_escape_label_value(trace_id)}"}} '
+            f"{_num(value)} {_num(round(ts, 3))}")
 
 
 class Registry:
@@ -241,32 +283,63 @@ class Registry:
     def histogram(self, name, help_="", labels=(), buckets=DEFAULT_BUCKETS):
         return self.register(Histogram(name, help_, labels, buckets))
 
-    def expose(self) -> str:
+    def expose(self, exemplars: bool = False) -> str:
         with self._lock:
             collectors = list(self._collectors)
         lines: list[str] = []
         for c in collectors:
-            lines.extend(c.expose())
+            if exemplars and isinstance(c, Histogram):
+                lines.extend(c.expose(exemplars=True))
+            else:
+                lines.extend(c.expose())
         return "\n".join(lines) + "\n"
 
 
 REGISTRY = Registry()
 
 
-class VolumeServerMetrics:
+def exemplars_requested(req) -> bool:
+    """Does this /metrics request ask for exemplars?  Only an explicit
+    ``?exemplars=1``: an OpenMetrics Accept header is not enough, since
+    the body stays text/plain 0.0.4 without the OpenMetrics framing."""
+    try:
+        return req.query.get("exemplars", "").lower() in ("1", "true",
+                                                          "yes", "on")
+    except Exception:  # noqa: BLE001 - a malformed query asks for none
+        return False
+
+
+class _ServerMetrics:
+    """A server role's request bundle, namespaced SeaweedFS_<subsystem>_*:
+    requests by route, their latency, and those answered 5xx."""
+
+    def __init__(self, subsystem: str, registry: Registry):
+        ns = f"SeaweedFS_{subsystem}"
+        self.request_counter = registry.counter(
+            f"{ns}_request_total", f"Counter of {subsystem} requests.",
+            labels=("type",))
+        self.request_histogram = registry.histogram(
+            f"{ns}_request_seconds", f"Bucketed {subsystem} request latency.",
+            labels=("type",))
+        self.request_errors = registry.counter(
+            f"{ns}_request_errors_total",
+            f"Counter of {subsystem} requests answered 5xx.",
+            labels=("type",))
+
+
+class MasterMetrics(_ServerMetrics):
+    """The master's request bundle (the reference's heartbeat and leader
+    families are not ported)."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        super().__init__("master", registry)
+
+
+class VolumeServerMetrics(_ServerMetrics):
     """The volume server's bundle, namespaced SeaweedFS_volumeServer_*."""
 
     def __init__(self, registry: Registry = REGISTRY):
-        self.request_counter = registry.counter(
-            "SeaweedFS_volumeServer_request_total",
-            "Counter of volumeServer requests.", labels=("type",))
-        self.request_histogram = registry.histogram(
-            "SeaweedFS_volumeServer_request_seconds",
-            "Bucketed volumeServer request latency.", labels=("type",))
-        self.request_errors = registry.counter(
-            "SeaweedFS_volumeServer_request_errors_total",
-            "Counter of volumeServer requests answered 5xx.",
-            labels=("type",))
+        super().__init__("volumeServer", registry)
         self.volume_counter = registry.gauge(
             "SeaweedFS_volumeServer_volumes",
             "Number of volumes or EC shards.",
@@ -340,6 +413,29 @@ class CoordinatorMetrics:
             "EC volumes queued for repair.")
 
 
+class RequestPlaneMetrics:
+    """The graceful-degradation counters: requests admission control
+    answered 503 without running the handler (``shed``), requests answered
+    504 because their X-Weed-Deadline was spent (``deadline_exceeded``),
+    both by server role, and retries a drained per-destination budget
+    denied (``retry_budget_exhausted``, by subsystem).  The master's
+    /cluster/health reads all three from every server's /metrics."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.shed = registry.counter(
+            "SeaweedFS_requests_shed_total",
+            "Requests shed by admission control (answered 503 early).",
+            labels=("role",))
+        self.deadline_exceeded = registry.counter(
+            "SeaweedFS_deadline_exceeded_total",
+            "Requests answered 504 because the propagated "
+            "X-Weed-Deadline budget was exhausted.",
+            labels=("role",))
+        self.retry_budget_exhausted = registry.counter(
+            "SeaweedFS_retry_budget_exhausted_total",
+            "Retries denied by a drained per-destination retry budget.",
+            labels=("kind",))
+
 
 _singletons: dict[str, object] = {}
 _singleton_lock = threading.Lock()
@@ -362,3 +458,11 @@ def ec_integrity_metrics() -> ECIntegrityMetrics:
 
 def coordinator_metrics() -> CoordinatorMetrics:
     return _singleton("coordinator", CoordinatorMetrics)
+
+
+def master_metrics() -> MasterMetrics:
+    return _singleton("master", MasterMetrics)
+
+
+def request_plane_metrics() -> RequestPlaneMetrics:
+    return _singleton("request_plane", RequestPlaneMetrics)

@@ -8,9 +8,9 @@ peer drains its bucket once and every further retry is denied.  The
 coordinator draws from it before re-attempting a failed repair
 (``retry_allowed(f"repair:{vid}", "coordinator")``).
 
-A denial is journaled as a ``retry_budget_exhausted`` event, at most once
-per destination per ``_EVENT_MIN_INTERVAL_S``; the reference also counts
-it on a request-plane counter the port does not have.
+Every denial is counted on ``SeaweedFS_retry_budget_exhausted_total{kind}``
+and journaled as a ``retry_budget_exhausted`` event, the event at most
+once per destination per ``_EVENT_MIN_INTERVAL_S``.
 """
 
 from __future__ import annotations
@@ -101,10 +101,14 @@ def get_retry_budget() -> RetryBudget:
 
 def retry_allowed(dest: str, kind: str = "http") -> bool:
     """The call every retry site makes before re-attempting: draw from the
-    process-wide budget; on denial journal the destination (rate-limited)
-    and return False, and the caller keeps what it already did."""
+    process-wide budget; on denial count it (by subsystem ``kind``),
+    journal the destination (rate-limited) and return False, and the
+    caller keeps what it already did."""
     if get_retry_budget().allow(dest):
         return True
+    from ..stats import request_plane_metrics
+
+    request_plane_metrics().retry_budget_exhausted.inc(kind)
     now = time.monotonic()
     with _global_lock:
         emit = now - _last_event.get(dest, 0.0) >= _EVENT_MIN_INTERVAL_S

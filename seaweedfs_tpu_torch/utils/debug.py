@@ -1,6 +1,6 @@
-"""The tracing and journal routes every server registers.
+"""The tracing, journal and profiling routes every server registers.
 
-The port's copy of three routes of seaweedfs_tpu/utils/debug.py:
+The port's copy of these routes of seaweedfs_tpu/utils/debug.py:
 
   GET /debug/traces            the process's span ring as Chrome
                                trace-event JSON; ?enable=1 / ?disable=1
@@ -14,20 +14,36 @@ The port's copy of three routes of seaweedfs_tpu/utils/debug.py:
   GET /debug/events            the process's event journal; ?type=,
                                ?severity=, ?min_severity=, ?since_seq=,
                                ?since=<unix ts>, ?limit=N
+  GET /debug/profile           a wall-clock sampling profile of every
+                               thread of the process, collapsed stacks
+                               (flamegraph.pl input); ?seconds= (default
+                               2, at most 60), ?hz= (default 100, at
+                               most 250)
+  GET /debug/pprof/profile     the same sampler over ?seconds=N at 200 Hz,
+                               as self and cumulative hit tables
+  GET /debug/pprof/goroutine   every thread's stack (the goroutine dump)
+  GET /debug/pprof/heap        tracemalloc's top allocations; the first
+                               call turns tracemalloc on, which slows every
+                               allocation of the process from then on
 
-Not ported: pprof, the sampling profiler, the request log, the flight
-recorder and the status UI.
+A capture holds the request's thread for its whole window; the sampler
+takes the GIL ``hz`` times a second from the threads it watches.
+
+Not ported: the request log, the flight recorder and the status UI.
 """
 
 from __future__ import annotations
 
 import json
+import sys
+import threading
+import traceback
 
 from ..observability import (analyze, disable_tracing, enable_tracing,
                              get_tracer, render_report)
 from ..observability.events import get_journal
 from ..stats import ec_integrity_metrics
-from .httpd import HttpError, Request, Response, Router
+from .httpd import HttpError, Request, Response, Router, qfloat
 
 # the reference's pipeline-health counters the port has no path to bump:
 # it runs no worker processes (worker_restarts), never falls back to
@@ -37,8 +53,73 @@ _NO_PIPELINE_FAULTS = {"worker_restarts": 0, "engine_fallbacks": 0,
                        "degraded_binds": 0}
 
 
+def _profile_text(seconds: float) -> str:
+    """A sampling profile across every thread at 200 Hz (cProfile would
+    watch only the calling thread, which sleeps here), as hit tables."""
+    from ..observability.profiler import SamplingProfiler
+
+    prof = SamplingProfiler(hz=200.0)
+    prof.run_for(seconds)
+    return prof.report_text()
+
+
+def _thread_dump() -> str:
+    frames = sys._current_frames()
+    names = {t.ident: t for t in threading.enumerate()}
+    out = []
+    for ident, frame in frames.items():
+        t = names.get(ident)
+        label = f"{t.name} daemon={t.daemon}" if t else f"thread-{ident}"
+        out.append(f"--- {label} ---")
+        out.extend(line.rstrip()
+                   for line in traceback.format_stack(frame))
+        out.append("")
+    return "\n".join(out)
+
+
+def _heap_text() -> str:
+    import tracemalloc
+
+    if not tracemalloc.is_tracing():
+        tracemalloc.start()
+        return ("tracemalloc just enabled — allocations made from now on "
+                "will appear on the next call\n")
+    snap = tracemalloc.take_snapshot()
+    lines = [f"heap: {len(snap.traces)} traced blocks"]
+    for stat in snap.statistics("lineno")[:40]:
+        lines.append(str(stat))
+    return "\n".join(lines) + "\n"
+
+
 def register_debug_routes(router: Router) -> None:
     r = router
+
+    @r.route("GET", "/debug/pprof/profile")
+    def pprof_profile(req: Request) -> Response:
+        seconds = min(qfloat(req.query, "seconds", 2.0), 60.0)
+        return Response(raw=_profile_text(seconds).encode(),
+                        headers={"Content-Type": "text/plain; charset=utf-8"})
+
+    @r.route("GET", "/debug/pprof/goroutine")
+    def pprof_goroutine(req: Request) -> Response:
+        return Response(raw=_thread_dump().encode(),
+                        headers={"Content-Type": "text/plain; charset=utf-8"})
+
+    @r.route("GET", "/debug/pprof/heap")
+    def pprof_heap(req: Request) -> Response:
+        return Response(raw=_heap_text().encode(),
+                        headers={"Content-Type": "text/plain; charset=utf-8"})
+
+    @r.route("GET", "/debug/profile")
+    def debug_profile(req: Request) -> Response:
+        """Wall-clock sampling profile of every thread of the process, in
+        collapsed-stack format."""
+        from ..observability.profiler import profile_collapsed
+
+        seconds = min(qfloat(req.query, "seconds", 2.0), 60.0)
+        hz = min(qfloat(req.query, "hz", 100.0), 250.0)
+        return Response(raw=profile_collapsed(seconds, hz=hz).encode(),
+                        headers={"Content-Type": "text/plain; charset=utf-8"})
 
     @r.route("GET", "/debug/traces/analyze")
     def debug_traces_analyze(req: Request) -> Response:

@@ -7,7 +7,8 @@ The subset of seaweedfs_tpu/utils/httpd.py that a volume server needs:
     anything else -> 500) and ``_send`` writes a ``Response``, streaming
     ``file_path`` bodies from disk in bounded pieces;
   - ``serve`` / ``stop_server``: a thread-per-connection
-    ``ThreadingHTTPServer`` speaking HTTP/1.1 keep-alive with Nagle off;
+    ``ThreadingHTTPServer`` speaking HTTP/1.1 keep-alive with Nagle off
+    and the reference's listen backlog of 256;
   - ``http_json``, ``http_bytes``, ``http_download``: client calls on
     ``http.client``, one connection per call;
   - ``parse_range``, ``extract_upload``, ``qint``: request parsing.
@@ -28,13 +29,22 @@ Deadlines (``utils/deadline.py``): ``dispatch`` adopts a request's
 ``X-Weed-Deadline`` for the handler's thread, answers 504 before the
 handler runs when the budget is already spent (and when a handler raises
 ``DeadlineExceeded``), and restores the thread's previous deadline
-afterwards.  The client calls clamp their timeout to the remaining budget,
-re-send the header with what is left, and raise ``DeadlineExceeded``
-without sending when it is spent.  A ``Router`` given a server's metrics
-bundle counts each route's requests, latency and 5xx answers.
+afterwards.  Each 504 is counted on ``SeaweedFS_deadline_exceeded_total
+{role}`` (the role is the router's name) and journaled as a
+``deadline_exceeded`` event, at most one a second per router.  The client
+calls clamp their timeout to the remaining budget, re-send the header with
+what is left, and raise ``DeadlineExceeded`` without sending when it is
+spent.  A ``Router`` given a server's metrics bundle counts each route's
+requests, latency and 5xx answers, and a sampled request's trace id rides
+on its latency observation as the bucket's exemplar.
 
-Not ported: admission control, heat and ledger accounting, the request
-log, metric exemplars, the counter and journal event of a 504, TLS, the
+Admission (``utils/admission.py``): a server started with
+``max_inflight > 0`` sets ``Router.admission``; a request on a path that is
+not exempt must take a slot before its handler runs, and one over the
+bound is answered 503 with ``Retry-After: 1`` at once.  The slot is given
+back after the response has been sent, whatever happened on the way.
+
+Not ported: heat and ledger accounting, the request log, TLS, the
 event-loop reactor and the pooled raw-socket client.
 """
 
@@ -213,6 +223,23 @@ class Router:
         # of its requests (several servers may share one process tracer);
         # None: the request's Host header stands in
         self.server_url: Optional[str] = None
+        # the server's AdmissionController (utils/admission.py), installed
+        # by -maxInflight > 0; None costs one attribute check a request
+        self.admission = None
+        # the deadline_exceeded event's rate limit (the counter counts
+        # every 504); a lost race costs at most one extra event
+        self._last_ddl_event = 0.0
+
+    def _note_deadline_exceeded(self) -> None:
+        """Count one budget-spent 504 and journal it, rate-limited."""
+        from ..observability import events as _events
+        from ..stats import request_plane_metrics
+
+        request_plane_metrics().deadline_exceeded.inc(self.name)
+        now = time.monotonic()
+        if now - self._last_ddl_event >= 1.0:
+            self._last_ddl_event = now
+            _events.emit("deadline_exceeded", role=self.name)
 
     def route(self, method: str, pattern: str):
         compiled = re.compile("^" + pattern + "$")
@@ -278,49 +305,77 @@ class Router:
         """``tctx``: a sampled request's trace context; the handler then
         runs inside its request span."""
         t0 = time.perf_counter()
+        admission = self.admission
+        admitted = False
         try:
-            if ddl is not None and ddl.expired():
-                # the caller has given up: answering now beats work nobody
-                # will read
-                resp = Response({"error": "deadline exceeded before "
-                                          "dispatch"}, status=504)
-            elif tctx is not None:
-                with _get_tracer().span(f"http.{self.name}.{fn.__name__}",
-                                        method=req.handler.command,
-                                        path=req.path):
-                    resp = fn(req)
-            else:
-                resp = fn(req)
-        except DeadlineExceeded as e:
-            # the budget ran out inside the handler, at a downstream call
-            resp = Response({"error": str(e) or "deadline exceeded"},
-                            status=504)
-        except HttpError as e:
-            # a synthetic status 0 (unreachable peer) must not become an
-            # invalid "HTTP/1.1 0" status line
-            resp = Response({"error": e.message or str(e)},
-                            status=e.status if e.status >= 100 else 502,
-                            headers=e.headers or None)
-        except LookupError as e:
-            resp = Response({"error": str(e)}, status=404)
-        except Exception as e:  # noqa: BLE001 - the server must not die
-            resp = Response({"error": f"{type(e).__name__}: {e}"},
-                            status=500)
-        if self.metrics is not None:
-            self.metrics.request_counter.inc(fn.__name__)
-            if resp.status >= 500:
-                self.metrics.request_errors.inc(fn.__name__)
-            self.metrics.request_histogram.observe(
-                fn.__name__, time.perf_counter() - t0)
-        if tctx is not None:
-            # the caller can fetch the stitched trace by this id
-            resp.headers.setdefault("X-Trace-Id", tctx.trace_id)
-        if req._body is None:
-            # answering mid-upload would reset the connection and lose the
-            # status; an unread body must not be parsed as the next
-            # request either
-            self._drain_body(handler)
-        self._send(handler, resp)
+            try:
+                if ddl is not None and ddl.expired():
+                    # the caller has given up: answering now beats work
+                    # nobody will read
+                    self._note_deadline_exceeded()
+                    resp = Response({"error": "deadline exceeded before "
+                                              "dispatch"}, status=504)
+                elif admission is not None \
+                        and not admission.exempt(req.path) \
+                        and not admission.try_acquire():
+                    # over the inflight bound: a fast 503 in place of a
+                    # late timeout (try_acquire counted and journaled it),
+                    # and the connection closes
+                    handler.close_connection = True
+                    resp = Response({"error": "overloaded: request shed"},
+                                    status=503,
+                                    headers={"Retry-After": "1",
+                                             "Connection": "close"})
+                else:
+                    admitted = admission is not None \
+                        and not admission.exempt(req.path)
+                    if tctx is not None:
+                        with _get_tracer().span(
+                                f"http.{self.name}.{fn.__name__}",
+                                method=req.handler.command, path=req.path):
+                            resp = fn(req)
+                    else:
+                        resp = fn(req)
+            except DeadlineExceeded as e:
+                # the budget ran out inside the handler, at a downstream
+                # call
+                self._note_deadline_exceeded()
+                resp = Response({"error": str(e) or "deadline exceeded"},
+                                status=504)
+            except HttpError as e:
+                # a synthetic status 0 (unreachable peer) must not become
+                # an invalid "HTTP/1.1 0" status line
+                resp = Response({"error": e.message or str(e)},
+                                status=e.status if e.status >= 100 else 502,
+                                headers=e.headers or None)
+            except LookupError as e:
+                resp = Response({"error": str(e)}, status=404)
+            except Exception as e:  # noqa: BLE001 - the server must not die
+                resp = Response({"error": f"{type(e).__name__}: {e}"},
+                                status=500)
+            if self.metrics is not None:
+                self.metrics.request_counter.inc(fn.__name__)
+                if resp.status >= 500:
+                    self.metrics.request_errors.inc(fn.__name__)
+                # a sampled request's trace id is its bucket's exemplar
+                self.metrics.request_histogram.observe(
+                    fn.__name__, time.perf_counter() - t0,
+                    exemplar=tctx.trace_id if tctx is not None else None)
+            if tctx is not None:
+                # the caller can fetch the stitched trace by this id
+                resp.headers.setdefault("X-Trace-Id", tctx.trace_id)
+            if req._body is None:
+                # answering mid-upload would reset the connection and lose
+                # the status (a shed request's too: this server has no
+                # drain before its close); an unread body must not be
+                # parsed as the next request either
+                self._drain_body(handler)
+            self._send(handler, resp)
+        finally:
+            # the slot goes back only once the response has left: for a
+            # body streamed from disk the send is the work
+            if admitted:
+                admission.release()
 
     @staticmethod
     def _drain_body(handler: BaseHTTPRequestHandler) -> None:
@@ -379,6 +434,13 @@ class Router:
             pass
 
 
+class _Server(ThreadingHTTPServer):
+    # the listen backlog of the reference's threaded server; the stdlib's
+    # 5 drops the SYNs of a burst of new connections (clients reconnecting
+    # after a shed's Connection: close), and each waits a second to retry
+    request_queue_size = 256
+
+
 def serve(router: Router, host: str, port: int) -> ThreadingHTTPServer:
     """Start serving ``router`` on host:port in a thread; each connection
     gets its own thread."""
@@ -407,7 +469,7 @@ def serve(router: Router, host: str, port: int) -> ThreadingHTTPServer:
         def do_DELETE(self):
             router.dispatch(self, "DELETE")
 
-    server = ThreadingHTTPServer((host, port), Handler)
+    server = _Server((host, port), Handler)
     server.daemon_threads = True
     # a short poll lets stop_server return within 0.1 s
     threading.Thread(target=server.serve_forever, args=(0.1,), daemon=True,

@@ -15,8 +15,14 @@ ToVolume.  ``/ec/scrub/start|stop|status`` drive the EC bit-rot scrubber
 (scrubber.py), which pauses while the server takes more than 50 requests
 a second.  ``GET /metrics`` is the process's Prometheus exposition (the
 master's cluster aggregator scrapes it): requests by route, the volume
-and EC-shard gauges refreshed from the live store, and the shard
-integrity counters.  Heartbeats go to the master, full every
+and EC-shard gauges refreshed from the live store, the shard integrity
+counters and the request plane's (``?exemplars=1`` adds sampled requests'
+trace ids to their latency buckets).  ``max_inflight`` > 0
+(``-maxInflight``) sheds object requests beyond that many in flight with a
+fast 503 before their handler runs (utils/admission.py): a shed degraded
+GET launches no kernel, while the admin, scrub, status, metrics and debug
+routes, a remote holder's ``/admin/ec/shard_read`` among them, are never
+shed.  Heartbeats go to the master, full every
 FULL_SYNC_EVERY pulses and as deltas between; a scrub's quarantine
 reaches the master as the volume's new shard set.
 
@@ -29,14 +35,16 @@ than the server's own answers 400.  ``/status`` carries
 port-only key: a drill reads it to see which server ran a repair).
 
 ``GET /debug/traces``, ``/debug/traces/analyze`` and ``/debug/events``
-serve the process's span ring and event journal (utils/debug.py); a
+serve the process's span ring and event journal, ``/debug/profile`` and
+``/debug/pprof/*`` its sampling profiles, threads and heap
+(utils/debug.py); a
 TraceShipper and an EventShipper send the spans of sampled traces and
 every journal event to the master the heartbeats follow, and are
 detached when the server stops.
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
-native planes, mmap and the needle cache, heat, ledger, admission, the
-request log, pprof, the flight recorder, tier routes, batch routes,
+native planes, mmap and the needle cache, heat, ledger, the
+request log, the flight recorder, tier routes, batch routes,
 tail, image resize, and the partial-range fast path (a Range GET slices
 the full body).
 """
@@ -59,7 +67,9 @@ from ..observability import get_tracer
 from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..ops.gf_matmul import gf_matmul
-from ..stats import REGISTRY, ec_integrity_metrics, volume_server_metrics
+from ..stats import (REGISTRY, ec_integrity_metrics, request_plane_metrics,
+                     volume_server_metrics)
+from ..stats.metrics import exemplars_requested
 from ..storage.file_id import FileId
 from ..storage.needle import (
     FLAG_HAS_LAST_MODIFIED,
@@ -77,6 +87,7 @@ from ..storage.volume import (
     volume_file_prefix,
 )
 from ..utils.compression import ungzip_data
+from ..utils.admission import maybe_controller
 from ..utils.debug import register_debug_routes
 from ..utils.httpd import (
     UNSATISFIABLE_RANGE,
@@ -116,11 +127,13 @@ class VolumeServer:
                  host: str = "127.0.0.1", port: int = 8080,
                  public_url: str = "", data_center: str = "",
                  rack: str = "", max_volume_count: int = 8,
-                 pulse_seconds: float = 5.0, device="cuda"):
+                 pulse_seconds: float = 5.0, device="cuda",
+                 max_inflight: int = 0):
         """A volume server for ``directories`` at host:port, heartbeating
         to ``master_url`` (comma-separated masters; heartbeats follow the
         raft leader).  ``device`` runs the EC work: "cuda" needs a card
-        and raises without one; only "cpu" selects the plain versions."""
+        and raises without one; only "cpu" selects the plain versions.
+        ``max_inflight`` > 0 turns admission control on."""
         self.masters = [m.strip() for m in master_url.split(",")
                         if m.strip()]
         self.master_url = self.masters[0]
@@ -132,9 +145,12 @@ class VolumeServer:
         self.engine = "cpu" if self.store.device.type == "cpu" else "tpu"
         self.metrics = volume_server_metrics()
         self.metrics.max_volume_counter.set(max_volume_count)
-        ec_integrity_metrics()  # its families exist at 0 on /metrics
+        # their families exist on /metrics before the first count
+        ec_integrity_metrics()
+        request_plane_metrics()
         self.router = Router("volume", metrics=self.metrics)
         self.router.server_url = self.url
+        self.router.admission = maybe_controller(max_inflight, "volume")
         self._register_routes()
         self._server = None
         self._stop = threading.Event()
@@ -628,8 +644,11 @@ class VolumeServer:
             for vid, ev in list(self.store.ec_volumes.items()):
                 m.volume_counter.add(self.store.ec_collections.get(vid, ""),
                                      "ec_shards", len(ev.shards))
-            return Response(raw=REGISTRY.expose().encode(), headers={
-                "Content-Type": "text/plain; version=0.0.4; charset=utf-8"})
+            return Response(
+                raw=REGISTRY.expose(
+                    exemplars=exemplars_requested(req)).encode(),
+                headers={"Content-Type":
+                         "text/plain; version=0.0.4; charset=utf-8"})
 
         # --- admin: volume lifecycle ---------------------------------
         @r.route("POST", "/admin/assign_volume")

@@ -71,16 +71,42 @@ def test_main_path_on_cpu(tmp_path):
     assert get_tracer().enabled is False and not get_tracer().snapshot()
 
 
+def test_trace_ab_reads_only_its_own_encode(tmp_path):
+    """Rot counted earlier in the process (another test's scrub) must not
+    mark the trace A/B's clean encodes degraded: analyze() gets the
+    integrity counters' change over the traced encode."""
+    from seaweedfs_tpu_torch.stats import ec_integrity_metrics
+
+    res = chip_smoke.run_main_path("cpu", str(tmp_path), 3 << 20, 1 << 20,
+                                   64 << 10, reads=2, stripes=4)
+    ec_integrity_metrics().corrupt_shards.inc("scrub")
+    ec_integrity_metrics().repairs.inc("repaired")
+    ab = chip_smoke.run_trace_ab("cpu", str(tmp_path), res["hashes"])
+    assert ab["attribution"]["degraded"] is False
+
+
 def test_http_path_on_cpu(tmp_path):
     from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
 
     before = gf_matmul.launches
     res = chip_smoke.run_http_path("cpu", str(tmp_path), 2 << 20, reads=12,
                                    threads=3, per_thread=4, decoded_reads=5,
-                                   stripes=3)
+                                   stripes=3, overload_threads=8,
+                                   overload_per_thread=8,
+                                   overload_max_inflight=2)
     assert res["dat_bytes"] >= 2 << 20
     assert set(res["launches"]) == {"encode", "rebuild", "degraded_get",
-                                    "scrub_repair"}
+                                    "overload", "scrub_repair"}
+    # the overload leg: 503s, the shed counter and shed_total agreed and
+    # the admitted GETs' reconstructions were counted (checked inside)
+    over = res["overload"]
+    assert over["gets"] == 64 and over["admitted"] + over["shed"] == 64
+    assert over["admitted"] > 0 and over["shed"] > 0
+    assert over["reconstructed"] > 0 and over["launches"] == 0
+    assert 1 <= over["load_shed_events"] <= int(over["storm_s"]) + 1
+    assert over["monitor_polls"] > 0 and over["deadline_504"]
+    assert set(over["over_1s"]) == {"admitted", "shed"}
+    assert not os.path.exists(tmp_path / "overload")
     scrub = res["scrub"]
     assert scrub["verdict"]["status"] == "repaired"
     assert scrub["verdict"]["corrupt_shards"] == [3, 12]
@@ -205,16 +231,51 @@ def test_cluster_phase_on_cpu(tmp_path):
                             "3_clients_traced", "3_clients_after",
                             "3_clients_sampled_5pct",
                             "3_clients_traced_again",
-                            "3_clients_after_again"]
-    assert all(p["gets"] in (16, 15) and p["cpu_s"]["master"] >= 0
+                            "3_clients_after_again", "3_clients_profiled",
+                            "3_clients_traced_profiled"]
+    # the profiled passes are PROFILE_ROUNDS times as long
+    rounds = chip_smoke.PROFILE_ROUNDS
+    assert all(p["gets"] in ((16, 15) if "profiled" not in name
+                             else (15 * rounds,))
+               and p["cpu_s"]["master"] >= 0
                and 0 <= p["sys_s"]["master"] <= p["cpu_s"]["master"]
-               for p in passes.values())
+               for name, p in passes.items())
     # every traced period recorded spans; 5% of 15 GETs sample at most a
     # few, so that period holds mostly heartbeats and scrapes
     spans = res["traced_spans"]
     assert set(spans) == {"traced", "sampled_5pct", "traced_again"}
     assert spans["traced"] > spans["traced_again"] > 0
     assert spans["sampled_5pct"] > 0
+    # each server's first class (b) GET against its later ones
+    assert res["first_b_ms"] and all(v["first"] > 0
+                                     for v in res["first_b_ms"].values())
+    # the profile leg: the reconstructing server and the master sampled
+    # through one untraced and one traced pass, the request plane clean
+    prof = res["profile"]
+    assert prof["server"] in res["servers"] and prof["hz"] == 100
+    layers = set(chip_smoke.PROFILE_LAYERS)
+    for mode in ("untraced", "traced"):
+        for role in ("server", "master"):
+            p = prof["profiles"][mode][role]
+            assert p["stack_samples"] > 0 and p["top_leaves"], (mode, role)
+            assert p["ticks"] > 0 and p["mean_depth"] > 1
+            assert set(p["self_share"]) == layers | {"other"}
+            assert set(p["under_share"]) == layers
+            assert abs(sum(p["self_share"].values()) - 1) < 1e-9 or \
+                p["busy_samples"] == 0
+            assert 0 <= p["idle_share"] + p["socket_read_share"] <= 1
+        # the server's request threads reconstructed and answered
+        busy = prof["profiles"][mode]["server"]
+        assert busy["under_share"]["httpd"] > 0
+        assert busy["under_share"]["ec"] > 0
+    assert set(prof["traced_minus_untraced"]) == {"server", "master"}
+    assert set(prof["traced_minus_untraced"]["server"]["self_share"]) == \
+        layers | {"other"}
+    assert sum(prof["thread_census"].values()) > 3
+    assert prof["sample_cost_us"] > 0
+    assert prof["health"]["requests_shed"] == 0
+    assert prof["health"]["deadline_exceeded"] == 0
+    assert prof["heap"].startswith("tracemalloc just enabled")
     # the journal of the drill, checked in order inside
     journal = drill["journal"]
     assert [t for t, _ in journal["rot"][:4]] == [
