@@ -40,7 +40,9 @@ result.  Phases, each of which fails the run on any mismatch:
     the written bytes or the shed's 503, the 503s, the shed counter,
     ``shed_total`` and the master's /cluster/health equal, one launch per
     lost interval of the admitted GETs only, /metrics and /status
-    answering throughout, then a spent ``X-Weed-Deadline``'s 504; the
+    answering throughout, ``requests_shed_increase`` firing at the
+    master with the 503s seen and a shortened copy of it (``add_rule``)
+    resolving after the storm, then a spent ``X-Weed-Deadline``'s 504; the
     scrubber (``/ec/scrub/start`` and ``/ec/scrub/status``): a
     clean pass, then a bit flipped in shards 3 and 12 and a pass that must
     quarantine both to ``.bad`` and rebuild them on the card to their
@@ -117,7 +119,19 @@ result.  Phases, each of which fails the run on any mismatch:
     repair's ``cause_event`` naming one of the first two, and the
     killed server's ``peer_stale`` before the loss repair's
     ``repair_planned``; ``events.tail`` through the shell shows them
-    (``journal``);
+    (``journal``); the alert plane (``alerts``): the first kill fires
+    ``peer_down`` and the host's first rot ``scrub_unrepairable`` and
+    ``corrupt_shards_increase``, each timed from its fault to
+    ``alert_fired`` and on to its flight-recorder bundles; in the drill's
+    rot every firing alert carries a bundle from each implicated server
+    and from the master, each fetched with its trace, profile, metrics
+    and events, and the rot repair names a firing alert (its record,
+    ``coordinator.status``, after the alert's ``alert_fired`` in the
+    journal); after the drill's kill ``peer_down`` is firing (anew, or
+    still since the first kill) and the loss repair names an alert; by hand, one timed capture per process,
+    ``alerts.capture``, ``alerts.list -firing``, ``cluster.health``'s
+    alerts line and ``fault.list``; the rules' host ms per evaluation;
+    the alerts resolved by the phase's end;
     then the drain (``run_drain_leg``, coordinator paused):
     ``volume.server.evacuate`` of a live shard holder and
     ``volume.server.leave`` until the master drops it, every moved
@@ -1095,6 +1109,7 @@ def run_overload(device: str, src: str, dst: str, needles: list[dict],
     ``SeaweedFS_deadline_exceeded_total{role="volume"}`` and the health's
     ``deadline_exceeded`` by one and runs nothing."""
     from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.observability.alerts import Rule
     from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
     from seaweedfs_tpu_torch.storage.file_id import FileId
     from seaweedfs_tpu_torch.utils.httpd import HttpError, http_json
@@ -1109,6 +1124,11 @@ def run_overload(device: str, src: str, dst: str, needles: list[dict],
     lost = (2, 7)
     shed_body = {"error": "overloaded: request shed"}
     ms = MasterServer(port=free_port(), pulse_seconds=0.5).start()
+    # a shortened copy of requests_shed_increase, which resolves a second
+    # after the storm
+    ms.alert_engine.add_rule(Rule(
+        "requests_shed_brief", "counter_increase", keep_firing_s=1.0,
+        params={"key": "requests_shed"}))
     vs = None
     try:
         vs = VolumeServer([dst], ms.url, port=free_port(), device=device,
@@ -1120,7 +1140,8 @@ def run_overload(device: str, src: str, dst: str, needles: list[dict],
             except HttpError:  # before the first heartbeat
                 return False
 
-        # a lost shard's lookup must find the volume and no holder
+        # the master's /cluster/health and /cluster/alerts read the
+        # server once it is registered
         wait_for("the master to list the overload server's shards", listed,
                  30)
 
@@ -1150,6 +1171,9 @@ def run_overload(device: str, src: str, dst: str, needles: list[dict],
             return got
 
         c0 = counters()
+        # the alert engine's baseline: it evaluates on demand here (no
+        # telemetry loop), and its first sight of a counter never fires
+        cluster_alerts(ms.url)
         launches0 = gf_matmul.launches
         t_wall = time.time()
         done: list[tuple[int, float, int]] = []
@@ -1211,6 +1235,26 @@ def run_overload(device: str, src: str, dst: str, needles: list[dict],
         if vs.router.admission.shed_total != len(shed):
             raise AssertionError(f"503s {len(shed)}, shed_total "
                                  f"{vs.router.admission.shed_total}")
+        # the storm pages: requests_shed_increase fires with the 503s seen
+        paged: dict = {}
+
+        def shed_paged() -> bool:
+            paged.update(cluster_alerts(ms.url).get(
+                "requests_shed_increase") or {})
+            return paged.get("state") == "firing"
+
+        wait_for("requests_shed_increase to fire", shed_paged, 10)
+        if paged["value"] != len(shed) or paged["servers"] != [vs.url]:
+            raise AssertionError(f"requests_shed_increase {paged}, "
+                                 f"{len(shed)} 503s")
+        # with no shed since, the shortened rule resolves, and the master
+        # journals it (each poll evaluates at most once a second)
+        wait_for("requests_shed_brief to resolve", lambda: cluster_alerts(
+            ms.url)["requests_shed_brief"]["state"] == "resolved", 10)
+        wait_for("its alert_resolved in /cluster/events", lambda: any(
+            e["details"].get("alert") == "requests_shed_brief"
+            for e in journal(ms.url, t_wall)
+            if e["type"] == "alert_resolved"), 10)
         if vs.ec_reads["remote"] or reconstructed != need or (
                 device == "cuda" and launches != need):
             raise AssertionError(f"admitted GETs needed {need} "
@@ -1252,7 +1296,10 @@ def run_overload(device: str, src: str, dst: str, needles: list[dict],
             "reconstructed": reconstructed,
             "launches": launches, "load_shed_events": len(events),
             "monitor_polls": len(polls), "health_moved": moved,
-            "deadline_504": True}
+            "deadline_504": True,
+            "shed_alert": {k: paged[k] for k in ("state", "value",
+                                                 "servers", "severity")},
+            "brief_rule_resolved": True}
 
 
 def flip_byte(path: str, offset: int) -> None:
@@ -1817,6 +1864,158 @@ class Watch:
         return self.seconds
 
 
+# the spread of the drill's heal times over earlier runs of this script
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6)
+HEAL_SPREAD = {"rot_to_heal_s": (5.64, 7.77), "kill_to_heal_s": (4.41, 7.23)}
+# the alerts the coordinator may name for a repair (its
+# _cause_alert_locked chooses among the firing ones)
+REPAIR_ALERTS = ("scrub_unrepairable", "corrupt_shards_increase",
+                 "ec_under_replicated_increase", "peer_down")
+
+
+def cluster_alerts(master: str, state: str = "") -> dict[str, dict]:
+    """The master's /cluster/alerts by alert name (``state`` filters)."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    q = f"?state={state}" if state else ""
+    return {a["name"]: a for a in http_json(
+        "GET", f"http://{master}/cluster/alerts{q}")["alerts"]}
+
+
+class FireWatch(Watch):
+    """Times, from a fault at ``t0`` (``fault_wall`` on the wall clock),
+    until alert ``name`` is firing with a bundle from each of
+    ``servers``, and keeps the alert as first seen so."""
+
+    def __init__(self, master: str, name: str, servers: set, t0: float,
+                 fault_wall: float):
+        self.alert: dict | None = None
+        self.fault_wall = fault_wall
+
+        def ok() -> bool:
+            a = cluster_alerts(master, "firing").get(name)
+            if a is None or not servers <= {
+                    b["server"] for b in a.get("bundles") or []
+                    if b.get("id")}:
+                return False
+            self.alert = a
+            return True
+
+        super().__init__(f"{name} firing with bundles from "
+                         f"{sorted(servers)}", ok, t0, 120)
+
+    def times(self) -> dict:
+        """Seconds from the fault to alert_fired, and from alert_fired to
+        its bundles showing on /cluster/alerts."""
+        seen = self.wait()
+        fired = self.alert["fired_at"] - self.fault_wall
+        if fired < 0:
+            raise AssertionError(f"{self.what} fired {-fired:.3f} s before "
+                                 f"its fault: {self.alert}")
+        return {"fault_to_fired_s": fired, "fired_to_bundles_s": seen - fired,
+                "servers": self.alert["servers"],
+                "bundles": self.alert["bundles"]}
+
+
+def check_bundles(master: str, firing: dict) -> dict:
+    """Each firing alert's bundles: one from each implicated server and
+    one from the master, each fetched from its server's
+    /debug/flightrecorder/<id> with non-empty trace, profile, metrics and
+    events sections.  -> bytes of each bundle document."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    sizes = {}
+    for name, a in firing.items():
+        got = {b["server"]: b for b in a.get("bundles") or []}
+        for url in sorted(set(a["servers"]) | {master}):
+            b = got.get(url)
+            if not b or not b.get("id"):
+                raise AssertionError(f"alert {name} has no bundle from "
+                                     f"{url}: {a}")
+            doc = http_json("GET", f"http://{url}/debug/flightrecorder/"
+                                   f"{b['id']}")
+            if doc["meta"]["alert"] != name or not all(
+                    doc[k] for k in ("trace", "profile", "metrics",
+                                     "events")):
+                raise AssertionError(f"bundle {b['id']} of {name} on {url}"
+                                     f": meta {doc['meta']}")
+            sizes[f"{name}@{url}"] = len(json.dumps(doc))
+    return sizes
+
+
+def fired_before(events: list[dict], alert: str, done_id: str) -> bool:
+    """True if ``alert``'s alert_fired is journaled before the event
+    ``done_id`` (a repair_done)."""
+    order = [e["id"] for e in events]
+    fired = [e["id"] for e in events if e["type"] == "alert_fired"
+             and e["details"].get("alert") == alert]
+    return bool(fired) and done_id in order and \
+        order.index(fired[0]) < order.index(done_id)
+
+
+def evaluation_ms(master: str, cycles: int = 20) -> dict:
+    """Host ms per evaluation of the default rules over the cluster's own
+    /cluster/health and merged /cluster/metrics, fetched once: the rule
+    evaluation alone, in this process, without the scrape."""
+    from seaweedfs_tpu_torch.observability.alerts import (AlertEngine,
+                                                          default_rules)
+    from seaweedfs_tpu_torch.observability.events import EventJournal
+    from seaweedfs_tpu_torch.stats.aggregate import parse_prometheus_text
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes
+
+    health = cluster_health(master)
+    _, text, _ = http_bytes("GET", f"http://{master}/cluster/metrics")
+    families = parse_prometheus_text(text.decode())
+    engine = AlertEngine(default_rules(), lambda: (health, families),
+                         journal=EventJournal(), min_interval=0.0)
+    ms = []
+    for i in range(cycles):
+        t0 = time.perf_counter()
+        engine.evaluate(now=time.time() + i, force=True)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"cycles": cycles, "mean_ms": sum(ms) / cycles, "max_ms": max(ms),
+            "families": len(families), "peers": len(health["peers"])}
+
+
+def alerts_by_hand(master: str, alive: list) -> dict:
+    """One capture per process timed (each POST's wall and its bundle's
+    bytes), then the shell: ``alerts.capture`` with no -server returns a
+    bundle from the master and every registered server, ``alerts.list
+    -firing``, ``cluster.health``'s alerts line and ``fault.list``
+    print."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    captures = {}
+    for url in [master] + list(alive):
+        t0 = time.perf_counter()
+        meta = http_json("POST", f"http://{url}/debug/flightrecorder/"
+                                 f"capture", {"reason": "smoke"}, timeout=30)
+        captures[url] = {"wall_s": time.perf_counter() - t0,
+                         "bytes": meta["bytes"],
+                         "spans": meta["span_count"],
+                         "events": meta["event_count"]}
+    out, wall = run_shell(master, "alerts.capture -reason smoke")
+    lines = out.splitlines()
+    registered = node_urls(master_status(master))
+    if len(lines) != 1 + len(registered) or not all(
+            ": bundle fr-" in line for line in lines):
+        raise AssertionError(f"alerts.capture: {out}")
+    listed, _ = run_shell(master, "alerts.list -firing")
+    health, _ = run_shell(master, "cluster.health")
+    faults, _ = run_shell(master, "fault.list")
+    if not listed.startswith("alerts: ") or \
+            not re.search(r"^alerts: \d+ firing", health, re.M) or \
+            not faults.startswith("fault points: "):
+        raise AssertionError(f"alert shell output: {listed!r} {health!r} "
+                             f"{faults!r}")
+    return {"captures": captures, "alerts.capture_s": wall,
+            "alerts.capture_bundles": len(lines),
+            "alerts_list_firing": listed.splitlines()[0],
+            "health_alerts_line": next(line for line in health.splitlines()
+                                       if line.startswith("alerts:")),
+            "fault_points": faults.splitlines()[0]}
+
+
 REPAIR_LINE = re.compile(r"coordinator: repaired volume (\d+) on (\S+): "
                          r".* legs (\{.*\})$")
 
@@ -1894,6 +2093,29 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
         raise AssertionError(f"ec.scrub -all of the drill's rot: {out}")
     t0, t0_wall = time.perf_counter(), time.time()
 
+    # the alert plane: scrub_unrepairable naming the host and
+    # corrupt_shards_increase (the rot moved that counter) fire, and every
+    # firing alert carries its bundles; either still firing since the
+    # first rot of this host or fired anew
+    paged: dict = {}
+
+    def rot_paged() -> bool:
+        firing = cluster_alerts(master, "firing")
+        s = firing.get("scrub_unrepairable")
+        if s is None or host not in s["servers"] or \
+                "corrupt_shards_increase" not in firing or not all(
+                    set(a["servers"]) | {master} <= {
+                        b["server"] for b in a.get("bundles") or []
+                        if b.get("id")} for a in firing.values()):
+            return False
+        paged.update(firing)
+        return True
+
+    res["alerts"] = {"rot_paged_s": wait_for(
+        "the rot's alerts with their bundles", rot_paged, 60)}
+    res["alerts"]["rot_firing"] = sorted(paged)
+    res["alerts"]["rot_bundle_bytes"] = check_bundles(master, paged)
+
     def verdict_cleared() -> bool:
         # a scrape from after the host's re-scrub pass: one from before the
         # scrub's verdict reached the aggregator would read clean too
@@ -1925,7 +2147,7 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
                       if r["action"] == "repair_done")
     res["rot_repair"] = {k: rot_repair[k] for k in
                          ("host", "rebuilt", "spread", "rescrubbed",
-                          "cause_event", "cause_trace")}
+                          "cause_event", "cause_trace", "alert")}
     # the journal: the rotted server's detection and verdict, then the
     # master's plan and repair, and the repair names one of the two
     want = [("shard_corrupt", host), ("scrub_unrepairable", host),
@@ -1953,6 +2175,17 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
                                         rot_repair["cause_event"])}
     res["seconds"]["rot_scrub_end_to_repair_done"] = \
         rot_repair["at"] - t0_wall
+    # the repair names a firing alert, in its record, in coordinator.status
+    # and after that alert's alert_fired in the journal
+    everything = journal(master, 0.0)
+    rot_done = next(e["id"] for e in rot_events if e["type"] == "repair_done")
+    out, _ = run_shell(master, "coordinator.status")
+    if rot_repair["alert"] not in paged or \
+            f"alert={rot_repair['alert']}" not in out or \
+            not fired_before(everything, rot_repair["alert"], rot_done):
+        raise AssertionError(f"the rot repair's alert {rot_repair['alert']!r}"
+                             f": firing {sorted(paged)}, {out}")
+    res["alerts"]["rot_repair_alert"] = rot_repair["alert"]
 
     mid = kernel_launches(alive)
     check_launches("rot", pre, mid, pre_wall)
@@ -1977,8 +2210,8 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
     res["kill_to_heal_s"] = res["seconds"]["kill_to_sha256_equal"]
     # the master journaled the lost peer before it planned the repair
     wait_for("the loss's events in /cluster/events", lambda: {
-        "peer_stale", "repair_planned"} <= {e["type"] for e in journal(
-            master, t0_wall)}, 30)
+        "peer_stale", "repair_planned", "repair_done"} <= {
+            e["type"] for e in journal(master, t0_wall)}, 30)
     loss_events = journal(master, t0_wall)
     stale = [e for e in loss_events if e["type"] == "peer_stale"
              and e["details"].get("peer") == host]
@@ -1990,6 +2223,24 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
                              f"{loss_events}")
     res["journal"]["loss"] = [(e["type"], e.get("server"))
                               for e in loss_events]
+    # peer_down fires (anew, or still firing since the first kill) and the
+    # loss repair names it or the rot's alert, after its alert_fired
+    st = coordinator_status(master)
+    loss_repair = next(r for r in st["recent"]
+                       if r["action"] == "repair_done")
+    pd = cluster_alerts(master)["peer_down"]
+    loss_done = next(e["id"] for e in loss_events
+                     if e["type"] == "repair_done")
+    if pd["state"] != "firing" or \
+            loss_repair["alert"] not in REPAIR_ALERTS or \
+            not fired_before(journal(master, 0.0), loss_repair["alert"],
+                             loss_done):
+        raise AssertionError(f"the loss: peer_down {pd}, repair "
+                             f"{loss_repair}")
+    res["alerts"]["loss_repair_alert"] = loss_repair["alert"]
+    res["alerts"]["loss_peer_down"] = {
+        "fires": pd["fires"], "fault_to_fired_s": pd["fired_at"] - t0_wall
+        if pd["fired_at"] >= t0_wall else None}
     out, _ = run_shell(master, "events.tail -n 200")
     for t in ("shard_corrupt", "scrub_unrepairable", "repair_planned",
               "repair_done", "peer_stale"):
@@ -2827,6 +3078,8 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         victim = min((u for u in vs if u != source),
                      key=lambda u: (-len(held[u]), held[u]))
         lost = held[victim]
+        kill_watch = FireWatch(master, "peer_down", {master},
+                               time.perf_counter(), time.time())
         vs[victim]["proc"].kill()
         vs[victim]["proc"].wait()
         res["seconds"]["drop"] = wait_for(
@@ -3052,6 +3305,10 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                        key=lambda u: (-len(held_now[u]), u))
         rot_shard = held_now[rot_host][-1]
         rot_path = shard_path(rot_host, rot_shard)
+        rot_watches = {name: FireWatch(master, name, {rot_host, master},
+                                       time.perf_counter(), time.time())
+                       for name in ("scrub_unrepairable",
+                                    "corrupt_shards_increase")}
         flip_byte(rot_path, os.path.getsize(rot_path) // 2)
         out, res["seconds"]["ec.scrub"] = run_shell(
             master, "ec.scrub -all -rate 0")
@@ -3088,17 +3345,35 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         res["scrub"] = {"host": rot_host, "shard": rot_shard,
                         "healed_on": holders[rot_shard]}
 
+        # the first fires: peer_down at the first kill, the rot's two at
+        # this host's first rot
+        first_fires = {"peer_down": kill_watch.times(),
+                       **{n: w.times() for n, w in rot_watches.items()}}
         res["drill"] = coordinator_drill(master, vid, rot_host, vs, alive,
                                          shard_path, hashes,
                                          min(rebuild_launches))
         res["drill"]["repair_legs"] = repair_legs(
             os.path.join(work, "master.log"))
         alive.remove(rot_host)
+        res["alerts"] = {"first_fires": first_fires,
+                         **res["drill"].pop("alerts"),
+                         "by_hand": alerts_by_hand(master, alive),
+                         "evaluation": evaluation_ms(master)}
+        for k, (lo, hi) in HEAL_SPREAD.items():
+            v = res["drill"][k]
+            res["alerts"][k] = {"s": v, "earlier_runs": [lo, hi],
+                                "moved": "within" if lo <= v <= hi else
+                                ("above" if v > hi else "below")}
         res["drain"] = run_drain_leg(
             master, collection, vid, vs, alive, shard_path, hashes,
             shards_of, needles, fids, expect, seed, engine, DRAIN_READS,
             DRAIN_DELETED_READS)
         drained = res["drain"]["drained"]["url"]
+        # alerts that resolved so far (peer_down resolves 60 s, its
+        # keep_firing_s, after a killed server leaves the registry)
+        res["alerts"]["resolved"] = [
+            (e["details"]["alert"], e["details"]["active_s"])
+            for e in journal(master, 0.0) if e["type"] == "alert_resolved"]
 
         out, res["seconds"]["ec.decode"] = run_shell(
             master, f"ec.decode -volumeId {vid}")
@@ -3505,6 +3780,7 @@ def main() -> int:
         "nvidia_smi": card})
     log({"phase": "journal", **cluster["drill"]["journal"],
          "rot_repair": cluster["drill"]["rot_repair"], "nvidia_smi": card})
+    log({"phase": "alerts", **cluster["alerts"], "nvidia_smi": card})
     drain = cluster["drain"]
     log({"phase": "evacuate_done", "reduced": {
         "volume_bytes": VOLUME_BYTES,

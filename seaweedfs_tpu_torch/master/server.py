@@ -22,6 +22,8 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         coordinator's totals, and a rollup `degraded`
   GET  /cluster/coordinator, POST /cluster/coordinator/pause|resume
                         the EC repair coordinator (ops/coordinator.py)
+  GET  /cluster/alerts  the alert engine's rules and alerts
+                        (observability/alerts.py); ?state=firing filters
   POST /cluster/traces/ingest, GET /cluster/traces, /cluster/traces/<id>
                         the trace collector: servers ship the spans of
                         sampled traces, the master stitches them by trace
@@ -38,15 +40,21 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         this process's span ring and journal
   GET  /debug/profile, /debug/pprof/profile|goroutine|heap
                         sampling profiles, the thread dump, the heap
-                        (utils/debug.py)
+  POST /debug/flightrecorder/capture, GET /debug/flightrecorder[/<id>]
+                        this process's diagnostic bundles (utils/debug.py)
 
 A janitor thread unregisters volume servers that stopped heartbeating.
 ``coordinator_seconds`` > 0 starts the coordinator's loop with that
 interval (the routes answer either way); it pauses while the shell's
 admin lock is held, and it counts a registered server the aggregator
 cannot scrape as down.  ``metrics_aggregation_seconds`` > 0 scrapes every
-server that often, so the coordinator sees a dead server within a
-scrape; otherwise the /cluster/* routes scrape on demand.  Every
+server that often and then evaluates the alert rules, so the coordinator
+sees a dead server within a scrape and an alert fires with nobody polling;
+otherwise the /cluster/* routes scrape and /cluster/alerts evaluates on
+demand (each at most once per ``min_interval``).  A firing alert asks each
+implicated server, then the master itself, for a flight-recorder bundle on
+a thread of its own, and its ``alert_fired`` event reaches the
+coordinator, whose repairs name it.  Every
 ``VACUUM_SCAN_SECONDS`` (900, as in the reference) the master vacuums
 every volume whose replicas all carry ``GARBAGE_THRESHOLD`` (0.3) or more
 of garbage.  Like the reference's master CLI, the port sets neither by a
@@ -61,11 +69,10 @@ own).
 The master's own spans and events reach its collector and journal without
 HTTP (the shippers' local short-circuit).
 
-Not ported: raft (``-peers``, ``-mdir``, /raft/*), the /cluster/ alert,
-heat, ledger, workload, capacity, autoscale and watch routes (so the
-aggregation loop evaluates no alert rules, and no journal batch is
-replicated or handed to an autoscaler), the maintenance scripts, the
-framed-TCP assign front, and security (guard, JWT, TLS).
+Not ported: raft (``-peers``, ``-mdir``, /raft/*; so neither the alert
+state nor a journal batch is replicated), the /cluster/ heat, ledger,
+workload, capacity, autoscale and watch routes, the maintenance scripts,
+the framed-TCP assign front, and security (guard, JWT, TLS).
 """
 
 from __future__ import annotations
@@ -79,8 +86,12 @@ from typing import Optional
 
 from ..observability import analyze_cluster, get_tracer
 from ..observability.collector import TraceCollector, TraceShipper
-from ..observability.events import (ClusterEventJournal, EventShipper,
+from ..observability.alerts import AlertEngine, default_rules
+from ..observability.events import (HEALTH_EVENT_TYPES,
+                                    REFERENCE_ONLY_HEALTH_EVENT_TYPES,
+                                    ClusterEventJournal, EventShipper,
                                     get_journal)
+from ..observability.flightrecorder import get_flightrecorder
 from ..ops.coordinator import EcCoordinator
 from ..stats import REGISTRY, master_metrics, request_plane_metrics
 from ..stats.aggregate import ClusterAggregator
@@ -167,6 +178,16 @@ class MasterServer:
             get_journal(), server=self.url,
             local_journal=self.event_journal)
         self.event_journal.on_ingest = self._on_cluster_events
+        self.alert_engine = AlertEngine(
+            default_rules(),
+            source_fn=lambda: (self.aggregator.health(),
+                               self.aggregator.merged()),
+            server=self.url,
+            on_fire=self._on_alert_fire,
+            exemplar_fn=self._alert_exemplar)
+        # capture fan-outs in flight: stop() waits for them
+        self._capture_lock = threading.Lock()
+        self._capture_threads: list[threading.Thread] = []  # guarded-by: _capture_lock
 
     # --- lifecycle --------------------------------------------------------
     @property
@@ -180,7 +201,8 @@ class MasterServer:
         threading.Thread(target=self._janitor_loop, daemon=True,
                          name="master-janitor").start()
         if self.metrics_aggregation_seconds > 0:
-            self.aggregator.start_loop(self.metrics_aggregation_seconds)
+            threading.Thread(target=self._telemetry_loop, daemon=True,
+                             name="master-telemetry").start()
         if self.coordinator_seconds > 0:
             self.coordinator.start()
         if self.vacuum_scan_seconds > 0:
@@ -191,9 +213,15 @@ class MasterServer:
     def stop(self) -> None:
         self._stop.set()
         self.coordinator.stop()
-        self.aggregator.stop_loop()
         if self._server is not None:
             stop_server(self._server)
+        # a straggling capture writes no bundle after this (its stop
+        # checks), but one mid-write finishes before the caller removes
+        # the spool
+        with self._capture_lock:
+            captures = list(self._capture_threads)
+        for t in captures:
+            t.join(timeout=30.0)
         # detached, or a later master in this process would receive this
         # one's spans and events through the chained hooks
         self._trace_shipper.detach()
@@ -203,6 +231,82 @@ class MasterServer:
         """The cluster journal's ingest hook: each batch of newly accepted
         events wakes the coordinator with their causes."""
         self.coordinator.on_events(accepted)
+
+    def _telemetry_loop(self) -> None:
+        """The -metricsAggregationSeconds cadence: keep the cluster rollup
+        warm and evaluate the alert rules over it, so alerts fire with
+        nobody polling /cluster/health."""
+        while not self._stop.wait(self.metrics_aggregation_seconds):
+            try:
+                self.aggregator.scrape(force=True, include_scrub=True)
+                self.alert_engine.evaluate(force=True)
+            except Exception:  # noqa: BLE001 - rules carry their own errors
+                log.exception("telemetry loop")
+
+    def _alert_exemplar(self, rule) -> str:
+        """The trace id of the newest cluster-journal event about this
+        rule's subject: the alert's exemplar, so the operator can
+        trace.fetch the operation that degraded."""
+        if rule.kind == "journal_event":
+            etype = rule.params.get("event", "")
+        else:
+            key = rule.params.get("key", "")
+            etype = HEALTH_EVENT_TYPES.get(key) or \
+                REFERENCE_ONLY_HEALTH_EVENT_TYPES.get(key)
+        if not etype:
+            return ""
+        evs = self.event_journal.query(type_=etype, limit=1)
+        return (evs[-1].get("trace") or "") if evs else ""
+
+    def _on_alert_fire(self, rule, state_doc: dict, servers: list) -> None:
+        """Firing transition -> flight-recorder fan-out: ask each
+        implicated server (at most eight) to freeze a bundle, then
+        capture the master's own view.  On a thread of its own (a 0.25 s
+        profile per server must not stall the evaluation), landing the
+        bundle ids on the alert (``bundles`` in /cluster/alerts)."""
+
+        def worker():
+            # let the peers' shippers flush the transition's events
+            # before they are frozen into bundles
+            if self._stop.wait(0.6):
+                return
+            bundles: list[dict] = []
+            trace_id = state_doc.get("exemplar_trace", "")
+            for url in list(dict.fromkeys(servers))[:8]:
+                if self._stop.is_set():
+                    return
+                try:
+                    r = http_json(
+                        "POST", f"http://{url}/debug/flightrecorder/capture",
+                        {"reason": f"alert:{rule.name}", "alert": rule.name,
+                         "trace_id": trace_id}, timeout=15)
+                    bundles.append({"server": url, "id": r.get("id")})
+                except Exception as e:  # noqa: BLE001 - noted on the alert
+                    bundles.append({"server": url,
+                                    "error": f"{type(e).__name__}: {e}"
+                                    [:200]})
+            if self._stop.is_set():
+                # a stopped master writes nothing into the
+                # process-global recorder from a straggling thread
+                return
+            try:
+                # the master's bundle freezes the cluster journal (its
+                # own journal sees only the alert transitions)
+                meta = get_flightrecorder().capture(
+                    reason=f"alert:{rule.name}", alert=rule.name,
+                    server=self.url, trace_id=trace_id,
+                    events=self.event_journal.query(limit=256))
+                bundles.append({"server": self.url, "id": meta["id"]})
+            except Exception:  # noqa: BLE001 - the peers' bundles stand
+                log.exception("flight capture on the master")
+            self.alert_engine.note_bundles(rule.name, bundles)
+
+        t = threading.Thread(target=worker, daemon=True,
+                             name="flight-capture")
+        with self._capture_lock:
+            self._capture_threads = [c for c in self._capture_threads
+                                     if c.is_alive()] + [t]
+        t.start()
 
     def _janitor_loop(self) -> None:
         while not self._stop.wait(self.topo.pulse_seconds):
@@ -412,6 +516,22 @@ class MasterServer:
         def cluster_health(req: Request) -> Response:
             self.aggregator.scrape(include_scrub=True)
             return Response(self.aggregator.health())
+
+        @r.route("GET", "/cluster/alerts")
+        def cluster_alerts(req: Request) -> Response:
+            """The alert engine's state: every rule's alert (inactive,
+            pending, firing or resolved) with value, detail, implicated
+            servers, exemplar trace and flight-recorder bundles, and the
+            rule table.  Evaluates on demand behind the same TTL guards
+            as the scrape, so polling cannot amplify; ?state= filters."""
+            self.aggregator.scrape(include_scrub=True)
+            doc = self.alert_engine.evaluate()
+            want = req.query.get("state", "").strip().lower()
+            if want:
+                doc = dict(doc)
+                doc["alerts"] = [a for a in doc["alerts"]
+                                 if a["state"] == want]
+            return Response(doc)
 
         @r.route("GET", "/cluster/coordinator")
         def cluster_coordinator(req: Request) -> Response:

@@ -19,10 +19,16 @@ The tracer starts disabled: ``-trace.sample R`` on the CLI, or
 ``SamplingProfiler`` (profiler.py) samples every thread's stack at a
 fixed rate; servers serve it at GET /debug/profile and /debug/pprof/*.
 
-Not ported: alerts, the flight recorder, the request log, heat, the
-resource ledger and the windowed profiler.
+``AlertEngine`` (alerts.py) evaluates ``default_rules()`` over the
+master's rollup and serves /cluster/alerts; a firing rule asks each
+implicated server's ``FlightRecorder`` (flightrecorder.py) for a bundle,
+served at /debug/flightrecorder[/<id>].
+
+Not ported: the request log, heat, the resource ledger and the windowed
+profiler.
 """
 
+from .alerts import AlertEngine, Rule, default_rules
 from .analysis import (analyze, analyze_cluster, attribution_summary,
                        render_cluster_report, render_report)
 from .collector import TraceCollector, TraceShipper
@@ -30,6 +36,7 @@ from .context import (ingress_context, inject_trace_headers,
                       sample_rate, set_sample_rate)
 from .events import (ClusterEventJournal, Event, EventJournal,
                      EventShipper, get_journal)
+from .flightrecorder import FlightRecorder, get_flightrecorder
 from .profiler import SamplingProfiler, profile_collapsed
 from .tracer import (Span, Tracer, disable_tracing, enable_tracing,
                      get_tracer)
@@ -41,4 +48,5 @@ __all__ = ["Span", "Tracer", "get_tracer", "enable_tracing",
            "ingress_context", "inject_trace_headers", "sample_rate",
            "set_sample_rate", "Event", "EventJournal",
            "ClusterEventJournal", "EventShipper", "get_journal",
-           "SamplingProfiler", "profile_collapsed"]
+           "SamplingProfiler", "profile_collapsed", "AlertEngine", "Rule",
+           "default_rules", "FlightRecorder", "get_flightrecorder"]

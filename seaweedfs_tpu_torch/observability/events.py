@@ -26,9 +26,12 @@ The port emits these types: ``shard_corrupt`` (ec/integrity.py),
 ``ec_under_replicated``, ``repair_planned``, ``repair_done``,
 ``repair_failed``, ``rebalance_move`` (ops/coordinator.py),
 ``retry_budget_exhausted`` (utils/backoff.py), ``load_shed``
-(utils/admission.py) and ``deadline_exceeded`` (utils/httpd.py).  The rest of the registry
-is carried as data, so a reference server's journal documents keep their
-severities here.
+(utils/admission.py), ``deadline_exceeded`` (utils/httpd.py),
+``alert_pending``, ``alert_fired``, ``alert_resolved``
+(observability/alerts.py) and ``flight_capture``
+(observability/flightrecorder.py).  The rest of the registry is carried
+as data, so a reference server's journal documents keep their severities
+here.
 
 emit() runs only on degraded paths and coordinator actions, never on a
 clean hot path, so the journal needs no enable gate.
@@ -40,6 +43,7 @@ import os
 import threading
 import time
 from collections import OrderedDict, deque
+from time import monotonic
 from typing import Callable, Optional
 
 from . import context as _trace_context
@@ -66,18 +70,22 @@ EVENT_TYPES = {
     "retry_budget_exhausted": "warning",  # token bucket denied a retry
     "load_shed": "warning",          # admission control answered 503
     "deadline_exceeded": "warning",  # X-Weed-Deadline budget spent: 504
+    # alerting engine state transitions (observability/alerts.py)
+    "alert_pending": "info",
+    "alert_fired": "error",
+    "alert_resolved": "info",
+    # flight recorder captures (observability/flightrecorder.py)
+    "flight_capture": "info",
 }
 
 # the reference's other event types, whose emitters the port does not
 # have (worker supervision, engine fallback, the framed-TCP plane,
-# alerting, the flight recorder, the request log, the event loop, heat,
-# the resource ledger, the autoscaler): data only, so a reference
-# server's events keep their severity in the port's journals
+# the request log, the event loop, heat, the resource ledger, the
+# autoscaler): data only, so a reference server's events keep their
+# severity in the port's journals
 REFERENCE_ONLY_EVENT_TYPES = {
     "worker_restart": "warning", "engine_fallback": "warning",
-    "degraded_bind": "warning", "alert_pending": "info",
-    "alert_fired": "error", "alert_resolved": "info",
-    "flight_capture": "info", "reqlog_dropped": "warning",
+    "degraded_bind": "warning", "reqlog_dropped": "warning",
     "dataplane_conn_abort": "warning", "heat_shift": "warning",
     "flash_crowd": "error", "loop_stall": "error", "replica_grow": "info",
     "replica_shrink": "info", "tier_committed": "info",
@@ -94,6 +102,19 @@ HEALTH_EVENT_TYPES = {
     "requests_shed": "load_shed",
     "deadline_exceeded": "deadline_exceeded",
     "retry_budget_exhausted": "retry_budget_exhausted",
+}
+
+# the reference's rows of that mapping for the families the port has no
+# emitter of: data only, so the alert rule on each such family takes the
+# reference's severity
+REFERENCE_ONLY_HEALTH_EVENT_TYPES = {
+    "worker_restarts": "worker_restart",
+    "engine_fallbacks": "engine_fallback",
+    "degraded_binds": "degraded_bind",
+    "reqlog_records_dropped": "reqlog_dropped",
+    "dataplane_conn_aborts": "dataplane_conn_abort",
+    "loop_lag": "loop_stall",
+    "autoscale_failures": "autoscale_failed",
 }
 
 
@@ -349,6 +370,8 @@ class EventShipper:
         self._prev_hook: Optional[Callable[[Event], None]] = None
         self.shipped = 0  # guarded-by: _lock
         self.dropped = 0  # guarded-by: _lock
+        # the master the batch on the wire goes to
+        self._inflight_url: Optional[str] = None  # guarded-by: _lock
 
     def attach(self) -> "EventShipper":
         self._prev_hook = self.journal.on_emit
@@ -396,38 +419,66 @@ class EventShipper:
 
     def flush(self, timeout: float = 5.0) -> None:
         """Ship every event journaled so far before returning (a batch
-        already in flight included)."""
-        with self._send_lock:
+        already in flight included), in about ``timeout`` seconds: the
+        wait for a batch in flight counts against it.  A batch on its way
+        to a master the server has since left is not waited for.  When
+        the wait spends the time, the events stay buffered for the flush
+        thread."""
+        deadline = monotonic() + timeout
+        if not self._send_lock.acquire(blocking=False):
             with self._lock:
-                if not self._buf:
-                    return
-                batch = list(self._buf)
-                self._buf.clear()
-            # the server stamp is decided at EMIT time (thread-local or the
-            # journal's sole-shipper default) — a shipper must not claim
-            # unattributed events as its own: with co-located servers both
-            # chained shippers ship the same event id and whichever copy
-            # wins the collector's dedup would misattribute it
-            docs = [ev.to_dict() for ev in batch]
-            if self.local_journal is not None:
-                self.local_journal.ingest(self.server, docs)
-                with self._lock:
-                    self.shipped += len(docs)
+                inflight = self._inflight_url
+            if inflight is not None and self.master_url_fn is not None \
+                    and inflight != self.master_url_fn():
                 return
-            try:
-                # shipping must never trace itself (same rule as spans)
-                with _trace_context.scope(_trace_context.NOT_SAMPLED):
-                    ship_batch(self.master_url_fn, "/cluster/events/ingest",
-                               {"server": self.server, "events": docs},
-                               timeout)
-                with self._lock:
-                    self.shipped += len(docs)
-            except Exception:
-                # master down: the batch is LOST and counted.
-                # Counter updates ride _lock: the flush thread and the
-                # detach()-time final flush race these read-modify-writes
-                with self._lock:
-                    self.dropped += len(docs)
+            if not self._send_lock.acquire(
+                    timeout=max(deadline - monotonic(), 0.0)):
+                return
+        try:
+            left = deadline - monotonic()
+            if left <= 0:
+                return
+            self._ship(left)
+        finally:
+            self._send_lock.release()
+
+    def _ship(self, timeout: float) -> None:  # holds: _send_lock
+        with self._lock:
+            if not self._buf:
+                return
+            batch = list(self._buf)
+            self._buf.clear()
+        # the server stamp is decided at EMIT time (thread-local or the
+        # journal's sole-shipper default) — a shipper must not claim
+        # unattributed events as its own: with co-located servers both
+        # chained shippers ship the same event id and whichever copy
+        # wins the collector's dedup would misattribute it
+        docs = [ev.to_dict() for ev in batch]
+        if self.local_journal is not None:
+            self.local_journal.ingest(self.server, docs)
+            with self._lock:
+                self.shipped += len(docs)
+            return
+        try:
+            url = self.master_url_fn()
+            with self._lock:
+                self._inflight_url = url
+            # shipping must never trace itself (same rule as spans)
+            with _trace_context.scope(_trace_context.NOT_SAMPLED):
+                ship_batch(lambda: url, "/cluster/events/ingest",
+                           {"server": self.server, "events": docs},
+                           timeout)
+            with self._lock:
+                self.shipped += len(docs)
+        except Exception:
+            # master down: the batch is LOST and counted.
+            # Counter updates ride _lock: the flush thread and the
+            # detach()-time final flush race these read-modify-writes
+            with self._lock:
+                self.dropped += len(docs)
+        finally:
+            with self._lock:
+                self._inflight_url = None
 
 
 # --- process-global journal --------------------------------------------------

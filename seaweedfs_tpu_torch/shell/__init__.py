@@ -1,5 +1,6 @@
 """Admin shell package: importing it registers every command."""
 
+from . import alert_commands as alert_commands  # noqa: F401
 from . import commands as commands  # noqa: F401
 from . import coordinator_commands as coordinator_commands  # noqa: F401
 from . import ec_commands as ec_commands  # noqa: F401

@@ -10,12 +10,11 @@ every server it calls, ``env.last_trace_id`` names it, and a bare
 ``trace.fetch`` shows the previous command's stitched trace.  With the
 tracer on (``-trace.sample``) the command records a ``shell.<name>``
 span.
-
-Not ported: ``fault.list``.
 """
 
 from __future__ import annotations
 
+import json
 import shlex
 from typing import Callable, Optional
 
@@ -232,6 +231,21 @@ def cmd_collection_list(env: CommandEnv, flags: dict) -> str:
     topo = env.topology()
     names = sorted({layout["collection"] for layout in topo.get("Layouts", [])})
     return "\n".join(n or "(default)" for n in names) or "(none)"
+
+
+@command("fault.list")
+def cmd_fault_list(env: CommandEnv, flags: dict) -> str:
+    """fault.list [-json]  # the fault-injection registry: every armable
+    # fault point with a one-line description"""
+    from ..utils import faultinject as fi
+
+    if flags.get("json") == "true":
+        return json.dumps(dict(fi.list_points()), indent=2)
+    lines = [f"fault points: {len(fi.FAULT_POINTS)} registered "
+             "(arm via seaweedfs_tpu_torch.utils.faultinject.enable)"]
+    for name, desc in fi.list_points():
+        lines.append(f"  {name:<18} {desc}")
+    return "\n".join(lines)
 
 
 @command("volume.grow")

@@ -12,9 +12,9 @@ The shell's admin ``lock`` already pauses the coordinator (no dueling
 migrations); pause/resume is the operator's hold that outlives a lock
 session.  Output is stable line-per-record text, so scripts can grep it;
 -json prints the raw document.  cluster.health prints the masters line
-from /cluster/status; the reference's alert, capacity and ledger lines
-are left out, as the reference's shell leaves them out before a master
-without those routes.
+from /cluster/status and the alerts line from /cluster/alerts; the
+reference's capacity and ledger lines are left out, as the reference's
+shell leaves them out before a master without those routes.
 """
 
 from __future__ import annotations
@@ -134,6 +134,15 @@ def cmd_cluster_health(env: CommandEnv, flags: dict) -> str:
              f"degraded: {doc['degraded']}  "
              f"stale: {', '.join(doc['stale_peers']) or 'none'}",
              _masters_line(env)]
+    # best-effort: a master without the alert engine leaves the line out
+    try:
+        al = env.master_get("/cluster/alerts")
+        firing = [a["name"] for a in al.get("alerts", [])
+                  if a["state"] == "firing"]
+        lines.append(f"alerts: {al.get('firing', 0)} firing"
+                     + (f" ({', '.join(firing)})" if firing else ""))
+    except Exception:  # noqa: BLE001 - as the reference's shell
+        pass
     t = doc["totals"]
     lines.append(f"totals: worker_restarts={t['worker_restarts']} "
                  f"engine_fallbacks={t['engine_fallbacks']} "

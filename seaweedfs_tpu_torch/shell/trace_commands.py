@@ -11,7 +11,8 @@ and trace.fetch and of alert_commands.py's events.tail:
     events.tail [-n 20] [-type t]     the cluster journal (or -server's
                                       own journal), one event a line
 
-Not ported: cluster.raft and the alerting commands.
+The alerting commands are in alert_commands.py.  Not ported:
+cluster.raft.
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ An unreachable peer is marked stale, not dropped and never an error: its
 last-scraped values keep serving (peer_up 0, a rising scrape age), so a
 flapping server shows as staleness instead of dipping cluster counters.
 A peer that leaves the registry drops out.  The endpoints scrape on
-demand through a short TTL (``min_interval``); ``start_loop`` adds the
-master's ``-metricsAggregationSeconds`` background scrape.
+demand through a short TTL (``min_interval``); the master's
+``-metricsAggregationSeconds`` loop forces a scrape on its cadence.
 
 A peer's up -> down transition is journaled as a ``peer_stale`` event
 (once per loss, not per scrape), and a scrape carries the calling
@@ -266,7 +266,6 @@ class ClusterAggregator:
         self._lock = threading.Lock()
         self._last_scrape = 0.0  # guarded-by: _lock
         self._last_scrub_scrape = 0.0  # guarded-by: _lock
-        self._stop: Optional[threading.Event] = None
 
     def _http_fetch(self, url: str) -> str:
         status, body, _ = http_bytes("GET", f"http://{url}/metrics",
@@ -354,27 +353,6 @@ class ClusterAggregator:
                     st.up, st.error = False, err
         for url, err in lost:
             _events.emit("peer_stale", peer=url, error=err)
-
-    def start_loop(self, interval: float) -> threading.Thread:
-        """The periodic scraper (the master's -metricsAggregationSeconds);
-        the on-demand path stays available without it."""
-        self._stop = threading.Event()
-
-        def loop():
-            while not self._stop.wait(interval):
-                try:
-                    self.scrape(force=True, include_scrub=True)
-                except Exception:  # noqa: BLE001 - the loop must survive
-                    _log.exception("cluster metrics scrape failed")
-
-        t = threading.Thread(target=loop, daemon=True,
-                             name="cluster-metrics-scrape")
-        t.start()
-        return t
-
-    def stop_loop(self) -> None:
-        if self._stop is not None:
-            self._stop.set()
 
     # --- views ------------------------------------------------------------
     def _snapshot(self) -> dict[str, _PeerState]:

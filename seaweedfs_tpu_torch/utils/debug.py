@@ -25,11 +25,21 @@ The port's copy of these routes of seaweedfs_tpu/utils/debug.py:
   GET /debug/pprof/heap        tracemalloc's top allocations; the first
                                call turns tracemalloc on, which slows every
                                allocation of the process from then on
+  POST /debug/flightrecorder/capture
+                               freeze the process's trace ring, a short
+                               profile, the /metrics exposition and the
+                               journal tail into one spooled bundle (201,
+                               its meta); body: reason, alert, trace_id,
+                               profile_s (at most 5)
+  GET /debug/flightrecorder    the spool's bundles, newest first
+  GET /debug/flightrecorder/<id>
+                               one bundle (404 for an unknown id)
 
 A capture holds the request's thread for its whole window; the sampler
 takes the GIL ``hz`` times a second from the threads it watches.
 
-Not ported: the request log, the flight recorder and the status UI.
+Not ported: the request log and the status UI (so no index page links
+these routes).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import traceback
 from ..observability import (analyze, disable_tracing, enable_tracing,
                              get_tracer, render_report)
 from ..observability.events import get_journal
+from ..observability.flightrecorder import get_flightrecorder
 from ..stats import ec_integrity_metrics
 from .httpd import HttpError, Request, Response, Router, qfloat
 
@@ -203,3 +214,41 @@ def register_debug_routes(router: Router) -> None:
         return Response({"events": events, "count": len(events),
                          "namespace": j.namespace,
                          "dropped": j.dropped})
+
+    @r.route("POST", "/debug/flightrecorder/capture")
+    def flightrecorder_capture(req: Request) -> Response:
+        """Freeze this process's diagnostics into one spooled bundle:
+        what the master's alert engine posts when a rule fires, and what
+        the shell's alerts.capture drives by hand."""
+        try:
+            b = req.json()
+        except Exception:  # noqa: BLE001 - an empty or bad body: defaults
+            b = {}
+        try:
+            profile_s = min(float(b.get("profile_s", 0.25)), 5.0)
+        except (TypeError, ValueError):
+            raise HttpError(400, "bad profile_s")
+        meta = get_flightrecorder().capture(
+            reason=str(b.get("reason") or "manual"),
+            alert=(str(b.get("alert")) if b.get("alert") else None),
+            trace_id=(str(b.get("trace_id"))
+                      if b.get("trace_id") else None),
+            profile_s=profile_s)
+        return Response(meta, status=201)
+
+    @r.route("GET", "/debug/flightrecorder")
+    def flightrecorder_list(req: Request) -> Response:
+        fr = get_flightrecorder()
+        return Response({"bundles": fr.list(),
+                         "spool_dir": fr.spool_dir or "",
+                         "total_bytes": fr.total_bytes(),
+                         "captures": fr.captures,
+                         "evicted": fr.evicted})
+
+    @r.route("GET", r"/debug/flightrecorder/([A-Za-z0-9][A-Za-z0-9._-]*)")
+    def flightrecorder_get(req: Request) -> Response:
+        doc = get_flightrecorder().get(req.match.group(1))
+        if doc is None:
+            raise HttpError(404,
+                            f"no bundle {req.match.group(1)!r} spooled")
+        return Response(doc)

@@ -30,7 +30,9 @@ _lock = threading.Lock()
 _points: dict[str, dict] = {}
 _counts: dict[str, int] = {}
 
-# every hit()/corrupt_block() site in the port names one of these
+# every hit()/corrupt_block() site in the port names one of these, and
+# each is hit somewhere in the port (tests/test_torch_faultinject.py
+# checks both ways); the shell's fault.list prints the table
 FAULT_POINTS: dict[str, str] = {
     "ec.dispatch": "streaming encode, after a slot is filled and before "
                    "its dispatch is launched: an injected error fails the "
@@ -52,6 +54,12 @@ FAULT_POINTS: dict[str, str] = {
                   "repair or move, so the re-plan and no-orphan cleanup "
                   "paths run (ops/coordinator.py)",
 }
+
+
+def list_points() -> list[tuple[str, str]]:
+    """The registry as sorted (name, description) pairs: what the shell's
+    fault.list prints."""
+    return sorted(FAULT_POINTS.items())
 
 
 def enable(name: str, error_rate: float = 0.0, max_hits: int = 0,

@@ -36,15 +36,16 @@ port-only key: a drill reads it to see which server ran a repair).
 
 ``GET /debug/traces``, ``/debug/traces/analyze`` and ``/debug/events``
 serve the process's span ring and event journal, ``/debug/profile`` and
-``/debug/pprof/*`` its sampling profiles, threads and heap
-(utils/debug.py); a
+``/debug/pprof/*`` its sampling profiles, threads and heap, and
+``/debug/flightrecorder[/<id>|/capture]`` its diagnostic bundles, spooled
+under ``directories[0]/flightrecorder`` (utils/debug.py); a
 TraceShipper and an EventShipper send the spans of sampled traces and
 every journal event to the master the heartbeats follow, and are
 detached when the server stops.
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
 native planes, mmap and the needle cache, heat, ledger, the
-request log, the flight recorder, tier routes, batch routes,
+request log, tier routes, batch routes,
 tail, image resize, and the partial-range fast path (a Range GET slices
 the full body).
 """
@@ -66,6 +67,7 @@ from ..observability import context as _trace_context
 from ..observability import get_tracer
 from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
+from ..observability.flightrecorder import get_flightrecorder
 from ..ops.gf_matmul import gf_matmul
 from ..stats import (REGISTRY, ec_integrity_metrics, request_plane_metrics,
                      volume_server_metrics)
@@ -142,6 +144,9 @@ class VolumeServer:
         self.pulse_seconds = pulse_seconds
         self.store = Store(directories, host, port, public_url,
                            max_volume_count, device=device)
+        if directories:
+            get_flightrecorder().configure(
+                spool_dir=os.path.join(directories[0], "flightrecorder"))
         self.engine = "cpu" if self.store.device.type == "cpu" else "tpu"
         self.metrics = volume_server_metrics()
         self.metrics.max_volume_counter.set(max_volume_count)
@@ -232,13 +237,19 @@ class VolumeServer:
             # the events journaled before this state was read reach the
             # master first: a rot's shard_corrupt lands before the
             # heartbeat that shows its quarantine, so the coordinator's
-            # repair of it names its cause
-            self._event_shipper.flush(timeout=max(3.0,
-                                                  self.pulse_seconds * 2))
+            # repair of it names its cause.  The flush and the heartbeat
+            # share one deadline: a silent master costs one timeout a
+            # pulse, as in the reference's loop
+            budget = max(3.0, self.pulse_seconds * 2)
+            deadline = time.monotonic() + budget
+            self._event_shipper.flush(timeout=budget)
             try:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    raise HttpError(504, "the event flush spent the "
+                                         "heartbeat's deadline")
                 resp = http_json("POST", f"http://{self.master_url}/heartbeat",
-                                 payload,
-                                 timeout=max(3.0, self.pulse_seconds * 2))
+                                 payload, timeout=left)
             except (HttpError, ValueError):  # unreachable, or not JSON
                 if delta:
                     self.store.requeue_heartbeat_delta(delta)
@@ -370,10 +381,22 @@ class VolumeServer:
                             length: int) -> bytes:
         """store_ec.go:188-218: the interval from a server that holds the
         shard, else reconstructed from any data_shards distinct shards,
-        local or remote, through this server's codec on its device."""
-        r = http_json(
-            "GET", f"http://{self.master_url}/dir/lookup_ec?volumeId={vid}",
-            timeout=30.0)
+        local or remote, through this server's codec on its device.  With
+        no answer from the master the local survivors rebuild it, verified
+        against the `.eci`; either rebuild is counted."""
+        try:
+            r = http_json(
+                "GET",
+                f"http://{self.master_url}/dir/lookup_ec?volumeId={vid}",
+                timeout=30.0)
+        except HttpError:
+            ev = self.store.ec_volumes.get(vid)
+            if ev is None:
+                raise
+            data = ev.reconstruct_interval(shard_id, offset, length,
+                                           self.store.rs())
+            self._count_ec_read("reconstructed")
+            return data
         holders = r.get("shards", {})
         for url in holders.get(str(shard_id), []):
             if url == self.url:

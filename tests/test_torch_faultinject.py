@@ -1,0 +1,59 @@
+"""The port's fault-point registry against its instrumented sites.
+
+Every name a ``faultinject.hit()`` / ``faultinject.corrupt_block()`` call
+(or a ``drain_point=`` the streaming encoder hands to its drain) names in
+``seaweedfs_tpu_torch/`` is in ``FAULT_POINTS``, and every registered
+point is named at such a site.  The reference's points the port has no
+code for (``ec.worker.ack``, ``ec.shm``, ``tier.*``, ``loop.block``, the
+``disk.*`` and ``net.*`` points) are not listed.
+"""
+
+from __future__ import annotations
+
+import ast
+import pathlib
+
+from seaweedfs_tpu.utils import faultinject as ref_fi
+from seaweedfs_tpu_torch.utils import faultinject as fi
+
+PORT = pathlib.Path(__file__).resolve().parent.parent / "seaweedfs_tpu_torch"
+
+
+def site_names() -> dict[str, list[str]]:
+    """Point name -> the port files whose code names it."""
+    sites: dict[str, list[str]] = {}
+    for path in sorted(PORT.rglob("*.py")):
+        if path.name == "faultinject.py":
+            continue
+        for node in ast.walk(ast.parse(path.read_text())):
+            if not isinstance(node, ast.Call):
+                continue
+            func = node.func
+            name = func.attr if isinstance(func, ast.Attribute) else \
+                getattr(func, "id", "")
+            args = []
+            if name in ("hit", "corrupt_block") and node.args:
+                args.append(node.args[0])
+            args += [kw.value for kw in node.keywords
+                     if kw.arg == "drain_point"]
+            for a in args:
+                if isinstance(a, ast.Constant) and isinstance(a.value, str):
+                    sites.setdefault(a.value, []).append(
+                        str(path.relative_to(PORT)))
+    return sites
+
+
+def test_every_site_is_registered_and_every_point_is_hit():
+    sites = site_names()
+    assert set(sites) == set(fi.FAULT_POINTS), sites
+    # each description names a module of the port that hits it
+    for name, files in sites.items():
+        assert any(f in fi.FAULT_POINTS[name] for f in files), (name, files)
+
+
+def test_the_port_lists_a_subset_of_the_reference_s_points():
+    assert set(fi.FAULT_POINTS) <= set(ref_fi.FAULT_POINTS)
+    left_out = set(ref_fi.FAULT_POINTS) - set(fi.FAULT_POINTS)
+    assert {"ec.worker.ack", "ec.shm", "loop.block", "tier.upload",
+            "tier.recall"} <= left_out
+    assert fi.list_points() == sorted(fi.FAULT_POINTS.items())

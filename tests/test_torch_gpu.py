@@ -366,6 +366,103 @@ def test_coordinator_repair_on_the_card(cuda, tmp_path):
         master.stop()
 
 
+def test_alert_drill_on_the_card(cuda, tmp_path):
+    """A rotted shard on a card server: the master's telemetry loop fires
+    scrub_unrepairable, the flight recorder attaches bundles from that
+    server and the master, and the coordinator's repair, rebuilt on the
+    card, names the alert."""
+    import socket
+    import time
+
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from seaweedfs_tpu_torch.shell import CommandEnv, run_command
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    def until(what, ok, timeout=120):
+        deadline = time.monotonic() + timeout
+        while True:
+            got = ok()
+            if got:
+                return got
+            assert time.monotonic() < deadline, what
+            time.sleep(0.1)
+
+    master = MasterServer(port=free_port(), pulse_seconds=0.3,
+                          coordinator_seconds=0.3,
+                          metrics_aggregation_seconds=0.3).start()
+    master.coordinator.pause("setup")
+    servers = {}
+    try:
+        for i in range(3):
+            d = tmp_path / f"vs{i}"
+            d.mkdir()
+            vs = VolumeServer([str(d)], master.url, port=free_port(),
+                              pulse_seconds=0.3).start()
+            servers[vs.url] = vs
+        until("registration", lambda: len(master.topo.all_nodes()) == 3)
+        client = WeedClient(master.url)
+        rng = np.random.default_rng(14)
+        blobs = [rng.bytes(int(rng.integers(1, 1 << 20))) for _ in range(20)]
+        fids = [client.upload(b, collection="ec") for b in blobs]
+        vid = int(fids[0].split(",")[0])
+        env = CommandEnv(master.url)
+        env.lock()
+        assert "via tpu engine" in run_command(
+            env, f"ec.encode -volumeId {vid} -collection ec")
+        holders = http_json("GET", f"http://{master.url}/dir/lookup_ec"
+                                   f"?volumeId={vid}")["shards"]
+        host = sorted(holders["0"])[0]
+        path = volume_file_prefix(servers[host].store.directories[0], "ec",
+                                  vid) + to_ext(0)
+        base = master.alert_engine.evaluations
+        until("a baseline", lambda: master.alert_engine.evaluations > base + 1)
+        with open(path, "r+b") as f:
+            f.seek(100)
+            b = f.read(1)
+            f.seek(100)
+            f.write(bytes([b[0] ^ 0x04]))
+        out = run_command(env, "ec.scrub -all -rate 0")
+        env.unlock()
+        assert f"volume {vid}: unrepairable corrupt_shards=[0]" in out, out
+
+        def firing():
+            a = {x["name"]: x for x in http_json(
+                "GET", f"http://{master.url}/cluster/alerts?state=firing"
+            )["alerts"]}
+            s = a.get("scrub_unrepairable")
+            return s if s and len(s.get("bundles") or []) == 2 else None
+
+        alert = until("scrub_unrepairable with bundles", firing)
+        assert alert["servers"] == [host]
+        for bnd in alert["bundles"]:
+            doc = http_json("GET", f"http://{bnd['server']}/debug/"
+                                   f"flightrecorder/{bnd['id']}")
+            assert doc["meta"]["alert"] == "scrub_unrepairable"
+            assert doc["metrics"] and doc["events"]
+        before = gf_matmul.launches
+        master.coordinator.resume()
+        st = until("the repair", lambda: (lambda s: s if s["repairs"][
+            "done"] and not s["queue"] else None)(master.coordinator.status()))
+        repair = next(r for r in st["recent"] if r["action"] == "repair_done")
+        assert repair["alert"] in ("scrub_unrepairable",
+                                   "corrupt_shards_increase")
+        assert gf_matmul.launches > before  # the rebuild ran on the card
+        for fid, blob in zip(fids, blobs):
+            assert client.download(fid) == blob
+    finally:
+        for vs in servers.values():
+            vs.stop()
+        master.stop()
+
+
 def test_resumed_encode_on_the_card(cuda, tmp_path):
     """ec.dispatch fails once mid-encode on the card: the encode resumes
     from its checkpoint (fewer launches than a restart from byte 0) to

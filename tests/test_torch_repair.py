@@ -239,7 +239,9 @@ def test_shell_renderings_equal_the_reference(tmp_path):
     c, _res = run_drill("port", tmp_path)
     try:
         c.shell("coordinator.pause")
-        c.master.aggregator.stop_loop()
+        # the telemetry loop's next wait outlasts the test: no scrape or
+        # evaluation between the two shells' renderings
+        c.master.metrics_aggregation_seconds = 3600.0
         _wait("the stopped server to leave the registry",
               lambda: len(c.master.topo.all_nodes()) == SERVERS - 1)
         c.master.aggregator.scrape(force=True, include_scrub=True)

@@ -106,6 +106,11 @@ def test_http_path_on_cpu(tmp_path):
     assert 1 <= over["load_shed_events"] <= int(over["storm_s"]) + 1
     assert over["monitor_polls"] > 0 and over["deadline_504"]
     assert set(over["over_1s"]) == {"admitted", "shed"}
+    # the storm paged: requests_shed_increase fired with the 503s seen,
+    # and the shortened copy resolved (checked inside)
+    assert over["shed_alert"]["state"] == "firing"
+    assert over["shed_alert"]["value"] == over["shed"]
+    assert over["brief_rule_resolved"]
     assert not os.path.exists(tmp_path / "overload")
     scrub = res["scrub"]
     assert scrub["verdict"]["status"] == "repaired"
@@ -285,6 +290,32 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert drill["rot_repair"]["cause_event"]
     assert "peer_stale" in [t for t, _ in journal["loss"]]
     assert journal["events_tail_lines"] >= 5
+    # the alert plane (checked inside): the first fires timed, the rot's
+    # alerts and bundles, the repairs' alerts, the captures by hand
+    alerts = res["alerts"]
+    first = alerts["first_fires"]
+    assert set(first) == {"peer_down", "scrub_unrepairable",
+                          "corrupt_shards_increase"}
+    assert all(f["fault_to_fired_s"] >= 0 and f["fired_to_bundles_s"] >= 0
+               for f in first.values())
+    assert first["scrub_unrepairable"]["servers"] == [res["scrub"]["host"]]
+    assert {"scrub_unrepairable", "corrupt_shards_increase"} <= \
+        set(alerts["rot_firing"])
+    assert alerts["rot_bundle_bytes"]
+    assert alerts["rot_repair_alert"] == drill["rot_repair"]["alert"]
+    assert alerts["rot_repair_alert"] in chip_smoke.REPAIR_ALERTS
+    assert alerts["loss_repair_alert"] in chip_smoke.REPAIR_ALERTS
+    hand = alerts["by_hand"]
+    assert len(hand["captures"]) >= 3  # the master and the live servers
+    assert all(c["bytes"] > 0 and c["wall_s"] > 0
+               for c in hand["captures"].values())
+    assert hand["alerts.capture_bundles"] == len(hand["captures"])
+    assert hand["fault_points"].startswith("fault points: 5 registered")
+    assert alerts["evaluation"]["mean_ms"] > 0
+    assert alerts["evaluation"]["peers"] >= 3
+    for k in ("rot_to_heal_s", "kill_to_heal_s"):
+        assert alerts[k]["moved"] in ("within", "above", "below")
+    assert isinstance(alerts["resolved"], list)
 
 
 def test_refuses_without_a_card_or_a_checkout(tmp_path):
