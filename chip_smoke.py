@@ -145,7 +145,24 @@ result.  Phases, each of which fails the run on any mismatch:
     must have launched the kernel; each coordinator repair's host, by its
     live /status count read around the heal, at least as many kernels
     a repair as a typed ``ec.rebuild`` launched;
- 7. numbers from the card: leg times and rates, read latency, kernel
+ 7. master HA (``run_failover_phase``): three CLI masters (``-peers``,
+    ``-mdir``, ``WEED_FAULTS="coord.exec:delay=0.5"``) and four ``volume
+    -ec.engine tpu -mserver m1,m2,m3`` on the card; a 1 GiB volume
+    uploaded through WeedClient and ec.encoded by the shell started at a
+    follower; a rotted shard quarantined by its holder's scrub, and once
+    ``scrub_unrepairable`` fires and a follower's own
+    ``/cluster/coordinator?local=1`` holds the repair's planned record,
+    the leader SIGKILLed.  It fails unless both survivors name one new
+    leader within 8 s, the new leader serves ``/dir/assign`` within 5 s
+    of its election, none of the follower's pre-kill events is missing
+    from the new leader's journal, its ``repair_done`` for the volume
+    comes within 45 s of the kill with the planned record's alert, cause
+    event and cause trace, every holder of the rebuilt shard has its
+    pre-rot sha256, and the rebuilding server launched the kernels the
+    dispatch rule gives (dispatches of the shard times the rows a launch
+    takes); ``cluster.raft`` and the survivors' ``/cluster/status`` are
+    printed;
+ 8. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
 Each path runs with gf_matmul.launches set to 0 just before it and read
@@ -193,6 +210,9 @@ CLI_VOLUME_BYTES = 64 << 20
 CLI_READS = 20
 # the vacuum leg's volume: cut from the same 30,000 MB limit to 1 GiB
 VAC_BYTES = 1 << 30
+# the failover phase: a 1 GiB volume, each repair leg slowed by 0.5 s
+FAILOVER_BYTES = 1 << 30
+FAILOVER_DELAY_S = 0.5
 # the drain leg's GETs: of needles on moved shards, then of needles on a
 # moved data shard deleted on its new holder
 DRAIN_READS, DRAIN_DELETED_READS = 50, 25
@@ -648,7 +668,7 @@ def span_cost_us(n: int = 20000) -> dict:
 PROFILE_HZ = 100
 PROFILE_ROUNDS = 4
 _SHIPPER_FUNCS = {"_on_span", "_note_lost_locked", "_flush_loop", "_flush",
-                  "_on_event", "flush", "ship_batch"}
+                  "_on_event", "flush", "_ship"}
 _COLLECTOR_FUNCS = {"ingest", "_evict", "get", "summaries", "chrome",
                     "query"}
 _JSON_FUNCS = {"dumps", "loads", "encode", "iterencode", "decode",
@@ -684,6 +704,8 @@ def frame_layer(file: str, func: str) -> str:
                 "collector" if func in _COLLECTOR_FUNCS else "tracer")
     if file == "analysis.py":
         return "collector"
+    if file == "leader.py":
+        return "shippers"
     if file in ("__init__.py", "encoder.py", "decoder.py") and \
             func in _JSON_FUNCS:
         return "json"
@@ -1399,14 +1421,16 @@ def scrub_and_repair(vs, base: str, needles: list[dict], seed: int) -> dict:
         conn.close()
 
 
-def start_cli(args: list[str], log_path: str) -> subprocess.Popen:
-    """``python -m seaweedfs_tpu_torch <args>`` from the checkout; its
-    standard error goes to ``log_path``."""
+def start_cli(args: list[str], log_path: str,
+              env: dict | None = None) -> subprocess.Popen:
+    """``python -m seaweedfs_tpu_torch <args>`` from the checkout, with
+    ``env`` added to the environment; its standard error goes to
+    ``log_path``."""
     with open(log_path, "w") as log_file:
         return subprocess.Popen(
             [sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=ROOT,
-            env=dict(os.environ, PYTHONPATH=ROOT), stdout=subprocess.PIPE,
-            stderr=log_file, text=True)
+            env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
+            stdout=subprocess.PIPE, stderr=log_file, text=True)
 
 
 def read_start_line(proc: subprocess.Popen, log_path: str, want: str,
@@ -3432,6 +3456,339 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
             p.stdout.close()
 
 
+# --- the failover phase ---------------------------------------------------
+
+# the reference's budgets for a leader killed mid-repair
+# (seaweedfs_tpu/scenarios/spec.py master_failover)
+FAILOVER_BUDGETS = {"election_time_s": 8.0, "assign_after_kill_s": 5.0,
+                    "journal_loss_count": 0, "repair_replan_s": 45.0}
+MASTER_STOP_LINE = re.compile(r"master stopped(?:, faults injected (.*))?")
+
+
+def raft_status(master: str) -> dict:
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return http_json("GET", f"http://{master}/cluster/status", timeout=5.0)
+
+
+def agreed_leader(masters: list[str]) -> str | None:
+    """The leader every master in ``masters`` names, when that master is
+    one of them and says it leads; else None."""
+    try:
+        views = {m: raft_status(m) for m in masters}
+    except Exception:  # noqa: BLE001 - one is not answering yet
+        return None
+    named = {v["Leader"] for v in views.values()}
+    if len(named) != 1:
+        return None
+    leader = named.pop()
+    return leader if leader in views and views[leader]["IsLeader"] else None
+
+
+def event_ids(master: str, query: str = "") -> dict[str, dict]:
+    """A master's own copy of the cluster journal (``?local=1``), by id."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    doc = http_json("GET", f"http://{master}/cluster/events?local=1"
+                           f"&limit=0{query}", timeout=10.0)
+    return {e["id"]: e for e in doc["events"]}
+
+
+def stop_master(proc: subprocess.Popen) -> dict:
+    """SIGTERM a CLI master; it must exit 0 within 60 s.  Returns the
+    fault hits its stop line counts."""
+    proc.send_signal(signal.SIGTERM)
+    rc = proc.wait(timeout=60)
+    lines = proc.stdout.read().strip().splitlines()
+    m = MASTER_STOP_LINE.fullmatch(lines[-1]) if lines else None
+    if rc != 0 or m is None:
+        raise AssertionError(f"master exited {rc}: {lines!r}")
+    return json.loads(m.group(1)) if m.group(1) else {}
+
+
+def run_failover_phase(engine: str, work: str, volume_bytes: int,
+                       threads: int, servers: int = 4,
+                       pulse_seconds: float = 0.5,
+                       coordinator_seconds: float = 1.0,
+                       delay_s: float = 1.0) -> dict:
+    """Master HA through the port's CLI, after the reference's drill
+    (seaweedfs_tpu/scenarios/failover.py).  Three masters (``-peers``,
+    ``-mdir`` each, ``WEED_FAULTS`` slowing every leg of a repair by
+    ``delay_s``) and ``servers`` volume servers (``-ec.engine <engine>``,
+    ``-mserver`` naming all three, ``-trace.sample 0`` so a scrub pass is
+    a trace root).  One volume is uploaded through WeedClient and
+    ec.encoded by the shell started at a follower; one shard is rotted
+    and its holder's scrub quarantines it; once ``scrub_unrepairable``
+    fires the coordinator is resumed, and once a follower's own
+    /cluster/coordinator holds the repair's planned record (and its
+    journal is snapshotted) the leader is SIGKILLed.  Measured against
+    the reference's budgets: the election (both survivors name one
+    leader), the first /dir/assign the new leader serves, the pre-kill
+    events missing from its journal, and its repair_done for the volume,
+    whose alert, cause event and cause trace must be the planned
+    record's; the rebuilt shard must have its pre-rot sha256 on every
+    holder, and the rebuilding server launch the kernels the dispatch
+    rule gives."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.ec.layout import TOTAL_SHARDS_COUNT, to_ext
+    from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
+    from seaweedfs_tpu_torch.ops.gf_matmul import ROWS_PER_LAUNCH
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import HttpError, http_json
+
+    collection = "failover"
+    seed = SEED + 5
+    t_phase = time.perf_counter()
+    res: dict = {"seconds": {}, "injected_delay_s": delay_s}
+    masters = [f"127.0.0.1:{free_port()}" for _ in range(3)]
+    mprocs: dict[str, subprocess.Popen] = {}
+    vs: dict[str, dict] = {}
+    try:
+        t0 = time.perf_counter()
+        for i, url in enumerate(masters):
+            mdir = os.path.join(work, f"m{i}")
+            os.makedirs(mdir)
+            mprocs[url] = start_cli(
+                ["master", "-port", url.rsplit(":", 1)[1], "-peers",
+                 ",".join(m for m in masters if m != url), "-mdir", mdir,
+                 "-volumeSizeLimitMB", str((volume_bytes >> 20) + 64),
+                 "-pulseSeconds", str(pulse_seconds),
+                 "-coordinatorSeconds", str(coordinator_seconds),
+                 "-metricsAggregationSeconds", str(coordinator_seconds)],
+                os.path.join(work, f"m{i}.log"),
+                env={"WEED_FAULTS": f"coord.exec:delay={delay_s}"})
+        for i, url in enumerate(masters):
+            read_start_line(mprocs[url], os.path.join(work, f"m{i}.log"),
+                            "master listening")
+        for k in range(servers):
+            port = free_port()
+            d = os.path.join(work, f"vs{k}")
+            os.makedirs(d)
+            log_path = os.path.join(work, f"vs{k}.log")
+            p = start_cli(["volume", "-dir", d, "-port", str(port),
+                           "-mserver", ",".join(masters), "-pulseSeconds",
+                           str(pulse_seconds), "-ec.engine", engine,
+                           "-trace.sample", "0"], log_path)
+            vs[f"127.0.0.1:{port}"] = {"proc": p, "dir": d, "log": log_path}
+        leader = None
+
+        def elected() -> bool:
+            nonlocal leader
+            leader = agreed_leader(masters)
+            return leader is not None
+
+        res["seconds"]["first_election"] = wait_for("a first leader",
+                                                    elected, 60)
+        follower = next(m for m in masters if m != leader)
+        for info in vs.values():
+            line = read_start_line(info["proc"], info["log"],
+                                   "volume server listening")
+            if f"ec on {ENGINES[engine]}" not in line:
+                raise AssertionError(f"start line {line!r}")
+        # the shell at a follower: its lease and its GETs reach the leader
+        out, _ = run_shell(follower, "coordinator.pause")
+        if not out.startswith("coordinator: paused"):
+            raise AssertionError(f"coordinator.pause: {out}")
+        wait_for("every volume server to register",
+                 lambda: node_urls(master_status(follower)) == set(vs), 60)
+        res["seconds"]["start"] = time.perf_counter() - t0
+
+        vid = http_json("GET", f"http://{follower}/vol/grow?collection="
+                               f"{collection}&count=1")["volumeIds"][0]
+        needles = [cluster_needle(seed, i, nid, size) for i, (nid, _, size)
+                   in enumerate(needle_specs(seed, volume_bytes))]
+        fids: list[str] = [""] * len(needles)
+
+        def upload(t: int) -> None:
+            client = WeedClient(leader)
+            for i in range(t, len(needles), threads):
+                fids[i] = client.upload(needles[i]["data"],
+                                        collection=collection,
+                                        **needles[i]["upload"])
+
+        t0 = time.perf_counter()
+        run_threads(upload, threads, 1800)
+        res["seconds"]["upload"] = time.perf_counter() - t0
+        if {FileId.parse(f).volume_id for f in fids} != {vid}:
+            raise AssertionError("needles landed outside the grown volume")
+        res["needles"] = len(needles)
+        res["upload_bytes"] = sum(len(n["data"]) for n in needles)
+        out, res["seconds"]["ec.encode"] = run_shell(
+            follower, f"ec.encode -volumeId {vid} -collection {collection}")
+        if f"ec encoded volume {vid} via tpu engine" not in out:
+            raise AssertionError(f"ec.encode: {out}")
+        holders = shard_holders(follower, vid)
+        if sorted(holders) != list(range(TOTAL_SHARDS_COUNT)):
+            raise AssertionError(f"after ec.encode: {holders}")
+
+        def shard_path(url: str, sid: int) -> str:
+            return volume_file_prefix(vs[url]["dir"], collection,
+                                      vid) + to_ext(sid)
+
+        hashes = {sid: sha256_file(shard_path(urls[0], sid))
+                  for sid, urls in holders.items()}
+        shard_bytes = os.path.getsize(shard_path(holders[0][0], 0))
+        held = {u: sorted(s for s, us in holders.items() if u in us)
+                for u in vs}
+        rot_host = min(vs, key=lambda u: (-len(held[u]), u))
+        rot_shard = held[rot_host][0]
+        if not 0 < len(held[rot_host]) < 10:
+            raise AssertionError(f"{rot_host} holds {held[rot_host]}")
+
+        # the rot: the holder's scrub can only quarantine it
+        path = shard_path(rot_host, rot_shard)
+        flip_byte(path, os.path.getsize(path) // 3)
+        t0 = time.perf_counter()
+        http_json("POST", f"http://{rot_host}/ec/scrub/start",
+                  {"rate_mb_s": 0, "interval_s": 0})
+        wait_for("the rot's quarantine", lambda: not http_json(
+            "GET", f"http://{rot_host}/ec/scrub/status")["running"]
+            and os.path.exists(path + ".bad"), 120)
+        res["seconds"]["scrub"] = time.perf_counter() - t0
+        res["seconds"]["rot_to_alert"] = wait_for(
+            "scrub_unrepairable to fire", lambda: "scrub_unrepairable"
+            in cluster_alerts(follower, "firing"), 60)
+        out, _ = run_shell(follower, "coordinator.resume")
+        if not out.startswith("coordinator:"):
+            raise AssertionError(f"coordinator.resume: {out}")
+        t0 = time.perf_counter()
+        planned: dict = {}
+
+        def follower_holds_the_plan() -> bool:
+            pending = http_json(
+                "GET", f"http://{follower}/cluster/coordinator?local=1"
+            )["replicated"]["pending"].get(str(vid))
+            if pending and pending["op"] == "planned":
+                planned.update(pending)
+                return True
+            return False
+
+        res["seconds"]["resume_to_follower_plan"] = wait_for(
+            "a follower to hold the planned record",
+            follower_holds_the_plan, 120)
+        # what the follower holds from the leader (its own process's
+        # events, labelled with its own url, never reached the leader)
+        pre_ids = {i for i, e in event_ids(follower).items()
+                   if e.get("via") != follower}
+        launches_before = kernel_launches(vs)
+
+        # the kill
+        t_kill = time.perf_counter()
+        mprocs[leader].kill()
+        mprocs[leader].wait()
+        survivors = [m for m in masters if m != leader]
+        new_leader = None
+
+        def re_elected() -> bool:
+            nonlocal new_leader
+            new_leader = agreed_leader(survivors)
+            return new_leader is not None
+
+        wait_for("a new leader", re_elected, 60)
+        res["election_time_s"] = time.perf_counter() - t_kill
+        t_elected = time.perf_counter()
+        while True:
+            try:
+                http_json("GET", f"http://{new_leader}/dir/assign?count=1",
+                          timeout=3.0)
+                break
+            except (HttpError, OSError):
+                if time.perf_counter() - t_elected > 60:
+                    raise
+                time.sleep(0.1)
+        res["assign_after_kill_s"] = time.perf_counter() - t_elected
+        res["assign_from_kill_s"] = time.perf_counter() - t_kill
+
+        def missing() -> set:
+            return pre_ids - set(event_ids(new_leader))
+
+        try:
+            wait_for("the pre-kill events on the new leader",
+                     lambda: not missing(), 20)
+        except AssertionError:
+            pass  # counted below
+        res["pre_kill_events"] = len(pre_ids)
+        res["journal_loss_count"] = len(missing())
+        done: dict = {}
+
+        def repaired() -> bool:
+            for e in event_ids(new_leader, "&type=repair_done").values():
+                if (e.get("details") or {}).get("vid") == vid and \
+                        e.get("server") == new_leader:
+                    done.update(e)
+                    return True
+            return False
+
+        wait_for("the new leader's repair_done", repaired, 120)
+        res["repair_replan_s"] = time.perf_counter() - t_kill
+        det = done["details"]
+        keys = ("alert", "cause_event", "cause_trace")
+        res["attribution"] = {
+            "planned": {k: planned[k] for k in keys},
+            "repair_done": {k: det.get(k, "") for k in keys},
+            "equal": all(det.get(k) == planned[k] for k in keys)}
+        res["repair"] = {"host": det["host"], "rebuilt": det["rebuilt"],
+                         "moves": det.get("moves"),
+                         "killed_leader": leader, "new_leader": new_leader}
+
+        def healed() -> list | None:
+            urls = shard_holders(new_leader, vid).get(rot_shard) or []
+            try:
+                if urls and all(sha256_file(shard_path(u, rot_shard))
+                                == hashes[rot_shard] for u in urls):
+                    return urls
+            except FileNotFoundError:
+                pass  # a spread's source dropped its copy: look again
+            return None
+
+        wait_for("every holder of the rebuilt shard to hold its sha256",
+                 lambda: healed() is not None, 60)
+        res["rebuilt_shard"] = {"shard": rot_shard, "holders": healed(),
+                                "sha256_equal": True}
+        host = det["host"]
+        dispatches = -(-shard_bytes // StreamingEncoder(
+            device="cpu").dispatch_b)
+        rows = len(det["rebuilt"])
+        res["launches"] = {
+            "host": host,
+            "launches": kernel_launches([host])[host] - launches_before[host],
+            "dispatch_rule": dispatches * -(-rows // ROWS_PER_LAUNCH),
+            "dispatches": dispatches, "rebuilt_rows": rows}
+        out, _ = run_shell(new_leader, "cluster.raft")
+        res["cluster_raft"] = out.splitlines()
+        res["cluster_status"] = {m: raft_status(m) for m in survivors}
+
+        # the stop lines: each survivor's injected delays, each server's
+        # kernel launches
+        res["faults_injected"] = {m: stop_master(mprocs[m])
+                                  for m in survivors}
+        hits = res["faults_injected"][new_leader].get("coord.exec", 0)
+        res["new_leader_injected_delay_s"] = hits * delay_s
+        res["repair_replan_less_delay_s"] = \
+            res["repair_replan_s"] - hits * delay_s
+        res["servers"] = {u: stop_volume_server(info["proc"])
+                          for u, info in vs.items()}
+        res["seconds"]["phase"] = time.perf_counter() - t_phase
+    finally:
+        for p in [*mprocs.values(), *(i["proc"] for i in vs.values())]:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+    res["checks"] = {name: (res[name] <= bound) for name, bound
+                     in FAILOVER_BUDGETS.items()}
+    res["checks"]["attribution"] = res["attribution"]["equal"]
+    if engine == "tpu":
+        ln = res["launches"]
+        res["checks"]["launches"] = ln["launches"] == ln["dispatch_rule"] > 0
+    failed = sorted(k for k, ok in res["checks"].items() if not ok)
+    if failed:
+        raise AssertionError(f"failover phase missed {failed}: "
+                             f"{json.dumps(res, default=str)[:4000]}")
+    return res
+
+
 def percentiles(seconds: list[float]) -> dict:
     ms = np.array(seconds) * 1e3
     return {"p50": float(np.percentile(ms, 50)),
@@ -3807,6 +4164,44 @@ def main() -> int:
          "servers": cluster["servers"], "launches": cluster_launches,
          "first_b_ms": cluster["first_b_ms"], "nvidia_smi": card})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-failover-",
+                            dir=_build.BUILD_DIR)
+    try:
+        fo = run_failover_phase("tpu", work, FAILOVER_BYTES, HTTP_THREADS,
+                                delay_s=FAILOVER_DELAY_S)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    failover_launches = sum(s["launches"] for s in fo["servers"].values())
+    log({"phase": "failover", "reduced": [
+        {"volume_bytes": FAILOVER_BYTES,
+         "from": "30,000 MB default volume size limit (weed master "
+                 "-volumeSizeLimitMB)",
+         "why": "run time limit"},
+        {"pulse_seconds": 0.5, "coordinator_seconds": 1.0,
+         "metrics_aggregation_seconds": 1.0,
+         "from": "weed master/volume -pulseSeconds 5, -coordinatorSeconds "
+                 "and -metricsAggregationSeconds 0 (off)",
+         "why": "as the cluster phase: the drill needs the coordinator "
+                "and the alert loop on"}],
+        "budgets": FAILOVER_BUDGETS, "checks": fo["checks"],
+        "election_time_s": fo["election_time_s"],
+        "assign_after_kill_s": fo["assign_after_kill_s"],
+        "assign_from_kill_s": fo["assign_from_kill_s"],
+        "journal_loss_count": fo["journal_loss_count"],
+        "pre_kill_events": fo["pre_kill_events"],
+        "repair_replan_s": fo["repair_replan_s"],
+        "injected_delay_s": fo["injected_delay_s"],
+        "new_leader_injected_delay_s": fo["new_leader_injected_delay_s"],
+        "repair_replan_less_delay_s": fo["repair_replan_less_delay_s"],
+        "attribution": fo["attribution"], "repair": fo["repair"],
+        "rebuilt_shard": fo["rebuilt_shard"], "launches": fo["launches"],
+        "faults_injected": fo["faults_injected"],
+        "seconds": fo["seconds"], "needles": fo["needles"],
+        "upload_bytes": fo["upload_bytes"], "servers": fo["servers"],
+        "nvidia_smi": card})
+    log({"phase": "failover_raft", "cluster_raft": fo["cluster_raft"],
+         "cluster_status": fo["cluster_status"], "nvidia_smi": card})
+
     cases = dict(kernel_cases())
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
@@ -3822,7 +4217,8 @@ def main() -> int:
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
         "launches": launches + resume_launches + trace_ab_launches
-        + http_launches + cli["launches"] + cluster_launches,
+        + http_launches + cli["launches"] + cluster_launches
+        + failover_launches,
         "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -5,8 +5,10 @@ subcommands (weed.py) with the flags this port serves:
 
     python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000 \\
         -coordinatorSeconds 15 -metricsAggregationSeconds 5
+    python -m seaweedfs_tpu_torch master -port 9333 -mdir /m1 \\
+        -peers 127.0.0.1:9334,127.0.0.1:9335
     python -m seaweedfs_tpu_torch volume -dir /data -port 8080 \\
-        -mserver 127.0.0.1:9333 -ec.engine tpu
+        -mserver 127.0.0.1:9333,127.0.0.1:9334,127.0.0.1:9335 -ec.engine tpu
     python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \\
         -c "ec.encode -volumeId 3; ec.rebuild -volumeId 3"
     python -m seaweedfs_tpu_torch compact -dir /data -collection c -volumeId 3
@@ -19,13 +21,19 @@ every N seconds (0, the default, leaves repair to the shell's
 ec.rebuild), logs each repair on standard error and journals it;
 ``-metricsAggregationSeconds N`` scrapes the volume servers every N
 seconds, so it finds a dead one sooner than the heartbeat timeout.
+``master -peers a,b -mdir DIR`` runs one master of a raft quorum with
+the other masters at ``a`` and ``b``, its log and state under ``DIR``
+(restarted on the same ``DIR`` it recovers them); start each master with
+the others as its peers, and give volume servers all of them in
+``-mserver``.
 ``-maxInflight N`` on ``master`` or ``volume`` sheds requests beyond N in
 flight with a fast 503 and ``Retry-After`` (0, the default, is off; the
 operator, debug and control-plane routes are never shed).  The servers
 run until SIGINT or SIGTERM, a signal taken during start-up included,
 then stop and exit 0; the volume server's last line counts the GF
 kernels it launched and the EC intervals it lacked, fetched from a
-holder or reconstructed.  ``shell -c`` takes the admin lock, runs the
+holder or reconstructed, and the master's the fault hits it injected
+by point, when there were any.  ``shell -c`` takes the admin lock, runs the
 ``;``-separated commands, prints what each returns and unlocks; without
 ``-c`` it reads commands from standard input.  ``compact`` vacuums one
 volume offline (no server may hold it) and prints its size before and
@@ -46,6 +54,7 @@ live, and a request whose caller sampled it records anyway once on).
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
 import signal
@@ -69,6 +78,10 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     m.add_argument("-port", type=int, default=9333)
     m.add_argument("-volumeSizeLimitMB", type=int, default=30000)
     m.add_argument("-defaultReplication", default="000")
+    m.add_argument("-peers", default="",
+                   help="comma-separated other master host:ports")
+    m.add_argument("-mdir", default="",
+                   help="dir for raft state persistence (-resumeState)")
     m.add_argument("-pulseSeconds", type=float, default=5.0,
                    help="heartbeat interval; a volume server silent for "
                         "ten pulses is dropped")
@@ -177,12 +190,20 @@ def cmd_master(args: argparse.Namespace) -> int:
                           coordinator_seconds=args.coordinatorSeconds,
                           metrics_aggregation_seconds=(
                               args.metricsAggregationSeconds),
-                          max_inflight=args.maxInflight).start()
+                          max_inflight=args.maxInflight,
+                          peers=[p for p in args.peers.split(",") if p],
+                          mdir=args.mdir).start()
         print(f"master listening on {ms.url}", flush=True)
         return ms.stop
 
     _serve_until_signalled(start)
-    print("master stopped", flush=True)
+    from .utils import faultinject
+
+    hits = {name: faultinject.fired(name)
+            for name in sorted(faultinject.FAULT_POINTS)
+            if faultinject.fired(name)}
+    print("master stopped" + (f", faults injected {json.dumps(hits)}"
+                              if hits else ""), flush=True)
     return 0
 
 

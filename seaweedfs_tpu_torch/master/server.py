@@ -7,7 +7,11 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
   GET  /dir/lookup      vid -> locations (normal and EC volumes)
   GET  /dir/lookup_ec   vid -> shard id -> holders
   GET  /dir/status      topology dump
-  GET  /cluster/status  leader info: a single master is always the leader
+  GET  /cluster/status  this master's raft view: IsLeader, Leader, Peers,
+                        Term, Role, commit / applied / log indexes,
+                        snapshots installed and sent
+  POST /raft/vote, /raft/append, /raft/snapshot
+                        the peers' raft calls (master/consensus.py)
   POST /heartbeat       volume-server full sync, or a delta between syncs
   GET  /vol/grow        force growth;  GET /vol/status  volume inventory
   GET  /vol/vacuum      compact every volume past ?garbageThreshold=
@@ -21,7 +25,9 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
   GET  /cluster/health  their health counters and scrub verdicts, the
                         coordinator's totals, and a rollup `degraded`
   GET  /cluster/coordinator, POST /cluster/coordinator/pause|resume
-                        the EC repair coordinator (ops/coordinator.py)
+                        the EC repair coordinator (ops/coordinator.py);
+                        ?local=1 answers this master's own replicated
+                        view, leader or not
   GET  /cluster/alerts  the alert engine's rules and alerts
                         (observability/alerts.py); ?state=firing filters
   POST /cluster/traces/ingest, GET /cluster/traces, /cluster/traces/<id>
@@ -31,7 +37,8 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         (?format=chrome: Chrome trace-event JSON)
   POST /cluster/events/ingest, GET /cluster/events
                         the cluster event journal; each accepted batch
-                        goes to the coordinator's on_events
+                        goes to the coordinator's on_events (?local=1 as
+                        for /cluster/coordinator)
   GET  /metrics         this process's Prometheus exposition: the
                         master's requests by route, the coordinator's and
                         the request plane's families (?exemplars=1 adds
@@ -69,14 +76,33 @@ own).
 The master's own spans and events reach its collector and journal without
 HTTP (the shippers' local short-circuit).
 
-Not ported: raft (``-peers``, ``-mdir``, /raft/*; so neither the alert
-state nor a journal batch is replicated), the /cluster/ heat, ledger,
-workload, capacity, autoscale and watch routes, the maintenance scripts,
-the framed-TCP assign front, and security (guard, JWT, TLS).
+High availability (``peers``, ``-peers``; ``mdir``, ``-mdir``): masters
+elect a leader and replicate a log (master/consensus.py ``RaftNode``,
+durable under ``mdir``).  The leader appends the volume-id allocation
+(quorum-committed before a grow's first allocate call, so no later
+leader reissues an id), every batch its cluster journal accepts, the
+alert engine's state machines when an evaluation changed them, each
+repair record of the coordinator (quorum-committed before the repair
+runs) and the EC registry when a heartbeat changed it.  A follower
+applies committed entries to the same state machines, so a promoted
+follower serves the journal, resumes a firing alert and re-plans an
+orphaned repair under its original cause.  The vacuum scan, the
+coordinator and the telemetry loop run on the leader only.  A follower
+answers the control plane's GETs with 307 and ``Location`` at the
+leader (503 while no leader is elected), forwards POSTs to it, and
+answers a heartbeat with ``{"leader", "not_leader": true}``.  With no
+peers the master is the leader at once.
+
+Not ported: ``master/follower.py`` (it needs ``/cluster/watch`` and
+wdclient), the /cluster/ heat, ledger, workload, capacity, autoscale and
+watch routes, the maintenance scripts, the framed-TCP assign front, and
+security (guard, JWT, TLS).
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 import logging
 import secrets
 import threading
@@ -104,6 +130,7 @@ from ..utils.debug import register_debug_routes
 from ..utils.httpd import (HttpError, Request, Response, Router,
                            extract_upload, http_json, qfloat, qint, serve,
                            stop_server)
+from .consensus import RaftNode
 from .sequence import MemorySequencer
 from .topology import EcVolumeInfo, ShardBits, Topology, VolumeInfo
 from .volume_growth import grow_volume
@@ -123,6 +150,12 @@ def _max_file_key(volumes: list[dict]) -> int:
     return max((int(v.get("max_file_key", 0)) for v in volumes), default=0)
 
 
+def _local(req: Request) -> bool:
+    """``?local=1``: answer from this master's own replicated state, leader
+    or not (a follower's warm copy; the port's addition)."""
+    return req.query.get("local", "") in ("1", "true")
+
+
 class MasterServer:
     # the periodic vacuum (master/server.py defaults of the reference)
     GARBAGE_THRESHOLD = 0.3
@@ -134,9 +167,12 @@ class MasterServer:
                  pulse_seconds: float = 5.0,
                  coordinator_seconds: float = 0.0,
                  metrics_aggregation_seconds: float = 0.0,
-                 max_inflight: int = 0):
+                 max_inflight: int = 0,
+                 peers: Optional[list[str]] = None, mdir: str = ""):
         """A master at host:port.  Volume servers silent for ten pulses
-        are dropped.  ``max_inflight`` > 0 turns admission control on."""
+        are dropped.  ``max_inflight`` > 0 turns admission control on.
+        ``peers``: the other masters' host:port (none: a single master,
+        the leader at once); ``mdir``: the directory of its raft state."""
         self.host, self.port = host, port
         self.garbage_threshold = self.GARBAGE_THRESHOLD
         self.vacuum_scan_seconds = self.VACUUM_SCAN_SECONDS
@@ -164,8 +200,10 @@ class MasterServer:
         self.coordinator = EcCoordinator(
             topo=self.topo, server=self.url,
             stale_peers_fn=self._stale_peers,
+            is_leader_fn=lambda: self.is_leader,
             admin_locked_fn=self._admin_locked,
-            interval_s=coordinator_seconds or 15.0)
+            interval_s=coordinator_seconds or 15.0,
+            replicate_fn=self._replicate_coordinator_record)
         self.aggregator.local_fn = self.coordinator.health_contribution
         # servers ship sampled spans and journal events here; the
         # master's own take the local short-circuit
@@ -188,6 +226,24 @@ class MasterServer:
         # capture fan-outs in flight: stop() waits for them
         self._capture_lock = threading.Lock()
         self._capture_threads: list[threading.Thread] = []  # guarded-by: _capture_lock
+        # the EC registry as a follower applied it from ec_registry
+        # entries (plain urls: a promoted leader rebuilds the live one
+        # from heartbeats), and the last replicated fingerprints
+        self._ec_registry_shadow: dict = {}  # guarded-by: topo.lock
+        self._ec_registry_hash = ""  # guarded-by: topo.lock
+        self._alert_state_hash = ""  # the telemetry loop's alone
+        # last: restart recovery replays the log through the state
+        # machines above while RaftNode is being made
+        self.raft = RaftNode(
+            self.url, peers or [], state_dir=mdir,
+            apply_state=self._apply_raft_state,
+            read_state=lambda: {"max_volume_id": self.topo.max_volume_id,
+                                "max_file_key": self.seq.peek()},
+            apply_entry=self._apply_raft_entry,
+            read_snapshot=self._raft_read_snapshot,
+            apply_snapshot=self._raft_apply_snapshot)
+        self.metrics.leader_gauge.set(1 if self.raft.is_leader else 0)
+        self.raft.on_role_change = self._on_role_change
 
     # --- lifecycle --------------------------------------------------------
     @property
@@ -198,6 +254,7 @@ class MasterServer:
         self._trace_shipper.attach()
         self._event_shipper.attach()
         self._server = serve(self.router, self.host, self.port)
+        self.raft.start()
         threading.Thread(target=self._janitor_loop, daemon=True,
                          name="master-janitor").start()
         if self.metrics_aggregation_seconds > 0:
@@ -213,6 +270,7 @@ class MasterServer:
     def stop(self) -> None:
         self._stop.set()
         self.coordinator.stop()
+        self.raft.stop()
         if self._server is not None:
             stop_server(self._server)
         # a straggling capture writes no bundle after this (its stop
@@ -227,19 +285,209 @@ class MasterServer:
         self._trace_shipper.detach()
         self._event_shipper.detach()
 
+    # --- consensus (raft_server.go; the state machine is the control
+    # plane) ---------------------------------------------------------------
+    def _apply_raft_state(self, state: dict) -> None:
+        vid = int(state.get("max_volume_id", 0))
+        with self.topo.lock:
+            self.topo.max_volume_id = max(self.topo.max_volume_id, vid)
+        key = int(state.get("max_file_key", 0))
+        if key:
+            self.seq.set_max(key)
+
+    @staticmethod
+    def _ingest_preserving_via(journal, docs: list) -> None:
+        """Replay replicated records into a merged journal keeping each
+        record's ``via`` (the transport the leader stamped), so a caught-up
+        follower's journal equals the leader's."""
+        by_via: dict[str, list] = {}
+        for d in docs or []:
+            by_via.setdefault(str(d.get("via") or "raft"), []).append(d)
+        for via, batch in by_via.items():
+            journal.ingest(via, batch)
+
+    def _set_ec_registry_shadow(self, doc: dict) -> None:
+        with self.topo.lock:
+            self._ec_registry_shadow = doc.get("registry") or {}
+            self._ec_registry_hash = doc.get("hash") or ""
+
+    def _apply_raft_entry(self, kind: str, data: dict) -> None:
+        """A committed log entry into the state machines the leader runs
+        (the apply loop of consensus.py).  Every branch is idempotent:
+        journals dedup by record id, the counters max-merge."""
+        if kind == "vid_alloc":
+            self._apply_raft_state(data)
+        elif kind == "event":
+            self._ingest_preserving_via(self.event_journal,
+                                        data.get("events") or [])
+        elif kind == "alert":
+            self.alert_engine.import_state(data.get("alerts") or {})
+        elif kind == "coordinator":
+            self.coordinator.apply_replicated(data)
+        elif kind == "ec_registry":
+            self._set_ec_registry_shadow(data)
+
+    def _raft_read_snapshot(self) -> dict:
+        """The whole control-plane image, for log compaction and
+        InstallSnapshot: the meta counters and every replicated state
+        machine's state."""
+        return {
+            "max_volume_id": self.topo.max_volume_id,
+            "max_file_key": self.seq.peek(),
+            "events": self.event_journal.query(limit=0),
+            "alerts": self.alert_engine.export_state(),
+            "coordinator": self.coordinator.export_replicated(),
+            "ec_registry": self._ec_registry_doc(),
+        }
+
+    def _raft_apply_snapshot(self, state: dict) -> None:
+        """InstallSnapshot or restart recovery: the image through the local
+        state machines (idempotent)."""
+        self._apply_raft_state(state)
+        self._ingest_preserving_via(self.event_journal,
+                                    state.get("events") or [])
+        self.alert_engine.import_state(state.get("alerts") or {})
+        self.coordinator.import_replicated(state.get("coordinator") or {})
+        reg = state.get("ec_registry") or {}
+        if reg:
+            self._set_ec_registry_shadow(reg)
+
+    def _leader_raft(self) -> Optional[RaftNode]:
+        """The raft node when this master leads a quorum with peers, else
+        None.  getattr: restart recovery replays the log while RaftNode
+        is being made, before ``self.raft`` is bound."""
+        raft = getattr(self, "raft", None)
+        if raft is not None and raft.peers and raft.is_leader:
+            return raft
+        return None
+
     def _on_cluster_events(self, accepted: list[dict]) -> None:
         """The cluster journal's ingest hook: each batch of newly accepted
-        events wakes the coordinator with their causes."""
+        events wakes the coordinator with their causes, and on a leader
+        enters the raft log (it rides the next replication round)."""
         self.coordinator.on_events(accepted)
+        raft = self._leader_raft()
+        if raft is not None:
+            raft.append("event", {"events": accepted})
+
+    def _replicate_coordinator_record(self, record: dict) -> None:
+        """The coordinator's replicate_fn: a repair record reaches a
+        quorum before the repair goes on, so a leader killed mid-repair
+        leaves its planned record for the next leader to re-plan."""
+        raft = self._leader_raft()
+        if raft is not None:
+            raft.append("coordinator", record, sync=True)
+
+    def _ec_registry_doc(self) -> dict:
+        """The EC registry as plain urls (what ec_registry entries carry):
+        on the leader, from the live topology; on a follower, the applied
+        shadow."""
+        with self.topo.lock:
+            if self.topo.ec_shard_locations:
+                reg = {
+                    str(vid): {
+                        "collection": self.topo.ec_collections.get(vid, ""),
+                        "shards": {str(sid): [n.url for n in nodes]
+                                   for sid, nodes in shards.items()}}
+                    for vid, shards in self.topo.ec_shard_locations.items()}
+            else:
+                reg = dict(self._ec_registry_shadow)
+        h = hashlib.sha1(json.dumps(reg, sort_keys=True)
+                         .encode()).hexdigest()[:16]
+        return {"registry": reg, "hash": h}
+
+    def _replicate_ec_registry(self) -> None:
+        """Heartbeat path: when the EC shard map changed since the last
+        replication, append the whole mapping as one ec_registry entry."""
+        raft = self._leader_raft()
+        if raft is None:
+            return
+        doc = self._ec_registry_doc()
+        with self.topo.lock:
+            if doc["hash"] == self._ec_registry_hash:
+                return
+            self._ec_registry_hash = doc["hash"]
+        raft.append("ec_registry", doc)
+
+    def _replicate_alert_state(self) -> None:
+        """Telemetry cadence: replicate the alert state machines when they
+        changed, so a promoted follower resumes firing and pending alerts
+        instead of re-running their pending windows mid-incident."""
+        raft = self._leader_raft()
+        if raft is None:
+            return
+        doc = self.alert_engine.export_state()
+        h = hashlib.sha1(json.dumps(doc, sort_keys=True)
+                         .encode()).hexdigest()
+        if h == self._alert_state_hash:
+            return
+        self._alert_state_hash = h
+        raft.append("alert", {"alerts": doc})
+
+    def _on_role_change(self, role: str) -> None:
+        """Raft's role hook (outside its lock).  A demoted master's loops
+        idle on their own (each gates on is_leader every tick); a
+        promoted one re-arms the planned repairs it holds with their
+        original causes."""
+        self.metrics.leader_gauge.set(1 if role == "leader" else 0)
+        if role == "leader":
+            try:
+                self.coordinator.resume_replicated()
+            except Exception:  # noqa: BLE001 - the next cycle re-plans
+                log.exception("resuming the replicated repairs")
+
+    @property
+    def is_leader(self) -> bool:
+        return self.raft.is_leader
+
+    @property
+    def leader_url(self) -> str:
+        return self.raft.leader or self.url
+
+    def _commit_volume_ids(self) -> None:
+        """Quorum-replicate max_volume_id before an allocation is acked
+        (the raft log commit of the reference); reached only from
+        leader-gated routes, and commit_state fails closed on a
+        follower."""
+        if not self.raft.commit_state():
+            raise HttpError(500, "cannot replicate volume id allocation "
+                            "to a quorum; retry")
+
+    def _no_leader(self) -> bool:
+        return not self.raft.leader or self.raft.leader == self.url
+
+    def _proxy_to_leader(self, req: Request) -> Response:
+        """A follower forwards a POST to the leader and relays the answer
+        (master_server.go proxyToLeader); 503 while none is elected."""
+        if self._no_leader():
+            raise HttpError(503, "no leader elected yet; retry")
+        return Response(http_json(
+            "POST", f"http://{self.leader_url}{req.handler.path}",
+            req.json() if req.body else None, timeout=30.0))
+
+    def _require_leader(self, req: Request) -> None:
+        """The control plane answers on the leader: a follower redirects
+        with 307 and the same path and query, and answers 503 while no
+        leader is elected, so clients retry instead of looping."""
+        if self.is_leader:
+            return
+        if self._no_leader():
+            raise HttpError(503, "no leader elected yet; retry")
+        raise HttpError(307, f"not the leader; leader is {self.leader_url}",
+                        headers={"Location": f"http://{self.leader_url}"
+                                             f"{req.handler.path}"})
 
     def _telemetry_loop(self) -> None:
-        """The -metricsAggregationSeconds cadence: keep the cluster rollup
-        warm and evaluate the alert rules over it, so alerts fire with
-        nobody polling /cluster/health."""
+        """The -metricsAggregationSeconds cadence, on the leader: keep the
+        cluster rollup warm, evaluate the alert rules over it (alerts fire
+        with nobody polling /cluster/health) and replicate their state."""
         while not self._stop.wait(self.metrics_aggregation_seconds):
+            if not self.is_leader:
+                continue
             try:
                 self.aggregator.scrape(force=True, include_scrub=True)
                 self.alert_engine.evaluate(force=True)
+                self._replicate_alert_state()
             except Exception:  # noqa: BLE001 - rules carry their own errors
                 log.exception("telemetry loop")
 
@@ -315,9 +563,11 @@ class MasterServer:
 
     def _vacuum_scan_loop(self) -> None:
         """The periodic garbage scan (topology_event_handling.go ticker):
-        compact every volume past the threshold with no operator.  A
-        failed pass is logged and the next one runs on time."""
+        compact every volume past the threshold with no operator, on the
+        leader.  A failed pass is logged and the next one runs on time."""
         while not self._stop.wait(self.vacuum_scan_seconds):
+            if not self.is_leader:
+                continue
             try:
                 self.vacuum(self.garbage_threshold)
             except Exception as e:  # noqa: BLE001 - keep scanning
@@ -395,7 +645,8 @@ class MasterServer:
             vid, nodes = layout.pick_for_write()
         except LookupError:
             grow_volume(self.topo, collection, rp, ttl, self._allocate_rpc,
-                        preferred_dc=preferred_dc)
+                        preferred_dc=preferred_dc,
+                        commit_ids=self._commit_volume_ids)
             vid, nodes = layout.pick_for_write()
         key = self.seq.next_file_id(count)
         cookie = secrets.randbits(32)
@@ -431,6 +682,8 @@ class MasterServer:
             self.topo.apply_ec_deltas(
                 node, _ec_infos(hb.get("new_ec_shards", [])),
                 [int(v) for v in hb.get("deleted_ec_shards", [])])
+            if hb.get("new_ec_shards") or hb.get("deleted_ec_shards"):
+                self._replicate_ec_registry()
         else:
             node = self.topo.register_node(
                 hb["ip"], int(hb["port"]), hb.get("public_url", ""),
@@ -440,8 +693,10 @@ class MasterServer:
             new_volumes = hb.get("volumes", [])
             self.topo.sync_node_volumes(
                 node, [VolumeInfo.from_dict(v) for v in new_volumes])
-            self.topo.sync_node_ec_shards(node,
-                                          _ec_infos(hb.get("ec_shards", [])))
+            ec_infos = _ec_infos(hb.get("ec_shards", []))
+            self.topo.sync_node_ec_shards(node, ec_infos)
+            if ec_infos:
+                self._replicate_ec_registry()
         max_key = _max_file_key(new_volumes)
         if max_key:
             self.seq.set_max(max_key)
@@ -451,8 +706,43 @@ class MasterServer:
     def _register_routes(self) -> None:
         r = self.router
 
+        @r.route("POST", "/raft/vote")
+        def raft_vote(req: Request) -> Response:
+            b = req.json()
+            return Response(self.raft.handle_vote(
+                int(b["term"]), b["candidate"], b.get("state"),
+                last_index=b.get("last_index"),
+                last_term=b.get("last_term")))
+
+        @r.route("POST", "/raft/append")
+        def raft_append(req: Request) -> Response:
+            b = req.json()
+            res = self.raft.handle_append(
+                int(b["term"]), b["leader"], b.get("state") or {},
+                prev_index=b.get("prev_index"),
+                prev_term=int(b.get("prev_term") or 0),
+                entries=b.get("entries"), commit=b.get("commit"))
+            self.metrics.leader_gauge.set(1 if self.raft.is_leader else 0)
+            return Response(res)
+
+        @r.route("POST", "/raft/snapshot")
+        def raft_snapshot(req: Request) -> Response:
+            """InstallSnapshot: a restarted or long-partitioned master whose
+            needed entries were compacted away takes the leader's image
+            and the entry tail."""
+            b = req.json()
+            res = self.raft.handle_snapshot(
+                int(b["term"]), b["leader"],
+                int(b.get("last_index") or 0),
+                int(b.get("last_term") or 0),
+                b.get("state") or {}, entries=b.get("entries"),
+                commit=b.get("commit"))
+            self.metrics.leader_gauge.set(1 if self.raft.is_leader else 0)
+            return Response(res)
+
         @r.route("GET", "/dir/assign")
         def assign(req: Request) -> Response:
+            self._require_leader(req)
             return Response(self.assign_fid(
                 count=qint(req.query, "count", 1),
                 collection=req.query.get("collection", ""),
@@ -462,6 +752,7 @@ class MasterServer:
 
         @r.route("GET", "/dir/lookup")
         def lookup(req: Request) -> Response:
+            self._require_leader(req)
             vid_str = req.query.get("volumeId", "")
             vid = int(vid_str.split(",")[0])
             nodes = self.topo.lookup(vid, req.query.get("collection", ""))
@@ -475,6 +766,7 @@ class MasterServer:
 
         @r.route("GET", "/dir/lookup_ec")
         def lookup_ec(req: Request) -> Response:
+            self._require_leader(req)
             vid = qint(req.query, "volumeId")
             locs = self.topo.lookup_ec_shards(vid)
             if locs is None:
@@ -488,6 +780,7 @@ class MasterServer:
 
         @r.route("GET", "/dir/status")
         def dir_status(req: Request) -> Response:
+            self._require_leader(req)
             return Response({"Topology": self.topo.to_map(),
                              "Version": VERSION,
                              "VolumeSizeLimitMB":
@@ -495,8 +788,21 @@ class MasterServer:
 
         @r.route("GET", "/cluster/status")
         def cluster_status(req: Request) -> Response:
-            return Response({"IsLeader": True, "Leader": self.url,
-                             "Peers": []})
+            st = self.raft.status()
+            return Response({"IsLeader": self.is_leader,
+                             "Leader": self.leader_url,
+                             "Peers": self.raft.peers,
+                             "Term": st["term"],
+                             "Role": st["role"],
+                             "CommitIndex": st["commit_index"],
+                             "LastApplied": st["last_applied"],
+                             "LogLength": st["log_length"],
+                             "LogFirstIndex": st["log_first_index"],
+                             "LastIndex": st["last_index"],
+                             "SnapshotIndex": st["snapshot_index"],
+                             "SnapshotsInstalled":
+                                 st["snapshots_installed"],
+                             "SnapshotsSent": st["snapshots_sent"]})
 
         @r.route("GET", "/cluster/metrics")
         def cluster_metrics(req: Request) -> Response:
@@ -524,6 +830,7 @@ class MasterServer:
             servers, exemplar trace and flight-recorder bundles, and the
             rule table.  Evaluates on demand behind the same TTL guards
             as the scrape, so polling cannot amplify; ?state= filters."""
+            self._require_leader(req)
             self.aggregator.scrape(include_scrub=True)
             doc = self.alert_engine.evaluate()
             want = req.query.get("state", "").strip().lower()
@@ -535,17 +842,21 @@ class MasterServer:
 
         @r.route("GET", "/cluster/coordinator")
         def cluster_coordinator(req: Request) -> Response:
+            if not _local(req):
+                self._require_leader(req)
             return Response(self.coordinator.status())
 
         @r.route("POST", "/cluster/coordinator/pause")
         def cluster_coordinator_pause(req: Request) -> Response:
             """An operator's hold that outlives the admin lock: no new
             repair or move starts until resume."""
+            self._require_leader(req)
             self.coordinator.pause("api")
             return Response(self.coordinator.status())
 
         @r.route("POST", "/cluster/coordinator/resume")
         def cluster_coordinator_resume(req: Request) -> Response:
+            self._require_leader(req)
             self.coordinator.resume()
             return Response(self.coordinator.status())
 
@@ -553,6 +864,8 @@ class MasterServer:
         def cluster_events(req: Request) -> Response:
             """The cluster event journal, filtered: ?type=, ?severity=,
             ?min_severity=, ?server=, ?since=<unix ts>, ?limit=N."""
+            if not _local(req):
+                self._require_leader(req)
             try:
                 since_ts = float(req.query.get("since") or 0.0)
                 limit = min(int(req.query.get("limit") or 256), 2048)
@@ -570,8 +883,12 @@ class MasterServer:
 
         @r.route("POST", "/cluster/events/ingest")
         def cluster_events_ingest(req: Request) -> Response:
-            """EventShipper's sink (a single master is always the
-            leader)."""
+            """EventShipper's sink: a follower forwards the batch to the
+            leader, so every shipper lands in one cluster journal; the
+            answer's ``leader`` teaches the shipper's transport where to
+            send the next one."""
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
             b = req.json()
             accepted = self.event_journal.ingest(
                 str(b.get("server") or ""), b.get("events") or [])
@@ -580,7 +897,10 @@ class MasterServer:
         @r.route("POST", "/cluster/traces/ingest")
         def cluster_traces_ingest(req: Request) -> Response:
             """TraceShipper's sink: spans of sampled traces, stitched by
-            trace id; ``lost`` counts spans a shipper already dropped."""
+            trace id; ``lost`` counts spans a shipper already dropped.  A
+            follower forwards the batch to the leader."""
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
             b = req.json()
             accepted = self.trace_collector.ingest(
                 str(b.get("server") or ""), b.get("spans") or [],
@@ -590,6 +910,7 @@ class MasterServer:
         @r.route("GET", "/cluster/traces")
         def cluster_traces_index(req: Request) -> Response:
             """Most recent first: id, root span, servers, wall seconds."""
+            self._require_leader(req)
             limit = min(qint(req.query, "limit", 64), 256)
             return Response(
                 {"traces": self.trace_collector.summaries(limit=limit)})
@@ -600,6 +921,7 @@ class MasterServer:
             occupancy, network versus server, the bounding hop, a
             degraded verdict over the servers' health counters);
             ?format=chrome answers the Chrome trace-event view."""
+            self._require_leader(req)
             trace_id = req.match.group(1)
             if req.query.get("format", "").lower() == "chrome":
                 doc = self.trace_collector.chrome(trace_id)
@@ -624,10 +946,18 @@ class MasterServer:
 
         @r.route("POST", "/heartbeat")
         def heartbeat(req: Request) -> Response:
-            return Response(self._heartbeat(req.json()))
+            hb = req.json()
+            if not self.is_leader:
+                # the volume server re-targets the leader
+                # (volume_grpc_client_to_master.go leader redirect)
+                known = self.raft.leader if self.raft.leader != self.url \
+                    else None
+                return Response({"leader": known, "not_leader": True})
+            return Response(self._heartbeat(hb))
 
         @r.route("GET", "/vol/grow")
         def vol_grow(req: Request) -> Response:
+            self._require_leader(req)
             rp = ReplicaPlacement.parse(req.query.get("replication")
                                         or self.default_replication)
             ttl = TTL.parse(req.query.get("ttl", ""))
@@ -639,7 +969,8 @@ class MasterServer:
             for _ in range(qint(req.query, "count", 1)):
                 try:
                     grown += grow_volume(self.topo, collection, rp, ttl,
-                                         self._allocate_rpc)
+                                         self._allocate_rpc,
+                                         commit_ids=self._commit_volume_ids)
                 except HttpError as e:
                     if not grown:
                         raise
@@ -652,6 +983,7 @@ class MasterServer:
 
         @r.route("GET", "/vol/vacuum")
         def vol_vacuum(req: Request) -> Response:
+            self._require_leader(req)
             threshold = qfloat(req.query, "garbageThreshold",
                                float(self.garbage_threshold))
             return Response({"compacted": self.vacuum(threshold)})
@@ -660,6 +992,7 @@ class MasterServer:
         def vol_status(req: Request) -> Response:
             """volumeStatusHandler: per-node volume inventory keyed
             dc -> rack -> server."""
+            self._require_leader(req)
             vols: dict = {}
             with self.topo.lock:
                 for dc in self.topo.data_centers.values():
@@ -675,6 +1008,7 @@ class MasterServer:
         def col_delete(req: Request) -> Response:
             """collectionDeleteHandler: drop every volume and EC shard of
             a collection on its servers, then forget its layouts."""
+            self._require_leader(req)
             name = req.query.get("collection", "")
             with self.topo.lock:
                 keys = [k for k in self.topo.layouts if k[0] == name]
@@ -713,6 +1047,7 @@ class MasterServer:
         def submit(req: Request) -> Response:
             """submitFromMasterServerHandler: assign + upload in one call,
             through WeedClient.upload and its reassign-on-readonly loop."""
+            self._require_leader(req)
             data, fname, mime = extract_upload(
                 req.body, req.headers.get("Content-Type") or "")
             if self._submit_client is None:
@@ -750,6 +1085,8 @@ class MasterServer:
 
         @r.route("POST", "/admin/lease")
         def admin_lease(req: Request) -> Response:
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
             body = req.json()
             now = time.time()
             prev = body.get("previous_token") or None
@@ -766,6 +1103,8 @@ class MasterServer:
 
         @r.route("POST", "/admin/release")
         def admin_release(req: Request) -> Response:
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
             with self.topo.lock:
                 if req.json().get("previous_token") == self._admin_token:
                     self._admin_token = None

@@ -9,7 +9,7 @@ other racks / the same rack per the xyz digits.  Shuffles draw from
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
@@ -71,14 +71,24 @@ def _pick_replicas(topo: Topology, main: DataNode,
 def grow_volume(topo: Topology, collection: str, rp: ReplicaPlacement,
                 ttl: TTL, allocate: Callable[[DataNode, int, str, str, str],
                                              None],
-                preferred_dc: str = "", count: int = 1) -> list[int]:
+                preferred_dc: str = "", count: int = 1,
+                commit_ids: Optional[Callable[[], None]] = None
+                ) -> list[int]:
     """VolumeGrowth.grow (volume_growth.go:221): allocate ``count`` new
     volumes on chosen servers through ``allocate``, then register them
-    at once; heartbeats confirm."""
+    at once; heartbeats confirm.
+
+    ``commit_ids`` quorum-replicates the reserved max_volume_id before
+    any allocate call runs (the reference commits MaxVolumeId through the
+    raft log first, topology.go NextVolumeId); when the commit cannot
+    reach a quorum the grow fails with no volume created, so a new
+    leader can never issue the same id to other servers."""
     grown = []
     for _ in range(count):
         nodes = find_empty_slots(topo, rp, preferred_dc)
         vid = topo.next_volume_id()
+        if commit_ids is not None:
+            commit_ids()
         for node in nodes:
             allocate(node, vid, collection, str(rp), str(ttl))
         info = VolumeInfo(id=vid, collection=collection,

@@ -36,9 +36,11 @@ transition is journaled (alert_pending, alert_fired, alert_resolved), and
 the firing transition hands the rule and its implicated servers to
 ``on_fire`` (the master's flight-recorder capture) once per fire.
 
-Not ported: ``export_state``/``import_state``, the replication of the
-state machines over the reference's raft log; the port's master has no
-raft.
+``export_state``/``import_state`` carry the state machines (state,
+pending windows, fire times, bundles, the exemplar trace) through the
+masters' raft log, so a promoted follower continues a firing alert; the
+evaluation baselines stay local, and a new leader's first evaluation
+re-seeds them.
 """
 
 from __future__ import annotations
@@ -305,6 +307,52 @@ class AlertEngine:  # weedlint: concurrent-class
                 except Exception:
                     pass
         return doc
+
+    # --- replication (master HA) ------------------------------------------
+    def export_state(self) -> dict:
+        """The per-rule state machines as a plain replicable document
+        (what the leader appends as ``alert`` raft-log entries): every
+        field a promoted follower needs to continue a firing alert
+        (pending windows, fire times, exemplar traces) rather than
+        re-learn it mid-incident.  Evaluation internals (counter
+        baselines, burn-rate history) stay local: a new leader re-seeds
+        them from its own first scrape."""
+        with self._lock:
+            return {name: {
+                "state": st.state,
+                "pending_since": st.pending_since,
+                "fired_at": st.fired_at,
+                "resolved_at": st.resolved_at,
+                "last_active": st.last_active,
+                "value": st.value,
+                "detail": st.detail,
+                "servers": list(st.servers),
+                "fires": st.fires,
+                "bundles": list(st.bundles),
+                "exemplar_trace": st.exemplar_trace,
+            } for name, st in self._states.items()}
+
+    def import_state(self, doc: dict) -> None:
+        """Replay a replicated alert-state document into the local state
+        machines (a follower's apply loop, a snapshot install).  Unknown
+        rule names are skipped: rule tables are configuration, not
+        replicated state.  Idempotent."""
+        with self._lock:
+            for name, d in (doc or {}).items():
+                st = self._states.get(name)
+                if st is None or not isinstance(d, dict):
+                    continue
+                st.state = str(d.get("state") or "inactive")
+                st.pending_since = float(d.get("pending_since") or 0.0)
+                st.fired_at = float(d.get("fired_at") or 0.0)
+                st.resolved_at = float(d.get("resolved_at") or 0.0)
+                st.last_active = float(d.get("last_active") or 0.0)
+                st.value = float(d.get("value") or 0.0)
+                st.detail = str(d.get("detail") or "")
+                st.servers = [str(s) for s in (d.get("servers") or [])]
+                st.fires = int(d.get("fires") or 0)
+                st.bundles = list(d.get("bundles") or [])
+                st.exemplar_trace = str(d.get("exemplar_trace") or "")
 
     def _transition(self, rule: Rule, active: bool, value: float,  # holds: _lock
                     detail: str, servers: list[str], now: float):

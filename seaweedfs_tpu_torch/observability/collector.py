@@ -39,11 +39,12 @@ from .tracer import Span, Tracer, _dropped_counter
 class TraceShipper:
     """Ship sampled spans from this process's tracer to a collector.
 
-    `master_url_fn` returns the CURRENT master url (volume servers
-    follow the master their heartbeats go to); each flush is one POST
-    there, and a failed one is counted lost (the port has one master;
-    the reference's candidate rotation and leader learning wait for its
-    raft).  `local_collector` short-circuits HTTP for
+    `master_url_fn` returns the master candidates, comma-separated (a
+    volume server puts the master its heartbeats follow first); each
+    flush is one POST through a LeaderFollowingTransport
+    (utils/leader.py), which rotates over the candidates after a failure
+    and learns the leader from ingest answers, and a failed one is
+    counted lost.  `local_collector` short-circuits HTTP for
     the master's own spans.  attach() CHAINS with any previously
     installed on_record hook, so several servers sharing one process
     (test fixtures) each get to ship — the collector's
@@ -79,6 +80,12 @@ class TraceShipper:
         # server's lifecycle thread before the flush thread starts /
         # after it stops; read lock-free on every recorded span
         self._prev_hook: Optional[Callable[[Span], None]] = None
+        # the shared leader-follow policy (imported here: utils/httpd.py
+        # imports this package at load), internally locked
+        from ..utils.leader import LeaderFollowingTransport
+
+        self.transport = LeaderFollowingTransport(master_url_fn,
+                                                  name=f"traces:{server}")
         self.shipped = 0  # guarded-by: _lock
         self.dropped = 0  # guarded-by: _lock
 
@@ -163,16 +170,19 @@ class TraceShipper:
             # sampled downstream (it would ship spans about shipping
             # spans, forever)
             with _trace_context.scope(_trace_context.NOT_SAMPLED):
-                ship_batch(self.master_url_fn, "/cluster/traces/ingest",
-                      {"server": self.server, "spans": docs, "lost": lost},
-                      timeout)
+                self.transport.post("/cluster/traces/ingest",
+                                    {"server": self.server, "spans": docs,
+                                     "lost": lost},
+                                    timeout=timeout)
             with self._lock:
                 self.shipped += len(docs)
         except Exception:
-            # master down: the batch is LOST and counted — and
-            # remembered per trace id, so when the master is reachable
+            # master down or not elected: the batch is LOST and counted,
+            # and remembered per trace id, so when a master is reachable
             # again the affected stitched traces are marked truncated
-            # instead of silently reading complete.
+            # instead of silently reading complete.  The transport
+            # rotated to the next candidate (a follower forwards to the
+            # leader, so any live one works).
             if docs:
                 _dropped_counter().inc("ship_error", amount=len(docs))
             # counter updates ride _lock: the flush thread and the
@@ -183,17 +193,6 @@ class TraceShipper:
                     self._note_lost_locked(d.get("trace"))
                 for tid, n in lost.items():
                     self._note_lost_locked(tid, n)
-
-
-def ship_batch(master_url_fn: Optional[Callable[[], str]], path: str,
-          payload: dict, timeout: float) -> None:
-    """One POST of a shipper's batch to the master; raises on failure
-    (the caller counts the loss, shipping never retries)."""
-    # imported here: utils/httpd.py imports this package at load
-    from ..utils.httpd import http_json
-
-    http_json("POST", f"http://{master_url_fn()}{path}", payload,
-              timeout=timeout)
 
 
 class _TraceEntry:

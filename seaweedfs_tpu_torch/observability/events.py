@@ -47,7 +47,6 @@ from time import monotonic
 from typing import Callable, Optional
 
 from . import context as _trace_context
-from .collector import ship_batch
 
 # severity order matters: min_severity filters compare by rank
 SEVERITIES = ("info", "warning", "error", "critical")
@@ -368,6 +367,12 @@ class EventShipper:
         # server's lifecycle thread before the flush thread starts /
         # after it stops; read lock-free on every emit
         self._prev_hook: Optional[Callable[[Event], None]] = None
+        # the shared leader-follow policy (utils/leader.py; imported here:
+        # utils/httpd.py imports this package at load), internally locked
+        from ..utils.leader import LeaderFollowingTransport
+
+        self.transport = LeaderFollowingTransport(master_url_fn,
+                                                  name=f"events:{server}")
         self.shipped = 0  # guarded-by: _lock
         self.dropped = 0  # guarded-by: _lock
         # the master the batch on the wire goes to
@@ -429,7 +434,7 @@ class EventShipper:
             with self._lock:
                 inflight = self._inflight_url
             if inflight is not None and self.master_url_fn is not None \
-                    and inflight != self.master_url_fn():
+                    and inflight not in self.transport.candidates()[:1]:
                 return
             if not self._send_lock.acquire(
                     timeout=max(deadline - monotonic(), 0.0)):
@@ -460,18 +465,20 @@ class EventShipper:
                 self.shipped += len(docs)
             return
         try:
-            url = self.master_url_fn()
+            url = self.transport.target()
             with self._lock:
                 self._inflight_url = url
             # shipping must never trace itself (same rule as spans)
             with _trace_context.scope(_trace_context.NOT_SAMPLED):
-                ship_batch(lambda: url, "/cluster/events/ingest",
-                           {"server": self.server, "events": docs},
-                           timeout)
+                self.transport.post("/cluster/events/ingest",
+                                    {"server": self.server, "events": docs},
+                                    timeout=timeout)
             with self._lock:
                 self.shipped += len(docs)
         except Exception:
-            # master down: the batch is LOST and counted.
+            # master down or not elected: the batch is LOST and counted;
+            # the transport rotated to the next configured master and
+            # learns the leader from an ingest answer after the election.
             # Counter updates ride _lock: the flush thread and the
             # detach()-time final flush race these read-modify-writes
             with self._lock:

@@ -40,9 +40,14 @@ copy, rebuild and mount hops stitch into one cluster trace, and journals
 ``repair_failed`` and ``rebalance_move`` events carrying both that trace
 and the cause.  The master's cluster journal feeds ``on_events``: the
 event, alert and trace that made a volume urgent land in its queue entry
-(``cause_event``, ``cause_trace``).  The repair records
-(``status()["replicated"]``) stay local until the port has raft (no
-``replicate_fn``, no export, import or resume of them).
+(``cause_event``, ``cause_trace``).  Each repair's planned, done and
+failed records (``status()["replicated"]``) go to ``replicate_fn``, the
+master's synchronous raft append, so a leader killed mid-repair leaves
+its planned record on a quorum; the promoted leader's
+``resume_replicated`` re-plans it under the original alert, cause event
+and cause trace.  ``export_replicated`` / ``import_replicated`` carry
+the records through raft snapshots.  Only the leader's loop plans
+(``is_leader_fn``).
 """
 
 from __future__ import annotations
@@ -616,8 +621,7 @@ class EcCoordinator:
     bucket of one move a second and a burst of eight (copied to
     attributes that tests set); one 900 s budget per repair, every leg
     drawing from it, so a wedged peer cannot pin a repair slot for the
-    sum of every leg's timeout; and the servers' own engine, "tpu".  A
-    port master is always the leader (no raft)."""
+    sum of every leg's timeout; and the servers' own engine, "tpu"."""
 
     MAX_CONCURRENT = 2
     MAX_REPAIRS_PER_CYCLE = 4
@@ -629,16 +633,22 @@ class EcCoordinator:
 
     def __init__(self, topo, server: str = "",
                  stale_peers_fn: Optional[Callable[[], list]] = None,
+                 is_leader_fn: Optional[Callable[[], bool]] = None,
                  admin_locked_fn: Optional[Callable[[], bool]] = None,
                  interval_s: float = 15.0,
-                 post_fn: Optional[Callable] = None):
+                 post_fn: Optional[Callable] = None,
+                 replicate_fn: Optional[Callable[[dict], None]] = None):
         """``server``: the master's url, stamped on spans and events;
         ``stale_peers_fn``: registered servers to count as down;
-        ``admin_locked_fn``: True while the shell's lock is held."""
+        ``is_leader_fn``: False on a raft follower, whose loop idles;
+        ``admin_locked_fn``: True while the shell's lock is held;
+        ``replicate_fn``: takes each repair record to the raft log."""
         self.topo = topo
         self.server = server
         self.stale_peers_fn = stale_peers_fn or (lambda: [])
+        self.is_leader_fn = is_leader_fn or (lambda: True)
         self.admin_locked_fn = admin_locked_fn or (lambda: False)
+        self.replicate_fn = replicate_fn
         self.interval_s = float(interval_s)
         self.move_rate = self.MOVE_RATE
         self.move_burst = self.MOVE_BURST
@@ -668,8 +678,8 @@ class EcCoordinator:
         # token-bucket move budget
         self._tokens = self.MOVE_BURST  # guarded-by: _lock
         self._tokens_at = time.monotonic()  # guarded-by: _lock
-        # repair records, as the reference replicates them: vid -> the
-        # latest unfinished record (planned / failed), and the history
+        # the replicated repair records: vid -> the latest unfinished
+        # record (planned / failed), and the history by record id
         self._replicated: dict[int, dict] = {}  # guarded-by: _lock
         self._replog: "OrderedDict[str, dict]" = OrderedDict()  # guarded-by: _lock
 
@@ -734,19 +744,29 @@ class EcCoordinator:
         if wake:
             self._wake.set()
 
-    # --- repair records ---------------------------------------------------
+    # --- replicated repair records (master HA) ----------------------------
     def _record(self, op: str, vid: int, entry: dict, **extra) -> None:
-        """Keep one repair lifecycle record (planned / done / failed)."""
+        """Keep one repair lifecycle record (planned / done / failed):
+        apply it to the local replicated view, then hand it to
+        ``replicate_fn`` (the master's synchronous raft append) so it
+        survives this leader.  Called outside _lock: replication does
+        quorum HTTP."""
         at = round(time.time(), 3)
-        self.apply_replicated({
-            "id": f"{vid}:{op}:{at:.3f}", "op": op, "vid": vid, "at": at,
-            "alert": entry.get("alert", ""),
-            "cause_trace": entry.get("cause_trace", ""),
-            "cause_event": entry.get("cause_event", ""), **extra})
+        rec = {"id": f"{vid}:{op}:{at:.3f}", "op": op, "vid": vid,
+               "at": at, "alert": entry.get("alert", ""),
+               "cause_trace": entry.get("cause_trace", ""),
+               "cause_event": entry.get("cause_event", ""), **extra}
+        self.apply_replicated(rec)
+        if self.replicate_fn is not None:
+            try:
+                self.replicate_fn(rec)
+            except Exception:  # noqa: BLE001 - never fails the repair
+                _log.exception("coordinator: replicating %s", rec["id"])
 
     def apply_replicated(self, rec: dict) -> None:
-        """Land one plan/done/failed record.  Idempotent: records dedup by
-        id and the pending map is last-write-wins per volume."""
+        """Land one plan/done/failed record (the leader's own write or a
+        follower's apply loop).  Idempotent: records dedup by id and the
+        pending map is last-write-wins per volume."""
         try:
             vid = int(rec.get("vid"))
         except (TypeError, ValueError):
@@ -762,6 +782,45 @@ class EcCoordinator:
             elif op in ("planned", "failed"):
                 self._replicated[vid] = dict(rec)
 
+    def export_replicated(self) -> dict:
+        """The replicable repair-record state (a raft snapshot's leg)."""
+        with self._lock:
+            return {"pending": {str(vid): dict(r)
+                                for vid, r in self._replicated.items()},
+                    "log": [dict(r) for r in self._replog.values()]}
+
+    def import_replicated(self, doc: dict) -> None:
+        """Install a snapshot of the repair-record state (idempotent:
+        replays merge by record id and volume id)."""
+        for rec in (doc or {}).get("log") or []:
+            self.apply_replicated(rec)
+        with self._lock:
+            for vid_s, rec in ((doc or {}).get("pending") or {}).items():
+                try:
+                    self._replicated[int(vid_s)] = dict(rec)
+                except (TypeError, ValueError):
+                    continue
+
+    def resume_replicated(self) -> None:
+        """Promotion hook: re-arm every planned-but-unfinished repair from
+        the replicated records, so the new leader's repair_planned and
+        repair_done carry the original alert, trace and event.  The
+        deficits themselves re-derive from the volume servers'
+        heartbeats; this sets the cause map and wakes the planner.  A
+        record's cause replaces the one this follower derived from the
+        journal (the same events, unless a later one came), and its alert
+        stands even when that alert has resolved since (the reference's
+        keeps the cause the follower derived and names whichever relevant
+        alert fires now)."""
+        with self._lock:
+            for vid, rec in self._replicated.items():
+                self._causes[vid] = {
+                    "event": rec.get("cause_event", ""),
+                    "type": "replicated_plan",
+                    "trace": rec.get("cause_trace", ""),
+                    "alert": rec.get("alert", "")}
+        self._wake.set()
+
     # --- the loop ---------------------------------------------------------
     def _loop(self) -> None:
         while not self._stop.is_set():
@@ -769,6 +828,8 @@ class EcCoordinator:
             self._wake.clear()
             if self._stop.is_set():
                 break
+            if not self.is_leader_fn():
+                continue
             with self._lock:
                 paused = self.paused
             if paused or self.admin_locked_fn():
@@ -842,10 +903,14 @@ class EcCoordinator:
                          threshold=DATA_SHARDS_COUNT + 1)
 
     def _cause_alert_locked(self, vid: int) -> str:  # holds: _lock
-        """The firing alert this volume's repair answers: the cause
-        event's mapped rule when that alert fires, else any relevant
-        firing alert, else the cause's static mapping."""
-        mapped = self._causes.get(vid, {}).get("alert", "")
+        """The firing alert this volume's repair answers: a re-armed
+        plan's own alert; else the cause event's mapped rule when that
+        alert fires, else any relevant firing alert, else the cause's
+        static mapping."""
+        cause = self._causes.get(vid, {})
+        mapped = cause.get("alert", "")
+        if mapped and cause.get("type") == "replicated_plan":
+            return mapped
         if mapped and mapped in self._alerts:
             return mapped
         for name in self._alerts:

@@ -22,8 +22,8 @@ from __future__ import annotations
 import json
 import time
 
-from ..utils.httpd import http_json
 from .commands import CommandEnv, command
+from .trace_commands import _quorum_line, _raft_views
 
 
 def _fmt_ts(ts: float) -> str:
@@ -93,36 +93,6 @@ def cmd_coordinator_resume(env: CommandEnv, flags: dict) -> str:
     return _render_status(env.master_post("/cluster/coordinator/resume", {}))
 
 
-def _masters_line(env: CommandEnv) -> str:
-    """`masters: N (leader host:port, term T)` from /cluster/status of
-    every configured master and every peer one names; an unreachable one
-    is listed as down."""
-    queue = [u for u in env.master_url.split(",") if u]
-    views: dict[str, dict] = {}
-    while queue:
-        url = queue.pop(0)
-        if url in views:
-            continue
-        try:
-            views[url] = http_json("GET", f"http://{url}/cluster/status",
-                                   timeout=5.0)
-        except Exception as e:  # noqa: BLE001 - a dead master is listed
-            views[url] = {"error": str(e) or e.__class__.__name__}
-            continue
-        queue.extend(p for p in views[url].get("Peers", [])
-                     if p not in views and p not in queue)
-    up = {u: v for u, v in views.items() if "error" not in v}
-    leaders = sorted({v.get("Leader") or "" for v in up.values()} - {""})
-    term = max((int(v.get("Term") or 0) for v in up.values()), default=0)
-    leader = leaders[0] if len(leaders) == 1 else \
-        (f"DISPUTED {'/'.join(leaders)}" if leaders else "none")
-    line = f"masters: {len(views)} (leader {leader}, term {term})"
-    down = sorted(u for u, v in views.items() if "error" in v)
-    if down:
-        line += f"  down: {', '.join(down)}"
-    return line
-
-
 @command("cluster.health")
 def cmd_cluster_health(env: CommandEnv, flags: dict) -> str:
     """cluster.health [-json]  # master's per-volume-server telemetry
@@ -133,7 +103,7 @@ def cmd_cluster_health(env: CommandEnv, flags: dict) -> str:
     lines = [f"peers: {doc['peer_count']}  "
              f"degraded: {doc['degraded']}  "
              f"stale: {', '.join(doc['stale_peers']) or 'none'}",
-             _masters_line(env)]
+             _quorum_line(_raft_views(env))]
     # best-effort: a master without the alert engine leaves the line out
     try:
         al = env.master_get("/cluster/alerts")

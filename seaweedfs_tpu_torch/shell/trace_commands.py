@@ -10,9 +10,15 @@ and trace.fetch and of alert_commands.py's events.tail:
                                       the master's collector
     events.tail [-n 20] [-type t]     the cluster journal (or -server's
                                       own journal), one event a line
+    cluster.raft [-json]              every master's raft view: role,
+                                      term, leader, commit and applied
+                                      indexes, log span, snapshots
 
-The alerting commands are in alert_commands.py.  Not ported:
-cluster.raft.
+The alerting commands are in alert_commands.py; cluster.health (in
+coordinator_commands.py) prints the masters line of cluster.raft.
+``-master`` may name any master: a follower redirects the control plane
+to the leader.  cluster.raft also takes a comma-separated list and walks
+every peer each master names.
 """
 
 from __future__ import annotations
@@ -127,4 +133,65 @@ def cmd_events_tail(env: CommandEnv, flags: dict) -> str:
         if e.get("trace"):
             line += f" [trace {e['trace']}]"
         lines.append(line.rstrip())
+    return "\n".join(lines)
+
+
+def _raft_views(env: CommandEnv) -> dict[str, dict]:
+    """/cluster/status from every reachable master: the configured
+    candidates (``env.master_url`` may be a comma-separated list) and
+    every peer any of them names.  An unreachable master stays in the map
+    with an ``error`` key: a failover drill wants to see the dead one."""
+    queue = [u for u in env.master_url.split(",") if u]
+    views: dict[str, dict] = {}
+    while queue:
+        url = queue.pop(0)
+        if url in views:
+            continue
+        try:
+            views[url] = http_json("GET", f"http://{url}/cluster/status",
+                                   timeout=5.0)
+        except Exception as e:  # noqa: BLE001 - a dead master is listed
+            views[url] = {"error": str(e) or e.__class__.__name__}
+            continue
+        queue.extend(p for p in views[url].get("Peers", [])
+                     if p not in views and p not in queue)
+    return views
+
+
+def _quorum_line(views: dict[str, dict]) -> str:
+    """``masters: 3 (leader host:port, term 7)``, and the masters down:
+    the one-line quorum summary of cluster.health and cluster.raft."""
+    up = {u: v for u, v in views.items() if "error" not in v}
+    leaders = sorted({v.get("Leader") or "" for v in up.values()} - {""})
+    term = max((int(v.get("Term") or 0) for v in up.values()), default=0)
+    leader = leaders[0] if len(leaders) == 1 else \
+        (f"DISPUTED {'/'.join(leaders)}" if leaders else "none")
+    line = f"masters: {len(views)} (leader {leader}, term {term})"
+    down = sorted(u for u, v in views.items() if "error" in v)
+    if down:
+        line += f"  down: {', '.join(down)}"
+    return line
+
+
+@command("cluster.raft")
+def cmd_cluster_raft(env: CommandEnv, flags: dict) -> str:
+    """cluster.raft [-json]  # per-master raft view: role, term, known
+    leader, commit/applied indexes, log span, snapshot transfers —
+    the quorum's replication progress at a glance"""
+    views = _raft_views(env)
+    if flags.get("json") == "true":
+        return json.dumps({"masters": views}, indent=2)
+    lines = [_quorum_line(views)]
+    for url, v in sorted(views.items()):
+        if "error" in v:
+            lines.append(f"  {url}: unreachable ({v['error']})")
+            continue
+        lines.append(
+            f"  {url}: {v.get('Role', '?')} term={v.get('Term', 0)} "
+            f"commit={v.get('CommitIndex', 0)} "
+            f"applied={v.get('LastApplied', 0)} "
+            f"log[{v.get('LogFirstIndex', 1)}..{v.get('LastIndex', 0)}] "
+            f"snap@{v.get('SnapshotIndex', 0)} "
+            f"installed={v.get('SnapshotsInstalled', 0)} "
+            f"sent={v.get('SnapshotsSent', 0)}")
     return "\n".join(lines)

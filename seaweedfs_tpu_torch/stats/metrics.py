@@ -29,8 +29,8 @@ them only when asked, ``expose(exemplars=True)``, which a server's
 Not ported: the push gateway loop, and the families the port cannot have
 or has not ported: ``ECPipelineMetrics`` (parity-worker restarts and CPU
 fallbacks), the volume server's native-plane gauge, the master's
-heartbeat and leader families, the dataplane, the needle cache, heat and
-the resource ledger.
+heartbeat family, the dataplane, the needle cache, heat and the resource
+ledger.
 """
 
 from __future__ import annotations
@@ -328,11 +328,13 @@ class _ServerMetrics:
 
 
 class MasterMetrics(_ServerMetrics):
-    """The master's request bundle (the reference's heartbeat and leader
-    families are not ported)."""
+    """The master's request bundle and its raft leader gauge (the
+    reference's heartbeat family is not ported)."""
 
     def __init__(self, registry: Registry = REGISTRY):
         super().__init__("master", registry)
+        self.leader_gauge = registry.gauge(
+            "SeaweedFS_master_is_leader", "1 if this master is raft leader.")
 
 
 class VolumeServerMetrics(_ServerMetrics):

@@ -1,4 +1,4 @@
-"""Fault injection: named fault points that raise on chosen hits.
+"""Fault injection: named fault points that raise or stall on chosen hits.
 
 The port's copy of seaweedfs_tpu/utils/faultinject.py, with the points the
 port's EC pipeline and its repair coordinator hit.  A point is free when
@@ -14,9 +14,11 @@ drills arm it:
 A server started from the command line arms points from the
 ``WEED_FAULTS`` environment variable (``arm_from_env``).
 
-``after`` is the port's addition: the first ``after`` hits of an armed
-point pass, so a drill can fail the 13th dispatch of an encode and not
-the first.
+``delay`` (the reference's key) stalls each hit that much before it
+returns or raises, so a drill can slow the coordinator's legs
+(``coord.exec:delay=1``) and kill its master mid-repair.  ``after`` is
+the port's addition: the first ``after`` hits of an armed point pass, so
+a drill can fail the 13th dispatch of an encode and not the first.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from __future__ import annotations
 import os
 import random
 import threading
+import time
 from typing import Optional
 
 _lock = threading.Lock()
@@ -63,15 +66,18 @@ def list_points() -> list[tuple[str, str]]:
 
 
 def enable(name: str, error_rate: float = 0.0, max_hits: int = 0,
-           params: Optional[dict] = None, after: int = 0) -> None:
+           params: Optional[dict] = None, after: int = 0,
+           delay: float = 0.0) -> None:
     """Arm a fault point: a hit raises OSError with probability
-    error_rate in [0, 1]; max_hits > 0 disarms it after that many
-    injected faults; the first ``after`` hits pass untouched.  params
-    carries site data for data-mutation points (ec.shard.corrupt's
-    shard/offset/bit)."""
+    error_rate in [0, 1] and first sleeps ``delay`` seconds; each hit
+    that sleeps or raises counts as injected, and max_hits > 0 disarms
+    the point after that many; the first ``after`` hits pass untouched.
+    params carries site data for data-mutation points
+    (ec.shard.corrupt's shard/offset/bit)."""
     with _lock:
         _points[name] = {
             "error_rate": error_rate,
+            "delay": delay,
             "max_hits": max_hits,
             "hits": 0,
             "after": after,
@@ -114,20 +120,27 @@ def hit(name: str) -> None:
         p = _points.get(name)
         if p is None or _spent(p):
             return
-        if not (p["error_rate"] and random.random() < p["error_rate"]):
+        inject_error = bool(p["error_rate"]
+                            and random.random() < p["error_rate"])
+        delay = p["delay"]
+        if not (inject_error or delay):
             return
         p["hits"] += 1
         _counts[name] = _counts.get(name, 0) + 1
-    raise OSError(f"fault injected at {name}")
+    if delay:
+        time.sleep(delay)
+    if inject_error:
+        raise OSError(f"fault injected at {name}")
 
 
 def arm_from_env(spec: Optional[str] = None) -> int:
     """Arm fault points from a ``WEED_FAULTS`` spec, so a drill reaches
     servers started in other processes.  Format
     ``name:key=val,key=val;name2:...``, e.g.
-    ``WEED_FAULTS="ec.dispatch:error_rate=1,max_hits=1,after=12"``.  Keys:
-    error_rate (a float), max_hits and after (ints).  Returns the number
-    of points armed."""
+    ``WEED_FAULTS="ec.dispatch:error_rate=1,max_hits=1,after=12"`` or
+    ``WEED_FAULTS="coord.exec:delay=1"``.  Keys: error_rate and delay
+    (floats, delay in seconds), max_hits and after (ints).  Returns the
+    number of points armed."""
     if spec is None:
         spec = os.environ.get("WEED_FAULTS", "")
     armed = 0
@@ -142,7 +155,7 @@ def arm_from_env(spec: Optional[str] = None) -> int:
             k = k.strip()
             if k in ("max_hits", "after"):
                 kwargs[k] = int(v)
-            elif k == "error_rate":
+            elif k in ("error_rate", "delay"):
                 kwargs[k] = float(v)
         enable(name.strip(), **kwargs)
         armed += 1

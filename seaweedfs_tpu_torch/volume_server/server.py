@@ -24,7 +24,10 @@ GET launches no kernel, while the admin, scrub, status, metrics and debug
 routes, a remote holder's ``/admin/ec/shard_read`` among them, are never
 shed.  Heartbeats go to the master, full every
 FULL_SYNC_EVERY pulses and as deltas between; a scrub's quarantine
-reaches the master as the volume's new shard set.
+reaches the master as the volume's new shard set.  With several
+``-mserver`` masters the heartbeats follow the raft leader: a follower's
+``not_leader`` answer names it, and an unreachable or leaderless master
+moves them to the next one.
 
 EC work runs on ``device``: "cuda" (the default, the reference's
 ``-ec.engine tpu``) launches the GF(2^8) kernel on the card; "cpu" (the
@@ -40,8 +43,9 @@ serve the process's span ring and event journal, ``/debug/profile`` and
 ``/debug/flightrecorder[/<id>|/capture]`` its diagnostic bundles, spooled
 under ``directories[0]/flightrecorder`` (utils/debug.py); a
 TraceShipper and an EventShipper send the spans of sampled traces and
-every journal event to the master the heartbeats follow, and are
-detached when the server stops.
+every journal event to the masters (the one the heartbeats follow
+first; utils/leader.py learns the raft leader from their answers), and
+are detached when the server stops.
 
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
 native planes, mmap and the needle cache, heat, ledger, the
@@ -173,15 +177,16 @@ class VolumeServer:
         self._req_lock = threading.Lock()
         self._req_sample = (0, time.monotonic())
         self._req_busy = False
-        # sampled spans and journal events go to the master the
-        # heartbeats follow; the hooks chain, so several servers in one
+        # sampled spans and journal events go to the masters through the
+        # shippers' leader-following transport, the master the heartbeats
+        # follow first; the hooks chain, so several servers in one
         # process each ship and the master dedups
         self._trace_shipper = TraceShipper(
             get_tracer(), server=self.url,
-            master_url_fn=lambda: self.master_url)
+            master_url_fn=self._master_candidates)
         self._event_shipper = EventShipper(
             get_journal(), server=self.url,
-            master_url_fn=lambda: self.master_url)
+            master_url_fn=self._master_candidates)
 
     @property
     def url(self) -> str:
@@ -204,6 +209,13 @@ class VolumeServer:
         self._trace_shipper.detach()
         self._event_shipper.detach()
         self.store.close()
+
+    def _master_candidates(self) -> str:
+        """Every ``-mserver`` master, comma-separated, the one the
+        heartbeats follow first: the shippers' candidate list."""
+        current = self.master_url
+        return ",".join([current] + [m for m in self.masters
+                                     if m != current])
 
     def _rotate_master(self) -> None:
         if len(self.masters) > 1:

@@ -12,6 +12,9 @@ from __future__ import annotations
 
 import ast
 import pathlib
+import time
+
+import pytest
 
 from seaweedfs_tpu.utils import faultinject as ref_fi
 from seaweedfs_tpu_torch.utils import faultinject as fi
@@ -57,3 +60,41 @@ def test_the_port_lists_a_subset_of_the_reference_s_points():
     assert {"ec.worker.ack", "ec.shm", "loop.block", "tier.upload",
             "tier.recall"} <= left_out
     assert fi.list_points() == sorted(fi.FAULT_POINTS.items())
+
+
+def test_weed_faults_delay_stalls_each_hit_like_the_reference():
+    """``WEED_FAULTS="coord.exec:delay=..."`` (the failover drill's slowed
+    repair legs in a master process): each hit sleeps, counts as
+    injected, and max_hits ends it, in both packages."""
+    for mod in (fi, ref_fi):
+        mod.clear()
+        try:
+            assert mod.arm_from_env("coord.exec:delay=0.2,max_hits=2") == 1
+            waits = []
+            for _ in range(3):
+                t0 = time.monotonic()
+                mod.hit("coord.exec")
+                waits.append(time.monotonic() - t0)
+            assert waits[0] >= 0.2 and waits[1] >= 0.2, (mod, waits)
+            assert waits[2] < 0.1, (mod, waits)
+            assert mod.fired("coord.exec") == 2
+        finally:
+            mod.clear()
+
+
+def test_delay_then_error_and_the_after_window():
+    fi.clear()
+    try:
+        fi.enable("coord.exec", error_rate=1.0, delay=0.1, max_hits=1,
+                  after=1)
+        t0 = time.monotonic()
+        fi.hit("coord.exec")  # inside the after window: free
+        assert time.monotonic() - t0 < 0.1
+        t0 = time.monotonic()
+        with pytest.raises(OSError):
+            fi.hit("coord.exec")
+        assert time.monotonic() - t0 >= 0.1
+        fi.hit("coord.exec")  # spent
+        assert fi.fired("coord.exec") == 1
+    finally:
+        fi.clear()

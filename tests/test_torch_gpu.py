@@ -527,3 +527,24 @@ def test_scrub_repairs_on_the_card(cuda, tmp_path):
             assert os.path.exists(base + to_ext(s) + ".bad")
     finally:
         store.close()
+
+
+def test_trio_failover_on_the_card(cuda, tmp_path):
+    """Master HA over card servers: three CLI masters, four ``volume
+    -ec.engine tpu`` processes; the leader SIGKILLed mid-repair, and the
+    promoted leader's rebuild launches the kernel on the card under the
+    original cause, inside the reference's budgets (chip_smoke.py's
+    failover phase at 64 MiB)."""
+    import chip_smoke
+
+    res = chip_smoke.run_failover_phase("tpu", str(tmp_path), 64 << 20,
+                                        threads=4, pulse_seconds=0.3,
+                                        coordinator_seconds=0.5,
+                                        delay_s=0.5)
+    assert all(res["checks"].values()), res["checks"]
+    assert res["checks"]["launches"]
+    assert res["launches"]["launches"] == res["launches"]["dispatch_rule"]
+    assert res["attribution"]["equal"]
+    assert res["journal_loss_count"] == 0
+    assert sum(s["launches"] for s in res["servers"].values()) > \
+        res["launches"]["launches"]  # the encode launched too
