@@ -162,7 +162,26 @@ result.  Phases, each of which fails the run on any mismatch:
     dispatch rule gives (dispatches of the shard times the rows a launch
     takes); ``cluster.raft`` and the survivors' ``/cluster/status`` are
     printed;
- 8. numbers from the card: leg times and rates, read latency, kernel
+ 8. the serving front (``run_dataplane_phase``): a CLI master and five
+    ``volume -ec.engine tpu`` servers, 7 volumes of collection
+    "benchmark" grown up front, and the port's ``benchmark`` at upstream
+    ``weed benchmark``'s shapes (``-size 1024 -c 16``, replication 000,
+    ``-n`` cut to 100,000): on the event-loop reactor the writes, every
+    fid read back shuffled and 50,000 reads drawn Zipf (theta 0.99); the
+    servers restarted on the same directories with
+    ``WEED_DATAPLANE=threaded``: 10,000 more writes and the same reads;
+    restarted on the reactor: the same reads again; then ``ec.encode
+    -collection benchmark``, the server with the most data shards of the
+    largest volume stopped, and 2,000 of its fids read by one client and
+    by 16 at once, classed (a) remote shard read, (b) reconstruction on
+    the card or local, on the reactor and again on the threaded front;
+    every answer must be the bytes written for its needle (each
+    needle's differ), each degraded pass's launches one per lost interval
+    it read; printed: ops/s and
+    p50/p99 per pass and front, the needle cache's hits and misses,
+    inline against pooled dispatches, aborted connections, each server
+    process's first reconstruction apart;
+ 9. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
 Each path runs with gf_matmul.launches set to 0 just before it and read
@@ -174,6 +193,7 @@ power limit; before that the {"kernels": [...]} line.
 
 from __future__ import annotations
 
+import functools
 import hashlib
 import http.client
 import json
@@ -216,6 +236,14 @@ FAILOVER_DELAY_S = 0.5
 # the drain leg's GETs: of needles on moved shards, then of needles on a
 # moved data shard deleted on its new holder
 DRAIN_READS, DRAIN_DELETED_READS = 50, 25
+# the dataplane phase: upstream weed benchmark's shapes
+# (weed/command/benchmark.go: -size 1024 -c 16, replication 000, collection
+# benchmark); -n cut from its 1,048,576 for the run's time limit; then
+# YCSB's default Zipf (theta 0.99) reads, and degraded GETs of the largest
+# volume once it is EC-encoded with a server down
+BENCH_N, BENCH_SIZE, BENCH_CLIENTS = 100_000, 1024, 16
+BENCH_ZIPF, BENCH_DEGRADED = 50_000, 2_000
+BENCH_THREADED_WRITES = 10_000
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -673,30 +701,45 @@ _COLLECTOR_FUNCS = {"ingest", "_evict", "get", "summaries", "chrome",
                     "query"}
 _JSON_FUNCS = {"dumps", "loads", "encode", "iterencode", "decode",
                "raw_decode"}
-_HTTP_CLIENT_FUNCS = {"_connect", "_egress_span", "_request",
-                      "_request_hops", "http_json", "http_bytes",
-                      "http_download", "_download_body"}
 _EC_FILES = {"codec.py", "ec_volume.py", "encoder.py", "gf256.py",
              "integrity.py", "layout.py", "streaming.py", "overlap.py"}
 # a thread parked here waits for work: a lock, an event, a poll, a listen
+# (the reactor's watchdog sleeps 0.25 s in C between its microsecond
+# checks, so its leaf is its own frame)
 _IDLE_LEAVES = {("threading.py", "wait"),
                 ("threading.py", "_wait_for_tstate_lock"),
-                ("selectors.py", "select"), ("socket.py", "accept")}
+                ("selectors.py", "select"), ("socket.py", "accept"),
+                ("eventloop.py", "_watch")}
 _FRAME_RE = re.compile(r"^(.*) \((.*):(\d+)\)$")
 PROFILE_LAYERS = ("tracer", "shippers", "collector", "json", "http_client",
                   "httpd", "ec", "kernel_wrapper")
 
 
-def _frame(label: str) -> tuple[str, str]:
+def _frame(label: str) -> tuple[str, str, int]:
     m = _FRAME_RE.match(label)
-    return (m.group(2), m.group(1)) if m else ("", label)
+    return (m.group(2), m.group(1), int(m.group(3))) if m else ("", label, 0)
 
 
-def frame_layer(file: str, func: str) -> str:
-    """The layer of a (file, function) frame, or "" for none: the span
-    tracer and journal, the shippers, the master's collector, json, the
-    HTTP client calls (``http.client`` and httpd's), the HTTP server,
-    ``ec/``, the kernel wrapper."""
+@functools.lru_cache(maxsize=None)
+def http_client_lines() -> range:
+    """utils/httpd.py's pooled client by line, from ``_RawConn`` through
+    ``http_download``: its frames are told from the server's (``Request``,
+    ``Response``, the router) by where they stand in the file, not by
+    method names the two sides share."""
+    import inspect
+
+    from seaweedfs_tpu_torch.utils import httpd
+
+    first = inspect.getsourcelines(httpd._RawConn)[1]
+    src, start = inspect.getsourcelines(httpd.http_download)
+    return range(first, start + len(src))
+
+
+def frame_layer(file: str, func: str, line: int) -> str:
+    """The layer of a (file, function, line) frame, or "" for none: the
+    span tracer and journal, the shippers, the master's collector, json,
+    the HTTP client calls (httpd's pooled client, by line), the HTTP
+    server (httpd's router, the reactor), ``ec/``, the kernel wrapper."""
     if file in ("tracer.py", "context.py"):
         return "tracer"
     if file in ("collector.py", "events.py"):
@@ -710,9 +753,9 @@ def frame_layer(file: str, func: str) -> str:
             func in _JSON_FUNCS:
         return "json"
     if file == "client.py" or (file == "httpd.py"
-                               and func in _HTTP_CLIENT_FUNCS):
+                               and line in http_client_lines()):
         return "http_client"
-    if file in ("httpd.py", "socketserver.py"):
+    if file in ("httpd.py", "socketserver.py", "eventloop.py"):
         return "httpd"
     if file in _EC_FILES:
         return "ec"
@@ -750,7 +793,7 @@ def profile_summary(collapsed: str) -> dict:
         if not frames:
             continue
         leaves[parts[-1]] = leaves.get(parts[-1], 0) + n
-        if frames[-1] in _IDLE_LEAVES:
+        if frames[-1][:2] in _IDLE_LEAVES:
             idle += n
             continue
         if frames[-1][0] == "socket.py" and \
@@ -3789,6 +3832,318 @@ def run_failover_phase(engine: str, work: str, volume_bytes: int,
     return res
 
 
+# --- the dataplane phase ----------------------------------------------------
+
+def run_benchmark(master: str, args: list[str], timeout: float
+                  ) -> dict[str, dict]:
+    """``python -m seaweedfs_tpu_torch benchmark -json`` in a subprocess;
+    -> its JSON pass lines by pass name, each with the reference's own
+    text line beside it."""
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch",
+                        "benchmark", "-master", master, "-json", *args],
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"benchmark {args}: exit {r.returncode}\n"
+                             f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
+    passes: dict[str, dict] = {}
+    text: list[str] = []
+    for line in r.stdout.splitlines():
+        if line.startswith("{"):
+            doc = json.loads(line)
+            doc["line"] = text[-1] if text else ""
+            passes[doc["pass"]] = doc
+        else:
+            text.append(line)
+    for doc in passes.values():
+        if doc["mismatches"]:
+            raise AssertionError(f"benchmark {doc['pass']}: "
+                                 f"{doc['mismatches']} wrong answers")
+    return passes
+
+
+def dataplane_counts(urls) -> dict[str, int]:
+    """Summed over the servers' /status: needle-cache hits and misses,
+    inline and pooled dispatches, aborted connections, kernel launches."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    out = dict.fromkeys(("hits", "misses", "fast_dispatches",
+                         "pool_dispatches", "conn_aborts", "launches"), 0)
+    for u in urls:
+        st = http_json("GET", f"http://{u}/status")
+        out["hits"] += st["NeedleCache"]["hits"]
+        out["misses"] += st["NeedleCache"]["misses"]
+        out["fast_dispatches"] += st["Dataplane"]["fast_dispatches"]
+        out["pool_dispatches"] += st["Dataplane"]["pool_dispatches"]
+        out["conn_aborts"] += st["Dataplane"]["dataplane_conn_aborts"]
+        out["launches"] += st["EcKernelLaunches"]
+    return out
+
+
+def counts_delta(before: dict, after: dict) -> dict:
+    d = {k: after[k] - before[k] for k in before}
+    looked = d["hits"] + d["misses"]
+    d["hit_ratio"] = d["hits"] / looked if looked else 0.0
+    return d
+
+
+def start_volume_servers(vs: dict, master: str, engine: str,
+                         pulse_seconds: float, front: str) -> None:
+    """Start a CLI volume server for each of ``vs`` (url -> dir, log) on
+    its port and directory, on ``front`` (reactor, or threaded through
+    WEED_DATAPLANE); each start line must name the engine and front."""
+    env = {"WEED_DATAPLANE": "threaded"} if front == "threaded" else {}
+    for url, info in vs.items():
+        info["proc"] = start_cli(
+            ["volume", "-dir", info["dir"], "-port", url.split(":")[1],
+             "-mserver", master, "-pulseSeconds", str(pulse_seconds),
+             "-ec.engine", engine], info["log"], env)
+    for info in vs.values():
+        line = read_start_line(info["proc"], info["log"],
+                               "volume server listening")
+        if f"ec on {ENGINES[engine]}" not in line or \
+                not line.endswith(f"front {front}"):
+            raise AssertionError(f"start line {line!r}")
+    wait_for("every volume server to register",
+             lambda: set(vs) <= node_urls(master_status(master)), 60)
+
+
+def bench_gets(master: str, fids: list[tuple[str, int]], picks, size: int,
+               seed: int) -> list[tuple[str, int, float]]:
+    """GET each picked (fid, payload id) through one WeedClient; every body
+    must be the bytes benchmark wrote for that needle; -> [(server that
+    answered, index, seconds)]."""
+    from seaweedfs_tpu_torch.__main__ import bench_payload
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+
+    client = WeedClient(master)
+    client.rng.seed(seed)
+    out = []
+    for i in picks:
+        fid, pid = fids[i]
+        t0 = time.perf_counter()
+        body = client.download(fid)
+        lat = time.perf_counter() - t0
+        if body != bench_payload(pid, size):
+            raise AssertionError(f"GET {fid}: {len(body)} bytes, not the "
+                                 f"needle written as payload {pid}")
+        out.append((client.last_read_from, int(i), lat))
+    return out
+
+
+def run_dataplane_phase(engine: str, work: str, n: int, size: int,
+                        clients: int, zipf: int, degraded: int,
+                        threaded_writes: int, volumes: int = 7,
+                        servers: int = 5, pulse_seconds: float = 0.5
+                        ) -> dict:
+    """The serving front under upstream ``weed benchmark``'s load, on each
+    front in turn.  A CLI master and ``servers`` CLI volume servers,
+    ``volumes`` volumes of collection "benchmark" grown up front (the
+    master grows one at a time; upstream's grows 7 for replication 000).
+    On the reactor: ``benchmark -n n -size size -c clients`` writes, every
+    fid read back shuffled, then ``zipf`` reads drawn Zipf (theta 0.99).
+    The servers restart on the same directories with
+    WEED_DATAPLANE=threaded: ``threaded_writes`` more writes, the same read
+    and Zipf passes; then on the reactor again, the read and Zipf passes
+    once more (reactor, threaded, reactor: the host's drift shows between
+    the two reactor passes).  Then ``ec.encode -collection benchmark`` of
+    every volume; the server holding the most data shards of the largest
+    volume stops (two data shards or more gone), and ``degraded`` GETs of
+    that volume's fids run from one client, then from ``clients`` at once,
+    classed (a) remote shard read, (b) reconstruction on the card, or
+    local; the survivors restart on the threaded front and the degraded
+    passes run again.  Each server process's first class (b) GET (its
+    first reconstruction) is reported apart.  Every answer must be the
+    bytes written for its needle (each needle's differ); each degraded
+    pass's kernel launches must equal its GETs' lost intervals (one
+    launch each)."""
+    from seaweedfs_tpu_torch.__main__ import read_fids_file
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    collection = "benchmark"
+    res: dict = {"seconds": {}, "fronts": {"reactor": {}, "threaded": {}}}
+    mport = free_port()
+    master = f"127.0.0.1:{mport}"
+    mlog = os.path.join(work, "master.log")
+    mproc = start_cli(["master", "-port", str(mport), "-pulseSeconds",
+                       str(pulse_seconds)], mlog)
+    vs: dict[str, dict] = {}
+    try:
+        read_start_line(mproc, mlog, "master listening")
+        for k in range(servers):
+            d = os.path.join(work, f"vs{k}")
+            os.makedirs(d)
+            vs[f"127.0.0.1:{free_port()}"] = {
+                "dir": d, "log": os.path.join(work, f"vs{k}.log")}
+        urls = list(vs)
+        launches_stopped = 0
+
+        def stop_all(which) -> None:
+            nonlocal launches_stopped
+            for u in which:
+                launches_stopped += stop_volume_server(
+                    vs[u]["proc"])["launches"]
+                vs[u]["proc"].stdout.close()
+
+        fids_file = os.path.join(work, "fids")
+        for step, front in enumerate(("reactor", "threaded", "reactor")):
+            if step:
+                stop_all(urls)
+            t0 = time.perf_counter()
+            start_volume_servers(vs, master, engine, pulse_seconds, front)
+            res["seconds"][f"start_{step}_{front}"] = \
+                time.perf_counter() - t0
+            fr = res["fronts"][front]
+            if step == 0:
+                res["volumes"] = http_json(
+                    "GET", f"http://{master}/vol/grow?collection="
+                           f"{collection}&count={volumes}")["volumeIds"]
+                fr["write"] = run_benchmark(master, [
+                    "-n", str(n), "-size", str(size), "-c", str(clients),
+                    "-collection", collection, "-phase", "write",
+                    "-seed", str(SEED), "-fidsFile", fids_file],
+                    1800)["write"]
+            elif step == 1:
+                fr["write"] = run_benchmark(master, [
+                    "-n", str(threaded_writes), "-size", str(size),
+                    "-c", str(clients), "-collection", collection,
+                    "-phase", "write", "-seed", str(SEED + 1),
+                    "-fidsFile", fids_file + ".t"], 1800)["write"]
+            before = dataplane_counts(urls)
+            r = run_benchmark(master, [
+                "-size", str(size), "-c", str(clients), "-phase", "read",
+                "-fidsFile", fids_file, "-zipf", str(zipf)], 1800)
+            after = dataplane_counts(urls)
+            if r["read"]["n"] != n or r["zipf"]["n"] != zipf:
+                raise AssertionError(f"{front} reads: {r}")
+            again = "_again" if step == 2 else ""
+            fr["read" + again], fr["zipf" + again] = r["read"], r["zipf"]
+            fr["read_zipf_counts" + again] = counts_delta(before, after)
+        # (fid, payload id): the two write runs' seeds differ, so every
+        # needle's bytes do
+        fids = read_fids_file(fids_file) + read_fids_file(fids_file + ".t")
+        by_vid: dict[int, list[tuple[str, int]]] = {}
+        for fid, pid in fids:
+            by_vid.setdefault(FileId.parse(fid).volume_id, []).append(
+                (fid, pid))
+        res["needles_by_volume"] = {v: len(f) for v, f in by_vid.items()}
+
+        out, res["seconds"]["ec.encode"] = run_shell(
+            master, f"ec.encode -collection {collection} -fullPercent 0 "
+                    f"-quietFor 0")
+        encoded = sorted(int(v) for v in re.findall(
+            r"ec encoded volume (\d+) via tpu engine", out))
+        if encoded != sorted(by_vid):
+            raise AssertionError(f"ec.encode: {out}")
+        vid = max(by_vid, key=lambda v: (len(by_vid[v]), -v))
+        vfids = by_vid[vid]
+        holders = shard_holders(master, vid)
+        data_held = {u: [s for s in range(10) if u in holders.get(s, [])]
+                     for u in urls}
+        held = {u: [s for s, us in holders.items() if u in us] for u in urls}
+        victim = max(urls, key=lambda u: (len(data_held[u]),
+                                          -len(held[u]), u))
+        lost = held[victim]
+        if len(data_held[victim]) < 2 or len(lost) > 4:
+            raise AssertionError(f"no server to take down: {held}")
+        stop_all([victim])
+        alive = [u for u in urls if u != victim]
+        res["seconds"]["drop"] = wait_for(
+            "the master to drop the stopped server",
+            lambda: victim not in node_urls(master_status(master)), 120)
+        holder = next(u for u in alive if held[u])
+        shards_of = needle_shards(
+            volume_file_prefix(vs[holder]["dir"], collection, vid), vid,
+            [FileId.parse(f).key for f, _ in vfids])
+        rng = np.random.default_rng(SEED + 7)
+        picks = rng.choice(len(vfids), size=min(degraded, len(vfids)),
+                           replace=False)
+        per = max(1, len(picks) // clients)
+
+        def lost_intervals(done) -> int:
+            return sum(sum(1 for s in shards_of[i] if s in lost)
+                       for _, i, _ in done)
+
+        def classify(asked: str, i: int) -> str:
+            if any(s in lost for s in shards_of[i]):
+                return "b"
+            return "a" if any(asked not in holders[s]
+                              for s in shards_of[i]) else "local"
+
+        def degraded_passes(front: str) -> None:
+            fr = res["fronts"][front]
+            first_b: dict[str, float] = {}
+            for name, many in (("1_client", False),
+                               (f"{clients}_clients", True)):
+                before = kernel_launches(alive)
+                t0 = time.perf_counter()
+                if many:
+                    done: list = []
+                    run_threads(lambda t: done.extend(bench_gets(
+                        master, vfids, picks[t * per:(t + 1) * per],
+                        size, SEED + t)), clients, 900)
+                else:
+                    done = bench_gets(master, vfids, picks, size, SEED)
+                wall = time.perf_counter() - t0
+                after = kernel_launches(alive)
+                got = sum(after[u] - before[u] for u in alive)
+                rule = lost_intervals(done)
+                if engine == "tpu" and got != rule:
+                    raise AssertionError(
+                        f"{front} {name}: {got} launches, the rule "
+                        f"gives {rule}")
+                by_class: dict[str, list[float]] = {}
+                for asked, i, lat in done:
+                    c = classify(asked, i)
+                    if c == "b" and asked not in first_b:
+                        # the process's first reconstruction
+                        first_b[asked] = 1e3 * lat
+                        continue
+                    by_class.setdefault(c, []).append(lat)
+                fr[f"degraded_{name}"] = {
+                    "gets": len(done), "wall_s": wall,
+                    "ops_per_s": len(done) / wall,
+                    "ms": {c: percentiles(v) for c, v in
+                           sorted(by_class.items())},
+                    "launches": got, "launches_rule": rule,
+                    "bytes_equal": True}
+            fr["first_b_ms"] = first_b
+
+        degraded_passes("reactor")
+        stop_all(alive)
+        t0 = time.perf_counter()
+        start_volume_servers({u: vs[u] for u in alive}, master, engine,
+                             pulse_seconds, "threaded")
+        res["seconds"]["restart_threaded"] = time.perf_counter() - t0
+        wait_for("the master to see every survivor's shards",
+                 lambda: {s: [u for u in us if u in alive]
+                          for s, us in shard_holders(master, vid).items()}
+                 == {s: [u for u in us if u in alive]
+                     for s, us in holders.items() if s not in lost}, 60)
+        degraded_passes("threaded")
+        stop_all(alive)
+        res.update(vid=vid, victim=victim, lost_shards=lost,
+                   lost_data_shards=data_held[victim],
+                   volume_fids=len(vfids), launches=launches_stopped,
+                   encode_out=out.splitlines()[-1])
+        return res
+    finally:
+        for info in vs.values():
+            p = info.get("proc")
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        mproc.send_signal(signal.SIGTERM)
+        try:
+            mproc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            mproc.kill()
+            mproc.wait()
+        mproc.stdout.close()
+
+
 def percentiles(seconds: list[float]) -> dict:
     ms = np.array(seconds) * 1e3
     return {"p50": float(np.percentile(ms, 50)),
@@ -4202,6 +4557,49 @@ def main() -> int:
     log({"phase": "failover_raft", "cluster_raft": fo["cluster_raft"],
          "cluster_status": fo["cluster_status"], "nvidia_smi": card})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-dataplane-",
+                            dir=_build.BUILD_DIR)
+    try:
+        t0 = time.perf_counter()
+        dp = run_dataplane_phase("tpu", work, BENCH_N, BENCH_SIZE,
+                                 BENCH_CLIENTS, BENCH_ZIPF, BENCH_DEGRADED,
+                                 BENCH_THREADED_WRITES)
+        dp["seconds"]["phase"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    dataplane_launches = dp["launches"]
+    if dataplane_launches <= 0:
+        raise AssertionError("the dataplane phase launched no kernel")
+    log({"phase": "dataplane", "reduced": [
+        {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
+                               "weed/command/benchmark.go)",
+         "why": "run time limit"},
+        {"pulse_seconds": 0.5, "from": "5 s default heartbeat pulse",
+         "why": "the master drops the stopped server after ten pulses"}],
+        "shapes": {"size": BENCH_SIZE, "c": BENCH_CLIENTS,
+                   "replication": "000", "collection": "benchmark",
+                   "zipf": {"reads": BENCH_ZIPF, "theta": 0.99},
+                   "degraded_gets": BENCH_DEGRADED,
+                   "threaded_writes": BENCH_THREADED_WRITES},
+        "volumes": dp["volumes"], "needles_by_volume": dp["needles_by_volume"],
+        "largest_volume": dp["vid"], "volume_fids": dp["volume_fids"],
+        "stopped_server": dp["victim"], "lost_shards": dp["lost_shards"],
+        "lost_data_shards": dp["lost_data_shards"],
+        "seconds": dp["seconds"], "nvidia_smi": card})
+    for front, fr in dp["fronts"].items():
+        log({"phase": f"dataplane_{front}", "front": front,
+             **{k: v for k, v in fr.items()
+                if not k.startswith("degraded_")},
+             "degraded": {k[len("degraded_"):]: v for k, v in fr.items()
+                          if k.startswith("degraded_")},
+             "nvidia_smi": card})
+    log({"phase": "dataplane_done", "launches": dataplane_launches,
+         "launches_rule": sum(fr[k]["launches_rule"]
+                              for fr in dp["fronts"].values()
+                              for k in fr if k.startswith("degraded_")),
+         "kernel_max_abs_err": worst, "bytes_equal": True,
+         "encode": dp["encode_out"], "nvidia_smi": card})
+
     cases = dict(kernel_cases())
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
@@ -4218,7 +4616,7 @@ def main() -> int:
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
         "launches": launches + resume_launches + trace_ab_launches
         + http_launches + cli["launches"] + cluster_launches
-        + failover_launches,
+        + failover_launches + dataplane_launches,
         "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],

@@ -1,7 +1,7 @@
-"""Command line: ``python -m seaweedfs_tpu_torch master|volume|shell|compact``.
+"""Command line: ``python -m seaweedfs_tpu_torch master|volume|shell|compact|benchmark``.
 
-The ``weed master``, ``weed volume``, ``weed shell`` and ``weed compact``
-subcommands (weed.py) with the flags this port serves:
+The ``weed master``, ``weed volume``, ``weed shell``, ``weed compact`` and
+``weed benchmark`` subcommands (weed.py) with the flags this port serves:
 
     python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000 \\
         -coordinatorSeconds 15 -metricsAggregationSeconds 5
@@ -12,6 +12,8 @@ subcommands (weed.py) with the flags this port serves:
     python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \\
         -c "ec.encode -volumeId 3; ec.rebuild -volumeId 3"
     python -m seaweedfs_tpu_torch compact -dir /data -collection c -volumeId 3
+    python -m seaweedfs_tpu_torch benchmark -master 127.0.0.1:9333 \
+        -n 100000 -size 1024 -c 16
 
 ``-ec.engine tpu`` (the default) runs EC on the CUDA card: the server
 builds its kernel before it listens and fails without a card;
@@ -28,9 +30,10 @@ the others as its peers, and give volume servers all of them in
 ``-mserver``.
 ``-maxInflight N`` on ``master`` or ``volume`` sheds requests beyond N in
 flight with a fast 503 and ``Retry-After`` (0, the default, is off; the
-operator, debug and control-plane routes are never shed).  The servers
-run until SIGINT or SIGTERM, a signal taken during start-up included,
-then stop and exit 0; the volume server's last line counts the GF
+operator, debug and control-plane routes are never shed).  The volume
+server's start line ends with its front (``front reactor`` or
+``threaded``).  The servers run until SIGINT or SIGTERM, a signal taken
+during start-up included, then stop and exit 0; the volume server's last line counts the GF
 kernels it launched and the EC intervals it lacked, fetched from a
 holder or reconstructed, and the master's the fault hits it injected
 by point, when there were any.  ``shell -c`` takes the admin lock, runs the
@@ -39,6 +42,24 @@ by point, when there were any.  ``shell -c`` takes the admin lock, runs the
 volume offline (no server may hold it) and prints its size before and
 after.  The master vacuums volumes with 30% garbage or more every 900 s,
 as the reference's does; neither knob is a flag there, so none is here.
+
+Servers answer on the process's event-loop reactor (utils/eventloop.py);
+``-dataplane.workers N`` (before the subcommand) sizes its worker pool, 0
+the default size, and ``WEED_DATAPLANE=threaded`` serves a thread per
+connection instead.
+``volume -dataplane.cacheMB N`` sizes the needle cache (default 64, 0
+disables it).  ``benchmark`` is the reference's (command/benchmark.go):
+write ``-n`` needles of ``-size`` bytes from ``-c`` threads through the
+master's assign, then read them back shuffled (``-readSequentially`` in
+order), each answer checked against the bytes written for that needle;
+``-phase write|read`` with ``-fidsFile`` splits the two.  Every needle's
+bytes differ: the first 8 are its payload id (``-seed`` << 32 | its
+index, as upstream's FakeReader puts the id in each body) and the rest
+come from a stream seeded by that id, and the fids file holds ``fid id``
+per line.  It prints the reference's ``write:`` and ``read:`` lines.  Port
+additions: ``-seed``, ``-zipf N`` reads N more needles drawn Zipf (theta
+0.99, YCSB's default) over the fids, and ``-json`` prints each pass as a
+JSON line too (ops/s, p50/p99 ms, mismatches).  ``-useTcp`` is refused until the framed-TCP front is ported.
 
 Every subcommand first arms the fault points named in ``WEED_FAULTS``
 (utils/faultinject.py ``arm_from_env``), e.g.
@@ -64,6 +85,10 @@ from typing import Callable
 
 # the reference's engine names -> the port's devices ("mesh" is not ported)
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
+# benchmark -zipf's skew: YCSB's default request distribution
+ZIPF_THETA = 0.99
+# benchmark's default -seed
+BENCH_SEED = 0xBE
 
 
 def parse_args(argv: list[str]) -> argparse.Namespace:
@@ -72,6 +97,11 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                   "negative/unset = off (WEED_TRACE_SAMPLE works too)")
     p.add_argument("-trace.sample", dest="trace_sample", type=float,
                    default=-1.0, metavar="RATE", help=trace_help)
+    p.add_argument("-dataplane.workers", dest="dataplane_workers", type=int,
+                   default=0, metavar="N",
+                   help="event-loop dispatch worker pool size; 0 = auto "
+                        "(WEED_DATAPLANE=threaded serves a thread per "
+                        "connection instead)")
     sub = p.add_subparsers(dest="command", required=True)
     m = sub.add_parser("master", help="start a master")
     m.add_argument("-ip", default="127.0.0.1")
@@ -117,6 +147,9 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                    help="admission control: shed object requests early "
                         "(503 + Retry-After) beyond this many in "
                         "flight (0 = off)")
+    v.add_argument("-dataplane.cacheMB", dest="dataplane_cache_mb", type=int,
+                   default=64,
+                   help="needle read cache size in MB (0 disables)")
     v.add_argument("-ec.engine", dest="ec_engine", default="tpu",
                    choices=sorted(ENGINES),
                    help="tpu: EC on the CUDA card; cpu: the plain versions")
@@ -133,6 +166,33 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     c.add_argument("-dir", default=".")
     c.add_argument("-collection", default="")
     c.add_argument("-volumeId", type=int, required=True)
+    b = sub.add_parser("benchmark", help="write then read N needles")
+    b.add_argument("-master", default="127.0.0.1:9333")
+    b.add_argument("-n", type=int, default=1000)
+    b.add_argument("-size", type=int, default=1024)
+    b.add_argument("-c", type=int, default=16)
+    b.add_argument("-useTcp", action="store_true",
+                   help="write/read over the framed-TCP data path "
+                        "(not ported: refused)")
+    b.add_argument("-phase", default="both",
+                   choices=["both", "write", "read"],
+                   help="run only one phase (scaled multi-client benches)")
+    b.add_argument("-fidsFile", default="",
+                   help="write: save fids here; read: load fids from here")
+    b.add_argument("-collection", default="benchmark",
+                   help="write data to this collection")
+    b.add_argument("-replication", default="000")
+    b.add_argument("-deletePercent", type=int, default=0,
+                   help="percent of writes deleted after the write pass")
+    b.add_argument("-readSequentially", action="store_true",
+                   help="read fids in write order instead of shuffled")
+    b.add_argument("-seed", type=int, default=BENCH_SEED,
+                   help="the written payloads' seed (ids seed << 32 | i)")
+    b.add_argument("-zipf", type=int, default=0, metavar="N",
+                   help="after the reads, N more drawn Zipf (theta 0.99) "
+                        "over the fids")
+    b.add_argument("-json", action="store_true",
+                   help="print each pass as a JSON line too")
     return p.parse_args(argv)
 
 
@@ -221,7 +281,8 @@ def cmd_volume(args: argparse.Namespace) -> int:
                           rack=args.rack, max_volume_count=args.max,
                           pulse_seconds=args.pulseSeconds,
                           device=ENGINES[args.ec_engine],
-                          max_inflight=args.maxInflight)
+                          max_inflight=args.maxInflight,
+                          needle_cache_mb=args.dataplane_cache_mb)
         device = vs.store.device
         if device.type == "cuda":
             # a kernel that does not build stops the server here, before
@@ -230,8 +291,10 @@ def cmd_volume(args: argparse.Namespace) -> int:
         vs.start()
         card = (torch.cuda.get_device_name(device) if device.type == "cuda"
                 else "plain PyTorch")
+        front = ("reactor" if type(vs._server).__name__ ==
+                 "ReactorHTTPServer" else "threaded")
         print(f"volume server listening on {vs.url}, dirs {args.dir}, "
-              f"ec on {device} ({card})", flush=True)
+              f"ec on {device} ({card}), front {front}", flush=True)
         state["vs"] = vs
         return vs.stop
 
@@ -279,15 +342,166 @@ def cmd_compact(args: argparse.Namespace) -> int:
     return 0
 
 
+def _percentile(sorted_s: list[float], p: float) -> float:
+    """The reference's rank: sorted[int(n * p) - 1]."""
+    return sorted_s[max(int(len(sorted_s) * p) - 1, 0)]
+
+
+def _pass_json(name: str, lat: list[float], wall: float,
+               mismatches: int = 0) -> str:
+    lat = sorted(lat)
+    return json.dumps({"pass": name, "n": len(lat), "wall_s": wall,
+                       "ops_per_s": len(lat) / wall if wall else 0.0,
+                       "p50_ms": _percentile(lat, 0.50) * 1e3,
+                       "p99_ms": _percentile(lat, 0.99) * 1e3,
+                       "mismatches": mismatches})
+
+
+def zipf_indices(n: int, count: int, theta: float, rng) -> list[int]:
+    """``count`` draws over ranks 0..n-1 with P(rank i) proportional to
+    1 / (i + 1)^theta (YCSB's request distribution at theta 0.99)."""
+    import numpy as np
+
+    weights = 1.0 / np.arange(1, n + 1, dtype=np.float64) ** theta
+    cdf = np.cumsum(weights)
+    cdf /= cdf[-1]
+    u = np.random.default_rng(rng.getrandbits(64)).random(count)
+    return np.minimum(np.searchsorted(cdf, u), n - 1).tolist()
+
+
+def bench_payload(pid: int, size: int) -> bytes:
+    """benchmark's needle bytes for payload id ``pid``: the id in the first
+    8 bytes, the rest from a stream seeded by it."""
+    import random
+
+    return (pid.to_bytes(8, "little")
+            + random.Random(pid).randbytes(max(0, size - 8)))[:size]
+
+
+def read_fids_file(path: str) -> list[tuple[str, int]]:
+    """A benchmark fids file -> [(fid, payload id)]."""
+    out = []
+    with open(path) as f:
+        for line in f.read().splitlines():
+            fid, _, pid = line.partition(" ")
+            if fid:
+                if not pid.isdigit():
+                    raise SystemExit(f"{path}: {line!r} has no payload id")
+                out.append((fid, int(pid)))
+    return out
+
+
+def cmd_benchmark(args: argparse.Namespace) -> int:
+    """weed benchmark (command/benchmark.go): write then read N files."""
+    import concurrent.futures
+    import random
+    import time
+
+    from .client.operation import WeedClient
+
+    if args.useTcp:
+        print("benchmark: -useTcp needs the framed-TCP front, which the "
+              "port has not yet (its next slice)", file=sys.stderr)
+        return 2
+    client = WeedClient(args.master)
+    fids: list[tuple[str, int]] = []
+    to_delete: list[str] = []
+    del_rng = random.Random(0xDE1)
+
+    def write_one(i: int) -> float:
+        pid = (args.seed << 32) | i
+        payload = bench_payload(pid, args.size)
+        t0 = time.perf_counter()
+        fid = client.upload(payload, name=f"bench{i}",
+                            collection=args.collection,
+                            replication=args.replication)
+        dt = time.perf_counter() - t0
+        # -deletePercent: deleted after the pool joins, so write latency
+        # stays comparable across runs
+        if args.deletePercent and del_rng.randrange(100) < args.deletePercent:
+            to_delete.append(fid)
+        else:
+            fids.append((fid, pid))
+        return dt
+
+    if args.phase in ("both", "write"):
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(args.c) as ex:
+            lat = sorted(ex.map(write_one, range(args.n)))
+        wall = time.perf_counter() - t0
+        for fid in to_delete:
+            client.delete(fid)
+        print(f"write: {args.n} x {args.size}B in {wall:.2f}s = "
+              f"{args.n / wall:.0f} req/s, "
+              f"avg {sum(lat) / len(lat) * 1e3:.1f}ms "
+              f"p99 {lat[int(len(lat) * 0.99) - 1] * 1e3:.1f}ms"
+              + (f", {len(to_delete)} deleted" if to_delete else ""),
+              flush=True)
+        if args.json:
+            print(_pass_json("write", lat, wall), flush=True)
+        if args.fidsFile:
+            with open(args.fidsFile, "w") as f:
+                f.write("\n".join(f"{fid} {pid}" for fid, pid in fids))
+    if args.phase == "read":
+        if not args.fidsFile:
+            raise SystemExit("-phase read requires -fidsFile "
+                             "(produced by a -phase write run)")
+        fids = read_fids_file(args.fidsFile)
+        if not fids:
+            raise SystemExit(f"no fids in {args.fidsFile}")
+    mismatches = [0]
+
+    def read_one(fid_pid: tuple[str, int]) -> float:
+        fid, pid = fid_pid
+        t0 = time.perf_counter()
+        got = client.download(fid)
+        dt = time.perf_counter() - t0
+        if got != bench_payload(pid, args.size):
+            mismatches[0] += 1
+        return dt
+
+    def read_pass(name: str, order: list[tuple[str, int]]) -> None:
+        mismatches[0] = 0
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(args.c) as ex:
+            lat = sorted(ex.map(read_one, order))
+        wall = time.perf_counter() - t0
+        print(f"{name}: {len(order)} in {wall:.2f}s = "
+              f"{len(order) / wall:.0f} req/s, "
+              f"avg {sum(lat) / len(lat) * 1e3:.1f}ms "
+              f"p99 {lat[int(len(lat) * 0.99) - 1] * 1e3:.1f}ms", flush=True)
+        if args.json:
+            print(_pass_json(name, lat, wall, mismatches[0]), flush=True)
+        if mismatches[0]:
+            raise SystemExit(f"{name}: {mismatches[0]} answers differ from "
+                             f"what was written")
+
+    if args.phase in ("both", "read") and fids:
+        order = list(fids)
+        if not args.readSequentially:
+            random.shuffle(order)
+        read_pass("read", order)
+        if args.zipf > 0:
+            picks = zipf_indices(len(fids), args.zipf, ZIPF_THETA,
+                                 random.Random(0x21F))
+            read_pass("zipf", [fids[i] for i in picks])
+    return 0
+
+
 def main(argv: list[str]) -> int:
     from .utils import faultinject
 
     args = parse_args(argv)
     faultinject.arm_from_env()
-    if args.command != "compact":
+    if args.dataplane_workers > 0:
+        from .utils.eventloop import configure
+
+        configure(workers=args.dataplane_workers)
+    if args.command not in ("compact", "benchmark"):
         _maybe_enable_tracing(args.trace_sample)
     return {"master": cmd_master, "volume": cmd_volume,
-            "shell": cmd_shell, "compact": cmd_compact}[args.command](args)
+            "shell": cmd_shell, "compact": cmd_compact,
+            "benchmark": cmd_benchmark}[args.command](args)
 
 
 if __name__ == "__main__":

@@ -19,7 +19,13 @@ families under the reference's names:
     5xx), what its own ``GET /metrics`` adds;
   - ``RequestPlaneMetrics``: requests shed by admission control and
     answered 504 for a spent deadline (by ``role``), and retries a
-    drained retry budget denied (by ``kind``).
+    drained retry budget denied (by ``kind``);
+  - ``DataplaneMetrics``: the event-loop reactor's connections, workers,
+    pool and inline dispatches, loop lag and stalls, queue depth and
+    aborted connections (utils/eventloop.py);
+  - ``NeedleCacheMetrics``: the needle cache's hits, misses, admissions,
+    rejections, evictions, invalidations and resident bytes
+    (volume_server/needle_cache.py).
 
 A histogram keeps the last OpenMetrics exemplar of each label set (a
 sampled request's trace id on its latency bucket); the exposition shows
@@ -29,8 +35,7 @@ them only when asked, ``expose(exemplars=True)``, which a server's
 Not ported: the push gateway loop, and the families the port cannot have
 or has not ported: ``ECPipelineMetrics`` (parity-worker restarts and CPU
 fallbacks), the volume server's native-plane gauge, the master's
-heartbeat family, the dataplane, the needle cache, heat and the resource
-ledger.
+heartbeat family, heat and the resource ledger.
 """
 
 from __future__ import annotations
@@ -439,6 +444,107 @@ class RequestPlaneMetrics:
             labels=("kind",))
 
 
+class DataplaneMetrics:
+    """The event-loop serving front (utils/eventloop.py): connection and
+    dispatch accounting for the process's reactor.  ``conn_aborts`` counts
+    connections the loop tore down with work in flight (slow_client: the
+    outbox overflowed; overflow: unframed input flood; stop: a bounded
+    stop's teardown; loop_error) and feeds the ``dataplane_conn_aborts``
+    health key."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.conn_aborts = registry.counter(
+            "SeaweedFS_dataplane_conn_aborts_total",
+            "Connections the reactor aborted with work in flight.",
+            labels=("reason",))
+        self.connections = registry.gauge(
+            "SeaweedFS_dataplane_connections",
+            "Connections currently owned by the reactor loop.")
+        self.workers = registry.gauge(
+            "SeaweedFS_dataplane_workers",
+            "Dispatch worker pool size (-dataplane.workers).")
+        self.pool_dispatches = registry.counter(
+            "SeaweedFS_dataplane_pool_dispatches_total",
+            "Requests dispatched onto the worker pool.")
+        self.fast_dispatches = registry.counter(
+            "SeaweedFS_dataplane_fast_dispatches_total",
+            "Cache-probed reads dispatched inline on the loop.")
+        # how long each loop iteration held every connection, and the
+        # stall counter behind the loop_lag health key
+        self.loop_lag = registry.histogram(
+            "SeaweedFS_dataplane_loop_lag_seconds",
+            "Reactor loop iteration busy time (every connection waits "
+            "this long).",
+            buckets=(0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5,
+                     1.0, 2.5))
+        self.loop_stalls = registry.counter(
+            "SeaweedFS_dataplane_loop_stalls_total",
+            "Loop-blocked moments past the stall threshold (the "
+            "loop_lag health key).")
+        self.queue_depth = registry.gauge(
+            "SeaweedFS_dataplane_queue_depth",
+            "Dispatch queue depth per lane (watchdog-sampled).",
+            labels=("lane",))
+        self.workers_busy = registry.gauge(
+            "SeaweedFS_dataplane_workers_busy",
+            "Dispatch workers currently running handlers "
+            "(watchdog-sampled).")
+
+    def totals(self) -> dict[str, int]:
+        return {"dataplane_conn_aborts": _total(self.conn_aborts),
+                "pool_dispatches": _total(self.pool_dispatches),
+                "fast_dispatches": _total(self.fast_dispatches),
+                "loop_stalls": _total(self.loop_stalls)}
+
+
+class NeedleCacheMetrics:
+    """The needle cache (volume_server/needle_cache.py): admission,
+    eviction and invalidation accounting and the resident-bytes gauge."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.hits = registry.counter(
+            "SeaweedFS_needle_cache_hits_total",
+            "Needle reads served from the popularity cache.")
+        self.misses = registry.counter(
+            "SeaweedFS_needle_cache_misses_total",
+            "Needle reads that went to the store.")
+        self.admissions = registry.counter(
+            "SeaweedFS_needle_cache_admissions_total",
+            "Needles admitted after clearing the frequency bar.")
+        self.rejections = registry.counter(
+            "SeaweedFS_needle_cache_rejections_total",
+            "Needle offers rejected by the admission policy.")
+        self.evictions = registry.counter(
+            "SeaweedFS_needle_cache_evictions_total",
+            "Needles evicted to honor the byte bound.")
+        self.invalidations = registry.counter(
+            "SeaweedFS_needle_cache_invalidations_total",
+            "Cache entries dropped by write/delete/vacuum.",
+            labels=("reason",))
+        self.bytes = registry.gauge(
+            "SeaweedFS_needle_cache_bytes",
+            "Resident cached needle bytes.")
+        self.volume_hits = registry.counter(
+            "SeaweedFS_needle_cache_volume_hits_total",
+            "Needle cache hits per volume.", labels=("volume",))
+        self.volume_misses = registry.counter(
+            "SeaweedFS_needle_cache_volume_misses_total",
+            "Needle cache misses per volume.", labels=("volume",))
+
+    def hit_ratio(self) -> float:
+        hits, misses = _total(self.hits), _total(self.misses)
+        total = hits + misses
+        return round(hits / total, 4) if total else 0.0
+
+    def totals(self) -> dict:
+        return {"hits": _total(self.hits), "misses": _total(self.misses),
+                "admissions": _total(self.admissions),
+                "evictions": _total(self.evictions),
+                "invalidations": _total(self.invalidations),
+                "bytes": int(self.bytes.value()),
+                "hit_ratio": self.hit_ratio()}
+
+
 _singletons: dict[str, object] = {}
 _singleton_lock = threading.Lock()
 
@@ -468,3 +574,11 @@ def master_metrics() -> MasterMetrics:
 
 def request_plane_metrics() -> RequestPlaneMetrics:
     return _singleton("request_plane", RequestPlaneMetrics)
+
+
+def dataplane_metrics() -> DataplaneMetrics:
+    return _singleton("dataplane", DataplaneMetrics)
+
+
+def needle_cache_metrics() -> NeedleCacheMetrics:
+    return _singleton("needle_cache", NeedleCacheMetrics)

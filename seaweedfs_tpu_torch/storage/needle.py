@@ -59,6 +59,28 @@ TTL_BYTES = 2
 PAIR_NAME_PREFIX = "Seaweed-"
 
 
+def parse_needle_tail(tail: bytes) -> tuple[int, bytes, bytes]:
+    """The flags, name and mime that follow a v2/v3 body's data, from
+    ``tail`` starting at the flags byte (it may run long: only declared
+    lengths are read).  A ranged read learns them without the data."""
+    if not tail:
+        return 0, b"", b""
+    i = 0
+    flags = tail[i]
+    i += 1
+    name = mime = b""
+    if flags & FLAG_HAS_NAME and i < len(tail):
+        ln = tail[i]
+        i += 1
+        name = tail[i:i + ln]
+        i += ln
+    if flags & FLAG_HAS_MIME and i < len(tail):
+        lm = tail[i]
+        i += 1
+        mime = tail[i:i + lm]
+    return flags, name, mime
+
+
 class CRCError(ValueError):
     pass
 

@@ -17,7 +17,9 @@ Vacuum copies the live needles into `.cpd`/`.cpx` (``compact``), then
 ``commit_compact`` replays what was appended meanwhile and swaps the
 files in.  ``check_needles`` is volume.fsck's scan of every live record
 against its stored CRC; ``configure_replication`` rewrites the
-superblock's replica placement in place.  Reads take no lock, so the
+superblock's replica placement in place.  ``read_needle_meta`` and
+``read_needle_data`` serve a Range GET's bytes without the rest of the
+needle.  Reads take no lock, so the
 swap is made safe for them this way: readers use the (needle map, `.dat`
 handle) pair published last.
 The commit builds the new pair over the compacted files, crash check
@@ -43,14 +45,15 @@ from typing import Callable, Optional, TypeVar
 import numpy as np
 
 from . import idx as idx_mod
-from .needle import Needle, get_actual_size, needle_body_length
+from .needle import (Needle, get_actual_size, needle_body_length,
+                     parse_needle_tail)
 from .needle_map import MemoryNeedleMap
 from .super_block import SUPER_BLOCK_SIZE, ReplicaPlacement, SuperBlock
 from .ttl import TTL
 from .types import (MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_CHECKSUM_SIZE,
                     NEEDLE_HEADER_SIZE, NEEDLE_MAP_ENTRY_SIZE,
                     NEEDLE_PADDING_SIZE, TIMESTAMP_SIZE, Version,
-                    size_is_valid)
+                    bytes_to_u32, size_is_valid)
 
 T = TypeVar("T")
 
@@ -419,6 +422,46 @@ class Volume:
             if time.time_ns() >= expire_ns:
                 raise NotFoundError(key)
         return n
+
+    def read_needle_meta(self, key: int, cookie: Optional[int] = None):
+        """The needle's header and the metadata after its data, without
+        reading the data: a ranged read costs the range's IO (the newer
+        reference's ReadNeedleMeta/ReadNeedleData split).  Returns (loc,
+        data_size, flags, name, mime); ``loc`` is what read_needle_data
+        takes, tied to the `.dat` the metadata was read from."""
+
+        def meta(nm: MemoryNeedleMap, dat: _DatFile):
+            nv = nm.get(key)
+            if nv is None or nv.offset == 0:
+                raise NotFoundError(key)
+            if not size_is_valid(nv.size):
+                raise DeletedError(key)
+            hdr = dat.read_at(nv.offset, NEEDLE_HEADER_SIZE + 4)
+            n = Needle()
+            n.parse_header(hdr[:NEEDLE_HEADER_SIZE])
+            if n.id != key:
+                raise ValueError(f"stale offset: found needle {n.id}, "
+                                 f"wanted {key}")
+            if cookie is not None and n.cookie != cookie:
+                raise CookieMismatchError(f"cookie mismatch for {key}")
+            loc = (dat, nv.offset + NEEDLE_HEADER_SIZE + 4)
+            if n.size == 0:  # an empty body: no data_size or flags
+                return loc, 0, 0, b"", b""
+            data_size = bytes_to_u32(hdr[NEEDLE_HEADER_SIZE:])
+            # flags + the longest name and mime: 1 + (1 + 255) * 2
+            flags, name, mime = parse_needle_tail(
+                dat.read_at(loc[1] + data_size, 513))
+            return loc, data_size, flags, name, mime
+
+        return self._with_live(meta)
+
+    @staticmethod
+    def read_needle_data(loc, data_off: int, length: int) -> bytes:
+        """Exactly [data_off, data_off + length) of the data whose ``loc``
+        read_needle_meta gave.  No CRC: a part cannot verify the whole
+        data's checksum."""
+        dat, start = loc
+        return dat.read_at(start + data_off, length)
 
     # --- vacuum (volume_vacuum.go) --------------------------------------
     def garbage_ratio(self) -> float:

@@ -1,17 +1,32 @@
 """HTTP server framework and client calls for the port's servers.
 
-The subset of seaweedfs_tpu/utils/httpd.py that a volume server needs:
+The subset of seaweedfs_tpu/utils/httpd.py that the port's servers need:
 
   - ``Router``: method + regex routes; ``dispatch`` maps a handler's
     exceptions to JSON errors (HttpError -> its status, KeyError -> 404,
     anything else -> 500) and ``_send`` writes a ``Response``, streaming
-    ``file_path`` bodies from disk in bounded pieces;
-  - ``serve`` / ``stop_server``: a thread-per-connection
-    ``ThreadingHTTPServer`` speaking HTTP/1.1 keep-alive with Nagle off
-    and the reference's listen backlog of 256;
-  - ``http_json``, ``http_bytes``, ``http_download``: client calls on
-    ``http.client``, one connection per call;
+    ``file_path`` bodies (a ``file_range`` of them) from disk: through
+    ``os.sendfile`` on the reactor, in bounded pieces elsewhere;
+  - ``serve`` / ``stop_server``: by default the listener joins the
+    process's event-loop reactor (utils/eventloop.py: non-blocking
+    keep-alive and pipelined parsing, a bounded two-lane worker pool,
+    listen backlog 512).  ``WEED_DATAPLANE=threaded`` selects
+    ``FastHTTPServer`` (hand-parsed HTTP/1.1, a thread per connection,
+    backlog 256).  A stop returns within a bounded time with the port free
+    to bind again;
+  - ``http_json``, ``http_bytes``, ``http_download``: client calls over a
+    thread-local pool of keep-alive raw sockets, one per (thread, peer)
+    (``_RawConn``, ``_pooled_request``).  A GET or HEAD that fails on a
+    reused connection is sent once more on a fresh one; any other method
+    first replaces an idle connection the peer has closed and is never
+    resent once its bytes are out, and a timeout never, since a POST must
+    not run twice;
   - ``parse_range``, ``extract_upload``, ``qint``: request parsing.
+
+``Router.loop_fast_probe(method, path)``, when set, tells the reactor which
+GET/HEAD requests may run inline on the loop (the volume server: needles
+its needle cache holds); ``handler.queue_wait_s`` carries a pooled
+request's wait for a worker.
 
 Traces (``observability/``): with the process tracer enabled, ``dispatch``
 makes the request's head sampling decision (``context.begin_request``:
@@ -19,7 +34,7 @@ adopt the caller's Traceparent, or decide afresh), stamps the thread with
 the server's identity (``Router.server_url``), records the request span
 ``http.<router name>.<handler name>`` when sampled and answers with its
 ``X-Trace-Id``; the thread's context is restored afterwards, so a
-connection's next request starts clean.  A disabled tracer costs one
+worker's next request starts clean.  A disabled tracer costs one
 attribute check.  Every client call under a sampled context records an
 ``rpc.client`` span and sends the Traceparent with it as the parent (the
 edge the master's collector stitches on); under an unsampled decision it
@@ -44,13 +59,12 @@ not exempt must take a slot before its handler runs, and one over the
 bound is answered 503 with ``Retry-After: 1`` at once.  The slot is given
 back after the response has been sent, whatever happened on the way.
 
-Not ported: heat and ledger accounting, the request log, TLS, the
-event-loop reactor and the pooled raw-socket client.
+Not ported: heat and ledger accounting, the request log, TLS and the
+network fault points.
 """
 
 from __future__ import annotations
 
-import http.client
 import json
 import os
 import re
@@ -58,7 +72,7 @@ import socket
 import threading
 import time
 import urllib.parse
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from typing import Callable, Optional
 
 from ..observability import context as _trace_context
@@ -193,13 +207,16 @@ def extract_upload(body: bytes, content_type: str) -> tuple[bytes, str, str]:
 class Response:
     def __init__(self, data=None, status: int = 200, raw: Optional[bytes] = None,
                  headers: Optional[dict] = None,
-                 file_path: Optional[str] = None):
+                 file_path: Optional[str] = None,
+                 file_range: Optional[tuple[int, int]] = None):
         """A JSON body (``data``), raw bytes (``raw``), or a file on disk
-        (``file_path``) sent in bounded pieces, never read whole."""
+        (``file_path``; ``file_range`` (offset, length) of it, or the
+        whole file) streamed, never read whole."""
         self.data = data
         self.status = status
         self.raw = raw
         self.file_path = file_path
+        self.file_range = file_range
         self.headers = headers or {}
 
 
@@ -226,6 +243,11 @@ class Router:
         # the server's AdmissionController (utils/admission.py), installed
         # by -maxInflight > 0; None costs one attribute check a request
         self.admission = None
+        # probe(method, path) -> bool: may this GET/HEAD run inline on the
+        # reactor's loop (utils/eventloop.py)?  The volume server answers
+        # True only for needles its needle cache holds; None sends every
+        # request to the worker pool
+        self.loop_fast_probe = None
         # the deadline_exceeded event's rate limit (the counter counts
         # every 504); a lost race costs at most one extra event
         self._last_ddl_event = 0.0
@@ -399,7 +421,9 @@ class Router:
         try:
             headers = dict(resp.headers)
             if resp.file_path is not None:
-                length = os.path.getsize(resp.file_path)
+                size = os.path.getsize(resp.file_path)
+                off, length = resp.file_range or (0, size)
+                length = max(0, min(length, size - off))
                 ctype = headers.pop("Content-Type", "application/octet-stream")
                 body = None
             elif resp.raw is not None:
@@ -422,7 +446,14 @@ class Router:
             if body is not None:
                 handler.wfile.write(body)
                 return
+            # a reactor connection streams the region with os.sendfile: a
+            # slow client costs an outbox entry, not a thread
+            sendfile = getattr(handler, "sendfile", None)
+            if sendfile is not None and sendfile(resp.file_path, off,
+                                                 length):
+                return
             with open(resp.file_path, "rb") as f:
+                f.seek(off)
                 left = length
                 while left > 0:
                     piece = f.read(min(left, _FILE_PIECE))
@@ -434,74 +465,430 @@ class Router:
             pass
 
 
-class _Server(ThreadingHTTPServer):
-    # the listen backlog of the reference's threaded server; the stdlib's
-    # 5 drops the SYNs of a burst of new connections (clients reconnecting
-    # after a shed's Connection: close), and each waits a second to retry
+# --- servers ----------------------------------------------------------------
+
+
+class CIHeaders:
+    """Case-insensitive request headers: ``get``, ``[]`` and ``in`` by any
+    case (the first value wins, as email.Message's ``get``)."""
+
+    __slots__ = ("_lower",)
+
+    def __init__(self, pairs: list):
+        self._lower = {}
+        for k, v in pairs:
+            self._lower.setdefault(k.lower(), v)
+
+    def get(self, key: str, default=None):
+        return self._lower.get(key.lower(), default)
+
+    def __getitem__(self, key: str):
+        return self._lower[key.lower()]
+
+    def __contains__(self, key) -> bool:
+        return key.lower() in self._lower
+
+
+_date_cache: tuple[int, str] = (0, "")
+
+
+def _http_date() -> str:
+    """The RFC 7231 Date, formatted once a second."""
+    global _date_cache
+    now = int(time.time())
+    if _date_cache[0] != now:
+        _date_cache = (now, time.strftime("%a, %d %b %Y %H:%M:%S GMT",
+                                          time.gmtime(now)))
+    return _date_cache[1]
+
+
+_REASONS = {200: "OK", 201: "Created", 204: "No Content",
+            206: "Partial Content", 301: "Moved Permanently", 302: "Found",
+            303: "See Other", 304: "Not Modified", 307: "Temporary Redirect",
+            400: "Bad Request", 401: "Unauthorized", 403: "Forbidden",
+            404: "Not Found", 405: "Method Not Allowed", 409: "Conflict",
+            412: "Precondition Failed", 416: "Range Not Satisfiable",
+            500: "Internal Server Error", 503: "Service Unavailable"}
+
+
+class _FastHandler:
+    """One connection's handler on ``FastHTTPServer``: the
+    BaseHTTPRequestHandler surface ``Router`` uses."""
+
+    __slots__ = ("server", "rfile", "wfile", "client_address", "command",
+                 "path", "headers", "close_connection", "_out")
+
+    def __init__(self, server, rfile, wfile, client_address):
+        self.server = server
+        self.rfile = rfile
+        self.wfile = wfile
+        self.client_address = client_address
+        self.command = ""
+        self.path = ""
+        self.headers: Optional[CIHeaders] = None
+        self.close_connection = True
+        self._out: list = []
+
+    def send_response(self, status: int, message: str = "") -> None:
+        self._out = [b"HTTP/1.1 %d %s\r\nDate: %s\r\n"
+                     % (status,
+                        (message or _REASONS.get(status, "OK")).encode(),
+                        _http_date().encode())]
+
+    def send_header(self, key: str, value) -> None:
+        self._out.append(f"{key}: {value}\r\n".encode())
+        if key.lower() == "connection" and str(value).lower() == "close":
+            self.close_connection = True
+
+    def end_headers(self) -> None:
+        self._out.append(b"\r\n")
+        self.wfile.write(b"".join(self._out))
+        self._out = []
+
+
+class _SockWriter:
+    """Unbuffered writer over a socket: each write is one sendall."""
+
+    __slots__ = ("_sock",)
+
+    def __init__(self, sock):
+        self._sock = sock
+
+    def write(self, data) -> int:
+        self._sock.sendall(data)
+        return len(data)
+
+    def flush(self) -> None:
+        pass
+
+
+class FastHTTPServer:
+    """The threaded fallback: an accept loop and a thread per keep-alive
+    connection, the request line and headers parsed by hand and the
+    status line and headers sent in one write."""
+
+    # the reference's threaded server's listen backlog: the stdlib's 5
+    # drops the SYNs of a burst of reconnects (every shed closes its
+    # connection), and each such client waits a second to retry
     request_queue_size = 256
 
+    def __init__(self, addr, router: Router):
+        self.router = router
+        self._stopping = False
+        self._done = threading.Event()
+        self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self._sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        try:
+            self._sock.bind(addr)
+            self._sock.listen(self.request_queue_size)
+        except OSError:
+            self._sock.close()
+            raise
+        self.server_address = self._sock.getsockname()
 
-def serve(router: Router, host: str, port: int) -> ThreadingHTTPServer:
-    """Start serving ``router`` on host:port in a thread; each connection
-    gets its own thread."""
+    def serve_forever(self) -> None:
+        import selectors
 
-    class Handler(BaseHTTPRequestHandler):
-        protocol_version = "HTTP/1.1"
-        # headers and body go out as separate writes: with Nagle on, the
-        # client's delayed ACK stalls every keep-alive exchange ~40 ms
-        disable_nagle_algorithm = True
+        # select with a short timeout, not a blocking accept: closing a
+        # socket does not wake a thread blocked in accept(), which would
+        # keep the port bound after a stop
+        sel = selectors.DefaultSelector()
+        sel.register(self._sock, selectors.EVENT_READ)
+        try:
+            while not self._stopping:
+                if not sel.select(timeout=0.25):
+                    continue
+                try:
+                    conn, peer = self._sock.accept()
+                except OSError:
+                    break  # the listener closed
+                threading.Thread(target=self._handle, args=(conn, peer),
+                                 daemon=True).start()
+        finally:
+            sel.close()
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._done.set()
 
-        def log_message(self, fmt, *args):
+    def _handle(self, conn, peer) -> None:
+        try:
+            conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            rfile = conn.makefile("rb", buffering=1 << 16)
+            h = _FastHandler(self, rfile, _SockWriter(conn), peer)
+            # no stop check between requests: a stop that lands just after
+            # an answer would close the connection unanswered, where the
+            # router answers its next request 503 with Connection: close
+            while True:
+                line = rfile.readline(1 << 16)
+                if not line or line in (b"\r\n", b"\n"):
+                    break
+                if not line.endswith(b"\n"):
+                    # a 64 KiB+ request line would be parsed as two
+                    conn.sendall(b"HTTP/1.1 414 URI Too Long\r\n"
+                                 b"Content-Length: 0\r\n"
+                                 b"Connection: close\r\n\r\n")
+                    break
+                try:
+                    method, _, rest = line.rstrip(b"\r\n").partition(b" ")
+                    target, _, version = rest.rpartition(b" ")
+                    h.command = method.decode("ascii")
+                    h.path = target.decode("iso-8859-1")
+                except (UnicodeDecodeError, ValueError):
+                    break
+                pairs = []
+                overflow = False
+                while True:
+                    hl = rfile.readline(1 << 16)
+                    if hl in (b"\r\n", b"\n", b""):
+                        break
+                    if len(pairs) >= 100 or not hl.endswith(b"\n"):
+                        overflow = True  # unbounded headers
+                        break
+                    k, _, v = hl.partition(b":")
+                    pairs.append((k.decode("iso-8859-1"),
+                                  v.strip().decode("iso-8859-1")))
+                if overflow:
+                    conn.sendall(b"HTTP/1.1 431 Request Header Fields Too "
+                                 b"Large\r\nContent-Length: 0\r\n"
+                                 b"Connection: close\r\n\r\n")
+                    break
+                h.headers = CIHeaders(pairs)
+                if "chunked" in (h.headers.get("Transfer-Encoding")
+                                 or "").lower():
+                    # Request.body frames Content-Length bodies only
+                    conn.sendall(b"HTTP/1.1 501 Not Implemented\r\n"
+                                 b"Content-Length: 0\r\n"
+                                 b"Connection: close\r\n\r\n")
+                    break
+                conn_hdr = (h.headers.get("Connection") or "").lower()
+                h.close_connection = (
+                    conn_hdr == "close"
+                    or (version == b"HTTP/1.0" and conn_hdr != "keep-alive"))
+                if (h.headers.get("Expect") or "").lower() == "100-continue":
+                    conn.sendall(b"HTTP/1.1 100 Continue\r\n\r\n")
+                self.router.dispatch(h, h.command)
+                if h.close_connection:
+                    break
+        except (OSError, ValueError):
+            pass
+        finally:
+            # half-close and drain briefly before the close: unread bytes
+            # in the receive queue turn the close into an RST, which can
+            # destroy an error answer already sent
+            try:
+                conn.shutdown(socket.SHUT_WR)
+                conn.settimeout(0.5)
+                deadline = time.monotonic() + 2.0
+                drained = 0
+                while time.monotonic() < deadline and drained < (1 << 22):
+                    piece = conn.recv(1 << 16)
+                    if not piece:
+                        break
+                    drained += len(piece)
+            except OSError:
+                pass
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def shutdown(self) -> None:
+        """Stop accepting and release the port before returning."""
+        self._stopping = True
+        self._done.wait(timeout=5.0)
+
+    def server_close(self) -> None:
+        try:
+            self._sock.close()
+        except OSError:
             pass
 
-        def do_GET(self):
-            router.dispatch(self, "GET")
 
-        def do_HEAD(self):
-            router.dispatch(self, "HEAD")
+def serve(router: Router, host: str, port: int):
+    """Start serving ``router`` on host:port: on the process's reactor by
+    default; ``WEED_DATAPLANE=threaded`` gives ``FastHTTPServer``."""
+    from . import eventloop
 
-        def do_POST(self):
-            router.dispatch(self, "POST")
-
-        def do_PUT(self):
-            router.dispatch(self, "PUT")
-
-        def do_DELETE(self):
-            router.dispatch(self, "DELETE")
-
-    server = _Server((host, port), Handler)
-    server.daemon_threads = True
-    # a short poll lets stop_server return within 0.1 s
-    threading.Thread(target=server.serve_forever, args=(0.1,), daemon=True,
-                     name=f"{router.name}:{port}").start()
+    if eventloop.reactor_enabled():
+        return eventloop.ReactorHTTPServer((host, port), router)
+    server = FastHTTPServer((host, port), router)
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name=f"{router.name}:{server.server_address[1]}").start()
     return server
 
 
-def stop_server(server: ThreadingHTTPServer) -> None:
-    """Stop accepting and close the listening socket; connections still
-    open answer 503 with Connection: close."""
+def stop_server(server) -> None:
+    """Stop accepting and release the listening port, within a bounded
+    time.  The reactor aborts the server's open connections; on the
+    threaded server a kept-alive connection's next request answers 503
+    with Connection: close.  Either way a pooled client moves on to
+    whoever binds the port next."""
     server._stopping = True
     server.shutdown()
     server.server_close()
 
 
-# --- client calls -----------------------------------------------------------
-
-def _connect(url: str, timeout: Optional[float]
-             ) -> tuple[http.client.HTTPConnection, str]:
-    parsed = urllib.parse.urlsplit(url)
-    if parsed.scheme != "http":
-        raise ValueError(f"unsupported URL scheme in {url!r}")
-    conn = http.client.HTTPConnection(parsed.hostname, parsed.port or 80,
-                                      timeout=timeout)
-    conn.connect()
-    conn.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
-    target = (parsed.path or "/") + (f"?{parsed.query}" if parsed.query
-                                     else "")
-    return conn, target
+# --- the pooled client --------------------------------------------------------
+# One keep-alive TCP_NODELAY connection per (thread, peer): a new TCP
+# connection per call costs a handshake and, with the control plane's small
+# segments, Nagle / delayed-ACK stalls.  The exchange is hand-rolled
+# HTTP/1.1 over the socket rather than http.client, whose header parse
+# goes through email.parser.
 
 
-def _egress_span(method: str, url: str, **attrs):
+class _RawConn:
+    """One keep-alive HTTP/1.1 connection: request bytes built by hand,
+    status, headers and body parsed by hand (Content-Length, chunked, or
+    read to close).  ``sent`` says whether the last request's bytes all
+    went out."""
+
+    __slots__ = ("sock", "rfile", "host", "sent")
+
+    def __init__(self, netloc: str, timeout: Optional[float]):
+        host, _, port_s = netloc.partition(":")
+        self.host = netloc
+        sock = socket.create_connection((host, int(port_s or 80)),
+                                        timeout=timeout)
+        sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        self.sock = sock
+        self.rfile = sock.makefile("rb", buffering=1 << 16)
+        self.sent = False
+
+    def stale(self) -> bool:
+        """True when this idle connection can carry no request: the peer
+        has closed or reset it, or sent bytes nobody asked for."""
+        try:
+            self.sock.setblocking(False)
+            self.sock.recv(1, socket.MSG_PEEK)
+            return True  # b"" (closed) or unrequested bytes
+        except BlockingIOError:
+            return False
+        except OSError:
+            return True
+
+    def request(self, method: str, target: str, body: Optional[bytes],
+                headers: dict, sink=None) -> tuple[int, bytes, dict, bool]:
+        """-> (status, body, headers, will_close).  ``sink(status)``, when
+        given, returns a file to stream the body into (the body returned
+        is then empty) or None to read it into memory."""
+        out = [f"{method} {target} HTTP/1.1\r\nHost: {self.host}\r\n"
+               .encode("latin-1")]
+        has_len = False
+        for k, v in headers.items():
+            lk = k.lower()
+            if lk == "host":
+                continue  # already sent
+            if lk == "content-length":
+                has_len = True
+            out.append(f"{k}: {v}\r\n".encode("latin-1"))
+        if body is not None and not has_len:
+            out.append(b"Content-Length: %d\r\n" % len(body))
+        elif body is None and method in ("POST", "PUT") and not has_len:
+            out.append(b"Content-Length: 0\r\n")
+        out.append(b"\r\n")
+        if body:
+            out.append(body)
+        self.sent = False
+        self.sock.sendall(b"".join(out))
+        self.sent = True
+        while True:  # interim 1xx answers are skipped
+            line = self.rfile.readline(1 << 16)
+            if not line:
+                raise ConnectionError("connection closed by peer")
+            parts = line.split(None, 2)
+            if len(parts) < 2 or not parts[0].startswith(b"HTTP/"):
+                raise ConnectionError(f"bad status line {line!r}")
+            status = int(parts[1])
+            version = parts[0]
+            hdrs: dict = {}
+            while True:
+                hl = self.rfile.readline(1 << 16)
+                if hl in (b"\r\n", b"\n", b""):
+                    break
+                k, _, v = hl.partition(b":")
+                hdrs[k.decode("latin-1")] = v.strip().decode("latin-1")
+            if status >= 200:
+                break
+        lower = {k.lower(): v for k, v in hdrs.items()}
+        conn_hdr = lower.get("connection", "").lower()
+        will_close = (conn_hdr == "close"
+                      or (version == b"HTTP/1.0"
+                          and conn_hdr != "keep-alive"))
+        if method == "HEAD" or status in (204, 304):
+            return status, b"", hdrs, will_close
+        dest = sink(status) if sink is not None else None
+        if lower.get("transfer-encoding", "").lower() == "chunked":
+            pieces = []
+            while True:
+                szline = self.rfile.readline(1 << 16)
+                try:
+                    n = int(szline.split(b";")[0].strip() or b"0", 16)
+                except ValueError:
+                    raise ConnectionError(f"bad chunk size {szline!r}")
+                if n == 0:
+                    while self.rfile.readline(1 << 16) not in (b"\r\n", b"\n",
+                                                               b""):
+                        pass  # trailers
+                    break
+                piece = self._read_exact(n)
+                if dest is not None:
+                    dest.write(piece)
+                else:
+                    pieces.append(piece)
+                self.rfile.read(2)  # CRLF
+            return status, b"".join(pieces), hdrs, will_close
+        if "content-length" in lower:
+            n = int(lower["content-length"])
+            if dest is None:
+                return status, self._read_exact(n), hdrs, will_close
+            while n > 0:
+                piece = self._read_exact(min(n, _FILE_PIECE))
+                dest.write(piece)
+                n -= len(piece)
+            return status, b"", hdrs, will_close
+        # no framing: the body runs to the connection's close
+        if dest is None:
+            return status, self.rfile.read() or b"", hdrs, True
+        while True:
+            piece = self.rfile.read(_FILE_PIECE)
+            if not piece:
+                break
+            dest.write(piece)
+        return status, b"", hdrs, True
+
+    def _read_exact(self, n: int) -> bytes:
+        data = self.rfile.read(n)
+        if data is None or len(data) != n:
+            raise ConnectionError("short body read")
+        return data
+
+    def settimeout(self, t: Optional[float]) -> None:
+        self.sock.settimeout(t)
+
+    def close(self) -> None:
+        try:
+            self.rfile.close()
+        except OSError:
+            pass
+        try:
+            self.sock.close()
+        except OSError:
+            pass
+
+
+class _ConnPool(threading.local):
+    def __init__(self):
+        self.conns: dict = {}
+
+
+_pool = _ConnPool()
+# a request of these methods may run twice: a failed one is resent
+_RESENDABLE = ("GET", "HEAD")
+
+
+def _egress_span(method: str, parsed, **attrs):
     """The trace egress of every client call: an ``rpc.client`` span when
     this thread holds a sampled trace context and the tracer is enabled
     (its id becomes the callee's parent, so the Traceparent is injected
@@ -512,61 +899,90 @@ def _egress_span(method: str, url: str, **attrs):
         return _NOOP_SPAN, None
     tracer = _get_tracer()
     if tracer.enabled and _trace_context.current_sampled() is not None:
-        parsed = urllib.parse.urlsplit(url)
         return tracer.span("rpc.client", method=method, peer=parsed.netloc,
                            path=parsed.path, **attrs), ctx
     return _NOOP_SPAN, ctx
 
 
-def _request(method: str, url: str, body: Optional[bytes],
-             headers: Optional[dict], timeout: Optional[float],
-             follow_redirects: bool) -> tuple[int, bytes, dict]:
-    """One exchange, following up to 5 redirects; raises OSError (or
-    http.client.HTTPException) when the peer cannot be reached, and
+def _pooled_request(method: str, url: str, body: Optional[bytes],
+                    headers: Optional[dict], timeout: Optional[float],
+                    sink=None, **span_attrs) -> tuple[int, bytes, dict]:
+    """One exchange over this thread's pooled connection to the peer;
+    raises OSError (ConnectionError, TimeoutError) when it fails, and
     DeadlineExceeded when the thread's deadline is spent before the send
-    or cuts the wait for the answer."""
-    span, ctx = _egress_span(method, url)
+    or cuts the wait.  A request that may not run twice (any method but
+    GET and HEAD) first replaces a pooled connection the peer closed while
+    it idled; GET and HEAD skip that check, a syscall on every call, and
+    lean on the resend.  A failure on a reused connection sends the
+    request once more on a fresh one when the peer cannot have run it
+    (the send itself failed) or running it twice is harmless (GET, HEAD).
+    Anything else propagates: a timeout, a new connection's failure, and
+    a failure after another method's request went out, since the peer may
+    be running it and a POST must not run twice."""
+    parsed = urllib.parse.urlsplit(url)
+    if parsed.scheme != "http":
+        raise ValueError(f"unsupported URL scheme in {url!r}")
+    key = parsed.netloc
+    target = (parsed.path or "/") + (f"?{parsed.query}" if parsed.query
+                                     else "")
+    # the budget left; a spent one raises before anything is sent
+    timeout = _deadline.clamp(timeout)
+    span, ctx = _egress_span(method, parsed, **span_attrs)
+    headers = dict(headers or {})
     with span:
         if ctx is not None:
-            headers = _trace_context.inject_trace_headers(
-                dict(headers or {}))
-        return _request_hops(method, url, body, headers, timeout,
-                             follow_redirects)
-
-
-def _request_hops(method: str, url: str, body: Optional[bytes],
-                  headers: Optional[dict], timeout: Optional[float],
-                  follow_redirects: bool) -> tuple[int, bytes, dict]:
-    for _ in range(5):
-        # the budget left, re-read at every hop
-        call_timeout = _deadline.clamp(timeout)
-        hdrs = _deadline.inject_deadline_headers(dict(headers or {}))
-        if body is None and method in ("POST", "PUT"):
-            hdrs.setdefault("Content-Length", "0")
-        try:
-            conn, target = _connect(url, call_timeout)
-            try:
-                conn.request(method, target, body=body, headers=hdrs)
-                resp = conn.getresponse()
-                data = resp.read()
-                rhdrs = dict(resp.getheaders())
-            finally:
+            _trace_context.inject_trace_headers(headers)
+        _deadline.inject_deadline_headers(headers)
+        for _ in range(2):
+            conn = _pool.conns.get(key)
+            if conn is not None and method not in _RESENDABLE \
+                    and conn.stale():
                 conn.close()
-        except TimeoutError:
-            ddl = _deadline.current()
-            if ddl is not None and ddl.expired():
-                # the deadline, not the peer, bound the wait
-                raise DeadlineExceeded(
-                    f"deadline exceeded awaiting {url}") from None
-            raise
-        if follow_redirects and resp.status in (301, 302, 303, 307, 308) \
-                and rhdrs.get("Location"):
-            url = urllib.parse.urljoin(url, rhdrs["Location"])
-            if resp.status == 303:
+                conn = None
+            reused = conn is not None
+            if conn is None:
+                conn = _RawConn(parsed.netloc, timeout)
+                _pool.conns[key] = conn
+            try:
+                conn.settimeout(timeout)
+                status, data, hdrs, will_close = conn.request(
+                    method, target, body, headers, sink)
+                if will_close:
+                    conn.close()
+                    _pool.conns.pop(key, None)
+                return status, data, hdrs
+            except TimeoutError:
+                conn.close()
+                _pool.conns.pop(key, None)
+                ddl = _deadline.current()
+                if ddl is not None and ddl.expired():
+                    # the deadline, not the peer, bound the wait
+                    raise DeadlineExceeded(
+                        f"deadline exceeded awaiting {url}") from None
+                raise
+            except Exception:
+                conn.close()
+                _pool.conns.pop(key, None)
+                if not reused or (conn.sent and method not in _RESENDABLE):
+                    raise
+    raise OSError("unreachable")  # pragma: no cover
+
+
+def _pooled_with_redirects(method: str, url: str, body: Optional[bytes],
+                           headers: Optional[dict], timeout: Optional[float],
+                           follow_redirects: bool) -> tuple[int, bytes, dict]:
+    """``_pooled_request``, following up to 5 redirects."""
+    for _ in range(5):
+        status, data, hdrs = _pooled_request(method, url, body, headers,
+                                             timeout)
+        if follow_redirects and status in (301, 302, 303, 307, 308) \
+                and hdrs.get("Location"):
+            url = urllib.parse.urljoin(url, hdrs["Location"])
+            if status == 303:
                 method, body = "GET", None
             continue
-        return resp.status, data, rhdrs
-    return resp.status, data, rhdrs
+        return status, data, hdrs
+    return status, data, hdrs
 
 
 def http_json(method: str, url: str, payload: Optional[dict] = None,
@@ -577,8 +993,9 @@ def http_json(method: str, url: str, payload: Optional[dict] = None,
     data = json.dumps(payload).encode() if payload is not None else None
     headers = {"Content-Type": "application/json"} if data is not None else {}
     try:
-        status, body, _ = _request(method, url, data, headers, timeout, True)
-    except (OSError, http.client.HTTPException) as e:
+        status, body, _ = _pooled_with_redirects(method, url, data, headers,
+                                                 timeout, True)
+    except (OSError, ValueError) as e:
         raise HttpError(503, f"{url} unreachable: {e}") from None
     if status >= 400:
         try:
@@ -594,9 +1011,9 @@ def http_bytes(method: str, url: str, payload: Optional[bytes] = None,
                follow_redirects: bool = True) -> tuple[int, bytes, dict]:
     """-> (status, body, headers); an unreachable peer gives status 0."""
     try:
-        return _request(method, url, payload, headers, timeout,
-                        follow_redirects)
-    except (OSError, http.client.HTTPException) as e:
+        return _pooled_with_redirects(method, url, payload, headers, timeout,
+                                      follow_redirects)
+    except (OSError, ValueError) as e:
         return 0, str(e).encode(), {}
 
 
@@ -605,47 +1022,34 @@ def http_download(method: str, url: str, dest_path: str,
     """Stream a response body to ``dest_path`` in bounded pieces, through
     ``dest_path.part`` renamed on success, so a dropped transfer never
     leaves a torn file under the final name.  Returns the HTTP status
-    (0 when the peer cannot be reached); only a 200 writes the file."""
-    # a budgeted caller's bulk fetch inherits the remaining budget, never
-    # the hour's default
-    timeout = _deadline.clamp(timeout)
-    headers = _deadline.inject_deadline_headers({})
-    span, ctx = _egress_span(method, url, download=True)
-    with span:
-        if ctx is not None:
-            _trace_context.inject_trace_headers(headers)
-        return _download_body(method, url, dest_path, timeout, headers)
-
-
-def _download_body(method: str, url: str, dest_path: str, timeout,
-                   headers: dict) -> int:
+    (0 when the peer cannot be reached); only a 200 writes the file.  The
+    pooled connection carries it; ``timeout`` bounds each wait for bytes,
+    clamped to the thread's deadline."""
     tmp = dest_path + ".part"
+    files: list = []
+
+    def sink(status: int):
+        if status != 200:
+            return None
+        for f in files:  # a resend on a fresh connection starts over
+            f.close()
+        files.append(open(tmp, "wb"))
+        return files[-1]
+
     try:
-        conn, target = _connect(url, timeout)
-        try:
-            conn.request(method, target, headers=headers)
-            resp = conn.getresponse()
-            if resp.status != 200:
-                resp.read()
-                return resp.status
-            with open(tmp, "wb") as f:
-                while True:
-                    piece = resp.read(_FILE_PIECE)
-                    if not piece:
-                        break
-                    f.write(piece)
-            if resp.length:
-                raise OSError(f"{url}: body ended {resp.length} bytes short")
-        finally:
-            conn.close()
-        os.replace(tmp, dest_path)
-        return 200
-    except (OSError, http.client.HTTPException):
+        status, _, _ = _pooled_request(method, url, None, None, timeout,
+                                       sink, download=True)
+        if status == 200:
+            files[-1].close()
+            os.replace(tmp, dest_path)
+        return status
+    except (OSError, ValueError):
         return 0
     finally:
+        for f in files:
+            f.close()
         if os.path.exists(tmp):
             os.remove(tmp)
-
 
 UNSATISFIABLE_RANGE = (-1, 0)
 

@@ -47,17 +47,26 @@ every journal event to the masters (the one the heartbeats follow
 first; utils/leader.py learns the raft leader from their answers), and
 are detached when the server stops.
 
+The front is the process's event-loop reactor (utils/httpd.py
+``serve``): a GET or HEAD of a needle the needle cache holds, of a live
+volume, is answered on the loop itself (``_loop_fast_probe``); everything
+else, every EC read and so every kernel launch among them, runs on the
+reactor's workers.  ``/status`` carries ``NeedleCache`` (the cache's
+occupancy and counters) and ``Dataplane`` (dispatches and aborts).  A
+Range GET of an uncompressed, TTL-less needle on a live volume preads only
+its bytes (``_try_partial_read``) and answers 206 without an ETag, as the
+reference's does; other Range GETs slice the full body.
+
 Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
-native planes, mmap and the needle cache, heat, ledger, the
-request log, tier routes, batch routes,
-tail, image resize, and the partial-range fast path (a Range GET slices
-the full body).
+native planes, mmap, heat, ledger, the request log, tier routes, batch
+routes, tail and image resize.
 """
 
 from __future__ import annotations
 
 import logging
 import os
+import re
 import threading
 import time
 import urllib.parse
@@ -73,7 +82,8 @@ from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops.gf_matmul import gf_matmul
-from ..stats import (REGISTRY, ec_integrity_metrics, request_plane_metrics,
+from ..stats import (REGISTRY, dataplane_metrics, ec_integrity_metrics,
+                     needle_cache_metrics, request_plane_metrics,
                      volume_server_metrics)
 from ..stats.metrics import exemplars_requested
 from ..storage.file_id import FileId
@@ -115,6 +125,8 @@ from .scrubber import EcScrubber
 from .store import Store
 
 FID_PATTERN = r"/(\d+),([0-9a-f]+)"
+# the loop fast path's probe: a plain object path, no query
+_FAST_FID_RE = re.compile(r"^/(\d+),([0-9a-f]+)$", re.IGNORECASE)
 # delta heartbeats between full syncs: every Nth pulse resends the whole
 # state so drifting stats (sizes, counters) converge
 FULL_SYNC_EVERY = 12
@@ -134,12 +146,13 @@ class VolumeServer:
                  public_url: str = "", data_center: str = "",
                  rack: str = "", max_volume_count: int = 8,
                  pulse_seconds: float = 5.0, device="cuda",
-                 max_inflight: int = 0):
+                 max_inflight: int = 0, needle_cache_mb: int = 64):
         """A volume server for ``directories`` at host:port, heartbeating
         to ``master_url`` (comma-separated masters; heartbeats follow the
         raft leader).  ``device`` runs the EC work: "cuda" needs a card
         and raises without one; only "cpu" selects the plain versions.
-        ``max_inflight`` > 0 turns admission control on."""
+        ``max_inflight`` > 0 turns admission control on;
+        ``needle_cache_mb`` sizes the needle cache (0: none)."""
         self.masters = [m.strip() for m in master_url.split(",")
                         if m.strip()]
         self.master_url = self.masters[0]
@@ -147,7 +160,8 @@ class VolumeServer:
         self.rack = rack
         self.pulse_seconds = pulse_seconds
         self.store = Store(directories, host, port, public_url,
-                           max_volume_count, device=device)
+                           max_volume_count, device=device,
+                           needle_cache_mb=needle_cache_mb)
         if directories:
             get_flightrecorder().configure(
                 spool_dir=os.path.join(directories[0], "flightrecorder"))
@@ -157,9 +171,12 @@ class VolumeServer:
         # their families exist on /metrics before the first count
         ec_integrity_metrics()
         request_plane_metrics()
+        dataplane_metrics()
+        needle_cache_metrics()
         self.router = Router("volume", metrics=self.metrics)
         self.router.server_url = self.url
         self.router.admission = maybe_controller(max_inflight, "volume")
+        self.router.loop_fast_probe = self._loop_fast_probe
         self._register_routes()
         self._server = None
         self._stop = threading.Event()
@@ -308,6 +325,65 @@ class VolumeServer:
                       self.heartbeat_payload(), timeout=30.0)
 
     # --- helpers ----------------------------------------------------------
+    def _loop_fast_probe(self, method: str, path: str) -> bool:
+        """May the reactor answer this GET/HEAD on its loop?  True only for
+        a plain object path (no query) whose needle the cache holds, of a
+        volume mounted live here: the answer then comes from memory (a
+        raced invalidation costs one bounded pread).  An EC volume's needle
+        is never cached, so no EC read and no kernel launch runs on the
+        loop.  Never blocks: a regex, a parse, two dict lookups."""
+        m = _FAST_FID_RE.match(path)
+        if m is None:
+            return False
+        cache = self.store.needle_cache
+        if not cache.enabled:
+            return False
+        try:
+            fid = FileId.parse(f"{m.group(1)},{m.group(2)}")
+        except ValueError:
+            return False
+        return fid.volume_id in self.store.volumes \
+            and cache.contains(fid.volume_id, fid.key)
+
+    def _try_partial_read(self, req: Request, fid: FileId,
+                          rng_hdr: str):
+        """A Range GET answered by preading only the range's bytes
+        (``read_needle_meta`` / ``read_needle_data``): no whole-needle read
+        and no CRC pass.  None sends the request down the full read
+        (compressed or TTL'd needles, empty bodies, malformed ranges)."""
+        v = self.store.volumes[fid.volume_id]
+        try:
+            loc, data_size, flags, name, mime = v.read_needle_meta(
+                fid.key, fid.cookie)
+        except (NotFoundError, DeletedError):
+            raise HttpError(404, "not found")
+        except CookieMismatchError:
+            raise HttpError(404, "cookie mismatch")
+        except ValueError:
+            return None
+        if flags & (FLAG_IS_COMPRESSED | FLAG_HAS_TTL) or data_size == 0:
+            return None  # the full body is needed: gunzip, expiry check
+        rng = parse_range(rng_hdr, data_size)
+        if rng == UNSATISFIABLE_RANGE:
+            return Response(raw=b"", status=416, headers={
+                "Content-Range": f"bytes */{data_size}"})
+        if rng is None:
+            return None
+        off, sz = rng
+        headers = {
+            "Accept-Ranges": "bytes",
+            "Content-Range": f"bytes {off}-{off + sz - 1}/{data_size}",
+            "Content-Type": (mime.decode(errors="replace")
+                             if flags & FLAG_HAS_MIME and mime
+                             else "application/octet-stream"),
+        }
+        if name:
+            headers["Content-Disposition"] = \
+                f'inline; filename="{name.decode(errors="replace")}"'
+        body = b"" if req.handler.command == "HEAD" \
+            else v.read_needle_data(loc, off, sz)
+        return Response(raw=body, status=206, headers=headers)
+
     def _scrub_busy(self) -> bool:
         """The scrubber's load gate: True while this server takes more
         than 50 requests a second, over windows of at least 0.5 s (the
@@ -486,6 +562,11 @@ class VolumeServer:
         def read_object(req: Request) -> Response:
             fid = FileId.parse(f"{req.match.group(1)},{req.match.group(2)}")
             vid = fid.volume_id
+            rng_hdr = req.headers.get("Range", "")
+            if rng_hdr and vid in self.store.volumes:
+                partial = self._try_partial_read(req, fid, rng_hdr)
+                if partial is not None:
+                    return partial
             if vid in self.store.volumes:
                 try:
                     n = self.store.read_needle(vid, fid.key, fid.cookie)
@@ -535,7 +616,6 @@ class VolumeServer:
                     headers["Content-Encoding"] = "gzip"
                 else:
                     body = ungzip_data(body)
-            rng_hdr = req.headers.get("Range", "")
             if rng_hdr and "Content-Encoding" not in headers:
                 rng = parse_range(rng_hdr, len(body))
                 if rng == UNSATISFIABLE_RANGE:
@@ -658,6 +738,8 @@ class VolumeServer:
                 "EcPipeline": dict(_EC_PIPELINE_TOTALS),
                 "EcIntegrity": ec_integrity_metrics().totals(),
                 "EcKernelLaunches": gf_matmul.launches,
+                "NeedleCache": self.store.needle_cache.status(),
+                "Dataplane": dataplane_metrics().totals(),
                 "EcScrub": {
                     "running": scrub["running"],
                     "passes": scrub["passes"],

@@ -18,7 +18,13 @@ whole read, remote fetch and reconstruction included, without holding the
 swap back: an unmounted volume closes its files when its last reader
 leaves.
 
-Not ported: the native data plane, mmap volumes and the needle cache.
+Live-volume reads go through the needle cache (needle_cache.py,
+``-dataplane.cacheMB``, 0 disables): a needle read twice stays in memory
+until a write or delete of it, or an unmount, delete or vacuum commit of
+its volume, drops it; a read offers what it read under the volume's
+write epoch taken before the read, so a racing write is never undone.
+
+Not ported: the native data plane and mmap volumes.
 """
 
 from __future__ import annotations
@@ -41,7 +47,8 @@ from ..storage.needle import Needle
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..storage.types import size_is_deleted
-from ..storage.volume import Volume, volume_file_prefix
+from ..storage.volume import CookieMismatchError, Volume, volume_file_prefix
+from .needle_cache import NeedleCache
 
 _VOLUME_NAME = re.compile(r"(?:[\w.-]+_)?\d+")
 
@@ -67,11 +74,15 @@ def _discover(directory: str, ext: str) -> list[tuple[str, int]]:
 class Store:
     def __init__(self, directories: list[str], ip: str = "127.0.0.1",
                  port: int = 8080, public_url: str = "",
-                 max_volume_count: int = 8, device="cuda"):
+                 max_volume_count: int = 8, device="cuda",
+                 needle_cache_mb: int = 64):
         """Volumes under ``directories``, served at ``ip:port``; EC work on
-        ``device`` ("cuda" needs a card, "cpu" runs the plain versions)."""
+        ``device`` ("cuda" needs a card, "cpu" runs the plain versions);
+        a needle cache of ``needle_cache_mb`` MiB (0: none)."""
         self.device = resolve_device(device)
         self.ip, self.port = ip, port
+        self.needle_cache = NeedleCache(
+            max_bytes=max(0, int(needle_cache_mb)) << 20)
         self.public_url = public_url or f"{ip}:{port}"
         self.max_volume_count = max_volume_count
         self.volume_size_limit = 30 * 1000 * 1000 * 1000
@@ -235,6 +246,7 @@ class Store:
     def delete_volume(self, vid: int) -> None:
         v = self.volumes.pop(vid, None)
         self.volume_locks.pop(vid, None)
+        self.needle_cache.invalidate_volume(vid, "unmount")
         if v is not None:
             v.destroy()
             self.note_volume_change(vid, gone=True)
@@ -242,6 +254,7 @@ class Store:
     def unmount_volume(self, vid: int) -> None:
         v = self.volumes.pop(vid, None)
         self.volume_locks.pop(vid, None)
+        self.needle_cache.invalidate_volume(vid, "unmount")
         if v is not None:
             v.close()
             self.note_volume_change(vid, gone=True)
@@ -262,6 +275,8 @@ class Store:
         _, size, unchanged = v.write_needle(n)
         if fsync:
             v.sync()
+        # after the write: the epoch also fences a read racing it
+        self.needle_cache.invalidate(vid, n.id, "write")
         self.note_volume_change(vid)
         return size, unchanged
 
@@ -270,12 +285,25 @@ class Store:
         size = v.delete_needle(n)
         if fsync:
             v.sync()
+        self.needle_cache.invalidate(vid, n.id, "delete")
         self.note_volume_change(vid)
         return size
 
     def read_needle(self, vid: int, key: int,
                     cookie: Optional[int] = None) -> Needle:
-        return self.get_volume(vid).read_needle(key, cookie)
+        cache = self.needle_cache
+        if not cache.enabled:
+            return self.get_volume(vid).read_needle(key, cookie)
+        n = cache.get(vid, key)
+        if n is not None:
+            # the disk path's cookie check: a hit reads as a pread would
+            if cookie is not None and n.cookie != cookie:
+                raise CookieMismatchError(f"cookie mismatch for {key}")
+            return n
+        epoch = cache.epoch(vid)
+        n = self.get_volume(vid).read_needle(key, cookie)
+        cache.offer(vid, key, n, epoch=epoch)
+        return n
 
     # --- vacuum (volume_grpc_vacuum.go) -------------------------------------
     def vacuum_compact(self, vid: int) -> None:
@@ -289,6 +317,8 @@ class Store:
         heartbeat carries the new size, revision and counters."""
         with self.volume_locks[vid]:
             self.get_volume(vid).commit_compact()
+        # the compaction dropped needles the per-key hooks never saw
+        self.needle_cache.invalidate_volume(vid, "vacuum")
         self.note_volume_change(vid)
 
     def open_copied_volume(self, collection: str, vid: int) -> Volume:

@@ -212,7 +212,12 @@ def test_client_calls_against_the_reference_server(servers, tmp_path):
     assert port.http_download("GET", closed + "/x", dest + "3") == 0
 
 
-def test_stopped_server_answers_503_on_open_connections(tmp_path):
+def test_stopped_server_answers_503_on_open_connections(tmp_path,
+                                                        monkeypatch):
+    """The threaded fallback: a kept-alive connection outlives the stop
+    and its next request answers 503 with Connection: close (the reactor
+    closes such connections instead: the test after this one)."""
+    monkeypatch.setenv("WEED_DATAPLANE", "threaded")
     router = port.Router("stop")
 
     @router.route("GET", "/ok")
@@ -233,3 +238,38 @@ def test_stopped_server_answers_503_on_open_connections(tmp_path):
         r.read()
     finally:
         conn.close()
+
+
+def test_stopped_reactor_closes_open_connections(tmp_path):
+    """The reactor's stop aborts the server's kept-alive connections, as
+    the reference reactor's does, and a pooled client's next call goes to
+    whoever binds the port next."""
+    routers = []
+    for answer in ("old", "new"):
+        router = port.Router("stop")
+
+        @router.route("GET", "/who")
+        def who(req, answer=answer):
+            return port.Response({"who": answer})
+
+        routers.append(router)
+    port_no = free_port()
+    srv = port.serve(routers[0], "127.0.0.1", port_no)
+    assert type(srv).__name__ == "ReactorHTTPServer"
+    conn = http.client.HTTPConnection("127.0.0.1", port_no, timeout=10)
+    try:
+        conn.request("GET", "/who")
+        r = conn.getresponse()
+        assert (r.status, r.read()) == (200, b'{"who": "old"}')
+        url = f"http://127.0.0.1:{port_no}/who"
+        assert port.http_json("GET", url) == {"who": "old"}
+        port.stop_server(srv)
+        with pytest.raises((http.client.HTTPException, OSError)):
+            conn.request("GET", "/who")  # the kept-alive connection
+            conn.getresponse()
+        srv = port.serve(routers[1], "127.0.0.1", port_no)
+        # the pooled connection to the old server is stale: resent once
+        assert port.http_json("GET", url) == {"who": "new"}
+    finally:
+        conn.close()
+        port.stop_server(srv)

@@ -516,13 +516,27 @@ def test_every_admitted_request_releases_its_slot(tmp_path):
     assert plane.shed.value("volume") - shed0 == shed
 
 
-def test_the_listen_backlog_is_the_references():
+def test_the_listen_backlog_is_the_references(monkeypatch):
     """A burst of reconnects (every shed closes its connection) must not
-    overflow the listen queue: the port's server listens with the
-    reference's threaded server's backlog, not the stdlib's 5."""
+    overflow the listen queue: the port's threaded fallback listens with
+    the reference's threaded server's backlog, not the stdlib's 5."""
+    monkeypatch.setenv("WEED_DATAPLANE", "threaded")
     server = port_httpd.serve(port_httpd.Router("volume"), "127.0.0.1",
                               free_port())
     try:
+        assert type(server).__name__ == "FastHTTPServer"
         assert server.request_queue_size == 256
+    finally:
+        port_httpd.stop_server(server)
+
+
+def test_the_reactor_listen_backlog_is_the_references():
+    """The default front, the reactor, listens with the reference
+    reactor's backlog of 512 (seaweedfs_tpu/utils/eventloop.py)."""
+    server = port_httpd.serve(port_httpd.Router("volume"), "127.0.0.1",
+                              free_port())
+    try:
+        assert type(server).__name__ == "ReactorHTTPServer"
+        assert server.request_queue_size == 512
     finally:
         port_httpd.stop_server(server)

@@ -285,7 +285,8 @@ def test_port_answers_its_own_routes(servers):
     assert status == 200 and set(doc) == {"Version", "Volumes", "EcVolumes",
                                           "Master", "DataCenter", "Rack",
                                           "EcPipeline", "EcIntegrity",
-                                          "EcKernelLaunches", "EcScrub"}
+                                          "EcKernelLaunches", "EcScrub",
+                                          "NeedleCache", "Dataplane"}
     assert doc["EcScrub"] == {"running": False, "passes": 0,
                               "cursor": [0, 0], "verdicts": {}}
     # the process's kernel count: a CPU server launches none
