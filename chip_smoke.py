@@ -166,10 +166,10 @@ result.  Phases, each of which fails the run on any mismatch:
     ``volume -ec.engine tpu`` servers, 7 volumes of collection
     "benchmark" grown up front, and the port's ``benchmark`` at upstream
     ``weed benchmark``'s shapes (``-size 1024 -c 16``, replication 000,
-    ``-n`` cut to 100,000): on the event-loop reactor the writes, every
-    fid read back shuffled and 50,000 reads drawn Zipf (theta 0.99); the
+    ``-n`` cut to 10,000): on the event-loop reactor the writes, every
+    fid read back shuffled and 5,000 reads drawn Zipf (theta 0.99); the
     servers restarted on the same directories with
-    ``WEED_DATAPLANE=threaded``: 10,000 more writes and the same reads;
+    ``WEED_DATAPLANE=threaded``: 1,000 more writes and the same reads;
     restarted on the reactor: the same reads again; then ``ec.encode
     -collection benchmark``, the server with the most data shards of the
     largest volume stopped, and 2,000 of its fids read by one client and
@@ -180,7 +180,18 @@ result.  Phases, each of which fails the run on any mismatch:
     it read; printed: ops/s and
     p50/p99 per pass and front, the needle cache's hits and misses,
     inline against pooled dispatches, aborted connections, each server
-    process's first reconstruction apart;
+    process's first reconstruction apart.  On the first reactor and on
+    the threaded front, ``benchmark -useTcp`` writes, reads back shuffled
+    and reads Zipf as many needles again over the framed-TCP planes
+    (``dataplane_tcp_reactor``, ``dataplane_tcp_threaded``): a direct
+    ``A`` frame to the master first, and no HTTP /dir/assign during the
+    write pass; then the batch leg (``dataplane_batch``): 1,000 of the
+    framed pass's needles read 100 a request through framed ``B`` and
+    ``POST /batch/read``, 1,000 fresh ones written with framed ``P`` and
+    read back both ways, one torn ``/batch/write`` answered 400 with
+    nothing written.  Every server's framed plane must have bound
+    (``degraded_binds`` 0 after each start, here and in every phase
+    before: the script picks each HTTP port with its framed port free);
  9. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
@@ -238,12 +249,15 @@ FAILOVER_DELAY_S = 0.5
 DRAIN_READS, DRAIN_DELETED_READS = 50, 25
 # the dataplane phase: upstream weed benchmark's shapes
 # (weed/command/benchmark.go: -size 1024 -c 16, replication 000, collection
-# benchmark); -n cut from its 1,048,576 for the run's time limit; then
-# YCSB's default Zipf (theta 0.99) reads, and degraded GETs of the largest
-# volume once it is EC-encoded with a server down
-BENCH_N, BENCH_SIZE, BENCH_CLIENTS = 100_000, 1024, 16
-BENCH_ZIPF, BENCH_DEGRADED = 50_000, 2_000
-BENCH_THREADED_WRITES = 10_000
+# benchmark); -n cut from its 1,048,576 for the run's time limit (the
+# script aims at half of it), the Zipf and threaded-front passes with it;
+# then YCSB's default Zipf (theta 0.99) reads, and degraded GETs of the
+# largest volume once it is EC-encoded with a server down; the batch leg
+# reads 1,000 of the framed pass's needles 100 a request
+BENCH_N, BENCH_SIZE, BENCH_CLIENTS = 10_000, 1024, 16
+BENCH_ZIPF, BENCH_DEGRADED = 5_000, 2_000
+BENCH_THREADED_WRITES = 1_000
+BATCH_NEEDLES, BATCH_SIZE = 1_000, 100
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -900,10 +914,60 @@ def thread_census(dump: str) -> dict[str, int]:
     return dict(sorted(out.items(), key=lambda kv: -kv[1]))
 
 
-def free_port() -> int:
+_PICKED: set[int] = set()
+
+
+@functools.lru_cache(maxsize=1)
+def _quiet_ports() -> tuple[int, ...]:
+    """Ports from 10000 up that lie, with their derived framed port,
+    outside the host's ephemeral range."""
+    from seaweedfs_tpu_torch.utils.framing import tcp_port_for
+
+    try:
+        with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+            lo, hi = (int(x) for x in f.read().split())
+    except (OSError, ValueError):
+        lo, hi = 32768, 60999
+    return tuple(p for p in range(10000, 65536)
+                 if not lo <= p <= hi and not lo <= tcp_port_for(p) <= hi)
+
+
+def _bindable(port: int) -> bool:
     with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        return s.getsockname()[1]
+        try:
+            s.bind(("127.0.0.1", port))
+        except OSError:
+            return False
+    return True
+
+
+def free_port() -> int:
+    """An HTTP port for a server of this run.  Every port server also
+    binds its framed-TCP plane on the derived port (``tcp_port_for``:
+    +20000, or -20000 past 65535), and a derived port that is taken
+    brings the server up degraded.  So the pick and its derived port are
+    both free now, neither was handed out before in this run (nor its
+    derived port), and where the host's ephemeral range leaves room both
+    lie outside it, where no client socket is given a port."""
+    from seaweedfs_tpu_torch.utils.framing import tcp_port_for
+
+    def usable(p: int) -> bool:
+        d = tcp_port_for(p)
+        return 1024 <= d <= 65535 and not {p, d} & _PICKED
+
+    outside = _quiet_ports()
+    rng = np.random.default_rng()
+    for _ in range(256):
+        if outside:
+            p = int(outside[int(rng.integers(len(outside)))])
+        else:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                p = s.getsockname()[1]
+        if usable(p) and _bindable(p) and _bindable(tcp_port_for(p)):
+            _PICKED.update((p, tcp_port_for(p)))
+            return p
+    raise RuntimeError("no free port with a free derived framed port")
 
 
 class Conn:
@@ -1508,6 +1572,11 @@ def run_cli_phase(engine: str, work: str, volume_bytes: int, reads: int,
                "start_seconds": time.perf_counter() - t_start}
         conn = Conn(f"127.0.0.1:{port}")
         try:
+            status, body, _ = conn.call("GET", "/status")
+            res["degraded_binds"] = \
+                json.loads(body)["EcPipeline"]["degraded_binds"]
+            if status != 200 or res["degraded_binds"]:
+                raise AssertionError(f"/status {status}: {body[:300]!r}")
             conn.admin("/admin/assign_volume", {"volume_id": 1})
             seed = SEED + 3
             needles = [http_needle(seed, i, nid, cookie, size)
@@ -3095,6 +3164,7 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
         wait_for("every volume server to register",
                  lambda: node_urls(master_status(master)) == set(vs), 60)
         res["seconds"]["start"] = time.perf_counter() - t0
+        res["degraded_binds"] = degraded_binds(master)
         res["vacuum"] = run_vacuum_leg(master, vs, engine, vac_bytes, threads,
                                        work)
 
@@ -3636,6 +3706,14 @@ def run_failover_phase(engine: str, work: str, volume_bytes: int,
         wait_for("every volume server to register",
                  lambda: node_urls(master_status(follower)) == set(vs), 60)
         res["seconds"]["start"] = time.perf_counter() - t0
+        res["degraded_binds"] = {
+            **degraded_binds(leader),
+            "masters": {m: metric_value(
+                m, "SeaweedFS_server_degraded_binds_total", "master-tcp")
+                for m in masters}}
+        if any(res["degraded_binds"]["masters"].values()):
+            raise AssertionError(f"a master's framed front came up "
+                                 f"degraded: {res['degraded_binds']}")
 
         vid = http_json("GET", f"http://{follower}/vol/grow?collection="
                                f"{collection}&count=1")["volumeIds"][0]
@@ -3908,6 +3986,165 @@ def start_volume_servers(vs: dict, master: str, engine: str,
              lambda: set(vs) <= node_urls(master_status(master)), 60)
 
 
+def http_assigns(master: str) -> float:
+    """The master's HTTP /dir/assign requests so far (its /metrics)."""
+    return metric_value(master, "SeaweedFS_master_request_total", "assign")
+
+
+def framed_assign(master: str, collection: str) -> dict:
+    """One ``A`` frame to the master's framed-TCP front: its assignment
+    (an error frame raises)."""
+    from seaweedfs_tpu_torch.utils.framing import FramedClient, tcp_address
+
+    a = json.loads(FramedClient().request(
+        tcp_address(master), b"A", "",
+        json.dumps({"collection": collection}).encode()))
+    if not a.get("fid") or not a.get("url"):
+        raise AssertionError(f"framed assign: {a}")
+    return a
+
+
+def degraded_binds(master: str) -> dict[str, float]:
+    """Framed planes that failed to bind: the volume servers' summed by
+    the master's /cluster/health, the master's own from its /metrics.
+    Every port pick of this script keeps both at 0."""
+    out = {"volume_servers": cluster_health(master)["totals"][
+               "degraded_binds"],
+           "master": metric_value(master,
+                                  "SeaweedFS_server_degraded_binds_total",
+                                  "master-tcp")}
+    if any(out.values()):
+        raise AssertionError(f"a framed plane came up degraded: {out}")
+    return out
+
+
+def tcp_passes(master: str, n: int, size: int, clients: int, zipf: int,
+               collection: str, seed: int, fids_path: str) -> dict:
+    """``benchmark -useTcp``: ``n`` writes, every fid read back shuffled,
+    ``zipf`` reads drawn Zipf, each answer held to its needle's bytes.  A
+    direct ``A`` frame first shows the master's framed front answering;
+    the write pass must then leave the master's HTTP /dir/assign count
+    where it was (every assign went over the framed front)."""
+    res = {"framed_assign": framed_assign(master, collection)}
+    before = http_assigns(master)
+    res["write"] = run_benchmark(master, [
+        "-useTcp", "-n", str(n), "-size", str(size), "-c", str(clients),
+        "-collection", collection, "-phase", "write", "-seed", str(seed),
+        "-fidsFile", fids_path], 1800)["write"]
+    res["http_assigns_during_write"] = http_assigns(master) - before
+    if res["http_assigns_during_write"]:
+        raise AssertionError(f"{res['http_assigns_during_write']} assigns "
+                             f"fell back to HTTP")
+    r = run_benchmark(master, [
+        "-useTcp", "-size", str(size), "-c", str(clients), "-phase", "read",
+        "-fidsFile", fids_path, "-zipf", str(zipf)], 1800)
+    if r["read"]["n"] != n or r["zipf"]["n"] != zipf:
+        raise AssertionError(f"framed reads: {r}")
+    res["read"], res["zipf"] = r["read"], r["zipf"]
+    res["mismatches"] = sum(res[k]["mismatches"]
+                            for k in ("write", "read", "zipf"))
+    res["degraded_binds"] = degraded_binds(master)
+    return res
+
+
+def _parse_batch_answer(payload: bytes) -> list:
+    """A /batch/read body -> each fid's bytes, or None where it failed."""
+    from seaweedfs_tpu_torch.utils.framing import U32
+
+    out, i = [], 0
+    while i < len(payload):
+        n = U32.unpack_from(payload, i + 1)[0]
+        out.append(payload[i + 5:i + 5 + n] if payload[i] == 0 else None)
+        i += 5 + n
+    return out
+
+
+def batch_leg(master: str, fids: list[tuple], size: int, needles: int,
+              batch: int, collection: str, seed: int) -> dict:
+    """The batched planes on ``needles`` of a pass's fids, ``batch`` a
+    request, each batch one volume's: framed ``B`` (TcpVolumeClient
+    .batch_read) and ``POST /batch/read``, every answer the needle's own
+    bytes; then as many fresh fids written with framed ``P``
+    (``batch_write``) and read back both ways, equal; then one torn
+    ``/batch/write`` body, which must answer 400 with nothing written."""
+    from seaweedfs_tpu_torch.__main__ import bench_payload, expected_payload
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+    from seaweedfs_tpu_torch.volume_server.tcp import (TcpVolumeClient,
+                                                       pack_fid_frames,
+                                                       tcp_address)
+
+    tcp = TcpVolumeClient()
+    res: dict = {"needles": needles, "batch": batch}
+    by_vid: dict[int, list[tuple]] = {}
+    for fid, pid in fids[:needles]:
+        by_vid.setdefault(FileId.parse(fid).volume_id, []).append((fid, pid))
+    holder = {vid: http_json("GET", f"http://{master}/dir/lookup?volumeId="
+                                    f"{vid}")["locations"][0]["url"]
+              for vid in by_vid}
+    batches = [(holder[vid], group[i:i + batch])
+               for vid, group in sorted(by_vid.items())
+               for i in range(0, len(group), batch)]
+
+    def read_both(url: str, group: list[tuple[str, bytes]], leg: str
+                  ) -> None:
+        fids_only = [f for f, _ in group]
+        t0 = time.perf_counter()
+        got = tcp.batch_read(tcp_address(url), fids_only)
+        t1 = time.perf_counter()
+        status, body, _ = http_bytes(
+            "POST", f"http://{url}/batch/read",
+            json.dumps({"fids": fids_only}).encode())
+        t2 = time.perf_counter()
+        want = [d for _, d in group]
+        if status != 200 or got != want or _parse_batch_answer(body) != want:
+            raise AssertionError(f"{leg} batch of {len(group)} at {url}: "
+                                 f"status {status}, answers differ")
+        walls[f"{leg}_tcp"] += t1 - t0
+        walls[f"{leg}_http"] += t2 - t1
+
+    walls = dict.fromkeys(("read_tcp", "read_http", "written_tcp",
+                           "written_http", "write_tcp"), 0.0)
+    for url, group in batches:
+        read_both(url, [(f, expected_payload(pid, size)) for f, pid in group],
+                  "read")
+    written = 0
+    for b in range(-(-needles // batch)):
+        a = http_json("GET", f"http://{master}/dir/assign?count={batch}"
+                             f"&collection={collection}")
+        base = FileId.parse(a["fid"])
+        items = [(str(FileId(base.volume_id, base.key + i, base.cookie)),
+                  bench_payload((seed << 32) | (b * batch + i), size))
+                 for i in range(batch)]
+        t0 = time.perf_counter()
+        ok = tcp.batch_write(tcp_address(a["url"]), items)
+        walls["write_tcp"] += time.perf_counter() - t0
+        if ok != [True] * batch:
+            raise AssertionError(f"batch_write at {a['url']}: {ok}")
+        read_both(a["url"], items, "written")
+        written += batch
+    a = http_json("GET", f"http://{master}/dir/assign?count={batch}"
+                         f"&collection={collection}")
+    base = FileId.parse(a["fid"])
+    items = [(str(FileId(base.volume_id, base.key + i, base.cookie)),
+              bench_payload(((seed + 1) << 32) | i, size))
+             for i in range(batch)]
+    status, body, _ = http_bytes("POST", f"http://{a['url']}/batch/write",
+                                 pack_fid_frames(items, True)[:-1])
+    after = tcp.batch_read(tcp_address(a["url"]), [f for f, _ in items])
+    if status != 400 or any(x is not None for x in after):
+        raise AssertionError(f"torn /batch/write: {status} {body[:200]!r}, "
+                             f"{sum(x is not None for x in after)} written")
+    res.update(batches_read=len(batches), written=written,
+               torn_write={"status": status, "written": 0,
+                           "answer": body.decode(errors="replace")[:200]},
+               seconds=walls, bytes_equal=True,
+               needles_per_s={k: (needles if k.startswith("read")
+                                  else written) / v
+                              for k, v in walls.items() if v})
+    return res
+
+
 def bench_gets(master: str, fids: list[tuple[str, int]], picks, size: int,
                seed: int) -> list[tuple[str, int, float]]:
     """GET each picked (fid, payload id) through one WeedClient; every body
@@ -3934,7 +4171,8 @@ def bench_gets(master: str, fids: list[tuple[str, int]], picks, size: int,
 def run_dataplane_phase(engine: str, work: str, n: int, size: int,
                         clients: int, zipf: int, degraded: int,
                         threaded_writes: int, volumes: int = 7,
-                        servers: int = 5, pulse_seconds: float = 0.5
+                        servers: int = 5, pulse_seconds: float = 0.5,
+                        batch_needles: int = 1000, batch: int = 100
                         ) -> dict:
     """The serving front under upstream ``weed benchmark``'s load, on each
     front in turn.  A CLI master and ``servers`` CLI volume servers,
@@ -3946,7 +4184,13 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
     WEED_DATAPLANE=threaded: ``threaded_writes`` more writes, the same read
     and Zipf passes; then on the reactor again, the read and Zipf passes
     once more (reactor, threaded, reactor: the host's drift shows between
-    the two reactor passes).  Then ``ec.encode -collection benchmark`` of
+    the two reactor passes).  On the first reactor and on the threaded
+    front, ``benchmark -useTcp`` (``tcp_passes``) writes ``n`` more needles
+    over the framed planes, its assigns over the master's framed front,
+    and reads them back shuffled and Zipf; after the reactor's, the batch
+    leg (``batch_leg``: ``batch_needles`` of them, ``batch`` a request).
+    No framed plane may come up degraded (``degraded_binds``, read after
+    every start).  Then ``ec.encode -collection benchmark`` of
     every volume; the server holding the most data shards of the largest
     volume stops (two data shards or more gone), and ``degraded`` GETs of
     that volume's fids run from one client, then from ``clients`` at once,
@@ -3963,7 +4207,8 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
     from seaweedfs_tpu_torch.utils.httpd import http_json
 
     collection = "benchmark"
-    res: dict = {"seconds": {}, "fronts": {"reactor": {}, "threaded": {}}}
+    res: dict = {"seconds": {}, "fronts": {"reactor": {}, "threaded": {}},
+                 "tcp": {}, "degraded_binds": {}}
     mport = free_port()
     master = f"127.0.0.1:{mport}"
     mlog = os.path.join(work, "master.log")
@@ -3995,6 +4240,8 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
             start_volume_servers(vs, master, engine, pulse_seconds, front)
             res["seconds"][f"start_{step}_{front}"] = \
                 time.perf_counter() - t0
+            res["degraded_binds"][f"start_{step}_{front}"] = \
+                degraded_binds(master)
             fr = res["fronts"][front]
             if step == 0:
                 res["volumes"] = http_json(
@@ -4021,9 +4268,22 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
             again = "_again" if step == 2 else ""
             fr["read" + again], fr["zipf" + again] = r["read"], r["zipf"]
             fr["read_zipf_counts" + again] = counts_delta(before, after)
-        # (fid, payload id): the two write runs' seeds differ, so every
+            if step < 2:
+                t0 = time.perf_counter()
+                res["tcp"][front] = tcp_passes(
+                    master, n, size, clients, zipf, collection,
+                    SEED + 10 + step, f"{fids_file}.tcp_{front}")
+                res["seconds"][f"tcp_{front}"] = time.perf_counter() - t0
+            if step == 0:
+                t0 = time.perf_counter()
+                res["batch"] = batch_leg(
+                    master, read_fids_file(f"{fids_file}.tcp_{front}"),
+                    size, batch_needles, batch, collection, SEED + 20)
+                res["seconds"]["batch"] = time.perf_counter() - t0
+        # (fid, payload id): the write runs' seeds differ, so every
         # needle's bytes do
-        fids = read_fids_file(fids_file) + read_fids_file(fids_file + ".t")
+        fids = [f for suffix in ("", ".t", ".tcp_reactor", ".tcp_threaded")
+                for f in read_fids_file(fids_file + suffix)]
         by_vid: dict[int, list[tuple[str, int]]] = {}
         for fid, pid in fids:
             by_vid.setdefault(FileId.parse(fid).volume_id, []).append(
@@ -4117,6 +4377,7 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
         start_volume_servers({u: vs[u] for u in alive}, master, engine,
                              pulse_seconds, "threaded")
         res["seconds"]["restart_threaded"] = time.perf_counter() - t0
+        res["degraded_binds"]["restart_threaded"] = degraded_binds(master)
         wait_for("the master to see every survivor's shards",
                  lambda: {s: [u for u in us if u in alive]
                           for s, us in shard_holders(master, vid).items()}
@@ -4264,6 +4525,7 @@ def main() -> int:
         return 2
     from seaweedfs_tpu_torch.ops import _build
     from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+    from seaweedfs_tpu_torch.stats import degraded_bind_metrics
 
     t_all = time.perf_counter()
     card = nvidia_smi("name,power.limit")
@@ -4371,7 +4633,12 @@ def main() -> int:
     for leg, n in http["launches"].items():
         if n <= 0:
             raise AssertionError(f"http leg {leg} launched no kernel")
-    log({"phase": "http_path_done", "dat_bytes": http["dat_bytes"],
+    # the phase's in-process servers share this process's counter
+    http_binds = degraded_bind_metrics().totals()["degraded_binds"]
+    if http_binds:
+        raise AssertionError(f"{http_binds} framed planes came up degraded")
+    log({"phase": "http_path_done", "degraded_binds": http_binds,
+         "dat_bytes": http["dat_bytes"],
          "needles": http["needles"], "shard_bytes": http["shard_bytes"],
          "launches": http["launches"], "seconds": http["seconds"],
          "encode_GBps": http["dat_bytes"] / http["seconds"]["encode"] / 1e9,
@@ -4403,6 +4670,7 @@ def main() -> int:
     if cli["launches"] <= 0:
         raise AssertionError("the CLI's server launched no kernel")
     log({"phase": "cli", "start_line": cli["start_line"],
+         "degraded_binds": cli["degraded_binds"],
          "reduced": {"volume_bytes": CLI_VOLUME_BYTES,
                      "from": "30,000 MB default volume size limit",
                      "why": "run time limit; the cluster phase covers "
@@ -4506,6 +4774,7 @@ def main() -> int:
         "deleted_shard": drain["deleted_shard"], "nvidia_smi": card})
     s = cluster["seconds"]
     log({"phase": "cluster_done", "needles": cluster["needles"],
+         "degraded_binds": cluster["degraded_binds"],
          "upload_bytes": cluster["upload_bytes"],
          "dat_bytes": cluster["dat_bytes"],
          "upload_MBps": cluster["upload_bytes"] / s["upload"] / 1e6,
@@ -4527,7 +4796,8 @@ def main() -> int:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     failover_launches = sum(s["launches"] for s in fo["servers"].values())
-    log({"phase": "failover", "reduced": [
+    log({"phase": "failover", "degraded_binds": fo["degraded_binds"],
+         "reduced": [
         {"volume_bytes": FAILOVER_BYTES,
          "from": "30,000 MB default volume size limit (weed master "
                  "-volumeSizeLimitMB)",
@@ -4563,7 +4833,9 @@ def main() -> int:
         t0 = time.perf_counter()
         dp = run_dataplane_phase("tpu", work, BENCH_N, BENCH_SIZE,
                                  BENCH_CLIENTS, BENCH_ZIPF, BENCH_DEGRADED,
-                                 BENCH_THREADED_WRITES)
+                                 BENCH_THREADED_WRITES,
+                                 batch_needles=BATCH_NEEDLES,
+                                 batch=BATCH_SIZE)
         dp["seconds"]["phase"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4572,15 +4844,23 @@ def main() -> int:
         raise AssertionError("the dataplane phase launched no kernel")
     log({"phase": "dataplane", "reduced": [
         {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
-                               "weed/command/benchmark.go)",
-         "why": "run time limit"},
+                               "weed/command/benchmark.go); 100,000 "
+                               "before the framed passes came",
+         "why": "run time limit: the script aims at half of its 1200 s "
+                "with the framed-TCP passes in"},
+        {"zipf_reads": BENCH_ZIPF, "threaded_writes": BENCH_THREADED_WRITES,
+         "from": "50,000 and 10,000 (n / 2 and n / 10) before",
+         "why": "cut with n"},
         {"pulse_seconds": 0.5, "from": "5 s default heartbeat pulse",
          "why": "the master drops the stopped server after ten pulses"}],
         "shapes": {"size": BENCH_SIZE, "c": BENCH_CLIENTS,
                    "replication": "000", "collection": "benchmark",
                    "zipf": {"reads": BENCH_ZIPF, "theta": 0.99},
                    "degraded_gets": BENCH_DEGRADED,
-                   "threaded_writes": BENCH_THREADED_WRITES},
+                   "threaded_writes": BENCH_THREADED_WRITES,
+                   "batch": {"needles": BATCH_NEEDLES,
+                             "per_request": BATCH_SIZE}},
+        "degraded_binds": dp["degraded_binds"],
         "volumes": dp["volumes"], "needles_by_volume": dp["needles_by_volume"],
         "largest_volume": dp["vid"], "volume_fids": dp["volume_fids"],
         "stopped_server": dp["victim"], "lost_shards": dp["lost_shards"],
@@ -4593,6 +4873,11 @@ def main() -> int:
              "degraded": {k[len("degraded_"):]: v for k, v in fr.items()
                           if k.startswith("degraded_")},
              "nvidia_smi": card})
+    for front, tcp in dp["tcp"].items():
+        log({"phase": f"dataplane_tcp_{front}", "front": front, **tcp,
+             "seconds": dp["seconds"][f"tcp_{front}"], "nvidia_smi": card})
+    log({"phase": "dataplane_batch", "front": "reactor", **dp["batch"],
+         "wall_s": dp["seconds"]["batch"], "nvidia_smi": card})
     log({"phase": "dataplane_done", "launches": dataplane_launches,
          "launches_rule": sum(fr[k]["launches_rule"]
                               for fr in dp["fronts"].values()

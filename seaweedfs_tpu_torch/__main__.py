@@ -56,10 +56,14 @@ order), each answer checked against the bytes written for that needle;
 bytes differ: the first 8 are its payload id (``-seed`` << 32 | its
 index, as upstream's FakeReader puts the id in each body) and the rest
 come from a stream seeded by that id, and the fids file holds ``fid id``
-per line.  It prints the reference's ``write:`` and ``read:`` lines.  Port
+per line.  A line that is a bare fid is a needle the reference's
+``weed.py benchmark`` wrote, and its read is held to that benchmark's one
+payload.  It prints the reference's ``write:`` and ``read:`` lines.
+``-useTcp`` assigns over the master's framed-TCP front and writes and
+reads over the volume servers' framed planes (HTTP port + 20000).  Port
 additions: ``-seed``, ``-zipf N`` reads N more needles drawn Zipf (theta
 0.99, YCSB's default) over the fids, and ``-json`` prints each pass as a
-JSON line too (ops/s, p50/p99 ms, mismatches).  ``-useTcp`` is refused until the framed-TCP front is ported.
+JSON line too (ops/s, p50/p99 ms, mismatches).
 
 Every subcommand first arms the fault points named in ``WEED_FAULTS``
 (utils/faultinject.py ``arm_from_env``), e.g.
@@ -172,8 +176,7 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     b.add_argument("-size", type=int, default=1024)
     b.add_argument("-c", type=int, default=16)
     b.add_argument("-useTcp", action="store_true",
-                   help="write/read over the framed-TCP data path "
-                        "(not ported: refused)")
+                   help="write/read over the framed-TCP data path")
     b.add_argument("-phase", default="both",
                    choices=["both", "write", "read"],
                    help="run only one phase (scaled multi-client benches)")
@@ -378,16 +381,34 @@ def bench_payload(pid: int, size: int) -> bytes:
             + random.Random(pid).randbytes(max(0, size - 8)))[:size]
 
 
-def read_fids_file(path: str) -> list[tuple[str, int]]:
-    """A benchmark fids file -> [(fid, payload id)]."""
+def reference_bench_payload(size: int) -> bytes:
+    """The one payload the reference's benchmark writes to every needle
+    (weed.py ``cmd_benchmark``)."""
+    import random
+
+    return random.Random(0xBE).randbytes(size)
+
+
+def expected_payload(pid, size: int) -> bytes:
+    """The bytes a fids-file needle must read back: its own payload, or
+    the reference's one payload for a bare-fid line (``pid`` None)."""
+    return bench_payload(pid, size) if pid is not None \
+        else reference_bench_payload(size)
+
+
+def read_fids_file(path: str) -> list[tuple[str, int | None]]:
+    """A benchmark fids file -> [(fid, payload id)]; a bare fid (the
+    reference's lines) has the payload id None."""
     out = []
     with open(path) as f:
         for line in f.read().splitlines():
-            fid, _, pid = line.partition(" ")
-            if fid:
-                if not pid.isdigit():
-                    raise SystemExit(f"{path}: {line!r} has no payload id")
-                out.append((fid, int(pid)))
+            fid, _, pid = line.strip().partition(" ")
+            if not fid:
+                continue
+            if pid and not pid.isdigit():
+                raise SystemExit(f"{path}: {line!r}: the payload id is "
+                                 f"not a number")
+            out.append((fid, int(pid) if pid else None))
     return out
 
 
@@ -399,12 +420,8 @@ def cmd_benchmark(args: argparse.Namespace) -> int:
 
     from .client.operation import WeedClient
 
-    if args.useTcp:
-        print("benchmark: -useTcp needs the framed-TCP front, which the "
-              "port has not yet (its next slice)", file=sys.stderr)
-        return 2
     client = WeedClient(args.master)
-    fids: list[tuple[str, int]] = []
+    fids: list[tuple] = []
     to_delete: list[str] = []
     del_rng = random.Random(0xDE1)
 
@@ -412,9 +429,13 @@ def cmd_benchmark(args: argparse.Namespace) -> int:
         pid = (args.seed << 32) | i
         payload = bench_payload(pid, args.size)
         t0 = time.perf_counter()
-        fid = client.upload(payload, name=f"bench{i}",
-                            collection=args.collection,
-                            replication=args.replication)
+        if args.useTcp:
+            fid = client.upload_tcp(payload, collection=args.collection,
+                                    replication=args.replication)
+        else:
+            fid = client.upload(payload, name=f"bench{i}",
+                                collection=args.collection,
+                                replication=args.replication)
         dt = time.perf_counter() - t0
         # -deletePercent: deleted after the pool joins, so write latency
         # stays comparable across runs
@@ -451,16 +472,20 @@ def cmd_benchmark(args: argparse.Namespace) -> int:
             raise SystemExit(f"no fids in {args.fidsFile}")
     mismatches = [0]
 
-    def read_one(fid_pid: tuple[str, int]) -> float:
+    read = client.download_tcp if args.useTcp else client.download
+    count_lock = threading.Lock()
+
+    def read_one(fid_pid: tuple) -> float:
         fid, pid = fid_pid
         t0 = time.perf_counter()
-        got = client.download(fid)
+        got = read(fid)
         dt = time.perf_counter() - t0
-        if got != bench_payload(pid, args.size):
-            mismatches[0] += 1
+        if got != expected_payload(pid, args.size):
+            with count_lock:
+                mismatches[0] += 1
         return dt
 
-    def read_pass(name: str, order: list[tuple[str, int]]) -> None:
+    def read_pass(name: str, order: list[tuple]) -> None:
         mismatches[0] = 0
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(args.c) as ex:

@@ -5,12 +5,18 @@ The port's copy of the HTTP verbs of seaweedfs_tpu/client/operation.py
 delete_content.go, submit.go) with its vid -> locations TTL cache
 (wdclient/vid_map.go).
 
-Not ported: the framed-TCP verbs (``upload_tcp``, ``download_tcp``), the
-push-updated location map (``keep_connected``, wdclient.py) and JWTs.
+``upload_tcp`` and ``download_tcp`` are the framed-TCP verbs (``benchmark
+-useTcp``): the assign goes to the master's framed front (op ``A``), the
+write and the read to the holder's framed plane (volume_server/tcp.py),
+each on the HTTP port + 20000.
+
+Not ported: the push-updated location map (``keep_connected``,
+wdclient.py) and JWTs.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import random
 import time
@@ -83,6 +89,10 @@ class WeedClient:
         self.master = MasterClient(master_url)
         self.rng = random.Random()
         self.last_read_from = ""
+        # the framed verbs' per-thread connections, made at first use;
+        # whether the master's framed assign answered (None: not tried)
+        self._tcp = None
+        self._tcp_assign_ok: Optional[bool] = None
 
     def upload(self, data: bytes, name: str = "", mime: str = "",
                collection: str = "", replication: str = "",
@@ -129,6 +139,82 @@ class WeedClient:
                 continue
             break
         raise last_err
+
+    def _tcp_client(self):
+        from ..volume_server.tcp import TcpVolumeClient
+
+        if self._tcp is None:
+            self._tcp = TcpVolumeClient()
+        return self._tcp
+
+    def upload_tcp(self, data: bytes, collection: str = "",
+                   replication: str = "", ttl: str = "") -> str:
+        """Framed-TCP assign + write; returns the fid.  The assign falls
+        back to HTTP when the master's framed front does not answer (a
+        follower, a port taken) and remembers which worked; a volume that
+        went read-only is re-assigned; a holder whose framed plane is
+        closed takes the write over HTTP."""
+        from ..volume_server.tcp import tcp_address
+
+        tcp = self._tcp_client()
+        a = None
+        if self._tcp_assign_ok is not False:
+            try:
+                r = json.loads(tcp.request(
+                    tcp_address(self.master.master_url), b"A", "",
+                    json.dumps({"collection": collection,
+                                "replication": replication,
+                                "ttl": ttl}).encode()))
+                a = Assignment(r["fid"], r["url"],
+                               r.get("publicUrl", r["url"]),
+                               int(r.get("count", 1)))
+                self._tcp_assign_ok = True
+            except (OSError, ValueError, KeyError):
+                self._tcp_assign_ok = False
+        if a is None:
+            a = self.master.assign(collection=collection,
+                                   replication=replication, ttl=ttl)
+        for attempt in range(5):
+            try:
+                tcp.write(tcp_address(a.url), a.fid, data)
+                return a.fid
+            except (ConnectionError, OSError) as e:
+                if "read only" in str(e) and attempt < 4:
+                    # fenced between the assign and the write: re-assign
+                    # once the read-only delta reaches the master
+                    time.sleep(0.15 * (attempt + 1))
+                    a = self.master.assign(collection=collection,
+                                           replication=replication, ttl=ttl)
+                    continue
+                # the holder's framed plane is closed (its port was
+                # taken): the assignment stands, the write goes over HTTP
+                status, body, _ = http_bytes(
+                    "POST", f"http://{a.url}/{a.fid}", data, timeout=60.0)
+                if status in (200, 201):
+                    return a.fid
+                if (status == 409 or b"read only" in body) and attempt < 4:
+                    time.sleep(0.15 * (attempt + 1))
+                    a = self.master.assign(collection=collection,
+                                           replication=replication, ttl=ttl)
+                    continue
+                raise HttpError(status, body.decode(errors="replace"))
+        return a.fid  # pragma: no cover
+
+    def download_tcp(self, fid: str) -> bytes:
+        """Framed-TCP read from the volume's first holder; a holder whose
+        framed plane is closed is read over HTTP.  An error frame (a
+        missing needle, an EC volume) raises OSError with its text."""
+        from ..volume_server.tcp import tcp_address
+
+        tcp = self._tcp_client()
+        vid = int(fid.split(",")[0])
+        urls = self._locate_retry(vid)
+        if not urls:
+            raise HttpError(404, f"volume {vid} has no locations")
+        try:
+            return tcp.read(tcp_address(urls[0]), fid)
+        except ConnectionError:
+            return self.download(fid)
 
     def download(self, fid: str) -> bytes:
         """Full-blob GET; a gzip-encoded reply is decompressed."""

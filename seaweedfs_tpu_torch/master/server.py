@@ -93,10 +93,17 @@ leader (503 while no leader is elected), forwards POSTs to it, and
 answers a heartbeat with ``{"leader", "not_leader": true}``.  With no
 peers the master is the leader at once.
 
+The framed-TCP assign front (utils/framing.py, op ``A``: a JSON body of
+/dir/assign's parameters, /dir/assign's answer as JSON) listens on the
+HTTP port + 20000, wrapping down past 65535.  It answers on the leader
+only; a follower's answer is the error frame ``PermissionError: not the
+leader``, and the client falls back to HTTP.  A failed bind leaves the
+master up without it: a ``degraded_bind`` event and
+``SeaweedFS_server_degraded_binds_total{role="master-tcp"}``.
+
 Not ported: ``master/follower.py`` (it needs ``/cluster/watch`` and
 wdclient), the /cluster/ heat, ledger, workload, capacity, autoscale and
-watch routes, the maintenance scripts, the framed-TCP assign front, and
-security (guard, JWT, TLS).
+watch routes, the maintenance scripts, and security (guard, JWT, TLS).
 """
 
 from __future__ import annotations
@@ -119,7 +126,8 @@ from ..observability.events import (HEALTH_EVENT_TYPES,
                                     get_journal)
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops.coordinator import EcCoordinator
-from ..stats import REGISTRY, master_metrics, request_plane_metrics
+from ..stats import (REGISTRY, degraded_bind_metrics, master_metrics,
+                     request_plane_metrics)
 from ..stats.aggregate import ClusterAggregator
 from ..stats.metrics import exemplars_requested
 from ..storage.file_id import format_needle_id_cookie
@@ -127,6 +135,7 @@ from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..utils.admission import maybe_controller
 from ..utils.debug import register_debug_routes
+from ..utils.framing import FramedServer, note_degraded_bind, tcp_port_for
 from ..utils.httpd import (HttpError, Request, Response, Router,
                            extract_upload, http_json, qfloat, qint, serve,
                            stop_server)
@@ -182,11 +191,13 @@ class MasterServer:
         self.seq = MemorySequencer()
         self.metrics = master_metrics()
         request_plane_metrics()  # its families exist on /metrics at 0
+        degraded_bind_metrics()
         self.router = Router("master", metrics=self.metrics)
         self.router.server_url = self.url
         self.router.admission = maybe_controller(max_inflight, "master")
         self._register_routes()
         self._server = None
+        self._tcp_server = None
         self._stop = threading.Event()
         # admin lock (shell exclusivity), guarded by topo.lock
         self._admin_token: Optional[int] = None
@@ -254,6 +265,7 @@ class MasterServer:
         self._trace_shipper.attach()
         self._event_shipper.attach()
         self._server = serve(self.router, self.host, self.port)
+        self._start_tcp_assign()
         self.raft.start()
         threading.Thread(target=self._janitor_loop, daemon=True,
                          name="master-janitor").start()
@@ -267,9 +279,39 @@ class MasterServer:
                              name="master-vacuum-scan").start()
         return self
 
+    def _tcp_assign(self, op: bytes, key: str, body: bytes) -> bytes:
+        """The framed assign op ``A``: a JSON body of /dir/assign's
+        parameters -> /dir/assign's answer as JSON.  Leader only: a
+        follower refuses, and the client falls back to HTTP, whose
+        redirects reach the leader."""
+        if op != b"A":
+            raise ValueError(f"unknown op {op!r}")
+        if not self.is_leader:
+            raise PermissionError("not the leader")
+        params = json.loads(body) if body else {}
+        return json.dumps(self.assign_fid(
+            count=int(params.get("count", 1)),
+            collection=params.get("collection", ""),
+            replication=params.get("replication", ""),
+            ttl_str=params.get("ttl", ""),
+            preferred_dc=params.get("dataCenter", ""))).encode()
+
+    def _start_tcp_assign(self) -> None:
+        """The framed-TCP assign front on the HTTP port + 20000, which
+        ``upload_tcp`` asks first.  A failed bind leaves the master up
+        without it, and says so."""
+        self._tcp_server = FramedServer(
+            self._tcp_assign, self.host, tcp_port_for(self.port),
+            name="tcp-master").start()
+        if not self._tcp_server.alive:
+            note_degraded_bind("master-tcp", self.url,
+                               self._tcp_server.port)
+
     def stop(self) -> None:
         self._stop.set()
         self.coordinator.stop()
+        if self._tcp_server is not None:
+            self._tcp_server.stop()
         self.raft.stop()
         if self._server is not None:
             stop_server(self._server)

@@ -23,6 +23,7 @@ EC coordinator.
 The port emits these types: ``shard_corrupt`` (ec/integrity.py),
 ``scrub_repair``, ``scrub_repair_failed``, ``scrub_unrepairable``
 (volume_server/scrubber.py), ``peer_stale`` (stats/aggregate.py),
+``degraded_bind`` (the volume server's and the master's framed planes),
 ``ec_under_replicated``, ``repair_planned``, ``repair_done``,
 ``repair_failed``, ``rebalance_move`` (ops/coordinator.py),
 ``retry_budget_exhausted`` (utils/backoff.py), ``load_shed``
@@ -60,6 +61,7 @@ EVENT_TYPES = {
     "scrub_repair_failed": "error",     # rebuild raised; rot remains
     "scrub_unrepairable": "critical",   # < k clean shards left
     "peer_stale": "warning",            # master scrape lost a peer
+    "degraded_bind": "warning",         # TCP plane bind failed
     # rebuild/rebalance coordinator (ops/coordinator.py, master-side)
     "ec_under_replicated": "error",  # volume dropped below k+1 clean
     "repair_planned": "info",        # coordinator queued + started one
@@ -78,13 +80,12 @@ EVENT_TYPES = {
 }
 
 # the reference's other event types, whose emitters the port does not
-# have (worker supervision, engine fallback, the framed-TCP plane,
-# the request log, the event loop, heat, the resource ledger, the
-# autoscaler): data only, so a reference server's events keep their
-# severity in the port's journals
+# have (worker supervision, engine fallback, the request log, the event
+# loop, heat, the resource ledger, the autoscaler): data only, so a
+# reference server's events keep their severity in the port's journals
 REFERENCE_ONLY_EVENT_TYPES = {
     "worker_restart": "warning", "engine_fallback": "warning",
-    "degraded_bind": "warning", "reqlog_dropped": "warning",
+    "reqlog_dropped": "warning",
     "dataplane_conn_abort": "warning", "heat_shift": "warning",
     "flash_crowd": "error", "loop_stall": "error", "replica_grow": "info",
     "replica_shrink": "info", "tier_committed": "info",
@@ -101,6 +102,7 @@ HEALTH_EVENT_TYPES = {
     "requests_shed": "load_shed",
     "deadline_exceeded": "deadline_exceeded",
     "retry_budget_exhausted": "retry_budget_exhausted",
+    "degraded_binds": "degraded_bind",
 }
 
 # the reference's rows of that mapping for the families the port has no
@@ -109,7 +111,6 @@ HEALTH_EVENT_TYPES = {
 REFERENCE_ONLY_HEALTH_EVENT_TYPES = {
     "worker_restarts": "worker_restart",
     "engine_fallbacks": "engine_fallback",
-    "degraded_binds": "degraded_bind",
     "reqlog_records_dropped": "reqlog_dropped",
     "dataplane_conn_aborts": "dataplane_conn_abort",
     "loop_lag": "loop_stall",

@@ -25,7 +25,10 @@ families under the reference's names:
     aborted connections (utils/eventloop.py);
   - ``NeedleCacheMetrics``: the needle cache's hits, misses, admissions,
     rejections, evictions, invalidations and resident bytes
-    (volume_server/needle_cache.py).
+    (volume_server/needle_cache.py);
+  - ``DegradedBindMetrics``: servers that came up without their
+    framed-TCP plane, by ``role`` (the reference keeps this family in its
+    ``ECPipelineMetrics``).
 
 A histogram keeps the last OpenMetrics exemplar of each label set (a
 sampled request's trace id on its latency bucket); the exposition shows
@@ -33,9 +36,9 @@ them only when asked, ``expose(exemplars=True)``, which a server's
 ``GET /metrics?exemplars=1`` does (``exemplars_requested``).
 
 Not ported: the push gateway loop, and the families the port cannot have
-or has not ported: ``ECPipelineMetrics`` (parity-worker restarts and CPU
-fallbacks), the volume server's native-plane gauge, the master's
-heartbeat family, heat and the resource ledger.
+or has not ported: the rest of ``ECPipelineMetrics`` (parity-worker
+restarts and CPU fallbacks), the volume server's native-plane gauge, the
+master's heartbeat family, heat and the resource ledger.
 """
 
 from __future__ import annotations
@@ -545,6 +548,22 @@ class NeedleCacheMetrics:
                 "hit_ratio": self.hit_ratio()}
 
 
+class DegradedBindMetrics:
+    """Servers whose framed-TCP plane failed to bind (the HTTP plane still
+    serves): ``role`` is volume-tcp or master-tcp.  Feeds the
+    ``degraded_binds`` health key."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.degraded_binds = registry.counter(
+            "SeaweedFS_server_degraded_binds_total",
+            "Servers that came up without their framed-TCP plane "
+            "(bind failed; HTTP still serves).",
+            labels=("role",))
+
+    def totals(self) -> dict[str, int]:
+        return {"degraded_binds": _total(self.degraded_binds)}
+
+
 _singletons: dict[str, object] = {}
 _singleton_lock = threading.Lock()
 
@@ -582,3 +601,7 @@ def dataplane_metrics() -> DataplaneMetrics:
 
 def needle_cache_metrics() -> NeedleCacheMetrics:
     return _singleton("needle_cache", NeedleCacheMetrics)
+
+
+def degraded_bind_metrics() -> DegradedBindMetrics:
+    return _singleton("degraded_binds", DegradedBindMetrics)

@@ -53,15 +53,13 @@ from ..observability import (analyze, disable_tracing, enable_tracing,
                              get_tracer, render_report)
 from ..observability.events import get_journal
 from ..observability.flightrecorder import get_flightrecorder
-from ..stats import ec_integrity_metrics
+from ..stats import degraded_bind_metrics, ec_integrity_metrics
 from .httpd import HttpError, Request, Response, Router, qfloat
 
 # the reference's pipeline-health counters the port has no path to bump:
-# it runs no worker processes (worker_restarts), never falls back to
-# another engine (engine_fallbacks) and has no framed-TCP plane
-# (degraded_binds)
-_NO_PIPELINE_FAULTS = {"worker_restarts": 0, "engine_fallbacks": 0,
-                       "degraded_binds": 0}
+# it runs no worker processes (worker_restarts) and never falls back to
+# another engine (engine_fallbacks)
+_NO_PIPELINE_FAULTS = {"worker_restarts": 0, "engine_fallbacks": 0}
 
 
 def _profile_text(seconds: float) -> str:
@@ -140,6 +138,7 @@ def register_debug_routes(router: Router) -> None:
         its retry events out."""
         report = analyze(get_tracer(),
                          counters={**_NO_PIPELINE_FAULTS,
+                                   **degraded_bind_metrics().totals(),
                                    **ec_integrity_metrics().totals()})
         if req.query.get("format", "").lower() == "text":
             return Response(raw=render_report(report).encode(),

@@ -34,12 +34,19 @@ connections, workers, dispatches by lane kind, loop lag and stalls, and
 connections aborted with work in flight (``dataplane_conn_aborts``
 health key, a rate-limited ``dataplane_conn_abort`` event).
 
-``WEED_DATAPLANE=threaded`` makes ``serve`` fall back to a thread per
-connection; ``-dataplane.workers N`` sizes the pool before the first
-server starts.
+The framed-TCP fronts (utils/framing.py ``FramedServer``: the volume
+server's needle IO, the master's assign) register their listeners here
+too (``add_framed_listener``): the loop parses each frame without
+blocking and runs its handler on the data lane through ``serve_frame``,
+one frame in flight per connection, so pipelined frames are answered in
+order.  A stop aborts a framed listener's connections as it does an HTTP
+one's.
 
-Not ported: the framed-TCP listener and its frame parser, and the loop's
-fault point.
+``WEED_DATAPLANE=threaded`` makes ``serve`` and ``FramedServer`` fall
+back to a thread per connection; ``-dataplane.workers N`` sizes the pool
+before the first server starts.
+
+Not ported: the loop's fault point.
 """
 
 from __future__ import annotations
@@ -296,12 +303,17 @@ class _Conn:
 class _Listener:
     """One listening socket on the reactor."""
 
-    __slots__ = ("sock", "owner", "router", "conns")
+    __slots__ = ("sock", "kind", "owner", "router", "handler", "name",
+                 "conns")
 
-    def __init__(self, sock: socket.socket, owner, router):
+    def __init__(self, sock: socket.socket, kind: str, owner,
+                 router=None, handler=None, name: str = ""):
         self.sock = sock
+        self.kind = kind              # "http" | "framed"
         self.owner = owner            # the facade server (_stopping)
         self.router = router
+        self.handler = handler        # framed: fn(op, key, body) -> bytes
+        self.name = name
         self.conns: set = set()       # loop-thread-only
 
 
@@ -397,9 +409,19 @@ class Reactor:
 
     # --- listeners ----------------------------------------------------------
     def add_http_listener(self, sock: socket.socket, router, owner) -> None:
-        sock.setblocking(False)
+        self._add_listener(_Listener(sock, "http", owner, router=router))
+
+    def add_framed_listener(self, sock: socket.socket, handler,
+                            name: str, owner) -> None:
+        """A framed-TCP listener (utils/framing.py): each frame runs
+        ``handler`` on the pool through ``serve_frame``."""
+        self._add_listener(_Listener(sock, "framed", owner,
+                                     handler=handler, name=name))
+
+    def _add_listener(self, lst: _Listener) -> None:
+        lst.sock.setblocking(False)
         with self._lock:
-            self._pending.append(("add", _Listener(sock, owner, router)))
+            self._pending.append(("add", lst))
         self.wake()
 
     def remove_listener(self, owner, deadline_s: float = 1.5) -> None:
@@ -656,7 +678,9 @@ class Reactor:
             with conn._lock:
                 if conn.busy or conn.closing or conn.aborted:
                     break
-            if not self._parse_http(conn):
+            parse = self._parse_http if conn.listener.kind == "http" \
+                else self._parse_frame
+            if not parse(conn):
                 break
         self._update_interest(conn)
 
@@ -791,6 +815,43 @@ class Reactor:
 
         _metrics().pool_dispatches.inc()
         self.submit(run, ops=path.startswith(OPS_PRIORITY_PREFIXES))
+        return True
+
+    # --- framed-TCP parsing -------------------------------------------------
+    def _parse_frame(self, conn: _Conn) -> bool:
+        """One frame off the buffer, dispatched onto the pool; True when
+        one was (the caller loops for pipelined frames, one in flight per
+        connection, so they are answered in order)."""
+        from .framing import U16, U32, serve_frame
+
+        buf = conn.inbuf
+        if len(buf) < 3:
+            return False
+        key_len = U16.unpack_from(buf, 1)[0]
+        if len(buf) < 3 + key_len + 4:
+            return False
+        body_len = U32.unpack_from(buf, 3 + key_len)[0]
+        total = 3 + key_len + 4 + body_len
+        if len(buf) < total:
+            return False
+        op = bytes(buf[:1])
+        try:
+            key = bytes(buf[3:3 + key_len]).decode()
+        except UnicodeDecodeError:
+            self._close_conn(conn)
+            return False
+        body = bytes(buf[3 + key_len + 4:total])
+        del conn.inbuf[:total]
+        lst = conn.listener
+        with conn._lock:
+            conn.busy = True
+
+        def run():
+            conn.enqueue(serve_frame(lst.handler, lst.name, op, key, body))
+            conn.request_done(close=False)
+
+        _metrics().pool_dispatches.inc()
+        self.submit(run)
         return True
 
     # --- writeback ----------------------------------------------------------

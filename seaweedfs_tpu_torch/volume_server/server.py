@@ -57,13 +57,27 @@ Range GET of an uncompressed, TTL-less needle on a live volume preads only
 its bytes (``_try_partial_read``) and answers 206 without an ETag, as the
 reference's does; other Range GETs slice the full body.
 
-Not ported: security (guard, JWT, whitelist, TLS), the framed-TCP and
-native planes, mmap, heat, ledger, the request log, tier routes, batch
-routes, tail and image resize.
+The framed-TCP plane (tcp.py ``TcpVolumeServer``: W, R, D and the
+batched B and P ops) listens on the HTTP port + 20000, wrapping down past
+65535 (utils/framing.py ``tcp_port_for``), on the reactor or, under
+``WEED_DATAPLANE=threaded``, a thread per connection.  Its W and D fan out
+to the volume's other replicas over HTTP.  A port that stays taken for 3 s
+leaves the server up without it: a ``degraded_bind`` event and
+``SeaweedFS_server_degraded_binds_total{role="volume-tcp"}``, which
+``/status`` ``EcPipeline`` and the master's /cluster/health read.
+``POST /batch/read`` (a JSON list of fids -> ``status | u32 len | data``
+per fid, in order) and ``POST /batch/write`` (the ``pack_fid_frames``
+stream -> per-fid results; a torn body answers 400 with nothing written;
+each volume's writes go to its replicas as one batch, and a replica's
+per-fid failure fails the batch) are the HTTP plane's batches.
+
+Not ported: security (guard, JWT, whitelist, TLS), the native plane, mmap,
+heat, ledger, the request log, tier routes, tail and image resize.
 """
 
 from __future__ import annotations
 
+import json
 import logging
 import os
 import re
@@ -82,9 +96,9 @@ from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops.gf_matmul import gf_matmul
-from ..stats import (REGISTRY, dataplane_metrics, ec_integrity_metrics,
-                     needle_cache_metrics, request_plane_metrics,
-                     volume_server_metrics)
+from ..stats import (REGISTRY, dataplane_metrics, degraded_bind_metrics,
+                     ec_integrity_metrics, needle_cache_metrics,
+                     request_plane_metrics, volume_server_metrics)
 from ..stats.metrics import exemplars_requested
 from ..storage.file_id import FileId
 from ..storage.needle import (
@@ -120,9 +134,12 @@ from ..utils.httpd import (
     serve,
     stop_server,
 )
+from ..utils.framing import (U32, note_degraded_bind, pack_fid_frames,
+                             unpack_fid_frames)
 from ..utils.ioutil import pread_padded
 from .scrubber import EcScrubber
 from .store import Store
+from .tcp import TcpVolumeServer
 
 FID_PATTERN = r"/(\d+),([0-9a-f]+)"
 # the loop fast path's probe: a plain object path, no query
@@ -132,12 +149,29 @@ _FAST_FID_RE = re.compile(r"^/(\d+),([0-9a-f]+)$", re.IGNORECASE)
 FULL_SYNC_EVERY = 12
 VERSION = "seaweedfs-tpu 0.1"
 # the reference's EC pipeline health under its names: the port has no
-# parity worker processes, no CPU fallback and no framed-TCP plane, so
-# nothing of it can rise.  /status carries the totals, and each admin
-# EC call its change.
-_EC_PIPELINE_TOTALS = {"worker_restarts": 0, "engine_fallbacks": 0,
-                       "degraded_binds": 0}
+# parity worker processes and no CPU fallback, so these never rise.
+# /status carries them beside degraded_binds, and each admin EC call
+# their change.
 _EC_CALL_HEALTH = {"worker_restarts": 0, "engine_fallbacks": 0}
+
+
+# how long a framed plane retries its derived port: a server that just
+# stopped may still hold it
+BIND_RETRY_S = 3.0
+
+
+def _bind_with_retry(factory, role: str, server: str):
+    """``factory()`` -> a started framed server, made again until it binds
+    or BIND_RETRY_S pass; one that never bound is returned not ``alive``,
+    its degraded bind noted (utils/framing.py ``note_degraded_bind``)."""
+    deadline = time.monotonic() + BIND_RETRY_S
+    srv = factory()
+    while not srv.alive and time.monotonic() < deadline:
+        time.sleep(0.15)
+        srv = factory()
+    if not srv.alive:
+        note_degraded_bind(role, server, srv.port)
+    return srv
 
 
 class VolumeServer:
@@ -173,6 +207,8 @@ class VolumeServer:
         request_plane_metrics()
         dataplane_metrics()
         needle_cache_metrics()
+        degraded_bind_metrics()
+        self._tcp_server = None
         self.router = Router("volume", metrics=self.metrics)
         self.router.server_url = self.url
         self.router.admission = maybe_controller(max_inflight, "volume")
@@ -214,6 +250,12 @@ class VolumeServer:
         self._trace_shipper.attach()
         self._event_shipper.attach()
         self._server = serve(self.router, self.store.ip, self.store.port)
+        self._tcp_server = _bind_with_retry(
+            lambda: TcpVolumeServer(
+                self.store, self.store.ip,
+                replicate_write=self._tcp_replicate_write,
+                replicate_delete=self._tcp_replicate_delete).start(),
+            role="volume-tcp", server=self.url)
         threading.Thread(target=self._heartbeat_loop, daemon=True,
                          name=f"heartbeat:{self.url}").start()
         return self
@@ -221,6 +263,8 @@ class VolumeServer:
     def stop(self) -> None:
         self._stop.set()
         self.scrubber.stop(join_timeout=0.5)
+        if self._tcp_server is not None:
+            self._tcp_server.stop()
         if self._server is not None:
             stop_server(self._server)
         self._trace_shipper.detach()
@@ -398,6 +442,27 @@ class VolumeServer:
             self._req_sample = (total, now)
             self._req_busy = (total - prev_total) / dt > 50.0
             return self._req_busy
+
+    def _tcp_replicate_write(self, fid_str: str, data: bytes) -> None:
+        """The framed plane's replica fan-out, over HTTP with the
+        ``type=replicate`` loop guard (topology/store_replicate.go)."""
+        vid = int(fid_str.split(",")[0])
+        for url in self._lookup_replicas(vid):
+            if url == self.url:
+                continue
+            status, _, _ = http_bytes(
+                "POST", f"http://{url}/{fid_str}?type=replicate", data,
+                timeout=60.0)
+            if status not in (200, 201):
+                raise OSError(f"replication to {url} failed: {status}")
+
+    def _tcp_replicate_delete(self, fid_str: str) -> None:
+        vid = int(fid_str.split(",")[0])
+        for url in self._lookup_replicas(vid):
+            if url == self.url:
+                continue
+            http_bytes("DELETE", f"http://{url}/{fid_str}?type=replicate",
+                       timeout=60.0)
 
     def _lookup_replicas(self, vid: int) -> list[str]:
         """Replica locations with a short TTL cache
@@ -629,6 +694,85 @@ class VolumeServer:
                                     headers=headers)
             return Response(raw=body, headers=headers)
 
+        @r.route("POST", "/batch/read")
+        def batch_read(req: Request) -> Response:
+            """Batched GET: ``{"fids": [...]}`` (at most 10,000) ->
+            ``status(1, 0=ok) | u32 len | payload`` per fid, in order; a
+            gzip-stored needle comes back ungzipped, a failed fid's
+            payload is its error's text."""
+            fids = req.json().get("fids", [])
+            if not isinstance(fids, list) or len(fids) > 10000:
+                raise HttpError(400, "fids must be a list of <= 10000")
+            out = []
+            for fid_str in fids:
+                try:
+                    fid = FileId.parse(str(fid_str))
+                    n = self.store.read_needle(fid.volume_id, fid.key,
+                                               fid.cookie)
+                    data = ungzip_data(n.data) if n.is_compressed \
+                        else n.data
+                    out.append(b"\x00" + U32.pack(len(data)))
+                    out.append(data)
+                except Exception as e:  # noqa: BLE001 - a per-fid answer
+                    msg = f"{type(e).__name__}: {e}".encode()[:4096]
+                    out.append(b"\x01" + U32.pack(len(msg)) + msg)
+            return Response(raw=b"".join(out), headers={
+                "X-Batch-Count": str(len(fids))})
+
+        @r.route("POST", "/batch/write")
+        def batch_write(req: Request) -> Response:
+            """Batched PUT: the ``pack_fid_frames`` stream -> per-fid
+            results.  The whole body is unpacked before the store is
+            touched, so a torn one answers 400 with nothing written.  Each
+            volume's writes then go to its replicas as one batch; a
+            replica's failed fid fails the batch."""
+            try:
+                items = unpack_fid_frames(req.body, with_data=True)
+            except ValueError as e:
+                raise HttpError(400, str(e))
+            results = []
+            by_vid: dict[int, list[tuple[str, bytes]]] = {}
+            for fid_str, data in items:
+                try:
+                    fid = FileId.parse(fid_str)
+                    n = Needle(cookie=fid.cookie, id=fid.key, data=data)
+                    n.set_flag(FLAG_HAS_LAST_MODIFIED)
+                    n.last_modified = int(time.time())
+                    self.store.write_needle(fid.volume_id, n)
+                    results.append({"fid": fid_str, "status": 201,
+                                    "size": len(data)})
+                    if req.query.get("type") != "replicate":
+                        by_vid.setdefault(fid.volume_id, []).append(
+                            (fid_str, data))
+                except Exception as e:  # noqa: BLE001 - a per-fid answer
+                    results.append({"fid": fid_str, "status": 500,
+                                    "error": f"{type(e).__name__}: {e}"})
+            for vid, vitems in by_vid.items():
+                for url in self._lookup_replicas(vid):
+                    if url == self.url:
+                        continue
+                    status, rbody, _ = http_bytes(
+                        "POST", f"http://{url}/batch/write?type=replicate",
+                        pack_fid_frames(vitems, with_data=True),
+                        timeout=60.0)
+                    if status != 200:
+                        raise HttpError(
+                            500, f"batch replication to {url} failed: "
+                                 f"{status}")
+                    # the replica answers 200 even when fids failed there:
+                    # a diverged replica fails the batch
+                    try:
+                        rres = json.loads(rbody).get("results", [])
+                    except Exception:  # noqa: BLE001 - counted as missing
+                        rres = []
+                    bad = [x for x in rres if x.get("status") != 201]
+                    if bad or len(rres) != len(vitems):
+                        raise HttpError(
+                            500, f"batch replication to {url}: "
+                                 f"{len(bad) or 'missing'} item(s) "
+                                 f"failed on the replica")
+            return Response({"results": results})
+
         @r.route("POST", FID_PATTERN)
         @r.route("PUT", FID_PATTERN)
         def write_object(req: Request) -> Response:
@@ -735,7 +879,8 @@ class VolumeServer:
                 "Master": self.master_url,
                 "DataCenter": self.data_center,
                 "Rack": self.rack,
-                "EcPipeline": dict(_EC_PIPELINE_TOTALS),
+                "EcPipeline": {**_EC_CALL_HEALTH,
+                               **degraded_bind_metrics().totals()},
                 "EcIntegrity": ec_integrity_metrics().totals(),
                 "EcKernelLaunches": gf_matmul.launches,
                 "NeedleCache": self.store.needle_cache.status(),

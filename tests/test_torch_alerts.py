@@ -268,6 +268,11 @@ def _mask_id(bundle_id: str) -> str:
 
 @pytest.mark.parametrize("profile_s", [0.0, 0.05])
 def test_flight_recorder_round_trip_like_the_reference(tmp_path, profile_s):
+    # a bundle holds its process's exposition: a family in each package's
+    # registry, so the comparison does not hang on which tests ran before
+    # in this process
+    ref_metrics.volume_server_metrics()
+    port_metrics.volume_server_metrics()
     got = {}
     for name, mod in (("ref", ref_fr), ("port", port_fr)):
         fr = mod.FlightRecorder(spool_dir=str(tmp_path / name))

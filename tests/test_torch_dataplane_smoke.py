@@ -1,6 +1,7 @@
 """Rehearse chip_smoke.py's ``dataplane`` phase on the CPU at a tiny size:
-the master, five volume servers, ``benchmark`` and the shell through the
-CLI on the plain versions, the same checks as on the card."""
+the master, five volume servers, ``benchmark`` (over HTTP and, with
+``-useTcp``, over the framed planes), the batch leg and the shell through
+the CLI on the plain versions, the same checks as on the card."""
 
 from __future__ import annotations
 
@@ -12,9 +13,27 @@ def test_dataplane_phase_on_cpu(tmp_path):
     # holds some (1 MiB blocks), and the stopped server's are read
     res = chip_smoke.run_dataplane_phase(
         "cpu", str(tmp_path), n=800, size=16 << 10, clients=4, zipf=300,
-        degraded=80, threaded_writes=40, volumes=1, pulse_seconds=0.3)
+        degraded=80, threaded_writes=40, volumes=1, pulse_seconds=0.3,
+        batch_needles=120, batch=50)
     assert sorted(res["needles_by_volume"]) == sorted(res["volumes"])
-    assert sum(res["needles_by_volume"].values()) == 840
+    # the HTTP writes, then each front's framed writes
+    assert sum(res["needles_by_volume"].values()) == 840 + 2 * 800
+    for front in ("reactor", "threaded"):
+        tcp = res["tcp"][front]
+        assert (tcp["write"]["n"], tcp["read"]["n"], tcp["zipf"]["n"]) == \
+            (800, 800, 300)
+        assert tcp["mismatches"] == 0
+        # every assign of the write pass went over the framed front
+        assert tcp["http_assigns_during_write"] == 0
+        assert tcp["framed_assign"]["fid"]
+        assert tcp["degraded_binds"] == {"volume_servers": 0, "master": 0}
+    assert set(res["degraded_binds"]) == {
+        "start_0_reactor", "start_1_threaded", "start_2_reactor",
+        "restart_threaded"}
+    batch = res["batch"]
+    # 120 needles of the one volume, 50 a request; as many written fresh
+    assert batch["batches_read"] == 3 and batch["written"] == 150
+    assert batch["bytes_equal"] and batch["torn_write"]["status"] == 400
     for front in ("reactor", "threaded"):
         fr = res["fronts"][front]
         assert fr["read"]["n"] == 800 and fr["zipf"]["n"] == 300

@@ -23,6 +23,11 @@ def _port_sources() -> list[str]:
     return sorted(out)
 
 
+def test_the_sources_cover_the_framed_plane():
+    rel = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"utils/framing.py", "volume_server/tcp.py"} <= rel
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top == "jax" or top.startswith("jax") or top == "seaweedfs_tpu"
@@ -52,6 +57,8 @@ def test_no_jax_or_reference_imports(path):
 def test_import_loads_no_jax():
     code = ("import sys\n"
             "import seaweedfs_tpu_torch.volume_server.server\n"
+            "import seaweedfs_tpu_torch.volume_server.tcp\n"
+            "import seaweedfs_tpu_torch.utils.framing\n"
             "import seaweedfs_tpu_torch.__main__\n"
             "import seaweedfs_tpu_torch.interop\n"
             "mods = [m for m in sys.modules if m.split('.')[0] in "
