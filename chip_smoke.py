@@ -192,7 +192,31 @@ result.  Phases, each of which fails the run on any mismatch:
     nothing written.  Every server's framed plane must have bound
     (``degraded_binds`` 0 after each start, here and in every phase
     before: the script picks each HTTP port with its framed port free);
- 9. numbers from the card: leg times and rates, read latency, kernel
+ 9. the volume store (``run_volume_store_phase``): a CLI master and an
+    in-process ``VolumeServer(device="cuda")``; one volume of upstream
+    ``weed benchmark``'s default shape (1,048,576 needles of 1,024 B, each
+    its own seeded payload), the first 65,536 written through
+    ``Volume.write_needle`` and the rest as the same records in bulk,
+    opened in fresh interpreters with the compact and the memory needle
+    map (open seconds and resident bytes per needle; equal live counts
+    and counters); mounted, 1,000 seeded fids and 10 that do not exist
+    deleted by ``/admin/batch_delete`` (the reference's answers, 404 on
+    GET, the deletion counter up 1,000); ``/stats/*``; a second volume
+    taking 16 x 250 ``PUT ?fsync=true`` and as many without (ops/s,
+    p50/p99, the group-commit worker's requests, batches and fsyncs, the
+    fsyncs fewer than the writes, every needle read back); the CLI's
+    ``backup`` of the big volume into a follower that starts from a file
+    copy of its first three quarters, 1,000 more needles and 100 deletes,
+    ``backup`` again applying exactly those 1,100 records (the follower's
+    `.dat` the source's, by sha256), ``fix`` of the follower (its `.idx`
+    loads to the source's live map), ``export`` (a line a live needle),
+    ``upload`` and ``download`` of a seeded file; then
+    ``/admin/ec/generate`` on the card (the dispatch rule's launches, the
+    `.ecx` equal to the plain sorted index, parity against the host
+    table, the kernel against the plain version on the shards' bytes),
+    data shards 2 and 7 deleted and 200 degraded GETs, each its needle's
+    bytes, one launch per lost interval, a batch-deleted needle 404;
+10. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
 Each path runs with gf_matmul.launches set to 0 just before it and read
@@ -258,6 +282,24 @@ BENCH_N, BENCH_SIZE, BENCH_CLIENTS = 10_000, 1024, 16
 BENCH_ZIPF, BENCH_DEGRADED = 5_000, 2_000
 BENCH_THREADED_WRITES = 1_000
 BATCH_NEEDLES, BATCH_SIZE = 1_000, 100
+# the volume_store phase: one volume of upstream weed benchmark's default
+# shape (weed/command/benchmark.go: -n 1048576 -size 1024), each needle's
+# payload its own; 1,000 batch deletes and 10 fids that do not exist; the
+# group-commit pass: 16 writers x 250 PUTs of 1 KiB, with ?fsync=true and
+# without; the backup's second pass: 1,000 more needles and 100 deletes;
+# 200 degraded GETs with data shards 2 and 7 gone
+STORE_NEEDLES, STORE_SIZE = 1 << 20, 1024
+STORE_BATCH_DELETES, STORE_MISSING = 1_000, 10
+STORE_GC_THREADS, STORE_GC_PER_THREAD = 16, 250
+STORE_MORE, STORE_MORE_DELETES = 1_000, 100
+STORE_DEGRADED = 200
+# the backup's follower starts from a file copy of the first three
+# quarters, so its first pass applies the last quarter: the phase's 240 s
+# budget
+STORE_FOLLOWER_SEED = STORE_NEEDLES * 3 // 4
+# the budget is advisory: the phase reports within_budget and fails only
+# on its checks, since the card's host runs it at speeds that drift
+STORE_BUDGET_S = 240.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -4405,6 +4447,566 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
         mproc.stdout.close()
 
 
+# needles a payload block holds: payloads are drawn a block at a time
+PAYLOAD_GROUP = 4096
+
+
+@functools.lru_cache(maxsize=8)
+def _payload_block(seed: int, group: int, size: int) -> bytes:
+    return np.random.default_rng([seed, group]).bytes(PAYLOAD_GROUP * size)
+
+
+def store_payload(seed: int, nid: int, size: int) -> bytes:
+    """Needle ``nid``'s bytes: its own slice of the block drawn from
+    [seed, nid // PAYLOAD_GROUP], so a million payloads are drawn in bulk
+    and any one is drawn again in a block's time."""
+    group, i = divmod(nid, PAYLOAD_GROUP)
+    return _payload_block(seed, group, size)[i * size:(i + 1) * size]
+
+
+def store_cookie(seed: int, nid: int) -> int:
+    return ((nid * 0x9E3779B1) ^ seed) & 0xFFFFFFFF or 1
+
+
+def bulk_fill(prefix: str, first: int, last: int, size: int, seed: int,
+              base_ns: int) -> None:
+    """Append needles ``first``..``last`` - 1 of ``size`` bytes (payload
+    ``store_payload``, cookie ``store_cookie``, no flags, append time
+    ``base_ns`` + id) to the closed volume at ``prefix``: the records and
+    index entries ``Volume.write_needle`` writes for the same needles and
+    append times, encoded a payload block at a time in numpy."""
+    from seaweedfs_tpu_torch.storage.crc import crc32c, masked_value
+    from seaweedfs_tpu_torch.storage.idx import IDX_DTYPE
+    from seaweedfs_tpu_torch.storage.needle import padding_length
+    from seaweedfs_tpu_torch.storage.types import (NEEDLE_PADDING_SIZE,
+                                                   Version)
+
+    body = 4 + size + 1  # data size, data, flags
+    pad = padding_length(body, Version.V3)
+    rec = np.dtype([("cookie", ">u4"), ("id", ">u8"), ("size", ">u4"),
+                    ("data_size", ">u4"), ("data", "u1", size),
+                    ("flags", "u1"), ("crc", ">u4"), ("ns", ">u8"),
+                    ("pad", "u1", pad)])
+    # the padding repeats the header's size bytes, then zeros
+    pad_bytes = np.frombuffer((body.to_bytes(4, "big") + bytes(8))[:pad],
+                              np.uint8)
+    with open(prefix + ".dat", "ab") as dat, open(prefix + ".idx",
+                                                  "ab") as idx:
+        offset = dat.tell()
+        nid = first
+        while nid < last:
+            group, i = divmod(nid, PAYLOAD_GROUP)
+            count = min(PAYLOAD_GROUP - i, last - nid)
+            block = _payload_block(seed, group, size)
+            ids = np.arange(nid, nid + count, dtype=np.uint64)
+            r = np.zeros(count, dtype=rec)
+            r["cookie"] = [store_cookie(seed, x) for x in range(nid,
+                                                                nid + count)]
+            r["id"] = ids
+            r["size"] = body
+            r["data_size"] = size
+            r["data"] = np.frombuffer(block, np.uint8)[
+                i * size:(i + count) * size].reshape(count, size)
+            r["crc"] = [masked_value(crc32c(block[j * size:(j + 1) * size]))
+                        for j in range(i, i + count)]
+            r["ns"] = base_ns + ids
+            r["pad"] = pad_bytes
+            e = np.zeros(count, dtype=IDX_DTYPE)
+            e["key"] = ids
+            e["offset"] = (offset + np.arange(count, dtype=np.int64)
+                           * rec.itemsize) // NEEDLE_PADDING_SIZE
+            e["size"] = body
+            dat.write(r.tobytes())
+            idx.write(e.tobytes())
+            offset += count * rec.itemsize
+            nid += count
+
+
+# run in a fresh interpreter: one open of a volume with a needle-map kind,
+# and the resident bytes it added (statm's resident pages), the heap the
+# imports freed handed back first so that the open's count alone
+OPEN_PROBE = r"""
+import gc, json, os, sys, time
+from seaweedfs_tpu_torch.storage.needle_map_compact import _return_freed_heap
+from seaweedfs_tpu_torch.storage.volume import Volume
+
+def rss():
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE")
+
+d, vid, kind = sys.argv[1], int(sys.argv[2]), sys.argv[3]
+gc.collect()
+_return_freed_heap()
+before = rss()
+t0 = time.perf_counter()
+v = Volume(d, "", vid, needle_map_kind=kind)
+open_s = time.perf_counter() - t0
+gc.collect()
+after = rss()
+nm = v.nm
+live = len(nm)
+print(json.dumps({"kind": kind, "open_s": open_s, "rss_before": before,
+                  "rss_after": after, "live": live, "counters": [
+                      nm.file_counter, nm.file_byte_counter,
+                      nm.deletion_counter, nm.deletion_byte_counter,
+                      nm.max_file_key]}))
+v.close()
+"""
+
+
+def open_probe(directory: str, vid: int, kind: str) -> dict:
+    r = subprocess.run([sys.executable, "-c", OPEN_PROBE, directory,
+                        str(vid), kind], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=900)
+    if r.returncode != 0:
+        raise AssertionError(f"open probe {kind}: {r.stderr[-2000:]}")
+    return json.loads(r.stdout.strip().splitlines()[-1])
+
+
+def run_cli(args: list[str], timeout: float = 900) -> tuple[str, float]:
+    """``python -m seaweedfs_tpu_torch <args>`` to its end; -> (standard
+    output, wall s)."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", *args],
+                       cwd=ROOT, env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"{args[0]}: exit {r.returncode}\n"
+                             f"{r.stderr[-2000:]}")
+    return r.stdout, time.perf_counter() - t0
+
+
+def live_map(idx_path: str):
+    """(keys, offset units, sizes) of the live needles an `.idx` loads to
+    (the compact map's vectorized replay), and its counters."""
+    from seaweedfs_tpu_torch.storage.idx import parse_entries
+    from seaweedfs_tpu_torch.storage.needle_map_compact import _replay_arrays
+
+    with open(idx_path, "rb") as f:
+        counters, k, o, s = _replay_arrays(parse_entries(f.read()))
+    return k, o, s, counters
+
+
+def seed_follower(base: str, follower: str, needles: int) -> int:
+    """A follower volume that already holds the first ``needles`` index
+    entries of ``base`` and the `.dat` up to the record the next one
+    names, copied as files; returns the `.dat` bytes copied."""
+    from seaweedfs_tpu_torch.storage.idx import parse_entries
+    from seaweedfs_tpu_torch.storage.types import (NEEDLE_MAP_ENTRY_SIZE,
+                                                   NEEDLE_PADDING_SIZE)
+
+    if not needles:
+        return 0
+    os.makedirs(follower)
+    with open(base + ".idx", "rb") as f:
+        idx = f.read((needles + 1) * NEEDLE_MAP_ENTRY_SIZE)
+    end = int(parse_entries(idx)["offset"][needles]) * NEEDLE_PADDING_SIZE
+    name = os.path.basename(base)
+    with open(os.path.join(follower, name + ".idx"), "wb") as f:
+        f.write(idx[:needles * NEEDLE_MAP_ENTRY_SIZE])
+    with open(base + ".dat", "rb") as src, \
+            open(os.path.join(follower, name + ".dat"), "wb") as dst:
+        left = end
+        while left:
+            chunk = src.read(min(left, 64 << 20))
+            dst.write(chunk)
+            left -= len(chunk)
+    return end
+
+
+def plain_sorted_index(idx_path: str) -> bytes:
+    """What WriteSortedFileFromIdx must write for an `.idx`, in numpy: the
+    last entry of each key, kept unless it is a tombstone or never
+    written, ascending by key."""
+    from seaweedfs_tpu_torch.storage.idx import IDX_DTYPE
+
+    e = np.fromfile(idx_path, dtype=IDX_DTYPE)
+    keys = e["key"].astype(np.uint64)
+    order = np.argsort(keys, kind="stable")
+    e, keys = e[order], keys[order]
+    last = np.ones(len(e), dtype=bool)
+    last[:-1] = keys[:-1] != keys[1:]
+    e = e[last]
+    return e[(e["offset"] != 0) & (e["size"] != -1)].tobytes()
+
+
+def run_volume_store_phase(device: str, work: str, n: int, size: int,
+                           batch_deletes: int, missing: int,
+                           gc_threads: int, gc_per_thread: int, more: int,
+                           more_deletes: int, degraded: int,
+                           follower_seed: int = 0,
+                           seed: int = SEED + 17) -> dict:
+    """The volume store's remainders on one volume of ``n`` needles of
+    ``size`` bytes.  A CLI master and an in-process VolumeServer on
+    ``device``, pointed at it.  Fill: volume 1 written here, its first
+    sixteenth through ``Volume.write_needle`` and the rest by
+    ``bulk_fill`` (for the phase's budget), then opened in a fresh interpreter with
+    the compact and with the memory needle map (open seconds, resident
+    bytes per needle, live count and counters equal).  Batch delete:
+    volume 1 mounted, ``batch_deletes`` seeded fids and ``missing`` that
+    do not exist to /admin/batch_delete, every answer the reference's
+    rule, the deleted fids' GETs 404, the deletion counter up by
+    ``batch_deletes``; /stats/*.  Group commit: volume 2, ``gc_threads`` x
+    ``gc_per_thread`` PUTs of ``size`` bytes with ?fsync=true, then as
+    many without, ops/s, p50/p99 and the worker's counts (fsyncs fewer
+    than writes), every needle read back.  The CLI: ``backup`` of volume
+    1 into a follower (which starts from a file copy of the first
+    ``follower_seed`` needles' records, ``seed_follower``), ``more``
+    needles written and ``more_deletes`` deleted, ``backup`` again (only
+    those records applied, the follower's `.dat` the source's byte for
+    byte); ``fix`` of the follower (its `.idx` loads to the source's live
+    map) and at once ``export`` (one line a live needle); ``upload`` and
+    ``download`` of a seeded file.  The seal:
+    /admin/ec/generate of volume 1 (the encoder's dispatch rule's
+    launches; the `.ecx` the plain sorted index), the parity against the
+    host table and the kernel against the plain version on the shards'
+    bytes, data shards 2 and 7 deleted and ``degraded`` GETs, each the
+    needle's bytes, one launch a lost interval, a batch-deleted needle
+    404.  Returns the phase's numbers; ``launches`` counts the main
+    path's launches only (the encode and the degraded GETs)."""
+    import torch
+
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+    from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
+    from seaweedfs_tpu_torch.ec.gf256 import build_encoding_matrix
+    from seaweedfs_tpu_torch.ops.gf_matmul import (ROWS_PER_LAUNCH, gf_matmul,
+                                                   gf_matmul_plain)
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.needle import Needle
+    from seaweedfs_tpu_torch.storage.volume import Volume
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+
+    def sync():
+        if device == "cuda":
+            torch.cuda.synchronize()
+
+    def fid(vid: int, nid: int) -> str:
+        return str(FileId(vid, nid, store_cookie(seed, nid)))
+
+    res: dict = {"seconds": {}, "launches": 0}
+    t_phase = time.perf_counter()
+    mport = free_port()
+    master = f"127.0.0.1:{mport}"
+    mlog = os.path.join(work, "master.log")
+    mproc = start_cli(["master", "-port", str(mport), "-pulseSeconds",
+                       "0.5"], mlog)
+    vs_dir = os.path.join(work, "vs")
+    os.makedirs(vs_dir)
+    vs = None
+    conn = None
+    try:
+        read_start_line(mproc, mlog, "master listening")
+        vs = VolumeServer([vs_dir], master, port=free_port(), device=device,
+                          pulse_seconds=0.5).start()
+        conn = Conn(vs.url)
+
+        # 1. fill: the first needles through Volume.write_needle, the rest
+        # as the same records encoded in bulk; then one open per
+        # needle-map kind in a fresh process
+        v = Volume(vs_dir, "", 1)
+        direct = n // 16
+        t0 = time.perf_counter()
+        for nid in range(1, direct + 1):
+            v.write_needle(Needle(cookie=store_cookie(seed, nid), id=nid,
+                                  data=store_payload(seed, nid, size)))
+        res["seconds"]["fill_write_needle"] = time.perf_counter() - t0
+        res["fill_write_needle_per_s"] = direct / max(
+            res["seconds"]["fill_write_needle"], 1e-9)
+        v.close()
+        t0 = time.perf_counter()
+        bulk_fill(os.path.join(vs_dir, "1"), direct + 1, n + 1, size, seed,
+                  time.time_ns())
+        res["seconds"]["fill_bulk"] = time.perf_counter() - t0
+        res["dat_bytes"] = os.path.getsize(os.path.join(vs_dir, "1.dat"))
+        res["idx_bytes"] = os.path.getsize(os.path.join(vs_dir, "1.idx"))
+        # one fresh interpreter a kind, both at once
+        kinds = ("compact", "memory")
+        opens: dict = {}
+        run_threads(lambda t: opens.__setitem__(
+            kinds[t], open_probe(vs_dir, 1, kinds[t])), 2, 900)
+        for kind, doc in opens.items():
+            doc["rss_bytes_per_needle"] = \
+                (doc["rss_after"] - doc["rss_before"]) / n
+            if doc["live"] != n:
+                raise AssertionError(f"{kind}: {doc['live']} live of {n}")
+        if opens["compact"]["counters"] != opens["memory"]["counters"]:
+            raise AssertionError(f"counters differ: {opens}")
+        res["open"] = opens
+
+        # 2. batch delete on the mounted volume
+        conn.admin("/admin/mount", {"volume_id": 1})
+
+        def volume_info(vid: int) -> dict:
+            return next(x for x in http_json(
+                "GET", f"http://{vs.url}/status")["Volumes"]
+                if x["id"] == vid)
+
+        before = volume_info(1)
+        rng = np.random.default_rng(seed)
+        gone = sorted(int(x) + 1 for x in rng.choice(
+            n, size=batch_deletes, replace=False))
+        fids = [fid(1, nid) for nid in gone]
+        absent = [fid(1, n + 1 + k) for k in range(missing // 2)] + \
+            [fid(9999, k + 1) for k in range(missing - missing // 2)]
+        t0 = time.perf_counter()
+        answer = conn.admin("/admin/batch_delete", {"fids": fids + absent})
+        res["seconds"]["batch_delete"] = time.perf_counter() - t0
+        body_size = 4 + size + 1  # data size, data, flags
+        want = [{"fid": f, "status": 202, "size": body_size} for f in fids]
+        want += [{"fid": f, "status": 202, "size": 0}
+                 for f in absent[:missing // 2]]
+        want += [{"fid": f, "status": 404, "error": "9999"}
+                 for f in absent[missing // 2:]]
+        if answer["results"] != want:
+            bad = [(a, b) for a, b in zip(answer["results"], want) if a != b]
+            raise AssertionError(f"batch_delete answers: {bad[:3]}")
+        for f in fids:
+            status, _, _ = conn.call("GET", f"/{f}")
+            if status != 404:
+                raise AssertionError(f"GET {f} after its delete: {status}")
+        after = volume_info(1)
+        res["batch_delete"] = {
+            "deleted": len(fids), "absent": len(absent),
+            "delete_count": [before["delete_count"], after["delete_count"]],
+            "deleted_byte_count": [before["deleted_byte_count"],
+                                   after["deleted_byte_count"]],
+            "gets_404": len(fids)}
+        if after["delete_count"] - before["delete_count"] != batch_deletes:
+            raise AssertionError(f"delete_count {before} -> {after}")
+        res["stats"] = {path: http_json("GET", f"http://{vs.url}{path}")
+                        for path in ("/stats/counter", "/stats/memory",
+                                     "/stats/disk")}
+
+        # 3. group commit on a second volume, fsync pass then plain pass
+        conn.admin("/admin/assign_volume", {"volume_id": 2})
+        res["group_commit"] = {}
+        for name, query, base_id in (("fsync", "?fsync=true", 1),
+                                     ("plain", "", 1 + gc_threads
+                                      * gc_per_thread)):
+            lat: list[float] = []
+            lock = threading.Lock()
+
+            def writer(t: int) -> None:
+                c = Conn(vs.url)
+                mine = []
+                try:
+                    for i in range(gc_per_thread):
+                        nid = base_id + t * gc_per_thread + i
+                        t1 = time.perf_counter()
+                        status, body, _ = c.call(
+                            "PUT", f"/{fid(2, nid)}{query}",
+                            store_payload(seed + 2, nid, size))
+                        mine.append(time.perf_counter() - t1)
+                        if status != 201:
+                            raise AssertionError(f"PUT {status} {body!r}")
+                finally:
+                    c.close()
+                with lock:
+                    lat.extend(mine)
+
+            t0 = time.perf_counter()
+            run_threads(writer, gc_threads, 600)
+            wall = time.perf_counter() - t0
+            res["group_commit"][name] = {
+                "writes": len(lat), "wall_s": wall,
+                "ops_per_s": len(lat) / wall, "ms": percentiles(lat)}
+            if name == "fsync":
+                w = vs.store.get_volume(2)._group_commit
+                counts = {"request_count": w.request_count,
+                          "batch_count": w.batch_count,
+                          "fsync_count": w.fsync_count,
+                          "rollback_count": w.rollback_count}
+                if counts["request_count"] != len(lat) or \
+                        not counts["fsync_count"] < len(lat):
+                    raise AssertionError(f"group commit: {counts}")
+                res["group_commit"]["worker"] = counts
+                res["group_commit"]["fsyncs_per_write"] = \
+                    counts["fsync_count"] / len(lat)
+        for nid in range(1, 1 + 2 * gc_threads * gc_per_thread):
+            status, body, _ = conn.call("GET", f"/{fid(2, nid)}")
+            if status != 200 or body != store_payload(seed + 2, nid, size):
+                raise AssertionError(f"read back {fid(2, nid)}: {status}")
+
+        # 4. backup, more writes and deletes, backup again; fix, export
+        wait_for("the master to locate volume 1",
+                 lambda: http_json("GET", f"http://{master}/dir/lookup"
+                                   "?volumeId=1").get("locations"), 60)
+        follower = os.path.join(work, "follower")
+        backup = ["backup", "-master", master, "-volumeId", "1", "-dir",
+                  follower]
+        applied = []
+        base = vs.store.get_volume(1).file_prefix
+        seeded_bytes = seed_follower(base, follower, follower_seed)
+        out, res["seconds"]["backup_1"] = run_cli(backup)
+        applied.append(int(re.search(r"applied (\d+) records", out)
+                           .group(1)))
+        live = sorted(set(range(1, n + 1)) - set(gone))
+        t0 = time.perf_counter()
+        for nid in range(n + 100, n + 100 + more):
+            status, body, _ = conn.call("PUT", f"/{fid(1, nid)}",
+                                        store_payload(seed, nid, size))
+            if status != 201:
+                raise AssertionError(f"PUT more: {status} {body!r}")
+        dropped = [live[int(i)] for i in rng.choice(
+            len(live), size=more_deletes, replace=False)]
+        for nid in dropped:
+            status, _, _ = conn.call("DELETE", f"/{fid(1, nid)}")
+            if status != 200:
+                raise AssertionError(f"DELETE {nid}: {status}")
+        res["seconds"]["more"] = time.perf_counter() - t0
+        out, res["seconds"]["backup_2"] = run_cli(backup)
+        applied.append(int(re.search(r"applied (\d+) records", out)
+                           .group(1)))
+        if applied != [n - follower_seed + batch_deletes,
+                       more + more_deletes]:
+            raise AssertionError(f"backup applied {applied}")
+        t0 = time.perf_counter()
+        src_sha = sha256_file(base + ".dat")
+        if sha256_file(os.path.join(follower, "1.dat")) != src_sha:
+            raise AssertionError("the follower's .dat differs")
+        res["seconds"]["dat_compare"] = time.perf_counter() - t0
+        res["backup"] = {
+            "applied": applied, "dat_bytes": os.path.getsize(base + ".dat"),
+            "dat_sha256_equal": True, "follower_seed_needles": follower_seed,
+            "MBps": [(res["dat_bytes"] - seeded_bytes)
+                     / res["seconds"]["backup_1"] / 1e6,
+                     (more * (size + 40)) / res["seconds"]["backup_2"]
+                     / 1e6]}
+        idx_before_fix = open(os.path.join(follower, "1.idx"), "rb").read()
+        # fix and export at once: export opens the follower's index before
+        # or after fix renames the rebuilt one in, and the two are equal
+        # (checked below); each is timed from its own start to its end
+        t0 = time.perf_counter()
+        runs: dict = {}
+        run_threads(lambda t: runs.__setitem__(t, run_cli(
+            [("fix", "export")[t], "-dir", follower, "-volumeId", "1"])),
+            2, 900)
+        (out, res["seconds"]["fix"]), (listing, res["seconds"]["export"]) = \
+            runs[0], runs[1]
+        res["seconds"]["fix_and_export"] = time.perf_counter() - t0
+        fixed = live_map(os.path.join(follower, "1.idx"))
+        source = live_map(base + ".idx")
+        if not all(np.array_equal(a, b) for a, b in
+                   zip(fixed[:3], source[:3])):
+            raise AssertionError("fix's .idx loads to another live map")
+        live_count = len(source[0])
+        res["fix"] = {"line": out.strip().replace(follower, "<follower>"),
+                      "live": len(fixed[0]),
+                      "idx_bytes_equal_to_backup": open(os.path.join(
+                          follower, "1.idx"), "rb").read() == idx_before_fix}
+        del idx_before_fix
+        listed = sum(1 for line in listing.splitlines()
+                     if line.startswith("id "))
+        if listed != live_count or live_count != n - batch_deletes \
+                + more - more_deletes:
+            raise AssertionError(f"export listed {listed}, live {live_count}")
+        res["export"] = {"listed": listed, "live": live_count}
+        del listing
+        up = os.path.join(work, "upload.bin")
+        with open(up, "wb") as f:
+            f.write(store_payload(seed + 3, 1, 100 << 10))
+        out, res["seconds"]["upload"] = run_cli(
+            ["upload", "-master", master, "-collection", "tools", up])
+        up_fid = json.loads(out.strip().splitlines()[-1])["fid"]
+        got = os.path.join(work, "download.bin")
+        _, res["seconds"]["download"] = run_cli(
+            ["download", "-master", master, "-o", got, up_fid])
+        if open(got, "rb").read() != store_payload(seed + 3, 1, 100 << 10):
+            raise AssertionError("download differs from the upload")
+        res["upload"] = {"fid": up_fid, "bytes": 100 << 10,
+                         "bytes_equal": True}
+
+        # 5. the seal on the card, then degraded GETs
+        plain_ecx = plain_sorted_index(base + ".idx")
+        dat_size = os.path.getsize(base + ".dat")
+        before = gf_matmul.launches
+        t0 = time.perf_counter()
+        conn.admin("/admin/ec/generate", {"volume_id": 1})
+        sync()
+        res["seconds"]["ec_generate"] = time.perf_counter() - t0
+        encode_launches = gf_matmul.launches - before
+        encode_rule = (StreamingEncoder(device="cpu").dispatches_for(
+            dat_size) * -(-4 // ROWS_PER_LAUNCH)) if device == "cuda" else 0
+        if encode_launches != encode_rule:
+            raise AssertionError(f"generate: {encode_launches} launches, "
+                                 f"the rule gives {encode_rule}")
+        with open(base + ".ecx", "rb") as f:
+            if f.read() != plain_ecx:
+                raise AssertionError("the .ecx is not the plain sorted index")
+        conn.admin("/admin/ec/mount", {"volume_id": 1})
+        conn.admin("/admin/delete_volume", {"volume_id": 1})
+        check_shards(base, 8, seed)
+        # the kernel against the plain version on the shards' own bytes
+        # (launches outside the main path's count)
+        width = min(1 << 20, os.path.getsize(base + to_ext(0)))
+        fds = [os.open(base + to_ext(i), os.O_RDONLY) for i in range(14)]
+        try:
+            rows = np.stack([np.frombuffer(os.pread(fd, width, 0), np.uint8)
+                             for fd in fds])
+        finally:
+            for fd in fds:
+                os.close(fd)
+        mt = torch.from_numpy(build_encoding_matrix(10, 14)[10:].copy()).to(
+            vs.store.device)
+        data = torch.from_numpy(rows[:10].copy()).to(vs.store.device)
+        got_parity = gf_matmul(mt, data)
+        err = int((got_parity.int() - gf_matmul_plain(mt, data).int())
+                  .abs().max())
+        if err or not np.array_equal(got_parity.cpu().numpy(), rows[10:]):
+            raise AssertionError(f"kernel vs plain on the shards: {err}")
+        lost = [2, 7]
+        conn.admin("/admin/ec/delete", {"volume_id": 1, "shard_ids": lost})
+        alive = sorted(set(live) - set(dropped))
+        picks = [alive[int(i)] for i in rng.choice(
+            len(alive), size=min(degraded, len(alive)), replace=False)]
+        shards_of = needle_shards(base, 1, picks)
+        rule = sum(s in lost for sh in shards_of for s in sh) \
+            if device == "cuda" else 0
+        before = gf_matmul.launches
+        lat = []
+        for nid in picks:
+            t1 = time.perf_counter()
+            status, body, _ = conn.call("GET", f"/{fid(1, nid)}")
+            lat.append(time.perf_counter() - t1)
+            if status != 200 or body != store_payload(seed, nid, size):
+                raise AssertionError(f"degraded GET {nid}: {status}")
+        sync()
+        get_launches = gf_matmul.launches - before
+        if get_launches != rule:
+            raise AssertionError(f"degraded GETs: {get_launches} launches, "
+                                 f"the rule gives {rule}")
+        status, _, _ = conn.call("GET", f"/{fid(1, gone[0])}")
+        if status != 404:
+            raise AssertionError(f"batch-deleted needle via EC: {status}")
+        res["seal"] = {
+            "dat_bytes": dat_size, "encode_launches": encode_launches,
+            "encode_launches_rule": encode_rule,
+            "ecx_equal_to_plain": True, "kernel_max_abs_err": err,
+            "lost_shards": lost, "gets": len(lat),
+            "get_ms": percentiles(lat), "get_launches": get_launches,
+            "get_launches_rule": rule,
+            "lost_intervals": sum(s in lost for sh in shards_of for s in sh),
+            "deleted_needle_404": True}
+        res["launches"] = encode_launches + get_launches
+        res["kernel_max_abs_err"] = err
+        res["seconds"]["phase"] = time.perf_counter() - t_phase
+    finally:
+        if conn is not None:
+            conn.close()
+        if vs is not None:
+            vs.stop()
+        mproc.send_signal(signal.SIGTERM)
+        try:
+            mproc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            mproc.kill()
+            mproc.wait()
+        mproc.stdout.close()
+    return res
+
+
 def percentiles(seconds: list[float]) -> dict:
     ms = np.array(seconds) * 1e3
     return {"p50": float(np.percentile(ms, 50)),
@@ -4851,6 +5453,11 @@ def main() -> int:
         {"zipf_reads": BENCH_ZIPF, "threaded_writes": BENCH_THREADED_WRITES,
          "from": "50,000 and 10,000 (n / 2 and n / 10) before",
          "why": "cut with n"},
+        {"fill_through_write_needle": STORE_NEEDLES // 16,
+         "from": STORE_NEEDLES,
+         "why": "the phase's 240 s budget: the other needles' records and "
+                "index entries are encoded in bulk (bulk_fill), the bytes "
+                "write_needle writes"},
         {"pulse_seconds": 0.5, "from": "5 s default heartbeat pulse",
          "why": "the master drops the stopped server after ten pulses"}],
         "shapes": {"size": BENCH_SIZE, "c": BENCH_CLIENTS,
@@ -4885,6 +5492,63 @@ def main() -> int:
          "kernel_max_abs_err": worst, "bytes_equal": True,
          "encode": dp["encode_out"], "nvidia_smi": card})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-store-",
+                            dir=_build.BUILD_DIR)
+    try:
+        gf_matmul.launches = 0
+        store = run_volume_store_phase(
+            "cuda", work, STORE_NEEDLES, STORE_SIZE, STORE_BATCH_DELETES,
+            STORE_MISSING, STORE_GC_THREADS, STORE_GC_PER_THREAD, STORE_MORE,
+            STORE_MORE_DELETES, STORE_DEGRADED,
+            follower_seed=STORE_FOLLOWER_SEED)
+        store_counted = gf_matmul.launches
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    store_launches = store["launches"]
+    if store_launches <= 0:
+        raise AssertionError("the volume_store phase launched no kernel")
+    log({"phase": "volume_store", "reduced": [
+        {"needles": STORE_NEEDLES, "needle_bytes": STORE_SIZE,
+         "dat_bytes": store["dat_bytes"],
+         "from": "30,000 MB default volume size limit (weed master "
+                 "-volumeSizeLimitMB); weed benchmark -n 1048576 -size "
+                 "1024 (upstream weed/command/benchmark.go)",
+         "why": "one volume as a writer fills it, at benchmark's default "
+                "count: the run's time limit"},
+        {"backup_first_pass_needles": STORE_NEEDLES - STORE_FOLLOWER_SEED,
+         "from": STORE_NEEDLES,
+         "why": "the phase's 240 s budget: the follower starts from a "
+                "file copy of the first three quarters, so the first "
+                "backup pass applies the last quarter and the batch "
+                "deletes"},
+        {"fill_through_write_needle": STORE_NEEDLES // 16,
+         "from": STORE_NEEDLES,
+         "why": "the phase's 240 s budget: the other needles' records and "
+                "index entries are encoded in bulk (bulk_fill), the bytes "
+                "write_needle writes"},
+        {"pulse_seconds": 0.5, "from": "5 s default heartbeat pulse",
+         "why": "the master locates the mounted volume within a second"}],
+        "seconds": store["seconds"],
+        "budget_s": STORE_BUDGET_S,
+        "within_budget": store["seconds"]["phase"] <= STORE_BUDGET_S,
+        "dat_bytes": store["dat_bytes"], "idx_bytes": store["idx_bytes"],
+        "fill_write_needle_per_s": store["fill_write_needle_per_s"],
+        "open": {k: {x: d[x] for x in ("open_s", "rss_bytes_per_needle",
+                                       "live", "counters")}
+                 for k, d in store["open"].items()},
+        "nvidia_smi": card})
+    log({"phase": "volume_store_admin", "batch_delete": store["batch_delete"],
+         "stats": store["stats"], "group_commit": store["group_commit"],
+         "nvidia_smi": card})
+    log({"phase": "volume_store_tools", "backup": store["backup"],
+         "fix": store["fix"], "export": store["export"],
+         "upload": store["upload"], "nvidia_smi": card})
+    log({"phase": "volume_store_done", "seal": store["seal"],
+         "launches": store_launches,
+         "compare_launches": store_counted - store_launches,
+         "kernel_max_abs_err": store["kernel_max_abs_err"],
+         "nvidia_smi": card})
+
     cases = dict(kernel_cases())
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
@@ -4901,8 +5565,9 @@ def main() -> int:
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
         "launches": launches + resume_launches + trace_ab_launches
         + http_launches + cli["launches"] + cluster_launches
-        + failover_launches + dataplane_launches,
-        "max_abs_err": max(worst, *(s["max_abs_err"] for s in shapes)),
+        + failover_launches + dataplane_launches + store_launches,
+        "max_abs_err": max(worst, store["kernel_max_abs_err"],
+                           *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
         "bound_by": main_shape["bound_by"], "library_ms": None}]})

@@ -1,7 +1,8 @@
-"""Command line: ``python -m seaweedfs_tpu_torch master|volume|shell|compact|benchmark``.
+"""Command line: ``python -m seaweedfs_tpu_torch <subcommand>``.
 
-The ``weed master``, ``weed volume``, ``weed shell``, ``weed compact`` and
-``weed benchmark`` subcommands (weed.py) with the flags this port serves:
+The ``weed`` subcommands master, volume, shell, compact, backup, fix,
+export, upload, download and benchmark (weed.py) with the flags this port
+serves:
 
     python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000 \\
         -coordinatorSeconds 15 -metricsAggregationSeconds 5
@@ -12,6 +13,14 @@ The ``weed master``, ``weed volume``, ``weed shell``, ``weed compact`` and
     python -m seaweedfs_tpu_torch shell -master 127.0.0.1:9333 \\
         -c "ec.encode -volumeId 3; ec.rebuild -volumeId 3"
     python -m seaweedfs_tpu_torch compact -dir /data -collection c -volumeId 3
+    python -m seaweedfs_tpu_torch backup -master 127.0.0.1:9333 \
+        -volumeId 3 -dir /backup
+    python -m seaweedfs_tpu_torch fix -dir /backup -volumeId 3
+    python -m seaweedfs_tpu_torch export -dir /data -volumeId 3 -o v3.tar
+    python -m seaweedfs_tpu_torch upload -master 127.0.0.1:9333 \
+        -dir photos -include '*.jpg' -ttl 1d
+    python -m seaweedfs_tpu_torch download -master 127.0.0.1:9333 \
+        -o out.bin 3,01637037d6
     python -m seaweedfs_tpu_torch benchmark -master 127.0.0.1:9333 \
         -n 100000 -size 1024 -c 16
 
@@ -42,6 +51,15 @@ by point, when there were any.  ``shell -c`` takes the admin lock, runs the
 volume offline (no server may hold it) and prints its size before and
 after.  The master vacuums volumes with 30% garbage or more every 900 s,
 as the reference's does; neither knob is a flag there, so none is here.
+``backup`` follows a volume's server (found through the master) by
+``/admin/tail`` into a follower volume under ``-dir``, so a second run
+applies only the records appended since, deletes included; ``fix``
+rebuilds a volume's ``.idx`` from its ``.dat``, keeping the old one when
+the ``.dat`` is malformed; ``export`` lists a volume's live needles, or
+with ``-o`` writes them to a tar; ``upload`` assigns and writes files (or
+``-dir``'s, filtered by ``-include``) and prints a JSON line with each
+fid; ``download`` writes a fid's bytes to ``-o`` (standard output by
+default).
 
 Servers answer on the process's event-loop reactor (utils/eventloop.py);
 ``-dataplane.workers N`` (before the subcommand) sizes its worker pool, 0
@@ -170,6 +188,39 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     c.add_argument("-dir", default=".")
     c.add_argument("-collection", default="")
     c.add_argument("-volumeId", type=int, required=True)
+    bk = sub.add_parser("backup", help="incremental backup of a volume "
+                                       "into a local follower")
+    bk.add_argument("-master", default="127.0.0.1:9333")
+    bk.add_argument("-volumeId", type=int, required=True)
+    bk.add_argument("-dir", default=".")
+    bk.add_argument("-collection", default="")
+    fx = sub.add_parser("fix", help="rebuild a volume's .idx from its .dat")
+    fx.add_argument("-dir", default=".")
+    fx.add_argument("-collection", default="")
+    fx.add_argument("-volumeId", type=int, required=True)
+    ex = sub.add_parser("export", help="list or tar a volume's needles")
+    ex.add_argument("-dir", default=".")
+    ex.add_argument("-collection", default="")
+    ex.add_argument("-volumeId", type=int, required=True)
+    ex.add_argument("-o", default="", help="output .tar path (default: list)")
+    ex.add_argument("-limit", type=int, default=0)
+    ex.add_argument("-deleted", action="store_true",
+                    help="also list deleted records")
+    up = sub.add_parser("upload", help="upload files through the master")
+    up.add_argument("-master", default="127.0.0.1:9333")
+    up.add_argument("-collection", default="")
+    up.add_argument("-replication", default="")
+    up.add_argument("-ttl", default="",
+                    help="time to live, e.g. 1m, 1h, 1d, 1M, 1y")
+    up.add_argument("-dir", default="",
+                    help="upload the whole folder recursively")
+    up.add_argument("-include", default="",
+                    help="glob of files to upload, works with -dir")
+    up.add_argument("files", nargs="*")
+    dl = sub.add_parser("download", help="download a fid")
+    dl.add_argument("-master", default="127.0.0.1:9333")
+    dl.add_argument("-o", dest="output", default="-")
+    dl.add_argument("fid")
     b = sub.add_parser("benchmark", help="write then read N needles")
     b.add_argument("-master", default="127.0.0.1:9333")
     b.add_argument("-n", type=int, default=1000)
@@ -342,6 +393,180 @@ def cmd_compact(args: argparse.Namespace) -> int:
               f"bytes")
     finally:
         v.close()
+    return 0
+
+
+def cmd_backup(args: argparse.Namespace) -> int:
+    """Incremental backup of a volume to local disk (command/backup.go):
+    follow its server's /admin/tail by append time into a follower
+    volume under ``-dir``; a second run applies only what is new."""
+    from .client.operation import MasterClient
+    from .storage.volume import Volume
+    from .storage.volume_backup import incremental_backup
+    from .utils.httpd import HttpError, http_bytes, http_json
+
+    vid = args.volumeId
+    urls = MasterClient(args.master).lookup(vid)
+    if not urls:
+        raise SystemExit(f"volume {vid} has no locations")
+    src = urls[0]
+    # tail records are raw needles in the source's version's framing
+    version = next((int(v["version"]) for v in http_json(
+        "GET", f"http://{src}/status", timeout=30.0).get("Volumes", [])
+        if int(v["id"]) == vid), 3)
+    if version != 3:
+        raise SystemExit(f"volume {vid} is version {version}: only "
+                         "version 3 volumes are served")
+    follower = Volume(args.dir, args.collection, vid)
+
+    def fetch(since_ns: int) -> tuple[bytes, int]:
+        status, body, headers = http_bytes(
+            "GET", f"http://{src}/admin/tail?volume_id={vid}"
+            f"&since_ns={since_ns}", timeout=300.0)
+        if status != 200:
+            raise HttpError(status, body.decode(errors="replace"))
+        last = next((v for k, v in headers.items()
+                     if k.lower() == "x-last-append-at-ns"), since_ns)
+        return body, int(last)
+
+    try:
+        applied = incremental_backup(follower, fetch)
+    finally:
+        follower.close()
+    print(f"volume {vid}: applied {applied} records from {src} "
+          f"into {args.dir}", flush=True)
+    return 0
+
+
+def cmd_fix(args: argparse.Namespace) -> int:
+    """Rebuild a volume's .idx from its .dat (command/fix.go): one entry
+    per record in .dat order, a tombstone as the live delete writes it,
+    built in a temporary file so a malformed .dat keeps the old index."""
+    from .storage import idx as idx_mod
+    from .storage.needle_map import MemDb
+    from .storage.super_block import SuperBlock
+    from .storage.types import size_is_valid
+    from .storage.volume import volume_file_prefix
+    from .tools.see_dat import walk_dat
+
+    base = volume_file_prefix(args.dir, args.collection, args.volumeId)
+    db = MemDb()
+    count = 0
+    tmp_idx = base + ".idx_fix"
+    try:
+        with open(tmp_idx, "wb") as f:
+            for offset, rec in walk_dat(base + ".dat"):
+                if isinstance(rec, SuperBlock):
+                    continue
+                count += 1
+                if size_is_valid(rec.size):
+                    db.set(rec.id, offset, rec.size)
+                    f.write(idx_mod.pack_entry(rec.id, offset, rec.size))
+                else:
+                    db.unset(rec.id)
+                    f.write(idx_mod.pack_entry(rec.id, offset, -1))
+    except BaseException:
+        os.unlink(tmp_idx)
+        raise
+    os.replace(tmp_idx, base + ".idx")
+    print(f"fix: scanned {count} records ({len(db)} live) to {base}.idx",
+          flush=True)
+    return 0
+
+
+def cmd_export(args: argparse.Namespace) -> int:
+    """List a volume's needles, or write them to a tar (command/export.go):
+    records in .dat order, the deleted ones only listed with -deleted."""
+    import io
+    import tarfile
+
+    from .storage.types import size_is_valid
+    from .storage.volume import Volume
+
+    v = Volume(args.dir, args.collection, args.volumeId)
+    tar_out = tarfile.open(args.o, "w") if args.o else None
+    shown = 0
+    try:
+        live_keys = {nv.key for nv in v.nm}
+
+        def visit(needle, offset: int) -> None:
+            nonlocal shown
+            if args.limit and shown >= args.limit:
+                return
+            deleted = needle.id not in live_keys \
+                or not size_is_valid(needle.size)
+            if deleted and not (args.deleted and tar_out is None):
+                return
+            name = (needle.name or b"").decode(errors="replace")
+            if tar_out is not None:
+                info = tarfile.TarInfo(name=f"{needle.id}_{name}"
+                                       if name else str(needle.id))
+                info.size = len(needle.data)
+                info.mtime = needle.last_modified or 0
+                tar_out.addfile(info, io.BytesIO(needle.data))
+            else:
+                mark = " DELETED" if deleted else ""
+                print(f"id {needle.id} size {needle.size} "
+                      f"name {name!r}{mark}")
+            shown += 1
+
+        v.scan(visit)
+        if tar_out is not None:
+            print(f"export: wrote {shown} files to {args.o}")
+    finally:
+        if tar_out is not None:
+            tar_out.close()
+        v.close()
+    sys.stdout.flush()
+    return 0
+
+
+def walk_matching_files(root: str, include: str):
+    """Every file under ``root``, sorted within each directory, whose name
+    matches the ``include`` glob (all when empty): upload -dir's walk."""
+    import fnmatch
+
+    for dirpath, _, files in os.walk(root):
+        for name in sorted(files):
+            if include and not fnmatch.fnmatch(name, include):
+                continue
+            yield os.path.join(dirpath, name)
+
+
+def cmd_upload(args: argparse.Namespace) -> int:
+    """weed upload (command/upload.go): the files named, or -dir's files
+    matching -include, each assigned through the master with the
+    collection, replication and TTL given; one JSON line per file."""
+    from .client.operation import WeedClient
+
+    client = WeedClient(args.master)
+    paths = list(args.files)
+    if args.dir:
+        if not os.path.isdir(args.dir):
+            raise SystemExit(f"-dir {args.dir!r} is not a directory")
+        paths.extend(walk_matching_files(args.dir, args.include))
+    if not paths:
+        raise SystemExit("nothing to upload: pass files or -dir")
+    for path in paths:
+        with open(path, "rb") as f:
+            fid = client.upload(f.read(), name=path.split("/")[-1],
+                                collection=args.collection,
+                                replication=args.replication, ttl=args.ttl)
+        print(json.dumps({"file": path, "fid": fid}), flush=True)
+    return 0
+
+
+def cmd_download(args: argparse.Namespace) -> int:
+    from .client.operation import WeedClient
+
+    data = WeedClient(args.master).download(args.fid)
+    if args.output == "-":
+        sys.stdout.buffer.write(data)
+        sys.stdout.flush()
+    else:
+        with open(args.output, "wb") as f:
+            f.write(data)
+        print(f"wrote {len(data)} bytes to {args.output}", flush=True)
     return 0
 
 
@@ -522,10 +747,12 @@ def main(argv: list[str]) -> int:
         from .utils.eventloop import configure
 
         configure(workers=args.dataplane_workers)
-    if args.command not in ("compact", "benchmark"):
+    if args.command in ("master", "volume", "shell"):
         _maybe_enable_tracing(args.trace_sample)
     return {"master": cmd_master, "volume": cmd_volume,
             "shell": cmd_shell, "compact": cmd_compact,
+            "backup": cmd_backup, "fix": cmd_fix, "export": cmd_export,
+            "upload": cmd_upload, "download": cmd_download,
             "benchmark": cmd_benchmark}[args.command](args)
 
 

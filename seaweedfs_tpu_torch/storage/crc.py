@@ -14,6 +14,8 @@ the reference the tests compare the library with.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 
 from ..ops import _build
@@ -36,9 +38,26 @@ def _as_u8(data) -> np.ndarray:
         return np.ascontiguousarray(data).view(np.uint8).reshape(-1)
 
 
+_bytes_extend = None
+
+
+def _bytes_crc32c():
+    """crc32c_extend bound to take a bytes object as its pointer: a needle's
+    data goes to the library with no array view made for it."""
+    global _bytes_extend
+    if _bytes_extend is None:
+        fn = _build.load("crc32c").crc32c_extend
+        _bytes_extend = ctypes.CFUNCTYPE(
+            ctypes.c_uint32, ctypes.c_uint32, ctypes.c_char_p,
+            ctypes.c_size_t)(ctypes.cast(fn, ctypes.c_void_p).value)
+    return _bytes_extend
+
+
 def crc32c(data, initial: int = 0) -> int:
     """crc32c of ``data``, continuing from ``initial`` (0 starts afresh;
     google_crc32c.extend semantics)."""
+    if type(data) is bytes:
+        return _bytes_crc32c()(initial, data, len(data))
     arr = _as_u8(data)
     return _build.load("crc32c").crc32c_extend(initial, arr.ctypes.data,
                                                arr.size)

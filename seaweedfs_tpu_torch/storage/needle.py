@@ -26,6 +26,7 @@ reference given the same inputs.
 
 from __future__ import annotations
 
+import struct
 from dataclasses import dataclass, field
 
 from .crc import crc32c, masked_value
@@ -45,6 +46,9 @@ from .types import (
     u32_to_bytes,
     u64_to_bytes,
 )
+
+_HEADER = struct.Struct(">IQ")   # cookie, id (the size follows)
+_TAIL = struct.Struct(">IQ")     # masked CRC, append time
 
 FLAG_IS_COMPRESSED = 0x01
 FLAG_HAS_NAME = 0x02
@@ -170,39 +174,35 @@ class Needle:
         including header, tail, and reference-faithful padding bytes."""
         if version != Version.V3:
             raise ValueError(f"writes version 3 needles only, not {version}")
-        self.checksum = crc32c(self.data)
-        stored_crc = masked_value(self.checksum)
-        out = bytearray()
-        self.data_size = len(self.data)
-        self.size = self.computed_size(version)
-        out += u32_to_bytes(self.cookie)
-        out += u64_to_bytes(self.id)
-        out += size_to_bytes(self.size)
+        data = self.data
+        self.checksum = crc32c(data)
+        self.data_size = len(data)
+        self.size = size = self.computed_size(version)
+        size_bytes = size_to_bytes(size)
+        out = [_HEADER.pack(self.cookie & 0xFFFFFFFF,
+                            self.id & 0xFFFFFFFFFFFFFFFF), size_bytes]
         if self.data_size > 0:
-            out += u32_to_bytes(self.data_size)
-            out += self.data
-            out += bytes([self.flags & 0xFF])
-            if self.has(FLAG_HAS_NAME):
-                name = self.name[: min(len(self.name), 0xFF)]
-                out += bytes([len(name)])
-                out += name
-            if self.has(FLAG_HAS_MIME):
-                mime = self.mime[: min(len(self.mime), 0xFF)]
-                out += bytes([len(mime)])
-                out += mime
-            if self.has(FLAG_HAS_LAST_MODIFIED):
-                out += u64_to_bytes(self.last_modified)[8 - LAST_MODIFIED_BYTES:]
-            if self.has(FLAG_HAS_TTL):
-                out += (self.ttl or TTL()).to_bytes()
-            if self.has(FLAG_HAS_PAIRS):
-                out += u16_to_bytes(len(self.pairs))
-                out += self.pairs
-        pad = padding_length(self.size, version)
-        out += u32_to_bytes(stored_crc)
-        out += u64_to_bytes(self.append_at_ns)
+            flags = self.flags
+            out += (u32_to_bytes(self.data_size), data, bytes((flags & 0xFF,)))
+            if flags & FLAG_HAS_NAME:
+                name = self.name[:0xFF]
+                out += (bytes((len(name),)), name)
+            if flags & FLAG_HAS_MIME:
+                mime = self.mime[:0xFF]
+                out += (bytes((len(mime),)), mime)
+            if flags & FLAG_HAS_LAST_MODIFIED:
+                out.append(
+                    u64_to_bytes(self.last_modified)[8 - LAST_MODIFIED_BYTES:])
+            if flags & FLAG_HAS_TTL:
+                out.append((self.ttl or TTL()).to_bytes())
+            if flags & FLAG_HAS_PAIRS:
+                out += (u16_to_bytes(len(self.pairs)), self.pairs)
+        pad = padding_length(size, version)
+        out.append(_TAIL.pack(masked_value(self.checksum),
+                              self.append_at_ns & 0xFFFFFFFFFFFFFFFF))
         # quirk: padding bytes are header[12:12+pad] == size bytes then zeros
-        out += (size_to_bytes(self.size) + b"\x00" * 8)[:pad]
-        return bytes(out)
+        out.append((size_bytes + b"\x00" * 8)[:pad])
+        return b"".join(out)
 
     # --- read ---------------------------------------------------------
     def parse_header(self, b: bytes) -> None:
@@ -277,3 +277,13 @@ class Needle:
         ts_off = NEEDLE_HEADER_SIZE + size + NEEDLE_CHECKSUM_SIZE
         n.append_at_ns = bytes_to_u64(b[ts_off : ts_off + TIMESTAMP_SIZE])
         return n
+
+    def read_body_bytes(self, body: bytes, version: Version) -> None:
+        """ReadNeedleBodyBytes (needle_read_write.go:386-407): the body
+        after a parsed header, up to and with the append time."""
+        if not body:
+            return
+        self._parse_body_v2(body[:self.size])
+        ts_off = self.size + NEEDLE_CHECKSUM_SIZE
+        self.append_at_ns = bytes_to_u64(body[ts_off:ts_off + TIMESTAMP_SIZE])
+        self.checksum = crc32c(self.data)

@@ -8,15 +8,15 @@ replaying the `.idx` log (needle_map_memory.go:35-56).
 from __future__ import annotations
 
 import os
-from dataclasses import dataclass
-from typing import Iterator, Optional
+from typing import Iterator, NamedTuple, Optional
 
 from . import idx as idx_mod
 from .types import TOMBSTONE_FILE_SIZE, size_is_valid
 
 
-@dataclass(frozen=True)
-class NeedleValue:
+class NeedleValue(NamedTuple):
+    """One needle's entry (a tuple: the compact map makes one per lookup)."""
+
     key: int
     offset: int  # actual byte offset into the .dat file
     size: int
@@ -125,10 +125,16 @@ class MemDb(MemoryNeedleMap):
         db = cls()
         for key, offset, size in idx_mod.iter_index_file(index_path):
             if offset != 0 and size != TOMBSTONE_FILE_SIZE:
-                db._m[key] = NeedleValue(key, offset, size)
+                db.set(key, offset, size)
             else:
-                db._m.pop(key, None)
+                db.unset(key)
         return db
+
+    def set(self, key: int, offset: int, size: int) -> None:
+        self._m[key] = NeedleValue(key, offset, size)
+
+    def unset(self, key: int) -> None:
+        self._m.pop(key, None)
 
     def write_sorted_file(self, path: str) -> None:
         """WriteSortedFileFromIdx output: ascending sorted entries

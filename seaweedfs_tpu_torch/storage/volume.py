@@ -4,9 +4,26 @@ The subset of seaweedfs_tpu/storage/volume.py (weed/storage/volume.go +
 volume_write.go + volume_read.go + volume_vacuum.go + volume_checking.go)
 that the volume server needs: create or open, append and delete needles,
 read them back, describe the volume to the master, and vacuum it.
-Version 3 needles, 4-byte `.idx` offsets and the in-memory needle map
-replayed from the `.idx` log.  The files are byte-compatible with the
-reference's, so either package reads volumes the other wrote.
+Version 3 needles and 4-byte `.idx` offsets.  The files are
+byte-compatible with the reference's, so either package reads volumes the
+other wrote.
+
+The needle map is of the volume's ``needle_map_kind``
+(needle_map_compact.py): "compact" (the default: numpy sections, about 16
+bytes a needle, the `.idx` replayed in one vectorized pass), "memory" (a
+dict, about 400 bytes a needle), "ldb" (compact, checkpointed to a `.ldb`
+snapshot so an open replays only the `.idx` past it) or "sorted" (a
+key-sorted `.sdx` searched on disk, for read-only volumes).  A commit's
+rebuilt map, and a rollback's, keep the kind.
+
+``write_needle`` and ``delete_needle`` append under ``write_lock`` with no
+durability barrier; ``write_needle2`` and ``delete_needle2`` with
+``fsync`` go through the group-commit worker (volume_write.py), which
+makes a batch of up to 128 requests durable with one fsync of the `.dat`
+and one of the `.idx` (the reference fsyncs the `.dat` alone).  A compaction
+commit and ``close`` park the worker before they take ``write_lock``; a
+parked worker's writers append and fsync directly.  ``scan`` visits every
+record of the `.dat` in file order (export's walk).
 
 Every open ends with the crash check (CheckAndFixVolumeDataIntegrity): a
 torn `.idx` entry is cut, index entries that point past the `.dat` or at
@@ -30,8 +47,7 @@ pair just as its handle closed retries on the new one, already published;
 so no read waits out a swap, where the reference's ``_read_at`` retries
 for up to 2 s.
 
-Not ported: the group-commit worker, the other needle-map kinds and their
-`.ldb` snapshot, mmap, tiering, and 5-byte offsets.
+Not ported: mmap, tiering, and 5-byte offsets.
 """
 
 from __future__ import annotations
@@ -40,14 +56,18 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Callable, Optional, TypeVar
+from typing import Callable, Optional, TypeVar, Union
 
 import numpy as np
 
+from ..utils import faultinject
 from . import idx as idx_mod
 from .needle import (Needle, get_actual_size, needle_body_length,
                      parse_needle_tail)
 from .needle_map import MemoryNeedleMap
+from .needle_map_compact import (NEEDLE_MAP_KINDS, CompactNeedleMap,
+                                 SortedFileNeedleMap, snapshot_path_for,
+                                 sorted_path_for)
 from .super_block import SUPER_BLOCK_SIZE, ReplicaPlacement, SuperBlock
 from .ttl import TTL
 from .types import (MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_CHECKSUM_SIZE,
@@ -56,9 +76,12 @@ from .types import (MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_CHECKSUM_SIZE,
                     bytes_to_u32, size_is_valid)
 
 T = TypeVar("T")
+NeedleMap = Union[MemoryNeedleMap, CompactNeedleMap, SortedFileNeedleMap]
 
 # index entries parsed at a time by the crash check's walk from the tail
 _CHECK_BLOCK_ENTRIES = 1024
+# bytes of the .dat a scan reads at a time
+_SCAN_BLOCK = 4 << 20
 
 
 class NotFoundError(KeyError):
@@ -97,6 +120,11 @@ class _DatFile:
     def size(self) -> int:
         return os.fstat(self.fd).st_size
 
+    def sync(self) -> None:
+        if faultinject._points:
+            faultinject.hit("disk.sync")
+        os.fsync(self.fd)
+
     def read_at(self, offset: int, length: int) -> bytes:
         with self._lock:
             if self._closing:
@@ -124,21 +152,32 @@ class _DatFile:
 class Volume:
     def __init__(self, directory: str, collection: str, vid: int,
                  replica_placement: Optional[ReplicaPlacement] = None,
-                 ttl: Optional[TTL] = None):
+                 ttl: Optional[TTL] = None,
+                 needle_map_kind: str = "compact"):
         """Open the volume, or create it with ``replica_placement`` and
-        ``ttl`` in its superblock (an existing volume keeps its own)."""
+        ``ttl`` in its superblock (an existing volume keeps its own), its
+        needle map of ``needle_map_kind``."""
+        if needle_map_kind not in NEEDLE_MAP_KINDS:
+            raise ValueError(f"needle map kind {needle_map_kind!r} is not "
+                             f"one of {sorted(NEEDLE_MAP_KINDS)}")
+        self.needle_map_kind = needle_map_kind
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self.collection = collection
         self.id = vid
         self.read_only = False
         self.last_modified_ts_seconds = 0
+        self.last_append_at_ns = 0
         self.file_prefix = volume_file_prefix(directory, collection, vid)
         # serializes appends to .dat/.idx and the commit's file swap
         # (dataFileAccessLock)
         self.write_lock = threading.Lock()
         # the (needle map, .dat handle) pair readers use; None once closed
-        self._live: Optional[tuple[MemoryNeedleMap, _DatFile]] = None
+        self._live: Optional[tuple[NeedleMap, _DatFile]] = None
+        # the group-commit worker, made at the first fsync write; parked
+        # (and not made again) while a commit or close holds write_lock
+        self._group_commit = None
+        self._worker_parked = False
         # the .idx size when the last compact began (makeupDiff's start)
         self._compact_idx_size: Optional[int] = None
         self._open(replica_placement, ttl)
@@ -152,7 +191,7 @@ class Volume:
         return self.file_prefix + ".idx"
 
     @property
-    def nm(self) -> Optional[MemoryNeedleMap]:
+    def nm(self) -> Optional[NeedleMap]:
         live = self._live
         return live[0] if live is not None else None
 
@@ -188,7 +227,7 @@ class Volume:
                 raise ValueError(f"volume {self.id}: only version 3 volumes "
                                  "with 4-byte offsets are supported")
             self._check_integrity(dat, sb.version)
-            nm = MemoryNeedleMap.load(self.idx_path)
+            nm = NEEDLE_MAP_KINDS[self.needle_map_kind].load(self.idx_path)
         except BaseException:
             dat.close()
             raise
@@ -274,38 +313,60 @@ class Volume:
         ends = offset + used + NEEDLE_PADDING_SIZE - used % NEEDLE_PADDING_SIZE
         return int(ends[offset != 0].max(initial=0))
 
-    def _writable(self) -> tuple[MemoryNeedleMap, _DatFile]:
+    def _writable(self) -> tuple[NeedleMap, _DatFile]:
         """The live pair, for a caller holding write_lock."""
         if self._live is None:
             raise HandleClosedError(f"volume {self.id} is closed")
         return self._live
 
+    def _park_worker(self) -> None:
+        """Stop the group-commit worker, its queue committed, and make
+        none again until ``_unpark_worker``.  Called before a sequence
+        that takes write_lock and waits: a worker made in between would
+        block on the lock, and close's join would wait out its 30 s."""
+        self._worker_parked = True
+        w = self._group_commit
+        if w is not None:
+            w.stop()
+            self._group_commit = None
+
+    def _unpark_worker(self) -> None:
+        self._worker_parked = False
+
     def close(self) -> None:
+        self._park_worker()
         with self.write_lock:
             live, self._live = self._live, None
             if live is not None:
                 nm, dat = live
-                nm.close()
-                os.fsync(dat.fd)
-                dat.close()
+                try:
+                    nm.close()
+                    dat.sync()
+                finally:
+                    dat.close()
 
     def sync(self) -> None:
         """Make every append so far durable: `.dat`, then `.idx`."""
         with self.write_lock:
-            nm, dat = self._writable()
-            os.fsync(dat.fd)
-            nm.sync()
+            self._sync_files()
+
+    def _sync_files(self) -> None:
+        """sync's body, for a caller holding write_lock."""
+        nm, dat = self._writable()
+        dat.sync()
+        nm.sync()
 
     def destroy(self) -> None:
-        """Close and remove the volume's files, a vacuum's included."""
+        """Close and remove the volume's files, a vacuum's and the needle
+        map's included."""
         self.close()
-        for ext in (".dat", ".idx", ".cpd", ".cpx"):
+        for ext in (".dat", ".idx", ".cpd", ".cpx", ".ldb", ".sdx"):
             path = self.file_prefix + ext
             if os.path.exists(path):
                 os.remove(path)
 
     # --- reads that survive the swap (volume.py _read_at) ---------------
-    def _with_live(self, fn: Callable[[MemoryNeedleMap, _DatFile], T]) -> T:
+    def _with_live(self, fn: Callable[[NeedleMap, _DatFile], T]) -> T:
         """``fn(nm, dat)`` on the live pair.  A commit publishes the new
         pair before it closes the old one, so a read whose pair closed
         under it retries on the pair published since; a closed volume
@@ -333,11 +394,10 @@ class Volume:
         return Needle.from_bytes(blob, size, self.version)
 
     # --- write path (volume_write.go) ---------------------------------
-    def _is_file_unchanged(self, nm: MemoryNeedleMap, dat: _DatFile,
-                           n: Needle) -> bool:
+    def _is_file_unchanged(self, dat: _DatFile, n: Needle, nv) -> bool:
+        """Is ``n`` the needle ``nv`` names, cookie and data alike?"""
         if str(self.super_block.ttl):
             return False
-        nv = nm.get(n.id)
         if nv is None or nv.offset == 0 or not size_is_valid(nv.size):
             return False
         old = self._read_needle_at(dat, nv.offset, nv.size)
@@ -362,51 +422,145 @@ class Volume:
 
     def write_needle(self, n: Needle) -> tuple[int, int, bool]:
         """doWriteRequest (volume_write.go:130-178): append the record,
-        then log it in the index.  Returns (offset, size, is_unchanged)."""
+        then log it in the index, with no durability barrier.  Returns
+        (offset, size, is_unchanged)."""
         with self.write_lock:
-            if self.read_only:
-                raise PermissionError(f"volume {self.id} is read only")
-            nm, dat = self._writable()
-            actual = get_actual_size(len(n.data), self.version)
-            if MAX_POSSIBLE_VOLUME_SIZE < nm.content_size + actual:
-                raise OSError(f"volume size limit {MAX_POSSIBLE_VOLUME_SIZE} "
-                              "exceeded")
-            if self._is_file_unchanged(nm, dat, n):
-                return 0, len(n.data), True
-            nv = nm.get(n.id)
-            if nv is not None:
-                existing = Needle()
-                existing.parse_header(
-                    dat.read_at(nv.offset, NEEDLE_HEADER_SIZE))
-                if existing.cookie != n.cookie:
-                    raise CookieMismatchError(
-                        f"mismatching cookie {n.cookie:x}")
-            offset = self._append(dat, n)
-            nm.put(n.id, offset, n.size)
-            if self.last_modified_ts_seconds < n.last_modified:
-                self.last_modified_ts_seconds = n.last_modified
-            return offset, n.size, False
+            return self._do_write(n)
+
+    def _do_write(self, n: Needle,
+                  check_cookie: bool = True) -> tuple[int, int, bool]:
+        """write_needle's body, for a caller holding write_lock.  Without
+        ``check_cookie`` a needle of cookie 0 takes the stored one's."""
+        if self.read_only:
+            raise PermissionError(f"volume {self.id} is read only")
+        nm, dat = self._writable()
+        if isinstance(nm, SortedFileNeedleMap):
+            # refused before the append: no record the map cannot name
+            raise PermissionError(f"volume {self.id}: the sorted-file "
+                                  "needle map is read-only")
+        actual = get_actual_size(len(n.data), self.version)
+        if MAX_POSSIBLE_VOLUME_SIZE < nm.content_size + actual:
+            raise OSError(f"volume size limit {MAX_POSSIBLE_VOLUME_SIZE} "
+                          "exceeded")
+        nv = nm.get(n.id)
+        if self._is_file_unchanged(dat, n, nv):
+            return 0, len(n.data), True
+        if nv is not None:
+            existing = Needle()
+            existing.parse_header(dat.read_at(nv.offset, NEEDLE_HEADER_SIZE))
+            if n.cookie == 0 and not check_cookie:
+                n.cookie = existing.cookie
+            if existing.cookie != n.cookie:
+                raise CookieMismatchError(f"mismatching cookie {n.cookie:x}")
+        offset = self._append(dat, n)
+        self.last_append_at_ns = n.append_at_ns
+        nm.put(n.id, offset, n.size)
+        if self.last_modified_ts_seconds < n.last_modified:
+            self.last_modified_ts_seconds = n.last_modified
+        return offset, n.size, False
 
     def delete_needle(self, n: Needle) -> int:
         """doDeleteRequest (volume_write.go:212-240): append a zero-data
         tombstone record, then log the tombstone in the index.  Returns
         the deleted needle's size, 0 when there was none."""
         with self.write_lock:
-            if self.read_only:
-                raise PermissionError(f"volume {self.id} is read only")
-            nm, dat = self._writable()
-            nv = nm.get(n.id)
-            if nv is None or not size_is_valid(nv.size):
-                return 0
-            n.data = b""
-            nm.delete(n.id, self._append(dat, n))
-            return nv.size
+            return self._do_delete(n)
+
+    def _do_delete(self, n: Needle) -> int:
+        """delete_needle's body, for a caller holding write_lock.  A
+        tombstone that carries its append time (a backup's replay) keeps
+        it: the follower resumes from it."""
+        if self.read_only:
+            raise PermissionError(f"volume {self.id} is read only")
+        nm, dat = self._writable()
+        nv = nm.get(n.id)
+        if nv is None or not size_is_valid(nv.size):
+            return 0
+        n.data = b""
+        offset = self._append(dat, n)
+        self.last_append_at_ns = n.append_at_ns
+        nm.delete(n.id, offset)
+        return nv.size
+
+    # --- fsync writes through group commit (volume_write.go:110-128) ----
+    def group_commit_worker(self):
+        """The volume's worker, made at first use; None while it is
+        parked (the caller then writes and fsyncs directly)."""
+        w = self._group_commit
+        if w is None:
+            with self.write_lock:  # first writers race here
+                if self._worker_parked:
+                    return None
+                w = self._group_commit
+                if w is None:
+                    from .volume_write import GroupCommitWorker
+
+                    w = self._group_commit = GroupCommitWorker(self)
+        return w
+
+    def write_needle2(self, n: Needle,
+                      fsync: bool = False) -> tuple[int, int, bool]:
+        """writeNeedle2: without ``fsync`` write_needle; with it the
+        group-commit worker, durable on return, one fsync of each file a
+        batch."""
+        if not fsync:
+            return self.write_needle(n)
+        return self._durably(lambda: self._do_write(n),
+                             lambda w: w.submit_write(n))
+
+    def delete_needle2(self, n: Needle, fsync: bool = False) -> int:
+        if not fsync:
+            return self.delete_needle(n)
+        return self._durably(lambda: (0, self._do_delete(n), False),
+                             lambda w: w.submit_delete(n))[1]
+
+    def _durably(self, direct: Callable[[], tuple],
+                 submit: Callable) -> tuple:
+        """One fsync request through the worker, or, while it is parked,
+        ``direct()`` and an fsync of the `.dat` and the `.idx` under
+        write_lock.  A worker that a commit stopped before it took the request took none of it: the
+        request goes again (the reference's fails instead)."""
+        from .volume_write import WorkerStoppedError
+
+        while True:
+            w = self.group_commit_worker()
+            if w is None:
+                with self.write_lock:
+                    res = direct()
+                    self._sync_files()
+                    return res
+            try:
+                return submit(w).wait()
+            except WorkerStoppedError:
+                w.wait_stopped()  # then the parker has it out of the way
+
+    def _rollback_appends(self, dat_start: int, idx_start: int) -> None:
+        """A failed batch (write_lock held): cut the `.dat` and the `.idx`
+        back to where it began, drop the map's snapshot or sorted file
+        (they may name the cut entries), and publish a map of the
+        volume's kind reloaded from the cut index."""
+        nm, dat = self._writable()
+        try:
+            os.ftruncate(dat.fd, dat_start)
+        except OSError:
+            pass
+        self._size = dat_start
+        nm.close()
+        for path in (snapshot_path_for(self.idx_path),
+                     sorted_path_for(self.idx_path)):
+            if os.path.exists(path):
+                os.remove(path)
+        if os.path.exists(self.idx_path):
+            with open(self.idx_path, "r+b") as f:
+                f.truncate(idx_start)
+        self._live = (NEEDLE_MAP_KINDS[self.needle_map_kind].load(
+            self.idx_path), dat)
 
     # --- read path (volume_read.go) ------------------------------------
     def read_needle(self, key: int, cookie: Optional[int] = None) -> Needle:
         """readNeedle (volume_read.go:16-63) + handler-level cookie check."""
 
-        def lookup_and_read(nm: MemoryNeedleMap, dat: _DatFile) -> Needle:
+        def lookup_and_read(nm: NeedleMap, dat: _DatFile) -> Needle:
             nv = nm.get(key)
             if nv is None or nv.offset == 0:
                 raise NotFoundError(key)
@@ -430,7 +584,7 @@ class Volume:
         data_size, flags, name, mime); ``loc`` is what read_needle_data
         takes, tied to the `.dat` the metadata was read from."""
 
-        def meta(nm: MemoryNeedleMap, dat: _DatFile):
+        def meta(nm: NeedleMap, dat: _DatFile):
             nv = nm.get(key)
             if nv is None or nv.offset == 0:
                 raise NotFoundError(key)
@@ -463,6 +617,34 @@ class Volume:
         dat, start = loc
         return dat.read_at(start + data_off, length)
 
+    def scan(self, visit: Callable[[Needle, int], None]) -> None:
+        """visit(needle, offset) for every record of the `.dat` in file
+        order, tombstones included (volume_read.go:72-130); a torn tail
+        ends the walk.  Reads the file in _SCAN_BLOCK windows."""
+        offset = self.super_block.block_size
+        end = self.data_size
+        buf, buf_off = b"", offset
+        while offset + NEEDLE_HEADER_SIZE <= end:
+            rel = offset - buf_off
+            if rel + NEEDLE_HEADER_SIZE > len(buf):
+                buf, buf_off, rel = self._read_at(
+                    offset, min(_SCAN_BLOCK, end - offset)), offset, 0
+            n = Needle()
+            n.parse_header(buf[rel:rel + NEEDLE_HEADER_SIZE])
+            body_len = needle_body_length(
+                n.size if size_is_valid(n.size) else 0, self.version)
+            stop = rel + NEEDLE_HEADER_SIZE + body_len
+            if stop > len(buf):  # the record runs past the window
+                buf, buf_off, rel = self._read_at(offset, max(
+                    _SCAN_BLOCK, NEEDLE_HEADER_SIZE + body_len)), offset, 0
+                stop = NEEDLE_HEADER_SIZE + body_len
+                if len(buf) < stop:
+                    break
+            n.read_body_bytes(buf[rel + NEEDLE_HEADER_SIZE:stop],
+                              self.version)
+            visit(n, offset)
+            offset += NEEDLE_HEADER_SIZE + body_len
+
     # --- vacuum (volume_vacuum.go) --------------------------------------
     def garbage_ratio(self) -> float:
         cs = self.content_size
@@ -479,7 +661,9 @@ class Volume:
         with self.write_lock:
             nm, _ = self._writable()
             self._compact_idx_size = os.path.getsize(self.idx_path)
-            live = sorted(nm, key=lambda nv: nv.offset)
+            # a sorted-file map also lists its deleted (negated) entries
+            live = sorted((nv for nv in nm if nv.size >= 0),
+                          key=lambda nv: nv.offset)
             new_sb = self._compacted_super_block()
         with open(self.file_prefix + ".cpd", "wb") as dat_out, \
                 open(self.file_prefix + ".cpx", "wb") as idx_out:
@@ -533,30 +717,46 @@ class Volume:
         cpd, cpx = self.file_prefix + ".cpd", self.file_prefix + ".cpx"
         if not (os.path.exists(cpd) and os.path.exists(cpx)):
             raise FileNotFoundError("no compacted files to commit")
-        with self.write_lock:
-            nm, dat = self._writable()
-            self._makeup_diff(cpd, cpx)
-            # a configure_replication since compact began reaches the new
-            # files too (the reference's commit keeps the old placement)
-            with open(cpd, "r+b") as f:
-                f.write(self._compacted_super_block().to_bytes())
-            for path in (cpd, cpx):
-                fd = os.open(path, os.O_RDONLY)
-                try:
-                    os.fsync(fd)
-                finally:
-                    os.close(fd)
+        # parked before write_lock: the worker's batch may wait on it
+        self._park_worker()
+        try:
+            with self.write_lock:
+                self._commit_compact_locked(cpd, cpx)
+        finally:
+            self._unpark_worker()
+
+    def _commit_compact_locked(self, cpd: str, cpx: str) -> None:
+        nm, dat = self._writable()
+        self._makeup_diff(cpd, cpx)
+        # a configure_replication since compact began reaches the new
+        # files too (the reference's commit keeps the old placement)
+        with open(cpd, "r+b") as f:
+            f.write(self._compacted_super_block().to_bytes())
+        for path in (cpd, cpx):
+            fd = os.open(path, os.O_RDONLY)
             try:
-                os.replace(cpd, self.dat_path)
-                os.replace(cpx, self.idx_path)
-                self._compact_idx_size = None
-                self._open()
-            except BaseException:
-                self._live = None  # the old pair may name replaced files
-                raise
+                os.fsync(fd)
             finally:
-                nm.close()
-                dat.close()
+                os.close(fd)
+        try:
+            # the old map closes over the old index (an ldb map's last
+            # checkpoint describes that index), before the swap
+            nm.close()
+            os.replace(cpd, self.dat_path)
+            os.replace(cpx, self.idx_path)
+            # the compacted index is another history: a snapshot or a
+            # sorted file of the old one must not be read over it
+            for path in (snapshot_path_for(self.idx_path),
+                         sorted_path_for(self.idx_path)):
+                if os.path.exists(path):
+                    os.remove(path)
+            self._compact_idx_size = None
+            self._open()
+        except BaseException:
+            self._live = None  # the old pair may name replaced files
+            raise
+        finally:
+            dat.close()
 
     def cleanup_compact(self) -> None:
         """Drop a compaction's `.cpd`/`.cpx` without committing them."""
@@ -572,8 +772,8 @@ class Volume:
         reads do, locking nothing; a commit's swap restarts the scan on
         the new files.  -> indexed, scanned_live, crc_errors."""
 
-        def scan(nm: MemoryNeedleMap, dat: _DatFile) -> dict:
-            live = list(nm)
+        def scan(nm: NeedleMap, dat: _DatFile) -> dict:
+            live = [nv for nv in nm if nv.size >= 0]
             errors = 0
             for nv in live:
                 try:

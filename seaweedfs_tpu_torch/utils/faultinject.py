@@ -1,9 +1,9 @@
 """Fault injection: named fault points that raise or stall on chosen hits.
 
 The port's copy of seaweedfs_tpu/utils/faultinject.py, with the points the
-port's EC pipeline and its repair coordinator hit.  A point is free when
-nothing is armed (one dict-emptiness check at each site); tests and
-drills arm it:
+port's EC pipeline, its repair coordinator and its volumes' fsync hit.  A
+point is free when nothing is armed (one dict-emptiness check at each
+site); tests and drills arm it:
 
     from seaweedfs_tpu_torch.utils import faultinject as fi
 
@@ -49,6 +49,9 @@ FAULT_POINTS: dict[str, str] = {
                         "bit-rot drill behind verify-on-use and the "
                         "scrubber (ec/ec_volume.py, ec/integrity.py, "
                         "ec/streaming.py rebuild)",
+    "disk.sync": "the fsync of a volume's .dat (a group-commit batch, "
+                 "a direct fsync write, sync, close): an injected error "
+                 "rolls the batch back (storage/volume.py)",
     "coord.plan": "the coordinator's planning cycle: an injected error "
                   "is contained (the loop survives, last_error shows it, "
                   "the next cycle re-plans) (ops/coordinator.py)",

@@ -71,8 +71,18 @@ stream -> per-fid results; a torn body answers 400 with nothing written;
 each volume's writes go to its replicas as one batch, and a replica's
 per-fid failure fails the batch) are the HTTP plane's batches.
 
+``POST /admin/batch_delete`` deletes many fids at once (the filer's chunk
+GC calls it), each answered 202 or 404, fanned out to replicas;
+``GET /admin/tail`` sends a volume's raw records appended after a time
+(the CLI's ``backup`` follows it, storage/volume_backup.py); ``POST
+/query`` filters and projects stored JSON, JSON-lines or CSV objects
+(query/); ``GET /stats/counter``, ``/stats/memory`` and ``/stats/disk``
+are the reference's documents; a GET with ``?width``/``?height`` resizes
+an image (images/, passed through without Pillow).  An ``?fsync=true``
+write or delete goes through its volume's group-commit worker.
+
 Not ported: security (guard, JWT, whitelist, TLS), the native plane, mmap,
-heat, ledger, the request log, tier routes, tail and image resize.
+heat, ledger, the request log and the tier routes.
 """
 
 from __future__ import annotations
@@ -81,6 +91,8 @@ import json
 import logging
 import os
 import re
+import resource
+import sys
 import threading
 import time
 import urllib.parse
@@ -90,12 +102,14 @@ import numpy as np
 from ..ec.ec_volume import NeedleNotFoundError
 from ..ec.integrity import EciSidecar, note_corruption, verify_shard_file
 from ..ec.layout import TOTAL_SHARDS_COUNT, to_ext
+from ..images import resized_from_query
 from ..observability import context as _trace_context
 from ..observability import get_tracer
 from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops.gf_matmul import gf_matmul
+from ..query import execute_query
 from ..stats import (REGISTRY, dataplane_metrics, degraded_bind_metrics,
                      ec_integrity_metrics, needle_cache_metrics,
                      request_plane_metrics, volume_server_metrics)
@@ -116,6 +130,7 @@ from ..storage.volume import (
     NotFoundError,
     volume_file_prefix,
 )
+from ..storage.volume_backup import records_since
 from ..utils.compression import ungzip_data
 from ..utils.admission import maybe_controller
 from ..utils.debug import register_debug_routes
@@ -627,8 +642,10 @@ class VolumeServer:
         def read_object(req: Request) -> Response:
             fid = FileId.parse(f"{req.match.group(1)},{req.match.group(2)}")
             vid = fid.volume_id
+            wants_resize = bool(req.query.get("width")
+                                or req.query.get("height"))
             rng_hdr = req.headers.get("Range", "")
-            if rng_hdr and vid in self.store.volumes:
+            if rng_hdr and not wants_resize and vid in self.store.volumes:
                 partial = self._try_partial_read(req, fid, rng_hdr)
                 if partial is not None:
                     return partial
@@ -662,7 +679,9 @@ class VolumeServer:
                 if n.cookie != fid.cookie:
                     raise HttpError(404, "cookie mismatch")
             etag = f'"{n.etag()}"'
-            if req.headers.get("If-None-Match") == etag:
+            # a resized answer is another entity: its tag is checked after
+            # the resize
+            if not wants_resize and req.headers.get("If-None-Match") == etag:
                 return Response(None, status=304, raw=b"")
             headers = {"ETag": etag, "Accept-Ranges": "bytes"}
             if n.has(FLAG_HAS_NAME) and n.name:
@@ -681,6 +700,21 @@ class VolumeServer:
                     headers["Content-Encoding"] = "gzip"
                 else:
                     body = ungzip_data(body)
+            # ?width / ?height resize an image on the fly (images/), the
+            # bytes passed through when Pillow is absent or it is no image
+            if wants_resize:
+                orig_body = body
+                body, headers["Content-Type"] = resized_from_query(
+                    body, headers["Content-Type"], req.query)
+                if body is not orig_body:
+                    # a resized answer must not share the original's tag
+                    etag = '"%s-%sx%s-%s"' % (
+                        n.etag(), req.query.get("width", ""),
+                        req.query.get("height", ""),
+                        req.query.get("mode", ""))
+                    headers["ETag"] = etag
+                if req.headers.get("If-None-Match") == etag:
+                    return Response(None, status=304, raw=b"")
             if rng_hdr and "Content-Encoding" not in headers:
                 rng = parse_range(rng_hdr, len(body))
                 if rng == UNSATISFIABLE_RANGE:
@@ -912,6 +946,58 @@ class VolumeServer:
                 headers={"Content-Type":
                          "text/plain; version=0.0.4; charset=utf-8"})
 
+        @r.route("GET", "/stats/counter")
+        def stats_counter(req: Request) -> Response:
+            """statsCounterHandler (common.go:228): requests by route, from
+            the counter /metrics exposes."""
+            counters = {labels[0] if labels else "": int(v) for labels, v
+                        in self.metrics.request_counter.snapshot().items()}
+            return Response({"Version": VERSION, "Counters": counters})
+
+        @r.route("GET", "/stats/memory")
+        def stats_memory(req: Request) -> Response:
+            ru = resource.getrusage(resource.RUSAGE_SELF)
+            # ru_maxrss is KiB on Linux, bytes on macOS
+            rss_kb = (ru.ru_maxrss // 1024 if sys.platform == "darwin"
+                      else ru.ru_maxrss)
+            return Response({"Version": VERSION,
+                             "Memory": {"MaxRssKb": rss_kb,
+                                        "UserSeconds": ru.ru_utime,
+                                        "SystemSeconds": ru.ru_stime}})
+
+        @r.route("GET", "/stats/disk")
+        def stats_disk(req: Request) -> Response:
+            """statsDiskHandler: statvfs of each data directory."""
+            ds = []
+            for d in self.store.directories:
+                st = os.statvfs(d)
+                total = st.f_frsize * st.f_blocks
+                free = st.f_frsize * st.f_bavail
+                ds.append({"dir": os.path.abspath(d), "all": total,
+                           "free": free, "used": total - free,
+                           "percent_free": round(100.0 * free /
+                                                 max(total, 1), 2)})
+            return Response({"Version": VERSION, "DiskStatuses": ds})
+
+        @r.route("POST", "/query")
+        def query(req: Request) -> Response:
+            """Query (volume_grpc_query.go): filter and project stored
+            JSON, JSON-lines or CSV objects here; the body names
+            from_file_ids, selections, filter and input_format."""
+            b = req.json()
+            rows = []
+            for fid_str in b.get("from_file_ids", []):
+                fid = FileId.parse(fid_str)
+                try:
+                    n = self.store.read_needle(fid.volume_id, fid.key,
+                                               fid.cookie)
+                except Exception as e:  # noqa: BLE001 - the fid's 404
+                    raise HttpError(404, f"{fid_str}: {e}")
+                rows.extend(execute_query(
+                    n.data, b.get("selections"), b.get("filter"),
+                    b.get("input_format", "json")))
+            return Response({"rows": rows})
+
         # --- admin: volume lifecycle ---------------------------------
         @r.route("POST", "/admin/assign_volume")
         def assign_volume(req: Request) -> Response:
@@ -967,6 +1053,66 @@ class VolumeServer:
             index (volume.fsck / volume.check.disk analog)."""
             return Response(self.store.check_volume(
                 int(req.json()["volume_id"])))
+
+        @r.route("POST", "/admin/batch_delete")
+        def batch_delete(req: Request) -> Response:
+            """Delete many fids (volume_grpc_batch_delete.go): each answers
+            202 with the size freed, or 404 with its error; an EC volume's
+            needle is deleted in its `.ecx`/`.ecj`.  Unless the request is
+            itself a replica's, the fids go on to the volumes' other
+            replicas in one request each.  As the reference's with no
+            signing key and an open whitelist: security is not ported, and
+            a body's ``jwts`` are only passed on to the replicas."""
+            body = req.json()
+            jwts = body.get("jwts", {})
+            results = []
+            fanned: dict[str, list[str]] = {}
+            for fid_str in body.get("fids", []):
+                try:
+                    fid = FileId.parse(fid_str)
+                    if fid.volume_id in self.store.ec_volumes:
+                        self.store.ec_delete_needle(fid.volume_id, fid.key)
+                        size = 0
+                    elif fid.volume_id not in self.store.volumes:
+                        # the reference's answer: the bare volume id
+                        raise KeyError(fid.volume_id)
+                    else:
+                        size = self.store.delete_needle(
+                            fid.volume_id,
+                            Needle(cookie=fid.cookie, id=fid.key))
+                    results.append({"fid": fid_str, "status": 202,
+                                    "size": size})
+                    if not body.get("replicate"):
+                        for url in self._lookup_replicas(fid.volume_id):
+                            if url != self.url:
+                                fanned.setdefault(url, []).append(fid_str)
+                except Exception as e:  # noqa: BLE001 - a per-fid answer
+                    results.append({"fid": fid_str, "status": 404,
+                                    "error": str(e)})
+            for url, fids in fanned.items():
+                http_json("POST", f"http://{url}/admin/batch_delete",
+                          {"fids": fids, "replicate": True,
+                           "jwts": {f: jwts[f] for f in fids if f in jwts}},
+                          timeout=30.0)
+            return Response({"results": results})
+
+        @r.route("GET", "/admin/tail")
+        def tail(req: Request) -> Response:
+            """VolumeIncrementalCopy (volume_backup.go:66): the raw records
+            appended after ?since_ns, at most ?max_bytes (64 MiB), with
+            the last one's append time in X-Last-Append-At-Ns; a follower
+            asks again from it until the body comes back empty."""
+            vid = qint(req.query, "volume_id")
+            since_ns = qint(req.query, "since_ns", 0)
+            try:
+                v = self.store.get_volume(vid)
+            except KeyError:
+                raise HttpError(404, f"volume {vid} not found")
+            blob, last_ts = records_since(
+                v, since_ns, max_bytes=qint(req.query, "max_bytes", 64 << 20))
+            return Response(raw=blob, headers={
+                "X-Last-Append-At-Ns": str(last_ts),
+                "X-Volume-Version": str(int(v.version))})
 
         # --- admin: volume copy/move (volume_grpc_copy.go) -----------
         @r.route("GET", "/admin/volume_download")

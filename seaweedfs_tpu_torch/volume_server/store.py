@@ -24,6 +24,12 @@ until a write or delete of it, or an unmount, delete or vacuum commit of
 its volume, drops it; a read offers what it read under the volume's
 write epoch taken before the read, so a racing write is never undone.
 
+A write or delete with ``fsync`` goes through its volume's group-commit
+worker (``Volume.write_needle2``, storage/volume_write.py) with no lock of
+the store held while it waits, so concurrent fsync writers share the
+batch's fsyncs (the `.dat`'s and the `.idx`'s); without ``fsync`` it appends under the volume's write
+lock alone.  Volumes open with the compact needle map.
+
 Not ported: the native data plane and mmap volumes.
 """
 
@@ -270,21 +276,18 @@ class Store:
     def write_needle(self, vid: int, n: Needle,
                      fsync: bool = False) -> tuple[int, bool]:
         """Append a needle, durable on return with ``fsync``; returns
-        (size, unchanged)."""
-        v = self.get_volume(vid)
-        _, size, unchanged = v.write_needle(n)
-        if fsync:
-            v.sync()
+        (size, unchanged).  An fsync write goes through the volume's
+        group-commit worker (writeNeedle2) with no lock of the store
+        held, so concurrent fsync writers share a batch's fsyncs."""
+        _, size, unchanged = self.get_volume(vid).write_needle2(
+            n, fsync=fsync)
         # after the write: the epoch also fences a read racing it
         self.needle_cache.invalidate(vid, n.id, "write")
         self.note_volume_change(vid)
         return size, unchanged
 
     def delete_needle(self, vid: int, n: Needle, fsync: bool = False) -> int:
-        v = self.get_volume(vid)
-        size = v.delete_needle(n)
-        if fsync:
-            v.sync()
+        size = self.get_volume(vid).delete_needle2(n, fsync=fsync)
         self.needle_cache.invalidate(vid, n.id, "delete")
         self.note_volume_change(vid)
         return size

@@ -4,8 +4,8 @@ Every name a ``faultinject.hit()`` / ``faultinject.corrupt_block()`` call
 (or a ``drain_point=`` the streaming encoder hands to its drain) names in
 ``seaweedfs_tpu_torch/`` is in ``FAULT_POINTS``, and every registered
 point is named at such a site.  The reference's points the port has no
-code for (``ec.worker.ack``, ``ec.shm``, ``tier.*``, ``loop.block``, the
-``disk.*`` and ``net.*`` points) are not listed.
+code for (``ec.worker.ack``, ``ec.shm``, ``tier.*``, ``loop.block``,
+``disk.read``, ``disk.write`` and the ``net.*`` points) are not listed.
 """
 
 from __future__ import annotations

@@ -15,7 +15,8 @@ PORT = os.path.join(ROOT, "seaweedfs_tpu_torch")
 
 
 def _port_sources() -> list[str]:
-    out = [os.path.join(ROOT, "chip_smoke.py")]
+    out = [os.path.join(ROOT, "chip_smoke.py"),
+           os.path.join(ROOT, "chip_phase.py")]
     for dirpath, dirnames, filenames in os.walk(PORT):
         dirnames[:] = [d for d in dirnames if d != "build"]
         out += [os.path.join(dirpath, f) for f in filenames
@@ -26,6 +27,13 @@ def _port_sources() -> list[str]:
 def test_the_sources_cover_the_framed_plane():
     rel = {os.path.relpath(p, PORT) for p in _port_sources()}
     assert {"utils/framing.py", "volume_server/tcp.py"} <= rel
+
+
+def test_the_sources_cover_the_volume_store():
+    rel = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"storage/needle_map_compact.py", "storage/volume_write.py",
+            "storage/volume_backup.py", "query/json_query.py",
+            "images/resizing.py", "tools/see_dat.py"} <= rel
 
 
 def _forbidden(name: str) -> bool:
@@ -61,6 +69,7 @@ def test_import_loads_no_jax():
             "import seaweedfs_tpu_torch.utils.framing\n"
             "import seaweedfs_tpu_torch.__main__\n"
             "import seaweedfs_tpu_torch.interop\n"
+            "import seaweedfs_tpu_torch.tools.see_dat\n"
             "mods = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'seaweedfs_tpu')]\n"
             "assert not mods, mods\n")

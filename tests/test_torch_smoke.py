@@ -310,7 +310,7 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert all(c["bytes"] > 0 and c["wall_s"] > 0
                for c in hand["captures"].values())
     assert hand["alerts.capture_bundles"] == len(hand["captures"])
-    assert hand["fault_points"].startswith("fault points: 5 registered")
+    assert hand["fault_points"].startswith("fault points: 6 registered")
     assert alerts["evaluation"]["mean_ms"] > 0
     assert alerts["evaluation"]["peers"] >= 3
     for k in ("rot_to_heal_s", "kill_to_heal_s"):
