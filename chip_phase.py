@@ -1,14 +1,14 @@
 #!/usr/bin/env python3
 """Run one phase of chip_smoke.py on the card, alone, at its full size.
 
-    python3 chip_phase.py volume_store     # or: dataplane
+    python3 chip_phase.py volume_store     # or: dataplane, secure_tier
     python3 chip_phase.py dataplane parent  # the label printed with it
 
 Builds the native libraries from the checkout it runs in, runs
-``run_volume_store_phase`` or ``run_dataplane_phase`` with chip_smoke.py's
-constants, and prints the card's name and power limit, then one JSON
-line of the phase's numbers (``dataplane``: each front's healthy passes,
-ops/s and p50/p99 ms).  To hold one tree against another on one card,
+``run_volume_store_phase``, ``run_dataplane_phase`` or
+``run_secure_tier_phase`` with chip_smoke.py's constants, and prints the
+card's name and power limit, then one JSON line of the phase's numbers
+(``dataplane``: each front's healthy passes, ops/s and p50/p99 ms).  To hold one tree against another on one card,
 unpack the other with ``git archive``, copy this script into it if it
 lacks one, and run it from each checkout in turns (other, this, this,
 other) in one call.  Needs a card.
@@ -28,7 +28,8 @@ PASSES = ("write", "read", "zipf", "read_again", "zipf_again")
 
 
 def main(argv: list[str]) -> int:
-    if not argv or argv[0] not in ("volume_store", "dataplane"):
+    if not argv or argv[0] not in ("volume_store", "dataplane",
+                                   "secure_tier"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -52,6 +53,10 @@ def main(argv: list[str]) -> int:
                 cs.STORE_MORE_DELETES, cs.STORE_DEGRADED,
                 follower_seed=cs.STORE_FOLLOWER_SEED)
             res.pop("stats", None)
+        elif phase == "secure_tier":
+            res = cs.run_secure_tier_phase(
+                "tpu", work, cs.SECURE_BYTES, cs.SECURE_THREADS,
+                cs.SECURE_TIER_GETS, cs.SECURE_DEGRADED)
         else:
             dp = cs.run_dataplane_phase(
                 "tpu", work, cs.BENCH_N, cs.BENCH_SIZE, cs.BENCH_CLIENTS,

@@ -216,7 +216,24 @@ result.  Phases, each of which fails the run on any mismatch:
     table, the kernel against the plain version on the shards' bytes),
     data shards 2 and 7 deleted and 200 degraded GETs, each its needle's
     bytes, one launch per lost interval, a batch-deleted needle 404;
-10. numbers from the card: leg times and rates, read latency, kernel
+10. a secured, tiered cluster (``run_secure_tier_phase``): a CLI master
+    and four ``volume -ec.engine tpu -tier.backends cold=DIR`` servers,
+    one of them ``-mmap``, started beside a security.toml with a write
+    key, a read key, a whitelist of 127.0.0.1 and mTLS (certificates made
+    by ``openssl``; without it the phase runs without TLS and says
+    ``"tls": "not run: no openssl"``); 1 GiB of seeded needles
+    (log-uniform 1 KiB - 4 MiB) into one volume on the mmap server from
+    eight WeedClient threads, each write with its assign's token; an
+    unsigned PUT, a DELETE and a GET without a read token answer 401;
+    ``volume.tier.upload -dest cold`` and 200 seeded GETs from the tier
+    (each its needle's bytes) beside the same GETs read locally before;
+    ``ec.encode`` of the tiered volume prints the reference's failure;
+    ``volume.tier.download`` gives back the `.dat` by sha256; ``ec.encode``
+    on the card (the dispatch rule's launches on its host); data shards 2
+    and 7 deleted and 200 degraded GETs with read tokens, one launch and
+    one reconstruction per lost interval, each server's first launching
+    GET timed apart from the rest;
+11. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
 Each path runs with gf_matmul.launches set to 0 just before it and read
@@ -300,6 +317,10 @@ STORE_FOLLOWER_SEED = STORE_NEEDLES * 3 // 4
 # the budget is advisory: the phase reports within_budget and fails only
 # on its checks, since the card's host runs it at speeds that drift
 STORE_BUDGET_S = 240.0
+# the secure_tier phase: 1 GiB into one volume (cut from the 30,000 MB
+# volume default), eight writers, 200 GETs from the tier and 200 degraded
+SECURE_BYTES, SECURE_THREADS = 1 << 30, 8
+SECURE_TIER_GETS, SECURE_DEGRADED = 200, 200
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -1571,13 +1592,13 @@ def scrub_and_repair(vs, base: str, needles: list[dict], seed: int) -> dict:
 
 
 def start_cli(args: list[str], log_path: str,
-              env: dict | None = None) -> subprocess.Popen:
+              env: dict | None = None, cwd: str = ROOT) -> subprocess.Popen:
     """``python -m seaweedfs_tpu_torch <args>`` from the checkout, with
-    ``env`` added to the environment; its standard error goes to
-    ``log_path``."""
+    ``env`` added to the environment, in ``cwd`` (where it reads a
+    security.toml); its standard error goes to ``log_path``."""
     with open(log_path, "w") as log_file:
         return subprocess.Popen(
-            [sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=ROOT,
+            [sys.executable, "-m", "seaweedfs_tpu_torch", *args], cwd=cwd,
             env=dict(os.environ, PYTHONPATH=ROOT, **(env or {})),
             stdout=subprocess.PIPE, stderr=log_file, text=True)
 
@@ -1710,15 +1731,17 @@ def run_threads(target, count: int, timeout: float) -> None:
         raise AssertionError("a worker thread did not finish")
 
 
-def run_shell(master: str, commands: str) -> tuple[str, float]:
-    """``python -m seaweedfs_tpu_torch shell -c``; -> (output, wall s)."""
+def run_shell(master: str, commands: str, cwd: str = ROOT,
+              check: bool = True) -> tuple[str, float]:
+    """``python -m seaweedfs_tpu_torch shell -c`` in ``cwd``; -> (output,
+    wall s).  With ``check`` a failed command fails the run."""
     t0 = time.perf_counter()
     r = subprocess.run([sys.executable, "-m", "seaweedfs_tpu_torch", "shell",
-                        "-master", master, "-c", commands], cwd=ROOT,
+                        "-master", master, "-c", commands], cwd=cwd,
                        env=dict(os.environ, PYTHONPATH=ROOT),
                        capture_output=True, text=True, timeout=1800)
     wall = time.perf_counter() - t0
-    if r.returncode != 0 or "FAILED" in r.stdout:
+    if r.returncode != 0 or (check and "FAILED" in r.stdout):
         raise AssertionError(f"shell {commands!r}: exit {r.returncode}\n"
                              f"{r.stdout[-2000:]}{r.stderr[-2000:]}")
     return r.stdout.strip(), wall
@@ -5007,6 +5030,340 @@ def run_volume_store_phase(device: str, work: str, n: int, size: int,
     return res
 
 
+# --- the secured, tiered cluster ------------------------------------------------
+
+def make_certs(directory: str) -> dict | None:
+    """A CA and one node certificate it signed, made by the ``openssl``
+    command line (as tests/test_torch_tls.py makes them); None where the
+    host has no ``openssl``."""
+    if shutil.which("openssl") is None:
+        return None
+    os.makedirs(directory)
+    p = {k: os.path.join(directory, k) for k in (
+        "ca.key", "ca.crt", "node.key", "node.csr", "node.crt")}
+    for argv in (
+            ["req", "-x509", "-newkey", "rsa:2048", "-nodes", "-keyout",
+             p["ca.key"], "-out", p["ca.crt"], "-days", "2", "-subj",
+             "/CN=secure-tier-ca"],
+            ["req", "-newkey", "rsa:2048", "-nodes", "-keyout",
+             p["node.key"], "-out", p["node.csr"], "-subj", "/CN=node"],
+            ["x509", "-req", "-in", p["node.csr"], "-CA", p["ca.crt"],
+             "-CAkey", p["ca.key"], "-CAcreateserial", "-out", p["node.crt"],
+             "-days", "2"]):
+        subprocess.run(["openssl", *argv], check=True, capture_output=True,
+                       timeout=120)
+    return {"ca": p["ca.crt"], "cert": p["node.crt"], "key": p["node.key"]}
+
+
+def security_toml(keys: dict, certs: dict | None) -> str:
+    """A security.toml: write and read keys, a whitelist of 127.0.0.1 and,
+    with ``certs``, cluster mTLS."""
+    text = (f'[jwt.signing]\nkey = "{keys["write"]}"\n\n'
+            f'[jwt.signing.read]\nkey = "{keys["read"]}"\n\n'
+            '[guard]\nwhite_list = ["127.0.0.1"]\n')
+    if certs is not None:
+        text += (f'\n[tls]\nca = "{certs["ca"]}"\ncert = "{certs["cert"]}"\n'
+                 f'key = "{certs["key"]}"\n')
+    return text
+
+
+SECURE_COLLECTION = "securetier"
+
+
+def run_secure_tier_phase(engine: str, work: str, total_bytes: int,
+                          threads: int, tier_gets: int, degraded: int,
+                          seed: int = SEED + 29) -> dict:
+    """A secured, tiered cluster through the CLI: a master and four
+    ``volume -ec.engine <engine> -tier.backends cold=<work>/cold``
+    servers, the first with ``-mmap``, all started in a directory whose
+    security.toml holds a write key, a read key, a whitelist of 127.0.0.1
+    and (where ``openssl`` made the certificates) mTLS; this process takes
+    the client side of the same TLS.  Volume 1 of collection
+    ``securetier`` on the mmap server takes ``total_bytes`` of seeded
+    needles (log-uniform 1 KiB - 4 MiB) from ``threads`` WeedClient
+    threads, replication 000, each write carrying its assign's token.  An
+    unsigned PUT, a DELETE and a GET without a read token must each answer
+    401.  ``tier_gets`` seeded GETs read locally, then ``volume.tier.upload
+    -dest cold`` and the same GETs from the tier, each its needle's bytes;
+    ``ec.encode`` of the tiered volume must print the reference's failure
+    (the encoder opens the local `.dat`); ``volume.tier.download`` must
+    give back the `.dat` by sha256; ``ec.encode`` then runs on the card,
+    its host's launches the encoder's dispatch rule; data shards 2 and 7
+    are deleted and ``degraded`` GETs with read tokens must each return
+    its needle's bytes, the servers' launches one per lost interval (read
+    after each GET, so each server's first launching GET is kept apart).
+    Returns the phase's numbers; ``launches`` counts the encode's and the
+    degraded GETs' launches, from the servers' own counts."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+    from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
+    from seaweedfs_tpu_torch.ops.gf_matmul import ROWS_PER_LAUNCH
+    from seaweedfs_tpu_torch.security import tls as tls_mod
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils import httpd
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+
+    res: dict = {"seconds": {}}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    keys = {"write": rng.bytes(16).hex(), "read": rng.bytes(16).hex()}
+    t0 = time.perf_counter()
+    certs = make_certs(os.path.join(work, "certs"))
+    res["seconds"]["certs"] = time.perf_counter() - t0
+    res["tls"] = "mtls" if certs else "not run: no openssl"
+    conf = os.path.join(work, "conf")
+    os.makedirs(conf)
+    with open(os.path.join(conf, "security.toml"), "w") as f:
+        f.write(security_toml(keys, certs))
+    cold = os.path.join(work, "cold")
+    mport = free_port()
+    master = f"127.0.0.1:{mport}"
+    mlog = os.path.join(work, "master.log")
+    vs: dict = {}
+    for i in range(4):
+        url = f"127.0.0.1:{free_port()}"
+        vs[url] = {"dir": os.path.join(work, f"vs{i}"),
+                   "log": os.path.join(work, f"vs{i}.log"),
+                   "mmap": i == 0}
+        os.makedirs(vs[url]["dir"])
+    mmap_url = next(iter(vs))
+    procs: list = []
+    if certs:
+        httpd.set_client_tls(tls_mod.client_context(tls_mod.TlsConfig(
+            ca_file=certs["ca"], cert_file=certs["cert"],
+            key_file=certs["key"])))
+    try:
+        mproc = start_cli(["master", "-port", str(mport), "-pulseSeconds",
+                           "0.5"], mlog, cwd=conf)
+        procs.append(mproc)
+        read_start_line(mproc, mlog, "master listening")
+        for url, info in vs.items():
+            info["proc"] = start_cli(
+                ["volume", "-dir", info["dir"], "-port", url.split(":")[1],
+                 "-mserver", master, "-pulseSeconds", "0.5", "-ec.engine",
+                 engine, "-tier.backends", f"cold={cold}"]
+                + (["-mmap"] if info["mmap"] else []), info["log"], cwd=conf)
+            procs.append(info["proc"])
+        for info in vs.values():
+            line = read_start_line(info["proc"], info["log"],
+                                   "volume server listening")
+            if f"ec on {ENGINES[engine]}" not in line:
+                raise AssertionError(f"start line {line!r}")
+            info["start_line"] = line
+        wait_for("every volume server to register",
+                 lambda: set(vs) <= node_urls(master_status(master)), 60)
+        res["start_lines"] = [vs[u]["start_line"] for u in vs]
+
+        # 1. the volume, on the mmap server, and its needles
+        http_json("POST", f"http://{mmap_url}/admin/assign_volume",
+                  {"volume_id": 1, "collection": SECURE_COLLECTION,
+                   "replication": "000"})
+        http_json("POST", f"http://{mmap_url}/admin/heartbeat_now", {})
+        specs = needle_specs(seed, total_bytes)
+        fids: list = [None] * len(specs)
+
+        def writer(t: int) -> None:
+            client = WeedClient(master)
+            for i in range(t, len(specs), threads):
+                nid, _, size = specs[i]
+                fids[i] = client.upload(needle_data(seed, nid, size),
+                                        collection=SECURE_COLLECTION)
+
+        t0 = time.perf_counter()
+        run_threads(writer, threads, 1800)
+        res["seconds"]["upload"] = time.perf_counter() - t0
+        if {FileId.parse(f).volume_id for f in fids} != {1}:
+            raise AssertionError("a write left volume 1")
+        base = os.path.join(vs[mmap_url]["dir"], f"{SECURE_COLLECTION}_1")
+        dat_bytes = os.path.getsize(base + ".dat")
+        res["needles"] = len(specs)
+        res["upload_bytes"] = sum(size for _, _, size in specs)
+        res["dat_bytes"] = dat_bytes
+        res["write_MBps"] = res["upload_bytes"] / res["seconds"]["upload"] \
+            / 1e6
+
+        # 2. the guard: an unsigned PUT, a DELETE and a GET, 401 each
+        a = http_json("GET", f"http://{master}/dir/assign?collection="
+                             f"{SECURE_COLLECTION}")
+        if not a.get("auth"):
+            raise AssertionError(f"assign without a token: {a}")
+        refused = {}
+        for name, method, fid_str, body in (
+                ("unsigned_put", "PUT", a["fid"], b"no token"),
+                ("unsigned_delete", "DELETE", fids[0], None),
+                ("get_without_read_token", "GET", fids[0], None)):
+            status, answer, _ = http_bytes(
+                method, f"http://{a['url'] if method == 'PUT' else mmap_url}"
+                        f"/{fid_str}", body)
+            if status != 401:
+                raise AssertionError(f"{name}: {status} {answer[:200]!r}")
+            refused[name] = {"status": status,
+                             "body": json.loads(answer)["error"]}
+        res["refused"] = refused
+
+        # 3. local reads, the upload to the tier, the same reads from it
+        picks = [int(i) for i in rng.choice(len(specs), size=min(
+            tier_gets, len(specs)), replace=False)]
+
+        def timed_reads(which: list[int], after_each=None) -> list[float]:
+            """Each GET's seconds; ``after_each()`` runs after each GET,
+            outside its time."""
+            client = WeedClient(master)
+            client.rng.seed(seed)
+            lat = []
+            for i in which:
+                nid, _, size = specs[i]
+                t1 = time.perf_counter()
+                body = client.download(fids[i])
+                lat.append(time.perf_counter() - t1)
+                if body != needle_data(seed, nid, size):
+                    raise AssertionError(f"GET {fids[i]}: wrong bytes")
+                if after_each is not None:
+                    after_each()
+            return lat
+
+        local_lat = timed_reads(picks)
+        t0 = time.perf_counter()
+        dat_sha = sha256_file(base + ".dat")
+        res["seconds"]["dat_sha256"] = time.perf_counter() - t0
+        out, res["seconds"]["tier_upload"] = run_shell(
+            master, "volume.tier.upload -volumeId 1 -dest cold", cwd=conf)
+        if f"{mmap_url}: " not in out or "'backend_id': 'cold'" not in out \
+                or os.path.exists(base + ".dat") \
+                or not os.path.exists(base + ".vif"):
+            raise AssertionError(f"tier upload: {out!r}")
+        res["tier_upload_line"] = out.replace(mmap_url, "<server>")
+        tier_lat = timed_reads(picks)
+
+        # 4. ec.encode of the tiered volume: the reference's failure
+        out, res["seconds"]["encode_tiered"] = run_shell(
+            master, f"ec.encode -volumeId 1 -collection {SECURE_COLLECTION}",
+            cwd=conf, check=False)
+        want = ("ec.encode volume 1 FAILED: FileNotFoundError: [Errno 2] No "
+                f"such file or directory: '{base}.dat'")
+        if out != want or any(os.path.exists(base + to_ext(i))
+                              for i in range(14)):
+            raise AssertionError(f"ec.encode of the tiered volume: {out!r}")
+        res["encode_tiered"] = out.replace(work, "<work>")
+
+        # 5. the recall
+        out, res["seconds"]["tier_download"] = run_shell(
+            master, "volume.tier.download -volumeId 1", cwd=conf)
+        if out != f"volume 1 downloaded on {mmap_url}" or \
+                os.path.exists(base + ".vif") or os.listdir(cold):
+            raise AssertionError(f"tier download: {out!r}")
+        if sha256_file(base + ".dat") != dat_sha:
+            raise AssertionError("the recalled .dat differs")
+
+        # 6. ec.encode on the card
+        before = kernel_launches(vs)
+        t0 = time.perf_counter()
+        run_shell(master, f"ec.encode -volumeId 1 -collection "
+                          f"{SECURE_COLLECTION}", cwd=conf)
+        res["seconds"]["ec_encode"] = time.perf_counter() - t0
+        after = kernel_launches(vs)
+        encode_launches = {u: after[u] - before[u] for u in vs}
+        encode_rule = (StreamingEncoder(device="cpu").dispatches_for(
+            dat_bytes) * -(-4 // ROWS_PER_LAUNCH)) if engine == "tpu" else 0
+        if encode_launches[mmap_url] != encode_rule or \
+                sum(encode_launches.values()) != encode_rule:
+            raise AssertionError(f"ec.encode launches {encode_launches}, "
+                                 f"the rule gives {encode_rule}")
+
+        # 7. data shards 2 and 7 gone, degraded GETs with read tokens
+        lost = [2, 7]
+        holders = shard_holders(master, 1)
+        for sid in lost:
+            for url in holders.get(sid, []):
+                http_json("POST", f"http://{url}/admin/ec/delete",
+                          {"volume_id": 1, "collection": SECURE_COLLECTION,
+                           "shard_ids": [sid]})
+        for url in vs:
+            http_json("POST", f"http://{url}/admin/heartbeat_now", {})
+        wait_for("the lost shards to leave the master's map",
+                 lambda: not set(lost) & set(shard_holders(master, 1)), 30)
+        ecx_base = next(os.path.join(info["dir"], f"{SECURE_COLLECTION}_1")
+                        for info in vs.values() if os.path.exists(
+                            os.path.join(info["dir"],
+                                         f"{SECURE_COLLECTION}_1.ecx")))
+        dpicks = [int(i) for i in rng.choice(len(specs), size=min(
+            degraded, len(specs)), replace=False)]
+        shards_of = needle_shards(ecx_base, 1, [
+            FileId.parse(fids[i]).key for i in dpicks])
+        lost_intervals = sum(s in lost for sh in shards_of for s in sh)
+        rule = lost_intervals if engine == "tpu" else 0
+        # the servers' counts after every GET: which server reconstructed
+        marks = [kernel_launches(vs)]
+        degraded_lat = timed_reads(
+            dpicks, lambda: marks.append(kernel_launches(vs)))
+        get_launches = sum(marks[-1][u] - marks[0][u] for u in vs)
+        if get_launches != rule:
+            raise AssertionError(f"degraded GETs: {get_launches} launches, "
+                                 f"the rule gives {rule}")
+        res["launches"] = encode_rule + get_launches
+        res["seal"] = {
+            "encode_launches": encode_launches[mmap_url],
+            "encode_launches_rule": encode_rule, "lost_shards": lost,
+            "gets": len(degraded_lat), "lost_intervals": lost_intervals,
+            "get_launches": get_launches, "get_launches_rule": rule}
+        res["dat_sha256_equal_after_recall"] = True
+        res["tier_upload_MBps"] = dat_bytes / res["seconds"]["tier_upload"] \
+            / 1e6
+        res["tier_download_MBps"] = dat_bytes \
+            / res["seconds"]["tier_download"] / 1e6
+        res["get_ms"] = {"local": percentiles(local_lat),
+                         "tier": percentiles(tier_lat),
+                         "degraded": percentiles(degraded_lat)}
+        res["degraded_split_ms"] = split_first_launches(degraded_lat, marks)
+        # each server's own count, from its stop line, covers every launch
+        stops = {u: stop_volume_server(info["proc"])
+                 for u, info in vs.items()}
+        if sum(s["launches"] for s in stops.values()) != res["launches"] \
+                or sum(s["reconstructed"] for s in stops.values()) \
+                != lost_intervals:
+            raise AssertionError(f"stop lines {stops}: launches "
+                                 f"{res['launches']}, lost intervals "
+                                 f"{lost_intervals}")
+        res["servers"] = {u: {"mmap": vs[u]["mmap"], **stops[u]}
+                          for u in vs}
+        res["seconds"]["phase"] = time.perf_counter() - t_phase
+        return res
+    finally:
+        httpd.set_client_tls(None)
+        for p in procs:
+            if p.poll() is None:
+                p.send_signal(signal.SIGTERM)
+        for p in procs:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+            p.stdout.close()
+
+
+def split_first_launches(lat: list[float], marks: list[dict]) -> dict:
+    """GET times split by launches: ``marks[j]`` holds each server's
+    kernel count before GET j and ``marks[j + 1]`` after it.  Each
+    server's first GET that launched (its first reconstruction, ms) is
+    kept apart from the later ones that launched and from those that
+    launched nothing (percentiles, None where there is none)."""
+    first: dict[str, float] = {}
+    later, none = [], []
+    for j, s in enumerate(lat):
+        who = [u for u in marks[j] if marks[j + 1][u] > marks[j][u]]
+        new = [u for u in who if u not in first]
+        for u in new:
+            first[u] = 1e3 * s
+        if not who:
+            none.append(s)
+        elif not new:
+            later.append(s)
+    return {"first_launch": first,
+            "later_launches": percentiles(later) if later else None,
+            "no_launch": percentiles(none) if none else None}
+
+
 def percentiles(seconds: list[float]) -> dict:
     ms = np.array(seconds) * 1e3
     return {"p50": float(np.percentile(ms, 50)),
@@ -5549,6 +5906,41 @@ def main() -> int:
          "kernel_max_abs_err": store["kernel_max_abs_err"],
          "nvidia_smi": card})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-secure-",
+                            dir=_build.BUILD_DIR)
+    try:
+        sec = run_secure_tier_phase("tpu", work, SECURE_BYTES,
+                                    SECURE_THREADS, SECURE_TIER_GETS,
+                                    SECURE_DEGRADED)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    secure_launches = sec["launches"]
+    if secure_launches <= 0:
+        raise AssertionError("the secure_tier phase launched no kernel")
+    log({"tls": sec["tls"]})
+    log({"phase": "secure_tier", "reduced": [
+        {"volume_bytes": SECURE_BYTES,
+         "from": "30,000 MB default volume size limit (weed master "
+                 "-volumeSizeLimitMB)",
+         "why": "run time limit: the phase aims near 120 s"},
+        {"pulse_seconds": 0.5, "from": "5 s default heartbeat pulse",
+         "why": "the master sees the new volume and the shard moves within "
+                "a second"}],
+        "tls": sec["tls"], "refused": sec["refused"],
+        "needles": sec["needles"], "dat_bytes": sec["dat_bytes"],
+        "write_MBps": sec["write_MBps"],
+        "tier_upload_MBps": sec["tier_upload_MBps"],
+        "tier_download_MBps": sec["tier_download_MBps"],
+        "get_ms": sec["get_ms"],
+        "degraded_split_ms": sec["degraded_split_ms"],
+        "ec_encode_s": sec["seconds"]["ec_encode"],
+        "encode_tiered": sec["encode_tiered"],
+        "tier_upload_line": sec["tier_upload_line"],
+        "dat_sha256_equal_after_recall": sec["dat_sha256_equal_after_recall"],
+        "seal": sec["seal"], "launches": secure_launches,
+        "servers": sec["servers"], "seconds": sec["seconds"],
+        "nvidia_smi": card})
+
     cases = dict(kernel_cases())
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
@@ -5565,7 +5957,8 @@ def main() -> int:
         "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
         "launches": launches + resume_launches + trace_ab_launches
         + http_launches + cli["launches"] + cluster_launches
-        + failover_launches + dataplane_launches + store_launches,
+        + failover_launches + dataplane_launches + store_launches
+        + secure_launches,
         "max_abs_err": max(worst, store["kernel_max_abs_err"],
                            *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],

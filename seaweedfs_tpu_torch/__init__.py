@@ -5,7 +5,8 @@ An EC cluster on an NVIDIA card: needle volumes, RS(10,4) encode into
 reads, with every GF(2^8) product in the hand-written kernel
 csrc/gf_matmul.cu; the volume server over HTTP, the master (assign,
 lookup, heartbeats, growth, the admin lease), the client and the shell's
-EC commands.  Files are byte-identical to seaweedfs_tpu's.  Entry points
+EC commands; security.toml's tokens, whitelist and mTLS (security/), and
+mapped and tiered volumes (storage/backend.py).  Files are byte-identical to seaweedfs_tpu's.  Entry points
 take ``device`` ("cuda" by default; "cpu" runs the plain PyTorch
 versions).  The package imports torch and numpy, never jax and nothing
 of seaweedfs_tpu.

@@ -61,6 +61,17 @@ with ``-o`` writes them to a tar; ``upload`` assigns and writes files (or
 fid; ``download`` writes a fid's bytes to ``-o`` (standard output by
 default).
 
+``master``, ``volume`` and ``shell`` read ``security.toml`` from ".",
+``~/.seaweedfs`` or ``/etc/seaweedfs`` (``WEED_JWT_SIGNING_KEY``-style
+variables override it), as weed.py does: ``[jwt.signing]`` and
+``[jwt.signing.read]`` keys make the master sign write and read tokens
+and the volume servers demand them, ``[guard] white_list`` limits who may
+write, and ``[tls]`` (ca, cert, key) puts every listener and every call
+between them under mTLS; the shell takes the client side of it.
+``volume -mmap`` maps each `.dat`; ``volume -tier.backends NAME=DIR``
+(repeatable) registers a directory as the tier backend NAME, the
+``-dest`` of the shell's ``volume.tier.upload`` and ``volume.tier.move``.
+
 Servers answer on the process's event-loop reactor (utils/eventloop.py);
 ``-dataplane.workers N`` (before the subcommand) sizes its worker pool, 0
 the default size, and ``WEED_DATAPLANE=threaded`` serves a thread per
@@ -175,6 +186,12 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     v.add_argument("-ec.engine", dest="ec_engine", default="tpu",
                    choices=sorted(ENGINES),
                    help="tpu: EC on the CUDA card; cpu: the plain versions")
+    v.add_argument("-mmap", action="store_true",
+                   help="mmap-backed .dat files (backend/memory_map analog)")
+    v.add_argument("-tier.backends", dest="tier_backends", action="append",
+                   default=[], metavar="NAME=DIR",
+                   help="register a dir-type tier backend (repeatable): "
+                        "the remote storage target of volume.tier.*")
     s = sub.add_parser("shell", help="run admin shell commands")
     s.add_argument("-master", default="127.0.0.1:9333")
     s.add_argument("-c", default="",
@@ -266,6 +283,33 @@ def _maybe_enable_tracing(rate: float) -> None:
     set_sample_rate(rate)
 
 
+def _security():
+    """security.toml from ".", ~/.seaweedfs or /etc/seaweedfs, with its
+    WEED_* overrides (an empty configuration when there is none)."""
+    from .security.config import load_security_configuration
+
+    return load_security_configuration()
+
+
+def _cluster_tls():
+    """security.toml [tls] -> the server SSL context, the process's mTLS
+    client side installed with it; None when TLS is not configured."""
+    from .security.tls import enable_cluster_tls, from_configuration
+
+    return enable_cluster_tls(from_configuration(_security()))
+
+
+def _tier_backends(specs) -> dict:
+    """-tier.backends NAME=DIR (repeatable) -> configure_backends' dict."""
+    conf = {}
+    for spec in specs or []:
+        name, _, root = spec.partition("=")
+        if not name or not root:
+            raise SystemExit(f"-tier.backends wants NAME=DIR, got {spec!r}")
+        conf[name] = {"type": "dir", "root": root}
+    return conf
+
+
 def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
     """Install the SIGINT/SIGTERM handlers, then ``start()`` the server
     (it returns the server's stop), run until a signal, and stop.  A
@@ -290,6 +334,7 @@ def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
 
 def cmd_master(args: argparse.Namespace) -> int:
     from .master.server import MasterServer
+    from .security.config import master_guard
 
     # the coordinator's repairs (with each leg's seconds) are log lines;
     # /cluster/events journals them
@@ -306,7 +351,8 @@ def cmd_master(args: argparse.Namespace) -> int:
                               args.metricsAggregationSeconds),
                           max_inflight=args.maxInflight,
                           peers=[p for p in args.peers.split(",") if p],
-                          mdir=args.mdir).start()
+                          mdir=args.mdir, guard=master_guard(_security()),
+                          tls_context=_cluster_tls()).start()
         print(f"master listening on {ms.url}", flush=True)
         return ms.stop
 
@@ -328,6 +374,7 @@ def cmd_volume(args: argparse.Namespace) -> int:
         import torch
 
         from .ops import _build
+        from .security.config import volume_guard
         from .volume_server.server import VolumeServer
 
         vs = VolumeServer(args.dir.split(","), args.mserver, host=args.ip,
@@ -336,7 +383,10 @@ def cmd_volume(args: argparse.Namespace) -> int:
                           pulse_seconds=args.pulseSeconds,
                           device=ENGINES[args.ec_engine],
                           max_inflight=args.maxInflight,
-                          needle_cache_mb=args.dataplane_cache_mb)
+                          needle_cache_mb=args.dataplane_cache_mb,
+                          guard=volume_guard(_security()),
+                          backends=_tier_backends(args.tier_backends) or None,
+                          tls_context=_cluster_tls(), use_mmap=args.mmap)
         device = vs.store.device
         if device.type == "cuda":
             # a kernel that does not build stops the server here, before
@@ -365,6 +415,8 @@ def cmd_volume(args: argparse.Namespace) -> int:
 def cmd_shell(args: argparse.Namespace) -> int:
     from .shell import CommandEnv, repl, run_command
 
+    # a cluster under mTLS answers only a client with the node certificate
+    _cluster_tls()
     if not args.c:
         repl(args.master)
         return 0

@@ -10,8 +10,13 @@ delete_content.go, submit.go) with its vid -> locations TTL cache
 write and the read to the holder's framed plane (volume_server/tcp.py),
 each on the HTTP port + 20000.
 
+On a secured cluster the client carries the master's tokens, as the
+reference's does: the assign's ``auth`` goes on the write as
+``Authorization: BEARER``, the lookup's read token on every GET, and a
+delete asks the master for the fid's ``writeAuth``.
+
 Not ported: the push-updated location map (``keep_connected``,
-wdclient.py) and JWTs.
+wdclient.py).
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ class Assignment:
     url: str
     public_url: str
     count: int
+    auth: str = ""  # the master's write token for exactly this fid
 
 
 class MasterClient:
@@ -44,7 +50,7 @@ class MasterClient:
 
     def __init__(self, master_url: str):
         self.master_url = master_url
-        self._cache: dict[int, tuple[float, list[str]]] = {}
+        self._cache: dict[int, tuple[float, list[str], str]] = {}
 
     def assign(self, count: int = 1, collection: str = "",
                replication: str = "", ttl: str = "",
@@ -58,22 +64,40 @@ class MasterClient:
         if r.get("error"):
             raise HttpError(500, r["error"])
         return Assignment(r["fid"], r["url"], r.get("publicUrl", r["url"]),
-                          int(r.get("count", count)))
+                          int(r.get("count", count)), r.get("auth", ""))
 
     def lookup(self, vid: int) -> list[str]:
+        return self.lookup_with_auth(vid)[0]
+
+    def lookup_with_auth(self, vid: int) -> tuple[list[str], str]:
+        """(urls, read token), cached; the token is "" on a cluster
+        without a read key."""
         cached = self._cache.get(vid)
         now = time.time()
         if cached and now - cached[0] < self.CACHE_SECONDS:
-            return cached[1]
-        urls = self.lookup_uncached(vid)
-        self._cache[vid] = (now, urls)
-        return urls
-
-    def lookup_uncached(self, vid: int) -> list[str]:
+            return cached[1], cached[2]
         r = http_json("GET",
                       f"http://{self.master_url}/dir/lookup?volumeId={vid}",
                       timeout=30.0)
-        return [loc["url"] for loc in r.get("locations", [])]
+        urls = [loc["url"] for loc in r.get("locations", [])]
+        auth = r.get("auth", "")
+        self._cache[vid] = (now, urls, auth)
+        return urls, auth
+
+    def lookup_uncached(self, vid: int) -> list[str]:
+        """The volume's holders as the master names them now."""
+        self.invalidate(vid)
+        return self.lookup(vid)
+
+    def lookup_file(self, fid: str) -> tuple[list[str], str, str]:
+        """(urls, read token, write token) for one fid, uncached: the
+        write token lets its holder delete exactly this file."""
+        vid = int(fid.split(",")[0])
+        r = http_json(
+            "GET", f"http://{self.master_url}/dir/lookup?"
+            f"volumeId={vid}&fileId={fid}", timeout=30.0)
+        urls = [loc["url"] for loc in r.get("locations", [])]
+        return urls, r.get("auth", ""), r.get("writeAuth", "")
 
     def invalidate(self, vid: int) -> None:
         self._cache.pop(vid, None)
@@ -122,9 +146,12 @@ class WeedClient:
                 headers["Content-Encoding"] = "gzip"
         last_err = None
         for attempt in range(5):
+            hdrs = dict(headers)
+            if a.auth:
+                hdrs["Authorization"] = f"BEARER {a.auth}"
             status, body, _ = http_bytes(
                 "POST", f"http://{a.url}/{a.fid}{q}", data,
-                headers=headers or None, timeout=60.0)
+                headers=hdrs or None, timeout=60.0)
             if status in (200, 201):
                 return a.fid
             last_err = HttpError(status, body.decode(errors="replace"))
@@ -167,7 +194,7 @@ class WeedClient:
                                 "ttl": ttl}).encode()))
                 a = Assignment(r["fid"], r["url"],
                                r.get("publicUrl", r["url"]),
-                               int(r.get("count", 1)))
+                               int(r.get("count", 1)), r.get("auth", ""))
                 self._tcp_assign_ok = True
             except (OSError, ValueError, KeyError):
                 self._tcp_assign_ok = False
@@ -186,10 +213,14 @@ class WeedClient:
                     a = self.master.assign(collection=collection,
                                            replication=replication, ttl=ttl)
                     continue
-                # the holder's framed plane is closed (its port was
-                # taken): the assignment stands, the write goes over HTTP
+                # the holder's framed plane is closed (a secured server,
+                # a port taken): the assignment stands, and the write goes
+                # over HTTP, which carries the token
+                headers = {"Authorization": f"BEARER {a.auth}"} if a.auth \
+                    else None
                 status, body, _ = http_bytes(
-                    "POST", f"http://{a.url}/{a.fid}", data, timeout=60.0)
+                    "POST", f"http://{a.url}/{a.fid}", data,
+                    headers=headers, timeout=60.0)
                 if status in (200, 201):
                     return a.fid
                 if (status == 409 or b"read only" in body) and attempt < 4:
@@ -208,7 +239,7 @@ class WeedClient:
 
         tcp = self._tcp_client()
         vid = int(fid.split(",")[0])
-        urls = self._locate_retry(vid)
+        urls, _ = self._locate_retry(vid)
         if not urls:
             raise HttpError(404, f"volume {vid} has no locations")
         try:
@@ -232,33 +263,36 @@ class WeedClient:
             ok=(200, 206))
         return body
 
-    def _locate_retry(self, vid: int) -> list[str]:
-        """The volume's holders, riding out transient unregistration: a
-        starved heartbeat can drop a node for a pulse and the next pulse
-        re-registers it."""
+    def _locate_retry(self, vid: int) -> tuple[list[str], str]:
+        """(the volume's holders, the read token), riding out transient
+        unregistration: a starved heartbeat can drop a node for a pulse
+        and the next pulse re-registers it."""
         for attempt in range(3):
             try:
-                urls = self.master.lookup(vid)
+                urls, auth = self.master.lookup_with_auth(vid)
             except HttpError as e:
                 if e.status != 404 or attempt == 2:
                     raise
-                urls = []
+                urls, auth = [], ""
             if urls:
-                return urls
+                return urls, auth
             time.sleep(0.3)
             self.master.invalidate(vid)
-        return []
+        return [], ""
 
     def _get(self, fid: str, extra_headers: Optional[dict],
              ok: tuple = (200,)) -> tuple[bytes, dict]:
         vid = int(fid.split(",")[0])
-        urls = self._locate_retry(vid)
+        urls, auth = self._locate_retry(vid)
         if not urls:
             raise HttpError(404, f"volume {vid} has no locations")
+        headers = dict(extra_headers or {})
+        if auth:
+            headers["Authorization"] = f"BEARER {auth}"
         last_err = None
         for url in self.rng.sample(urls, len(urls)):
             status, body, rhdrs = http_bytes("GET", f"http://{url}/{fid}",
-                                             headers=extra_headers,
+                                             headers=headers or None,
                                              timeout=60.0)
             if status in ok:
                 self.last_read_from = url
@@ -271,11 +305,14 @@ class WeedClient:
         raise last_err or HttpError(404, "not found")
 
     def delete(self, fid: str) -> None:
+        """DELETE at the first holder, with the fid's write token on a
+        secured cluster."""
         vid = int(fid.split(",")[0])
         urls: list = []
+        write_auth = ""
         for attempt in range(3):
             try:
-                urls = self.master.lookup_uncached(vid)
+                urls, _, write_auth = self.master.lookup_file(fid)
             except HttpError as e:
                 if e.status != 404 or attempt == 2:
                     raise
@@ -284,4 +321,7 @@ class WeedClient:
             time.sleep(0.3)  # transient unregistration: next pulse heals
         if not urls:
             raise HttpError(404, f"volume {vid} has no locations")
-        http_bytes("DELETE", f"http://{urls[0]}/{fid}", timeout=60.0)
+        headers = ({"Authorization": f"BEARER {write_auth}"}
+                   if write_auth else None)
+        http_bytes("DELETE", f"http://{urls[0]}/{fid}", headers=headers,
+                   timeout=60.0)

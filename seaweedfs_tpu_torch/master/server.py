@@ -101,9 +101,17 @@ leader``, and the client falls back to HTTP.  A failed bind leaves the
 master up without it: a ``degraded_bind`` event and
 ``SeaweedFS_server_degraded_binds_total{role="master-tcp"}``.
 
+Security (security/, from ``security.toml``): with the ``guard``'s write
+key, /dir/assign's answer carries ``auth``, a token for exactly its fid,
+and /dir/lookup's with ``fileId`` carries ``writeAuth`` for that fid (a
+delete's); with its read key /dir/lookup carries ``auth``, a bare read
+token.  ``tls_context`` serves HTTPS (mTLS with a CA).  The framed assign
+front does not start under a write key or TLS: it has neither a token
+nor a TLS slot, and clients fall back to HTTP.
+
 Not ported: ``master/follower.py`` (it needs ``/cluster/watch`` and
 wdclient), the /cluster/ heat, ledger, workload, capacity, autoscale and
-watch routes, the maintenance scripts, and security (guard, JWT, TLS).
+watch routes, and the maintenance scripts.
 """
 
 from __future__ import annotations
@@ -126,6 +134,7 @@ from ..observability.events import (HEALTH_EVENT_TYPES,
                                     get_journal)
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops.coordinator import EcCoordinator
+from ..security import Guard, gen_jwt_for_volume_server
 from ..stats import (REGISTRY, degraded_bind_metrics, master_metrics,
                      request_plane_metrics)
 from ..stats.aggregate import ClusterAggregator
@@ -177,12 +186,17 @@ class MasterServer:
                  coordinator_seconds: float = 0.0,
                  metrics_aggregation_seconds: float = 0.0,
                  max_inflight: int = 0,
-                 peers: Optional[list[str]] = None, mdir: str = ""):
+                 peers: Optional[list[str]] = None, mdir: str = "",
+                 guard: Optional[Guard] = None, tls_context=None):
         """A master at host:port.  Volume servers silent for ten pulses
         are dropped.  ``max_inflight`` > 0 turns admission control on.
         ``peers``: the other masters' host:port (none: a single master,
-        the leader at once); ``mdir``: the directory of its raft state."""
+        the leader at once); ``mdir``: the directory of its raft state.
+        ``guard``: the keys it signs tokens with (none: no tokens);
+        ``tls_context``: serve HTTPS."""
         self.host, self.port = host, port
+        self.guard = guard or Guard()
+        self._tls_context = tls_context
         self.garbage_threshold = self.GARBAGE_THRESHOLD
         self.vacuum_scan_seconds = self.VACUUM_SCAN_SECONDS
         self.topo = Topology(volume_size_limit_mb * 1024 * 1024,
@@ -264,8 +278,10 @@ class MasterServer:
     def start(self) -> "MasterServer":
         self._trace_shipper.attach()
         self._event_shipper.attach()
-        self._server = serve(self.router, self.host, self.port)
-        self._start_tcp_assign()
+        self._server = serve(self.router, self.host, self.port,
+                             tls_context=self._tls_context)
+        if self._tls_context is None and not self.guard.signing_key:
+            self._start_tcp_assign()
         self.raft.start()
         threading.Thread(target=self._janitor_loop, daemon=True,
                          name="master-janitor").start()
@@ -693,9 +709,15 @@ class MasterServer:
         key = self.seq.next_file_id(count)
         cookie = secrets.randbits(32)
         node = self.topo.rng.choice(nodes)
-        return {"fid": f"{vid},{format_needle_id_cookie(key, cookie)}",
-                "url": node.url, "publicUrl": node.public_url,
-                "count": count}
+        fid = f"{vid},{format_needle_id_cookie(key, cookie)}"
+        result = {"fid": fid, "url": node.url, "publicUrl": node.public_url,
+                  "count": count}
+        # write authorization: a token for exactly this fid
+        # (security/jwt.go:30, master_server_handlers.go)
+        if self.guard.signing_key:
+            result["auth"] = gen_jwt_for_volume_server(
+                self.guard.signing_key, self.guard.expires_after_sec, fid)
+        return result
 
     def _allocate_rpc(self, node, vid: int, collection: str,
                       replication: str, ttl: str) -> None:
@@ -801,10 +823,21 @@ class MasterServer:
             if not nodes:
                 return Response({"volumeId": vid_str,
                                  "error": "volume id not found"}, status=404)
-            return Response({
+            result = {
                 "volumeId": vid_str,
                 "locations": [{"url": n.url, "publicUrl": n.public_url}
-                              for n in nodes]})
+                              for n in nodes],
+            }
+            # a read key: a bare read token; a write key and a fileId: a
+            # token to delete that file
+            if self.guard.read_signing_key:
+                result["auth"] = self.guard.gen_read_token()
+            file_id = req.query.get("fileId", "")
+            if file_id and self.guard.signing_key:
+                result["writeAuth"] = gen_jwt_for_volume_server(
+                    self.guard.signing_key, self.guard.expires_after_sec,
+                    file_id)
+            return Response(result)
 
         @r.route("GET", "/dir/lookup_ec")
         def lookup_ec(req: Request) -> Response:

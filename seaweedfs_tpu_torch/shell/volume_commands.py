@@ -4,14 +4,12 @@ The port's copy of seaweedfs_tpu/shell/volume_commands.py (weed/shell/
 command_volume_copy.go, _move.go, _delete.go, _balance.go,
 _fix_replication.go, _fsck.go, command_collection_delete.go,
 command_volume_server_evacuate.go, _check_disk.go,
-_configure_replication.go, _delete_empty.go, _server_leave.go), with its
-flags and output lines.  ``collection.delete`` drops the collection's
-volumes, not its EC shards, as the reference's does.  One difference:
+_configure_replication.go, _delete_empty.go, _server_leave.go,
+command_volume_tier_upload.go, _download.go, _move.go), with its flags and
+output lines.  ``collection.delete`` drops the collection's volumes, not
+its EC shards, as the reference's does.  One difference:
 ``volume.server.evacuate`` names the collection in its
 ``/admin/ec/delete`` calls as well.
-
-Not ported: ``volume.tier.upload|download|move`` (the port's volumes
-have no remote tier).
 """
 
 from __future__ import annotations
@@ -274,6 +272,46 @@ def cmd_evacuate(env: CommandEnv, flags: dict) -> str:
     for n in nodes:
         env.volume_post(n["Url"], "/admin/heartbeat_now", {}, timeout=30)
     return "\n".join(moves) or "nothing to evacuate"
+
+
+@command("volume.tier.upload")
+def cmd_tier_upload(env: CommandEnv, flags: dict) -> str:
+    """volume.tier.upload -volumeId <id> [-dest <backend>] [-keepLocalDatFile]
+    # move a volume's .dat to a tiered backend (command_volume_tier_upload.go)"""
+    env.confirm_is_locked()
+    vid = int(flags["volumeId"])
+    backend = flags.get("dest", "s3.default")
+    results = []
+    for url in _volume_locations(env, vid):
+        r = env.volume_post(url, "/admin/tier_upload", {
+            "volume_id": vid, "backend": backend,
+            "keep_local": "keepLocalDatFile" in flags})
+        results.append(f"{url}: {r['remote']}")
+    if not results:
+        raise RuntimeError(f"volume {vid} has no locations")
+    return "\n".join(results)
+
+
+@command("volume.tier.download")
+def cmd_tier_download(env: CommandEnv, flags: dict) -> str:
+    """volume.tier.download -volumeId <id>
+    # bring a tiered volume's .dat back to local disk"""
+    env.confirm_is_locked()
+    vid = int(flags["volumeId"])
+    urls = _volume_locations(env, vid)
+    if not urls:
+        raise RuntimeError(f"volume {vid} has no locations")
+    for url in urls:
+        env.volume_post(url, "/admin/tier_download", {"volume_id": vid})
+    return f"volume {vid} downloaded on {', '.join(urls)}"
+
+
+@command("volume.tier.move")
+def cmd_tier_move(env: CommandEnv, flags: dict) -> str:
+    """volume.tier.move -volumeId <id> -dest <backend>
+    # tier.upload without keeping the local copy"""
+    flags.pop("keepLocalDatFile", None)
+    return cmd_tier_upload(env, flags)
 
 
 @command("volume.check.disk")

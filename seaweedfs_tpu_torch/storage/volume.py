@@ -47,12 +47,40 @@ pair just as its handle closed retries on the new one, already published;
 so no read waits out a swap, where the reference's ``_read_at`` retries
 for up to 2 s.
 
-Not ported: mmap, tiering, and 5-byte offsets.
+The `.dat` is a storage/backend.py file: ``DiskFile`` (pread), or with
+``use_mmap`` (``volume -mmap``) ``MemoryMappedFile``, read through a
+shared mapping and written with pwrite, so its bytes on disk are the same.
+
+Tiering moves the `.dat` to a named backend (``-tier.backends``) in two
+phases, crash-safe through the `.tier` manifest, the write-ahead record of
+every move (``tier_*``, volume_grpc_tier_upload.go / _download.go):
+
+  uploading  written before the first remote byte: a crash leaves the
+             local `.dat` authoritative, and recovery deletes the partial
+             object the manifest names;
+  pending    uploaded and verified (size and crc32 read back from the
+             backend); the local `.dat` is kept and writes are frozen;
+             recovery still deletes the remote copy;
+  committed  the `.vif` names the remote file and the local `.dat` may
+             go; recovery finishes the commit;
+  recalling  a verified download in flight to a temporary file: a crash
+             leaves the volume tiered, and a whole, verified `.dat` lets
+             recovery finish the recall.
+
+A volume with a `.vif` and no `.dat` opens tiered: read-only, every read a
+ranged read of the remote object (``RemoteFile``), the `.idx` local.  An
+open first runs ``tier_recover``.  The tier moves publish the new (needle
+map, file) pair as a commit does, so a read never fails across one: the
+recall serves from the remote object until the verified `.dat` is in
+place, and deletes the object only after.
+
+Not ported: 5-byte offsets.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import os
 import threading
 import time
@@ -62,6 +90,9 @@ import numpy as np
 
 from ..utils import faultinject
 from . import idx as idx_mod
+from .backend import DiskFile as _DatFile
+from .backend import (HandleClosedError, MemoryMappedFile, RemoteFile,
+                      crc32_of_file, crc32_of_remote, get_backend)
 from .needle import (Needle, get_actual_size, needle_body_length,
                      parse_needle_tail)
 from .needle_map import MemoryNeedleMap
@@ -74,9 +105,12 @@ from .types import (MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_CHECKSUM_SIZE,
                     NEEDLE_HEADER_SIZE, NEEDLE_MAP_ENTRY_SIZE,
                     NEEDLE_PADDING_SIZE, TIMESTAMP_SIZE, Version,
                     bytes_to_u32, size_is_valid)
+from .volume_info import (RemoteFileInfo, VolumeInfo, maybe_load_volume_info,
+                          save_volume_info, vif_path)
 
 T = TypeVar("T")
 NeedleMap = Union[MemoryNeedleMap, CompactNeedleMap, SortedFileNeedleMap]
+DatFile = Union[_DatFile, MemoryMappedFile, RemoteFile]
 
 # index entries parsed at a time by the crash check's walk from the tail
 _CHECK_BLOCK_ENTRIES = 1024
@@ -96,76 +130,33 @@ class CookieMismatchError(ValueError):
     pass
 
 
-class HandleClosedError(ValueError):
-    """The `.dat` handle a read took was closed: the volume is closed, or
-    a compaction commit swapped the files."""
-
-
 def volume_file_prefix(directory: str, collection: str, vid: int) -> str:
     name = f"{collection}_{vid}" if collection else str(vid)
     return os.path.join(directory, name)
-
-
-class _DatFile:
-    """One descriptor of a `.dat`.  ``close`` closes it at once when no
-    read is in flight, else when the last one leaves, so a pread never
-    meets a closed descriptor or one reused by another open."""
-
-    def __init__(self, path: str):
-        self.fd = os.open(path, os.O_RDWR | os.O_CREAT, 0o644)
-        self._lock = threading.Lock()
-        self._readers = 0
-        self._closing = False
-
-    def size(self) -> int:
-        return os.fstat(self.fd).st_size
-
-    def sync(self) -> None:
-        if faultinject._points:
-            faultinject.hit("disk.sync")
-        os.fsync(self.fd)
-
-    def read_at(self, offset: int, length: int) -> bytes:
-        with self._lock:
-            if self._closing:
-                raise HandleClosedError("volume file handle closed")
-            self._readers += 1
-        try:
-            return os.pread(self.fd, length, offset)
-        finally:
-            with self._lock:
-                self._readers -= 1
-                last = self._closing and not self._readers
-            if last:
-                os.close(self.fd)
-
-    def close(self) -> None:
-        with self._lock:
-            if self._closing:
-                return
-            self._closing = True
-            last = not self._readers
-        if last:
-            os.close(self.fd)
 
 
 class Volume:
     def __init__(self, directory: str, collection: str, vid: int,
                  replica_placement: Optional[ReplicaPlacement] = None,
                  ttl: Optional[TTL] = None,
-                 needle_map_kind: str = "compact"):
+                 needle_map_kind: str = "compact", use_mmap: bool = False):
         """Open the volume, or create it with ``replica_placement`` and
         ``ttl`` in its superblock (an existing volume keeps its own), its
-        needle map of ``needle_map_kind``."""
+        needle map of ``needle_map_kind``, its `.dat` mapped with
+        ``use_mmap``.  A tier move a crash interrupted is finished or
+        rolled back first (``tier_recover``)."""
         if needle_map_kind not in NEEDLE_MAP_KINDS:
             raise ValueError(f"needle map kind {needle_map_kind!r} is not "
                              f"one of {sorted(NEEDLE_MAP_KINDS)}")
         self.needle_map_kind = needle_map_kind
+        self.use_mmap = use_mmap
         self.directory = directory
         os.makedirs(directory, exist_ok=True)
         self.collection = collection
         self.id = vid
         self.read_only = False
+        # the .dat lives in a backend (a .vif and no local .dat)
+        self.tiered = False
         self.last_modified_ts_seconds = 0
         self.last_append_at_ns = 0
         self.file_prefix = volume_file_prefix(directory, collection, vid)
@@ -173,13 +164,16 @@ class Volume:
         # (dataFileAccessLock)
         self.write_lock = threading.Lock()
         # the (needle map, .dat handle) pair readers use; None once closed
-        self._live: Optional[tuple[NeedleMap, _DatFile]] = None
+        self._live: Optional[tuple[NeedleMap, DatFile]] = None
         # the group-commit worker, made at the first fsync write; parked
         # (and not made again) while a commit or close holds write_lock
         self._group_commit = None
         self._worker_parked = False
         # the .idx size when the last compact began (makeupDiff's start)
         self._compact_idx_size: Optional[int] = None
+        # the local .dat or the committed remote copy: decided before any
+        # file opens
+        self.tier_recover()
         self._open(replica_placement, ttl)
 
     @property
@@ -208,35 +202,53 @@ class Volume:
               ttl: Optional[TTL] = None) -> None:
         """_load_or_create (volume.py): open the files, write a new
         volume's superblock, run the crash check, replay the index, then
-        publish the pair to readers."""
-        dat = _DatFile(self.dat_path)
+        publish the pair to readers.  A `.vif` naming a remote file with
+        no local `.dat` opens the tiered volume through its backend,
+        read-only; one that survived beside a `.dat` (an upload that kept
+        the local copy) keeps writes frozen."""
+        info = maybe_load_volume_info(self.file_prefix)
+        remote = info.remote_file if info else None
+        tiered = remote is not None and not os.path.exists(self.dat_path)
+        if tiered:
+            dat = RemoteFile(get_backend(remote.backend_id), remote.key,
+                             remote.file_size)
+        elif self.use_mmap:
+            dat = MemoryMappedFile(self.dat_path)
+        else:
+            dat = _DatFile(self.dat_path)
         try:
-            if dat.size() < SUPER_BLOCK_SIZE:
+            if not tiered and dat.size < SUPER_BLOCK_SIZE:
                 sb = SuperBlock(
                     version=Version.V3,
                     replica_placement=replica_placement or ReplicaPlacement(),
                     ttl=ttl or TTL())
-                os.pwrite(dat.fd, sb.to_bytes(), 0)
+                dat.write_at(sb.to_bytes(), 0)
             else:
                 sb = SuperBlock.from_bytes(
-                    os.pread(dat.fd, SUPER_BLOCK_SIZE + 0xFFFF, 0))
-                # a loaded volume is as old as its file (volume_loading.go:63)
-                self.last_modified_ts_seconds = int(os.path.getmtime(
-                    self.dat_path))
+                    dat.read_at(SUPER_BLOCK_SIZE + 0xFFFF, 0))
+                if not tiered:
+                    # a loaded volume is as old as its file
+                    # (volume_loading.go:63)
+                    self.last_modified_ts_seconds = int(os.path.getmtime(
+                        self.dat_path))
             if sb.version != Version.V3 or sb.offset_size != 4:
                 raise ValueError(f"volume {self.id}: only version 3 volumes "
                                  "with 4-byte offsets are supported")
-            self._check_integrity(dat, sb.version)
+            if not tiered:
+                self._check_integrity(dat, sb.version)
             nm = NEEDLE_MAP_KINDS[self.needle_map_kind].load(self.idx_path)
         except BaseException:
             dat.close()
             raise
         self.super_block = sb
         self.version = sb.version
-        self._size = dat.size()
+        self.tiered = tiered
+        if remote is not None:
+            self.read_only = True
+        self._size = dat.size
         self._live = (nm, dat)
 
-    def _entry_is_healthy(self, dat: _DatFile, version: Version, key: int,
+    def _entry_is_healthy(self, dat: DatFile, version: Version, key: int,
                           offset: int, size: int, dat_size: int) -> bool:
         """Does this index entry point at a whole record of its needle?"""
         if offset == 0:
@@ -244,7 +256,7 @@ class Volume:
         body = needle_body_length(size if size_is_valid(size) else 0, version)
         if offset + NEEDLE_HEADER_SIZE + body > dat_size:
             return False  # torn .dat tail: the record is cut short
-        header = dat.read_at(offset, NEEDLE_HEADER_SIZE)
+        header = dat.read_at(NEEDLE_HEADER_SIZE, offset)
         if len(header) < NEEDLE_HEADER_SIZE:
             return False
         n = Needle()
@@ -253,7 +265,7 @@ class Volume:
             return False
         return not size_is_valid(size) or n.size == size
 
-    def _check_integrity(self, dat: _DatFile, version: Version) -> None:
+    def _check_integrity(self, dat: DatFile, version: Version) -> None:
         """CheckAndFixVolumeDataIntegrity (volume_checking.go:17-45): cut a
         torn index entry, walk the index from its tail dropping entries
         that point at torn or mismatched records (the .idx append outlived
@@ -275,7 +287,7 @@ class Volume:
             idx_size -= idx_size % es
             with open(self.idx_path, "r+b") as f:
                 f.truncate(idx_size)
-        dat_size = dat.size()
+        dat_size = dat.size
         healthy_idx_size = idx_size
         last_healthy = None
         with open(self.idx_path, "rb") as f:
@@ -299,7 +311,7 @@ class Volume:
         if last_healthy is not None and last_healthy[0]:
             end = self._furthest_record_end(healthy_idx_size)
             if dat_size > end:
-                os.ftruncate(dat.fd, end)
+                dat.truncate(end)
 
     def _furthest_record_end(self, idx_size: int) -> int:
         """The end of the furthest `.dat` record the first ``idx_size``
@@ -313,7 +325,7 @@ class Volume:
         ends = offset + used + NEEDLE_PADDING_SIZE - used % NEEDLE_PADDING_SIZE
         return int(ends[offset != 0].max(initial=0))
 
-    def _writable(self) -> tuple[NeedleMap, _DatFile]:
+    def _writable(self) -> tuple[NeedleMap, DatFile]:
         """The live pair, for a caller holding write_lock."""
         if self._live is None:
             raise HandleClosedError(f"volume {self.id} is closed")
@@ -336,14 +348,19 @@ class Volume:
     def close(self) -> None:
         self._park_worker()
         with self.write_lock:
-            live, self._live = self._live, None
-            if live is not None:
-                nm, dat = live
-                try:
-                    nm.close()
-                    dat.sync()
-                finally:
-                    dat.close()
+            self._close_live(self._live)
+            self._live = None
+
+    @staticmethod
+    def _close_live(live) -> None:
+        """Close a (needle map, `.dat`) pair no longer published."""
+        if live is not None:
+            nm, dat = live
+            try:
+                nm.close()
+                dat.sync()
+            finally:
+                dat.close()
 
     def sync(self) -> None:
         """Make every append so far durable: `.dat`, then `.idx`."""
@@ -357,16 +374,22 @@ class Volume:
         nm.sync()
 
     def destroy(self) -> None:
-        """Close and remove the volume's files, a vacuum's and the needle
-        map's included."""
+        """Close and remove the volume's files, a vacuum's, the needle
+        map's and a tier move's included, and a tiered volume's remote
+        object (before the `.vif`, its only record, goes)."""
+        try:
+            self.tier_delete_remote()
+        except Exception:  # noqa: BLE001 - the local files go regardless
+            pass
         self.close()
-        for ext in (".dat", ".idx", ".cpd", ".cpx", ".ldb", ".sdx"):
+        for ext in (".dat", ".idx", ".cpd", ".cpx", ".ldb", ".sdx", ".vif",
+                    ".tier", ".tier.tmp", ".dat.tierdl"):
             path = self.file_prefix + ext
             if os.path.exists(path):
                 os.remove(path)
 
     # --- reads that survive the swap (volume.py _read_at) ---------------
-    def _with_live(self, fn: Callable[[NeedleMap, _DatFile], T]) -> T:
+    def _with_live(self, fn: Callable[[NeedleMap, DatFile], T]) -> T:
         """``fn(nm, dat)`` on the live pair.  A commit publishes the new
         pair before it closes the old one, so a read whose pair closed
         under it retries on the pair published since; a closed volume
@@ -382,19 +405,19 @@ class Volume:
                     raise
 
     def _read_at(self, offset: int, length: int) -> bytes:
-        return self._with_live(lambda nm, dat: dat.read_at(offset, length))
+        return self._with_live(lambda nm, dat: dat.read_at(length, offset))
 
     def read_needle_blob(self, offset: int, size: int) -> bytes:
         """The whole record of a needle of ``size`` at ``offset``."""
         return self._read_at(offset, get_actual_size(size, self.version))
 
-    def _read_needle_at(self, dat: _DatFile, offset: int,
+    def _read_needle_at(self, dat: DatFile, offset: int,
                         size: int) -> Needle:
-        blob = dat.read_at(offset, get_actual_size(size, self.version))
+        blob = dat.read_at(get_actual_size(size, self.version), offset)
         return Needle.from_bytes(blob, size, self.version)
 
     # --- write path (volume_write.go) ---------------------------------
-    def _is_file_unchanged(self, dat: _DatFile, n: Needle, nv) -> bool:
+    def _is_file_unchanged(self, dat: DatFile, n: Needle, nv) -> bool:
         """Is ``n`` the needle ``nv`` names, cookie and data alike?"""
         if str(self.super_block.ttl):
             return False
@@ -403,7 +426,7 @@ class Volume:
         old = self._read_needle_at(dat, nv.offset, nv.size)
         return old.cookie == n.cookie and old.data == n.data
 
-    def _append(self, dat: _DatFile, n: Needle) -> int:
+    def _append(self, dat: DatFile, n: Needle) -> int:
         """Append n's record at EOF (write_lock held); returns its offset.
         A failed write is truncated back (needle_read_write.go:136-166)."""
         if not n.append_at_ns:
@@ -411,11 +434,11 @@ class Volume:
         blob = n.to_bytes(self.version)
         offset = self._size
         try:
-            written = os.pwrite(dat.fd, blob, offset)
+            written = dat.write_at(blob, offset)
             if written != len(blob):
                 raise OSError(f"short write {written} != {len(blob)}")
         except OSError:
-            os.ftruncate(dat.fd, offset)
+            dat.truncate(offset)
             raise
         self._size = offset + len(blob)
         return offset
@@ -447,7 +470,7 @@ class Volume:
             return 0, len(n.data), True
         if nv is not None:
             existing = Needle()
-            existing.parse_header(dat.read_at(nv.offset, NEEDLE_HEADER_SIZE))
+            existing.parse_header(dat.read_at(NEEDLE_HEADER_SIZE, nv.offset))
             if n.cookie == 0 and not check_cookie:
                 n.cookie = existing.cookie
             if existing.cookie != n.cookie:
@@ -541,7 +564,7 @@ class Volume:
         volume's kind reloaded from the cut index."""
         nm, dat = self._writable()
         try:
-            os.ftruncate(dat.fd, dat_start)
+            dat.truncate(dat_start)
         except OSError:
             pass
         self._size = dat_start
@@ -560,7 +583,7 @@ class Volume:
     def read_needle(self, key: int, cookie: Optional[int] = None) -> Needle:
         """readNeedle (volume_read.go:16-63) + handler-level cookie check."""
 
-        def lookup_and_read(nm: NeedleMap, dat: _DatFile) -> Needle:
+        def lookup_and_read(nm: NeedleMap, dat: DatFile) -> Needle:
             nv = nm.get(key)
             if nv is None or nv.offset == 0:
                 raise NotFoundError(key)
@@ -584,13 +607,13 @@ class Volume:
         data_size, flags, name, mime); ``loc`` is what read_needle_data
         takes, tied to the `.dat` the metadata was read from."""
 
-        def meta(nm: NeedleMap, dat: _DatFile):
+        def meta(nm: NeedleMap, dat: DatFile):
             nv = nm.get(key)
             if nv is None or nv.offset == 0:
                 raise NotFoundError(key)
             if not size_is_valid(nv.size):
                 raise DeletedError(key)
-            hdr = dat.read_at(nv.offset, NEEDLE_HEADER_SIZE + 4)
+            hdr = dat.read_at(NEEDLE_HEADER_SIZE + 4, nv.offset)
             n = Needle()
             n.parse_header(hdr[:NEEDLE_HEADER_SIZE])
             if n.id != key:
@@ -604,7 +627,7 @@ class Volume:
             data_size = bytes_to_u32(hdr[NEEDLE_HEADER_SIZE:])
             # flags + the longest name and mime: 1 + (1 + 255) * 2
             flags, name, mime = parse_needle_tail(
-                dat.read_at(loc[1] + data_size, 513))
+                dat.read_at(513, loc[1] + data_size))
             return loc, data_size, flags, name, mime
 
         return self._with_live(meta)
@@ -615,7 +638,7 @@ class Volume:
         read_needle_meta gave.  No CRC: a part cannot verify the whole
         data's checksum."""
         dat, start = loc
-        return dat.read_at(start + data_off, length)
+        return dat.read_at(length, start + data_off)
 
     def scan(self, visit: Callable[[Needle, int], None]) -> None:
         """visit(needle, offset) for every record of the `.dat` in file
@@ -772,7 +795,7 @@ class Volume:
         reads do, locking nothing; a commit's swap restarts the scan on
         the new files.  -> indexed, scanned_live, crc_errors."""
 
-        def scan(nm: NeedleMap, dat: _DatFile) -> dict:
+        def scan(nm: NeedleMap, dat: DatFile) -> dict:
             live = [nv for nv in nm if nv.size >= 0]
             errors = 0
             for nv in live:
@@ -797,10 +820,301 @@ class Volume:
             _, dat = self._writable()
             sb = dataclasses.replace(self.super_block, replica_placement=rp)
             blob = sb.to_bytes()
-            written = os.pwrite(dat.fd, blob, 0)
+            written = dat.write_at(blob, 0)
             if written != len(blob):
                 raise OSError(f"short write {written} != {len(blob)}")
             self.super_block = sb
+
+    # --- tiering (volume_grpc_tier_upload.go / _download.go) -------------
+    @property
+    def tier_manifest_path(self) -> str:
+        return self.file_prefix + ".tier"
+
+    def tier_manifest(self) -> Optional[dict]:
+        try:
+            with open(self.tier_manifest_path) as f:
+                return json.load(f)
+        except (OSError, ValueError):
+            return None
+
+    def _save_tier_manifest(self, doc: dict) -> None:
+        """Write the manifest durably: a temporary file, fsynced, renamed."""
+        doc["updated_at"] = round(time.time(), 3)
+        tmp = self.tier_manifest_path + ".tmp"
+        with open(tmp, "w") as f:
+            json.dump(doc, f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, self.tier_manifest_path)
+
+    def _remove_tier_manifest(self) -> None:
+        for p in (self.tier_manifest_path,
+                  self.tier_manifest_path + ".tmp"):
+            if os.path.exists(p):
+                os.remove(p)
+
+    def _tier_key(self) -> str:
+        """The object's key: the local file's name ("5.dat",
+        "photos_5.dat"); volume ids are unique in a cluster."""
+        return f"{self.collection}_{self.id}.dat" if self.collection \
+            else f"{self.id}.dat"
+
+    @staticmethod
+    def _remote_info(m: dict, version: int,
+                     modified_time: int) -> VolumeInfo:
+        """The `.vif` of the remote file a manifest names."""
+        return VolumeInfo(version=version, files=[RemoteFileInfo(
+            backend_type=m["backend_type"], backend_id=m["backend_id"],
+            key=m["key"], file_size=int(m["file_size"]),
+            modified_time=modified_time)])
+
+    def tier_upload_begin(self, backend_id: str) -> dict:
+        """Phase 1: upload and verify, the local `.dat` kept.  The manifest
+        is written before the first remote byte, the `.dat` copied up, the
+        remote copy read back through the backend and held to the local
+        file's size and crc32; then the volume is frozen read-only with the
+        manifest ``pending``: committable, abortable, crash-safe.  The
+        upload runs under write_lock, so no acknowledged write lands after
+        the crc was taken."""
+        if self.tiered:
+            raise PermissionError(f"volume {self.id} is already tiered")
+        m = self.tier_manifest()
+        if m and m.get("state") == "pending":
+            return m  # a retry: already uploaded and verified
+        # parked before write_lock: the worker's batch may wait on it
+        self._park_worker()
+        try:
+            with self.write_lock:
+                backend = get_backend(backend_id)
+                self._sync_files()
+                key = self._tier_key()
+                size = os.path.getsize(self.dat_path)
+                crc = crc32_of_file(self.dat_path)
+                manifest = {
+                    "state": "uploading",
+                    "version": int(self.version),
+                    "backend_type": backend.kind,
+                    "backend_id": backend_id, "key": key,
+                    "file_size": size, "crc32": crc,
+                    "modified_time": int(time.time()),
+                    "started_at": round(time.time(), 3),
+                }
+                self._save_tier_manifest(manifest)
+                # a delay armed here stalls with the manifest on disk and
+                # the remote object absent or partial: the kill window
+                faultinject.hit("tier.upload")
+                backend.upload_file(self.dat_path, key)
+                remote_size = backend.object_size(key)
+                remote_crc = crc32_of_remote(backend, key, remote_size)
+                if remote_size != size or remote_crc != crc:
+                    try:
+                        backend.delete_file(key)
+                    except Exception:  # noqa: BLE001 - the error below
+                        pass
+                    self._remove_tier_manifest()
+                    raise IOError(
+                        f"tier upload verify failed for volume "
+                        f"{self.id}: size {remote_size}!={size} or "
+                        f"crc {remote_crc:#x}!={crc:#x}")
+                manifest["state"] = "pending"
+                self._save_tier_manifest(manifest)
+                # both copies exist: a write now would leave the remote
+                # object (and the manifest's crc) stale
+                self.read_only = True
+                return manifest
+        finally:
+            self._unpark_worker()
+
+    def tier_commit(self) -> dict:
+        """Phase 2: persist ``committed``, write the `.vif`, drop the local
+        `.dat` and reopen tiered.  Idempotent: recovery runs it again after
+        a crash at any step.  Reads keep the local pair until the remote
+        one is published (the unlinked `.dat` stays readable through its
+        open descriptor)."""
+        m = self.tier_manifest()
+        if m is None:
+            if self.tiered:
+                return {"state": "committed"}  # tiered before manifests
+            raise FileNotFoundError(
+                f"volume {self.id} has no pending tier manifest")
+        if m.get("state") not in ("pending", "committed"):
+            raise PermissionError(
+                f"volume {self.id} tier manifest is {m.get('state')!r}, "
+                "not committable")
+        m["state"] = "committed"
+        self._save_tier_manifest(m)  # the local commit point
+        save_volume_info(self.file_prefix, self._remote_info(
+            m, int(self.version),
+            int(m.get("modified_time") or time.time())))
+        self._park_worker()
+        try:
+            with self.write_lock:
+                if not self.tiered:
+                    old = self._writable()
+                    if os.path.exists(self.dat_path):
+                        os.remove(self.dat_path)
+                    self._open()
+                    self._close_live(old)
+        finally:
+            self._unpark_worker()
+        return m
+
+    def tier_abort(self) -> None:
+        """Roll back an uncommitted upload: delete the remote object (the
+        manifest is its only record), drop the manifest, thaw writes."""
+        m = self.tier_manifest()
+        if m is None:
+            return
+        if m.get("state") == "committed":
+            raise PermissionError(
+                f"volume {self.id} tier is committed; recall instead")
+        try:
+            get_backend(m["backend_id"]).delete_file(m["key"])
+        except Exception:  # noqa: BLE001 - a partial object that never landed
+            pass
+        self._remove_tier_manifest()
+        self.read_only = False
+
+    def tier_recover(self) -> Optional[str]:
+        """At open, before any file opens: finish or roll back the tier
+        move a crash interrupted.  -> "gc_partial_upload",
+        "finish_commit", "finish_recall", "revert_recall" or None."""
+        m = self.tier_manifest()
+        if m is None:
+            return None
+        state = m.get("state")
+        tmp = self.dat_path + ".tierdl"
+        if state in ("uploading", "pending"):
+            # uncommitted: the local .dat is authoritative
+            try:
+                get_backend(m["backend_id"]).delete_file(m["key"])
+            except Exception:  # noqa: BLE001 - nothing to collect
+                pass
+            self._remove_tier_manifest()
+            return "gc_partial_upload"
+        if state == "committed":
+            # the remote copy is the volume: a .vif and no .dat
+            if maybe_load_volume_info(self.file_prefix) is None:
+                save_volume_info(self.file_prefix, self._remote_info(
+                    m, int(m.get("version") or 3),
+                    int(m.get("modified_time") or 0)))
+            if os.path.exists(self.dat_path):
+                os.remove(self.dat_path)
+            return "finish_commit"
+        if state == "recalling":
+            if os.path.exists(tmp):
+                os.remove(tmp)  # a partial download: the remote stays
+            if os.path.exists(self.dat_path) and \
+                    os.path.getsize(self.dat_path) == \
+                    int(m.get("file_size") or -1) and \
+                    crc32_of_file(self.dat_path) == int(m.get("crc32") or -1):
+                # the swap landed: delete the remote before the .vif,
+                # which is the key's only other record
+                try:
+                    get_backend(m["backend_id"]).delete_file(m["key"])
+                except Exception:  # noqa: BLE001 - the copy stays behind
+                    pass
+                if os.path.exists(vif_path(self.file_prefix)):
+                    os.remove(vif_path(self.file_prefix))
+                self._remove_tier_manifest()
+                return "finish_recall"
+            # no whole local copy: stay tiered
+            m["state"] = "committed"
+            self._save_tier_manifest(m)
+            return "revert_recall"
+        return None
+
+    def tier_upload(self, backend_id: str, keep_local: bool = False) -> dict:
+        """The one-shot move (VolumeTierMoveDatToRemote): phase 1, then
+        unless ``keep_local`` phase 2 at once.  -> the remote file's
+        description."""
+        manifest = self.tier_upload_begin(backend_id)
+        if not keep_local:
+            self.tier_commit()
+        return {"backend_type": manifest["backend_type"],
+                "backend_id": manifest["backend_id"],
+                "key": manifest["key"],
+                "file_size": manifest["file_size"],
+                "modified_time": manifest["modified_time"]}
+
+    def tier_download(self) -> None:
+        """The verified recall: download the tiered `.dat` to a temporary
+        file, hold it to the manifest's size and crc32 (size alone for a
+        volume tiered before manifests), move it into place, then delete
+        the remote object and the sidecars.  Reads are served from the
+        remote copy until the local pair is published; a failed recall
+        leaves the volume tiered."""
+        info = maybe_load_volume_info(self.file_prefix)
+        remote = info.remote_file if info else None
+        if remote is None:
+            raise FileNotFoundError(f"volume {self.id} is not tiered")
+        backend = get_backend(remote.backend_id)
+        m = self.tier_manifest()
+        if m is None:
+            m = {"backend_type": remote.backend_type,
+                 "backend_id": remote.backend_id, "key": remote.key,
+                 "file_size": remote.file_size, "crc32": None,
+                 "modified_time": remote.modified_time}
+        m["state"] = "recalling"
+        self._save_tier_manifest(m)
+        tmp = self.dat_path + ".tierdl"
+        self._park_worker()
+        try:
+            try:
+                # a delay armed here stalls mid-recall, the remote copy
+                # whole and only the temporary file partial
+                faultinject.hit("tier.recall")
+                backend.download_file(remote.key, tmp)
+                got = os.path.getsize(tmp)
+                if got != int(m["file_size"]):
+                    raise IOError(f"tier recall verify failed for volume "
+                                  f"{self.id}: size {got} != "
+                                  f"{m['file_size']}")
+                if m.get("crc32") is not None:
+                    crc = crc32_of_file(tmp)
+                    if crc != int(m["crc32"]):
+                        raise IOError(
+                            f"tier recall verify failed for volume "
+                            f"{self.id}: crc {crc:#x} != "
+                            f"{int(m['crc32']):#x}")
+                with self.write_lock:
+                    old = self._writable()
+                    os.replace(tmp, self.dat_path)
+                    # the manifest still names the key: a crash from here
+                    # on finishes the recall
+                    os.remove(vif_path(self.file_prefix))
+                    self.read_only = False
+                    self._open()
+            except BaseException:
+                if os.path.exists(tmp):
+                    os.remove(tmp)
+                if self.tiered:
+                    m["state"] = "committed"  # still tiered
+                    self._save_tier_manifest(m)
+                raise
+            self._close_live(old)  # after the reads in flight leave
+            try:
+                backend.delete_file(remote.key)
+            except Exception:  # noqa: BLE001 - the copy stays behind
+                pass
+            self._remove_tier_manifest()
+        finally:
+            self._unpark_worker()
+
+    def tier_delete_remote(self) -> None:
+        """Delete a tiered volume's remote object, or an uncommitted
+        upload's (destroy)."""
+        info = maybe_load_volume_info(self.file_prefix)
+        remote = info.remote_file if info else None
+        if remote is not None:
+            get_backend(remote.backend_id).delete_file(remote.key)
+        m = self.tier_manifest()
+        if m is not None and m.get("key") and remote is None:
+            # an uncommitted manifest is the key's only record
+            try:
+                get_backend(m["backend_id"]).delete_file(m["key"])
+            except Exception:  # noqa: BLE001 - nothing to collect
+                pass
 
     # --- info -----------------------------------------------------------
     def to_volume_information(self) -> dict:

@@ -635,6 +635,11 @@ class Reactor:
             except OSError:
                 sock.close()
                 continue
+            if lst.kind == "framed":
+                ok_fn = getattr(lst.owner, "_whitelist_ok", None)
+                if ok_fn is not None and not ok_fn(peer[0]):
+                    sock.close()
+                    continue
             conn = _Conn(self, lst, sock, peer)
             lst.conns.add(conn)
             _metrics().connections.add(1)

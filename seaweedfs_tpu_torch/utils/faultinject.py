@@ -1,7 +1,8 @@
 """Fault injection: named fault points that raise or stall on chosen hits.
 
 The port's copy of seaweedfs_tpu/utils/faultinject.py, with the points the
-port's EC pipeline, its repair coordinator and its volumes' fsync hit.  A
+port's EC pipeline, its repair coordinator, its volumes' disk IO and
+their tier moves hit.  A
 point is free when nothing is armed (one dict-emptiness check at each
 site); tests and drills arm it:
 
@@ -49,9 +50,24 @@ FAULT_POINTS: dict[str, str] = {
                         "bit-rot drill behind verify-on-use and the "
                         "scrubber (ec/ec_volume.py, ec/integrity.py, "
                         "ec/streaming.py rebuild)",
+    "disk.read": "a volume's .dat positional read, pread or mapped "
+                 "(storage/backend.py DiskFile, MemoryMappedFile)",
+    "disk.write": "a volume's .dat positional write (storage/backend.py "
+                  "DiskFile): an injected error fails the append, which "
+                  "is truncated back",
     "disk.sync": "the fsync of a volume's .dat (a group-commit batch, "
                  "a direct fsync write, sync, close): an injected error "
-                 "rolls the batch back (storage/volume.py)",
+                 "rolls the batch back (storage/backend.py DiskFile, "
+                 "storage/volume.py)",
+    "tier.upload": "tier phase-1 upload, hit with the .tier manifest on "
+                   "disk and no remote byte sent yet: a delay opens the "
+                   "mid-upload kill window, after which the local .dat "
+                   "stays authoritative and the partial remote object is "
+                   "collected (storage/volume.py tier_upload_begin)",
+    "tier.recall": "tier recall download, hit with the manifest in "
+                   "'recalling' and only a temp file partial: after a "
+                   "kill there the remote copy stays authoritative "
+                   "(storage/volume.py tier_download)",
     "coord.plan": "the coordinator's planning cycle: an injected error "
                   "is contained (the loop survives, last_error shows it, "
                   "the next cycle re-plans) (ops/coordinator.py)",

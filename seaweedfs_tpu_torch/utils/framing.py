@@ -172,13 +172,17 @@ def serve_frame(handler: Callable[[bytes, str, bytes], bytes],
 
 
 class FramedServer:
-    """A framed listener at host:port serving ``handler``."""
+    """A framed listener at host:port serving ``handler``.  With
+    ``whitelist_ok`` (the guard's ``check_white_list``) a connection from a
+    peer it refuses is closed before a frame is read, on either front."""
 
     def __init__(self, handler: Callable[[bytes, str, bytes], bytes],
                  host: str = "127.0.0.1", port: int = 0,
+                 whitelist_ok: Optional[Callable[[str], bool]] = None,
                  name: str = "framed"):
         self.handler = handler
         self.host, self.port = host, port
+        self._whitelist_ok = whitelist_ok
         self.name = name
         self._sock: Optional[socket.socket] = None
         self._stop = threading.Event()
@@ -233,6 +237,10 @@ class FramedServer:
                 conn, addr = self._sock.accept()
             except OSError:
                 return  # the listener closed
+            if self._whitelist_ok is not None and \
+                    not self._whitelist_ok(addr[0]):
+                conn.close()
+                continue
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
             threading.Thread(target=self._serve_conn, args=(conn,),
                              daemon=True,

@@ -21,6 +21,12 @@ The subset of seaweedfs_tpu/utils/httpd.py that the port's servers need:
     first replaces an idle connection the peer has closed and is never
     resent once its bytes are out, and a timeout never, since a POST must
     not run twice;
+  - cluster TLS (security/tls.py): ``serve(..., tls_context=...)`` listens
+    with HTTPS on ``FastHTTPServer`` (the reactor has no handshake state
+    machine, as in the reference), and ``set_client_tls`` installs the
+    process's client context, which upgrades every ``http://`` URL the
+    client calls are given to ``https://`` and verifies the peer
+    (``_prep_url``);
   - ``parse_range``, ``extract_upload``, ``qint``: request parsing.
 
 ``Router.loop_fast_probe(method, path)``, when set, tells the reactor which
@@ -59,8 +65,8 @@ not exempt must take a slot before its handler runs, and one over the
 bound is answered 503 with ``Retry-After: 1`` at once.  The slot is given
 back after the response has been sent, whatever happened on the way.
 
-Not ported: heat and ledger accounting, the request log, TLS and the
-network fault points.
+Not ported: heat and ledger accounting, the request log and the network
+fault points.
 """
 
 from __future__ import annotations
@@ -69,6 +75,7 @@ import json
 import os
 import re
 import socket
+import ssl
 import threading
 import time
 import urllib.parse
@@ -221,6 +228,8 @@ class Response:
 
 
 _FILE_PIECE = 1 << 20
+# how long a TLS listener waits for a peer's handshake
+_HANDSHAKE_S = 10.0
 
 
 class Router:
@@ -572,8 +581,11 @@ class FastHTTPServer:
     # connection), and each such client waits a second to retry
     request_queue_size = 256
 
-    def __init__(self, addr, router: Router):
+    def __init__(self, addr, router: Router, tls_context=None):
         self.router = router
+        # each connection's handshake runs on its own thread, never the
+        # accept loop's
+        self.tls_context = tls_context
         self._stopping = False
         self._done = threading.Event()
         self._sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
@@ -615,6 +627,11 @@ class FastHTTPServer:
     def _handle(self, conn, peer) -> None:
         try:
             conn.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+            if self.tls_context is not None:
+                # a peer without the certificate mTLS asks for fails here
+                conn.settimeout(_HANDSHAKE_S)
+                conn = self.tls_context.wrap_socket(conn, server_side=True)
+                conn.settimeout(None)
             rfile = conn.makefile("rb", buffering=1 << 16)
             h = _FastHandler(self, rfile, _SockWriter(conn), peer)
             # no stop check between requests: a stop that lands just after
@@ -706,14 +723,17 @@ class FastHTTPServer:
             pass
 
 
-def serve(router: Router, host: str, port: int):
+def serve(router: Router, host: str, port: int, tls_context=None):
     """Start serving ``router`` on host:port: on the process's reactor by
-    default; ``WEED_DATAPLANE=threaded`` gives ``FastHTTPServer``."""
+    default; ``WEED_DATAPLANE=threaded`` gives ``FastHTTPServer``.  With
+    ``tls_context`` (security/tls.py ``server_context``) the listener
+    speaks HTTPS, and mTLS when the context asks for client certificates;
+    it stays on ``FastHTTPServer``."""
     from . import eventloop
 
-    if eventloop.reactor_enabled():
+    if tls_context is None and eventloop.reactor_enabled():
         return eventloop.ReactorHTTPServer((host, port), router)
-    server = FastHTTPServer((host, port), router)
+    server = FastHTTPServer((host, port), router, tls_context)
     threading.Thread(target=server.serve_forever, daemon=True,
                      name=f"{router.name}:{server.server_address[1]}").start()
     return server
@@ -730,6 +750,26 @@ def stop_server(server) -> None:
     server.server_close()
 
 
+# --- cluster TLS ----------------------------------------------------------------
+# One switch for the process (security.toml [tls]): with a client context
+# installed, every http:// URL a client call is given is upgraded to
+# https:// and the peer verified (with this node's certificate: mTLS).
+_client_tls = None
+
+
+def set_client_tls(context) -> None:
+    """Install (or clear, with None) the process's client SSL context."""
+    global _client_tls
+    _client_tls = context
+
+
+def _prep_url(url: str):
+    """-> (url, ssl context): the scheme upgraded when TLS is on."""
+    if _client_tls is not None and url.startswith("http://"):
+        return "https://" + url[len("http://"):], _client_tls
+    return url, (_client_tls if url.startswith("https://") else None)
+
+
 # --- the pooled client --------------------------------------------------------
 # One keep-alive TCP_NODELAY connection per (thread, peer): a new TCP
 # connection per call costs a handshake and, with the control plane's small
@@ -744,14 +784,24 @@ class _RawConn:
     read to close).  ``sent`` says whether the last request's bytes all
     went out."""
 
-    __slots__ = ("sock", "rfile", "host", "sent")
+    __slots__ = ("sock", "rfile", "host", "sent", "tls")
 
-    def __init__(self, netloc: str, timeout: Optional[float]):
+    def __init__(self, scheme: str, netloc: str, timeout: Optional[float],
+                 ssl_ctx=None):
         host, _, port_s = netloc.partition(":")
         self.host = netloc
-        sock = socket.create_connection((host, int(port_s or 80)),
-                                        timeout=timeout)
+        self.tls = scheme == "https"
+        sock = socket.create_connection(
+            (host, int(port_s or (443 if self.tls else 80))),
+            timeout=timeout)
         sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        if self.tls:
+            try:
+                sock = (ssl_ctx or ssl.create_default_context()).wrap_socket(
+                    sock, server_hostname=host)
+            except BaseException:
+                sock.close()
+                raise
         self.sock = sock
         self.rfile = sock.makefile("rb", buffering=1 << 16)
         self.sent = False
@@ -761,9 +811,15 @@ class _RawConn:
         has closed or reset it, or sent bytes nobody asked for."""
         try:
             self.sock.setblocking(False)
-            self.sock.recv(1, socket.MSG_PEEK)
+            if self.tls:
+                # a TLS socket takes no recv flags; a record that carries
+                # no data (a session ticket) is read and the call wants
+                # more, and unrequested data dooms the connection anyway
+                self.sock.recv(1)
+            else:
+                self.sock.recv(1, socket.MSG_PEEK)
             return True  # b"" (closed) or unrequested bytes
-        except BlockingIOError:
+        except (BlockingIOError, ssl.SSLWantReadError):
             return False
         except OSError:
             return True
@@ -919,10 +975,11 @@ def _pooled_request(method: str, url: str, body: Optional[bytes],
     Anything else propagates: a timeout, a new connection's failure, and
     a failure after another method's request went out, since the peer may
     be running it and a POST must not run twice."""
+    url, ssl_ctx = _prep_url(url)
     parsed = urllib.parse.urlsplit(url)
-    if parsed.scheme != "http":
+    if parsed.scheme not in ("http", "https"):
         raise ValueError(f"unsupported URL scheme in {url!r}")
-    key = parsed.netloc
+    key = (parsed.scheme, parsed.netloc)
     target = (parsed.path or "/") + (f"?{parsed.query}" if parsed.query
                                      else "")
     # the budget left; a spent one raises before anything is sent
@@ -941,7 +998,8 @@ def _pooled_request(method: str, url: str, body: Optional[bytes],
                 conn = None
             reused = conn is not None
             if conn is None:
-                conn = _RawConn(parsed.netloc, timeout)
+                conn = _RawConn(parsed.scheme, parsed.netloc, timeout,
+                                ssl_ctx)
                 _pool.conns[key] = conn
             try:
                 conn.settimeout(timeout)

@@ -81,8 +81,28 @@ are the reference's documents; a GET with ``?width``/``?height`` resizes
 an image (images/, passed through without Pillow).  An ``?fsync=true``
 write or delete goes through its volume's group-commit worker.
 
-Not ported: security (guard, JWT, whitelist, TLS), the native plane, mmap,
-heat, ledger, the request log and the tier routes.
+Security (security/, from ``security.toml``): the ``guard``'s write key
+makes every PUT/POST and DELETE of an object carry the master's token for
+its fid (``Authorization: BEARER`` or ``?jwt=``), and a replica's forward
+carries it on; its read key makes every GET and HEAD carry a read token;
+its whitelist admits writes, deletes and ``/admin/batch_delete`` from
+listed IPs and CIDRs only, and no other route.  ``/admin/batch_delete``
+under a write key holds each fid to its own token in the body's
+``jwts``; ``/batch/read`` and ``/batch/write`` refuse under a read or
+write key (a batch has no token slot).  The framed plane does not start
+under either key or under cluster TLS, and admits only whitelisted peers.
+``tls_context`` serves HTTPS (mTLS with a CA) on the threaded front.
+
+Tiering (storage/volume.py): ``POST /admin/tier_upload`` (``backend``,
+``keep_local``, or ``two_phase`` to stop at the verified upload),
+``/admin/tier_commit``, ``/admin/tier_abort`` and ``/admin/tier_download``
+move a volume's `.dat` to a backend of ``backends`` (``-tier.backends``)
+and back.  A tiered volume is read-only and serves every GET, Range GETs
+included, from its remote object: the needle cache and the loop's fast
+path never hold it, and ``/admin/configure_replication`` answers 409.
+``use_mmap`` maps every `.dat` (``-mmap``).
+
+Not ported: the native plane, heat, ledger and the request log.
 """
 
 from __future__ import annotations
@@ -96,6 +116,7 @@ import sys
 import threading
 import time
 import urllib.parse
+from typing import Optional
 
 import numpy as np
 
@@ -110,11 +131,13 @@ from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops.gf_matmul import gf_matmul
 from ..query import execute_query
+from ..security import Guard, JwtError, decode_jwt, get_jwt
 from ..stats import (REGISTRY, dataplane_metrics, degraded_bind_metrics,
                      ec_integrity_metrics, needle_cache_metrics,
                      request_plane_metrics, volume_server_metrics)
 from ..stats.metrics import exemplars_requested
 from ..storage.file_id import FileId
+from ..storage.backend import configure_backends
 from ..storage.needle import (
     FLAG_HAS_LAST_MODIFIED,
     FLAG_HAS_MIME,
@@ -123,6 +146,7 @@ from ..storage.needle import (
     FLAG_IS_COMPRESSED,
     Needle,
 )
+from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
 from ..storage.volume import (
     CookieMismatchError,
@@ -195,13 +219,24 @@ class VolumeServer:
                  public_url: str = "", data_center: str = "",
                  rack: str = "", max_volume_count: int = 8,
                  pulse_seconds: float = 5.0, device="cuda",
-                 max_inflight: int = 0, needle_cache_mb: int = 64):
+                 max_inflight: int = 0, needle_cache_mb: int = 64,
+                 guard: Optional[Guard] = None,
+                 backends: Optional[dict] = None, tls_context=None,
+                 use_mmap: bool = False):
         """A volume server for ``directories`` at host:port, heartbeating
         to ``master_url`` (comma-separated masters; heartbeats follow the
         raft leader).  ``device`` runs the EC work: "cuda" needs a card
         and raises without one; only "cpu" selects the plain versions.
         ``max_inflight`` > 0 turns admission control on;
-        ``needle_cache_mb`` sizes the needle cache (0: none)."""
+        ``needle_cache_mb`` sizes the needle cache (0: none).  ``guard``
+        holds the whitelist and keys (none: an open server);
+        ``backends`` registers tier backends ({name: {"type": "dir",
+        "root": ...}}) before any volume opens; ``tls_context`` serves
+        HTTPS; ``use_mmap`` maps each `.dat`."""
+        if backends:
+            configure_backends(backends)
+        self.guard = guard or Guard()
+        self._tls_context = tls_context
         self.masters = [m.strip() for m in master_url.split(",")
                         if m.strip()]
         self.master_url = self.masters[0]
@@ -210,7 +245,8 @@ class VolumeServer:
         self.pulse_seconds = pulse_seconds
         self.store = Store(directories, host, port, public_url,
                            max_volume_count, device=device,
-                           needle_cache_mb=needle_cache_mb)
+                           needle_cache_mb=needle_cache_mb,
+                           use_mmap=use_mmap)
         if directories:
             get_flightrecorder().configure(
                 spool_dir=os.path.join(directories[0], "flightrecorder"))
@@ -264,13 +300,21 @@ class VolumeServer:
     def start(self) -> "VolumeServer":
         self._trace_shipper.attach()
         self._event_shipper.attach()
-        self._server = serve(self.router, self.store.ip, self.store.port)
-        self._tcp_server = _bind_with_retry(
-            lambda: TcpVolumeServer(
-                self.store, self.store.ip,
-                replicate_write=self._tcp_replicate_write,
-                replicate_delete=self._tcp_replicate_delete).start(),
-            role="volume-tcp", server=self.url)
+        self._server = serve(self.router, self.store.ip, self.store.port,
+                             tls_context=self._tls_context)
+        # a frame has no token slot and the plane no TLS: it must not open
+        # a side door on a secured server
+        g = self.guard
+        if not g.signing_key and not g.read_signing_key \
+                and self._tls_context is None:
+            self._tcp_server = _bind_with_retry(
+                lambda: TcpVolumeServer(
+                    self.store, self.store.ip,
+                    whitelist_ok=(g.check_white_list if g.is_write_active
+                                  else None),
+                    replicate_write=self._tcp_replicate_write,
+                    replicate_delete=self._tcp_replicate_delete).start(),
+                role="volume-tcp", server=self.url)
         threading.Thread(target=self._heartbeat_loop, daemon=True,
                          name=f"heartbeat:{self.url}").start()
         return self
@@ -387,10 +431,11 @@ class VolumeServer:
     def _loop_fast_probe(self, method: str, path: str) -> bool:
         """May the reactor answer this GET/HEAD on its loop?  True only for
         a plain object path (no query) whose needle the cache holds, of a
-        volume mounted live here: the answer then comes from memory (a
-        raced invalidation costs one bounded pread).  An EC volume's needle
-        is never cached, so no EC read and no kernel launch runs on the
-        loop.  Never blocks: a regex, a parse, two dict lookups."""
+        volume mounted live here and not tiered: the answer then comes
+        from memory (a raced invalidation costs one bounded pread).  An EC
+        volume's needle is never cached, so no EC read and no kernel
+        launch runs on the loop; a tiered volume's reads go to its remote
+        object.  Never blocks: a regex, a parse, three dict lookups."""
         m = _FAST_FID_RE.match(path)
         if m is None:
             return False
@@ -401,7 +446,8 @@ class VolumeServer:
             fid = FileId.parse(f"{m.group(1)},{m.group(2)}")
         except ValueError:
             return False
-        return fid.volume_id in self.store.volumes \
+        v = self.store.volumes.get(fid.volume_id)
+        return v is not None and not v.tiered \
             and cache.contains(fid.volume_id, fid.key)
 
     def _try_partial_read(self, req: Request, fid: FileId,
@@ -442,6 +488,19 @@ class VolumeServer:
         body = b"" if req.handler.command == "HEAD" \
             else v.read_needle_data(loc, off, sz)
         return Response(raw=body, status=206, headers=headers)
+
+    def _tier_volume(self, vid: int):
+        try:
+            return self.store.get_volume(vid)
+        except KeyError:
+            raise HttpError(404, f"volume {vid} not found")
+
+    def _tier_moved(self, vid: int) -> None:
+        """After a tier route: the volume's cached needles dropped (its
+        reads now go where its `.dat` is) and its read-only state queued
+        for the next heartbeat."""
+        self.store.needle_cache.invalidate_volume(vid, "tier")
+        self.store.note_volume_change(vid)
 
     def _scrub_busy(self) -> bool:
         """The scrubber's load gate: True while this server takes more
@@ -641,6 +700,10 @@ class VolumeServer:
         @r.route("HEAD", FID_PATTERN)
         def read_object(req: Request) -> Response:
             fid = FileId.parse(f"{req.match.group(1)},{req.match.group(2)}")
+            err = self.guard.check_read_jwt(
+                req, f"{req.match.group(1)},{req.match.group(2)}")
+            if err:
+                raise HttpError(401, err)
             vid = fid.volume_id
             wants_resize = bool(req.query.get("width")
                                 or req.query.get("height"))
@@ -733,7 +796,10 @@ class VolumeServer:
             """Batched GET: ``{"fids": [...]}`` (at most 10,000) ->
             ``status(1, 0=ok) | u32 len | payload`` per fid, in order; a
             gzip-stored needle comes back ungzipped, a failed fid's
-            payload is its error's text."""
+            payload is its error's text.  Refused under a read key."""
+            if self.guard.read_signing_key:
+                raise HttpError(401, "batch read unavailable with "
+                                     "read JWTs configured")
             fids = req.json().get("fids", [])
             if not isinstance(fids, list) or len(fids) > 10000:
                 raise HttpError(400, "fids must be a list of <= 10000")
@@ -759,7 +825,13 @@ class VolumeServer:
             results.  The whole body is unpacked before the store is
             touched, so a torn one answers 400 with nothing written.  Each
             volume's writes then go to its replicas as one batch; a
-            replica's failed fid fails the batch."""
+            replica's failed fid fails the batch.  Refused under a write
+            key."""
+            if not self.guard.white_list_ok(req):
+                raise HttpError(401, "not in whitelist")
+            if self.guard.signing_key:
+                raise HttpError(401, "batch write unavailable with "
+                                     "write JWTs configured")
             try:
                 items = unpack_fid_frames(req.body, with_data=True)
             except ValueError as e:
@@ -810,6 +882,12 @@ class VolumeServer:
         @r.route("POST", FID_PATTERN)
         @r.route("PUT", FID_PATTERN)
         def write_object(req: Request) -> Response:
+            if not self.guard.white_list_ok(req):
+                raise HttpError(401, "not in whitelist")
+            err = self.guard.check_write_jwt(
+                req, f"{req.match.group(1)},{req.match.group(2)}")
+            if err:
+                raise HttpError(401, err)
             try:
                 fid = FileId.parse(
                     f"{req.match.group(1)},{req.match.group(2)}")
@@ -862,6 +940,10 @@ class VolumeServer:
                 if name and "name" not in params:
                     params["name"] = name
                 params.setdefault("ts", str(n.last_modified))
+                # the fid's token goes on, so the replicas' guards pass
+                token = get_jwt(req.headers, req.query)
+                if token:
+                    params["jwt"] = token
                 headers = {"Content-Type": mime or ""}
                 if req.headers.get("Content-Encoding"):
                     headers["Content-Encoding"] = \
@@ -873,6 +955,13 @@ class VolumeServer:
 
         @r.route("DELETE", FID_PATTERN)
         def delete_object(req: Request) -> Response:
+            if not self.guard.white_list_ok(req):
+                raise HttpError(401, "not in whitelist")
+            # a delete is a mutation: the fid's write token, as a write
+            err = self.guard.check_write_jwt(
+                req, f"{req.match.group(1)},{req.match.group(2)}")
+            if err:
+                raise HttpError(401, err)
             fid = FileId.parse(f"{req.match.group(1)},{req.match.group(2)}")
             vid = fid.volume_id
             if vid in self.store.ec_volumes:
@@ -886,7 +975,9 @@ class VolumeServer:
                 except KeyError:
                     raise HttpError(404, f"volume {vid} not found")
             if req.query.get("type") != "replicate":
-                self._replicate(req.path, "type=replicate", "DELETE", vid)
+                token = get_jwt(req.headers, req.query)
+                self._replicate(req.path, "type=replicate" + (
+                    f"&jwt={token}" if token else ""), "DELETE", vid)
             return Response({"size": size})
 
         @r.route("POST", "/admin/leave")
@@ -1041,8 +1132,15 @@ class VolumeServer:
             superblock's replica placement in place."""
             b = req.json()
             vid = int(b["volume_id"])
-            if vid not in self.store.volumes:
+            try:
+                v = self.store.get_volume(vid)
+            except KeyError:
                 raise HttpError(404, f"volume {vid} not found")
+            ReplicaPlacement.parse(b["replication"])
+            if v.tiered:
+                raise HttpError(
+                    409, f"volume {vid} is tiered (read-only); "
+                    "tier.download before reconfiguring")
             rp = self.store.configure_replication(vid, b["replication"])
             self.heartbeat_now()
             return Response({"replication": str(rp)})
@@ -1060,14 +1158,27 @@ class VolumeServer:
             202 with the size freed, or 404 with its error; an EC volume's
             needle is deleted in its `.ecx`/`.ecj`.  Unless the request is
             itself a replica's, the fids go on to the volumes' other
-            replicas in one request each.  As the reference's with no
-            signing key and an open whitelist: security is not ported, and
-            a body's ``jwts`` are only passed on to the replicas."""
+            replicas in one request each.  Under a write key each fid must
+            carry its own token in the body's ``jwts`` ({fid: token}), as a
+            single DELETE must: a fid without one answers 401; the tokens
+            go on to the replicas."""
+            if not self.guard.white_list_ok(req):
+                raise HttpError(401, "not in whitelist")
             body = req.json()
             jwts = body.get("jwts", {})
             results = []
             fanned: dict[str, list[str]] = {}
             for fid_str in body.get("fids", []):
+                if self.guard.signing_key:
+                    try:
+                        claims = decode_jwt(self.guard.signing_key,
+                                            jwts.get(fid_str, ""))
+                        if claims.get("fid") != fid_str:
+                            raise JwtError("fid mismatch")
+                    except JwtError as e:
+                        results.append({"fid": fid_str, "error": str(e),
+                                        "status": 401})
+                        continue
                 try:
                     fid = FileId.parse(fid_str)
                     if fid.volume_id in self.store.ec_volumes:
@@ -1113,6 +1224,66 @@ class VolumeServer:
             return Response(raw=blob, headers={
                 "X-Last-Append-At-Ns": str(last_ts),
                 "X-Volume-Version": str(int(v.version))})
+
+        # --- admin: tiering (volume_grpc_tier_*.go) ---------------------
+        @r.route("POST", "/admin/tier_upload")
+        def tier_upload(req: Request) -> Response:
+            """VolumeTierMoveDatToRemote: the one-shot move (``keep_local``
+            keeps the `.dat`, writes frozen), or with ``two_phase`` the
+            verified upload alone, manifest ``pending``, for a control
+            plane that commits with /admin/tier_commit."""
+            b = req.json()
+            vid = int(b["volume_id"])
+            v = self._tier_volume(vid)
+            with self.store.volume_locks[vid]:
+                if bool(b.get("two_phase")):
+                    out = {"manifest": v.tier_upload_begin(b["backend"])}
+                else:
+                    out = {"remote": v.tier_upload(
+                        b["backend"], keep_local=bool(b.get("keep_local")))}
+            self._tier_moved(vid)
+            return Response(out)
+
+        @r.route("POST", "/admin/tier_commit")
+        def tier_commit(req: Request) -> Response:
+            """Phase 2 of the two-phase move: ``committed``, the `.vif`,
+            the local `.dat` dropped, reopened tiered.  Idempotent; 404
+            when no manifest is pending, 409 when it is not committable."""
+            vid = int(req.json()["volume_id"])
+            v = self._tier_volume(vid)
+            try:
+                with self.store.volume_locks[vid]:
+                    manifest = v.tier_commit()
+            except FileNotFoundError as e:
+                raise HttpError(404, str(e))
+            except PermissionError as e:
+                raise HttpError(409, str(e))
+            self._tier_moved(vid)
+            return Response({"manifest": manifest})
+
+        @r.route("POST", "/admin/tier_abort")
+        def tier_abort(req: Request) -> Response:
+            """Roll back an uncommitted two-phase upload: the remote object
+            deleted, the manifest dropped, writes thawed."""
+            vid = int(req.json()["volume_id"])
+            v = self._tier_volume(vid)
+            try:
+                with self.store.volume_locks[vid]:
+                    v.tier_abort()
+            except PermissionError as e:
+                raise HttpError(409, str(e))
+            self._tier_moved(vid)
+            return Response({})
+
+        @r.route("POST", "/admin/tier_download")
+        def tier_download(req: Request) -> Response:
+            """VolumeTierMoveDatFromRemote: the verified recall."""
+            vid = int(req.json()["volume_id"])
+            v = self._tier_volume(vid)
+            with self.store.volume_locks[vid]:
+                v.tier_download()
+            self._tier_moved(vid)
+            return Response({})
 
         # --- admin: volume copy/move (volume_grpc_copy.go) -----------
         @r.route("GET", "/admin/volume_download")

@@ -28,9 +28,15 @@ A write or delete with ``fsync`` goes through its volume's group-commit
 worker (``Volume.write_needle2``, storage/volume_write.py) with no lock of
 the store held while it waits, so concurrent fsync writers share the
 batch's fsyncs (the `.dat`'s and the `.idx`'s); without ``fsync`` it appends under the volume's write
-lock alone.  Volumes open with the compact needle map.
+lock alone.  Volumes open with the compact needle map, their `.dat`
+mapped with ``use_mmap`` (``volume -mmap``).  A directory's volumes are
+its `.dat` files and its `.vif` files: a tiered volume has only the
+`.vif` and the `.idx` here, its `.dat` in a backend; each opens through
+``Volume``, which first finishes or rolls back a tier move a crash
+interrupted.  An EC encode of a tiered volume fails as the reference's
+does: the encoder opens the local `.dat`, which is not there.
 
-Not ported: the native data plane and mmap volumes.
+Not ported: the native data plane.
 """
 
 from __future__ import annotations
@@ -68,6 +74,12 @@ def parse_volume_file_name(name: str) -> tuple[str, int]:
     return collection, int(vid_str)
 
 
+def _discover_volumes(directory: str) -> list[tuple[str, int]]:
+    """A directory's volumes: a `.dat`, or a tiered volume's `.vif`."""
+    return sorted(set(_discover(directory, ".dat"))
+                  | set(_discover(directory, ".vif")))
+
+
 def _discover(directory: str, ext: str) -> list[tuple[str, int]]:
     found = set()
     for path in glob.glob(os.path.join(directory, "*" + ext)):
@@ -81,11 +93,13 @@ class Store:
     def __init__(self, directories: list[str], ip: str = "127.0.0.1",
                  port: int = 8080, public_url: str = "",
                  max_volume_count: int = 8, device="cuda",
-                 needle_cache_mb: int = 64):
+                 needle_cache_mb: int = 64, use_mmap: bool = False):
         """Volumes under ``directories``, served at ``ip:port``; EC work on
         ``device`` ("cuda" needs a card, "cpu" runs the plain versions);
-        a needle cache of ``needle_cache_mb`` MiB (0: none)."""
+        a needle cache of ``needle_cache_mb`` MiB (0: none); each `.dat`
+        mapped with ``use_mmap``."""
         self.device = resolve_device(device)
+        self.use_mmap = use_mmap
         self.ip, self.port = ip, port
         self.needle_cache = NeedleCache(
             max_bytes=max(0, int(needle_cache_mb)) << 20)
@@ -118,9 +132,9 @@ class Store:
         self._new_ec_vids: set[int] = set()
         self._gone_ec_vids: set[int] = set()
         for d in self.directories:
-            for collection, vid in _discover(d, ".dat"):
+            for collection, vid in _discover_volumes(d):
                 if vid not in self.volumes:
-                    self._open_volume(Volume(d, collection, vid))
+                    self._open_volume(self._volume(d, collection, vid))
             for collection, vid in _discover(d, ".ecx"):
                 if vid not in self.ec_volumes:
                     self._open_ec_volume(d, collection, vid)
@@ -138,6 +152,11 @@ class Store:
             if self._encoder is None:
                 self._encoder = StreamingEncoder(device=self.device)
             return self._encoder
+
+    def _volume(self, directory: str, collection: str, vid: int,
+                **kwargs) -> Volume:
+        return Volume(directory, collection, vid, use_mmap=self.use_mmap,
+                      **kwargs)
 
     def _open_volume(self, v: Volume) -> Volume:
         self.volumes[v.id] = v
@@ -238,7 +257,7 @@ class Store:
         directory = min(self.directories,
                         key=lambda d: sum(1 for v in self.volumes.values()
                                           if v.directory == d))
-        return self._open_volume(Volume(
+        return self._open_volume(self._volume(
             directory, collection, vid,
             replica_placement=ReplicaPlacement.parse(replication),
             ttl=TTL.parse(ttl)))
@@ -267,9 +286,9 @@ class Store:
 
     def mount_volume(self, vid: int) -> None:
         for d in self.directories:
-            for collection, found in _discover(d, ".dat"):
+            for collection, found in _discover_volumes(d):
                 if found == vid:
-                    self._open_volume(Volume(d, collection, vid))
+                    self._open_volume(self._volume(d, collection, vid))
                     return
         raise KeyError(f"volume {vid} not found on disk")
 
@@ -294,8 +313,10 @@ class Store:
 
     def read_needle(self, vid: int, key: int,
                     cookie: Optional[int] = None) -> Needle:
+        """A live volume's needle, through the needle cache; a tiered
+        volume's is always read from its remote object."""
         cache = self.needle_cache
-        if not cache.enabled:
+        if not cache.enabled or self.get_volume(vid).tiered:
             return self.get_volume(vid).read_needle(key, cookie)
         n = cache.get(vid, key)
         if n is not None:
@@ -327,7 +348,8 @@ class Store:
     def open_copied_volume(self, collection: str, vid: int) -> Volume:
         """/admin/volume_copy: mount the `.dat`/`.idx` it downloaded into
         the first directory, through the crash check every open runs."""
-        return self._open_volume(Volume(self.directories[0], collection, vid))
+        return self._open_volume(self._volume(self.directories[0],
+                                              collection, vid))
 
     # --- volume.fsck and volume.configure.replication backends ------------
     def check_volume(self, vid: int) -> dict:
@@ -484,7 +506,8 @@ class Store:
         ec_encoder.write_dat_file(base, ec_encoder.find_dat_file_size(base))
         ec_encoder.write_idx_file_from_ec_index(base)
         self.ec_unmount(vid)
-        self._open_volume(Volume(os.path.dirname(base), collection, vid))
+        self._open_volume(self._volume(os.path.dirname(base), collection,
+                                       vid))
 
     def close(self) -> None:
         for v in self.volumes.values():

@@ -22,8 +22,13 @@ HTTP, as the HTTP plane's writes do.  Reads go to the live volumes only:
 a framed R of an EC volume answers the store's KeyError, as the
 reference's does.
 
-Not ported: heat accounting (it waits for observability/heat.py), and
-the IP whitelist (the port has no guard).
+``whitelist_ok`` (the guard's ``check_white_list``, given when the server
+has a whitelist) closes a connection from a peer outside it before any
+frame, reads included.  The volume server starts no framed plane at all
+under a write or read key, or under cluster TLS: a frame has no token
+slot and the plane no TLS.
+
+Not ported: heat accounting (it waits for observability/heat.py).
 """
 
 from __future__ import annotations
@@ -50,10 +55,11 @@ class TcpVolumeServer(FramedServer):
     """The framed front over a Store."""
 
     def __init__(self, store, host: str = "127.0.0.1", port: int = 0,
-                 replicate_write=None, replicate_delete=None):
+                 whitelist_ok=None, replicate_write=None,
+                 replicate_delete=None):
         super().__init__(self._handle, host,
                          port or tcp_port_for(store.port),
-                         name="tcp-volume")
+                         whitelist_ok=whitelist_ok, name="tcp-volume")
         self.store = store
         self.replicate_write = replicate_write
         self.replicate_delete = replicate_delete

@@ -4,8 +4,8 @@ Every name a ``faultinject.hit()`` / ``faultinject.corrupt_block()`` call
 (or a ``drain_point=`` the streaming encoder hands to its drain) names in
 ``seaweedfs_tpu_torch/`` is in ``FAULT_POINTS``, and every registered
 point is named at such a site.  The reference's points the port has no
-code for (``ec.worker.ack``, ``ec.shm``, ``tier.*``, ``loop.block``,
-``disk.read``, ``disk.write`` and the ``net.*`` points) are not listed.
+code for (``ec.worker.ack``, ``ec.shm``, ``loop.block`` and the ``net.*``
+points) are not listed.
 """
 
 from __future__ import annotations
@@ -57,8 +57,9 @@ def test_every_site_is_registered_and_every_point_is_hit():
 def test_the_port_lists_a_subset_of_the_reference_s_points():
     assert set(fi.FAULT_POINTS) <= set(ref_fi.FAULT_POINTS)
     left_out = set(ref_fi.FAULT_POINTS) - set(fi.FAULT_POINTS)
-    assert {"ec.worker.ack", "ec.shm", "loop.block", "tier.upload",
-            "tier.recall"} <= left_out
+    assert {"ec.worker.ack", "ec.shm", "loop.block"} <= left_out
+    assert {"tier.upload", "tier.recall", "disk.read", "disk.write"} \
+        <= set(fi.FAULT_POINTS)
     assert fi.list_points() == sorted(fi.FAULT_POINTS.items())
 
 

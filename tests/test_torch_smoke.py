@@ -310,12 +310,43 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert all(c["bytes"] > 0 and c["wall_s"] > 0
                for c in hand["captures"].values())
     assert hand["alerts.capture_bundles"] == len(hand["captures"])
-    assert hand["fault_points"].startswith("fault points: 6 registered")
+    assert hand["fault_points"].startswith("fault points: 10 registered")
     assert alerts["evaluation"]["mean_ms"] > 0
     assert alerts["evaluation"]["peers"] >= 3
     for k in ("rot_to_heal_s", "kill_to_heal_s"):
         assert alerts[k]["moved"] in ("within", "above", "below")
     assert isinstance(alerts["resolved"], list)
+
+
+def test_secure_tier_phase_on_cpu(tmp_path):
+    """The secure_tier phase at 24 MiB with ``-ec.engine cpu``: mTLS from
+    openssl's certificates, the 401s, the tier round trip by sha256, the
+    reference's failure for ec.encode of the tiered volume, and one
+    reconstruction per lost interval (the plain versions launch
+    nothing)."""
+    res = chip_smoke.run_secure_tier_phase("cpu", str(tmp_path), 24 << 20,
+                                           threads=4, tier_gets=30,
+                                           degraded=30)
+    assert res["tls"] == "mtls"
+    assert res["refused"] == {k: {"status": 401, "body": "missing jwt"}
+                              for k in ("unsigned_put", "unsigned_delete",
+                                        "get_without_read_token")}
+    assert res["dat_sha256_equal_after_recall"]
+    assert res["encode_tiered"] == (
+        "ec.encode volume 1 FAILED: FileNotFoundError: [Errno 2] No such "
+        "file or directory: '<work>/vs0/securetier_1.dat'")
+    assert res["get_ms"]["tier"]["n"] == res["get_ms"]["local"]["n"] == 30
+    seal = res["seal"]
+    assert seal["gets"] == 30 and seal["lost_intervals"] > 0
+    assert res["launches"] == seal["get_launches"] == 0
+    # the plain versions launch nothing: every GET falls in no_launch
+    assert res["degraded_split_ms"]["first_launch"] == {}
+    assert res["degraded_split_ms"]["later_launches"] is None
+    assert res["degraded_split_ms"]["no_launch"]["n"] == 30
+    assert sum(s["reconstructed"] for s in res["servers"].values()) == \
+        seal["lost_intervals"]
+    assert [s["mmap"] for s in res["servers"].values()].count(True) == 1
+    assert all("front threaded" in line for line in res["start_lines"])
 
 
 def test_refuses_without_a_card_or_a_checkout(tmp_path):
@@ -329,3 +360,18 @@ def test_refuses_without_a_card_or_a_checkout(tmp_path):
     r = subprocess.run([sys.executable, str(lone)], cwd=str(tmp_path),
                        capture_output=True, text=True, timeout=120)
     assert r.returncode != 0 and '"ok"' not in r.stdout
+
+
+def test_split_first_launches_keeps_each_server_s_first_apart():
+    """Three GETs on two servers: a's first launch, b's first with a's
+    second, one GET that launched nothing."""
+    marks = [{"a": 0, "b": 0}, {"a": 2, "b": 0}, {"a": 3, "b": 1},
+             {"a": 3, "b": 1}]
+    split = chip_smoke.split_first_launches([0.5, 0.25, 0.002], marks)
+    assert split["first_launch"] == {"a": 500.0, "b": 250.0}
+    assert split["later_launches"] is None
+    assert split["no_launch"]["n"] == 1
+    marks.append({"a": 4, "b": 1})
+    split = chip_smoke.split_first_launches([0.5, 0.25, 0.002, 0.01], marks)
+    assert split["later_launches"]["n"] == 1
+    assert split["later_launches"]["p50"] == pytest.approx(10.0)
