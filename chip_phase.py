@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """Run one phase of chip_smoke.py on the card, alone, at its full size.
 
-    python3 chip_phase.py volume_store     # or: dataplane, secure_tier
+    python3 chip_phase.py volume_store     # or: dataplane, secure_tier,
+                                           #     native_plane
     python3 chip_phase.py dataplane parent  # the label printed with it
 
 Builds the native libraries from the checkout it runs in, runs
-``run_volume_store_phase``, ``run_dataplane_phase`` or
-``run_secure_tier_phase`` with chip_smoke.py's constants, and prints the
-card's name and power limit, then one JSON line of the phase's numbers
-(``dataplane``: each front's healthy passes, ops/s and p50/p99 ms).  To hold one tree against another on one card,
+``run_volume_store_phase``, ``run_dataplane_phase``,
+``run_secure_tier_phase`` or ``run_native_plane_phase`` with
+chip_smoke.py's constants, and prints the card's name and power limit,
+then one JSON line of the phase's numbers (``dataplane``: each front's
+healthy passes, ops/s and p50/p99 ms; ``native_plane``: its passes, the
+frames and dispatches each moved, and the client's and servers' CPU
+seconds).  To hold one tree against another on one card,
 unpack the other with ``git archive``, copy this script into it if it
 lacks one, and run it from each checkout in turns (other, this, this,
 other) in one call.  Needs a card.
@@ -29,7 +33,7 @@ PASSES = ("write", "read", "zipf", "read_again", "zipf_again")
 
 def main(argv: list[str]) -> int:
     if not argv or argv[0] not in ("volume_store", "dataplane",
-                                   "secure_tier"):
+                                   "secure_tier", "native_plane"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -41,7 +45,7 @@ def main(argv: list[str]) -> int:
 
     phase, label = argv[0], argv[1] if len(argv) > 1 else ""
     print(cs.nvidia_smi("name,power.limit"), flush=True)
-    _build.build(["crc32c", "gf_matmul"])
+    _build.build(["crc32c", "gf_matmul", "dataplane"])
     work = tempfile.mkdtemp(prefix=f"chip-{phase}-", dir=_build.BUILD_DIR)
     try:
         t0 = time.perf_counter()
@@ -53,6 +57,17 @@ def main(argv: list[str]) -> int:
                 cs.STORE_MORE_DELETES, cs.STORE_DEGRADED,
                 follower_seed=cs.STORE_FOLLOWER_SEED)
             res.pop("stats", None)
+        elif phase == "native_plane":
+            nat = cs.run_native_plane_phase(
+                "tpu", work, cs.BENCH_N, cs.BENCH_SIZE, cs.BENCH_CLIENTS,
+                cs.BENCH_ZIPF, cs.NATIVE_DEGRADED,
+                cs.NATIVE_FIVE_BYTE_NEEDLES)
+            res = {"passes": {k: {x: v[x] for x in
+                                  ("ops_per_s", "p50_ms", "p99_ms")}
+                              for k, v in nat["passes"].items()},
+                   "counts": nat["counts"], "cpu_s": nat["cpu_s"],
+                   "launches": nat["launches"],
+                   "phase_s": nat["seconds"]["phase"]}
         elif phase == "secure_tier":
             res = cs.run_secure_tier_phase(
                 "tpu", work, cs.SECURE_BYTES, cs.SECURE_THREADS,

@@ -233,7 +233,25 @@ result.  Phases, each of which fails the run on any mismatch:
     and 7 deleted and 200 degraded GETs with read tokens, one launch and
     one reconstruction per lost interval, each server's first launching
     GET timed apart from the rest;
-11. numbers from the card: leg times and rates, read latency, kernel
+11. the native data plane (``run_native_plane_phase``): a CLI master and
+    five ``volume -ec.engine tpu -dataplane native`` servers, 7 volumes of
+    collection "benchmark", and ``benchmark -useTcp`` at the dataplane
+    phase's shapes (10,000 writes, every fid read back shuffled, 5,000
+    Zipf reads) over the C++ planes' framed ports, then the same passes
+    over HTTP funnelled through the planes: each pass's ops/s and
+    p50/p99 beside the dataplane phase's ``dataplane_tcp_reactor``, the
+    W/R/D frames the planes served (the framed passes' exactly, the HTTP
+    passes' none), the reactor's pooled dispatches flat in the framed
+    passes (no frame reaches Python), and the CPU seconds of the client
+    and of each server; ``ec.encode`` of the largest volume on the card
+    (the dispatch rule's launches, the data shards decoding to the `.dat`
+    the plane wrote, the parity against the host table), data shards 2
+    and 7 deleted and 200 degraded GETs, one launch per lost interval;
+    then a 5-byte-offset volume (``/admin/assign_volume offset_5``): 1,000
+    needles over HTTP read back, its `.idx` 17 bytes an entry, off the
+    plane, and ``ec.encode`` of it failing with the reference's error
+    and writing no shard;
+12. numbers from the card: leg times and rates, read latency, kernel
     times against their bound.
 
 Each path runs with gf_matmul.launches set to 0 just before it and read
@@ -321,6 +339,12 @@ STORE_BUDGET_S = 240.0
 # volume default), eight writers, 200 GETs from the tier and 200 degraded
 SECURE_BYTES, SECURE_THREADS = 1 << 30, 8
 SECURE_TIER_GETS, SECURE_DEGRADED = 200, 200
+# the native_plane phase: the dataplane phase's shapes (BENCH_*) on
+# ``volume -dataplane native``; 200 degraded GETs with data shards 2 and 7
+# gone; the 5-byte leg's 1,000 needles of 1,024 B; a 90 s budget,
+# advisory as the volume store's
+NATIVE_DEGRADED, NATIVE_FIVE_BYTE_NEEDLES = 200, 1_000
+NATIVE_BUDGET_S = 90.0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 # the CLI's -ec.engine names -> the device its start line names
 ENGINES = {"tpu": "cuda", "cpu": "cpu"}
@@ -4031,21 +4055,28 @@ def counts_delta(before: dict, after: dict) -> dict:
 
 
 def start_volume_servers(vs: dict, master: str, engine: str,
-                         pulse_seconds: float, front: str) -> None:
+                         pulse_seconds: float, front: str,
+                         dataplane: str = "python") -> None:
     """Start a CLI volume server for each of ``vs`` (url -> dir, log) on
     its port and directory, on ``front`` (reactor, or threaded through
-    WEED_DATAPLANE); each start line must name the engine and front."""
+    WEED_DATAPLANE) with ``-dataplane``; each start line must name the
+    engine and front, and a native plane's its framed port."""
+    from seaweedfs_tpu_torch.utils.framing import tcp_port_for
+
     env = {"WEED_DATAPLANE": "threaded"} if front == "threaded" else {}
     for url, info in vs.items():
         info["proc"] = start_cli(
             ["volume", "-dir", info["dir"], "-port", url.split(":")[1],
              "-mserver", master, "-pulseSeconds", str(pulse_seconds),
-             "-ec.engine", engine], info["log"], env)
-    for info in vs.values():
+             "-ec.engine", engine, "-dataplane", dataplane], info["log"],
+            env)
+    for url, info in vs.items():
         line = read_start_line(info["proc"], info["log"],
                                "volume server listening")
+        plane = f", native plane on {tcp_port_for(int(url.split(':')[1]))}"
         if f"ec on {ENGINES[engine]}" not in line or \
-                not line.endswith(f"front {front}"):
+                not line.endswith(f"front {front}") or \
+                (plane in line) != (dataplane == "native"):
             raise AssertionError(f"start line {line!r}")
     wait_for("every volume server to register",
              lambda: set(vs) <= node_urls(master_status(master)), 60)
@@ -4083,26 +4114,46 @@ def degraded_binds(master: str) -> dict[str, float]:
     return out
 
 
+def cpu_split(pids: dict, run):
+    """``run()``'s result and the CPU seconds it took: the client (this
+    process's children that ended meanwhile) and the servers ``pids``."""
+    before, client = process_cpu(pids), children_cpu_s()
+    out = run()
+    client = children_cpu_s() - client
+    after = process_cpu(pids)
+    servers = sum(after[u]["cpu_s"] - before[u]["cpu_s"] for u in pids)
+    return out, {"client": client, "servers": servers,
+                 "client_share": client / (client + servers)
+                 if client + servers else 0.0,
+                 "per_server": {u: after[u]["cpu_s"] - before[u]["cpu_s"]
+                                for u in pids}}
+
+
 def tcp_passes(master: str, n: int, size: int, clients: int, zipf: int,
-               collection: str, seed: int, fids_path: str) -> dict:
+               collection: str, seed: int, fids_path: str,
+               pids: dict) -> dict:
     """``benchmark -useTcp``: ``n`` writes, every fid read back shuffled,
-    ``zipf`` reads drawn Zipf, each answer held to its needle's bytes.  A
-    direct ``A`` frame first shows the master's framed front answering;
-    the write pass must then leave the master's HTTP /dir/assign count
-    where it was (every assign went over the framed front)."""
-    res = {"framed_assign": framed_assign(master, collection)}
+    ``zipf`` reads drawn Zipf, each answer held to its needle's bytes, the
+    client's and the servers' (``pids``) CPU seconds per call.  A direct
+    ``A`` frame first shows the master's framed front answering; the
+    write pass must then leave the master's HTTP /dir/assign count where
+    it was (every assign went over the framed front)."""
+    res = {"framed_assign": framed_assign(master, collection), "cpu_s": {}}
     before = http_assigns(master)
-    res["write"] = run_benchmark(master, [
-        "-useTcp", "-n", str(n), "-size", str(size), "-c", str(clients),
-        "-collection", collection, "-phase", "write", "-seed", str(seed),
-        "-fidsFile", fids_path], 1800)["write"]
+    w, res["cpu_s"]["write"] = cpu_split(pids, lambda: run_benchmark(
+        master, [
+            "-useTcp", "-n", str(n), "-size", str(size), "-c", str(clients),
+            "-collection", collection, "-phase", "write", "-seed",
+            str(seed), "-fidsFile", fids_path], 1800))
+    res["write"] = w["write"]
     res["http_assigns_during_write"] = http_assigns(master) - before
     if res["http_assigns_during_write"]:
         raise AssertionError(f"{res['http_assigns_during_write']} assigns "
                              f"fell back to HTTP")
-    r = run_benchmark(master, [
-        "-useTcp", "-size", str(size), "-c", str(clients), "-phase", "read",
-        "-fidsFile", fids_path, "-zipf", str(zipf)], 1800)
+    r, res["cpu_s"]["read"] = cpu_split(pids, lambda: run_benchmark(
+        master, [
+            "-useTcp", "-size", str(size), "-c", str(clients), "-phase",
+            "read", "-fidsFile", fids_path, "-zipf", str(zipf)], 1800))
     if r["read"]["n"] != n or r["zipf"]["n"] != zipf:
         raise AssertionError(f"framed reads: {r}")
     res["read"], res["zipf"] = r["read"], r["zipf"]
@@ -4337,7 +4388,8 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
                 t0 = time.perf_counter()
                 res["tcp"][front] = tcp_passes(
                     master, n, size, clients, zipf, collection,
-                    SEED + 10 + step, f"{fids_file}.tcp_{front}")
+                    SEED + 10 + step, f"{fids_file}.tcp_{front}",
+                    {u: vs[u]["proc"].pid for u in urls})
                 res["seconds"][f"tcp_{front}"] = time.perf_counter() - t0
             if step == 0:
                 t0 = time.perf_counter()
@@ -5342,6 +5394,321 @@ def run_secure_tier_phase(engine: str, work: str, total_bytes: int,
             p.stdout.close()
 
 
+# --- the native_plane phase -----------------------------------------------
+
+def zlib_header() -> bool:
+    """Does the host's C++ compiler find zlib.h?  The native plane links
+    zlib; without it its build fails."""
+    r = subprocess.run(["c++", "-fsyntax-only", "-x", "c++", "-"],
+                       input="#include <zlib.h>\n", capture_output=True,
+                       text=True, timeout=60)
+    return r.returncode == 0
+
+
+def plane_counts(urls) -> dict[str, int]:
+    """Summed over the servers' /status: the W, R and D frames their
+    native planes served, the needles the planes hold live, and the
+    reactor's pooled and inline dispatches (its HTTP work; each /status
+    read is one pooled dispatch itself)."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    out = dict.fromkeys(("W", "R", "D", "live", "pool_dispatches",
+                         "fast_dispatches"), 0)
+    for u in urls:
+        st = http_json("GET", f"http://{u}/status")
+        plane = st["NativeDataPlane"]
+        for op in "WRD":
+            out[op] += plane["frames"][op]
+        out["live"] += sum(v["file_count"] for v in plane["volumes"].values())
+        out["pool_dispatches"] += st["Dataplane"]["pool_dispatches"]
+        out["fast_dispatches"] += st["Dataplane"]["fast_dispatches"]
+    return out
+
+
+def children_cpu_s() -> float:
+    """CPU seconds of this process's finished, waited-for children."""
+    import resource
+
+    ru = resource.getrusage(resource.RUSAGE_CHILDREN)
+    return ru.ru_utime + ru.ru_stime
+
+
+def run_native_plane_phase(engine: str, work: str, n: int, size: int,
+                           clients: int, zipf: int, degraded: int,
+                           five_byte: int, volumes: int = 7,
+                           servers: int = 5, pulse_seconds: float = 0.5
+                           ) -> dict:
+    """The C++ data plane under upstream ``weed benchmark``'s load, as
+    the dataplane phase runs the Python planes.  A CLI master and
+    ``servers`` CLI ``volume -dataplane native`` servers, ``volumes``
+    volumes of collection "benchmark" grown up front.  ``benchmark
+    -useTcp`` writes ``n`` needles over the planes' framed ports (its
+    assigns over the master's framed front, no HTTP /dir/assign), reads
+    them back shuffled, then ``zipf`` reads drawn Zipf; then the same
+    passes over HTTP, which the servers funnel through their planes.
+    Each pass: ops/s and p50/p99, the W/R/D frames the planes served (the
+    framed writes and reads exactly, the HTTP ones none), the planes' live
+    needles, the reactor's pooled dispatches (flat in the framed passes
+    but for the /status reads themselves: no frame reaches Python), and
+    the CPU seconds of the client and of each server.  Then ``ec.encode``
+    of the largest volume on the card (its planes quiesced around the
+    generate): the launches the dispatch rule gives, the data shards
+    decoding back to the `.dat` the plane wrote (a hard link kept before
+    the encode) and the parity equal to the host table's product; data
+    shards 2 and 7 deleted and ``degraded`` GETs, each its needle's bytes,
+    one launch per lost interval.  The 5-byte leg: ``/admin/assign_volume
+    offset_5`` on one server, ``five_byte`` needles written and read back
+    over HTTP, its `.idx` 17 bytes an entry, no plane gauge for it, and
+    ``ec.encode`` of it failing with the reference's error and no shard
+    written."""
+    from seaweedfs_tpu_torch.__main__ import bench_payload, read_fids_file
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.ec import encoder as ec_encoder
+    from seaweedfs_tpu_torch.ec.layout import to_ext
+    from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
+    from seaweedfs_tpu_torch.ops.gf_matmul import ROWS_PER_LAUNCH
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+
+    collection = "benchmark"
+    t_phase = time.perf_counter()
+    res: dict = {"seconds": {}, "passes": {}, "counts": {}, "cpu_s": {},
+                 "zlib_h": zlib_header()}
+    mport = free_port()
+    master = f"127.0.0.1:{mport}"
+    mlog = os.path.join(work, "master.log")
+    mproc = start_cli(["master", "-port", str(mport), "-pulseSeconds",
+                       str(pulse_seconds)], mlog)
+    vs: dict[str, dict] = {}
+    try:
+        read_start_line(mproc, mlog, "master listening")
+        for k in range(servers):
+            d = os.path.join(work, f"vs{k}")
+            os.makedirs(d)
+            vs[f"127.0.0.1:{free_port()}"] = {
+                "dir": d, "log": os.path.join(work, f"vs{k}.log")}
+        urls = list(vs)
+        t0 = time.perf_counter()
+        start_volume_servers(vs, master, engine, pulse_seconds, "reactor",
+                             dataplane="native")
+        res["seconds"]["start"] = time.perf_counter() - t0
+        res["degraded_binds"] = degraded_binds(master)
+        res["volumes"] = http_json(
+            "GET", f"http://{master}/vol/grow?collection={collection}"
+                   f"&count={volumes}")["volumeIds"]
+        pids = {u: vs[u]["proc"].pid for u in urls}
+        fids_file = os.path.join(work, "fids")
+
+        def measured(name: str, args: list[str]) -> dict:
+            before = plane_counts(urls)
+            t0 = time.perf_counter()
+            passes, res["cpu_s"][name] = cpu_split(
+                pids, lambda: run_benchmark(master, args, 1800))
+            res["seconds"][name] = time.perf_counter() - t0
+            after = plane_counts(urls)
+            res["counts"][name] = {k: after[k] - before[k] for k in before}
+            for k, doc in passes.items():
+                res["passes"][f"{name.split('_')[0]}_{k}"] = doc
+            return res["counts"][name]
+
+        # 1. framed passes: every frame served by the C++ threads
+        res["framed_assign"] = framed_assign(master, collection)
+        assigns = http_assigns(master)
+        c = measured("tcp_write", [
+            "-useTcp", "-n", str(n), "-size", str(size), "-c", str(clients),
+            "-collection", collection, "-phase", "write", "-seed",
+            str(SEED + 40), "-fidsFile", fids_file + ".tcp"])
+        res["http_assigns_during_write"] = http_assigns(master) - assigns
+        polls = len(urls)  # the after-reading's own /status requests
+        if res["http_assigns_during_write"] or c["W"] != n or c["R"] or \
+                c["live"] != n or c["pool_dispatches"] > polls:
+            raise AssertionError(f"framed writes: {c}, "
+                                 f"{res['http_assigns_during_write']} "
+                                 f"HTTP assigns")
+        c = measured("tcp_read", [
+            "-useTcp", "-size", str(size), "-c", str(clients), "-phase",
+            "read", "-fidsFile", fids_file + ".tcp", "-zipf", str(zipf)])
+        if c["R"] != n + zipf or c["W"] or c["pool_dispatches"] > polls:
+            raise AssertionError(f"framed reads: {c}")
+        # 2. the same passes over HTTP, funnelled into the planes
+        c = measured("http_write", [
+            "-n", str(n), "-size", str(size), "-c", str(clients),
+            "-collection", collection, "-phase", "write", "-seed",
+            str(SEED + 41), "-fidsFile", fids_file + ".http"])
+        if c["W"] or c["live"] != n:
+            raise AssertionError(f"HTTP writes: {c}")
+        c = measured("http_read", [
+            "-size", str(size), "-c", str(clients), "-phase", "read",
+            "-fidsFile", fids_file + ".http", "-zipf", str(zipf)])
+        if c["R"] or c["fast_dispatches"]:
+            raise AssertionError(f"HTTP reads: {c}")
+        for name, doc in res["passes"].items():
+            if doc["mismatches"]:
+                raise AssertionError(f"{name}: {doc['mismatches']} wrong")
+        res["mismatches"] = 0
+
+        # 3. the largest volume on the card, its plane quiesced around it
+        fids = [f for suffix in (".tcp", ".http")
+                for f in read_fids_file(fids_file + suffix)]
+        by_vid: dict[int, list[tuple[str, int]]] = {}
+        for fid, pid in fids:
+            by_vid.setdefault(FileId.parse(fid).volume_id, []).append(
+                (fid, pid))
+        res["needles_by_volume"] = {v: len(f) for v, f in by_vid.items()}
+        vid = max(by_vid, key=lambda v: (len(by_vid[v]), -v))
+        vfids = by_vid[vid]
+        source = WeedClient(master).master.lookup(vid)[0]
+        prefix = volume_file_prefix(vs[source]["dir"], collection, vid)
+        kept = os.path.join(work, "plane_written.dat")
+        os.link(prefix + ".dat", kept)
+        dat_size = os.path.getsize(kept)
+        rule = (StreamingEncoder(device="cpu").dispatches_for(dat_size)
+                * -(-4 // ROWS_PER_LAUNCH)) if engine == "tpu" else 0
+        before = kernel_launches(urls)
+        out, res["seconds"]["ec.encode"] = run_shell(
+            master, f"ec.encode -collection {collection} -volumeId {vid}")
+        after = kernel_launches(urls)
+        encode_launches = sum(after[u] - before[u] for u in urls)
+        if f"ec encoded volume {vid} via tpu engine" not in out or \
+                encode_launches != rule or \
+                after[source] - before[source] != rule:
+            raise AssertionError(f"ec.encode: {encode_launches} launches, "
+                                 f"the rule gives {rule}: {out}")
+        holders = shard_holders(master, vid)
+        if sorted(holders) != list(range(14)):
+            raise AssertionError(f"after ec.encode: {holders}")
+
+        def shard_path(sid: int) -> str:
+            return volume_file_prefix(vs[holders[sid][0]]["dir"], collection,
+                                      vid) + to_ext(sid)
+
+        decoded = os.path.join(work, "decoded")
+        os.makedirs(decoded)
+        for sid in range(10):
+            os.symlink(shard_path(sid),
+                       os.path.join(decoded, f"{vid}{to_ext(sid)}"))
+        ec_encoder.write_dat_file(os.path.join(decoded, str(vid)), dat_size)
+        if sha256_file(os.path.join(decoded, f"{vid}.dat")) != \
+                sha256_file(kept):
+            raise AssertionError("the data shards differ from the .dat "
+                                 "the plane wrote")
+        holder_base = volume_file_prefix(vs[holders[0][0]]["dir"],
+                                         collection, vid)
+        check_shards(holder_base, 8, SEED + 42, shard_path)
+        res.update(vid=vid, volume_fids=len(vfids), dat_bytes=dat_size,
+                   encode_launches=encode_launches, encode_rule=rule,
+                   encode_out=out.splitlines()[-1],
+                   data_shards_equal_dat=True, parity_equal_plain=True)
+
+        lost = [2, 7]
+        for sid in lost:
+            for u in holders.get(sid, []):
+                http_json("POST", f"http://{u}/admin/ec/delete",
+                          {"volume_id": vid, "collection": collection,
+                           "shard_ids": [sid]})
+        for u in urls:
+            http_json("POST", f"http://{u}/admin/heartbeat_now", {})
+        wait_for("the lost shards to leave the master's map",
+                 lambda: not set(lost) & set(shard_holders(master, vid)), 30)
+        ecx_holder = next(u for u in urls if os.path.exists(
+            volume_file_prefix(vs[u]["dir"], collection, vid) + ".ecx"))
+        rng = np.random.default_rng(SEED + 43)
+        picks = [int(i) for i in rng.choice(
+            len(vfids), size=min(degraded, len(vfids)), replace=False)]
+        shards_of = needle_shards(
+            volume_file_prefix(vs[ecx_holder]["dir"], collection, vid), vid,
+            [FileId.parse(vfids[i][0]).key for i in picks])
+        intervals = sum(s in lost for sh in shards_of for s in sh)
+        want = intervals if engine == "tpu" else 0
+        before = kernel_launches(urls)
+        t0 = time.perf_counter()
+        done = bench_gets(master, vfids, picks, size, SEED + 44)
+        wall = time.perf_counter() - t0
+        after = kernel_launches(urls)
+        got = sum(after[u] - before[u] for u in urls)
+        if got != want:
+            raise AssertionError(f"degraded GETs: {got} launches, "
+                                 f"{intervals} lost intervals")
+        res["degraded"] = {"gets": len(done), "wall_s": wall,
+                           "ops_per_s": len(done) / wall,
+                           "ms": percentiles([x[2] for x in done]),
+                           "launches": got, "lost_intervals": intervals,
+                           "bytes_equal": True}
+
+        # 4. the 5-byte leg: a volume the plane never takes
+        five_url = urls[0]
+        five_vid = max(int(v) for v in res["volumes"]) + 100
+        five_coll = "offset5"
+        http_json("POST", f"http://{five_url}/admin/assign_volume",
+                  {"volume_id": five_vid, "collection": five_coll,
+                   "offset_5": True})
+        t0 = time.perf_counter()
+        five_fids = [str(FileId(five_vid, i + 1, 0x5B000000 + i))
+                     for i in range(five_byte)]
+        for i, fid in enumerate(five_fids):
+            status, _, _ = http_bytes(
+                "POST", f"http://{five_url}/{fid}",
+                bench_payload((SEED << 8) | i, size))
+            if status != 201:
+                raise AssertionError(f"5-byte write {fid}: {status}")
+        for i, fid in enumerate(five_fids):
+            status, body, _ = http_bytes("GET", f"http://{five_url}/{fid}")
+            if (status, body) != (200, bench_payload((SEED << 8) | i, size)):
+                raise AssertionError(f"5-byte read {fid}: {status}")
+        res["seconds"]["five_byte_io"] = time.perf_counter() - t0
+        five_prefix = volume_file_prefix(vs[five_url]["dir"], five_coll,
+                                         five_vid)
+        idx_bytes = os.path.getsize(five_prefix + ".idx")
+        st = http_json("GET", f"http://{five_url}/status")
+        _, metrics, _ = http_bytes("GET", f"http://{five_url}/metrics")
+        gauge = [x for x in metrics.decode().splitlines()
+                 if x.startswith("SeaweedFS_volumeServer_native_plane{"
+                                 f'volume="{five_vid}"')]
+        if idx_bytes != 17 * five_byte or \
+                str(five_vid) in st["NativeDataPlane"]["volumes"] or gauge:
+            raise AssertionError(f"5-byte volume: .idx {idx_bytes} bytes, "
+                                 f"plane {st['NativeDataPlane']}, {gauge}")
+        http_json("POST", f"http://{five_url}/admin/heartbeat_now", {})
+        out, _ = run_shell(master, f"ec.encode -collection {five_coll} "
+                                   f"-volumeId {five_vid}", check=False)
+        want_line = (f"ec.encode volume {five_vid} FAILED: ValueError: "
+                     f"volume {five_vid} uses 5-byte offsets; EC encoding "
+                     "supports 4-byte-offset volumes only")
+        shards = [p for p in os.listdir(vs[five_url]["dir"])
+                  if p.startswith(f"{five_coll}_{five_vid}.ec")]
+        if want_line not in out or shards:
+            raise AssertionError(f"ec.encode of the 5-byte volume: {out!r}, "
+                                 f"shards {shards}")
+        res["five_byte"] = {"vid": five_vid, "needles": five_byte,
+                            "idx_bytes": idx_bytes,
+                            "idx_entry_bytes": idx_bytes // five_byte,
+                            "plane_gauge_lines": len(gauge),
+                            "encode_line": out, "shards_written": 0}
+
+        launches = 0
+        for u in urls:
+            launches += stop_volume_server(vs[u]["proc"])["launches"]
+            vs[u]["proc"].stdout.close()
+        res["launches"] = launches
+        res["seconds"]["phase"] = time.perf_counter() - t_phase
+        return res
+    finally:
+        for info in vs.values():
+            p = info.get("proc")
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        mproc.send_signal(signal.SIGTERM)
+        try:
+            mproc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            mproc.kill()
+            mproc.wait()
+        mproc.stdout.close()
+
+
+
 def split_first_launches(lat: list[float], marks: list[dict]) -> dict:
     """GET times split by launches: ``marks[j]`` holds each server's
     kernel count before GET j and ``marks[j + 1]`` after it.  Each
@@ -5491,9 +5858,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     log({"phase": "environment", "nvidia_smi": card, "device": kind,
          "torch": torch.__version__, "cuda": torch.version.cuda,
-         "python": sys.version.split()[0]})
+         "python": sys.version.split()[0], "zlib_h": zlib_header()})
     t0 = time.perf_counter()
-    _build.build(["crc32c", "gf_matmul"])
+    _build.build(["crc32c", "gf_matmul", "dataplane"])
     log({"phase": "build", "seconds": time.perf_counter() - t0,
          "libraries": {n: round(i["seconds"], 3)
                        for n, i in _build.BUILD_INFO.items()}})
@@ -5941,6 +6308,58 @@ def main() -> int:
         "servers": sec["servers"], "seconds": sec["seconds"],
         "nvidia_smi": card})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-native-",
+                            dir=_build.BUILD_DIR)
+    try:
+        nat = run_native_plane_phase("tpu", work, BENCH_N, BENCH_SIZE,
+                                     BENCH_CLIENTS, BENCH_ZIPF,
+                                     NATIVE_DEGRADED,
+                                     NATIVE_FIVE_BYTE_NEEDLES)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    native_launches = nat["launches"]
+    if native_launches <= 0:
+        raise AssertionError("the native_plane phase launched no kernel")
+    log({"phase": "native_plane", "reduced": [
+        {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
+                               "weed/command/benchmark.go)",
+         "why": "run time limit: the dataplane phase's cut, so the two "
+                "compare within one run"},
+        {"zipf_reads": BENCH_ZIPF, "from": "n / 2, as the dataplane phase",
+         "why": "cut with n"},
+        {"pulse_seconds": 0.5, "from": "5 s default heartbeat pulse",
+         "why": "the master sees the shard moves within a second"}],
+        "shapes": {"size": BENCH_SIZE, "c": BENCH_CLIENTS,
+                   "replication": "000", "collection": "benchmark",
+                   "zipf": {"reads": BENCH_ZIPF, "theta": 0.99},
+                   "degraded_gets": NATIVE_DEGRADED,
+                   "five_byte_needles": NATIVE_FIVE_BYTE_NEEDLES},
+        "zlib_h": nat["zlib_h"], "degraded_binds": nat["degraded_binds"],
+        "budget_s": NATIVE_BUDGET_S,
+        "within_budget": nat["seconds"]["phase"] <= NATIVE_BUDGET_S,
+        "seconds": nat["seconds"], "volumes": nat["volumes"],
+        "needles_by_volume": nat["needles_by_volume"],
+        "http_assigns_during_write": nat["http_assigns_during_write"],
+        "counts": nat["counts"], "cpu_s": nat["cpu_s"], "nvidia_smi": card})
+    reactor_tcp = dp["tcp"]["reactor"]
+    log({"phase": "native_plane_passes", "passes": {
+        k: {x: v[x] for x in ("n", "ops_per_s", "p50_ms", "p99_ms",
+                              "mismatches")}
+        for k, v in nat["passes"].items()},
+        "tcp_over_dataplane_tcp_reactor": {
+            k: nat["passes"][f"tcp_{k}"]["ops_per_s"]
+            / reactor_tcp[k]["ops_per_s"] for k in ("write", "read", "zipf")},
+        "nvidia_smi": card})
+    log({"phase": "native_plane_done", "vid": nat["vid"],
+         "volume_fids": nat["volume_fids"], "dat_bytes": nat["dat_bytes"],
+         "encode_launches": nat["encode_launches"],
+         "encode_rule": nat["encode_rule"], "encode": nat["encode_out"],
+         "data_shards_equal_dat": nat["data_shards_equal_dat"],
+         "parity_equal_plain": nat["parity_equal_plain"],
+         "degraded": nat["degraded"], "five_byte": nat["five_byte"],
+         "launches": native_launches, "bytes_equal": True,
+         "nvidia_smi": card})
+
     cases = dict(kernel_cases())
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
@@ -5958,7 +6377,7 @@ def main() -> int:
         "launches": launches + resume_launches + trace_ab_launches
         + http_launches + cli["launches"] + cluster_launches
         + failover_launches + dataplane_launches + store_launches
-        + secure_launches,
+        + secure_launches + native_launches,
         "max_abs_err": max(worst, store["kernel_max_abs_err"],
                            *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],

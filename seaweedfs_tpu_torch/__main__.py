@@ -68,6 +68,13 @@ variables override it), as weed.py does: ``[jwt.signing]`` and
 and the volume servers demand them, ``[guard] white_list`` limits who may
 write, and ``[tls]`` (ca, cert, key) puts every listener and every call
 between them under mTLS; the shell takes the client side of it.
+``volume -dataplane native`` serves needle IO through the C++ data plane
+(csrc/dataplane.cpp, built with ``c++ ... -lz`` before the server
+listens; a failed build exits non-zero): it binds the framed port and
+every HTTP needle op of a version 3, 4-byte-offset, local volume goes
+through it (``python``, the default, is the Python framed plane).  A
+volume with 5-byte offsets (past 32 GB) is made by POSTing
+``/admin/assign_volume`` with ``"offset_5": true``.
 ``volume -mmap`` maps each `.dat`; ``volume -tier.backends NAME=DIR``
 (repeatable) registers a directory as the tier backend NAME, the
 ``-dest`` of the shell's ``volume.tier.upload`` and ``volume.tier.move``.
@@ -183,6 +190,10 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
     v.add_argument("-dataplane.cacheMB", dest="dataplane_cache_mb", type=int,
                    default=64,
                    help="needle read cache size in MB (0 disables)")
+    v.add_argument("-dataplane", default="python",
+                   choices=["python", "native"],
+                   help="native: the C++ plane serves needle IO (framed "
+                        "TCP and the HTTP funnel)")
     v.add_argument("-ec.engine", dest="ec_engine", default="tpu",
                    choices=sorted(ENGINES),
                    help="tpu: EC on the CUDA card; cpu: the plain versions")
@@ -386,7 +397,8 @@ def cmd_volume(args: argparse.Namespace) -> int:
                           needle_cache_mb=args.dataplane_cache_mb,
                           guard=volume_guard(_security()),
                           backends=_tier_backends(args.tier_backends) or None,
-                          tls_context=_cluster_tls(), use_mmap=args.mmap)
+                          tls_context=_cluster_tls(), use_mmap=args.mmap,
+                          dataplane=args.dataplane)
         device = vs.store.device
         if device.type == "cuda":
             # a kernel that does not build stops the server here, before
@@ -397,8 +409,12 @@ def cmd_volume(args: argparse.Namespace) -> int:
                 else "plain PyTorch")
         front = ("reactor" if type(vs._server).__name__ ==
                  "ReactorHTTPServer" else "threaded")
+        plane = vs._native_plane
+        native = "" if plane is None else (
+            f", native plane on {plane.port}" if plane.port
+            else ", native plane engine-only")
         print(f"volume server listening on {vs.url}, dirs {args.dir}, "
-              f"ec on {device} ({card}), front {front}", flush=True)
+              f"ec on {device} ({card}){native}, front {front}", flush=True)
         state["vs"] = vs
         return vs.stop
 
@@ -493,7 +509,8 @@ def cmd_backup(args: argparse.Namespace) -> int:
 def cmd_fix(args: argparse.Namespace) -> int:
     """Rebuild a volume's .idx from its .dat (command/fix.go): one entry
     per record in .dat order, a tombstone as the live delete writes it,
-    built in a temporary file so a malformed .dat keeps the old index."""
+    in the volume's own offset width (its superblock's), built in a
+    temporary file so a malformed .dat keeps the old index."""
     from .storage import idx as idx_mod
     from .storage.needle_map import MemDb
     from .storage.super_block import SuperBlock
@@ -504,19 +521,23 @@ def cmd_fix(args: argparse.Namespace) -> int:
     base = volume_file_prefix(args.dir, args.collection, args.volumeId)
     db = MemDb()
     count = 0
+    offset_size = 4
     tmp_idx = base + ".idx_fix"
     try:
         with open(tmp_idx, "wb") as f:
             for offset, rec in walk_dat(base + ".dat"):
                 if isinstance(rec, SuperBlock):
+                    offset_size = rec.offset_size
                     continue
                 count += 1
                 if size_is_valid(rec.size):
                     db.set(rec.id, offset, rec.size)
-                    f.write(idx_mod.pack_entry(rec.id, offset, rec.size))
+                    f.write(idx_mod.pack_entry(rec.id, offset, rec.size,
+                                               offset_size))
                 else:
                     db.unset(rec.id)
-                    f.write(idx_mod.pack_entry(rec.id, offset, -1))
+                    f.write(idx_mod.pack_entry(rec.id, offset, -1,
+                                               offset_size))
     except BaseException:
         os.unlink(tmp_idx)
         raise

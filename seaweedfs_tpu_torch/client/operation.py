@@ -8,7 +8,10 @@ delete_content.go, submit.go) with its vid -> locations TTL cache
 ``upload_tcp`` and ``download_tcp`` are the framed-TCP verbs (``benchmark
 -useTcp``): the assign goes to the master's framed front (op ``A``), the
 write and the read to the holder's framed plane (volume_server/tcp.py),
-each on the HTTP port + 20000.
+each on the HTTP port + 20000.  A read that a native data plane answers
+"volume not on native plane" (a volume quiesced off it for maintenance,
+or one it never takes) goes over HTTP, which serves it from the Python
+engine.
 
 On a secured cluster the client carries the master's tokens, as the
 reference's does: the assign's ``auth`` goes on the write as
@@ -233,8 +236,9 @@ class WeedClient:
 
     def download_tcp(self, fid: str) -> bytes:
         """Framed-TCP read from the volume's first holder; a holder whose
-        framed plane is closed is read over HTTP.  An error frame (a
-        missing needle, an EC volume) raises OSError with its text."""
+        framed plane is closed, or whose native plane does not hold the
+        volume, is read over HTTP.  Any other error frame (a missing
+        needle, an EC volume) raises OSError with its text."""
         from ..volume_server.tcp import tcp_address
 
         tcp = self._tcp_client()
@@ -244,8 +248,11 @@ class WeedClient:
             raise HttpError(404, f"volume {vid} has no locations")
         try:
             return tcp.read(tcp_address(urls[0]), fid)
-        except ConnectionError:
-            return self.download(fid)
+        except OSError as e:
+            if isinstance(e, ConnectionError) or \
+                    "not on native plane" in str(e):
+                return self.download(fid)
+            raise
 
     def download(self, fid: str) -> bytes:
         """Full-blob GET; a gzip-encoded reply is decompressed."""

@@ -8,8 +8,10 @@ wire contract any Prometheus scraper reads), the process-wide
 ``REGISTRY`` that a volume server's ``GET /metrics`` exposes, and these
 families under the reference's names:
 
-  - ``VolumeServerMetrics``: requests by route (count, latency, 5xx) and
-    the volume / EC-shard / disk-size gauges;
+  - ``VolumeServerMetrics``: requests by route (count, latency, 5xx),
+    the volume / EC-shard / disk-size gauges and the native data plane's
+    per-volume state (``SeaweedFS_volumeServer_native_plane{volume,
+    stat}``: size_bytes, live_files, deleted_bytes, fsync_passes);
   - ``ECIntegrityMetrics``: scrub blocks by verdict, corrupt shards by
     where they were caught, the scrubber's repairs by outcome (the keys
     of ``totals()`` are what ``/status`` and the scrub routes carry);
@@ -37,8 +39,8 @@ them only when asked, ``expose(exemplars=True)``, which a server's
 
 Not ported: the push gateway loop, and the families the port cannot have
 or has not ported: the rest of ``ECPipelineMetrics`` (parity-worker
-restarts and CPU fallbacks), the volume server's native-plane gauge, the
-master's heartbeat family, heat and the resource ledger.
+restarts and CPU fallbacks), the master's heartbeat family, heat and the
+resource ledger.
 """
 
 from __future__ import annotations
@@ -360,6 +362,10 @@ class VolumeServerMetrics(_ServerMetrics):
             "SeaweedFS_volumeServer_total_disk_size",
             "Actual disk size used by volumes.",
             labels=("collection", "type"))
+        self.native_plane_gauge = registry.gauge(
+            "SeaweedFS_volumeServer_native_plane",
+            "Native C++ data plane per-volume state.",
+            labels=("volume", "stat"))
 
 
 def _total(c: Counter) -> int:

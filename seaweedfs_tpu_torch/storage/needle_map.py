@@ -2,7 +2,9 @@
 
 Equivalent of weed/storage/needle_map_memory.go: a dict for O(1) lookup
 plus sorted iteration on demand, with the counter bookkeeping done while
-replaying the `.idx` log (needle_map_memory.go:35-56).
+replaying the `.idx` log (needle_map_memory.go:35-56).  ``offset_size``
+(4 or 5, the volume's) is the width of the `.idx` entries read and
+written.
 """
 
 from __future__ import annotations
@@ -26,8 +28,10 @@ class MemoryNeedleMap:
     """NeedleMapper (storage/needle_map.go:22-36), memory kind, with the
     `.idx` append log as the persistence mechanism."""
 
-    def __init__(self, index_path: Optional[str] = None, replay: bool = False):
+    def __init__(self, index_path: Optional[str] = None, replay: bool = False,
+                 offset_size: int = 4):
         self._m: dict[int, NeedleValue] = {}
+        self.offset_size = offset_size
         self.index_path = index_path
         self._index_file = None
         self.file_counter = 0
@@ -37,13 +41,15 @@ class MemoryNeedleMap:
         self.max_file_key = 0
         if index_path is not None:
             if replay:
-                for key, offset, size in idx_mod.iter_index_file(index_path):
+                for key, offset, size in idx_mod.iter_index_file(
+                        index_path, offset_size):
                     self._replay(key, offset, size)
             self._index_file = open(index_path, "ab")
 
     @classmethod
-    def load(cls, index_path: str) -> "MemoryNeedleMap":
-        return cls(index_path, replay=True)
+    def load(cls, index_path: str,
+             offset_size: int = 4) -> "MemoryNeedleMap":
+        return cls(index_path, replay=True, offset_size=offset_size)
 
     def _replay(self, key: int, offset: int, size: int) -> None:
         """doLoading semantics (needle_map_memory.go:35-56)."""
@@ -84,7 +90,8 @@ class MemoryNeedleMap:
 
     def _append_index(self, key: int, offset: int, size: int) -> None:
         if self._index_file is not None:
-            self._index_file.write(idx_mod.pack_entry(key, offset, size))
+            self._index_file.write(
+                idx_mod.pack_entry(key, offset, size, self.offset_size))
             self._index_file.flush()
 
     def get(self, key: int) -> Optional[NeedleValue]:
@@ -121,9 +128,10 @@ class MemDb(MemoryNeedleMap):
         super().__init__(index_path=None)
 
     @classmethod
-    def from_idx_file(cls, index_path: str) -> "MemDb":
+    def from_idx_file(cls, index_path: str, offset_size: int = 4) -> "MemDb":
         db = cls()
-        for key, offset, size in idx_mod.iter_index_file(index_path):
+        for key, offset, size in idx_mod.iter_index_file(index_path,
+                                                         offset_size):
             if offset != 0 and size != TOMBSTONE_FILE_SIZE:
                 db.set(key, offset, size)
             else:
@@ -136,9 +144,10 @@ class MemDb(MemoryNeedleMap):
     def unset(self, key: int) -> None:
         self._m.pop(key, None)
 
-    def write_sorted_file(self, path: str) -> None:
+    def write_sorted_file(self, path: str, offset_size: int = 4) -> None:
         """WriteSortedFileFromIdx output: ascending sorted entries
         (ec_encoder.go:27-54)."""
         with open(path, "wb") as f:
             for nv in self:
-                f.write(idx_mod.pack_entry(nv.key, nv.offset, nv.size))
+                f.write(idx_mod.pack_entry(nv.key, nv.offset, nv.size,
+                                           offset_size))

@@ -2,12 +2,15 @@
 
 The three NeedleMapper kinds beside the dict-based MemoryNeedleMap
 (weed/storage/needle_map.go:13-20), as seaweedfs_tpu/storage/
-needle_map_compact.py builds them, for volumes with 4-byte offsets:
+needle_map_compact.py builds them.  Each takes the volume's
+``offset_size``: 4, or 5 for a volume past 32 GB, whose `.idx`, `.sdx`
+and offset units are wider.
 
 - CompactNeedleMap (needle_map/compact_map.go:28), the volume's default:
   sorted numpy sections of 16-byte entries (key u64, offset in 8-byte
-  units u32, size i32), binary-searched, so a live needle costs about
-  16 bytes of memory where a dict entry costs about 400.  Appends in
+  units u32, size i32; the units are u64 on a 5-byte volume, 20 bytes
+  an entry), binary-searched, so a live needle costs about 16 bytes of
+  memory where a dict entry costs about 400.  Appends in
   ascending key order go to a tail of Python lists, sectioned every
   ``_TAIL_FLUSH`` entries; out-of-order keys go to an overflow dict,
   merged into new sections at ``_OVERFLOW_MERGE``.  Loading replays the
@@ -19,7 +22,7 @@ needle_map_compact.py builds them, for volumes with 4-byte offsets:
 - CheckpointedNeedleMap (needle_map_leveldb.go's place): a CompactNeedleMap
   that checkpoints its arrays and the `.idx` size it covers (the
   watermark) to a `.ldb` snapshot, written through a temporary file and a
-  rename; an open reads the snapshot and replays only the `.idx` bytes past
+  rename (offsets as u32, or u64 on a 5-byte volume); an open reads the snapshot and replays only the `.idx` bytes past
   the watermark.  A snapshot whose watermark lies past the `.idx` (the
   crash check cut the index) is thrown away and the whole index replayed.
 
@@ -46,8 +49,7 @@ import numpy as np
 
 from . import idx as idx_mod
 from .needle_map import MemDb, MemoryNeedleMap, NeedleValue
-from .types import (NEEDLE_MAP_ENTRY_SIZE, NEEDLE_PADDING_SIZE,
-                    TOMBSTONE_FILE_SIZE, size_is_valid)
+from .types import NEEDLE_PADDING_SIZE, TOMBSTONE_FILE_SIZE, size_is_valid
 
 _SECTION = 1 << 20          # entries per immutable section
 _TAIL_FLUSH = 1 << 16       # ascending appends buffered before sectioning
@@ -76,20 +78,27 @@ def _return_freed_heap() -> None:
         _libc(0)
 
 
+def _units_dtype_of(width: int) -> type:
+    """Offset units of ``width`` bytes (8: a 5-byte volume's) -> dtype."""
+    return np.uint64 if width == 8 else np.uint32
+
+
 def _replay_arrays(entries: np.ndarray) -> tuple[dict, np.ndarray, np.ndarray,
                                                  np.ndarray]:
     """doLoading (needle_map_memory.go:35-56) over parsed `.idx` entries in
     one numpy pass -> (counters, live keys, offset units, sizes), sorted
     by key.  Within a key the later entry wins; a put over a live put, and
     any entry over a live one, count as deletions; a delete always counts
-    in deletion_counter, live before or not."""
+    in deletion_counter, live before or not.  The units keep the width
+    they were parsed with: u64 from 5-byte entries, else u32."""
     counters = dict.fromkeys(_COUNTERS, 0)
+    units_dtype = _units_dtype_of(entries["offset"].dtype.itemsize)
     n = len(entries)
     if n == 0:
-        return (counters, np.empty(0, np.uint64), np.empty(0, np.uint32),
+        return (counters, np.empty(0, np.uint64), np.empty(0, units_dtype),
                 np.empty(0, np.int32))
     keys = entries["key"].astype(np.uint64)
-    offs = entries["offset"].astype(np.uint32)
+    offs = entries["offset"].astype(units_dtype)
     sizes = entries["size"].astype(np.int32)
     is_put = (offs != 0) & (sizes > 0)  # size_is_valid, vectorized
     counters["max_file_key"] = int(keys.max())
@@ -141,7 +150,11 @@ class _Section:
 class CompactNeedleMap:
     """Numpy-sectioned needle map; see the module docstring."""
 
-    def __init__(self, index_path: Optional[str] = None, replay: bool = False):
+    def __init__(self, index_path: Optional[str] = None, replay: bool = False,
+                 offset_size: int = 4):
+        self.offset_size = offset_size
+        # 4-byte volumes keep u32 units: 16 bytes a needle
+        self._units_dtype = _units_dtype_of(8 if offset_size == 5 else 4)
         # guards the structure (tail lists, overflow, sections) against
         # readers that hold no lock of the volume
         self._mu = threading.RLock()
@@ -166,11 +179,13 @@ class CompactNeedleMap:
             self._index_file = open(index_path, "ab")
 
     @classmethod
-    def load(cls, index_path: str) -> "CompactNeedleMap":
-        return cls(index_path, replay=True)
+    def load(cls, index_path: str,
+             offset_size: int = 4) -> "CompactNeedleMap":
+        return cls(index_path, replay=True, offset_size=offset_size)
 
     def _ingest_replay(self, blob: bytes) -> None:
-        counters, k, o, s = _replay_arrays(idx_mod.parse_entries(blob))
+        counters, k, o, s = _replay_arrays(
+            idx_mod.parse_entries(blob, self.offset_size))
         for name, v in counters.items():
             setattr(self, name, max(self.max_file_key, v)
                     if name == "max_file_key" else getattr(self, name) + v)
@@ -256,7 +271,7 @@ class CompactNeedleMap:
         if not self._tail_k:
             return
         self._install_arrays(np.array(self._tail_k, dtype=np.uint64),
-                             np.array(self._tail_o, dtype=np.uint32),
+                             np.array(self._tail_o, dtype=self._units_dtype),
                              np.array(self._tail_s, dtype=np.int32))
         self._tail_k, self._tail_o, self._tail_s = [], [], []
 
@@ -273,7 +288,7 @@ class CompactNeedleMap:
                                            count=len(self._over)))
                 vals = list(self._over.values())
                 parts_o.append(np.array([v[0] for v in vals],
-                                        dtype=np.uint32))
+                                        dtype=self._units_dtype))
                 parts_s.append(np.array([v[1] for v in vals],
                                         dtype=np.int32))
             if not parts_k:
@@ -315,7 +330,8 @@ class CompactNeedleMap:
 
     def _append_index(self, key: int, offset: int, size: int) -> None:
         if self._index_file is not None:
-            self._index_file.write(idx_mod.pack_entry(key, offset, size))
+            self._index_file.write(
+                idx_mod.pack_entry(key, offset, size, self.offset_size))
             self._index_file.flush()
 
     # --- iteration --------------------------------------------------------
@@ -386,18 +402,20 @@ class CheckpointedNeedleMap(CompactNeedleMap):
 
     CHECKPOINT_EVERY = 100_000  # index appends between checkpoints
 
-    def __init__(self, index_path: str, replay: bool = True):
+    def __init__(self, index_path: str, replay: bool = True,
+                 offset_size: int = 4):
         self.snapshot_path = snapshot_path_for(index_path)
         self._since_checkpoint = 0
         self._loaded_from_snapshot = False
-        super().__init__(index_path, replay=False)
+        super().__init__(index_path, replay=False, offset_size=offset_size)
         if replay:
             self._load_with_snapshot()
             _return_freed_heap()
 
     @classmethod
-    def load(cls, index_path: str) -> "CheckpointedNeedleMap":
-        return cls(index_path, replay=True)
+    def load(cls, index_path: str,
+             offset_size: int = 4) -> "CheckpointedNeedleMap":
+        return cls(index_path, replay=True, offset_size=offset_size)
 
     def _load_with_snapshot(self) -> None:
         idx_size = (os.path.getsize(self.index_path)
@@ -424,7 +442,7 @@ class CheckpointedNeedleMap(CompactNeedleMap):
         if not watermark:  # no snapshot: the whole index in one pass
             self._ingest_replay(blob)
             return
-        tail = idx_mod.parse_entries(blob)
+        tail = idx_mod.parse_entries(blob, self.offset_size)
         # the tail applies over the snapshot's state, entry by entry
         for key, units, size in zip(tail["key"].tolist(),
                                     tail["offset"].tolist(),
@@ -451,14 +469,15 @@ class CheckpointedNeedleMap(CompactNeedleMap):
                 f.read(_LDB_HEADER.size))
             if magic != _LDB_MAGIC:
                 raise ValueError("bad snapshot magic")
+            ow = np.dtype(self._units_dtype).itemsize
             k = np.frombuffer(f.read(8 * n), dtype="<u8")
-            o = np.frombuffer(f.read(4 * n), dtype="<u4")
+            o = np.frombuffer(f.read(ow * n), dtype=f"<u{ow}")
             s = np.frombuffer(f.read(4 * n), dtype="<i4")
             if len(k) != n or len(o) != n or len(s) != n:
                 raise ValueError("short snapshot")
         for name, v in zip(_COUNTERS, counters):
             setattr(self, name, v)
-        self._install_arrays(k.astype(np.uint64), o.astype(np.uint32),
+        self._install_arrays(k.astype(np.uint64), o.astype(self._units_dtype),
                              s.astype(np.int32))
         return watermark
 
@@ -474,7 +493,7 @@ class CheckpointedNeedleMap(CompactNeedleMap):
         k = np.concatenate([s.keys for s in sections] or
                            [np.empty(0, np.uint64)])
         o = np.concatenate([s.offs for s in sections] or
-                           [np.empty(0, np.uint32)])
+                           [np.empty(0, self._units_dtype)])
         s = np.concatenate([s.sizes for s in sections] or
                            [np.empty(0, np.int32)])
         tmp = self.snapshot_path + ".tmp"
@@ -483,7 +502,7 @@ class CheckpointedNeedleMap(CompactNeedleMap):
                 _LDB_MAGIC, watermark, len(k),
                 *(getattr(self, name) for name in _COUNTERS)))
             f.write(k.astype("<u8").tobytes())
-            f.write(o.astype("<u4").tobytes())
+            f.write(o.astype(f"<u{o.itemsize}").tobytes())
             f.write(s.astype("<i4").tobytes())
             f.flush()
             os.fsync(f.fileno())
@@ -510,14 +529,16 @@ class SortedFileNeedleMap:
     """The sorted-file kind: lookups binary-search `<name>.sdx` with
     pread, made from the `.idx` when absent; nothing held in memory."""
 
-    def __init__(self, index_path: str):
+    def __init__(self, index_path: str, offset_size: int = 4):
         self.index_path = index_path
+        self.offset_size = offset_size
+        self._es = idx_mod.entry_size(offset_size)
         self.sorted_path = sorted_path_for(index_path)
         if not os.path.exists(self.sorted_path):
-            MemDb.from_idx_file(index_path).write_sorted_file(
-                self.sorted_path)
+            MemDb.from_idx_file(index_path, offset_size).write_sorted_file(
+                self.sorted_path, offset_size)
         self._f = open(self.sorted_path, "r+b")
-        self._n = os.path.getsize(self.sorted_path) // NEEDLE_MAP_ENTRY_SIZE
+        self._n = os.path.getsize(self.sorted_path) // self._es
         self._index_file = open(index_path, "ab")
         # the counters come from one scan of the sorted file
         m = MemoryNeedleMap()
@@ -531,13 +552,13 @@ class SortedFileNeedleMap:
         self.max_file_key = m.max_file_key
 
     @classmethod
-    def load(cls, index_path: str) -> "SortedFileNeedleMap":
-        return cls(index_path)
+    def load(cls, index_path: str,
+             offset_size: int = 4) -> "SortedFileNeedleMap":
+        return cls(index_path, offset_size=offset_size)
 
     def _entry_at(self, i: int) -> tuple[int, int, int]:
         e = idx_mod.parse_entries(os.pread(
-            self._f.fileno(), NEEDLE_MAP_ENTRY_SIZE,
-            i * NEEDLE_MAP_ENTRY_SIZE))[0]
+            self._f.fileno(), self._es, i * self._es), self.offset_size)[0]
         return int(e["key"]), int(e["offset"]), int(e["size"])
 
     def _search(self, key: int) -> int:
@@ -571,14 +592,14 @@ class SortedFileNeedleMap:
             k, units, size = self._entry_at(i)
             if size_is_valid(size):
                 # deleted in place: size -> -size
-                self._f.seek(i * NEEDLE_MAP_ENTRY_SIZE)
+                self._f.seek(i * self._es)
                 self._f.write(idx_mod.pack_entry(
-                    k, units * NEEDLE_PADDING_SIZE, -size))
+                    k, units * NEEDLE_PADDING_SIZE, -size, self.offset_size))
                 self._f.flush()
                 self.deletion_counter += 1
                 self.deletion_byte_counter += size
         self._index_file.write(idx_mod.pack_entry(
-            key, tombstone_offset, TOMBSTONE_FILE_SIZE))
+            key, tombstone_offset, TOMBSTONE_FILE_SIZE, self.offset_size))
         self._index_file.flush()
 
     def __iter__(self) -> Iterator[NeedleValue]:

@@ -4,9 +4,15 @@ The subset of seaweedfs_tpu/storage/volume.py (weed/storage/volume.go +
 volume_write.go + volume_read.go + volume_vacuum.go + volume_checking.go)
 that the volume server needs: create or open, append and delete needles,
 read them back, describe the volume to the master, and vacuum it.
-Version 3 needles and 4-byte `.idx` offsets.  The files are
-byte-compatible with the reference's, so either package reads volumes the
-other wrote.
+Version 3 needles.  The files are byte-compatible with the reference's,
+so either package reads volumes the other wrote.
+
+A volume's `.idx` offsets are 4 bytes wide (16-byte entries, volumes up
+to 32 GB) or, made with ``offset_5``, 5 bytes (17-byte entries, up to
+8 TB): the reference's 5BytesOffset build tag (weed/storage/types/
+offset_5bytes.go) as a per-volume option, flagged by bit 0 of the
+superblock's extra byte, which a reopen reads back.  Every `.idx`, map,
+crash check, compaction and backup of the volume keeps its width.
 
 The needle map is of the volume's ``needle_map_kind``
 (needle_map_compact.py): "compact" (the default: numpy sections, about 16
@@ -73,8 +79,6 @@ open first runs ``tier_recover``.  The tier moves publish the new (needle
 map, file) pair as a commit does, so a read never fails across one: the
 recall serves from the remote object until the verified `.dat` is in
 place, and deletes the object only after.
-
-Not ported: 5-byte offsets.
 """
 
 from __future__ import annotations
@@ -102,9 +106,8 @@ from .needle_map_compact import (NEEDLE_MAP_KINDS, CompactNeedleMap,
 from .super_block import SUPER_BLOCK_SIZE, ReplicaPlacement, SuperBlock
 from .ttl import TTL
 from .types import (MAX_POSSIBLE_VOLUME_SIZE, NEEDLE_CHECKSUM_SIZE,
-                    NEEDLE_HEADER_SIZE, NEEDLE_MAP_ENTRY_SIZE,
-                    NEEDLE_PADDING_SIZE, TIMESTAMP_SIZE, Version,
-                    bytes_to_u32, size_is_valid)
+                    NEEDLE_HEADER_SIZE, NEEDLE_PADDING_SIZE, TIMESTAMP_SIZE,
+                    Version, bytes_to_u32, size_is_valid)
 from .volume_info import (RemoteFileInfo, VolumeInfo, maybe_load_volume_info,
                           save_volume_info, vif_path)
 
@@ -116,6 +119,9 @@ DatFile = Union[_DatFile, MemoryMappedFile, RemoteFile]
 _CHECK_BLOCK_ENTRIES = 1024
 # bytes of the .dat a scan reads at a time
 _SCAN_BLOCK = 4 << 20
+# a new 5-byte volume's superblock extra: bit 0 set, padded to 8 bytes so
+# needle offsets stay 8-aligned (seaweedfs_tpu/storage/volume.py:105)
+_OFFSET_5_EXTRA = b"\x01" + b"\x00" * 7
 
 
 class NotFoundError(KeyError):
@@ -139,12 +145,14 @@ class Volume:
     def __init__(self, directory: str, collection: str, vid: int,
                  replica_placement: Optional[ReplicaPlacement] = None,
                  ttl: Optional[TTL] = None,
-                 needle_map_kind: str = "compact", use_mmap: bool = False):
-        """Open the volume, or create it with ``replica_placement`` and
-        ``ttl`` in its superblock (an existing volume keeps its own), its
-        needle map of ``needle_map_kind``, its `.dat` mapped with
-        ``use_mmap``.  A tier move a crash interrupted is finished or
-        rolled back first (``tier_recover``)."""
+                 needle_map_kind: str = "compact", use_mmap: bool = False,
+                 offset_5: bool = False):
+        """Open the volume, or create it with ``replica_placement``,
+        ``ttl`` and, with ``offset_5``, 5-byte offsets in its superblock
+        (an existing volume keeps its own), its needle map of
+        ``needle_map_kind``, its `.dat` mapped with ``use_mmap``.  A tier
+        move a crash interrupted is finished or rolled back first
+        (``tier_recover``)."""
         if needle_map_kind not in NEEDLE_MAP_KINDS:
             raise ValueError(f"needle map kind {needle_map_kind!r} is not "
                              f"one of {sorted(NEEDLE_MAP_KINDS)}")
@@ -160,6 +168,8 @@ class Volume:
         self.last_modified_ts_seconds = 0
         self.last_append_at_ns = 0
         self.file_prefix = volume_file_prefix(directory, collection, vid)
+        # 4 or 5: the width of the .idx offsets, read from the superblock
+        self.offset_size = 5 if offset_5 else 4
         # serializes appends to .dat/.idx and the commit's file swap
         # (dataFileAccessLock)
         self.write_lock = threading.Lock()
@@ -174,7 +184,7 @@ class Volume:
         # the local .dat or the committed remote copy: decided before any
         # file opens
         self.tier_recover()
-        self._open(replica_placement, ttl)
+        self._open(replica_placement, ttl, offset_5)
 
     @property
     def dat_path(self) -> str:
@@ -199,7 +209,7 @@ class Volume:
 
     # --- lifecycle ------------------------------------------------------
     def _open(self, replica_placement: Optional[ReplicaPlacement] = None,
-              ttl: Optional[TTL] = None) -> None:
+              ttl: Optional[TTL] = None, offset_5: bool = False) -> None:
         """_load_or_create (volume.py): open the files, write a new
         volume's superblock, run the crash check, replay the index, then
         publish the pair to readers.  A `.vif` naming a remote file with
@@ -221,7 +231,8 @@ class Volume:
                 sb = SuperBlock(
                     version=Version.V3,
                     replica_placement=replica_placement or ReplicaPlacement(),
-                    ttl=ttl or TTL())
+                    ttl=ttl or TTL(),
+                    extra=_OFFSET_5_EXTRA if offset_5 else b"")
                 dat.write_at(sb.to_bytes(), 0)
             else:
                 sb = SuperBlock.from_bytes(
@@ -231,12 +242,16 @@ class Volume:
                     # (volume_loading.go:63)
                     self.last_modified_ts_seconds = int(os.path.getmtime(
                         self.dat_path))
-            if sb.version != Version.V3 or sb.offset_size != 4:
+            if sb.version != Version.V3:
                 raise ValueError(f"volume {self.id}: only version 3 volumes "
-                                 "with 4-byte offsets are supported")
+                                 "are supported")
+            # the width is the volume's own: the superblock overrides the
+            # constructor's flag
+            self.offset_size = sb.offset_size
             if not tiered:
                 self._check_integrity(dat, sb.version)
-            nm = NEEDLE_MAP_KINDS[self.needle_map_kind].load(self.idx_path)
+            nm = NEEDLE_MAP_KINDS[self.needle_map_kind].load(
+                self.idx_path, self.offset_size)
         except BaseException:
             dat.close()
             raise
@@ -281,7 +296,7 @@ class Volume:
         would cut them off (ROADMAP Queue 3)."""
         if not os.path.exists(self.idx_path):
             return
-        es = NEEDLE_MAP_ENTRY_SIZE
+        es = idx_mod.entry_size(self.offset_size)
         idx_size = os.path.getsize(self.idx_path)
         if idx_size % es:
             idx_size -= idx_size % es
@@ -295,7 +310,7 @@ class Volume:
                 start = max(0, healthy_idx_size - _CHECK_BLOCK_ENTRIES * es)
                 f.seek(start)
                 entries = idx_mod.parse_entries(
-                    f.read(healthy_idx_size - start))
+                    f.read(healthy_idx_size - start), self.offset_size)
                 for i in range(len(entries) - 1, -1, -1):
                     key = int(entries["key"][i])
                     offset = int(entries["offset"][i]) * NEEDLE_PADDING_SIZE
@@ -318,7 +333,7 @@ class Volume:
         bytes of the index name (version 3 records: header, data, CRC,
         append time, 1-8 bytes of padding; a tombstone's data is empty)."""
         with open(self.idx_path, "rb") as f:
-            e = idx_mod.parse_entries(f.read(idx_size))
+            e = idx_mod.parse_entries(f.read(idx_size), self.offset_size)
         offset = e["offset"].astype(np.int64) * NEEDLE_PADDING_SIZE
         size = np.maximum(e["size"].astype(np.int64), 0)
         used = NEEDLE_HEADER_SIZE + size + NEEDLE_CHECKSUM_SIZE + TIMESTAMP_SIZE
@@ -361,6 +376,29 @@ class Volume:
                 dat.sync()
             finally:
                 dat.close()
+
+    def reload(self) -> None:
+        """Open the files again and publish the new (needle map, `.dat`)
+        pair, the map replayed from the `.idx` as it is on disk now:
+        another writer (the native data plane) appended to it.  The old
+        map closes first and its `.ldb` or `.sdx` goes (they describe
+        less than the index holds); reads in flight finish on the old
+        `.dat`.  No tier recovery runs: a pending move stays pending."""
+        self._park_worker()
+        try:
+            with self.write_lock:
+                nm, dat = self._writable()
+                nm.close()
+                for path in (snapshot_path_for(self.idx_path),
+                             sorted_path_for(self.idx_path)):
+                    if os.path.exists(path):
+                        os.remove(path)
+                try:
+                    self._open()
+                finally:
+                    dat.close()
+        finally:
+            self._unpark_worker()
 
     def sync(self) -> None:
         """Make every append so far durable: `.dat`, then `.idx`."""
@@ -462,9 +500,11 @@ class Volume:
             raise PermissionError(f"volume {self.id}: the sorted-file "
                                   "needle map is read-only")
         actual = get_actual_size(len(n.data), self.version)
-        if MAX_POSSIBLE_VOLUME_SIZE < nm.content_size + actual:
-            raise OSError(f"volume size limit {MAX_POSSIBLE_VOLUME_SIZE} "
-                          "exceeded")
+        # 5-byte offsets address 256 times as far
+        cap = MAX_POSSIBLE_VOLUME_SIZE * (256 if self.offset_size == 5
+                                          else 1)
+        if cap < nm.content_size + actual:
+            raise OSError(f"volume size limit {cap} exceeded")
         nv = nm.get(n.id)
         if self._is_file_unchanged(dat, n, nv):
             return 0, len(n.data), True
@@ -577,7 +617,7 @@ class Volume:
             with open(self.idx_path, "r+b") as f:
                 f.truncate(idx_start)
         self._live = (NEEDLE_MAP_KINDS[self.needle_map_kind].load(
-            self.idx_path), dat)
+            self.idx_path, self.offset_size), dat)
 
     # --- read path (volume_read.go) ------------------------------------
     def read_needle(self, key: int, cookie: Optional[int] = None) -> Needle:
@@ -695,7 +735,8 @@ class Volume:
             for nv in live:
                 blob = self.read_needle_blob(nv.offset, nv.size)
                 dat_out.write(blob)
-                idx_out.write(idx_mod.pack_entry(nv.key, new_offset, nv.size))
+                idx_out.write(idx_mod.pack_entry(nv.key, new_offset, nv.size,
+                                                 self.offset_size))
                 new_offset += len(blob)
 
     def _compacted_super_block(self) -> SuperBlock:
@@ -716,7 +757,8 @@ class Volume:
             return
         with open(self.idx_path, "rb") as f:
             f.seek(start)
-            entries = idx_mod.parse_entries(f.read(idx_size - start))
+            entries = idx_mod.parse_entries(f.read(idx_size - start),
+                                            self.offset_size)
         with open(cpd, "r+b") as dat_out, open(cpx, "ab") as idx_out:
             new_offset = dat_out.seek(0, os.SEEK_END)
             for i in range(len(entries)):
@@ -726,10 +768,12 @@ class Volume:
                 if offset != 0 and size_is_valid(size):
                     blob = self.read_needle_blob(offset, size)
                     dat_out.write(blob)
-                    idx_out.write(idx_mod.pack_entry(key, new_offset, size))
+                    idx_out.write(idx_mod.pack_entry(key, new_offset, size,
+                                                     self.offset_size))
                     new_offset += len(blob)
                 else:
-                    idx_out.write(idx_mod.pack_entry(key, 0, -1))
+                    idx_out.write(idx_mod.pack_entry(key, 0, -1,
+                                                     self.offset_size))
 
     def commit_compact(self) -> None:
         """CommitCompact (volume_vacuum.go:91-160): under write_lock,

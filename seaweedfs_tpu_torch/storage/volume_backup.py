@@ -9,7 +9,8 @@ and the time of the last one sent; the follower applies them through the
 needle codec (``apply_records``: a record with data is written, one
 without replays as a delete) and asks again from that time until nothing
 comes back (``incremental_backup``).  The records keep their append times,
-so the follower's `.dat` is the source's, byte for byte.
+so the follower's `.dat` is the source's, byte for byte.  The index is
+read in the volume's own width (17-byte entries on a 5-byte volume).
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ def _index_entries(volume: Volume) -> Optional[np.ndarray]:
     if not os.path.exists(volume.idx_path):
         return None
     with open(volume.idx_path, "rb") as f:
-        return parse_entries(f.read())
+        return parse_entries(f.read(), volume.offset_size)
 
 
 def _entry_append_at_ns(volume: Volume, offset: int, size: int) -> int:

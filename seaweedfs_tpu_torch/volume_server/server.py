@@ -102,7 +102,26 @@ included, from its remote object: the needle cache and the loop's fast
 path never hold it, and ``/admin/configure_replication`` answers 409.
 ``use_mmap`` maps every `.dat` (``-mmap``).
 
-Not ported: the native plane, heat, ledger and the request log.
+``dataplane="native"`` (``volume -dataplane native``; "python", the
+default, is the plane above) starts the C++ data plane (dataplane.py,
+csrc/dataplane.cpp) on the framed port in place of ``TcpVolumeServer``:
+it serves W, R and D frames from its own threads (a W or D of a volume
+replicated beyond 000 is refused: a frame would skip the fan-out), and
+the store funnels every HTTP needle op of the volumes it holds through it
+(store.py).  Under a whitelist it binds no port (engine-only: HTTP needle
+IO still goes through it); under a write or read key or cluster TLS it
+does not start, as the Python plane does not.  A port that stays taken
+for 3 s is a degraded bind, as the Python plane's, and the plane then
+runs engine-only.  While it is attached the needle cache and the loop's
+fast path are off and a Range GET slices the full read.  ``/status``
+carries ``NativeDataPlane`` (its port, the W, R and D frames it served,
+and each volume's size, live files, deleted bytes and fsync passes), ``/metrics`` the same as
+``SeaweedFS_volumeServer_native_plane{volume,stat}``.  The plane builds
+at the server's start and a failed build raises; it stops at ``stop()``.
+``/admin/assign_volume`` takes ``offset_5`` (a volume past 32 GB, which
+the plane never takes).
+
+Not ported: heat, ledger and the request log.
 """
 
 from __future__ import annotations
@@ -129,6 +148,7 @@ from ..observability import get_tracer
 from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
+from ..ops import _build
 from ..ops.gf_matmul import gf_matmul
 from ..query import execute_query
 from ..security import Guard, JwtError, decode_jwt, get_jwt
@@ -174,7 +194,7 @@ from ..utils.httpd import (
     stop_server,
 )
 from ..utils.framing import (U32, note_degraded_bind, pack_fid_frames,
-                             unpack_fid_frames)
+                             tcp_port_for, unpack_fid_frames)
 from ..utils.ioutil import pread_padded
 from .scrubber import EcScrubber
 from .store import Store
@@ -222,7 +242,7 @@ class VolumeServer:
                  max_inflight: int = 0, needle_cache_mb: int = 64,
                  guard: Optional[Guard] = None,
                  backends: Optional[dict] = None, tls_context=None,
-                 use_mmap: bool = False):
+                 use_mmap: bool = False, dataplane: str = "python"):
         """A volume server for ``directories`` at host:port, heartbeating
         to ``master_url`` (comma-separated masters; heartbeats follow the
         raft leader).  ``device`` runs the EC work: "cuda" needs a card
@@ -232,7 +252,13 @@ class VolumeServer:
         holds the whitelist and keys (none: an open server);
         ``backends`` registers tier backends ({name: {"type": "dir",
         "root": ...}}) before any volume opens; ``tls_context`` serves
-        HTTPS; ``use_mmap`` maps each `.dat`."""
+        HTTPS; ``use_mmap`` maps each `.dat`; ``dataplane`` "native"
+        serves needle IO through the C++ plane."""
+        if dataplane not in ("python", "native"):
+            raise ValueError(f"dataplane {dataplane!r} is not python or "
+                             "native")
+        self.dataplane = dataplane
+        self._native_plane = None
         if backends:
             configure_backends(backends)
         self.guard = guard or Guard()
@@ -298,15 +324,35 @@ class VolumeServer:
 
     # --- lifecycle --------------------------------------------------------
     def start(self) -> "VolumeServer":
+        g = self.guard
+        # a frame has no token slot and the plane no TLS: it must not open
+        # a side door on a secured server
+        framed = (not g.signing_key and not g.read_signing_key
+                  and self._tls_context is None)
+        native = framed and self.dataplane == "native"
+        if native:
+            from .dataplane import NativeDataPlane
+
+            # built before anything serves: a failed build raises here
+            _build.load("dataplane")
         self._trace_shipper.attach()
         self._event_shipper.attach()
         self._server = serve(self.router, self.store.ip, self.store.port,
                              tls_context=self._tls_context)
-        # a frame has no token slot and the plane no TLS: it must not open
-        # a side door on a secured server
-        g = self.guard
-        if not g.signing_key and not g.read_signing_key \
-                and self._tls_context is None:
+        if native:
+            # no whitelist slot in the plane: under one it binds no port
+            # and takes no W or D frame
+            self.store.native_tcp_writes_ok = not g.white_list
+            plane = NativeDataPlane(self.store.ip, -1) if g.white_list \
+                else _bind_with_retry(
+                    lambda: NativeDataPlane(self.store.ip,
+                                            tcp_port_for(self.store.port)),
+                    role="volume-native", server=self.url)
+            if not plane.alive:  # a degraded bind: HTTP IO still native
+                plane = NativeDataPlane(self.store.ip, -1)
+            self._native_plane = plane
+            self.store.attach_native_plane(plane)
+        elif framed:
             self._tcp_server = _bind_with_retry(
                 lambda: TcpVolumeServer(
                     self.store, self.store.ip,
@@ -326,6 +372,13 @@ class VolumeServer:
             self._tcp_server.stop()
         if self._server is not None:
             stop_server(self._server)
+        if self._native_plane is not None:
+            # every volume back on the Python engine first: a handler
+            # past has() meets a stopped plane, answers DP_NO_VOLUME and
+            # falls back to a reloaded volume
+            self.store.detach_native_plane()
+            self._native_plane.stop()
+            self._native_plane = None
         self._trace_shipper.detach()
         self._event_shipper.detach()
         self.store.close()
@@ -435,12 +488,14 @@ class VolumeServer:
         from memory (a raced invalidation costs one bounded pread).  An EC
         volume's needle is never cached, so no EC read and no kernel
         launch runs on the loop; a tiered volume's reads go to its remote
-        object.  Never blocks: a regex, a parse, three dict lookups."""
+        object.  Never blocks: a regex, a parse, three dict lookups.  The
+        native plane reads every needle it holds: with it attached,
+        nothing is answered on the loop."""
         m = _FAST_FID_RE.match(path)
         if m is None:
             return False
         cache = self.store.needle_cache
-        if not cache.enabled:
+        if not cache.enabled or self.store.native_plane is not None:
             return False
         try:
             fid = FileId.parse(f"{m.group(1)},{m.group(2)}")
@@ -455,7 +510,12 @@ class VolumeServer:
         """A Range GET answered by preading only the range's bytes
         (``read_needle_meta`` / ``read_needle_data``): no whole-needle read
         and no CRC pass.  None sends the request down the full read
-        (compressed or TTL'd needles, empty bodies, malformed ranges)."""
+        (compressed or TTL'd needles, empty bodies, malformed ranges, and
+        a volume the native plane holds: the Python map is stale, so the
+        full read goes through the plane and is sliced)."""
+        plane = self.store.native_plane
+        if plane is not None and plane.has(fid.volume_id):
+            return None
         v = self.store.volumes[fid.volume_id]
         try:
             loc, data_size, flags, name, mime = v.read_needle_meta(
@@ -996,9 +1056,9 @@ class VolumeServer:
         @r.route("GET", "/status")
         def status(req: Request) -> Response:
             scrub = self.scrubber.status()
-            return Response({
+            doc = {
                 "Version": VERSION,
-                "Volumes": [v.to_volume_information()
+                "Volumes": [self.store.volume_info(v)
                             for v in list(self.store.volumes.values())],
                 "EcVolumes": sorted(self.store.ec_volumes),
                 "Master": self.master_url,
@@ -1017,7 +1077,17 @@ class VolumeServer:
                     "verdicts": {v: d.get("status", "?")
                                  for v, d in scrub["verdicts"].items()},
                 },
-            })
+            }
+            plane = self.store.native_plane
+            if plane is not None:
+                doc["NativeDataPlane"] = {
+                    "tcp_port": plane.port, "frames": plane.frames(),
+                    "volumes": {
+                        vid: {"size": ds, "file_count": fc,
+                              "deleted_bytes": db, "fsync_passes": sp}
+                        for vid, (ds, fc, _mk, db, sp)
+                        in plane.stats_all().items()}}
+            return Response(doc)
 
         @r.route("GET", "/metrics")
         def metrics(req: Request) -> Response:
@@ -1027,10 +1097,20 @@ class VolumeServer:
             m.disk_size_gauge.clear()
             for v in list(self.store.volumes.values()):
                 m.volume_counter.add(v.collection, "volume", 1)
-                m.disk_size_gauge.add(v.collection, "volume", v.data_size)
+                m.disk_size_gauge.add(v.collection, "volume",
+                                      self.store.volume_info(v)["size"])
             for vid, ev in list(self.store.ec_volumes.items()):
                 m.volume_counter.add(self.store.ec_collections.get(vid, ""),
                                      "ec_shards", len(ev.shards))
+            m.native_plane_gauge.clear()
+            plane = self.store.native_plane
+            if plane is not None:
+                for vid, (ds, fc, _mk, db, sp) in plane.stats_all().items():
+                    for stat, value in (("size_bytes", ds),
+                                        ("live_files", fc),
+                                        ("deleted_bytes", db),
+                                        ("fsync_passes", sp)):
+                        m.native_plane_gauge.set(str(vid), stat, value)
             return Response(
                 raw=REGISTRY.expose(
                     exemplars=exemplars_requested(req)).encode(),
@@ -1093,12 +1173,10 @@ class VolumeServer:
         @r.route("POST", "/admin/assign_volume")
         def assign_volume(req: Request) -> Response:
             b = req.json()
-            if b.get("offset_5"):
-                raise HttpError(400, "5-byte offsets are not supported: "
-                                     "volumes use 4-byte offsets")
             self.store.add_volume(int(b["volume_id"]), b.get("collection", ""),
                                   b.get("replication", "000"),
-                                  b.get("ttl", ""))
+                                  b.get("ttl", ""),
+                                  offset_5=bool(b.get("offset_5", False)))
             return Response({})
 
         @r.route("POST", "/admin/delete_volume")
@@ -1124,6 +1202,9 @@ class VolumeServer:
                 b.get("readonly", True))
             # the writable set must reach the master within one pulse
             self.store.note_volume_change(vid)
+            # the plane takes the flag (nothing while a hold is out: its
+            # release does)
+            self.store.native_refresh(vid)
             return Response({})
 
         @r.route("POST", "/admin/configure_replication")
@@ -1234,8 +1315,12 @@ class VolumeServer:
             plane that commits with /admin/tier_commit."""
             b = req.json()
             vid = int(b["volume_id"])
-            v = self._tier_volume(vid)
-            with self.store.volume_locks[vid]:
+            self._tier_volume(vid)
+            # the plane lets go of the `.dat` while it moves, and takes it
+            # back only if it is still local (keep_local, two_phase)
+            with self.store.native_quiesced(vid), \
+                    self.store.volume_locks[vid]:
+                v = self._tier_volume(vid)
                 if bool(b.get("two_phase")):
                     out = {"manifest": v.tier_upload_begin(b["backend"])}
                 else:
@@ -1250,10 +1335,11 @@ class VolumeServer:
             the local `.dat` dropped, reopened tiered.  Idempotent; 404
             when no manifest is pending, 409 when it is not committable."""
             vid = int(req.json()["volume_id"])
-            v = self._tier_volume(vid)
+            self._tier_volume(vid)
             try:
-                with self.store.volume_locks[vid]:
-                    manifest = v.tier_commit()
+                with self.store.native_quiesced(vid), \
+                        self.store.volume_locks[vid]:
+                    manifest = self._tier_volume(vid).tier_commit()
             except FileNotFoundError as e:
                 raise HttpError(404, str(e))
             except PermissionError as e:
@@ -1266,10 +1352,11 @@ class VolumeServer:
             """Roll back an uncommitted two-phase upload: the remote object
             deleted, the manifest dropped, writes thawed."""
             vid = int(req.json()["volume_id"])
-            v = self._tier_volume(vid)
+            self._tier_volume(vid)
             try:
-                with self.store.volume_locks[vid]:
-                    v.tier_abort()
+                with self.store.native_quiesced(vid), \
+                        self.store.volume_locks[vid]:
+                    self._tier_volume(vid).tier_abort()
             except PermissionError as e:
                 raise HttpError(409, str(e))
             self._tier_moved(vid)
@@ -1279,9 +1366,11 @@ class VolumeServer:
         def tier_download(req: Request) -> Response:
             """VolumeTierMoveDatFromRemote: the verified recall."""
             vid = int(req.json()["volume_id"])
-            v = self._tier_volume(vid)
-            with self.store.volume_locks[vid]:
-                v.tier_download()
+            self._tier_volume(vid)
+            # the release registers the recalled volume with the plane
+            with self.store.native_quiesced(vid), \
+                    self.store.volume_locks[vid]:
+                self._tier_volume(vid).tier_download()
             self._tier_moved(vid)
             return Response({})
 
@@ -1338,8 +1427,17 @@ class VolumeServer:
         @r.route("POST", "/admin/vacuum_check")
         def vacuum_check(req: Request) -> Response:
             vid = int(req.json()["volume_id"])
-            return Response({"garbage_ratio":
-                             self.store.get_volume(vid).garbage_ratio()})
+            v = self.store.get_volume(vid)
+            plane = self.store.native_plane
+            st = plane.stat(vid) if plane is not None and plane.has(vid) \
+                else None
+            if st is not None:
+                # the Python map's counters are frozen while the plane
+                # holds the volume: the plane's own know
+                dat_size, _, _, deleted_bytes, _ = st
+                return Response({"garbage_ratio": deleted_bytes / dat_size
+                                 if dat_size else 0.0})
+            return Response({"garbage_ratio": v.garbage_ratio()})
 
         @r.route("POST", "/admin/vacuum_compact")
         def vacuum_compact(req: Request) -> Response:
@@ -1353,8 +1451,7 @@ class VolumeServer:
 
         @r.route("POST", "/admin/vacuum_cleanup")
         def vacuum_cleanup(req: Request) -> Response:
-            vid = int(req.json()["volume_id"])
-            self.store.get_volume(vid).cleanup_compact()
+            self.store.vacuum_cleanup(int(req.json()["volume_id"]))
             return Response({})
 
         # --- admin: EC -----------------------------------------------

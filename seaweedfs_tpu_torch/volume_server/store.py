@@ -34,9 +34,28 @@ its `.dat` files and its `.vif` files: a tiered volume has only the
 `.vif` and the `.idx` here, its `.dat` in a backend; each opens through
 ``Volume``, which first finishes or rolls back a tier move a crash
 interrupted.  An EC encode of a tiered volume fails as the reference's
-does: the encoder opens the local `.dat`, which is not there.
+does: the encoder opens the local `.dat`, which is not there.  A volume
+with 5-byte offsets (``add_volume(..., offset_5=True)``, volumes past
+32 GB) serves every needle op, and its EC encode is refused before
+anything is written, as the reference's is: the `.ecx` and shard reads
+speak 16-byte entries only.
 
-Not ported: the native data plane.
+With the native data plane attached (``attach_native_plane``,
+dataplane.py, ``volume -dataplane native``) every volume it can take
+(version 3, 4-byte offsets, not tiered: ``_plane_eligible``) is
+registered with it, and ``write_needle``, ``delete_needle`` and
+``read_needle`` of such a volume go through the plane, its single writer.
+The needle cache is not used then: the plane reads every needle.  An
+``fsync`` write or delete waits for the plane's group sync.  Work on a
+volume's files quiesces it first (``native_quiesced``: EC encode, vacuum
+from compact to commit or cleanup, tier moves, fsck, replica placement,
+read-only flips): the plane lets go of it and the Python Volume reloads,
+replaying the `.idx` the plane appended to; needle ops in that window take
+the shared side of the volume's swap lock and use the Python engine (its
+group commit for ``fsync``); the last hold's release registers the volume
+again.  Unmount and delete take it off the plane first; mount, a copy and
+``ec_to_volume`` register theirs.  Heartbeats and ``volume_info`` read a
+held volume's size and counts from the plane.
 """
 
 from __future__ import annotations
@@ -46,6 +65,7 @@ import glob
 import os
 import re
 import threading
+import time
 from typing import Callable, Optional
 
 from ..ec import encoder as ec_encoder
@@ -58,8 +78,9 @@ from ..ops.gf_matmul import resolve_device
 from ..storage.needle import Needle
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
-from ..storage.types import size_is_deleted
-from ..storage.volume import CookieMismatchError, Volume, volume_file_prefix
+from ..storage.types import Version, size_is_deleted
+from ..storage.volume import (CookieMismatchError, DeletedError,
+                              NotFoundError, Volume, volume_file_prefix)
 from .needle_cache import NeedleCache
 
 _VOLUME_NAME = re.compile(r"(?:[\w.-]+_)?\d+")
@@ -87,6 +108,60 @@ def _discover(directory: str, ext: str) -> list[tuple[str, int]]:
         if _VOLUME_NAME.fullmatch(name):
             found.add(parse_volume_file_name(name))
     return sorted(found)
+
+
+class _SwapLock:
+    """Many needle ops (shared) or one plane swap (exclusive).  The
+    quiesce window's fallback writes and reads take the shared side: they
+    serialize against a detach or reattach, never against each other (a
+    group commit's batches survive) or against a compaction holding the
+    volume's lock.  A queued swap holds back new shared holders, so steady
+    traffic cannot starve it."""
+
+    def __init__(self):
+        self._cond = threading.Condition()
+        self._shared = 0
+        self._exclusive = False
+        self._waiting = 0
+
+    @contextlib.contextmanager
+    def shared(self):
+        with self._cond:
+            while self._exclusive or self._waiting:
+                self._cond.wait()
+            self._shared += 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._shared -= 1
+                if not self._shared:
+                    self._cond.notify_all()
+
+    @contextlib.contextmanager
+    def exclusive(self):
+        with self._cond:
+            self._waiting += 1
+            try:
+                while self._exclusive or self._shared:
+                    self._cond.wait()
+                self._exclusive = True
+            finally:
+                self._waiting -= 1
+        try:
+            yield
+        finally:
+            with self._cond:
+                self._exclusive = False
+                self._cond.notify_all()
+
+
+def _plane_gone(exc: BaseException) -> bool:
+    """Did the plane let go of the volume between ``has`` and the call (a
+    quiesce raced the op)?  The op then goes to the Python engine."""
+    from .dataplane import DP_NO_VOLUME, DataPlaneError
+
+    return isinstance(exc, DataPlaneError) and exc.code == DP_NO_VOLUME
 
 
 class Store:
@@ -131,6 +206,16 @@ class Store:
         self._gone_vids: set[int] = set()
         self._new_ec_vids: set[int] = set()
         self._gone_ec_vids: set[int] = set()
+        # the native data plane, once attached; a volume's outstanding
+        # quiesce holds (the last release registers it again) and its
+        # swap lock
+        self.native_plane = None
+        # False under a whitelist: the plane has none, so its TCP port
+        # takes no W or D frame of any volume
+        self.native_tcp_writes_ok = True
+        self._native_hold_lock = threading.Lock()
+        self._native_holds: dict[int, int] = {}
+        self._swap_locks: dict[int, _SwapLock] = {}
         for d in self.directories:
             for collection, vid in _discover_volumes(d):
                 if vid not in self.volumes:
@@ -214,7 +299,7 @@ class Store:
             if v is None:  # raced with a delete after the note
                 gone_vids.add(vid)
             else:
-                new_volumes.append(v.to_volume_information())
+                new_volumes.append(self.volume_info(v))
         new_ec_shards = []
         for vid in sorted(new_ec):
             ev = self.ec_volumes.get(vid)
@@ -241,26 +326,48 @@ class Store:
         return {
             "ip": self.ip, "port": self.port, "public_url": self.public_url,
             "max_volume_count": self.max_volume_count,
-            "volumes": [v.to_volume_information()
+            "volumes": [self.volume_info(v)
                         for v in list(self.volumes.values())],
             "ec_shards": [self._ec_shard_info(vid, ev)
                           for vid, ev in list(self.ec_volumes.items())],
         }
 
+    def volume_info(self, v: Volume) -> dict:
+        """``to_volume_information``, with the plane's size and counts
+        while it holds the volume (the Python map is stale then: the
+        master reseeds its sequencer from max_file_key)."""
+        info = v.to_volume_information()
+        plane = self.native_plane
+        st = plane.stat(v.id) if plane is not None and plane.has(v.id) \
+            else None
+        if st is not None:
+            dat_size, file_count, max_key, deleted_bytes, _ = st
+            info["size"] = dat_size
+            info["file_count"] = max(info["file_count"], file_count)
+            info["max_file_key"] = max(info["max_file_key"], max_key)
+            info["deleted_byte_count"] = max(info["deleted_byte_count"],
+                                             deleted_bytes)
+        return info
+
     # --- volumes ------------------------------------------------------------
     def add_volume(self, vid: int, collection: str = "",
-                   replication: str = "000", ttl: str = "") -> Volume:
-        """AllocateVolume: a new volume with this replica placement and
-        TTL in its superblock (an existing volume is returned as is)."""
+                   replication: str = "000", ttl: str = "",
+                   offset_5: bool = False) -> Volume:
+        """AllocateVolume: a new volume with this replica placement, TTL
+        and, with ``offset_5``, 5-byte offsets in its superblock (an
+        existing volume is returned as is); on the plane if it can take
+        it."""
         if vid in self.volumes:
             return self.volumes[vid]
         directory = min(self.directories,
                         key=lambda d: sum(1 for v in self.volumes.values()
                                           if v.directory == d))
-        return self._open_volume(self._volume(
+        v = self._open_volume(self._volume(
             directory, collection, vid,
             replica_placement=ReplicaPlacement.parse(replication),
-            ttl=TTL.parse(ttl)))
+            ttl=TTL.parse(ttl), offset_5=offset_5))
+        self._native_add(v)
+        return v
 
     def get_volume(self, vid: int) -> Volume:
         v = self.volumes.get(vid)
@@ -268,7 +375,15 @@ class Store:
             raise KeyError(f"volume {vid} not found")
         return v
 
+    def _native_drop(self, vid: int) -> None:
+        """Off the plane for good, holds and all (unmount, delete)."""
+        if self.native_plane is not None:
+            self.native_plane.remove_volume(vid)
+            with self._native_hold_lock:
+                self._native_holds.pop(vid, None)
+
     def delete_volume(self, vid: int) -> None:
+        self._native_drop(vid)
         v = self.volumes.pop(vid, None)
         self.volume_locks.pop(vid, None)
         self.needle_cache.invalidate_volume(vid, "unmount")
@@ -277,6 +392,7 @@ class Store:
             self.note_volume_change(vid, gone=True)
 
     def unmount_volume(self, vid: int) -> None:
+        self._native_drop(vid)
         v = self.volumes.pop(vid, None)
         self.volume_locks.pop(vid, None)
         self.needle_cache.invalidate_volume(vid, "unmount")
@@ -289,15 +405,241 @@ class Store:
             for collection, found in _discover_volumes(d):
                 if found == vid:
                     self._open_volume(self._volume(d, collection, vid))
+                    self.native_register(vid)
                     return
         raise KeyError(f"volume {vid} not found on disk")
 
+    # --- the native data plane (csrc/dataplane.cpp) ----------------------
+    def attach_native_plane(self, plane) -> None:
+        """Register every volume the plane can take: from here on their
+        needle ops go through it."""
+        self.native_plane = plane
+        for v in list(self.volumes.values()):
+            self._native_add(v)
+
+    def detach_native_plane(self) -> None:
+        """Hand every volume back to the Python engine, each reloaded as
+        a quiesce reloads it, then forget the plane (the caller stops
+        it): no Python append ever lands on a stale end of a `.dat` the
+        plane wrote to."""
+        plane = self.native_plane
+        if plane is None:
+            return
+        for vid in sorted(plane.vids):
+            self.native_detach(vid)
+        self.native_plane = None
+
+    def _plane_eligible(self, v: Optional[Volume]) -> bool:
+        """The plane speaks version 3 records and 16-byte `.idx` entries
+        of a local `.dat`: a tiered or 5-byte volume stays Python's."""
+        return (v is not None and not v.tiered and v.version == Version.V3
+                and v.offset_size == 4)
+
+    def _native_add(self, v: Volume) -> None:
+        if self.native_plane is None or not self._plane_eligible(v):
+            return
+        # a frame skips the HTTP plane's replica fan-out: TCP writes only
+        # for replication 000 (volume_server_tcp_handlers_write.go is
+        # local-only too)
+        tcp_ok = (self.native_tcp_writes_ok
+                  and v.super_block.replica_placement.to_byte() == 0)
+        self.native_plane.add_volume(v.id, v.dat_path, v.idx_path,
+                                     read_only=v.read_only,
+                                     tcp_writable=tcp_ok)
+
+    def _swap_lock(self, vid: int) -> _SwapLock:
+        with self._native_hold_lock:
+            sl = self._swap_locks.get(vid)
+            if sl is None:
+                sl = self._swap_locks[vid] = _SwapLock()
+            return sl
+
+    def _release_hold(self, vid: int) -> int:
+        """One hold fewer; -> how many there were."""
+        with self._native_hold_lock:
+            n = self._native_holds.get(vid, 0)
+            if n <= 1:
+                self._native_holds.pop(vid, None)
+            else:
+                self._native_holds[vid] = n - 1
+            return n
+
+    def native_detach(self, vid: int) -> None:
+        """Quiesce: take one hold, let the plane go of the volume and
+        reload the Python Volume, which replays everything the plane
+        appended (``Volume.reload``: the same object, no tier recovery,
+        so a pending two-phase tier move survives).  Needle ops use the Python engine until the last hold
+        is released (``native_reattach``).  The removal and the reopen
+        happen under the volume's lock and the swap lock's exclusive side,
+        so no reattach and no fallback op interleaves with them."""
+        plane = self.native_plane
+        if plane is None:
+            return
+        with self._native_hold_lock:
+            self._native_holds[vid] = self._native_holds.get(vid, 0) + 1
+        lock = self.volume_locks.get(vid)
+        if lock is None:  # deleted meanwhile: the hold must not leak
+            self._release_hold(vid)
+            return
+        with lock, self._swap_lock(vid).exclusive():
+            if not plane.has(vid):
+                return
+            plane.remove_volume(vid)
+            v = self.volumes.get(vid)
+            if v is not None:
+                v.reload()
+
+    def native_reattach(self, vid: int) -> None:
+        """Release one hold; the last one registers the volume again.  A
+        call with no hold outstanding does nothing, so it never takes
+        another operation's hold."""
+        plane = self.native_plane
+        if plane is None:
+            return
+        lock = self.volume_locks.get(vid)
+        if lock is None:
+            with self._native_hold_lock:
+                held = self._native_holds.get(vid, 0)
+            if held:
+                self._release_hold(vid)
+            return
+        with lock, self._swap_lock(vid).exclusive():
+            with self._native_hold_lock:
+                n = self._native_holds.get(vid, 0)
+                if n == 0:
+                    return
+                if n > 1:
+                    self._native_holds[vid] = n - 1
+                    return
+            # the last hold stays counted until the volume is back, so a
+            # read that missed on a stale volume settles on the swap lock
+            v = self.volumes.get(vid)
+            try:
+                if v is not None and not plane.has(vid):
+                    self._native_add(v)
+            finally:
+                self._release_hold(vid)
+
+    def native_register(self, vid: int) -> None:
+        """Register a volume that can newly go on the plane (mount, copy,
+        tier recall, ec_to_volume); nothing while a hold is out."""
+        plane = self.native_plane
+        lock = self.volume_locks.get(vid)
+        if plane is None or plane.has(vid) or lock is None:
+            return
+        with lock, self._swap_lock(vid).exclusive():
+            with self._native_hold_lock:
+                if self._native_holds.get(vid, 0):
+                    return
+            v = self.volumes.get(vid)
+            if v is not None and not plane.has(vid):
+                self._native_add(v)
+
+    def native_refresh(self, vid: int) -> None:
+        """Register again with the volume's flags (read-only); nothing
+        while a hold is out: its release picks them up."""
+        plane = self.native_plane
+        if plane is None or not plane.has(vid):
+            return
+        with self._native_hold_lock:
+            if self._native_holds.get(vid, 0):
+                return
+        with self.native_quiesced(vid):
+            pass
+
+    @contextlib.contextmanager
+    def native_quiesced(self, vid: int):
+        """Work on a volume's files with the plane off it."""
+        self.native_detach(vid)
+        try:
+            yield
+        finally:
+            self.native_reattach(vid)
+
+    def _on_plane(self, vid: int):
+        """The plane, if this volume's ops go through it: it holds the
+        volume, or a quiesce of it is in flight; else None."""
+        plane = self.native_plane
+        if plane is None or plane.has(vid) or self._native_holds.get(vid):
+            return plane
+        return plane if self._plane_eligible(self.volumes.get(vid)) \
+            else None
+
+    def _native_append(self, plane, vid: int, n: Needle,
+                       fsync: bool) -> tuple[int, bool]:
+        """The funnel's write: Python serializes the record (name, mime,
+        flags, TTL), the plane appends it under its volume lock.  Unlike
+        the Python engine it does not skip an unchanged rewrite."""
+        v = self.get_volume(vid)
+        if not n.append_at_ns:
+            n.append_at_ns = time.time_ns()
+        blob = n.to_bytes(v.version)
+        plane.append(vid, n.id, n.cookie, blob, n.size)
+        if fsync:
+            self._plane_sync(plane, vid)
+        self.note_volume_change(vid)
+        return n.size, False
+
+    def _native_delete(self, plane, vid: int, n: Needle, fsync: bool) -> int:
+        size = plane.delete(vid, n.id, n.cookie)
+        if fsync:
+            self._plane_sync(plane, vid)
+        self.note_volume_change(vid)
+        return size
+
+    def _plane_sync(self, plane, vid: int) -> None:
+        """The plane's group sync of an append it took.  A plane that let
+        go of the volume since has the append in the files all the same:
+        they are fsynced through the Python volume (an fsync covers the
+        file, whichever descriptor wrote), never appended again."""
+        try:
+            plane.sync(vid)
+        except OSError as e:
+            if not _plane_gone(e):
+                raise
+            self.get_volume(vid).sync()
+
+    def _native_read(self, plane, vid: int, key: int,
+                     cookie: Optional[int]) -> Needle:
+        blob, size = plane.read_record(vid, key, cookie)
+        return Needle.from_bytes(blob, size, self.get_volume(vid).version)
+
+    def _through_plane(self, plane, vid: int, native, python):
+        """``native(plane)`` while the plane holds the volume; in a
+        quiesce window ``python()`` on the shared side of the swap lock,
+        after a second look (a reattach may have won the race)."""
+        if plane.has(vid):
+            try:
+                return native(plane)
+            except OSError as e:
+                if not _plane_gone(e):
+                    raise
+        with self._swap_lock(vid).shared():
+            if plane.has(vid):
+                try:
+                    return native(plane)
+                except OSError as e:
+                    if not _plane_gone(e):
+                        raise
+            return python()
+
+    # --- needle ops ----------------------------------------------------------
     def write_needle(self, vid: int, n: Needle,
                      fsync: bool = False) -> tuple[int, bool]:
         """Append a needle, durable on return with ``fsync``; returns
         (size, unchanged).  An fsync write goes through the volume's
         group-commit worker (writeNeedle2) with no lock of the store
-        held, so concurrent fsync writers share a batch's fsyncs."""
+        held, so concurrent fsync writers share a batch's fsyncs; on the
+        plane, through its group sync."""
+        plane = self._on_plane(vid)
+        if plane is not None:
+            return self._through_plane(
+                plane, vid, lambda p: self._native_append(p, vid, n, fsync),
+                lambda: self._python_write(vid, n, fsync))
+        return self._python_write(vid, n, fsync)
+
+    def _python_write(self, vid: int, n: Needle,
+                      fsync: bool) -> tuple[int, bool]:
         _, size, unchanged = self.get_volume(vid).write_needle2(
             n, fsync=fsync)
         # after the write: the epoch also fences a read racing it
@@ -306,6 +648,14 @@ class Store:
         return size, unchanged
 
     def delete_needle(self, vid: int, n: Needle, fsync: bool = False) -> int:
+        plane = self._on_plane(vid)
+        if plane is not None:
+            return self._through_plane(
+                plane, vid, lambda p: self._native_delete(p, vid, n, fsync),
+                lambda: self._python_delete(vid, n, fsync))
+        return self._python_delete(vid, n, fsync)
+
+    def _python_delete(self, vid: int, n: Needle, fsync: bool) -> int:
         size = self.get_volume(vid).delete_needle2(n, fsync=fsync)
         self.needle_cache.invalidate(vid, n.id, "delete")
         self.note_volume_change(vid)
@@ -313,8 +663,12 @@ class Store:
 
     def read_needle(self, vid: int, key: int,
                     cookie: Optional[int] = None) -> Needle:
-        """A live volume's needle, through the needle cache; a tiered
-        volume's is always read from its remote object."""
+        """A live volume's needle: through the plane while it holds the
+        volume, else through the needle cache; a tiered volume's is
+        always read from its remote object."""
+        plane = self.native_plane
+        if plane is not None:
+            return self._plane_read(plane, vid, key, cookie)
         cache = self.needle_cache
         if not cache.enabled or self.get_volume(vid).tiered:
             return self.get_volume(vid).read_needle(key, cookie)
@@ -329,12 +683,46 @@ class Store:
         cache.offer(vid, key, n, epoch=epoch)
         return n
 
+    def _plane_read(self, plane, vid: int, key: int,
+                    cookie: Optional[int]) -> Needle:
+        """Two tries on the plane (a DP_NO_VOLUME may be a reattach in
+        flight), then the Python volume.  A miss there may come from a
+        volume a quiesce swapped under the read (its map frozen at the
+        attach, its handle closed): with a hold out or the plane back, it
+        settles on the swap lock's shared side and asks both again."""
+        for _ in range(2):
+            if not plane.has(vid):
+                break
+            try:
+                return self._native_read(plane, vid, key, cookie)
+            except OSError as e:
+                if not _plane_gone(e):
+                    raise
+        try:
+            return self.get_volume(vid).read_needle(key, cookie)
+        except (NotFoundError, DeletedError, CookieMismatchError,
+                ValueError, OSError):
+            if not self._native_holds.get(vid) and not plane.has(vid):
+                raise  # a volume the plane never takes: a plain miss
+            return self._through_plane(
+                plane, vid,
+                lambda p: self._native_read(p, vid, key, cookie),
+                lambda: self.get_volume(vid).read_needle(key, cookie))
+
     # --- vacuum (volume_grpc_vacuum.go) -------------------------------------
     def vacuum_compact(self, vid: int) -> None:
         """Compact under the volume's lock, so an EC encode never reads
-        half-written files."""
-        with self.volume_locks[vid]:
-            self.get_volume(vid).compact()
+        half-written files.  The plane stays off the volume from here to
+        the commit or the cleanup: writes meanwhile go to the Python
+        engine, so the commit's makeup replay sees them."""
+        self.native_detach(vid)
+        try:
+            with self.volume_locks[vid]:
+                self.get_volume(vid).compact()
+        except BaseException:
+            # a failed compact gets no commit or cleanup from the master
+            self.native_reattach(vid)
+            raise
 
     def vacuum_commit(self, vid: int) -> None:
         """Swap the compacted files in under the volume's lock; the next
@@ -344,19 +732,28 @@ class Store:
         # the compaction dropped needles the per-key hooks never saw
         self.needle_cache.invalidate_volume(vid, "vacuum")
         self.note_volume_change(vid)
+        self.native_reattach(vid)
+
+    def vacuum_cleanup(self, vid: int) -> None:
+        """Drop a compaction's files without committing them."""
+        self.get_volume(vid).cleanup_compact()
+        self.native_reattach(vid)
 
     def open_copied_volume(self, collection: str, vid: int) -> Volume:
         """/admin/volume_copy: mount the `.dat`/`.idx` it downloaded into
         the first directory, through the crash check every open runs."""
-        return self._open_volume(self._volume(self.directories[0],
-                                              collection, vid))
+        v = self._open_volume(self._volume(self.directories[0],
+                                           collection, vid))
+        self.native_register(vid)
+        return v
 
     # --- volume.fsck and volume.configure.replication backends ------------
     def check_volume(self, vid: int) -> dict:
         """/admin/volume_check: every live needle of the volume parsed with
         its CRC, with no lock (``Volume.check_needles``); the scanned
         volume's counts go out with the next heartbeat."""
-        result = self.get_volume(vid).check_needles()
+        with self.native_quiesced(vid):  # the map must see every needle
+            result = self.get_volume(vid).check_needles()
         self.note_volume_change(vid)
         return result
 
@@ -365,17 +762,28 @@ class Store:
         """/admin/configure_replication: the superblock's placement
         rewritten under the volume's lock (no EC encode or compact reads
         it meanwhile), then queued for the heartbeat."""
-        v = self.get_volume(vid)
         rp = ReplicaPlacement.parse(replication)
-        with self.volume_locks[vid]:
-            v.configure_replication(rp)
+        # the plane registers again with the new placement's TCP gate
+        with self.native_quiesced(vid), self.volume_locks[vid]:
+            self.get_volume(vid).configure_replication(rp)
         self.note_volume_change(vid)
         return rp
 
     # --- EC (store_ec.go + volume_grpc_erasure_coding.go backends) --------
     def ec_generate(self, vid: int) -> None:
         """VolumeEcShardsGenerate: mark the volume read-only, then .dat ->
-        .ec00..13 + .eci through the streaming pipeline, and .idx -> .ecx."""
+        .ec00..13 + .eci through the streaming pipeline, and .idx -> .ecx.
+        The plane is off the volume meanwhile; it takes it back read-only
+        and serves its reads while the shards spread.  A volume with
+        5-byte offsets is refused before anything is written."""
+        if self.get_volume(vid).offset_size != 4:
+            raise ValueError(
+                f"volume {vid} uses 5-byte offsets; EC encoding "
+                "supports 4-byte-offset volumes only")
+        with self.native_quiesced(vid):
+            self._ec_generate(vid)
+
+    def _ec_generate(self, vid: int) -> None:
         v = self.get_volume(vid)
         with self.volume_locks[vid]:
             v.read_only = True
@@ -508,6 +916,7 @@ class Store:
         self.ec_unmount(vid)
         self._open_volume(self._volume(os.path.dirname(base), collection,
                                        vid))
+        self.native_register(vid)
 
     def close(self) -> None:
         for v in self.volumes.values():

@@ -548,3 +548,63 @@ def test_trio_failover_on_the_card(cuda, tmp_path):
     assert res["journal_loss_count"] == 0
     assert sum(s["launches"] for s in res["servers"].values()) > \
         res["launches"]["launches"]  # the encode launched too
+
+
+def test_native_plane_volume_encoded_on_the_card(cuda, tmp_path):
+    """``VolumeServer(dataplane="native")`` on the card: needles written
+    through the C++ plane's framed port, ``/admin/ec/generate`` with the
+    plane quiesced around it launching the kernel, every shard equal to
+    the plain encode of a copy of the `.dat` the plane wrote, and the
+    plane serving the frozen volume's reads again."""
+    import shutil
+    import socket
+
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.utils.framing import tcp_port_for
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+    from seaweedfs_tpu_torch.volume_server.server import VolumeServer
+    from seaweedfs_tpu_torch.volume_server.tcp import (TcpVolumeClient,
+                                                       tcp_address)
+
+    def free_port():
+        while True:
+            with socket.socket() as s:
+                s.bind(("127.0.0.1", 0))
+                port = s.getsockname()[1]
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", tcp_port_for(port)))
+                    return port
+                except OSError:
+                    continue
+
+    vs = VolumeServer([str(tmp_path / "vs")], f"127.0.0.1:{free_port()}",
+                      port=free_port(), dataplane="native").start()
+    rng = np.random.default_rng(11)
+    blobs = {str(FileId(1, i + 1, 0x7A0000 + i)):
+             rng.bytes(int(rng.integers(1, 256 << 10))) for i in range(120)}
+    try:
+        http_json("POST", f"http://{vs.url}/admin/assign_volume",
+                  {"volume_id": 1})
+        tcp, addr = TcpVolumeClient(), tcp_address(vs.url)
+        for fid, data in blobs.items():
+            tcp.write(addr, fid, data)
+        cpu_dir = tmp_path / "cpu"
+        cpu_dir.mkdir()
+        shutil.copy(tmp_path / "vs" / "1.dat", cpu_dir / "1.dat")
+        before = gf_matmul.launches
+        http_json("POST", f"http://{vs.url}/admin/readonly",
+                  {"volume_id": 1})
+        http_json("POST", f"http://{vs.url}/admin/ec/generate",
+                  {"volume_id": 1})
+        assert gf_matmul.launches > before
+        StreamingEncoder(device="cpu").encode_file(str(cpu_dir / "1.dat"),
+                                                   str(cpu_dir / "1"))
+        for i in range(14):
+            assert (tmp_path / "vs" / f"1{to_ext(i)}").read_bytes() == \
+                (cpu_dir / f"1{to_ext(i)}").read_bytes(), i
+        assert vs.store.native_plane.has(1)
+        for fid, data in blobs.items():
+            assert tcp.read(addr, fid) == data
+    finally:
+        vs.stop()

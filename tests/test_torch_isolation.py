@@ -36,6 +36,12 @@ def test_the_sources_cover_the_volume_store():
             "images/resizing.py", "tools/see_dat.py"} <= rel
 
 
+def test_the_sources_cover_the_native_plane_and_5_byte_offsets():
+    rel = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"volume_server/dataplane.py", "tools/see_idx.py"} <= rel
+    assert os.path.exists(os.path.join(PORT, "csrc", "dataplane.cpp"))
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top == "jax" or top.startswith("jax") or top == "seaweedfs_tpu"
@@ -70,6 +76,8 @@ def test_import_loads_no_jax():
             "import seaweedfs_tpu_torch.__main__\n"
             "import seaweedfs_tpu_torch.interop\n"
             "import seaweedfs_tpu_torch.tools.see_dat\n"
+            "import seaweedfs_tpu_torch.tools.see_idx\n"
+            "import seaweedfs_tpu_torch.volume_server.dataplane\n"
             "mods = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'seaweedfs_tpu')]\n"
             "assert not mods, mods\n")

@@ -292,10 +292,14 @@ def test_port_answers_its_own_routes(servers):
     # the process's kernel count: a CPU server launches none
     assert doc["EcKernelLaunches"] == 0
     assert {v["id"] for v in doc["Volumes"]} >= {2}
-    # 5-byte offsets are refused: the port's volumes use 4-byte offsets
-    status, body, _ = exchange(url, "POST", "/admin/assign_volume", json.dumps(
-        {"volume_id": 31, "offset_5": True}).encode())
-    assert status == 400 and 31 not in servers["port"].store.volumes
+    # a volume with 5-byte offsets is made, as the reference makes it
+    answers = [exchange(servers[side].url, "POST", "/admin/assign_volume",
+                        json.dumps({"volume_id": 31,
+                                    "offset_5": True}).encode())
+               for side in ("ref", "port")]
+    assert answers[1] == answers[0] and answers[1][0] == 200
+    assert servers["port"].store.volumes[31].offset_size == \
+        servers["ref"].store.volumes[31].offset_size == 5
     # an engine this server does not run answers 400 and runs nothing
     for engine in ("mesh", "gpu"):
         status, body, _ = exchange(url, "POST", "/admin/ec/generate",
