@@ -2,13 +2,14 @@
 """Run one phase of chip_smoke.py on the card, alone, at its full size.
 
     python3 chip_phase.py volume_store     # or: dataplane, secure_tier,
-                                           #     native_plane
+                                           #     native_plane, mesh
     python3 chip_phase.py dataplane parent  # the label printed with it
 
 Builds the native libraries from the checkout it runs in, runs
 ``run_volume_store_phase``, ``run_dataplane_phase``,
-``run_secure_tier_phase`` or ``run_native_plane_phase`` with
-chip_smoke.py's constants, and prints the card's name and power limit,
+``run_secure_tier_phase``, ``run_native_plane_phase`` or, after the main
+path that writes its volume, ``run_mesh_phase`` with chip_smoke.py's
+constants, and prints the card's name and power limit,
 then one JSON line of the phase's numbers (``dataplane``: each front's
 healthy passes, ops/s and p50/p99 ms; ``native_plane``: its passes, the
 frames and dispatches each moved, and the client's and servers' CPU
@@ -33,7 +34,7 @@ PASSES = ("write", "read", "zipf", "read_again", "zipf_again")
 
 def main(argv: list[str]) -> int:
     if not argv or argv[0] not in ("volume_store", "dataplane",
-                                   "secure_tier", "native_plane"):
+                                   "secure_tier", "native_plane", "mesh"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -68,6 +69,16 @@ def main(argv: list[str]) -> int:
                    "counts": nat["counts"], "cpu_s": nat["cpu_s"],
                    "launches": nat["launches"],
                    "phase_s": nat["seconds"]["phase"]}
+        elif phase == "mesh":
+            main = cs.run_main_path("cuda", work, cs.VOLUME_BYTES,
+                                    cs.LARGE_ROW_VOLUME_BYTES,
+                                    cs.LARGE_ROW_BLOCK, cs.DEGRADED_READS,
+                                    cs.PARITY_STRIPES)
+            res = cs.run_mesh_phase("cuda", work, main["hashes"],
+                                    main["specs"], cs.mesh_lane_sets("cuda"),
+                                    cs.MESH_PROGRAM_WIDTH)
+            res["tpu_encode_s"] = main["seconds"]["encode"]
+            res["tpu_rebuild_s"] = main["seconds"]["rebuild"]
         elif phase == "secure_tier":
             res = cs.run_secure_tier_phase(
                 "tpu", work, cs.SECURE_BYTES, cs.SECURE_THREADS,

@@ -26,7 +26,11 @@ serves:
 
 ``-ec.engine tpu`` (the default) runs EC on the CUDA card: the server
 builds its kernel before it listens and fails without a card;
-``-ec.engine cpu`` runs the plain PyTorch versions.  ``master
+``-ec.engine mesh`` sends whole encode dispatches round-robin over the
+cards ``-ec.mesh.devices`` names (the reference's vocabulary: '' or 'all',
+a count 'N', or indices 'i,j'; '0,' is card 0 alone) and needs a card
+too, a bad spec failing at start; ``-ec.engine cpu`` runs the plain
+PyTorch versions.  ``master
 -coordinatorSeconds N`` repairs EC volumes that lack shards on its own,
 every N seconds (0, the default, leaves repair to the shell's
 ec.rebuild), logs each repair on standard error and journals it;
@@ -123,8 +127,8 @@ import sys
 import threading
 from typing import Callable
 
-# the reference's engine names -> the port's devices ("mesh" is not ported)
-ENGINES = {"tpu": "cuda", "cpu": "cpu"}
+# the reference's engine names -> the port's devices
+ENGINES = {"tpu": "cuda", "mesh": "cuda", "cpu": "cpu"}
 # benchmark -zipf's skew: YCSB's default request distribution
 ZIPF_THETA = 0.99
 # benchmark's default -seed
@@ -196,7 +200,12 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                         "TCP and the HTTP funnel)")
     v.add_argument("-ec.engine", dest="ec_engine", default="tpu",
                    choices=sorted(ENGINES),
-                   help="tpu: EC on the CUDA card; cpu: the plain versions")
+                   help="tpu: EC on the CUDA card; mesh: whole dispatches "
+                        "round-robin over -ec.mesh.devices' cards; cpu: "
+                        "the plain versions")
+    v.add_argument("-ec.mesh.devices", dest="ec_mesh_devices", default="",
+                   help="mesh engine device spec: '' or 'all' = every card,"
+                        " 'N' = first N, 'i,j,...' = exact card indices")
     v.add_argument("-mmap", action="store_true",
                    help="mmap-backed .dat files (backend/memory_map analog)")
     v.add_argument("-tier.backends", dest="tier_backends", action="append",
@@ -393,6 +402,8 @@ def cmd_volume(args: argparse.Namespace) -> int:
                           rack=args.rack, max_volume_count=args.max,
                           pulse_seconds=args.pulseSeconds,
                           device=ENGINES[args.ec_engine],
+                          ec_engine=args.ec_engine,
+                          ec_mesh_devices=args.ec_mesh_devices,
                           max_inflight=args.maxInflight,
                           needle_cache_mb=args.dataplane_cache_mb,
                           guard=volume_guard(_security()),
@@ -413,6 +424,10 @@ def cmd_volume(args: argparse.Namespace) -> int:
         native = "" if plane is None else (
             f", native plane on {plane.port}" if plane.port
             else ", native plane engine-only")
+        lanes = vs.store.mesh_lanes
+        if lanes is not None:
+            native = (f", mesh over {len(lanes)} lanes "
+                      f"({','.join(str(d) for d in lanes)})" + native)
         print(f"volume server listening on {vs.url}, dirs {args.dir}, "
               f"ec on {device} ({card}){native}, front {front}", flush=True)
         state["vs"] = vs

@@ -1,4 +1,4 @@
-"""Reed-Solomon codec over GF(2^8) on TorchEngine.
+"""Reed-Solomon codec over GF(2^8) on TorchEngine or MeshEngine.
 
 Semantics-compatible with the reference's klauspost/reedsolomon usage:
 ``Encode`` fills parity shards (ec_encoder.go:179), ``Reconstruct`` fills any
@@ -7,6 +7,9 @@ store_ec.go:331), ``ReconstructData`` only restores data shards
 (store_ec.go:367).  The heavy operation in all three is one GF matmul
 ``out[R,B] = M[R,K] . shards[K,B]``, which ops.gf_matmul runs: the CUDA
 kernel for ``device="cuda"``, the plain PyTorch version for "cpu".
+``MeshEngine`` (seaweedfs_tpu/ec/codec.py:118-193) is the codec's face of
+``-ec.engine mesh``: one product split over a [dp, sp, tp] mesh of lanes
+(parallel/mesh.py), every lane's share kernel 1.
 
 Port of seaweedfs_tpu/ec/codec.py's ReedSolomon without its engine
 fallback: a kernel that fails raises to the caller, it is never replaced
@@ -24,14 +27,64 @@ import numpy as np
 
 from ..observability import get_tracer
 from ..ops.gf_matmul import TorchEngine
+from ..parallel.mesh import (factor_mesh, lanes_for, make_mesh,
+                             sharded_encode_fn)
 from .gf256 import build_cauchy_matrix, build_encoding_matrix, mat_invert, mat_mul
+
+
+class MeshEngine:
+    """GfMatmulEngine over a mesh of lanes: ONE product with the byte
+    stream cut into dp x sp blocks and the K shard rows over tp, the tp
+    partials folded by XOR (parallel/mesh.py ``sharded_encode_fn``).
+    Host numpy in, host numpy out, byte-identical to TorchEngine; each
+    lane keeps its slices of the last few matrices resident.
+
+    ``devices`` is a lane list (which may repeat a device) or an
+    -ec.mesh.devices spec over every visible card; ``mesh`` a ready
+    Mesh.  The streaming encoder's per-card dispatch queues are the other
+    face of the same flag (ec/streaming.py)."""
+
+    name = "mesh"
+
+    def __init__(self, devices=None, mesh=None):
+        if mesh is None:
+            lanes = lanes_for(devices)
+            mesh = make_mesh(*factor_mesh(len(lanes)), devices=lanes)
+        self.mesh = mesh
+        self.dims = mesh.shape
+        self.devices = list(mesh.devices.reshape(-1))
+        self._encode = sharded_encode_fn(mesh)
+
+    def matmul(self, m: np.ndarray, shards: np.ndarray) -> np.ndarray:
+        """out[R, B] = m[R, K] . shards[K, B]; all uint8 host arrays.
+        A width that does not split over dp*sp is zero-padded, and the
+        pad cut off the result; ValueError when 8K does not split over
+        tp."""
+        dp, sp, _ = self.dims
+        m = np.ascontiguousarray(m, dtype=np.uint8)
+        k, width = shards.shape
+        pad = (-width) % (dp * sp)
+        data = np.zeros((k, width + pad), dtype=np.uint8)
+        data[:, :width] = shards
+        # [K, B'] -> [K, dp, B'/dp]: dp contiguous chunks of the byte
+        # stream, sp splitting each; the inverse reshape restores order
+        out = self._encode(m, data.reshape(k, dp, -1)).numpy()
+        return out.reshape(out.shape[0], -1)[:, :width]
+
+    def matmul_into(self, m: np.ndarray, shards: np.ndarray,
+                    out: np.ndarray) -> np.ndarray:
+        out[:] = self.matmul(m, shards)
+        return out
 
 
 class ReedSolomon:
     """One (data, parity) geometry with its cached encoding matrix."""
 
     def __init__(self, data_shards: int, parity_shards: int,
-                 matrix_kind: str = "vandermonde", device="cuda"):
+                 matrix_kind: str = "vandermonde", device="cuda",
+                 engine=None):
+        """``engine`` (a TorchEngine or MeshEngine) runs the products;
+        None is ``TorchEngine(device)``."""
         if data_shards <= 0 or parity_shards <= 0:
             raise ValueError("shard counts must be positive")
         if data_shards + parity_shards > 256:
@@ -45,7 +98,7 @@ class ReedSolomon:
         else:
             self.matrix = build_encoding_matrix(data_shards, self.total_shards)
         self.parity_matrix = self.matrix[data_shards:]
-        self.engine = TorchEngine(device)
+        self.engine = engine if engine is not None else TorchEngine(device)
 
     # --- core ---------------------------------------------------------
     def encode(self, data: np.ndarray) -> np.ndarray:

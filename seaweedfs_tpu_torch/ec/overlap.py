@@ -1,6 +1,9 @@
 """FIFO-preserving asynchronous drain for the streaming encode.
 
-The port's copy of ``AsyncDrainer`` (seaweedfs_tpu/ec/overlap.py:638-767).
+The port's copy of ``AsyncDrainer`` (seaweedfs_tpu/ec/overlap.py:638-767)
+and of ``DrainerGroup`` (:769-837), the per-card drain lanes of
+``-ec.engine mesh``.
+
 The encode's producer thread hands each dispatch to the drainer and goes
 on filling the next slot; the drainer waits for the dispatch's parity on a
 small fetch pool and writes it on ONE writer thread, in submission order,
@@ -9,9 +12,7 @@ drain.
 
 Not ported: ``ProcessOverlapWorker`` and ``FileParityWorker``
 (:557-636), which feed the reference's CPU codec from worker processes;
-the port's parity comes from the card.  ``DrainerGroup`` (:769-837), the
-per-device drain lanes of the mesh engine, comes with the multi-GPU
-slice.
+the port's parity comes from the card.
 """
 
 from __future__ import annotations
@@ -126,3 +127,69 @@ class AsyncDrainer:
             self._pool.shutdown(wait=True)
         except Exception:  # noqa: BLE001 - best-effort teardown
             pass
+
+
+class DrainerGroup:
+    """One AsyncDrainer per lane: lane i fetches its card's parity on its
+    own thread and writes through its own writer, so a slow card
+    back-pressures only its own dispatch queue.
+
+    FIFO is per lane; the order across lanes is the caller's contract
+    (the mesh encode pwrites parity at known shard offsets and retires
+    the `.eci` crc stream and the checkpoint through an ordered
+    completion tracker).  The error and abort surface is AsyncDrainer's,
+    so the encode's resume treats N lanes as one drain: ``error`` is the
+    first lane error kept, ``finish()`` joins every lane and then
+    re-raises it, ``abort()`` tears every lane down, and the lock-free
+    ``aborting`` flag fans out to every lane."""
+
+    def __init__(self, lanes: int, fetch: Callable, write: Callable,
+                 queue_depth: int = 8, name: str = "ec-mesh-drain"):
+        self.drainers = [
+            AsyncDrainer(fetch, write, pool_size=1, queue_depth=queue_depth,
+                         name=f"{name}-{i}")
+            for i in range(max(1, int(lanes)))]
+        self.pool_size = len(self.drainers)
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        for d in self.drainers:
+            err = d.error
+            if err is not None:
+                return err
+        return None
+
+    @property
+    def inflight(self) -> int:
+        return sum(d.inflight for d in self.drainers)
+
+    @property
+    def aborting(self) -> bool:
+        return any(d.aborting for d in self.drainers)
+
+    @aborting.setter
+    def aborting(self, value: bool) -> None:
+        for d in self.drainers:
+            d.aborting = value
+
+    def submit(self, lane: int, meta) -> None:
+        self.drainers[lane].submit(meta)
+
+    def finish(self, timeout: Optional[float] = None) -> None:
+        """Join every lane, then re-raise the FIRST lane error: one
+        failing card fails the encode where a single drain would have."""
+        first: Optional[BaseException] = None
+        for d in self.drainers:
+            try:
+                d.finish(timeout)
+            except (KeyboardInterrupt, SystemExit):  # pragma: no cover
+                raise
+            except BaseException as e:  # noqa: BLE001 - re-raised below
+                if first is None:
+                    first = e
+        if first is not None:
+            raise first
+
+    def abort(self) -> None:
+        for d in self.drainers:
+            d.abort()

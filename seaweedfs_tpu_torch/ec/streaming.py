@@ -1,8 +1,8 @@
 """Streaming EC encode/rebuild through the GF(2^8) kernel on the card.
 
-Port of the device leg of seaweedfs_tpu/ec/streaming.py (``engine=
-"device"``): ``encode_file`` and ``rebuild_files`` as a depth-N pipeline
-over fixed-shape dispatches.
+Port of the device legs of seaweedfs_tpu/ec/streaming.py (``engine=
+"device"`` and ``engine="mesh"``): ``encode_file`` and ``rebuild_files``
+as a depth-N pipeline over fixed-shape dispatches.
 
   - The whole file is planned as a flat sequence of fill entries
     (``_plan_entries``: n bytes per shard at computed offsets), packed side
@@ -39,6 +39,22 @@ over fixed-shape dispatches.
   - Rebuild composes the decode of the chosen survivors with the parity
     rows into ONE [missing, k] matrix, so every missing shard, data or
     parity, comes out of the same single pass.
+  - More than one card (streaming.py:333-346, :452-461): with ``mesh``
+    None the device engine splits each dispatch of the encode and of the
+    rebuild over every visible card whenever more than one is visible
+    (``mesh=True`` always, ``False`` never; ``devices`` names the lanes
+    instead): the dispatch's columns in dp x sp blocks, the shard rows
+    over tp, the tp partials folded by XOR (parallel/mesh.py
+    ``dispatch_blocks``), dp*sp*tp launches a dispatch.  With one card
+    the pipeline is the one-card path above.
+  - ``engine="mesh"`` (``-ec.engine mesh``, ``_encode_file_mesh``,
+    streaming.py:1684-2074) sends WHOLE dispatches round-robin over its
+    lanes (``devices``: a lane list or an -ec.mesh.devices spec), each
+    lane with its own streams, slot pool and drain lane of a
+    ``DrainerGroup``; parity is pwritten at its known offsets and an
+    ordered completion tracker advances the `.eci` crc stream and the
+    checkpoint.  Its rebuild runs on the first lane, as the reference's
+    runs on its default device.
 
 With ``device="cpu"`` the same pipeline, drain threads included, runs the
 plain version in place of the copies and the kernel; the tests use it.
@@ -49,14 +65,16 @@ is off) carry the reference's names, so its analyzer reads them:
 ``fill``, ``dispatch``, ``write`` (kind data) and ``close`` on the
 producer, ``drain_wait`` where the producer blocks on the drain, and
 ``pipeline.drain`` / ``pipeline.write`` (kind parity) on the drain
-threads; ``pipeline.rebuild_files`` over ``fill``, ``dispatch``,
-``drain`` and ``write`` (kind rebuilt).  ``dispatch`` covers the enqueue
+threads (the mesh plane's carry the lane's index as ``device``, which
+``analyze()`` reads per lane); ``pipeline.rebuild_files`` over ``fill``,
+``dispatch``, ``drain`` and ``write`` (kind rebuilt).  ``dispatch`` covers the enqueue
 of the copies and the kernel only: the card's time shows in ``drain``,
 where a fetch waits on the dispatch's event.  A resume is a
 ``pipeline.retry`` event.
 
 Not ported: the mmap host path, the host codec's worker threads and
-processes, the per-dispatch CPU fallback and the mesh plane.
+processes, and the per-dispatch CPU fallback (of the mesh plane too: a
+host fault resumes from the checkpoint, a CUDA error raises).
 """
 
 from __future__ import annotations
@@ -74,6 +92,16 @@ import torch
 
 from ..observability import get_tracer
 from ..ops.gf_matmul import KernelError, gf_matmul, resolve_device
+from ..parallel.mesh import (
+    BlockBuffers,
+    Lane,
+    LaneMatrices,
+    Mesh,
+    dispatch_blocks,
+    factor_mesh,
+    lanes_for,
+    make_mesh,
+)
 from ..utils import faultinject
 from ..utils.ioutil import pread_padded, preadv_into
 from .gf256 import build_encoding_matrix, mat_invert, mat_mul
@@ -93,7 +121,7 @@ from .layout import (
     SMALL_BLOCK_SIZE,
     to_ext,
 )
-from .overlap import AsyncDrainer
+from .overlap import AsyncDrainer, DrainerGroup
 
 # dispatches in flight before the oldest is drained: enough to overlap the
 # fill of one slot with the copies and kernel of the next
@@ -102,6 +130,8 @@ DEPTH = 3
 MAX_ENCODE_RETRIES = 2
 # the producer's wait for a free slot before the attempt fails as stalled
 DRAIN_TIMEOUT_S = 30.0
+# engine="mesh": slots per lane (the reference's coalesce + 1 on a GPU)
+MESH_SLOTS = 2
 
 # errors of the card itself: never retried
 _DEVICE_ERRORS = (KernelError, torch.cuda.OutOfMemoryError) + (
@@ -188,10 +218,10 @@ class _Checkpoint:
 
 
 class _Slot:
-    """One dispatch slot: a pinned host input [rows_in, b] and a pinned
-    parity buffer, plus on the card their device twins and the event that
-    marks the parity copied home.  On the CPU the device twins are the
-    host buffers themselves."""
+    """One dispatch slot of a lane: a pinned host input [rows_in, b] and a
+    pinned parity buffer, plus on the card their device twins and the
+    event that marks the parity copied home.  On the CPU the device twins
+    are the host buffers themselves."""
 
     def __init__(self, rows_in: int, rows_out: int, b: int,
                  device: torch.device):
@@ -209,9 +239,143 @@ class _Slot:
         self.dispatch = 0  # the index of the dispatch it carries
 
 
+class _Lane(Lane):
+    """One card's share of a pipeline: the matrix ``rows`` [rows_out,
+    rows_in] resident on ``device``, the lane's copy and compute streams,
+    and the slots it makes.  ``launch`` queues a dispatch of a slot's
+    first n columns (the per-card queue's program,
+    seaweedfs_tpu/parallel/mesh.py ``device_encode_fn``); ``parity`` waits
+    for its [rows_out, n]."""
+
+    def __init__(self, rows: np.ndarray, b: int, device: torch.device):
+        super().__init__(device)
+        self.rows_out, self.rows_in = rows.shape
+        self.b = b
+        self.m = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
+        if self.copy is not None:
+            # the matrix upload above ran on the current stream
+            self.copy.wait_stream(torch.cuda.current_stream(device))
+
+    def new_slot(self) -> _Slot:
+        return _Slot(self.rows_in, self.rows_out, self.b, self.device)
+
+    def launch(self, slot: _Slot, n: int) -> None:
+        """On the card the copy in, the kernel and the copy home, then the
+        event; on the CPU the plain product, done on return."""
+        r = self.rows_out
+        if self.copy is None:
+            gf_matmul(self.m, slot.dev_in[:, :n],
+                      out=slot.dev_out[:r * n].view(r, n))
+            return
+        try:
+            with torch.cuda.stream(self.copy):
+                slot.dev_in.copy_(slot.host_in, non_blocking=True)
+            self.compute.wait_stream(self.copy)
+            with torch.cuda.stream(self.compute):
+                gf_matmul(self.m, slot.dev_in[:, :n],
+                          out=slot.dev_out[:r * n].view(r, n))
+            self.copy.wait_stream(self.compute)
+            with torch.cuda.stream(self.copy):
+                slot.host_out[:r * n].copy_(slot.dev_out[:r * n],
+                                            non_blocking=True)
+                slot.done.record()
+        except KernelError:
+            raise
+        except RuntimeError as e:
+            raise KernelError(f"dispatch on {self.device}: {e}") from e
+
+    def parity(self, slot: _Slot, n: int) -> np.ndarray:
+        """Wait until the dispatch's parity is home; its host view."""
+        if slot.done is not None:
+            try:
+                slot.done.synchronize()
+            except RuntimeError as e:
+                raise KernelError(f"parity fetch on {self.device}: "
+                                  f"{e}") from e
+        return slot.host_out.numpy()[:self.rows_out * n].reshape(
+            self.rows_out, n)
+
+    def close(self) -> None:
+        """Wait out anything still queued before the slots are freed."""
+        if self.copy is not None:
+            try:
+                torch.cuda.synchronize(self.device)
+            except RuntimeError as e:
+                raise KernelError(f"pipeline close on {self.device}: "
+                                  f"{e}") from e
+
+
+class _SplitSlot:
+    """A slot of a split dispatch: pinned host input [rows_in, b] and
+    parity [rows_out, b], the mesh's device buffers, and the events that
+    mark each column block's parity home."""
+
+    def __init__(self, rows_in: int, rows_out: int, b: int, mesh: Mesh):
+        self.host_in = torch.empty((rows_in, b), dtype=torch.uint8,
+                                   pin_memory=mesh.on_card)
+        self.host_out = torch.empty((rows_out, b), dtype=torch.uint8,
+                                    pin_memory=mesh.on_card)
+        q = mesh.shape[0] * mesh.shape[1]
+        self.bufs = BlockBuffers(mesh, rows_in, rows_out, b // q)
+        self.events: list = []
+        self.buf = self.host_in.numpy()
+        self.dispatch = 0
+
+
+class _SplitLane:
+    """A pipeline's dispatches split over ``mesh`` (the device engine on
+    more than one card): each of the dp*sp column blocks on its lanes,
+    the shard rows over tp, the partials folded by XOR
+    (parallel/mesh.py ``dispatch_blocks``).  Every dispatch runs its whole
+    width, the zero-padded tail included, as the reference's sharded
+    dispatch does: dp*sp*tp launches of kernel 1 a dispatch."""
+
+    def __init__(self, rows: np.ndarray, b: int, mesh: Mesh):
+        self.rows_out, self.rows_in = rows.shape
+        q = mesh.shape[0] * mesh.shape[1]
+        if b % q:
+            raise ValueError(f"dispatch width {b} does not split over "
+                             f"dp*sp={q}")
+        self.b = b
+        self.mesh = mesh
+        self.device = f"{mesh.devices.size} lanes"
+        self.mats = LaneMatrices(list(mesh.lanes.reshape(-1)),
+                                 mesh.shape[2]).get(rows)
+
+    def new_slot(self) -> _SplitSlot:
+        return _SplitSlot(self.rows_in, self.rows_out, self.b, self.mesh)
+
+    def launch(self, slot: _SplitSlot, n: int) -> None:
+        try:
+            slot.events = dispatch_blocks(self.mesh, self.mats, slot.host_in,
+                                          slot.host_out, slot.bufs)
+        except KernelError:
+            raise
+        except RuntimeError as e:
+            if not self.mesh.on_card:
+                raise
+            raise KernelError(f"dispatch on {self.device}: {e}") from e
+
+    def parity(self, slot: _SplitSlot, n: int) -> np.ndarray:
+        try:
+            for ev in slot.events:
+                ev.synchronize()
+        except RuntimeError as e:
+            raise KernelError(f"parity fetch on {self.device}: {e}") from e
+        return slot.host_out.numpy()[:, :n]
+
+    def close(self) -> None:
+        try:
+            for d in {d for d in self.mesh.devices.reshape(-1)
+                      if d.type == "cuda"}:
+                torch.cuda.synchronize(d)
+        except RuntimeError as e:
+            raise KernelError(f"pipeline close on {self.device}: {e}") from e
+
+
 class _Pipeline:
-    """Depth-N dispatch pipeline for one matrix ``rows`` [rows_out,
-    rows_in]: ``acquire`` a slot, fill ``slot.buf``, ``launch`` it, then
+    """Depth-N dispatch pipeline over one ``lane`` (a _Lane or a
+    _SplitLane): ``acquire`` a slot, fill ``slot.buf``, ``launch`` it, then
     ``enqueue`` it with a tag; ``drain(parity[rows_out, n], tag)`` gets
     each dispatch's parity in submission order.
 
@@ -226,14 +390,14 @@ class _Pipeline:
     encode, whose drain spans also carry their bytes, as the
     reference's do)."""
 
-    def __init__(self, rows: np.ndarray, b: int, device: torch.device,
-                 st: dict, drain: Callable[[np.ndarray, object], None],
+    def __init__(self, lane, st: dict,
+                 drain: Callable[[np.ndarray, object], None],
                  tracer, depth: int = DEPTH, drain_pool: int = 0,
                  drain_point: Optional[str] = None,
                  drain_timeout_s: float = DRAIN_TIMEOUT_S,
                  write_kind: str = "parity"):
-        self.rows_out, rows_in = rows.shape
-        self.device = device
+        self.lane = lane
+        self.rows_out = lane.rows_out
         self.st = st
         self.tr = tracer
         self._write_kind = write_kind
@@ -241,19 +405,11 @@ class _Pipeline:
         self._drain = drain
         self._drain_point = drain_point
         self._timeout = drain_timeout_s
-        self.m = torch.from_numpy(np.ascontiguousarray(rows)).to(device)
-        self._shape = (rows_in, self.rows_out, b)
         # up to depth + 1 slots, made as the pipeline fills: a small file
         # never pays for the full ring
         self._made = 0
-        self.free: deque[_Slot] = deque()
-        self.pending: deque[tuple[_Slot, int, object]] = deque()
-        self.copy = self.compute = None
-        if device.type == "cuda":
-            self.copy = torch.cuda.Stream(device)
-            self.compute = torch.cuda.Stream(device)
-            # the matrix upload above ran on the current stream
-            self.copy.wait_stream(torch.cuda.current_stream(device))
+        self.free: deque = deque()
+        self.pending: deque = deque()
         # the drain threads' own counters, folded into st by close()
         self._ds = {"drain_s": 0.0, "parity_bytes": 0}
         self._ds_lock = threading.Lock()
@@ -265,13 +421,13 @@ class _Pipeline:
                                         queue_depth=depth + 3)
             st["drain_pool"] = self.drainer.pool_size
 
-    def _new_slot(self) -> Optional[_Slot]:
+    def _new_slot(self):
         if self._made > self.depth:
             return None
         self._made += 1
-        return _Slot(*self._shape, self.device)
+        return self.lane.new_slot()
 
-    def acquire(self) -> _Slot:
+    def acquire(self):
         if self.drainer is None:
             if not self.free:
                 slot = self._new_slot()
@@ -307,36 +463,15 @@ class _Pipeline:
         finally:
             self.st["drain_wait_s"] += time.perf_counter() - t0
 
-    def launch(self, slot: _Slot, n: int) -> None:
-        """Queue the dispatch of ``slot``'s first n columns: on the card
-        the copy in, the kernel and the copy home, then the event."""
-        r = self.rows_out
+    def launch(self, slot, n: int) -> None:
+        """Queue the dispatch of ``slot``'s first n columns."""
         slot.dispatch = self.st["dispatches"]
         t0 = time.perf_counter()
-        if self.copy is None:
-            gf_matmul(self.m, slot.dev_in[:, :n],
-                      out=slot.dev_out[:r * n].view(r, n))
-        else:
-            try:
-                with torch.cuda.stream(self.copy):
-                    slot.dev_in.copy_(slot.host_in, non_blocking=True)
-                self.compute.wait_stream(self.copy)
-                with torch.cuda.stream(self.compute):
-                    gf_matmul(self.m, slot.dev_in[:, :n],
-                              out=slot.dev_out[:r * n].view(r, n))
-                self.copy.wait_stream(self.compute)
-                with torch.cuda.stream(self.copy):
-                    slot.host_out[:r * n].copy_(slot.dev_out[:r * n],
-                                                non_blocking=True)
-                    slot.done.record()
-            except KernelError:
-                raise
-            except RuntimeError as e:
-                raise KernelError(f"dispatch on {self.device}: {e}") from e
+        self.lane.launch(slot, n)
         self.st["dispatch_s"] += time.perf_counter() - t0
         self.st["dispatches"] += 1
 
-    def enqueue(self, slot: _Slot, n: int, tag=None) -> None:
+    def enqueue(self, slot, n: int, tag=None) -> None:
         """Hand a launched dispatch to the drain."""
         if self.drainer is None:
             self.pending.append((slot, n, tag))
@@ -347,27 +482,20 @@ class _Pipeline:
         self.drainer.submit((slot, n, tag))
         self.st["drain_wait_s"] += time.perf_counter() - t0
 
-    def _parity(self, slot: _Slot, n: int) -> np.ndarray:
+    def _parity(self, slot, n: int) -> np.ndarray:
         """Wait until the dispatch's parity is home; its [rows_out, n]
         host view."""
         if self._drain_point and faultinject._points:
             faultinject.hit(self._drain_point)
-        if slot.done is not None:
-            try:
-                slot.done.synchronize()
-            except RuntimeError as e:
-                raise KernelError(f"parity fetch on {self.device}: "
-                                  f"{e}") from e
-        return slot.host_out.numpy()[:self.rows_out * n].reshape(
-            self.rows_out, n)
+        return self.lane.parity(slot, n)
 
-    def _drain_span(self, slot: _Slot, n: int):
+    def _drain_span(self, slot, n: int):
         if self._write_kind == "parity":
             return self.tr.span("pipeline.drain", dispatch=slot.dispatch,
                                 bytes=self.rows_out * n)
         return self.tr.span("pipeline.drain", dispatch=slot.dispatch)
 
-    def _write_out(self, slot: _Slot, parity: np.ndarray, tag) -> None:
+    def _write_out(self, slot, parity: np.ndarray, tag) -> None:
         with self.tr.span("pipeline.write", dispatch=slot.dispatch,
                           kind=self._write_kind):
             self._drain(parity, tag)
@@ -419,27 +547,314 @@ class _Pipeline:
             with self._ds_lock:
                 self.st["drain_s"] += self._ds["drain_s"]
                 self.st["parity_bytes_drained"] += self._ds["parity_bytes"]
-        if self.copy is not None:
-            try:
-                torch.cuda.synchronize(self.device)
-            except RuntimeError as e:
-                raise KernelError(f"pipeline close on {self.device}: "
-                                  f"{e}") from e
+        self.lane.close()
+
+
+def _open_outputs(out_base: str, n: int, start_byte: int,
+                  sb: SidecarBuilder, outputs: list) -> None:
+    """Open the n shard files into ``outputs``.  On a resume, drop the
+    bytes past the checkpoint (data shards run ahead of it, parity lags),
+    keep the prefix, and re-seed its crc state from it."""
+    for i in range(n):
+        p = out_base + to_ext(i)
+        if start_byte and os.path.exists(p):
+            f = open(p, "r+b")
+            outputs.append(f)
+            f.truncate(start_byte)
+            f.seek(start_byte)
+            sb.seed_from_file(i, f, start_byte)
+        else:
+            outputs.append(open(p, "wb"))
+
+
+def _fill(dat, buf: np.ndarray, k: int, fills, used: int) -> None:
+    """Read a dispatch's plan entries from the `.dat` into the slot's
+    [k, b] fill target, zero past ``used``."""
+    for col, n, row_start, block, off in fills:
+        if off == 0 and n == block:
+            # whole-block entry: the k per-shard reads are contiguous in
+            # the file ([row_start, +k*block))
+            preadv_into(dat, [buf[i, col:col + n] for i in range(k)],
+                        row_start)
+        else:
+            for i in range(k):
+                buf[i, col:col + n] = pread_padded(
+                    dat, n, row_start + i * block + off)
+    if used < buf.shape[1]:
+        buf[:, used:] = 0
+
+
+def _pwrite_all(fd: int, data: np.ndarray, offset: int) -> None:
+    view = memoryview(data)
+    while len(view):
+        n = os.pwrite(fd, view, offset)
+        view, offset = view[n:], offset + n
+
+
+class _StagedPlane:
+    """The staged encode's dispatches: one ``_Pipeline`` over a _Lane (or
+    a _SplitLane over the mesh), whose drain appends each dispatch's
+    parity in order and then advances the checkpoint."""
+
+    def __init__(self, enc: "StreamingEncoder", st: dict, sb: SidecarBuilder,
+                 outputs: list, ckpt: _Checkpoint, tr):
+        k, r = enc.k, enc.r
+        clock = time.perf_counter
+        self.st = st
+        # touched only by the thread that drains (the writer thread, or
+        # the producer when inline)
+        self.pw = {"write_s": 0.0, "sidecar_s": 0.0}
+
+        def write_parity(parity: np.ndarray, tag) -> None:
+            t0 = clock()
+            for j in range(r):
+                outputs[k + j].write(memoryview(parity[j]))
+            t1 = clock()
+            for j in range(r):
+                sb.update(k + j, parity[j])
+            self.pw["sidecar_s"] += clock() - t1
+            self.pw["write_s"] += clock() - t0
+            # this dispatch's data and parity are on every shard now
+            nfills, used, _ = tag
+            ckpt.entries += nfills
+            ckpt.bytes += used
+
+        self.pipe = _Pipeline(
+            enc._lane(enc.matrix[k:]), st, write_parity, depth=enc.depth,
+            drain_pool=enc.drain_pool if enc.async_drain else 0,
+            drain_point="ec.drain", drain_timeout_s=enc.drain_timeout_s,
+            tracer=tr)
+
+    def attrs(self, d_idx: int) -> dict:
+        return {}
+
+    def acquire(self, d_idx: int):
+        return self.pipe.acquire()
+
+    def launch(self, slot, used: int, d_idx: int) -> None:
+        self.pipe.launch(slot, used)
+
+    def enqueue(self, slot, used: int, d_idx: int, tag) -> None:
+        self.pipe.enqueue(slot, used, tag)
+
+    def finish(self) -> None:
+        self.pipe.finish()
+
+    def close(self) -> None:
+        """Close the pipeline, then fold the drain's counters into st."""
+        try:
+            self.pipe.close()
+        finally:
+            self.st["write_s"] += self.pw["write_s"]
+            self.st["sidecar_s"] += self.pw["sidecar_s"]
+            self.st["parity_write_s"] = self.pw["write_s"]
+
+
+class _MeshPlane:
+    """The per-card dispatch queues (``engine="mesh"``): whole dispatches
+    round-robin over the lanes, so N dispatches compute and copy at once.
+    Each lane has its own streams, up to MESH_SLOTS slots and its own
+    drain lane of a DrainerGroup: a slow card back-pressures only its own
+    queue.
+
+    Parity rows are pwritten at their known shard offsets by whichever
+    lane finishes first; an ordered completion tracker keyed by dispatch
+    index then advances the `.eci` crc stream and the checkpoint over the
+    contiguous prefix and only then hands the slots back (the crc reads
+    their pinned parity)."""
+
+    def __init__(self, enc: "StreamingEncoder", st: dict, sb: SidecarBuilder,
+                 outputs: list, ckpt: _Checkpoint, tr):
+        k, r = enc.k, enc.r
+        nd = len(enc.lanes)
+        clock = time.perf_counter
+        self.st, self.tr, self.nd = st, tr, nd
+        self.timeout = enc.drain_timeout_s
+        out_fds = [f.fileno() for f in outputs]
+        self.made = [0] * nd  # producer-only
+        self.free = [queue.Queue() for _ in range(nd)]
+        self.dev_dispatches = [0] * nd  # producer-only
+        # the drain lanes' counters, folded into st by close()
+        ds = self.ds = {"drain_s": 0.0, "write_s": 0.0, "sidecar_s": 0.0,
+                        "parity_bytes": 0}
+        ds_lock = threading.Lock()
+        dev_drain_s = self.dev_drain_s = [0.0] * nd  # guarded by ds_lock
+        # the ordered completion tracker: guarded by comp_lock
+        comp_lock = threading.Lock()
+        comp: dict[int, tuple] = {}
+        nxt = self.nxt = [0]
+        free = self.free
+
+        def retire_locked() -> None:
+            # the crc streams stay sequential: only the contiguous prefix
+            # of written dispatches ever retires
+            t1 = clock()
+            while nxt[0] in comp:
+                lane_i, slot, parity, (nfills, used, _) = comp.pop(nxt[0])
+                for j in range(r):
+                    sb.update(k + j, parity[j])
+                ckpt.entries += nfills
+                ckpt.bytes += used
+                nxt[0] += 1
+                free[lane_i].put(slot)
+            with ds_lock:
+                ds["sidecar_s"] += clock() - t1
+
+        def fetch(meta) -> np.ndarray:  # lane i's fetch thread
+            lane_i, slot, used, d_idx, _ = meta
+            t0 = clock()
+            with tr.span("pipeline.drain", device=lane_i, dispatch=d_idx,
+                         bytes=r * used):
+                if faultinject._points:
+                    faultinject.hit("ec.drain")
+                parity = self.lanes[lane_i].parity(slot, used)
+            dt = clock() - t0
+            with ds_lock:
+                ds["drain_s"] += dt
+                ds["parity_bytes"] += parity.nbytes
+                dev_drain_s[lane_i] += dt
+            return parity
+
+        def write(meta, parity: np.ndarray) -> None:  # lane i's writer
+            lane_i, slot, _, d_idx, tag = meta
+            t0 = clock()
+            with tr.span("pipeline.write", device=lane_i, dispatch=d_idx,
+                         kind="parity"):
+                for j in range(r):
+                    _pwrite_all(out_fds[k + j], parity[j], tag[2])
+                with comp_lock:
+                    comp[d_idx] = (lane_i, slot, parity, tag)
+                    retire_locked()
+            with ds_lock:
+                ds["write_s"] += clock() - t0
+
+        self.lanes = [_Lane(enc.matrix[k:], enc.dispatch_b, d)
+                      for d in enc.lanes]
+        self.drainers = DrainerGroup(nd, fetch, write,
+                                     queue_depth=MESH_SLOTS + 2)
+        st["drain_pool"] = nd
+
+    def attrs(self, d_idx: int) -> dict:
+        return {"device": d_idx % self.nd}  # round-robin over the lanes
+
+    def acquire(self, d_idx: int) -> _Slot:
+        lane_i = d_idx % self.nd
+        err = self.drainers.error
+        if err is not None:
+            raise err
+        try:
+            return self.free[lane_i].get_nowait()
+        except queue.Empty:
+            pass
+        if self.made[lane_i] < MESH_SLOTS:
+            self.made[lane_i] += 1
+            return self.lanes[lane_i].new_slot()
+        # every slot of this lane is in flight: the residual stall,
+        # charged to the lane that back-pressured
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + self.timeout
+        try:
+            with self.tr.span("pipeline.drain_wait", device=lane_i):
+                while True:
+                    try:
+                        return self.free[lane_i].get(timeout=0.2)
+                    except queue.Empty:
+                        err = self.drainers.error
+                        if err is not None:
+                            raise err
+                        if time.monotonic() >= deadline:
+                            raise RuntimeError(
+                                "mesh drain stalled: no free slot on "
+                                f"lane {lane_i}")
+        finally:
+            self.st["drain_wait_s"] += time.perf_counter() - t0
+
+    def launch(self, slot: _Slot, used: int, d_idx: int) -> None:
+        lane_i = d_idx % self.nd
+        t0 = time.perf_counter()
+        self.lanes[lane_i].launch(slot, used)
+        self.st["dispatch_s"] += time.perf_counter() - t0
+        self.st["dispatches"] += 1
+        self.dev_dispatches[lane_i] += 1
+
+    def enqueue(self, slot: _Slot, used: int, d_idx: int, tag) -> None:
+        lane_i = d_idx % self.nd
+        t0 = time.perf_counter()
+        self.drainers.submit(lane_i, (lane_i, slot, used, d_idx, tag))
+        self.st["drain_wait_s"] += time.perf_counter() - t0
+
+    def finish(self) -> None:
+        t0 = time.perf_counter()
+        try:
+            with self.tr.span("pipeline.drain_wait", final=True):
+                self.drainers.finish()
+        finally:
+            self.st["drain_wait_s"] += time.perf_counter() - t0
+        if self.nxt[0] != self.st["dispatches"]:
+            raise RuntimeError(
+                f"mesh completion tracker retired {self.nxt[0]} of "
+                f"{self.st['dispatches']} dispatches")
+
+    def close(self) -> None:
+        """Tear the drain lanes down and wait out the cards, then fold
+        the drain's counters into st."""
+        st, ds = self.st, self.ds
+        try:
+            self.drainers.abort()
+            for lane in self.lanes:
+                lane.close()
+        finally:
+            st["drain_s"] += ds["drain_s"]
+            st["write_s"] += ds["write_s"]
+            st["sidecar_s"] += ds["sidecar_s"]
+            st["parity_write_s"] = ds["write_s"]
+            st["parity_bytes_drained"] += ds["parity_bytes"]
+            st["per_device"] = {
+                str(i): {"dispatches": self.dev_dispatches[i],
+                         "drain_s": self.dev_drain_s[i]}
+                for i in range(self.nd)}
 
 
 class StreamingEncoder:
     """File-level EC encode/rebuild through the GF(2^8) kernel with an
     overlapped host-IO / device pipeline."""
 
-    def __init__(self, dispatch_mb: int = 8, device="cuda"):
+    def __init__(self, dispatch_mb: int = 8, device="cuda",
+                 engine: str = "device", devices=None, mesh=None):
         """RS(10,4), the one EC geometry.  dispatch_mb: the fixed dispatch
         width per shard.  Encodes write the `.eci` block-crc sidecar;
         rebuilds verify survivors against it, demoting crc-mismatching
-        shards to erasures."""
+        shards to erasures.
+
+        engine "device" runs on ``device``; with ``mesh`` None it splits
+        every dispatch over the lanes whenever there is more than one
+        (True: always, False: never).  The lanes are every visible card
+        for a "cuda" device (the CPU alone for "cpu") unless ``devices``
+        names them.  engine "mesh" sends whole dispatches round-robin
+        over ``devices``: a lane list (which may repeat a device) or an
+        -ec.mesh.devices spec over the same visible lanes, validated
+        here so a bad spec fails at server start."""
+        if engine not in ("device", "mesh"):
+            raise ValueError(f"engine must be device or mesh, got {engine!r}")
+        self.engine = engine
         self.device = resolve_device(device)
         self.k = DATA_SHARDS_COUNT
         self.r = PARITY_SHARDS_COUNT
-        self.dispatch_b = dispatch_mb << 20
+        b = dispatch_mb << 20
+        # the device engine's split over more than one lane
+        self.mesh: Optional[Mesh] = None
+        self.lanes = lanes_for(devices, self.device)
+        if engine == "mesh":
+            self.device = self.lanes[0]  # the rebuild's lane
+        elif mesh or (mesh is None and len(self.lanes) > 1):
+            self.mesh = make_mesh(*factor_mesh(len(self.lanes)),
+                                  devices=self.lanes)
+            # the dispatch width must split evenly over dp*sp
+            q = self.mesh.shape[0] * self.mesh.shape[1] * 64
+            b = max(q, (b // q) * q)
+        else:
+            self.lanes = [self.device]
+        self.dispatch_b = b
         # the pipeline's settings, from the module's constants (tests set
         # the attributes): dispatches in flight (depth + 1 slots), resumes
         # of one encode, the producer's longest wait for a free slot,
@@ -468,8 +883,10 @@ class StreamingEncoder:
         #   verify_s     rebuild survivors checked against the sidecar
         #   close_s      closing the outputs
         #   wall_s       the whole call (the last attempt, after a retry)
-        # and parity_bytes_drained, drain_pool (0: inline), retries and
-        # resume_byte (where the last attempt started)
+        # and parity_bytes_drained, drain_pool (0: inline), retries,
+        # resume_byte (where the last attempt started), devices (the
+        # lanes) and, for engine "mesh", per_device: each lane's
+        # dispatches and drain seconds
         self.stats: dict[str, float] = {}
 
     def _reset_stats(self) -> dict:
@@ -478,8 +895,22 @@ class StreamingEncoder:
                       "sidecar_s": 0.0, "verify_s": 0.0, "setup_s": 0.0,
                       "close_s": 0.0, "wall_s": 0.0, "drain_s": 0.0,
                       "parity_write_s": 0.0, "parity_bytes_drained": 0,
-                      "drain_pool": 0, "retries": 0, "resume_byte": 0}
+                      "drain_pool": 0, "retries": 0, "resume_byte": 0,
+                      "devices": len(self.lanes)}
         return self.stats
+
+    def _lane(self, rows: np.ndarray):
+        """The pipeline lane for one matrix: split over the mesh, or on
+        the one device."""
+        if self.mesh is not None:
+            return _SplitLane(rows, self.dispatch_b, self.mesh)
+        return _Lane(rows, self.dispatch_b, self.device)
+
+    def launches_per_dispatch(self, rows: int = PARITY_SHARDS_COUNT) -> int:
+        """Kernel launches of one dispatch of a ``rows``-row matrix: four
+        rows a launch, times every lane of a split dispatch."""
+        per = -(-rows // 4)
+        return per * self.mesh.devices.size if self.mesh is not None else per
 
     # --- encode -----------------------------------------------------------
     def dispatches_for(self, file_size: int,
@@ -505,10 +936,13 @@ class StreamingEncoder:
         that fails for good leaves no shard or sidecar behind."""
         ckpt = _Checkpoint()
         retries = 0
+        # the mesh plane shares the staged encode's checkpoint and resume
+        attempt = (self._encode_file_mesh if self.engine == "mesh"
+                   else self._encode_file_staged)
         try:
             while True:
                 try:
-                    return self._encode_file_staged(
+                    return attempt(
                         dat_path, out_base, large_block_size,
                         small_block_size, ckpt.entries, ckpt.bytes, retries,
                         ckpt)
@@ -534,11 +968,37 @@ class StreamingEncoder:
                             start_entry: int = 0, start_byte: int = 0,
                             retries: int = 0,
                             ckpt: Optional[_Checkpoint] = None) -> None:
-        """One attempt, starting at plan entry start_entry and shard byte
-        start_byte over outputs whose first start_byte bytes are whole.
-        Advances ``ckpt`` as dispatches are written; a failure leaves the
-        outputs for the next attempt."""
-        k, r, b = self.k, self.r, self.dispatch_b
+        """One attempt of the staged encode (``_StagedPlane``)."""
+        self._encode_attempt(_StagedPlane, {"mode": "staged",
+                                            "engine": "device"},
+                             dat_path, out_base, large_block_size,
+                             small_block_size, start_entry, start_byte,
+                             retries, ckpt)
+
+    def _encode_file_mesh(self, dat_path: str, out_base: str,
+                          large_block_size: int, small_block_size: int,
+                          start_entry: int = 0, start_byte: int = 0,
+                          retries: int = 0,
+                          ckpt: Optional[_Checkpoint] = None) -> None:
+        """One attempt of the per-card dispatch queues (``_MeshPlane``)."""
+        self._encode_attempt(_MeshPlane, {"mode": "mesh", "engine": "mesh",
+                                          "devices": len(self.lanes)},
+                             dat_path, out_base, large_block_size,
+                             small_block_size, start_entry, start_byte,
+                             retries, ckpt)
+
+    def _encode_attempt(self, plane_cls, span: dict, dat_path: str,
+                        out_base: str, large_block_size: int,
+                        small_block_size: int, start_entry: int,
+                        start_byte: int, retries: int,
+                        ckpt: Optional[_Checkpoint]) -> None:
+        """One attempt through ``plane_cls``'s dispatches, starting at plan
+        entry start_entry and shard byte start_byte over outputs whose
+        first start_byte bytes are whole.  Data shards append on this
+        thread in dispatch order; the plane's drain writes the parity and
+        advances ``ckpt``.  A failure leaves the outputs for the next
+        attempt."""
+        k, b = self.k, self.dispatch_b
         st = self._reset_stats()
         st["retries"] = retries
         st["resume_byte"] = start_byte
@@ -550,18 +1010,14 @@ class StreamingEncoder:
         file_size = os.path.getsize(dat_path)
         tr = get_tracer()
         root = tr.span("pipeline.encode_file", path=dat_path,
-                       bytes=file_size, mode="staged", engine="device",
-                       resume_entry=start_entry)
+                       bytes=file_size, resume_entry=start_entry, **span)
         root.__enter__()
-        # output opens, a resume's crc re-seed and the pipeline's set-up,
+        # output opens, a resume's crc re-seed and the plane's set-up,
         # until the first entry is planned
         setup = tr.span("pipeline.setup")
         setup.__enter__()
-        sb = SidecarBuilder(k + r)
+        sb = SidecarBuilder(k + self.r)
         outputs: list = []
-        # the parity side's counters: touched only by the thread that
-        # drains (the writer thread, or the producer when inline)
-        pw = {"write_s": 0.0, "sidecar_s": 0.0}
 
         def write_data(rows, d_idx: int) -> None:
             t0 = clock()
@@ -574,80 +1030,13 @@ class StreamingEncoder:
                 st["sidecar_s"] += clock() - t1
             st["write_s"] += clock() - t0
 
-        def write_parity(parity: np.ndarray, tag) -> None:
-            t0 = clock()
-            for j in range(r):
-                outputs[k + j].write(memoryview(parity[j]))
-            t1 = clock()
-            for j in range(r):
-                sb.update(k + j, parity[j])
-            pw["sidecar_s"] += clock() - t1
-            pw["write_s"] += clock() - t0
-            # this dispatch's data and parity are on every shard now
-            nfills, used = tag
-            ckpt.entries += nfills
-            ckpt.bytes += used
-
-        pipe = None
+        plane = None
         ok = False
         try:
-            for i in range(k + r):
-                p = out_base + to_ext(i)
-                if start_byte and os.path.exists(p):
-                    # resume: drop the bytes past the checkpoint (data
-                    # shards run ahead of it, parity lags), keep the
-                    # prefix, and re-seed its crc state from it
-                    f = open(p, "r+b")
-                    outputs.append(f)
-                    f.truncate(start_byte)
-                    f.seek(start_byte)
-                    sb.seed_from_file(i, f, start_byte)
-                else:
-                    outputs.append(open(p, "wb"))
-            pipe = _Pipeline(
-                self.matrix[k:], b, self.device, st, write_parity,
-                depth=self.depth,
-                drain_pool=self.drain_pool if self.async_drain else 0,
-                drain_point="ec.drain", drain_timeout_s=self.drain_timeout_s,
-                tracer=tr)
+            _open_outputs(out_base, k + self.r, start_byte, sb, outputs)
+            plane = plane_cls(self, st, sb, outputs, ckpt, tr)
             with open(dat_path, "rb") as dat:
-
-                def flush(fills, used: int) -> None:
-                    slot = pipe.acquire()
-                    buf = slot.buf
-                    d_idx = st["dispatches"]
-                    t0 = clock()
-                    with tr.span("pipeline.fill", dispatch=d_idx,
-                                 bytes=k * used):
-                        for col, n, row_start, block, off in fills:
-                            if off == 0 and n == block:
-                                # whole-block entry: the k per-shard reads
-                                # are contiguous in the file
-                                # ([row_start, +k*block))
-                                preadv_into(
-                                    dat,
-                                    [buf[i, col:col + n] for i in range(k)],
-                                    row_start)
-                            else:
-                                for i in range(k):
-                                    buf[i, col:col + n] = pread_padded(
-                                        dat, n, row_start + i * block + off)
-                        if used < b:
-                            buf[:, used:] = 0
-                    st["fill_s"] += clock() - t0
-                    if faultinject._points:
-                        faultinject.hit("ec.dispatch")
-                    with tr.span("pipeline.dispatch", dispatch=d_idx,
-                                 bytes=k * used):
-                        pipe.launch(slot, used)
-                    st["bytes_in"] += k * used
-                    # data shards pass through from the host slot while
-                    # the card computes parity, and are written before the
-                    # dispatch reaches the drain, so the checkpoint never
-                    # counts a dispatch whose data is not on disk
-                    write_data(buf[:, :used], d_idx)
-                    pipe.enqueue(slot, used, (len(fills), used))
-
+                out_off = start_byte
                 st["setup_s"] = clock() - t_start
                 setup.__exit__(None, None, None)
                 setup = None
@@ -656,13 +1045,38 @@ class StreamingEncoder:
                 for _ in range(start_entry):  # resume: skip what is done
                     next(entries, None)
                 for fills, used in _pack_dispatches(entries, b):
-                    flush(fills, used)
-                pipe.finish()
+                    d_idx = st["dispatches"]
+                    attrs = plane.attrs(d_idx)
+                    slot = plane.acquire(d_idx)
+                    buf = slot.buf
+                    t0 = clock()
+                    with tr.span("pipeline.fill", dispatch=d_idx,
+                                 bytes=k * used, **attrs):
+                        _fill(dat, buf, k, fills, used)
+                    st["fill_s"] += clock() - t0
+                    if faultinject._points:
+                        faultinject.hit("ec.dispatch")
+                    with tr.span("pipeline.dispatch", dispatch=d_idx,
+                                 bytes=k * used, **attrs):
+                        plane.launch(slot, used, d_idx)
+                    st["bytes_in"] += k * used
+                    # data shards pass through from the host slot while
+                    # the card computes parity, and are written before the
+                    # dispatch reaches the drain, so the checkpoint never
+                    # counts a dispatch whose data is not on disk
+                    write_data(buf[:, :used], d_idx)
+                    plane.enqueue(slot, used, d_idx,
+                                  (len(fills), used, out_off))
+                    out_off += used
+                plane.finish()
             want = _shard_size(file_size, k, large_block_size,
                                small_block_size)
-            if any(f.tell() != want for f in outputs):
-                raise IOError(f"shard sizes {[f.tell() for f in outputs]} "
-                              f"!= the {want} bytes the striping plans")
+            for f in outputs:  # the mesh plane pwrites its parity
+                f.flush()
+            sizes = [os.fstat(f.fileno()).st_size for f in outputs]
+            if any(n != want for n in sizes):
+                raise IOError(f"shard sizes {sizes} != the {want} bytes "
+                              "the striping plans")
             t0 = clock()
             sb.finalize().save(out_base)
             st["sidecar_s"] += clock() - t0
@@ -672,14 +1086,11 @@ class StreamingEncoder:
             if setup is not None:  # failed before the first fill
                 setup.__exit__(*exc)
             try:
-                if pipe is not None:
-                    pipe.close()
+                if plane is not None:
+                    plane.close()
             finally:
-                # closed even when the pipeline's close raises: a writer
-                # left open could flush over the next attempt's shards
-                st["write_s"] += pw["write_s"]
-                st["sidecar_s"] += pw["sidecar_s"]
-                st["parity_write_s"] = pw["write_s"]
+                # closed even when the plane's close raises: a writer left
+                # open could flush over the next attempt's shards
                 t0 = clock()
                 with tr.span("pipeline.close"):
                     for f in outputs:
@@ -778,13 +1189,16 @@ class StreamingEncoder:
                 f.close()
             raise
         st = self._reset_stats()
+        if self.engine == "mesh":
+            st["devices"] = 1  # the mesh plane rebuilds on its first lane
         clock = time.perf_counter
         t_start = clock()
         outputs = {}
         pipe = None
         tr = get_tracer()
         root = tr.span("pipeline.rebuild_files", path=base_file_name,
-                       mode="staged", missing=len(missing), engine="device")
+                       mode="staged", missing=len(missing),
+                       engine=self.engine)
         root.__enter__()
 
         def write_rebuilt(out: np.ndarray, _tag) -> None:
@@ -797,8 +1211,8 @@ class StreamingEncoder:
         try:
             for m in missing:
                 outputs[m] = open(base_file_name + to_ext(m), "wb")
-            pipe = _Pipeline(rec, b, self.device, st,
-                             write_rebuilt, tracer=tr, write_kind="rebuilt")
+            pipe = _Pipeline(self._lane(rec), st, write_rebuilt, tracer=tr,
+                             write_kind="rebuilt")
             for offset in range(0, shard_size, b):
                 n = min(b, shard_size - offset)
                 slot = pipe.acquire()

@@ -31,9 +31,12 @@ moves them to the next one.
 
 EC work runs on ``device``: "cuda" (the default, the reference's
 ``-ec.engine tpu``) launches the GF(2^8) kernel on the card; "cpu" (the
-reference's ``-ec.engine cpu``) runs the plain versions.  A request's
-``engine`` field never moves the work to another engine: an engine other
-than the server's own answers 400.  ``/status`` carries
+reference's ``-ec.engine cpu``) runs the plain versions; ``ec_engine``
+"mesh" (``-ec.engine mesh``) runs it over the lanes of
+``ec_mesh_devices``.  A request's ``engine`` field never moves the work
+off the card or onto it: a card server runs "tpu" and "mesh" requests
+(each on its own streaming encoder), a CPU server "cpu" ("tpu" too, on
+the CPU), and any other answers 400.  ``/status`` carries
 ``EcKernelLaunches``, the GF(2^8) kernels this process has launched (a
 port-only key: a drill reads it to see which server ran a repair).
 
@@ -242,7 +245,8 @@ class VolumeServer:
                  max_inflight: int = 0, needle_cache_mb: int = 64,
                  guard: Optional[Guard] = None,
                  backends: Optional[dict] = None, tls_context=None,
-                 use_mmap: bool = False, dataplane: str = "python"):
+                 use_mmap: bool = False, dataplane: str = "python",
+                 ec_engine: str = "", ec_mesh_devices=None):
         """A volume server for ``directories`` at host:port, heartbeating
         to ``master_url`` (comma-separated masters; heartbeats follow the
         raft leader).  ``device`` runs the EC work: "cuda" needs a card
@@ -253,7 +257,9 @@ class VolumeServer:
         ``backends`` registers tier backends ({name: {"type": "dir",
         "root": ...}}) before any volume opens; ``tls_context`` serves
         HTTPS; ``use_mmap`` maps each `.dat`; ``dataplane`` "native"
-        serves needle IO through the C++ plane."""
+        serves needle IO through the C++ plane.  ``ec_engine`` "mesh" runs
+        EC over the lanes of ``ec_mesh_devices`` (Store); empty is the
+        device's own engine, "tpu" on a card and "cpu" on the CPU."""
         if dataplane not in ("python", "native"):
             raise ValueError(f"dataplane {dataplane!r} is not python or "
                              "native")
@@ -272,11 +278,12 @@ class VolumeServer:
         self.store = Store(directories, host, port, public_url,
                            max_volume_count, device=device,
                            needle_cache_mb=needle_cache_mb,
-                           use_mmap=use_mmap)
+                           use_mmap=use_mmap, ec_engine=ec_engine,
+                           ec_mesh_devices=ec_mesh_devices)
         if directories:
             get_flightrecorder().configure(
                 spool_dir=os.path.join(directories[0], "flightrecorder"))
-        self.engine = "cpu" if self.store.device.type == "cpu" else "tpu"
+        self.engine = self.store.ec_engine
         self.metrics = volume_server_metrics()
         self.metrics.max_volume_counter.set(max_volume_count)
         # their families exist on /metrics before the first count
@@ -727,13 +734,18 @@ class VolumeServer:
         with self._ec_reads_lock:
             self.ec_reads[how] += 1
 
-    def _check_engine(self, body: dict) -> None:
-        """An EC request may name the reference's engines: absent or "tpu"
-        is this server's own device; "cpu" only where the server itself
-        runs on the CPU.  Anything else answers 400 and runs nothing."""
+    def _check_engine(self, body: dict) -> Optional[str]:
+        """An EC request may name the reference's engines: absent is this
+        server's own, "tpu" its device; "mesh" only on a card (the
+        per-card dispatch queues over the store's mesh lanes); "cpu" only
+        where the server itself runs on the CPU.  Anything else answers
+        400 and runs nothing.  Returns the engine the request runs."""
         engine = body.get("engine")
-        if engine in (None, "", "tpu", self.engine):
-            return
+        if engine in (None, ""):
+            return None
+        if engine in ("tpu", self.engine) or (
+                engine == "mesh" and self.store.device.type == "cuda"):
+            return engine
         raise HttpError(400, f"engine {engine!r} is not served here: this "
                              f"server runs -ec.engine {self.engine} on "
                              f"{self.store.device}")
@@ -1458,16 +1470,17 @@ class VolumeServer:
         @r.route("POST", "/admin/ec/generate")
         def ec_generate(req: Request) -> Response:
             b = req.json()
-            self._check_engine(b)
-            self.store.ec_generate(int(b["volume_id"]))
+            engine = self._check_engine(b)
+            self.store.ec_generate(int(b["volume_id"]), engine=engine)
             return Response({"pipeline": dict(_EC_CALL_HEALTH)})
 
         @r.route("POST", "/admin/ec/rebuild")
         def ec_rebuild(req: Request) -> Response:
             b = req.json()
-            self._check_engine(b)
+            engine = self._check_engine(b)
             rebuilt = self.store.ec_rebuild(int(b["volume_id"]),
-                                            b.get("collection", ""))
+                                            b.get("collection", ""),
+                                            engine=engine)
             return Response({"rebuilt_shard_ids": rebuilt,
                              "pipeline": dict(_EC_CALL_HEALTH)})
 

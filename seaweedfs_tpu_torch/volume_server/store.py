@@ -9,7 +9,10 @@ rewrite its replica placement, open a volume copied from another server,
 delete, rebuild and serve shards, read needles from the shards with
 remote fetch or reconstruction of what is missing, decode back to a
 volume, and build the master's full and delta heartbeats.  Every GF
-product goes through ops.gf_matmul on ``device``.
+product goes through ops.gf_matmul on ``device``; with ``ec_engine``
+"mesh" (``-ec.engine mesh``) the EC encode, rebuild and reconstruction
+run over the lanes of ``ec_mesh_devices`` instead (store.go's reference
+counterpart: seaweedfs_tpu/volume_server/store.py:173-184, :760-805).
 
 EC volumes are mounted, unmounted and swapped under ``ec_swap()``, so a
 reader never finds a volume briefly absent while the scrubber quarantines
@@ -69,12 +72,13 @@ import time
 from typing import Callable, Optional
 
 from ..ec import encoder as ec_encoder
-from ..ec.codec import ReedSolomon
+from ..ec.codec import MeshEngine, ReedSolomon
 from ..ec.ec_volume import EcVolume, NeedleNotFoundError
 from ..ec.layout import DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT, to_ext
 from ..ec.streaming import StreamingEncoder
 from ..master.topology import ShardBits
 from ..ops.gf_matmul import resolve_device
+from ..parallel.mesh import lanes_for
 from ..storage.needle import Needle
 from ..storage.super_block import ReplicaPlacement
 from ..storage.ttl import TTL
@@ -168,12 +172,27 @@ class Store:
     def __init__(self, directories: list[str], ip: str = "127.0.0.1",
                  port: int = 8080, public_url: str = "",
                  max_volume_count: int = 8, device="cuda",
-                 needle_cache_mb: int = 64, use_mmap: bool = False):
+                 needle_cache_mb: int = 64, use_mmap: bool = False,
+                 ec_engine: str = "", ec_mesh_devices=None):
         """Volumes under ``directories``, served at ``ip:port``; EC work on
         ``device`` ("cuda" needs a card, "cpu" runs the plain versions);
         a needle cache of ``needle_cache_mb`` MiB (0: none); each `.dat`
-        mapped with ``use_mmap``."""
+        mapped with ``use_mmap``.  ``ec_engine`` names the reference's
+        engine the store runs ("" is the device's own: "tpu" on a card,
+        "cpu" on the CPU); "mesh" runs EC over
+        ``ec_mesh_devices``: a lane list, or an -ec.mesh.devices spec over
+        every visible card (the CPU alone for a "cpu" device), validated
+        here so a bad spec fails at start, not at the first encode."""
         self.device = resolve_device(device)
+        if ec_engine not in ("", "tpu", "cpu", "mesh"):
+            raise ValueError(f"ec_engine must be tpu, cpu or mesh, got "
+                             f"{ec_engine!r}")
+        self.ec_engine = ec_engine or (
+            "cpu" if self.device.type == "cpu" else "tpu")
+        self.ec_mesh_devices = ec_mesh_devices
+        self.mesh_lanes: Optional[list] = None
+        if ec_engine == "mesh":
+            self.mesh_lanes = lanes_for(ec_mesh_devices, self.device)
         self.use_mmap = use_mmap
         self.ip, self.port = ip, port
         self.needle_cache = NeedleCache(
@@ -199,6 +218,7 @@ class Store:
         self._init_lock = threading.Lock()
         self._rs: Optional[ReedSolomon] = None
         self._encoder: Optional[StreamingEncoder] = None
+        self._mesh_encoder: Optional[StreamingEncoder] = None
         # delta-heartbeat bookkeeping (volume_grpc_client_to_master.go:48
         # streams new/deleted volume and EC-shard lists between full syncs)
         self._delta_lock = threading.Lock()
@@ -225,15 +245,30 @@ class Store:
                     self._open_ec_volume(d, collection, vid)
 
     def rs(self) -> ReedSolomon:
-        """The RS(10,4) codec on this store's device."""
+        """The RS(10,4) codec on this store's device, or over its mesh
+        lanes (MeshEngine) for ``ec_engine`` "mesh"."""
         with self._init_lock:
             if self._rs is None:
+                engine = (MeshEngine(devices=self.mesh_lanes)
+                          if self.mesh_lanes is not None else None)
                 self._rs = ReedSolomon(DATA_SHARDS_COUNT, PARITY_SHARDS_COUNT,
-                                       device=self.device)
+                                       device=self.device, engine=engine)
             return self._rs
 
-    def streaming_encoder(self) -> StreamingEncoder:
+    def streaming_encoder(self, engine: Optional[str] = None
+                          ) -> StreamingEncoder:
+        """The streaming encoder for ``engine`` (a request's, or else the
+        store's): "mesh" is the per-card dispatch queues over the mesh
+        lanes, anything else the device engine on ``device``."""
+        name = engine or self.ec_engine
         with self._init_lock:
+            if name == "mesh":
+                if self._mesh_encoder is None:
+                    lanes = self.mesh_lanes or lanes_for(
+                        self.ec_mesh_devices, self.device)
+                    self._mesh_encoder = StreamingEncoder(
+                        device=self.device, engine="mesh", devices=lanes)
+                return self._mesh_encoder
             if self._encoder is None:
                 self._encoder = StreamingEncoder(device=self.device)
             return self._encoder
@@ -770,9 +805,10 @@ class Store:
         return rp
 
     # --- EC (store_ec.go + volume_grpc_erasure_coding.go backends) --------
-    def ec_generate(self, vid: int) -> None:
+    def ec_generate(self, vid: int, engine: Optional[str] = None) -> None:
         """VolumeEcShardsGenerate: mark the volume read-only, then .dat ->
-        .ec00..13 + .eci through the streaming pipeline, and .idx -> .ecx.
+        .ec00..13 + .eci through the streaming pipeline of ``engine``
+        (``streaming_encoder``), and .idx -> .ecx.
         The plane is off the volume meanwhile; it takes it back read-only
         and serves its reads while the shards spread.  A volume with
         5-byte offsets is refused before anything is written."""
@@ -781,19 +817,20 @@ class Store:
                 f"volume {vid} uses 5-byte offsets; EC encoding "
                 "supports 4-byte-offset volumes only")
         with self.native_quiesced(vid):
-            self._ec_generate(vid)
+            self._ec_generate(vid, engine)
 
-    def _ec_generate(self, vid: int) -> None:
+    def _ec_generate(self, vid: int, engine: Optional[str] = None) -> None:
         v = self.get_volume(vid)
         with self.volume_locks[vid]:
             v.read_only = True
-            self.streaming_encoder().encode_file(v.file_prefix + ".dat",
-                                                 v.file_prefix)
+            self.streaming_encoder(engine).encode_file(
+                v.file_prefix + ".dat", v.file_prefix)
             ec_encoder.write_sorted_file_from_idx(v.file_prefix)
 
-    def ec_rebuild(self, vid: int, collection: str = "") -> list[int]:
+    def ec_rebuild(self, vid: int, collection: str = "",
+                   engine: Optional[str] = None) -> list[int]:
         """VolumeEcShardsRebuild: regenerate missing local shards."""
-        return self.streaming_encoder().rebuild_files(
+        return self.streaming_encoder(engine).rebuild_files(
             self._ec_base(vid, collection))
 
     def _ec_base(self, vid: int, collection: str = "") -> str:

@@ -233,6 +233,6 @@ def test_volume_cli_without_an_engine_needs_a_card(tmp_path):
 
 
 def test_volume_cli_refuses_an_unknown_engine(tmp_path):
-    proc = _start(["-dir", str(tmp_path), "-ec.engine", "mesh"])
+    proc = _start(["-dir", str(tmp_path), "-ec.engine", "gpu"])
     _, err = proc.communicate(timeout=120)
     assert proc.returncode == 2 and "invalid choice" in err

@@ -608,3 +608,81 @@ def test_native_plane_volume_encoded_on_the_card(cuda, tmp_path):
             assert tcp.read(addr, fid) == data
     finally:
         vs.stop()
+
+
+def _mesh_lanes() -> list:
+    """Every visible card, or four lanes of card 0 on a one-card box."""
+    n = torch.cuda.device_count()
+    return ([torch.device("cuda", i) for i in range(n)] if n > 1
+            else [torch.device("cuda", 0)] * 4)
+
+
+def test_mesh_programs_on_the_card(cuda):
+    """The sharded encode, MeshEngine, the training step and the ring
+    rebuild equal kernel 1 alone and the plain version, each with its
+    launch rule (chip_smoke.py checks the same at [10, 8 MiB])."""
+    import chip_smoke
+
+    got = chip_smoke.check_mesh_programs("cuda", _mesh_lanes(), 1 << 20)
+    assert got["ring_rebuild_5"]["launches"] == 5
+    assert got["training_step"]["launches"] == 2 * len(_mesh_lanes())
+
+
+def test_mesh_streaming_on_the_card(cuda, tmp_path):
+    """engine="mesh" over the lanes and the device engine's split over
+    them write the one-card encode's bytes and rebuild them, with a
+    launch a dispatch on the queue plane and one per lane and dispatch
+    on the split."""
+    raw = np.random.default_rng(21).integers(0, 256, (25 << 20) + 977,
+                                             dtype=np.uint8).tobytes()
+    dat = tmp_path / "v.dat"
+    dat.write_bytes(raw)
+    StreamingEncoder(dispatch_mb=1).encode_file(str(dat), str(tmp_path / "one"))
+    exts = [to_ext(i) for i in range(14)] + [".eci"]
+    want = {e: (tmp_path / f"one{e}").read_bytes() for e in exts}
+    lanes = _mesh_lanes()
+    for name, enc, per in (
+            ("mesh", StreamingEncoder(dispatch_mb=1, engine="mesh",
+                                      devices=lanes), 1),
+            ("split", StreamingEncoder(dispatch_mb=1, devices=lanes,
+                                       mesh=True), len(lanes))):
+        base = str(tmp_path / name)
+        before = gf_matmul.launches
+        enc.encode_file(str(dat), base)
+        assert gf_matmul.launches - before == per * enc.dispatches_for(
+            len(raw))
+        assert {e: open(base + e, "rb").read() for e in exts} == want, name
+        for i in (2, 11):
+            os.remove(base + to_ext(i))
+        assert enc.rebuild_files(base) == [2, 11]
+        for i in (2, 11):
+            assert open(base + to_ext(i), "rb").read() == want[to_ext(i)]
+
+
+def test_mesh_engine_serves_threads_at_once_on_the_card(cuda):
+    """A mesh store's degraded reads call its MeshEngine from several
+    request threads at once: over four lanes each call's product still
+    equals kernel 1 alone, while the calls' buffers come and go."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from seaweedfs_tpu_torch.ec.codec import MeshEngine
+
+    rng = np.random.default_rng(31)
+    lanes = [torch.device("cuda", 0)] * 4
+    engine = MeshEngine(devices=lanes)
+    cases = []
+    for i in range(48):
+        m = rng.integers(0, 256, (1 + i % 4, 10), dtype=np.uint8)
+        data = rng.integers(0, 256, (10, (1 << 20) + 4099 * i),
+                            dtype=np.uint8)
+        want = gf_matmul(torch.from_numpy(m).cuda(),
+                         torch.from_numpy(data).cuda()).cpu().numpy()
+        cases.append((m, data, want))
+
+    def call(i: int) -> bool:
+        m, data, want = cases[i]
+        return all(np.array_equal(engine.matmul(m, data), want)
+                   for _ in range(3))
+
+    with ThreadPoolExecutor(8) as pool:
+        assert all(pool.map(call, range(len(cases))))

@@ -42,6 +42,11 @@ def test_the_sources_cover_the_native_plane_and_5_byte_offsets():
     assert os.path.exists(os.path.join(PORT, "csrc", "dataplane.cpp"))
 
 
+def test_the_sources_cover_the_mesh():
+    rel = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {"parallel/__init__.py", "parallel/mesh.py"} <= rel
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top == "jax" or top.startswith("jax") or top == "seaweedfs_tpu"

@@ -203,7 +203,7 @@ def test_cuda_errors_are_not_retried(volume, tmp_path, monkeypatch, where):
         def failing(self, slot, n):
             calls["n"] += 1
             if calls["n"] == 2:
-                self.copy = "stream"  # close() now waits on the card
+                self.lane.copy = "stream"  # close() now waits on the card
                 raise KernelError("parity fetch on cuda: CUDA error 700")
             return real(self, slot, n)
 

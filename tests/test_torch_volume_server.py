@@ -301,7 +301,7 @@ def test_port_answers_its_own_routes(servers):
     assert servers["port"].store.volumes[31].offset_size == \
         servers["ref"].store.volumes[31].offset_size == 5
     # an engine this server does not run answers 400 and runs nothing
-    for engine in ("mesh", "gpu"):
+    for engine in ("fpga", "gpu"):
         status, body, _ = exchange(url, "POST", "/admin/ec/generate",
                                    json.dumps({"volume_id": 2,
                                                "engine": engine}).encode())
