@@ -264,12 +264,18 @@ result.  Phases, each of which fails the run on any mismatch:
     needles over HTTP read back, its `.idx` 17 bytes an entry, off the
     plane, and ``ec.encode`` of it failing with the reference's error
     and writing no shard;
-12. numbers from the card: leg times and rates, read latency, kernel
-    times against their bound.
+12. numbers from the card: leg times and rates, read latency; each
+    phase's kernel launches by width class (``launch_widths``); kernel
+    1's own time at the encode and rebuild's [10, 8 MiB], at 1 MiB, 64
+    KiB and the width most degraded GETs launch at (``kernel_shapes``):
+    kernel-only ms from CUDA graphs of launches, warm and cold, beside
+    the wrapper's host ms per call, an empty kernel's launch floor, the
+    plain version's ms and the byte bound; the table build's.
 
-Each path runs with gf_matmul.launches set to 0 just before it and read
-just after (the CLI's servers count from 0 in their own processes), and
-fails if it launched no kernel.  The last line is
+Each path runs with every kernel count (gf_matmul.launches, its widths,
+gf_table_build.launches) set to 0 just before it and read just after
+(the CLI's servers count from 0 in their own processes), and fails if
+it launched no kernel.  The last line is
 {"ok": true, "device": {...}}; the line before it is the card's name and
 power limit; before that the {"kernels": [...]} line.
 """
@@ -424,16 +430,23 @@ def kernel_cases():
 
 
 def check_kernel(device, widths) -> int:
-    """Kernel against the plain version on ``device`` tensors, exactly;
-    returns the largest absolute byte difference seen (0)."""
+    """Kernel against the plain version on ``device`` tensors, exactly,
+    and each case's built table against its plain twin; returns the
+    largest absolute difference seen (0)."""
     import torch
 
-    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul, gf_matmul_plain
+    from seaweedfs_tpu_torch.ops.gf_matmul import (gf_matmul,
+                                                   gf_matmul_plain,
+                                                   gf_table_build,
+                                                   gf_table_plain)
 
     gen = torch.Generator(device="cpu").manual_seed(SEED)
     worst = 0
     for name, m in kernel_cases():
         mt = torch.from_numpy(m.copy()).to(device)
+        table = gf_table_build(mt).cpu().numpy().view(np.uint32)
+        if not np.array_equal(table, gf_table_plain(m)):
+            raise AssertionError(f"table != its plain twin: {name}")
         for width in widths:
             data = torch.randint(0, 256, (m.shape[1], width), generator=gen,
                                  dtype=torch.uint8).to(device)
@@ -603,6 +616,7 @@ def run_main_path(device: str, work: str, volume_bytes: int,
         # the clean encode's bytes, which the resume phase must reproduce
         res["hashes"] = {**{to_ext(i): h for i, h in hashes.items()},
                          ".eci": sha256_file(base + ".eci")}
+        res["ecx_sha256"] = sha256_file(base + ".ecx")
         lost = [0, 3, 11, 13]
         store.ec_delete_shards(1, lost)
         before = gf_matmul.launches
@@ -2437,6 +2451,19 @@ def kernel_launches(urls) -> dict[str, int]:
             for u in urls}
 
 
+def kernel_widths(urls) -> dict[str, int]:
+    """Kernel 1's launches by width class, summed over the volume servers'
+    /status ``EcKernelWidths``."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    out: dict[str, int] = {}
+    for u in urls:
+        for c, n in http_json("GET", f"http://{u}/status")[
+                "EcKernelWidths"].items():
+            out[c] = out.get(c, 0) + n
+    return out
+
+
 def cluster_health(master: str) -> dict:
     from seaweedfs_tpu_torch.utils.httpd import http_json
 
@@ -2560,11 +2587,56 @@ class FireWatch(Watch):
                 "bundles": self.alert["bundles"]}
 
 
-def check_bundles(master: str, firing: dict) -> dict:
+# a flight-recorder bundle as the reference's capture writes it
+BUNDLE_FORMAT = "seaweedfs-tpu-flightrecorder-v1"
+BUNDLE_META = ("alert", "captured_at", "event_count", "id", "reason",
+               "server", "span_count", "trace_id")
+# the alerts the drill's rot provokes on its host: their bundles must hold
+# the evidence
+DRILL_ALERTS = ("scrub_unrepairable", "corrupt_shards_increase")
+
+
+def bundle_problems(doc: dict, alert: str, provoked: bool) -> list[str]:
+    """What is wrong with one flight-recorder bundle document of
+    ``alert``.  Every bundle must have the reference's shape: its format,
+    its meta keys, the alert's name, and span and event counts equal to
+    its sections.  The bundle of an alert the drill provoked must also
+    hold non-empty trace, profile, metrics and events sections.  Any
+    other alert (one the host's load raised, such as loop_lag_increase)
+    may come from a process with no spans and an empty journal, and the
+    reference's capture of such a process has empty spans and events too
+    (tests/test_torch_alerts.py), so it is held to the shape alone."""
+    meta = doc.get("meta") or {}
+    trace = doc.get("trace")
+    problems = []
+    if doc.get("format") != BUNDLE_FORMAT:
+        problems.append(f"format {doc.get('format')!r}")
+    if tuple(sorted(meta)) != BUNDLE_META:
+        problems.append(f"meta keys {sorted(meta)}")
+    if meta.get("alert") != alert:
+        problems.append(f"alert {meta.get('alert')!r}")
+    if not isinstance(trace, dict) or \
+            meta.get("span_count") != len(trace.get("spans") or []):
+        problems.append("span_count is not the trace's spans")
+    if not isinstance(doc.get("events"), list) or \
+            meta.get("event_count") != len(doc["events"]):
+        problems.append("event_count is not the events'")
+    if not isinstance(doc.get("profile"), str) or \
+            not isinstance(doc.get("metrics"), str):
+        problems.append("profile or metrics not text")
+    if provoked:
+        problems += [f"empty {k}" for k in ("trace", "profile", "metrics",
+                                            "events") if not doc.get(k)]
+    return problems
+
+
+def check_bundles(master: str, firing: dict,
+                  provoked: tuple = DRILL_ALERTS) -> dict:
     """Each firing alert's bundles: one from each implicated server and
     one from the master, each fetched from its server's
-    /debug/flightrecorder/<id> with non-empty trace, profile, metrics and
-    events sections.  -> bytes of each bundle document."""
+    /debug/flightrecorder/<id> and held to ``bundle_problems`` (the
+    evidence sections non-empty for the ``provoked`` alerts).  -> bytes
+    of each bundle document."""
     from seaweedfs_tpu_torch.utils.httpd import http_json
 
     sizes = {}
@@ -2577,11 +2649,10 @@ def check_bundles(master: str, firing: dict) -> dict:
                                      f"{url}: {a}")
             doc = http_json("GET", f"http://{url}/debug/flightrecorder/"
                                    f"{b['id']}")
-            if doc["meta"]["alert"] != name or not all(
-                    doc[k] for k in ("trace", "profile", "metrics",
-                                     "events")):
+            problems = bundle_problems(doc, name, name in provoked)
+            if problems:
                 raise AssertionError(f"bundle {b['id']} of {name} on {url}"
-                                     f": meta {doc['meta']}")
+                                     f": {problems}; meta {doc.get('meta')}")
             sizes[f"{name}@{url}"] = len(json.dumps(doc))
     return sizes
 
@@ -4872,6 +4943,7 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
             first_b: dict[str, float] = {}
             for name, many in (("1_client", False),
                                (f"{clients}_clients", True)):
+                widths0 = kernel_widths(alive)
                 before = kernel_launches(alive)
                 t0 = time.perf_counter()
                 if many:
@@ -4883,6 +4955,7 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
                     done = bench_gets(master, vfids, picks, size, SEED)
                 wall = time.perf_counter() - t0
                 after = kernel_launches(alive)
+                widths = kernel_widths(alive)
                 got = sum(after[u] - before[u] for u in alive)
                 rule = lost_intervals(done)
                 if engine == "tpu" and got != rule:
@@ -4903,6 +4976,8 @@ def run_dataplane_phase(engine: str, work: str, n: int, size: int,
                     "ms": {c: percentiles(v) for c, v in
                            sorted(by_class.items())},
                     "launches": got, "launches_rule": rule,
+                    "launch_widths": {c: n - widths0[c]
+                                      for c, n in widths.items()},
                     "bytes_equal": True}
             fr["first_b_ms"] = first_b
 
@@ -6182,27 +6257,87 @@ def device_ms(prof) -> dict:
     return out
 
 
-def profiled_ms_per_call(fn, reps: int) -> float:
-    """Card-side milliseconds per call of ``fn``, free of the host's
-    launch gaps that CUDA-event timing of a short kernel includes."""
+GRAPH_LAUNCHES = 50
+GRAPH_REPLAYS = 5
+
+
+def graph_ms(launch, count: int) -> float:
+    """Card milliseconds per launch with no host in between: ``count``
+    calls of ``launch(i)`` captured in one CUDA graph, replayed between
+    CUDA events (the median of GRAPH_REPLAYS replays).  ``launch(0)`` runs
+    once on the capture stream first, so the library, its device
+    constants and any per-matrix table exist before the capture."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+
+    stream = torch.cuda.Stream()
+    with torch.cuda.stream(stream):
+        launch(0)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream,
+                          capture_error_mode="thread_local"):
+        for i in range(count):
+            launch(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(GRAPH_REPLAYS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    del graph
+    return float(np.median(times))
+
+
+def host_ms_per_call(fn, count: int) -> float:
+    """Host milliseconds per call of ``fn``: a host clock over ``count``
+    calls, ending in a synchronize (the wrapper's own cost where it
+    exceeds the kernel's)."""
+    import torch
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    return sum(device_ms(prof).values()) / reps
+    t0 = time.perf_counter()
+    for _ in range(count):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / count
+
+
+def launch_floor_ms() -> dict:
+    """An empty kernel (csrc/gf_matmul.cu ``gf_noop_launch``) launched as
+    kernel_numbers launches kernel 1: milliseconds per launch in a CUDA
+    graph, and a host clock per ctypes call."""
+    import torch
+
+    from seaweedfs_tpu_torch.ops import _build
+
+    lib = _build.load("gf_matmul")
+
+    def noop(_i=0):
+        err = lib.gf_noop_launch(torch.cuda.current_stream().cuda_stream,
+                                 torch.cuda.current_device())
+        if err:
+            raise RuntimeError(f"gf_noop_launch: CUDA error {err}")
+
+    return {"ms": graph_ms(noop, GRAPH_LAUNCHES),
+            "host_ms": host_ms_per_call(noop, GRAPH_LAUNCHES)}
 
 
 def kernel_numbers(leg: str, m: np.ndarray, width: int) -> dict:
-    """Kernel and plain-version times for ``m`` [r, k] at [k, width] ->
-    [r, width], and the card's bound for the same work: (k+r)*width bytes
-    read and written once over HBM bandwidth.  The kernel does k table
-    lookups per output byte on CUDA cores, far under any compute peak, so
-    the bytes bound it."""
+    """Kernel 1's times for ``m`` [r, k] at [k, width] -> [r, width]:
+    kernel-only ms, warm (the same buffers every launch) and cold (each
+    launch on the next column block of inputs and outputs that together
+    hold over four times the card's 50 MB L2), each from a CUDA graph of
+    launches (``graph_ms``); the wrapper's host ms per call; the plain
+    version's ms; and the card's bound for the same work, (k+r)*width
+    bytes read and written once over HBM bandwidth.  The kernel does two
+    table lookups per input byte on CUDA cores, far under any compute
+    peak, so the bytes bound it."""
     import torch
 
     from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul, gf_matmul_plain
@@ -6213,34 +6348,83 @@ def kernel_numbers(leg: str, m: np.ndarray, width: int) -> dict:
     data = torch.randint(0, 256, (k, width), generator=gen,
                          dtype=torch.uint8).cuda()
     out = torch.empty((r, width), dtype=torch.uint8, device="cuda")
-    ms = time_cuda(lambda: gf_matmul(mt, data, out), 50)
+    warm_ms = graph_ms(lambda _i: gf_matmul(mt, data, out), GRAPH_LAUNCHES)
+    host_ms = host_ms_per_call(lambda: gf_matmul(mt, data, out),
+                               GRAPH_LAUNCHES)
     plain_ms = time_cuda(lambda: gf_matmul_plain(mt, data), 3)
-    device_only_ms = profiled_ms_per_call(lambda: gf_matmul(mt, data, out),
-                                          50)
+    gf_matmul(mt, data, out)
     err = int((out.int() - gf_matmul_plain(mt, data).int()).abs().max())
-    # cold: each launch on the next of ``sets`` input/output pairs, which
-    # together hold over four times the card's 50 MB L2, so no launch
-    # finds its bytes there from its last use
+    # cold: launch i on column block i % sets of one wide pair of buffers,
+    # each block at a 256-byte pitch so every launch sees aligned rows
+    pitch = -(-width // 256) * 256
     sets = max(2, -(-4 * L2_BYTES // ((k + r) * width)))
-    ins = [torch.randint(0, 256, (k, width), generator=gen,
-                         dtype=torch.uint8).cuda() for _ in range(sets - 1)]
-    ins.append(data)
-    outs = [torch.empty_like(out) for _ in range(sets)]
-    turn = iter(range(1 << 30))
+    count = max(GRAPH_LAUNCHES, sets)
+    ins = torch.randint(0, 256, (k, sets * pitch), generator=gen,
+                        dtype=torch.uint8).cuda()
+    outs = torch.empty((r, sets * pitch), dtype=torch.uint8, device="cuda")
 
-    def cold():
-        i = next(turn) % sets
-        gf_matmul(mt, ins[i], outs[i])
+    def cold(i):
+        c0 = (i % sets) * pitch
+        gf_matmul(mt, ins[:, c0:c0 + width], outs[:, c0:c0 + width])
 
-    cold_ms = time_cuda(cold, 50)
-    cold_kernel_ms = profiled_ms_per_call(cold, 50)
+    cold_ms = graph_ms(cold, count)
+    c0 = (count - 1) % sets * pitch
+    cold_err = int((outs[:, c0:c0 + width].int() - gf_matmul_plain(
+        mt, ins[:, c0:c0 + width]).int()).abs().max())
     del ins, outs
-    return {"leg": leg, "shape": f"[{k},{width}]->[{r},{width}]", "ms": ms,
-            "profiled_kernel_ms": device_only_ms, "cold_ms": cold_ms,
-            "profiled_cold_kernel_ms": cold_kernel_ms, "cold_sets": sets,
-            "plain_ms": plain_ms,
+    return {"leg": leg, "shape": f"[{k},{width}]->[{r},{width}]",
+            "ms": warm_ms, "cold_ms": cold_ms, "cold_sets": sets,
+            "host_ms": host_ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * (k + r) * width / HBM_BYTES_PER_S,
+            "bound_by": "bytes", "max_abs_err": max(err, cold_err)}
+
+
+def table_numbers(m: np.ndarray) -> dict:
+    """The table build's times for ``m`` [r, k]: kernel-only ms from a
+    CUDA graph, the plain version's (gf_table_plain on the host) ms, and
+    the card's bound, the r*k matrix bytes read and the tables' words
+    written once over HBM bandwidth."""
+    import torch
+
+    from seaweedfs_tpu_torch.ops.gf_matmul import (gf_table_build,
+                                                   gf_table_plain)
+
+    mt = torch.from_numpy(m.copy()).cuda()
+    ms = graph_ms(lambda _i: gf_table_build(mt), GRAPH_LAUNCHES)
+    t0 = time.perf_counter()
+    want = gf_table_plain(m)
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    got = gf_table_build(mt).cpu().numpy().view(np.uint32)
+    err = int(np.abs(got.astype(np.int64) - want.astype(np.int64)).max())
+    return {"shape": f"[{m.shape[0]},{m.shape[1]}]", "ms": ms,
+            "plain_ms": plain_ms,
+            "bound_ms": 1e3 * (m.size + want.nbytes) / HBM_BYTES_PER_S,
             "bound_by": "bytes", "max_abs_err": err}
+
+
+def zero_counts() -> None:
+    """Every kernel count of this process to 0: kernel 1's launches and
+    launch widths, and the table builds."""
+    from collections import Counter
+
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul, gf_table_build
+
+    gf_matmul.launches = 0
+    gf_matmul.widths = Counter()
+    gf_table_build.launches = 0
+
+
+def read_counts() -> dict:
+    """This process's kernel counts since ``zero_counts``: launches of
+    each kernel, kernel 1's launches by width class and its five most
+    common widths."""
+    from seaweedfs_tpu_torch.ops.gf_matmul import (gf_matmul, gf_table_build,
+                                                   width_classes)
+
+    return {"gf_matmul": gf_matmul.launches,
+            "gf_table_build": gf_table_build.launches,
+            "widths": width_classes(gf_matmul.widths),
+            "common_widths": gf_matmul.widths.most_common(5)}
 
 
 def profile_encode(dat_path: str, out_base: str) -> dict:
@@ -6304,7 +6488,8 @@ def main() -> int:
     log(_build.BUILD_INFO["gf_matmul"]["log"].strip())
 
     t0 = time.perf_counter()
-    worst = check_kernel("cuda", [1, 7, 4096, 65537, 8 << 20])
+    worst = check_kernel("cuda", [1, 7, 15, 17, 1064, 4096, 4097, 65537,
+                                  1 << 20, 8 << 20])
     torch.cuda.synchronize()
     log({"phase": "kernel_vs_plain", "max_abs_err": worst,
          "cases": len(kernel_cases()), "seconds": time.perf_counter() - t0})
@@ -6317,18 +6502,21 @@ def main() -> int:
                     "-volumeSizeLimitMB)",
             "why": "run time limit"}})
         torch.cuda.reset_peak_memory_stats()
-        gf_matmul.launches = 0
+        zero_counts()
         res = run_main_path("cuda", work, VOLUME_BYTES,
                             LARGE_ROW_VOLUME_BYTES, LARGE_ROW_BLOCK,
                             DEGRADED_READS, PARITY_STRIPES)
+        counts = {"main_path": read_counts()}
         launches = gf_matmul.launches
         prof = profile_encode(os.path.join(work, "1.dat"),
                               os.path.join(work, "profiled"))
-        gf_matmul.launches = 0
+        zero_counts()
         resume = run_resume_phase("cuda", work, res["hashes"])
+        counts["resume"] = read_counts()
         resume_launches = gf_matmul.launches
-        gf_matmul.launches = 0
+        zero_counts()
         trace_ab = run_trace_ab("cuda", work, res["hashes"])
+        counts["trace_ab"] = read_counts()
         trace_ab_launches = gf_matmul.launches
         mesh_sets = mesh_lane_sets("cuda")
         log({"phase": "mesh", "lanes": [[str(d) for d in s]
@@ -6337,9 +6525,10 @@ def main() -> int:
              "reduced": {"volume_bytes": VOLUME_BYTES,
                          "from": "30,000 MB default volume size limit",
                          "why": "the main path's volume, re-encoded"}})
-        gf_matmul.launches = 0
+        zero_counts()
         mesh = run_mesh_phase("cuda", work, res["hashes"], res["specs"],
                               mesh_sets, MESH_PROGRAM_WIDTH)
+        counts["mesh"] = read_counts()
         mesh_counted = gf_matmul.launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6348,6 +6537,8 @@ def main() -> int:
     for leg, n in res["launches"].items():
         if n <= 0:
             raise AssertionError(f"leg {leg} launched no kernel")
+    if counts["main_path"]["gf_table_build"] <= 0:
+        raise AssertionError("the main path built no GF table")
     lat = np.array(res["read_latency_s"]) * 1e3
     log({"phase": "main_path_done", "dat_bytes": res["dat_bytes"],
          "needles": res["needles"], "shard_bytes": res["shard_bytes"],
@@ -6359,6 +6550,7 @@ def main() -> int:
                               "p99": float(np.percentile(lat, 99)),
                               "n": len(lat)},
          "max_memory_allocated": torch.cuda.max_memory_allocated(),
+         "sha256": {**res["hashes"], ".ecx": res["ecx_sha256"]},
          "nvidia_smi": card})
     log({"phase": "pipeline_stats", **res["stats"]})
     log({"phase": "profiled_encode", **prof})
@@ -6413,12 +6605,13 @@ def main() -> int:
             "from": "30,000 MB default volume size limit (weed master "
                     "-volumeSizeLimitMB)",
             "why": "run time limit"}})
-        gf_matmul.launches = 0
+        zero_counts()
         http = run_http_path("cuda", work, VOLUME_BYTES, DEGRADED_READS,
                              HTTP_THREADS, HTTP_READS_PER_THREAD,
                              DECODED_READS, PARITY_STRIPES, OVERLOAD_THREADS,
                              OVERLOAD_READS_PER_THREAD,
                              OVERLOAD_MAX_INFLIGHT)
+        counts["http_path"] = read_counts()
         http_launches = gf_matmul.launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6685,12 +6878,13 @@ def main() -> int:
     work = tempfile.mkdtemp(prefix="chip_smoke-store-",
                             dir=_build.BUILD_DIR)
     try:
-        gf_matmul.launches = 0
+        zero_counts()
         store = run_volume_store_phase(
             "cuda", work, STORE_NEEDLES, STORE_SIZE, STORE_BATCH_DELETES,
             STORE_MISSING, STORE_GC_THREADS, STORE_GC_PER_THREAD, STORE_MORE,
             STORE_MORE_DELETES, STORE_DEGRADED,
             follower_seed=STORE_FOLLOWER_SEED)
+        counts["volume_store"] = read_counts()
         store_counted = gf_matmul.launches
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -6826,16 +7020,40 @@ def main() -> int:
          "launches": native_launches, "bytes_equal": True,
          "nvidia_smi": card})
 
+    dp_widths: dict[str, int] = {}
+    for fr in dp["fronts"].values():
+        for k, v in fr.items():
+            if k.startswith("degraded_"):
+                for c, n in v["launch_widths"].items():
+                    dp_widths[c] = dp_widths.get(c, 0) + n
+    counts["dataplane_degraded_gets"] = {"widths": dp_widths}
+    log({"phase": "launch_widths", "counts": counts, "nvidia_smi": card})
+    # the width most degraded GETs launch at: the volume_store phase's
+    # 1 KiB needles, read in this process, its most common narrow width
+    read_width = next((w for w, _ in counts["volume_store"]["common_widths"]
+                       if w <= 64 << 10), None)
+    if read_width is None:
+        raise AssertionError("the volume_store phase launched no narrow "
+                             f"kernel: {counts['volume_store']}")
     cases = dict(kernel_cases())
+    floor = launch_floor_ms()
     shapes = [
         kernel_numbers("encode", cases["parity-10.4-vandermonde"], 8 << 20),
         kernel_numbers("rebuild", cases["decode-4-vandermonde"], 8 << 20),
         kernel_numbers("degraded_read", cases["decode-4-vandermonde"],
                        1 << 20),
         kernel_numbers("degraded_read", cases["decode-4-vandermonde"],
-                       64 << 10)]
-    log({"phase": "kernel_shapes", "shapes": shapes, "nvidia_smi": card})
+                       64 << 10),
+        kernel_numbers("degraded_get", cases["decode-4-vandermonde"],
+                       read_width)]
+    table = table_numbers(cases["parity-10.4-vandermonde"])
+    log({"phase": "kernel_shapes", "shapes": shapes, "launch_floor": floor,
+         "table_build": table, "degraded_get_width": read_width,
+         "launch_widths": {k: v["widths"] for k, v in counts.items()},
+         "nvidia_smi": card})
     main_shape = shapes[0]
+    in_process = ("main_path", "resume", "trace_ab", "mesh", "http_path",
+                  "volume_store")
     log({"kernels": [{
         "name": "gf_matmul", "route": "cuda",
         "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
@@ -6848,7 +7066,17 @@ def main() -> int:
                            *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
         "bound_ms": main_shape["bound_ms"],
-        "bound_by": main_shape["bound_by"], "library_ms": None}]})
+        "bound_by": main_shape["bound_by"], "library_ms": None}, {
+        # the tables kernel 1 reads; the builds of this process's paths
+        # (the CLI's servers build theirs in their own processes)
+        "name": "gf_table_build", "route": "cuda",
+        "source": "seaweedfs_tpu_torch/csrc/gf_matmul.cu",
+        "replaces": "seaweedfs_tpu/ops/gf_matmul.py:85",
+        "launches": sum(counts[k]["gf_table_build"] for k in in_process),
+        "max_abs_err": max(worst, table["max_abs_err"]),
+        "ms": table["ms"], "plain_ms": table["plain_ms"],
+        "bound_ms": table["bound_ms"], "bound_by": table["bound_by"],
+        "library_ms": None}]})
     log({"phase": "total", "seconds": time.perf_counter() - t_all})
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -610,9 +610,10 @@ class MasterServer:
         t = threading.Thread(target=worker, daemon=True,
                              name="flight-capture")
         with self._capture_lock:
+            # started before stop() can see it: it joins what it sees
+            t.start()
             self._capture_threads = [c for c in self._capture_threads
                                      if c.is_alive()] + [t]
-        t.start()
 
     def _janitor_loop(self) -> None:
         while not self._stop.wait(self.topo.pulse_seconds):

@@ -56,7 +56,9 @@ _SPECS = {
         _nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
         "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"],
         {"gf_matmul_launch": (_I32, [_P, _I32, _I32, _P, _I64, _P, _I64,
-                                     _I64, _P, _P, _I32, _I32, _P])}, []),
+                                     _I64, _I32, _I32, _I32, _P, _I32]),
+         "gf_table_build_launch": (_I32, [_P, _I32, _I32, _P, _P, _I32]),
+         "gf_noop_launch": (_I32, [_P, _I32])}, []),
     "dataplane": ("dataplane.cpp", lambda: [
         "c++", "-O3", "-shared", "-fPIC", "-std=c++17", "-pthread",
         "-Wall"], {

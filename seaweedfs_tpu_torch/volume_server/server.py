@@ -152,7 +152,7 @@ from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
 from ..ops import _build
-from ..ops.gf_matmul import gf_matmul
+from ..ops.gf_matmul import gf_matmul, width_classes
 from ..query import execute_query
 from ..security import Guard, JwtError, decode_jwt, get_jwt
 from ..stats import (REGISTRY, dataplane_metrics, degraded_bind_metrics,
@@ -1080,6 +1080,7 @@ class VolumeServer:
                                **degraded_bind_metrics().totals()},
                 "EcIntegrity": ec_integrity_metrics().totals(),
                 "EcKernelLaunches": gf_matmul.launches,
+                "EcKernelWidths": width_classes(gf_matmul.widths),
                 "NeedleCache": self.store.needle_cache.status(),
                 "Dataplane": dataplane_metrics().totals(),
                 "EcScrub": {

@@ -10,7 +10,11 @@
 - The rule table: ``default_rules()`` to-dicts equal the reference's.
 - The flight recorder: capture, list, get, bad ids, oldest-bundle and
   byte-cap eviction, held to the reference's behaviour by key sets,
-  sections and counts (bundles carry wall times, pids and ids).
+  sections and counts (bundles carry wall times, pids and ids); a
+  load-born alert's capture on a process with no spans and an empty
+  journal, whose bundle both packages write with empty spans and events,
+  and chip_smoke.py's bundle check, which holds such a bundle to the
+  reference's shape.
 - A live rot on five port servers (``device="cpu"``) under the port's
   master, and the same drill on a reference cluster: ``scrub_unrepairable``
   fires with bundles from its server and the master, and the
@@ -31,6 +35,7 @@ import torch
 from seaweedfs_tpu.observability import alerts as ref_alerts
 from seaweedfs_tpu.observability import events as ref_events
 from seaweedfs_tpu.observability import flightrecorder as ref_fr
+from seaweedfs_tpu.observability import tracer as ref_tracer
 from seaweedfs_tpu.shell import CommandEnv as RefCommandEnv
 from seaweedfs_tpu.shell import run_command as ref_run_command
 from seaweedfs_tpu.stats import metrics as ref_metrics
@@ -38,6 +43,7 @@ from seaweedfs_tpu.utils import faultinject as ref_fi
 from seaweedfs_tpu_torch.observability import alerts as port_alerts
 from seaweedfs_tpu_torch.observability import events as port_events
 from seaweedfs_tpu_torch.observability import flightrecorder as port_fr
+from seaweedfs_tpu_torch.observability import tracer as port_tracer
 from seaweedfs_tpu_torch.shell import CommandEnv, run_command
 from seaweedfs_tpu_torch.stats import metrics as port_metrics
 from seaweedfs_tpu_torch.stats.aggregate import HEALTH_FAMILIES
@@ -299,6 +305,80 @@ def test_flight_recorder_round_trip_like_the_reference(tmp_path, profile_s):
         }
     assert got["port"] == got["ref"]
     assert got["port"]["meta"]["event_count"] == 256
+
+
+def test_an_empty_journal_s_bundle_like_the_reference(tmp_path,
+                                                     monkeypatch):
+    """A load-born alert (loop_lag_increase) pages a server that traced
+    nothing and journaled nothing: the capture its /debug route makes
+    (events from its own journal) is the same document in both packages,
+    with no spans and no events.  chip_smoke.py's bundle check takes that
+    document as it takes the port's: the reference's shape holds, and the
+    evidence check kept for the drill's own alerts finds the same empty
+    events in both."""
+    import chip_smoke
+
+    ref_metrics.volume_server_metrics()
+    port_metrics.volume_server_metrics()
+    got = {}
+    for name, fr_mod, ev_mod, tr_mod in (
+            ("ref", ref_fr, ref_events, ref_tracer),
+            ("port", port_fr, port_events, port_tracer)):
+        monkeypatch.setattr(ev_mod, "_GLOBAL", ev_mod.EventJournal())
+        monkeypatch.setattr(tr_mod, "_GLOBAL", tr_mod.Tracer(enabled=False))
+        fr = fr_mod.FlightRecorder(spool_dir=str(tmp_path / name))
+        meta = fr.capture(reason="alert:loop_lag_increase",
+                          alert="loop_lag_increase", server="vs:1",
+                          profile_s=0.05)
+        doc = fr.get(meta["id"])
+        got[name] = {
+            "format": doc["format"], "doc_keys": sorted(doc),
+            "meta_keys": sorted(doc["meta"]),
+            "meta": {k: doc["meta"][k] for k in
+                     ("reason", "alert", "server", "trace_id", "span_count",
+                      "event_count")},
+            "trace_keys": sorted(doc["trace"]),
+            "spans": doc["trace"]["spans"], "events": doc["events"],
+            "sections_typed": (isinstance(doc["profile"], str),
+                               isinstance(doc["metrics"], str)),
+            "shape": chip_smoke.bundle_problems(doc, "loop_lag_increase",
+                                                provoked=False),
+            "evidence": chip_smoke.bundle_problems(
+                doc, "loop_lag_increase", provoked=True),
+        }
+    assert got["port"] == got["ref"]
+    assert got["port"]["meta"]["span_count"] == 0
+    assert got["port"]["events"] == [] and got["port"]["spans"] == []
+    assert got["port"]["shape"] == []
+    assert "empty events" in got["port"]["evidence"]
+    assert got["port"]["meta_keys"] == sorted(chip_smoke.BUNDLE_META)
+
+
+def test_stop_never_sees_an_unstarted_capture_thread(monkeypatch):
+    """A firing alert's flight-capture thread is started before the
+    master's stop() can see it: stop() joins every thread it sees, and
+    joining one not yet started raises (a stop racing an alert)."""
+    import threading
+
+    import seaweedfs_tpu_torch.master.server as master_server
+    from seaweedfs_tpu_torch.master.server import MasterServer
+    from tests.conftest import free_port
+
+    m = MasterServer(port=free_port(), pulse_seconds=0.3)
+    m._stop.set()  # the worker returns at once: no capture is made
+    visible_at_start = []
+
+    class Probe(threading.Thread):
+        def start(self):
+            visible_at_start.append(self in m._capture_threads)
+            super().start()
+
+    monkeypatch.setattr(master_server.threading, "Thread", Probe)
+    m._on_alert_fire(port_alerts.default_rules()[0], {}, [])
+    monkeypatch.undo()
+    assert visible_at_start == [False]
+    for t in m._capture_threads:
+        t.join(timeout=10)
 
 
 def test_flight_recorder_bad_ids_like_the_reference(tmp_path):

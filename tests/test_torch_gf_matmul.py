@@ -4,7 +4,11 @@ The same seeded numpy inputs go through the port's ``gf_matmul`` on CPU
 tensors (its plain bit-plane version), seaweedfs_tpu's ``gf_matmul_xla``,
 its ``CpuEngine`` LUT codec and, at a few small widths, its Pallas kernel
 in interpret mode (the way tests/test_ec_codec.py runs it on the CPU).
-Every comparison is byte-exact: GF arithmetic is exact, the tolerance is 0.
+The kernel's own scheme, its per-matrix nibble tables
+(``gf_table_plain``) and its lookups (``gf_lookup_plain``), is held
+against the same references, and so is the width -> (columns a thread,
+blocks) choice of its launches.  Every comparison is byte-exact: GF
+arithmetic is exact, the tolerance is 0.
 """
 
 from __future__ import annotations
@@ -20,9 +24,14 @@ from seaweedfs_tpu.ops.gf_matmul import (INTERPRET_TILE_B,
                                          expand_matrix_bitplanes as ref_planes,
                                          gf_matmul_pallas, gf_matmul_xla)
 import seaweedfs_tpu_torch.ops.gf_matmul as gf_matmul_mod
-from seaweedfs_tpu_torch.ops.gf_matmul import (TorchEngine,
+from seaweedfs_tpu_torch.ops.gf_matmul import (BLOCKS_PER_SM,
+                                               NARROW_THREADS, THREADS,
+                                               TorchEngine,
                                                expand_matrix_bitplanes,
-                                               gf_matmul, gf_matmul_plain)
+                                               gf_lookup_plain, gf_matmul,
+                                               gf_matmul_plain,
+                                               gf_table_build, gf_table_plain,
+                                               launch_geometry, width_classes)
 
 WIDTHS = [1, 7, 64, 1000, 4096, 65537]
 XLA_WIDTH = 65664  # the widest width rounded up to 128 lanes
@@ -175,3 +184,148 @@ def test_engine_matmul_into_and_readonly_input():
     assert np.array_equal(out, CpuEngine().matmul(m, data))
     assert np.array_equal(eng.matmul(m, data), out)
     assert eng.name == "torch-cpu"
+
+
+TWIN_WIDTHS = [1, 15, 17, 4097]
+
+
+def _xla(m: np.ndarray, data: np.ndarray) -> np.ndarray:
+    padded = np.pad(data, ((0, 0), (0, XLA_WIDTH - data.shape[1])))
+    return np.asarray(gf_matmul_xla(jnp.asarray(ref_planes(m)),
+                                    jnp.asarray(padded)))[:, :data.shape[1]]
+
+
+def _twin(m: np.ndarray, data: np.ndarray) -> np.ndarray:
+    return gf_lookup_plain(gf_table_plain(m), m.shape[0], data)
+
+
+@pytest.mark.parametrize("width", TWIN_WIDTHS)
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_lookup_twin_matches_xla(name, width):
+    """The kernel's nibble tables and lookups, in numpy, equal the
+    reference's bit-plane product for every family the main path runs."""
+    m = MATRICES[name]
+    data = _data(m.shape[1], width, seed=200 + width)
+    got = _twin(m, data)
+    assert got.shape == (m.shape[0], width) and got.dtype == np.uint8
+    assert np.array_equal(got, _xla(m, data))
+
+
+@pytest.mark.parametrize("width", [1, 15, 17])
+@pytest.mark.parametrize("name", sorted(MATRICES))
+def test_lookup_twin_matches_pallas_interpret(name, width):
+    m = MATRICES[name]
+    data = _data(m.shape[1], width, seed=300 + width)
+    padded = np.pad(data, ((0, 0), (0, (-width) % INTERPRET_TILE_B)))
+    want = np.asarray(gf_matmul_pallas(jnp.asarray(ref_planes(m)),
+                                       jnp.asarray(padded),
+                                       tile_b=INTERPRET_TILE_B,
+                                       interpret=True))[:, :width]
+    assert np.array_equal(_twin(m, data), want)
+
+
+@pytest.mark.parametrize("rows", [1, 2, 3, 4, 5, 9])
+def test_lookup_twin_row_groups(rows):
+    """R <= 4 is one group of the table; R > 4 is the wrapper's row split
+    into groups of four, the last one short."""
+    m = _data(rows, 10, seed=400 + rows)
+    table = gf_table_plain(m)
+    assert table.shape == (-(-rows // 4), 10, 32)
+    # a short last group leaves its missing rows' bytes 0
+    if rows % 4:
+        assert not (table[-1] >> np.uint32(8 * (rows % 4))).any()
+    data = _data(10, 4097, seed=500 + rows)
+    assert np.array_equal(_twin(m, data), _xla(m, data))
+
+
+def test_lookup_twin_on_row_strided_views():
+    """A slot [K, b] used at width n from column c: the twin sees the view
+    the kernel sees, and equals the reference on it."""
+    m = MATRICES["decode-2-cauchy"]
+    slot = _data(10, 5000, seed=6)
+    view = slot[:, 3:3 + 4097]
+    assert not view.flags.c_contiguous
+    assert np.array_equal(_twin(m, view), _xla(m, np.ascontiguousarray(view)))
+
+
+@pytest.mark.parametrize("name", ["parity-10.4-vandermonde",
+                                  "decode-3-cauchy", "parity-6.3-cauchy"])
+def test_table_words_are_the_field_products(name):
+    """Word x of lo and of hi for row k holds, in byte r, M[r, k] times x
+    and times x << 4 by the reference's multiplication table."""
+    m = MATRICES[name]
+    table = gf_table_plain(m)
+    for r in range(m.shape[0]):
+        for k in range(m.shape[1]):
+            for x in range(16):
+                lo = int(table[r // 4, k, x] >> (8 * (r % 4))) & 0xFF
+                hi = int(table[r // 4, k, 16 + x] >> (8 * (r % 4))) & 0xFF
+                assert lo == ref_gf.gf_mul(int(m[r, k]), x)
+                assert hi == ref_gf.gf_mul(int(m[r, k]), x << 4)
+
+
+def test_table_build_on_the_cpu_is_the_twin():
+    m = MATRICES["parity-12.4-vandermonde"]
+    before = gf_table_build.launches
+    got = gf_table_build(torch.from_numpy(m.copy()))
+    assert got.dtype == torch.int32 and tuple(got.shape) == (1, 12, 32)
+    assert np.array_equal(got.numpy().view(np.uint32), gf_table_plain(m))
+    assert gf_table_build.launches == before
+
+
+def _covered(width: int, cols: int, threads: int,
+             grid: int) -> np.ndarray:
+    """How often each column is written by the kernel's grid-stride loop:
+    thread t of block b takes chunks b * threads + t, then every grid *
+    threads after, cols columns a chunk clipped at the width."""
+    seen = np.zeros(width, dtype=np.int64)
+    chunks = -(-width // cols)
+    for first in range(grid * threads):
+        for chunk in range(first, chunks, grid * threads):
+            seen[chunk * cols:min(width, (chunk + 1) * cols)] += 1
+    return seen
+
+
+@pytest.mark.parametrize("sms", [1, 8, 132])
+@pytest.mark.parametrize("width", [1, 15, 17, 1064, 4097, 64 << 10,
+                                   (1 << 20) + 3, 8 << 20])
+def test_launch_geometry_covers_every_column_once(width, sms):
+    cols, threads, grid = launch_geometry(width, sms)
+    assert cols in (4, 16) and threads in (NARROW_THREADS, THREADS)
+    assert 1 <= grid <= BLOCKS_PER_SM * sms
+    # every SM gets a block wherever the width has a small block's worth
+    # of four-column chunks for each
+    assert grid >= min(sms, -(-width // (4 * NARROW_THREADS)))
+    if width <= (64 << 10) and sms == 132:
+        assert (cols, threads) == (4, NARROW_THREADS)
+    if width >= 16 * THREADS * sms:
+        assert (cols, threads) == (16, THREADS)
+    if width <= (1 << 20) or sms == 1:
+        assert (_covered(width, cols, threads, grid) == 1).all()
+
+
+def test_launch_geometry_at_the_timed_widths():
+    """On a 132-SM card: the 8 MiB encode walks tiles in two blocks an SM,
+    1 MiB gives every SM a block of 16-column threads, 64 KiB spreads over
+    256 small blocks of 4-column threads, a 1 KiB read over four."""
+    assert launch_geometry(8 << 20, 132) == (16, THREADS, 264)
+    assert launch_geometry(1 << 20, 132) == (16, THREADS, 256)
+    assert launch_geometry(64 << 10, 132) == (4, NARROW_THREADS, 256)
+    assert launch_geometry(1024, 132) == (4, NARROW_THREADS, 4)
+
+
+def test_width_classes():
+    from collections import Counter
+
+    edges = Counter({1: 1, 4096: 1, 4097: 1, 65536: 1, 65537: 1,
+                     1 << 20: 1, (1 << 20) + 1: 1})
+    assert width_classes(edges) == {"<=4KiB": 2, "<=64KiB": 2,
+                                    "<=1MiB": 2, ">1MiB": 1}
+    assert width_classes(Counter({1064: 7, 8 << 20: 2, 70000: 1})) == {
+        "<=4KiB": 7, "<=64KiB": 0, "<=1MiB": 1, ">1MiB": 2}
+
+
+def test_cpu_tensors_never_count_widths():
+    before = dict(gf_matmul.widths)
+    _port(MATRICES["parity-6.3-vandermonde"], _data(6, 64, seed=8))
+    assert dict(gf_matmul.widths) == before

@@ -19,7 +19,9 @@ from seaweedfs_tpu_torch.ec import gf256
 from seaweedfs_tpu_torch.ec.codec import ReedSolomon
 from seaweedfs_tpu_torch.ec.layout import to_ext
 from seaweedfs_tpu_torch.ec.streaming import StreamingEncoder
-from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul, gf_matmul_plain
+from seaweedfs_tpu_torch.ops.gf_matmul import (MAX_K, gf_matmul,
+                                               gf_matmul_plain,
+                                               gf_table_build, gf_table_plain)
 
 pytestmark = pytest.mark.gpu
 
@@ -36,9 +38,11 @@ def _rand(shape, seed):
         0, 256, shape, dtype=np.uint8))
 
 
-@pytest.mark.parametrize("r,k", [(4, 10), (1, 10), (3, 6), (6, 12),
-                                 (9, 200)])
-@pytest.mark.parametrize("width", [1, 7, 17, 4096, 65537, 1 << 20])
+@pytest.mark.parametrize("r,k", [(4, 10), (1, 10), (2, 10), (5, 10),
+                                 (3, 6), (6, 12), (4, 7), (9, 200),
+                                 (4, 226), (2, 230)])
+@pytest.mark.parametrize("width", [1, 7, 15, 17, 4096, 4097, 65537,
+                                   1 << 20, (8 << 20) + 5])
 def test_kernel_matches_plain(cuda, r, k, width):
     m = _rand((r, k), seed=r * k)
     data = _rand((k, width), seed=width).to(cuda)
@@ -48,9 +52,72 @@ def test_kernel_matches_plain(cuda, r, k, width):
     assert torch.equal(got, gf_matmul_plain(m.to(cuda), data))
 
 
+@pytest.mark.parametrize("r,k", [(1, 10), (4, 10), (5, 10), (3, 6),
+                                 (4, 12), (9, 200), (2, MAX_K)])
+def test_built_table_equals_its_twin(cuda, r, k):
+    m = _rand((r, k), seed=7 * r + k)
+    before = gf_table_build.launches
+    got = gf_table_build(m.to(cuda))
+    assert gf_table_build.launches - before == 1
+    assert np.array_equal(got.cpu().numpy().view(np.uint32),
+                          gf_table_plain(m.numpy()))
+
+
+def test_table_is_built_once_per_matrix_and_after_a_change(cuda):
+    m = torch.from_numpy(gf256.build_encoding_matrix(10, 14)[10:].copy()
+                         ).to(cuda)
+    data = _rand((10, 4097), seed=9).to(cuda)
+    before = gf_table_build.launches
+    first = gf_matmul(m, data)
+    second = gf_matmul(m, data)
+    assert gf_table_build.launches - before == 1
+    assert torch.equal(first, second)
+    m[0, 0] ^= 1  # in place: the matrix's version moves, its tables follow
+    third = gf_matmul(m, data)
+    assert gf_table_build.launches - before == 2
+    assert torch.equal(third, gf_matmul_plain(m, data))
+
+
+def test_a_table_built_on_one_stream_serves_another(cuda):
+    m = torch.from_numpy(gf256.build_encoding_matrix(10, 14)[10:].copy()
+                         ).to(cuda)
+    data = _rand((10, 1 << 20), seed=10).to(cuda)
+    want = gf_matmul_plain(m, data)
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Stream(), torch.cuda.Stream()
+    with torch.cuda.stream(a):
+        torch.cuda._sleep(50_000_000)  # the build queues behind this
+        gf_matmul(m, data[:, :16])
+    with torch.cuda.stream(b):
+        got = gf_matmul(m, data)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_launches_replay_in_a_cuda_graph(cuda):
+    """chip_smoke.py times the kernel alone by replaying captured
+    launches: a replay computes what a launch does."""
+    m = torch.from_numpy(gf256.build_encoding_matrix(10, 14)[10:].copy()
+                         ).to(cuda)
+    data = _rand((10, 65536), seed=11).to(cuda)
+    out = torch.zeros((4, 65536), dtype=torch.uint8, device=cuda)
+    s = torch.cuda.Stream()
+    with torch.cuda.stream(s):
+        gf_matmul(m, data, out)
+    torch.cuda.synchronize()
+    out.zero_()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, stream=s):
+        gf_matmul(m, data, out)
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, gf_matmul_plain(m, data))
+
+
 def test_kernel_refuses_a_table_over_shared_memory(cuda):
     with pytest.raises(ValueError):
-        gf_matmul(_rand((2, 230), 1).to(cuda), _rand((230, 64), 2).to(cuda))
+        gf_matmul(_rand((2, MAX_K + 1), 1).to(cuda),
+                  _rand((MAX_K + 1, 64), 2).to(cuda))
 
 
 def test_unaligned_and_strided_views(cuda):

@@ -30,6 +30,19 @@ def test_kernel_phase_on_cpu():
     assert chip_smoke.check_kernel("cpu", [1, 7, 4096]) == 0
 
 
+def test_kernel_counts_on_cpu():
+    """The script's per-phase counts: zeroed, then read after a path; CPU
+    tensors count no launch, no table build and no width."""
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+
+    chip_smoke.zero_counts()
+    m = torch.from_numpy(chip_smoke.kernel_cases()[0][1].copy())
+    gf_matmul(m, torch.zeros((10, 1064), dtype=torch.uint8))
+    assert chip_smoke.read_counts() == {
+        "gf_matmul": 0, "gf_table_build": 0, "common_widths": [],
+        "widths": {"<=4KiB": 0, "<=64KiB": 0, "<=1MiB": 0, ">1MiB": 0}}
+
+
 def test_main_path_on_cpu(tmp_path):
     from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
 

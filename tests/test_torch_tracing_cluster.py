@@ -315,7 +315,8 @@ def test_shippers_cross_accepted_both_ways(tmp_path):
 def rot_drill(tmp_path, master_kind: str) -> dict:
     """Port servers under ``master_kind``'s master with its coordinator
     paused: a byte of one shard flipped, ``ec.scrub -all``; once the
-    scrub's events are in the cluster journal, coordinator.resume, until
+    scrub's events are in the cluster journal and the coordinator has
+    seen the ``scrub_unrepairable`` alert fire, coordinator.resume, until
     the coordinator repaired the volume.  -> the repair entry, the journal
     and the coordinator's cause bookkeeping."""
     c = Cluster(tmp_path, master_kind, ["port"] * 5, coordinator_seconds=0.2)
@@ -334,6 +335,12 @@ def rot_drill(tmp_path, master_kind: str) -> dict:
         assert f"volume {vid}: unrepairable corrupt_shards=[{rot}]" in out
         _wait("the scrub's events at the master", lambda: c.get(
             "/cluster/events?type=scrub_unrepairable")["events"])
+        # the repair names the alert its cause maps to only once the
+        # coordinator has seen that alert fire; until then another rot
+        # alert that fired first (corrupt_shards_increase, a counter's
+        # rule, on an earlier scrape under load) is named instead
+        _wait("the rot's alert at the coordinator", lambda:
+              "scrub_unrepairable" in c.master.coordinator._alerts)
         c.shell("coordinator.resume")
         st = _wait("the repair", lambda: (
             lambda s: s if s["repairs"]["done"] >= 1 else None)(

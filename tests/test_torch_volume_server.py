@@ -286,11 +286,14 @@ def test_port_answers_its_own_routes(servers):
                                           "Master", "DataCenter", "Rack",
                                           "EcPipeline", "EcIntegrity",
                                           "EcKernelLaunches", "EcScrub",
-                                          "NeedleCache", "Dataplane"}
+                                          "EcKernelWidths", "NeedleCache",
+                                          "Dataplane"}
     assert doc["EcScrub"] == {"running": False, "passes": 0,
                               "cursor": [0, 0], "verdicts": {}}
     # the process's kernel count: a CPU server launches none
     assert doc["EcKernelLaunches"] == 0
+    assert doc["EcKernelWidths"] == {"<=4KiB": 0, "<=64KiB": 0,
+                                     "<=1MiB": 0, ">1MiB": 0}
     assert {v["id"] for v in doc["Volumes"]} >= {2}
     # a volume with 5-byte offsets is made, as the reference makes it
     answers = [exchange(servers[side].url, "POST", "/admin/assign_volume",
