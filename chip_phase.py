@@ -2,18 +2,20 @@
 """Run one phase of chip_smoke.py on the card, alone, at its full size.
 
     python3 chip_phase.py volume_store     # or: dataplane, secure_tier,
-                                           #     native_plane, mesh
+                                           #     native_plane, mesh,
+                                           #     telemetry
     python3 chip_phase.py dataplane parent  # the label printed with it
 
 Builds the native libraries from the checkout it runs in, runs
 ``run_volume_store_phase``, ``run_dataplane_phase``,
-``run_secure_tier_phase``, ``run_native_plane_phase`` or, after the main
-path that writes its volume, ``run_mesh_phase`` with chip_smoke.py's
+``run_secure_tier_phase``, ``run_native_plane_phase``,
+``run_telemetry_phase`` or, after the main path that writes its volume,
+``run_mesh_phase`` with chip_smoke.py's
 constants, and prints the card's name and power limit,
 then one JSON line of the phase's numbers (``dataplane``: each front's
 healthy passes, ops/s and p50/p99 ms; ``native_plane``: its passes, the
 frames and dispatches each moved, and the client's and servers' CPU
-seconds).  To hold one tree against another on one card,
+seconds; ``telemetry``: its checks and its on/off/on passes).  To hold one tree against another on one card,
 unpack the other with ``git archive``, copy this script into it if it
 lacks one, and run it from each checkout in turns (other, this, this,
 other) in one call.  Needs a card.
@@ -34,7 +36,8 @@ PASSES = ("write", "read", "zipf", "read_again", "zipf_again")
 
 def main(argv: list[str]) -> int:
     if not argv or argv[0] not in ("volume_store", "dataplane",
-                                   "secure_tier", "native_plane", "mesh"):
+                                   "secure_tier", "native_plane", "mesh",
+                                   "telemetry"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -79,6 +82,13 @@ def main(argv: list[str]) -> int:
                                     cs.MESH_PROGRAM_WIDTH)
             res["tpu_encode_s"] = main["seconds"]["encode"]
             res["tpu_rebuild_s"] = main["seconds"]["rebuild"]
+        elif phase == "telemetry":
+            res = cs.run_telemetry_phase(
+                "tpu", work, cs.BENCH_N, cs.BENCH_SIZE, cs.BENCH_CLIENTS,
+                cs.TELEMETRY_A, cs.TELEMETRY_B,
+                halflife_s=cs.TELEMETRY_HALFLIFE_S,
+                event_timeout=cs.TELEMETRY_EVENT_S,
+                gets_overhead=cs.TELEMETRY_OVERHEAD)
         elif phase == "secure_tier":
             res = cs.run_secure_tier_phase(
                 "tpu", work, cs.SECURE_BYTES, cs.SECURE_THREADS,

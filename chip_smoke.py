@@ -264,7 +264,30 @@ result.  Phases, each of which fails the run on any mismatch:
     needles over HTTP read back, its `.idx` 17 bytes an entry, off the
     plane, and ``ec.encode`` of it failing with the reference's error
     and writing no shard;
-12. numbers from the card: leg times and rates, read latency; each
+12. heat, the resource ledger and the request log
+    (``run_telemetry_phase``): a CLI master with
+    ``-metricsAggregationSeconds 1`` and three ``volume -ec.engine tpu
+    -heat.halflife 5`` servers (heat and the ledger on by default), 7
+    volumes filled by ``benchmark`` at the dataplane phase's shapes, the
+    shell's ``workload.record -sample 1.0``, ``ec.encode`` of the volume
+    with the most needles and its data shards that hold needles deleted;
+    pass A, 5,000 Zipf GETs (theta 0.99) over the other volumes; pass B,
+    2,000 Zipf GETs of the EC volume, each a reconstruction on the card
+    (a flash crowd onto a cold volume).  It fails unless a ``flash_crowd``
+    or ``heat_shift`` event names the EC volume within 30 s of pass B's
+    start and an alert pages on it (fired after pass B began, or firing
+    with its detail naming the volume); /cluster/heat ranks it first; the
+    merged needle sketch holds pass A's ten most-read fids (the fitted
+    Zipf ``s`` beside 0.99); /cluster/ledger has the http_read route with
+    CPU and every server's loop lag; ``heat.volumes``, ``heat.top`` and
+    ``cluster.top`` name the volume or the route; the exported recording
+    holds one 200 ``http_read`` record a GET, pass B's as many as the
+    holders' launches, which by exact width (/debug/ec/kernel) are the
+    widths of the needles' intervals.  Then pass B three times more on
+    freshly restarted servers, recording off, with accounting on, off
+    (``-heat.off -ledger.off``) and on, over pass B's first 1,000 GETs:
+    ops/s and p50/p99 of each, one launch a GET at its needle's width;
+13. numbers from the card: leg times and rates, read latency; each
     phase's kernel launches by width class (``launch_widths``); kernel
     1's own time at the encode and rebuild's [10, 8 MiB], at 1 MiB, 64
     KiB and the width most degraded GETs launch at (``kernel_shapes``):
@@ -287,6 +310,7 @@ import hashlib
 import http.client
 import json
 import os
+import random
 import re
 import select
 import shutil
@@ -364,6 +388,18 @@ SECURE_TIER_GETS, SECURE_DEGRADED = 200, 200
 # advisory as the volume store's
 NATIVE_DEGRADED, NATIVE_FIVE_BYTE_NEEDLES = 200, 1_000
 NATIVE_BUDGET_S = 90.0
+# the telemetry phase: the dataplane phase's benchmark shapes (BENCH_*),
+# then TELEMETRY_A Zipf GETs (YCSB's theta 0.99) over the volumes left
+# replicated and TELEMETRY_B degraded GETs of the EC-encoded one (a flash
+# crowd onto a cold volume), on servers with -heat.halflife
+# TELEMETRY_HALFLIFE_S; its page must come within TELEMETRY_EVENT_S of the
+# crowd's start; a 120 s budget, advisory as the volume store's
+TELEMETRY_A, TELEMETRY_B = 5_000, 2_000
+# the overhead record's passes: pass B's first 1,000 GETs (the script's
+# time limit)
+TELEMETRY_OVERHEAD = 1_000
+TELEMETRY_HALFLIFE_S, TELEMETRY_EVENT_S = 5.0, 30.0
+TELEMETRY_BUDGET_S = 120.0
 # the mesh phase: its device programs' width, and its advisory budget
 MESH_PROGRAM_WIDTH = 8 << 20
 MESH_BUDGET_S = 120.0
@@ -2251,6 +2287,19 @@ def needle_shards(base: str, vid: int, keys: list[int]) -> list[list[int]]:
         ev.close()
 
 
+def needle_widths(base: str, vid: int, keys: list[int]) -> list[list[int]]:
+    """The bytes of each interval of each needle, from a holder's `.ecx`
+    and shard geometry: the width a reconstruction of it launches at."""
+    from seaweedfs_tpu_torch.ec.ec_volume import EcVolume
+
+    ev = EcVolume(base, vid)
+    try:
+        return [[iv.size for iv in ev.locate_ec_shard_needle(key)[2]]
+                for key in keys]
+    finally:
+        ev.close()
+
+
 def timed_gets(master: str, picks, needles: list[dict], fids: list[str],
                seed: int) -> list[tuple[str, int, float]]:
     """GET each picked needle through one WeedClient, byte-checked;
@@ -2630,31 +2679,102 @@ def bundle_problems(doc: dict, alert: str, provoked: bool) -> list[str]:
     return problems
 
 
-def check_bundles(master: str, firing: dict,
+def fired_events(master: str) -> list[dict]:
+    """The master's journaled alert_fired events, by time."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return http_json("GET", f"http://{master}/cluster/events?"
+                            f"type=alert_fired&limit=0")["events"]
+
+
+def fired_servers(events: list[dict], name: str, alert: dict):
+    """The servers named by the alert_fired event of ``alert``'s current
+    fire (the first one of ``name`` journaled at or after its
+    ``fired_at``), or None while that event is not in ``events``.  The
+    master asks these servers for bundles once, at the fire, while the
+    alert's own ``servers`` follow each evaluation that keeps it active
+    (a journal_event rule's, each event it sees)."""
+    t = float(alert.get("fired_at") or 0.0) - 0.001
+    for e in events:
+        if e["type"] == "alert_fired" and \
+                e["details"].get("alert") == name and e["ts"] >= t:
+            return list(e["details"].get("servers") or [])
+    return None
+
+
+def bundles_owed(master: str, name: str, alert: dict, events: list[dict],
+                 provoked: tuple = DRILL_ALERTS):
+    """The servers whose bundle a firing alert must carry: each server its
+    alert_fired event names and the master, and, for an alert the drill
+    provokes, each server it implicates now as well.  None while its
+    alert_fired event is not journaled yet."""
+    fired = fired_servers(events, name, alert)
+    if fired is None:
+        return None
+    owed = set(fired) | {master}
+    if name in provoked:
+        owed |= set(alert["servers"])
+    return owed
+
+
+def bundles_missing(master: str, name: str, alert: dict,
+                    events: list[dict], killed: set,
+                    provoked: tuple = DRILL_ALERTS) -> list[str]:
+    """The servers of ``bundles_owed`` with no bundle on the alert: each
+    owes one with an id, except that a server the drill killed may have a
+    recorded capture error in its place.  ["alert_fired"] while the
+    fire's event is not journaled yet."""
+    owed = bundles_owed(master, name, alert, events, provoked)
+    if owed is None:
+        return ["alert_fired"]
+    got = {b["server"]: b for b in alert.get("bundles") or []}
+    return [url for url in sorted(owed) if not (
+        got.get(url, {}).get("id") or
+        (url in killed and got.get(url, {}).get("error")))]
+
+
+def check_bundles(master: str, firing: dict, killed: set,
                   provoked: tuple = DRILL_ALERTS) -> dict:
-    """Each firing alert's bundles: one from each implicated server and
-    one from the master, each fetched from its server's
+    """Each firing alert's bundles: each it owes (``bundles_missing``
+    empty), and every one with an id on a live server fetched from its
     /debug/flightrecorder/<id> and held to ``bundle_problems`` (the
     evidence sections non-empty for the ``provoked`` alerts).  -> bytes
-    of each bundle document."""
+    of each bundle document (None for one on a ``killed`` server)."""
     from seaweedfs_tpu_torch.utils.httpd import http_json
 
     sizes = {}
+    events = fired_events(master)
     for name, a in firing.items():
-        got = {b["server"]: b for b in a.get("bundles") or []}
-        for url in sorted(set(a["servers"]) | {master}):
-            b = got.get(url)
-            if not b or not b.get("id"):
-                raise AssertionError(f"alert {name} has no bundle from "
-                                     f"{url}: {a}")
-            doc = http_json("GET", f"http://{url}/debug/flightrecorder/"
-                                   f"{b['id']}")
+        missing = bundles_missing(master, name, a, events, killed,
+                                  provoked)
+        if missing:
+            raise AssertionError(f"alert {name} has no bundle from "
+                                 f"{missing}: {a}")
+        for b in a.get("bundles") or []:
+            if not b.get("id") or b["server"] in killed:
+                # a killed server's capture error, or its bundle, which
+                # died with it
+                sizes[f"{name}@{b['server']}"] = None
+                continue
+            doc = http_json("GET", f"http://{b['server']}/debug/"
+                                   f"flightrecorder/{b['id']}")
             problems = bundle_problems(doc, name, name in provoked)
             if problems:
-                raise AssertionError(f"bundle {b['id']} of {name} on {url}"
-                                     f": {problems}; meta {doc.get('meta')}")
-            sizes[f"{name}@{url}"] = len(json.dumps(doc))
+                raise AssertionError(f"bundle {b['id']} of {name} on "
+                                     f"{b['server']}: {problems}; meta "
+                                     f"{doc.get('meta')}")
+            sizes[f"{name}@{b['server']}"] = len(json.dumps(doc))
     return sizes
+
+
+def alerts_summary(master: str) -> dict:
+    """The firing alerts by name: implicated servers, and each bundle's
+    server with its id or its capture error (a failure's evidence)."""
+    return {name: {"servers": a["servers"], "detail": a.get("detail"),
+                   "bundles": [(b.get("server"), b.get("id") or
+                                b.get("error")) for b in
+                               a.get("bundles") or []]}
+            for name, a in cluster_alerts(master, "firing").items()}
 
 
 def fired_before(events: list[dict], alert: str, done_id: str) -> bool:
@@ -2807,6 +2927,9 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
         raise AssertionError(f"ec.scrub -all of the drill's rot: {out}")
     t0, t0_wall = time.perf_counter(), time.time()
 
+    # the servers the drill killed before this rot (their bundles may be
+    # capture errors)
+    killed = set(vs) - set(alive)
     # the alert plane: scrub_unrepairable naming the host and
     # corrupt_shards_increase (the rot moved that counter) fire, and every
     # firing alert carries its bundles; either still firing since the
@@ -2817,18 +2940,24 @@ def coordinator_drill(master: str, vid: int, host: str, vs: dict,
         firing = cluster_alerts(master, "firing")
         s = firing.get("scrub_unrepairable")
         if s is None or host not in s["servers"] or \
-                "corrupt_shards_increase" not in firing or not all(
-                    set(a["servers"]) | {master} <= {
-                        b["server"] for b in a.get("bundles") or []
-                        if b.get("id")} for a in firing.values()):
+                "corrupt_shards_increase" not in firing:
+            return False
+        events = fired_events(master)
+        if any(bundles_missing(master, name, a, events, killed)
+               for name, a in firing.items()):
             return False
         paged.update(firing)
         return True
 
-    res["alerts"] = {"rot_paged_s": wait_for(
-        "the rot's alerts with their bundles", rot_paged, 60)}
+    try:
+        res["alerts"] = {"rot_paged_s": wait_for(
+            "the rot's alerts with their bundles", rot_paged, 60)}
+    except AssertionError as e:
+        raise AssertionError(f"{e}: firing {alerts_summary(master)}") \
+            from None
     res["alerts"]["rot_firing"] = sorted(paged)
-    res["alerts"]["rot_bundle_bytes"] = check_bundles(master, paged)
+    res["alerts"]["rot_bundle_bytes"] = check_bundles(master, paged,
+                                                      killed)
 
     def verdict_cleared() -> bool:
         # a scrape from after the host's re-scrub pass: one from before the
@@ -4545,11 +4674,13 @@ def counts_delta(before: dict, after: dict) -> dict:
 
 def start_volume_servers(vs: dict, master: str, engine: str,
                          pulse_seconds: float, front: str,
-                         dataplane: str = "python") -> None:
+                         dataplane: str = "python",
+                         extra: tuple | list = ()) -> None:
     """Start a CLI volume server for each of ``vs`` (url -> dir, log) on
     its port and directory, on ``front`` (reactor, or threaded through
-    WEED_DATAPLANE) with ``-dataplane``; each start line must name the
-    engine and front, and a native plane's its framed port."""
+    WEED_DATAPLANE) with ``-dataplane`` and the flags ``extra``; each
+    start line must name the engine and front, and a native plane's its
+    framed port."""
     from seaweedfs_tpu_torch.utils.framing import tcp_port_for
 
     env = {"WEED_DATAPLANE": "threaded"} if front == "threaded" else {}
@@ -4557,8 +4688,8 @@ def start_volume_servers(vs: dict, master: str, engine: str,
         info["proc"] = start_cli(
             ["volume", "-dir", info["dir"], "-port", url.split(":")[1],
              "-mserver", master, "-pulseSeconds", str(pulse_seconds),
-             "-ec.engine", engine, "-dataplane", dataplane], info["log"],
-            env)
+             "-ec.engine", engine, "-dataplane", dataplane, *extra],
+            info["log"], env)
     for url, info in vs.items():
         line = read_start_line(info["proc"], info["log"],
                                "volume server listening")
@@ -6201,6 +6332,472 @@ def run_native_plane_phase(engine: str, work: str, n: int, size: int,
         mproc.stdout.close()
 
 
+# --- the telemetry phase --------------------------------------------------
+
+def telemetry_gets(master: str, fids: list[tuple[str, int]], picks,
+                   size: int, clients: int, seed: int
+                   ) -> tuple[list[tuple[str, int, float]], float]:
+    """The picked GETs split over ``clients`` threads at once, each body
+    held to its needle's bytes (``bench_gets``); -> (done, wall s)."""
+    per = -(-len(picks) // clients)
+    done: list = []
+    lock = threading.Lock()
+
+    def one(t: int) -> None:
+        got = bench_gets(master, fids, picks[t * per:(t + 1) * per], size,
+                         seed + t)
+        with lock:
+            done.extend(got)
+
+    t0 = time.perf_counter()
+    run_threads(one, clients, 900)
+    return done, time.perf_counter() - t0
+
+
+def get_pass(done: list, wall: float) -> dict:
+    lat = [s for _, _, s in done]
+    return {"gets": len(done), "wall_s": wall, "ops_per_s": len(done) / wall,
+            "ms": percentiles(lat)}
+
+
+def exact_widths(urls) -> dict[int, int]:
+    """Kernel 1's launches by exact width, summed over the volume servers'
+    /debug/ec/kernel."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    out: dict[int, int] = {}
+    for u in urls:
+        for w, n in http_json("GET", f"http://{u}/debug/ec/kernel")[
+                "widths"].items():
+            out[int(w)] = out.get(int(w), 0) + n
+    return out
+
+
+def widths_added(before: dict, after: dict) -> dict:
+    """The launches added between two width counts, by width or class."""
+    return {w: n - before.get(w, 0) for w, n in after.items()
+            if n != before.get(w, 0)}
+
+
+def heat_shipments(urls) -> dict[str, int]:
+    """Each volume server's heat shipments so far (/debug/heat)."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    return {u: http_json("GET", f"http://{u}/debug/heat?top=0")[
+        "shipper"]["shipped"] for u in urls}
+
+
+def read_masses(urls) -> dict[str, dict]:
+    """Each volume server's decayed http_read masses (/debug/ledger): CPU
+    seconds, requests (from the rate: mass = rate * h / ln 2), its clock
+    and half-life."""
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    out = {}
+    for u in urls:
+        doc = http_json("GET", f"http://{u}/debug/ledger")
+        row = doc["routes"].get("http_read") or {}
+        h = doc["half_life_s"]
+        out[u] = {"ts": doc["ts"], "h": h,
+                  "cpu": float(row.get("cpu_mass") or 0.0),
+                  "req": float(row.get("req_rate") or 0.0) * h / np.log(2)}
+    return out
+
+
+def added_per_request(before: dict, after: dict) -> float | None:
+    """CPU seconds per http_read settled between two ``read_masses``: the
+    masses added, the earlier decayed to the later's clock."""
+    cpu = req = 0.0
+    for u, b in before.items():
+        a = after[u]
+        f = 2.0 ** (-(a["ts"] - b["ts"]) / b["h"])
+        cpu += a["cpu"] - b["cpu"] * f
+        req += a["req"] - b["req"] * f
+    return cpu / req if req > 0.5 else None
+
+
+def run_telemetry_phase(engine: str, work: str, n: int, size: int,
+                        clients: int, gets_a: int, gets_b: int,
+                        volumes: int = 7, servers: int = 3,
+                        pulse_seconds: float = 0.5,
+                        halflife_s: float = 5.0,
+                        event_timeout: float = 30.0,
+                        gets_overhead: int | None = None) -> dict:
+    """Heat, the ledger and the request log on a live cluster, under a
+    flash crowd onto a cold EC volume.  A CLI master
+    (``-metricsAggregationSeconds 1``: its alert loop) and ``servers`` CLI
+    volume servers (``-heat.halflife halflife_s``; heat and the ledger on
+    by default); ``volumes`` volumes of collection "benchmark", filled by
+    ``benchmark -n n -size size -c clients``.  The shell's
+    ``workload.record -sample 1.0``, then ``ec.encode`` of the volume with
+    the most needles, whose data shards that hold needles (0 and 1: its
+    bytes fill the first 1 MB small blocks) are deleted on their holders,
+    so that every GET of it reconstructs, one launch each.
+
+    Pass A: ``gets_a`` GETs drawn Zipf (YCSB's theta 0.99) over the other
+    volumes' needles, from ``clients`` threads.  Pass B, the flash crowd:
+    ``gets_b`` GETs drawn Zipf the same way over the EC volume's needles
+    (those wholly in one data shard).  Checks: a ``flash_crowd`` or
+    ``heat_shift`` event naming the EC volume within ``event_timeout`` of
+    pass B's start, and a page on it: an alert_fired of either rule
+    journaled after pass B began, or either rule firing, whose detail
+    names the EC volume (``paged_by`` says which); /cluster/heat ranking
+    the EC volume
+    first; the merged needle sketch holding pass A's ten most-read fids;
+    /cluster/ledger's http_read route with CPU, every server's loop-lag
+    block, and the servers' settled requests at or above the GETs issued;
+    ``heat.top``, ``heat.volumes`` and ``cluster.top`` naming the volume or
+    the route; ``workload.stop`` and ``workload.export``: one 200
+    ``http_read`` record per GET, pass B's equal to the holders' kernel
+    launches, and those launches by exact width (/debug/ec/kernel) equal
+    to the widths of the picked needles' intervals.  Then the
+    overhead record: the first ``gets_overhead`` of pass B's GETs (all of
+    them by default) three times more, each on freshly restarted servers
+    with recording off, with accounting on, off (``-heat.off
+    -ledger.off``) and on, each pass's launches one a GET."""
+    from collections import Counter
+
+    from seaweedfs_tpu_torch.__main__ import (ZIPF_THETA, read_fids_file,
+                                              zipf_indices)
+    from seaweedfs_tpu_torch.storage.file_id import FileId
+    from seaweedfs_tpu_torch.storage.volume import volume_file_prefix
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    collection = "benchmark"
+    t_phase = time.perf_counter()
+    res: dict = {"seconds": {}, "checks": {}}
+    mport = free_port()
+    master = f"127.0.0.1:{mport}"
+    mlog = os.path.join(work, "master.log")
+    mproc = start_cli(["master", "-port", str(mport), "-pulseSeconds",
+                       str(pulse_seconds), "-metricsAggregationSeconds",
+                       "1"], mlog)
+    vs: dict[str, dict] = {}
+    accounting = ["-heat.halflife", str(halflife_s)]
+    try:
+        read_start_line(mproc, mlog, "master listening")
+        for k in range(servers):
+            d = os.path.join(work, f"vs{k}")
+            os.makedirs(d)
+            vs[f"127.0.0.1:{free_port()}"] = {
+                "dir": d, "log": os.path.join(work, f"vs{k}.log")}
+        urls = list(vs)
+        launches_stopped = 0
+
+        def stop_all() -> None:
+            nonlocal launches_stopped
+            for u in urls:
+                launches_stopped += stop_volume_server(
+                    vs[u]["proc"])["launches"]
+                vs[u]["proc"].stdout.close()
+
+        def api(path: str, url: str = master) -> dict:
+            return http_json("GET", f"http://{url}{path}")
+
+        t0 = time.perf_counter()
+        start_volume_servers(vs, master, engine, pulse_seconds, "reactor",
+                             extra=accounting)
+        res["seconds"]["start"] = time.perf_counter() - t0
+        res["degraded_binds"] = degraded_binds(master)
+        res["volumes"] = api(f"/vol/grow?collection={collection}"
+                             f"&count={volumes}")["volumeIds"]
+        fids_file = os.path.join(work, "fids")
+        res["write"] = run_benchmark(master, [
+            "-n", str(n), "-size", str(size), "-c", str(clients),
+            "-collection", collection, "-phase", "write",
+            "-seed", str(SEED + 30), "-fidsFile", fids_file], 1800)["write"]
+        by_vid: dict[int, list[tuple[str, int]]] = {}
+        for fid, pid in read_fids_file(fids_file):
+            by_vid.setdefault(FileId.parse(fid).volume_id, []).append(
+                (fid, pid))
+        vid = max(by_vid, key=lambda v: (len(by_vid[v]), -v))
+        vfids = by_vid[vid]
+        hot = [f for v in sorted(by_vid) if v != vid for f in by_vid[v]]
+        res["needles_by_volume"] = {v: len(f) for v, f in by_vid.items()}
+
+        out, _ = run_shell(master, "workload.record -sample 1.0")
+        if len(re.findall(r": recording sample=1 ", out)) != servers + 1:
+            raise AssertionError(f"workload.record: {out}")
+        res["record"] = out.splitlines()
+        out, res["seconds"]["ec.encode"] = run_shell(
+            master, f"ec.encode -volumeId {vid} -collection {collection}")
+        if f"ec encoded volume {vid} via tpu engine" not in out:
+            raise AssertionError(f"ec.encode: {out}")
+        holders = shard_holders(master, vid)
+        holder = next(u for u in urls if any(u in us for us in
+                                             holders.values()))
+        base = volume_file_prefix(vs[holder]["dir"], collection, vid)
+        vkeys = [FileId.parse(f).key for f, _ in vfids]
+        shards_of = needle_shards(base, vid, vkeys)
+        widths_of = needle_widths(base, vid, vkeys)
+        lost = sorted({s for ss in shards_of for s in ss})
+        if max(lost) >= 10 or len(lost) > 4:
+            raise AssertionError(f"volume {vid}'s needles span data shards "
+                                 f"{lost}: more than a lost set")
+        for s in lost:
+            for u in holders.get(s, []):
+                http_json("POST", f"http://{u}/admin/ec/delete",
+                          {"volume_id": vid, "shard_ids": [s],
+                           "collection": collection})
+        survivors = {s: us for s, us in holders.items() if s not in lost}
+        wait_for("the master to see the lost shards gone",
+                 lambda: shard_holders(master, vid) == survivors, 60)
+        res["ec_volume"] = {"vid": vid, "needles": len(vfids),
+                            "lost_data_shards": lost,
+                            "holders": {s: us for s, us in
+                                        sorted(holders.items())}}
+
+        # pass A: a read-heavy Zipf mix over the volumes left replicated
+        order = np.random.default_rng(SEED + 32).permutation(len(hot))
+        ranks = zipf_indices(len(hot), gets_a, ZIPF_THETA,
+                             random.Random(SEED + 31))
+        picks_a = [int(order[r]) for r in ranks]
+        ships = heat_shipments(urls)
+        done_a, wall_a = telemetry_gets(master, hot, picks_a, size, clients,
+                                        SEED + 40)
+        res["pass_a"] = get_pass(done_a, wall_a)
+        wait_for("two heat shipments from every server after pass A",
+                 lambda: all(v >= ships[u] + 2 for u, v in
+                             heat_shipments(urls).items()), 30)
+        heat_a = api("/cluster/heat?top=256")
+        top10 = [hot[i][0] for i, _ in Counter(picks_a).most_common(10)]
+        sketch = {r["fid"] for r in heat_a["zipf"]["top"]}
+        missing = [f for f in top10 if f not in sketch]
+        res["checks"]["pass_a_head_in_sketch"] = {
+            "top10": top10, "missing": missing,
+            "sketch_keys": len(sketch)}
+        if missing:
+            raise AssertionError(f"pass A's head {missing} is not in the "
+                                 f"merged needle sketch")
+        res["zipf"] = {"fitted_s": heat_a["zipf"]["s"],
+                       "theta_drawn": ZIPF_THETA,
+                       "distinct": heat_a["zipf"]["distinct"]}
+
+        # pass B: the flash crowd onto the cold EC volume
+        whole = [whole_i for whole_i, ss in enumerate(shards_of)
+                 if len(ss) == 1]
+        order_b = np.random.default_rng(SEED + 34).permutation(len(whole))
+        picks_b = [whole[int(order_b[r])] for r in zipf_indices(
+            len(whole), gets_b, ZIPF_THETA, random.Random(SEED + 33))]
+        # each pass B GET reconstructs its one interval: a launch at its
+        # width
+        want_widths = dict(Counter(widths_of[i][0] for i in picks_b))
+        picks_o = picks_b[:gets_overhead]
+        want_o = dict(Counter(widths_of[i][0] for i in picks_o))
+        widths0, launches0 = kernel_widths(urls), kernel_launches(urls)
+        exact0 = exact_widths(urls)
+        masses0 = read_masses(urls)
+        paged_before = {a: cluster_alerts(master).get(a, {}).get("state")
+                        for a in ("heat_shift", "flash_crowd")}
+        t_b = time.time()
+        done_b, wall_b = telemetry_gets(master, vfids, picks_b, size,
+                                        clients, SEED + 50)
+        widths1, launches1 = kernel_widths(urls), kernel_launches(urls)
+        exact1 = exact_widths(urls)
+        masses1 = read_masses(urls)
+        got = sum(launches1[u] - launches0[u] for u in urls)
+        if engine == "tpu" and got != len(picks_b):
+            raise AssertionError(f"pass B: {got} launches for "
+                                 f"{len(picks_b)} degraded GETs")
+        res["pass_b"] = {**get_pass(done_b, wall_b), "launches": got,
+                         "launch_widths": {c: widths1[c] - widths0[c]
+                                           for c in widths1},
+                         "exact_widths": widths_added(exact0, exact1),
+                         "ledger_cpu_ms_per_get": (lambda x: None if x is
+                                                   None else 1e3 * x)(
+                             added_per_request(masses0, masses1))}
+
+        def shift_event():
+            for etype in ("flash_crowd", "heat_shift"):
+                for e in api(f"/cluster/events?type={etype}&limit=200")[
+                        "events"]:
+                    if e["details"].get("volume") == vid and \
+                            e["ts"] >= t_b - 1.0:
+                        return e
+            return None
+
+        found: list = []
+
+        def shifted() -> bool:
+            e = shift_event()
+            if e is not None:
+                found.append(e)
+            return e is not None
+
+        wait_for("a heat_shift or flash_crowd event naming the EC volume",
+                 shifted, max(1.0, t_b + event_timeout - time.time()))
+        ev = found[0]
+        # the page: the crowd's own, either an alert_fired journaled
+        # after pass B began whose detail names the EC volume, or the
+        # rule (firing since pass A's shift) now firing on the EC
+        # volume's event (its detail is the latest event it saw)
+        named = re.compile(rf"\bvolume={vid}\b")
+        page: dict = {}
+
+        def paged() -> bool:
+            for e in api("/cluster/events?type=alert_fired&limit=200")[
+                    "events"]:
+                d = e["details"]
+                if d.get("alert") in ("heat_shift", "flash_crowd") and \
+                        e["ts"] >= t_b and named.search(
+                            str(d.get("detail") or "")):
+                    page.update(by="alert_fired_after_pass_b",
+                                alert=d["alert"], detail=d["detail"],
+                                fired_s_from_pass_b=e["ts"] - t_b)
+                    return True
+            for name in ("heat_shift", "flash_crowd"):
+                a = cluster_alerts(master).get(name, {})
+                if a.get("state") == "firing" and named.search(
+                        a.get("detail") or ""):
+                    page.update(by="alert_fired_after_pass_b"
+                                if a["fired_at"] >= t_b else
+                                "firing_alert_detail", alert=name,
+                                detail=a["detail"],
+                                fired_s_from_pass_b=a["fired_at"] - t_b)
+                    return True
+            return False
+
+        wait_for(f"an alert paging on volume {vid}", paged,
+                 max(1.0, t_b + event_timeout - time.time()))
+        alert = cluster_alerts(master)[page["alert"]]
+        res["checks"]["flash_crowd"] = {
+            "type": ev["type"], "seconds_from_pass_b": ev["ts"] - t_b,
+            "details": ev["details"], "paged_by": page["by"],
+            "alert": page["alert"], "alert_state": alert["state"],
+            "alert_state_before_pass_b": paged_before[page["alert"]],
+            "alert_fires": alert["fires"], "alert_detail": page["detail"],
+            "alert_fired_s_from_pass_b": page["fired_s_from_pass_b"]}
+        heat_b: dict = {}
+
+        def ec_first() -> bool:
+            heat_b.update(api("/cluster/heat?top=20"))
+            return bool(heat_b["volumes"]) and \
+                heat_b["volumes"][0]["volume"] == vid
+
+        wait_for("/cluster/heat to rank the EC volume first", ec_first, 30)
+        res["checks"]["heat_rank"] = [
+            {k: row[k] for k in ("volume", "heat", "share", "read_rate",
+                                 "servers")}
+            for row in heat_b["volumes"][:4]]
+
+        ledger = api("/cluster/ledger?top=50")
+        reads = next((r for r in ledger["routes"]
+                      if r["route"] == "http_read"), None)
+        issued = len(done_a) + len(done_b)
+        settled = sum(p["noted"] for u, p in ledger["peers"].items()
+                      if u in vs)
+        loops = {u: ledger["peers"].get(u, {}).get("loop") or {}
+                 for u in urls}
+        if reads is None or reads["cpu_rate"] <= 0 or \
+                settled < issued or not all(
+                    "lag_p99_ms" in lp for lp in loops.values()):
+            raise AssertionError(f"/cluster/ledger: http_read {reads}, "
+                                 f"{settled} settled for {issued} GETs, "
+                                 f"loops {loops}")
+        res["checks"]["ledger"] = {
+            "http_read": {k: reads[k] for k in (
+                "req_rate", "cpu_rate", "cpu_share", "queue_wait_rate",
+                "bytes_out_rate")},
+            "settled_requests": settled, "gets_issued": issued,
+            "loop": loops, "totals": ledger["totals"]}
+
+        out, _ = run_shell(master, "heat.volumes -top 10; heat.top -top 20;"
+                                   " cluster.top -top 10")
+        lines = out.splitlines()
+        named = {"heat.volumes": any(re.match(rf"^\*?\s*{vid} ", ln)
+                                     for ln in lines),
+                 "heat.top": any(ln.startswith(f"{vid},") for ln in lines),
+                 "cluster.top": any(ln.startswith("http_read ")
+                                    for ln in lines)}
+        res["checks"]["shell"] = named
+        if not all(named.values()):
+            raise AssertionError(f"the shell's heat/ledger views: {named}\n"
+                                 f"{out}")
+        res["shell_lines"] = [ln for ln in lines
+                              if ln.startswith((f"{vid},", "http_read"))
+                              or re.match(rf"^\*?\s*{vid} ", ln)]
+
+        export = os.path.join(work, "recording.json")
+        out, _ = run_shell(master, f"workload.stop; workload.export -out "
+                                   f"{export}")
+        res["export_lines"] = out.splitlines()
+        with open(export) as f:
+            doc = json.load(f)
+        gets = [r for r in doc["records"] if r["route"] == "http_read"]
+        b_recs = [r for r in gets if r["path"].startswith(f"/{vid},")]
+        at_width = sum(res["pass_b"]["exact_widths"].get(w, 0)
+                       for w in want_widths)
+        res["checks"]["recording"] = {
+            "records": len(doc["records"]), "http_read": len(gets),
+            "gets_issued": issued, "pass_b_records": len(b_recs),
+            "pass_b_launches_at_their_widths": at_width,
+            "pass_b_widths": {"launched": res["pass_b"]["exact_widths"],
+                              "their_intervals": want_widths},
+            "statuses": dict(Counter(r["status"] for r in gets)),
+            "dropped": doc["dropped"],
+            "routes": {k: v["ops"] for k, v in
+                       doc["summary"]["routes"].items()}}
+        if len(gets) != issued or any(r["status"] != 200 for r in gets) \
+                or len(b_recs) != len(done_b) or (
+                    engine == "tpu" and (
+                        len(b_recs) != at_width or
+                        res["pass_b"]["exact_widths"] != want_widths)):
+            raise AssertionError(f"the recording: "
+                                 f"{res['checks']['recording']}")
+
+        # the overhead record: pass B again on freshly restarted servers,
+        # recording off, with heat and the ledger on, off, on
+        res["overhead"] = []
+        for flag in ("on", "off", "on"):
+            stop_all()
+            t0 = time.perf_counter()
+            start_volume_servers(
+                vs, master, engine, pulse_seconds, "reactor",
+                extra=accounting + (["-heat.off", "-ledger.off"]
+                                    if flag == "off" else []))
+            wait_for("the master to see the survivors again",
+                     lambda: shard_holders(master, vid) == survivors, 60)
+            res["seconds"][f"restart_{len(res['overhead'])}_{flag}"] = \
+                time.perf_counter() - t0
+            st = api("/status", urls[0])
+            if ("Ledger" in st) != (flag == "on") or \
+                    st["Heat"]["enabled"] != (flag == "on"):
+                raise AssertionError(f"accounting {flag}: {st['Heat']}")
+            l0, w0 = kernel_launches(urls), exact_widths(urls)
+            done, wall = telemetry_gets(master, vfids, picks_o, size,
+                                        clients, SEED + 60)
+            l1, w1 = kernel_launches(urls), exact_widths(urls)
+            n_l = sum(l1[u] - l0[u] for u in urls)
+            if engine == "tpu" and (n_l != len(picks_o) or
+                                    widths_added(w0, w1) != want_o):
+                raise AssertionError(f"pass B, accounting {flag}: {n_l} "
+                                     f"launches at {widths_added(w0, w1)} "
+                                     f"for {len(picks_o)} GETs at "
+                                     f"{want_o}")
+            res["overhead"].append({"accounting": flag,
+                                    **get_pass(done, wall),
+                                    "launches": n_l,
+                                    "exact_widths": widths_added(w0,
+                                                                 w1)})
+        stop_all()
+        res["launches"] = launches_stopped
+        res["seconds"]["phase"] = time.perf_counter() - t_phase
+        return res
+    finally:
+        for info in vs.values():
+            p = info.get("proc")
+            if p is not None and p.poll() is None:
+                p.kill()
+                p.wait()
+        mproc.send_signal(signal.SIGTERM)
+        try:
+            mproc.wait(timeout=10)
+        except subprocess.TimeoutExpired:
+            mproc.kill()
+            mproc.wait()
+        mproc.stdout.close()
+
+
 
 def split_first_launches(lat: list[float], marks: list[dict]) -> dict:
     """GET times split by launches: ``marks[j]`` holds each server's
@@ -6470,8 +7067,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA card", file=sys.stderr)
         return 2
+    from collections import Counter
+
     from seaweedfs_tpu_torch.ops import _build
-    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul
+    from seaweedfs_tpu_torch.ops.gf_matmul import gf_matmul, width_classes
     from seaweedfs_tpu_torch.stats import degraded_bind_metrics
 
     t_all = time.perf_counter()
@@ -7020,6 +7619,53 @@ def main() -> int:
          "launches": native_launches, "bytes_equal": True,
          "nvidia_smi": card})
 
+    work = tempfile.mkdtemp(prefix="chip_smoke-telemetry-",
+                            dir=_build.BUILD_DIR)
+    try:
+        tel = run_telemetry_phase(
+            "tpu", work, BENCH_N, BENCH_SIZE, BENCH_CLIENTS, TELEMETRY_A,
+            TELEMETRY_B, halflife_s=TELEMETRY_HALFLIFE_S,
+            event_timeout=TELEMETRY_EVENT_S,
+            gets_overhead=TELEMETRY_OVERHEAD)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    telemetry_launches = tel["launches"]
+    if telemetry_launches <= 0:
+        raise AssertionError("the telemetry phase launched no kernel")
+    log({"phase": "telemetry", "reduced": [
+        {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
+                               "weed/command/benchmark.go)",
+         "why": "run time limit: the dataplane phase's cut"},
+        {"heat_halflife_s": TELEMETRY_HALFLIFE_S,
+         "from": "weed volume -heat.halflife 30 (the default)",
+         "why": "the flash crowd shows within seconds, not minutes"},
+        {"pulse_seconds": 0.5, "metrics_aggregation_seconds": 1.0,
+         "from": "5 s default heartbeat pulse; -metricsAggregationSeconds "
+                 "0 (evaluate on demand)",
+         "why": "the alert loop evaluates each second, as a paged cluster "
+                "would"}],
+        "shapes": {"size": BENCH_SIZE, "c": BENCH_CLIENTS,
+                   "replication": "000", "collection": "benchmark",
+                   "pass_a": {"gets": TELEMETRY_A, "zipf_theta": 0.99},
+                   "pass_b": {"gets": TELEMETRY_B, "degraded": True},
+                   "overhead": {"gets": TELEMETRY_OVERHEAD,
+                                "accounting": ["on", "off", "on"]},
+                   "sample": 1.0},
+        "budget_s": TELEMETRY_BUDGET_S,
+        "within_budget": tel["seconds"]["phase"] <= TELEMETRY_BUDGET_S,
+        "seconds": tel["seconds"], "degraded_binds": tel["degraded_binds"],
+        "needles_by_volume": tel["needles_by_volume"],
+        "ec_volume": tel["ec_volume"], "checks": tel["checks"],
+        "zipf": tel["zipf"], "nvidia_smi": card})
+    log({"phase": "telemetry_passes", "write": {
+        k: tel["write"][k] for k in ("ops_per_s", "p50_ms", "p99_ms")},
+        "pass_a": tel["pass_a"], "pass_b": tel["pass_b"],
+        "overhead": tel["overhead"], "nvidia_smi": card})
+    log({"phase": "telemetry_done", "launches": telemetry_launches,
+         "record": tel["record"], "export_lines": tel["export_lines"],
+         "shell_lines": tel["shell_lines"], "kernel_max_abs_err": worst,
+         "nvidia_smi": card})
+
     dp_widths: dict[str, int] = {}
     for fr in dp["fronts"].values():
         for k, v in fr.items():
@@ -7027,6 +7673,11 @@ def main() -> int:
                 for c, n in v["launch_widths"].items():
                     dp_widths[c] = dp_widths.get(c, 0) + n
     counts["dataplane_degraded_gets"] = {"widths": dp_widths}
+    tel_exact: Counter = Counter()
+    for run in [tel["pass_b"], *tel["overhead"]]:
+        tel_exact.update(run["exact_widths"])
+    counts["telemetry_degraded_gets"] = {
+        "widths": width_classes(tel_exact), "exact": dict(tel_exact)}
     log({"phase": "launch_widths", "counts": counts, "nvidia_smi": card})
     # the width most degraded GETs launch at: the volume_store phase's
     # 1 KiB needles, read in this process, its most common narrow width
@@ -7061,7 +7712,8 @@ def main() -> int:
         "launches": launches + resume_launches + trace_ab_launches
         + http_launches + cli["launches"] + cluster_launches
         + failover_launches + dataplane_launches + store_launches
-        + secure_launches + native_launches + mesh_launches,
+        + secure_launches + native_launches + mesh_launches
+        + telemetry_launches,
         "max_abs_err": max(worst, store["kernel_max_abs_err"],
                            *(s["max_abs_err"] for s in shapes)),
         "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],

@@ -114,6 +114,15 @@ Every subcommand first arms the fault points named in ``WEED_FAULTS``
 tracer on with head sampling at rate R in [0, 1], as weed.py does;
 negative or unset leaves it off (``/debug/traces?enable=1`` turns it on
 live, and a request whose caller sampled it records anyway once on).
+``-reqlog.sample R`` (or ``WEED_REQLOG_SAMPLE=R``) turns the process's
+request log on at sampling rate R in (0, 1] and ``-reqlog.size N`` (or
+``WEED_REQLOG_SIZE``) bounds its ring, as weed.py's; zero or unset leaves
+it off (``POST /debug/reqlog/start``, the shell's ``workload.record``,
+turns it on live).
+
+``volume`` keeps heat and the resource ledger on by default:
+``-heat.off``, ``-heat.halflife S`` (30), ``-heat.topk K`` (512),
+``-ledger.off`` and ``-ledger.halflife S`` (60) are weed.py's flags.
 """
 
 from __future__ import annotations
@@ -141,6 +150,15 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                   "negative/unset = off (WEED_TRACE_SAMPLE works too)")
     p.add_argument("-trace.sample", dest="trace_sample", type=float,
                    default=-1.0, metavar="RATE", help=trace_help)
+    p.add_argument("-reqlog.sample", dest="reqlog_sample", type=float,
+                   default=0.0, metavar="RATE",
+                   help="enable the workload flight recorder with this "
+                        "per-request sampling rate (0..1]; zero/unset = "
+                        "off (WEED_REQLOG_SAMPLE env var also works)")
+    p.add_argument("-reqlog.size", dest="reqlog_size", type=int,
+                   default=0, metavar="N",
+                   help="workload recorder ring capacity (records); "
+                        "0 = default 8192 (WEED_REQLOG_SIZE)")
     p.add_argument("-dataplane.workers", dest="dataplane_workers", type=int,
                    default=0, metavar="N",
                    help="event-loop dispatch worker pool size; 0 = auto "
@@ -212,6 +230,24 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                    default=[], metavar="NAME=DIR",
                    help="register a dir-type tier backend (repeatable): "
                         "the remote storage target of volume.tier.*")
+    v.add_argument("-heat.off", dest="heat_off", action="store_true",
+                   help="disable per-volume/per-needle access-heat "
+                        "accounting (GET /debug/heat, master "
+                        "/cluster/heat feed)")
+    v.add_argument("-heat.halflife", dest="heat_halflife", type=float,
+                   default=30.0, metavar="SECONDS",
+                   help="EWMA half-life for heat decay (seconds)")
+    v.add_argument("-heat.topk", dest="heat_topk", type=int,
+                   default=512, metavar="K",
+                   help="per-needle heat sketch capacity (space-saving "
+                        "top-K)")
+    v.add_argument("-ledger.off", dest="ledger_off", action="store_true",
+                   help="disable per-request resource-ledger accounting "
+                        "and continuous profiling (GET /debug/ledger, "
+                        "master /cluster/ledger feed, cluster.top)")
+    v.add_argument("-ledger.halflife", dest="ledger_halflife",
+                   type=float, default=60.0, metavar="SECONDS",
+                   help="EWMA half-life for ledger rate decay (seconds)")
     s = sub.add_parser("shell", help="run admin shell commands")
     s.add_argument("-master", default="127.0.0.1:9333")
     s.add_argument("-c", default="",
@@ -352,6 +388,32 @@ def _serve_until_signalled(start: Callable[[], Callable[[], None]]) -> None:
             signal.signal(sig, handler)
 
 
+def _maybe_enable_reqlog(args: argparse.Namespace) -> None:
+    """-reqlog.sample R, else WEED_REQLOG_SAMPLE: turn the process's
+    request log on at rate R (at most 1); -reqlog.size N, else
+    WEED_REQLOG_SIZE, bounds its ring.  Zero or unset leaves it off."""
+    rate = getattr(args, "reqlog_sample", 0.0)
+    if rate <= 0:
+        env = os.environ.get("WEED_REQLOG_SAMPLE", "")
+        if not env:
+            return
+        try:
+            rate = float(env)
+        except ValueError:
+            return
+        if rate <= 0:
+            return
+    size = getattr(args, "reqlog_size", 0)
+    if size <= 0:
+        try:
+            size = int(os.environ.get("WEED_REQLOG_SIZE", "") or 0)
+        except ValueError:
+            size = 0
+    from .observability.reqlog import enable_reqlog
+
+    enable_reqlog(sample=min(rate, 1.0), capacity=size or None)
+
+
 def cmd_master(args: argparse.Namespace) -> int:
     from .master.server import MasterServer
     from .security.config import master_guard
@@ -409,7 +471,12 @@ def cmd_volume(args: argparse.Namespace) -> int:
                           guard=volume_guard(_security()),
                           backends=_tier_backends(args.tier_backends) or None,
                           tls_context=_cluster_tls(), use_mmap=args.mmap,
-                          dataplane=args.dataplane)
+                          dataplane=args.dataplane,
+                          heat=not args.heat_off,
+                          heat_halflife_s=args.heat_halflife,
+                          heat_topk=args.heat_topk,
+                          ledger=not args.ledger_off,
+                          ledger_halflife_s=args.ledger_halflife)
         device = vs.store.device
         if device.type == "cuda":
             # a kernel that does not build stops the server here, before
@@ -837,6 +904,7 @@ def main(argv: list[str]) -> int:
         configure(workers=args.dataplane_workers)
     if args.command in ("master", "volume", "shell"):
         _maybe_enable_tracing(args.trace_sample)
+    _maybe_enable_reqlog(args)
     return {"master": cmd_master, "volume": cmd_volume,
             "shell": cmd_shell, "compact": cmd_compact,
             "backup": cmd_backup, "fix": cmd_fix, "export": cmd_export,

@@ -123,13 +123,16 @@ class WeedClient:
 
     def upload(self, data: bytes, name: str = "", mime: str = "",
                collection: str = "", replication: str = "",
-               ttl: str = "", compress: Optional[bool] = None) -> str:
+               ttl: str = "", compress: Optional[bool] = None,
+               internal: bool = False) -> str:
         """Assign + POST; returns the fid.
 
         compress=None sniffs the name/mime the way the reference client
         does (upload_content.go:116, IsCompressableFileType); a gzip win
         goes out with Content-Encoding so the volume server flags the
-        needle compressed."""
+        needle compressed.  ``internal`` marks the PUT a server's proxied
+        hop (``?type=proxied``: the master's /submit), which the request
+        log does not count as client traffic."""
         a = self.master.assign(collection=collection, replication=replication,
                                ttl=ttl)
         params = {}
@@ -137,6 +140,8 @@ class WeedClient:
             params["name"] = name
         if ttl:
             params["ttl"] = ttl
+        if internal:
+            params["type"] = "proxied"
         q = "?" + urllib.parse.urlencode(params) if params else ""
         headers = {"Content-Type": mime} if mime else {}
         if compress is None and (name or mime):

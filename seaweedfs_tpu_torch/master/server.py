@@ -39,12 +39,28 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         the cluster event journal; each accepted batch
                         goes to the coordinator's on_events (?local=1 as
                         for /cluster/coordinator)
+  POST /cluster/workload/ingest, GET /cluster/workload[/export]
+                        the workload journal (observability/reqlog.py):
+                        every server's sampled access records, deduped;
+                        ?route=, ?server=, ?since=, ?limit=; /export is
+                        the recording document
+  POST /cluster/heat/ingest, GET /cluster/heat
+                        the heat journal (observability/heat.py): volume
+                        ranks, the head set, the live Zipf fit, imbalance,
+                        and the heat_shift / flash_crowd detector; ?top=
+  POST /cluster/ledger/ingest, GET /cluster/ledger
+                        the resource ledger's merge (observability/
+                        ledger.py): CPU, bytes and queue wait by route,
+                        client and server, loop lag, profiles, and the
+                        loop_stall relay; ?top=
   GET  /metrics         this process's Prometheus exposition: the
                         master's requests by route, the coordinator's and
                         the request plane's families (?exemplars=1 adds
                         sampled requests' trace ids to their buckets)
   GET  /debug/traces, /debug/traces/analyze, /debug/events
                         this process's span ring and journal
+  GET  /debug/reqlog, POST /debug/reqlog/start|stop
+                        this process's request log
   GET  /debug/profile, /debug/pprof/profile|goroutine|heap
                         sampling profiles, the thread dump, the heap
   POST /debug/flightrecorder/capture, GET /debug/flightrecorder[/<id>]
@@ -73,8 +89,11 @@ flag; tests set the attributes before ``start()``.  ``max_inflight`` > 0
 (like the reference's, it folds in only the coordinator's totals of its
 own).
 
-The master's own spans and events reach its collector and journal without
-HTTP (the shippers' local short-circuit).
+The master's own spans, events, access records and ledger snapshots reach
+its collector and journals without HTTP (the shippers' local
+short-circuit); its router settles every request into its own
+RequestLedger.  Its /cluster/health contribution adds this process's lost
+access records (``reqlog_records_dropped``) to the coordinator's totals.
 
 High availability (``peers``, ``-peers``; ``mdir``, ``-mdir``): masters
 elect a leader and replicate a log (master/consensus.py ``RaftNode``,
@@ -83,7 +102,9 @@ durable under ``mdir``).  The leader appends the volume-id allocation
 leader reissues an id), every batch its cluster journal accepts, the
 alert engine's state machines when an evaluation changed them, each
 repair record of the coordinator (quorum-committed before the repair
-runs) and the EC registry when a heartbeat changed it.  A follower
+runs), the EC registry when a heartbeat changed it, and every batch of
+access records its workload journal accepts (``workload`` entries; a
+snapshot carries the journal under ``workload``).  A follower
 applies committed entries to the same state machines, so a promoted
 follower serves the journal, resumes a firing alert and re-plans an
 orphaned repair under its original cause.  The vacuum scan, the
@@ -110,8 +131,9 @@ front does not start under a write key or TLS: it has neither a token
 nor a TLS slot, and clients fall back to HTTP.
 
 Not ported: ``master/follower.py`` (it needs ``/cluster/watch`` and
-wdclient), the /cluster/ heat, ledger, workload, capacity, autoscale and
-watch routes, and the maintenance scripts.
+wdclient), the /cluster/ capacity (it waits for scenarios/capacity.py),
+autoscale (the heat journal's ``on_ingest`` consumer) and watch routes,
+and the maintenance scripts.
 """
 
 from __future__ import annotations
@@ -133,10 +155,16 @@ from ..observability.events import (HEALTH_EVENT_TYPES,
                                     ClusterEventJournal, EventShipper,
                                     get_journal)
 from ..observability.flightrecorder import get_flightrecorder
+from ..observability.heat import ClusterHeatJournal
+from ..observability.ledger import (ClusterLedgerJournal, LedgerShipper,
+                                    RequestLedger)
+from ..observability.reqlog import (ReqlogShipper, WorkloadJournal,
+                                    dropped_total, get_recorder,
+                                    summarize_records)
 from ..ops.coordinator import EcCoordinator
 from ..security import Guard, gen_jwt_for_volume_server
-from ..stats import (REGISTRY, degraded_bind_metrics, master_metrics,
-                     request_plane_metrics)
+from ..stats import (REGISTRY, degraded_bind_metrics, heat_metrics,
+                     ledger_metrics, master_metrics, request_plane_metrics)
 from ..stats.aggregate import ClusterAggregator
 from ..stats.metrics import exemplars_requested
 from ..storage.file_id import format_needle_id_cookie
@@ -229,7 +257,7 @@ class MasterServer:
             admin_locked_fn=self._admin_locked,
             interval_s=coordinator_seconds or 15.0,
             replicate_fn=self._replicate_coordinator_record)
-        self.aggregator.local_fn = self.coordinator.health_contribution
+        self.aggregator.local_fn = self._local_health_contribution
         # servers ship sampled spans and journal events here; the
         # master's own take the local short-circuit
         self.trace_collector = TraceCollector()
@@ -241,6 +269,26 @@ class MasterServer:
             get_journal(), server=self.url,
             local_journal=self.event_journal)
         self.event_journal.on_ingest = self._on_cluster_events
+        # every server's sampled access records (observability/reqlog.py);
+        # the master's own take the local short-circuit
+        self.workload_journal = WorkloadJournal()
+        self._reqlog_shipper = ReqlogShipper(
+            get_recorder(), server=self.url,
+            local_journal=self.workload_journal)
+        self.workload_journal.on_ingest = self._on_workload_records
+        # the volume servers' heat (observability/heat.py); its on_ingest
+        # stays unset: its one consumer is the heat autoscaler
+        heat_metrics()
+        self.heat_journal = ClusterHeatJournal(rack_fn=self._rack_of)
+        # every server's resource ledger (observability/ledger.py); the
+        # master settles its own requests too, shipped locally
+        ledger_metrics()
+        self.ledger_journal = ClusterLedgerJournal()
+        self.ledger = RequestLedger(server=self.url)
+        self._ledger_shipper = LedgerShipper(
+            self.ledger, server=self.url,
+            local_journal=self.ledger_journal)
+        self.router.ledger = self.ledger
         self.alert_engine = AlertEngine(
             default_rules(),
             source_fn=lambda: (self.aggregator.health(),
@@ -278,6 +326,8 @@ class MasterServer:
     def start(self) -> "MasterServer":
         self._trace_shipper.attach()
         self._event_shipper.attach()
+        self._reqlog_shipper.attach()
+        self._ledger_shipper.attach()
         self._server = serve(self.router, self.host, self.port,
                              tls_context=self._tls_context)
         if self._tls_context is None and not self.guard.signing_key:
@@ -339,9 +389,22 @@ class MasterServer:
         for t in captures:
             t.join(timeout=30.0)
         # detached, or a later master in this process would receive this
-        # one's spans and events through the chained hooks
+        # one's spans, events and records through the chained hooks
         self._trace_shipper.detach()
         self._event_shipper.detach()
+        self._reqlog_shipper.detach()
+        self._ledger_shipper.detach()
+
+    def _local_health_contribution(self) -> dict:
+        """The master's own totals in /cluster/health: the coordinator's,
+        and this process's lost access records (the master's registry is
+        never scraped, so the workload journal's evictions would miss the
+        reqlog_records_dropped alert).  Co-located servers in one process
+        may count the total twice: a warning too many, never one short."""
+        extra = dict(self.coordinator.health_contribution() or {})
+        extra["reqlog_records_dropped"] = \
+            extra.get("reqlog_records_dropped", 0) + dropped_total()
+        return extra
 
     # --- consensus (raft_server.go; the state machine is the control
     # plane) ---------------------------------------------------------------
@@ -378,6 +441,9 @@ class MasterServer:
         elif kind == "event":
             self._ingest_preserving_via(self.event_journal,
                                         data.get("events") or [])
+        elif kind == "workload":
+            self._ingest_preserving_via(self.workload_journal,
+                                        data.get("records") or [])
         elif kind == "alert":
             self.alert_engine.import_state(data.get("alerts") or {})
         elif kind == "coordinator":
@@ -393,6 +459,7 @@ class MasterServer:
             "max_volume_id": self.topo.max_volume_id,
             "max_file_key": self.seq.peek(),
             "events": self.event_journal.query(limit=0),
+            "workload": self.workload_journal.query(limit=0),
             "alerts": self.alert_engine.export_state(),
             "coordinator": self.coordinator.export_replicated(),
             "ec_registry": self._ec_registry_doc(),
@@ -404,6 +471,8 @@ class MasterServer:
         self._apply_raft_state(state)
         self._ingest_preserving_via(self.event_journal,
                                     state.get("events") or [])
+        self._ingest_preserving_via(self.workload_journal,
+                                    state.get("workload") or [])
         self.alert_engine.import_state(state.get("alerts") or {})
         self.coordinator.import_replicated(state.get("coordinator") or {})
         reg = state.get("ec_registry") or {}
@@ -427,6 +496,22 @@ class MasterServer:
         raft = self._leader_raft()
         if raft is not None:
             raft.append("event", {"events": accepted})
+
+    def _on_workload_records(self, accepted: list[dict]) -> None:
+        """The workload journal's ingest hook: on a leader, each batch of
+        newly accepted records enters the raft log."""
+        raft = self._leader_raft()
+        if raft is not None:
+            raft.append("workload", {"records": accepted})
+
+    def _rack_of(self, server_url: str) -> str:
+        """The rack a volume server's heartbeats registered it under: the
+        heat journal's rack-imbalance gauge."""
+        with self.topo.lock:
+            for node in self.topo.all_nodes():
+                if node.url == server_url:
+                    return node.rack.name if node.rack else ""
+        return ""
 
     def _replicate_coordinator_record(self, record: dict) -> None:
         """The coordinator's replicate_fn: a repair record reaches a
@@ -970,6 +1055,98 @@ class MasterServer:
                 str(b.get("server") or ""), b.get("events") or [])
             return Response({"accepted": accepted, "leader": self.url})
 
+        @r.route("GET", "/cluster/workload")
+        def cluster_workload(req: Request) -> Response:
+            """The cluster's workload recording: every server's sampled
+            access records, deduped and bounded; ?route=, ?server=,
+            ?since=<unix ts>, ?limit=N (1-8192, default 256), with a
+            summary by route."""
+            self._require_leader(req)
+            try:
+                since_ts = float(req.query.get("since") or 0.0)
+                # clamped both ways: a negative limit would slice [-0:]
+                limit = min(max(int(req.query.get("limit") or 256), 1),
+                            8192)
+            except ValueError as e:
+                raise HttpError(400, f"bad query parameter: {e}")
+            records = self.workload_journal.query(
+                route=req.query.get("route") or None,
+                server=req.query.get("server") or None,
+                since_ts=since_ts, limit=limit)
+            return Response({"records": records, "count": len(records),
+                             "total": len(self.workload_journal),
+                             "dropped": self.workload_journal.dropped,
+                             "summary": summarize_records(records)})
+
+        @r.route("GET", "/cluster/workload/export")
+        def cluster_workload_export(req: Request) -> Response:
+            """The whole recording document (format-versioned, its losses
+            counted, in time order): what the shell's workload.export
+            saves; ?route= and ?since= scope it."""
+            self._require_leader(req)
+            try:
+                since_ts = float(req.query.get("since") or 0.0)
+            except ValueError as e:
+                raise HttpError(400, f"bad query parameter: {e}")
+            return Response(self.workload_journal.export(
+                route=req.query.get("route") or None, since_ts=since_ts))
+
+        @r.route("POST", "/cluster/workload/ingest")
+        def cluster_workload_ingest(req: Request) -> Response:
+            """ReqlogShipper's sink: a follower forwards the batch to the
+            leader, so every recorder lands in one recording."""
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
+            b = req.json()
+            accepted = self.workload_journal.ingest(
+                str(b.get("server") or ""), b.get("records") or [])
+            return Response({"accepted": accepted, "leader": self.url})
+
+        @r.route("POST", "/cluster/heat/ingest")
+        def cluster_heat_ingest(req: Request) -> Response:
+            """HeatShipper's sink (a snapshot a server a second): a
+            follower forwards it to the leader, so one journal merges the
+            cluster and the shift detector sees every peer."""
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
+            b = req.json()
+            accepted = self.heat_journal.ingest(
+                str(b.get("server") or ""), b.get("snapshots") or [])
+            return Response({"accepted": accepted, "leader": self.url})
+
+        @r.route("GET", "/cluster/heat")
+        def cluster_heat(req: Request) -> Response:
+            """The merged heat view: volume ranks (read, byte, cache-hit
+            and error rates, share), the head set, the Zipf fit over the
+            merged needle sketch (?top= needles, default 20, at most 256),
+            imbalance, each peer's staleness and the recent heat_shift /
+            flash_crowd events."""
+            self._require_leader(req)
+            top = min(qint(req.query, "top", 20), 256)
+            return Response(self.heat_journal.to_doc(top_needles=top))
+
+        @r.route("POST", "/cluster/ledger/ingest")
+        def cluster_ledger_ingest(req: Request) -> Response:
+            """LedgerShipper's sink (a snapshot a server a second), as
+            heat's: a follower forwards it to the leader."""
+            if not self.is_leader:
+                return self._proxy_to_leader(req)
+            b = req.json()
+            accepted = self.ledger_journal.ingest(
+                str(b.get("server") or ""), b.get("snapshots") or [])
+            return Response({"accepted": accepted, "leader": self.url})
+
+        @r.route("GET", "/cluster/ledger")
+        def cluster_ledger(req: Request) -> Response:
+            """The merged resource view: routes, clients and servers by
+            CPU share (with queue-wait, byte and cache rates), each
+            peer's loop lag, recent loop_stall events and the servers'
+            profiler windows: what the shell's cluster.top renders;
+            ?top= rows (default 20, at most 256)."""
+            self._require_leader(req)
+            top = min(qint(req.query, "top", 20), 256)
+            return Response(self.ledger_journal.to_doc(top=top))
+
         @r.route("POST", "/cluster/traces/ingest")
         def cluster_traces_ingest(req: Request) -> Response:
             """TraceShipper's sink: spans of sampled traces, stitched by
@@ -1131,10 +1308,12 @@ class MasterServer:
 
                 self._submit_client = WeedClient(self.url)
             collection = req.query.get("collection", "")
+            # internal: the volume PUT carries ?type=proxied, so the
+            # request log counts this write once, as the client's /submit
             fid = self._submit_client.upload(
                 data, name=fname, mime=mime, collection=collection,
                 replication=req.query.get("replication", ""),
-                ttl=req.query.get("ttl", ""))
+                ttl=req.query.get("ttl", ""), internal=True)
             nodes = self.topo.lookup(int(fid.split(",")[0]), collection)
             public = nodes[0].public_url if nodes else ""
             return Response({"fid": fid, "fileName": fname,

@@ -24,8 +24,13 @@ master's rollup and serves /cluster/alerts; a firing rule asks each
 implicated server's ``FlightRecorder`` (flightrecorder.py) for a bundle,
 served at /debug/flightrecorder[/<id>].
 
-Not ported: the request log, heat, the resource ledger and the windowed
-profiler.
+The three feeds of the serving plane, fed at the router, the framed plane
+and the needle cache: the request log (reqlog.py: sampled, redacted
+access records, the master's /cluster/workload), heat (heat.py: decayed
+volume and needle heat, the master's /cluster/heat and its shift
+detector) and the resource ledger (ledger.py: CPU, bytes and queue wait
+by route and client, the master's /cluster/ledger, with the
+``WindowedProfiler``'s windows).
 """
 
 from .alerts import AlertEngine, Rule, default_rules

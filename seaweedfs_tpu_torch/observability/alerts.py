@@ -25,9 +25,9 @@ Rule kinds (declarative: a Rule is data, the engine interprets it, and
   journal_event     a typed event of params["event"] landed in the
       process journal within params["window_s"] (and after this engine
       was made: a previous run's events never fire a fresh engine).  The
-      reference's detectors (heat shifts, loop stalls) page this way; the
-      port has no such detector, so its rules stay inactive unless a
-      reference server's events reach the journal.
+      detectors page this way: heat's shift detector (heat_shift,
+      flash_crowd; heat.py) and the resource ledger's stall relay
+      (loop_stall; ledger.py), both on the master.
 
 State machine per rule: inactive -> pending -> firing -> resolved.
 ``for_s`` is the pending hold-down; ``keep_firing_s`` keeps a firing
@@ -51,13 +51,8 @@ from collections import deque
 from typing import Callable, Optional
 
 from . import events as _events
-
-# the reference's detector event types (observability/heat.py
-# HEAT_EVENT_TYPES, observability/ledger.py LEDGER_EVENT_TYPES), kept as
-# data: the port has neither module, and its rule table is the
-# reference's whole table
-HEAT_EVENT_TYPES = ("heat_shift", "flash_crowd")
-LEDGER_EVENT_TYPES = ("loop_stall",)
+from .heat import HEAT_EVENT_TYPES
+from .ledger import LEDGER_EVENT_TYPES
 
 # alert states, in lifecycle order
 STATES = ("inactive", "pending", "firing", "resolved")
@@ -151,8 +146,8 @@ def default_rules() -> list[Rule]:
                 "min_requests": 10},
         description="volume-server per-route p99 latency > 500ms over "
                     "BOTH the 5m and 1h windows"))
-    # the reference's heat-shift detector relays: one journal_event rule
-    # per HEAT_EVENT_TYPES entry, severity from the event registry
+    # heat's shift detector relays: one journal_event rule per
+    # HEAT_EVENT_TYPES entry, severity from the event registry
     heat_descriptions = {
         "heat_shift": "the Zipf head moved: a volume newly entered "
                       "the cluster heat head set",
@@ -166,8 +161,8 @@ def default_rules() -> list[Rule]:
             for_s=0.0, keep_firing_s=120.0,
             params={"event": etype, "window_s": 30.0},
             description=heat_descriptions.get(etype, "")))
-    # the reference's resource-ledger loop-stall relay: one loop_stall
-    # event per peer-reported stall, the same journal_event contract
+    # the resource ledger's loop-stall relay: one loop_stall event per
+    # peer-reported stall, the same journal_event contract
     ledger_descriptions = {
         "loop_stall": "a reactor event loop was blocked past the "
                       "stall threshold: every connection on that "

@@ -29,10 +29,13 @@ The port emits these types: ``shard_corrupt`` (ec/integrity.py),
 ``retry_budget_exhausted`` (utils/backoff.py), ``load_shed``
 (utils/admission.py), ``deadline_exceeded`` (utils/httpd.py),
 ``alert_pending``, ``alert_fired``, ``alert_resolved``
-(observability/alerts.py) and ``flight_capture``
-(observability/flightrecorder.py).  The rest of the registry is carried
-as data, so a reference server's journal documents keep their severities
-here.
+(observability/alerts.py), ``flight_capture``
+(observability/flightrecorder.py), ``reqlog_dropped``
+(observability/reqlog.py), ``heat_shift`` and ``flash_crowd``
+(observability/heat.py), ``loop_stall`` (observability/ledger.py) and
+``dataplane_conn_abort`` (utils/eventloop.py).  The rest of the registry
+is carried as data, so a reference server's journal documents keep their
+severities here.
 
 emit() runs only on degraded paths and coordinator actions, never on a
 clean hot path, so the journal needs no enable gate.
@@ -77,19 +80,26 @@ EVENT_TYPES = {
     "alert_resolved": "info",
     # flight recorder captures (observability/flightrecorder.py)
     "flight_capture": "info",
+    # the request log (observability/reqlog.py): access records lost
+    "reqlog_dropped": "warning",
+    # the event loop (utils/eventloop.py): a connection aborted
+    "dataplane_conn_abort": "warning",
+    # heat's shift detector (observability/heat.py)
+    "heat_shift": "warning",
+    "flash_crowd": "error",
+    # the resource ledger's stall relay (observability/ledger.py)
+    "loop_stall": "error",
 }
 
 # the reference's other event types, whose emitters the port does not
-# have (worker supervision, engine fallback, the request log, the event
-# loop, heat, the resource ledger, the autoscaler): data only, so a
-# reference server's events keep their severity in the port's journals
+# have (worker supervision, engine fallback, the autoscaler): data only,
+# so a reference server's events keep their severity in the port's
+# journals
 REFERENCE_ONLY_EVENT_TYPES = {
     "worker_restart": "warning", "engine_fallback": "warning",
-    "reqlog_dropped": "warning",
-    "dataplane_conn_abort": "warning", "heat_shift": "warning",
-    "flash_crowd": "error", "loop_stall": "error", "replica_grow": "info",
-    "replica_shrink": "info", "tier_committed": "info",
-    "tier_recall": "info", "autoscale_failed": "error",
+    "replica_grow": "info", "replica_shrink": "info",
+    "tier_committed": "info", "tier_recall": "info",
+    "autoscale_failed": "error",
 }
 
 # HEALTH_FAMILIES key (stats/aggregate.py) -> the event type emitted where
@@ -103,6 +113,9 @@ HEALTH_EVENT_TYPES = {
     "deadline_exceeded": "deadline_exceeded",
     "retry_budget_exhausted": "retry_budget_exhausted",
     "degraded_binds": "degraded_bind",
+    "reqlog_records_dropped": "reqlog_dropped",
+    "dataplane_conn_aborts": "dataplane_conn_abort",
+    "loop_lag": "loop_stall",
 }
 
 # the reference's rows of that mapping for the families the port has no
@@ -111,9 +124,6 @@ HEALTH_EVENT_TYPES = {
 REFERENCE_ONLY_HEALTH_EVENT_TYPES = {
     "worker_restarts": "worker_restart",
     "engine_fallbacks": "engine_fallback",
-    "reqlog_records_dropped": "reqlog_dropped",
-    "dataplane_conn_aborts": "dataplane_conn_abort",
-    "loop_lag": "loop_stall",
     "autoscale_failures": "autoscale_failed",
 }
 

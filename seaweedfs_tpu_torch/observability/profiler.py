@@ -22,8 +22,11 @@ flamegraph viewers read: one line per distinct stack,
 ``report_text()`` is the self and cumulative hit tables that
 ``/debug/pprof/profile`` serves.
 
-Not ported: ``WindowedProfiler`` and the drain it rotates with; their one
-user is the resource ledger, which the port does not have.
+``WindowedProfiler`` keeps the sampler on at a low rate (7 Hz) and
+rotates its counts into bounded windows: ``top()`` is the last window's
+heaviest stacks, ``diff()`` the stacks rising between the last two.  Its
+one user is the resource ledger (ledger.py), whose snapshots carry
+``summary()`` to the master.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import os
 import sys
 import threading
 import time
+from collections import deque
 from typing import Optional
 
 _MAX_SECONDS = 3600.0
@@ -120,6 +124,14 @@ class SamplingProfiler:
                     self.dropped += 1
                 self._counts[key] = self._counts.get(key, 0) + 1
 
+    def drain_counts(self) -> tuple[dict[tuple, int], int]:
+        """-> (counts, samples) since the last drain, and reset both: the
+        windowed profiler's rotation.  Sampling goes on across it."""
+        with self._lock:
+            counts, self._counts = self._counts, {}
+            samples, self.samples = self.samples, 0
+            return counts, samples
+
     # --- reports ----------------------------------------------------------
     def _snapshot(self) -> dict[tuple, int]:
         with self._lock:
@@ -191,3 +203,109 @@ def profile_collapsed(seconds: float, hz: float = 100.0) -> str:
     prof = SamplingProfiler(hz=hz)
     prof.run_for(seconds)
     return prof.collapsed()
+
+
+class WindowedProfiler:
+    """Continuous profiling: the sampling profiler always on at a low
+    rate, rotated into bounded windows of collapsed-stack counts
+    (``window_s`` each, ``max_windows`` kept).  The one-shot profiler
+    answers where time goes now; ``diff()`` answers what changed: the
+    stacks whose share rose between the last two windows."""
+
+    def __init__(self, hz: float = 7.0, window_s: float = 10.0,
+                 max_windows: int = 12, top_k: int = 10):
+        self.hz = hz
+        self.window_s = max(window_s, 1.0)
+        self.top_k = top_k
+        self._prof = SamplingProfiler(hz=hz)
+        self._windows: deque = deque(maxlen=max_windows)  # guarded-by: _lock
+        self._lock = threading.Lock()
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self.rotations = 0  # guarded-by: _lock
+
+    def start(self) -> "WindowedProfiler":
+        if self._thread is not None:
+            return self
+        self._prof.start()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="windowed-profiler")
+        self._thread.start()
+        return self
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        try:
+            self._prof.stop()
+        except Exception:  # noqa: BLE001 - a sampler never started
+            pass
+        self._rotate()  # the partial last window
+
+    def _loop(self) -> None:
+        while not self._stop.wait(self.window_s):
+            self._rotate()
+
+    def _rotate(self) -> None:
+        counts, samples = self._prof.drain_counts()
+        if not samples:
+            return
+        with self._lock:
+            self._windows.append({"ts": time.time(),
+                                  "samples": samples,
+                                  "counts": counts})
+            self.rotations += 1
+
+    @staticmethod
+    def _label(key: tuple) -> str:
+        thread, stack = key
+        parts = [thread.replace(";", ":")]
+        parts.extend(
+            SamplingProfiler._frame_label(fr).replace(";", ":")
+            for fr in stack)
+        return ";".join(parts)
+
+    def top(self, k: Optional[int] = None) -> list[dict]:
+        """The last window's heaviest stacks, as shares of its samples:
+        [{stack, hits, share}]."""
+        with self._lock:
+            win = self._windows[-1] if self._windows else None
+        if win is None:
+            return []
+        total = max(win["samples"], 1)
+        rows = sorted(win["counts"].items(), key=lambda kv: -kv[1])
+        return [{"stack": self._label(key), "hits": n,
+                 "share": round(n / total, 4)}
+                for key, n in rows[:k or self.top_k]]
+
+    def diff(self, k: Optional[int] = None) -> list[dict]:
+        """Stacks whose share rose between the last two windows, the
+        largest rise first (shares, so a rate hiccup is no regression):
+        [{stack, delta, share, prev_share}]."""
+        with self._lock:
+            if len(self._windows) < 2:
+                return []
+            prev, cur = self._windows[-2], self._windows[-1]
+        pt, ct = max(prev["samples"], 1), max(cur["samples"], 1)
+        deltas: list[tuple] = []
+        for key, n in cur["counts"].items():
+            share = n / ct
+            prev_share = prev["counts"].get(key, 0) / pt
+            if share > prev_share:
+                deltas.append((share - prev_share, share, prev_share,
+                               key))
+        deltas.sort(key=lambda row: -row[0])
+        return [{"stack": self._label(key),
+                 "delta": round(d, 4), "share": round(s, 4),
+                 "prev_share": round(ps, 4)}
+                for d, s, ps, key in deltas[:k or self.top_k]]
+
+    def summary(self) -> dict:
+        """A ledger snapshot's ``profile`` block."""
+        with self._lock:
+            windows = len(self._windows)
+        return {"hz": self.hz, "window_s": self.window_s,
+                "windows": windows, "top": self.top(),
+                "rising": self.diff()}

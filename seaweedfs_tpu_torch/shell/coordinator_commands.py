@@ -12,9 +12,11 @@ The shell's admin ``lock`` already pauses the coordinator (no dueling
 migrations); pause/resume is the operator's hold that outlives a lock
 session.  Output is stable line-per-record text, so scripts can grep it;
 -json prints the raw document.  cluster.health prints the masters line
-from /cluster/status and the alerts line from /cluster/alerts; the
-reference's capacity and ledger lines are left out, as the reference's
-shell leaves them out before a master without those routes.
+from /cluster/status, the alerts line from /cluster/alerts and the
+resource ledger's line from /cluster/ledger (the worst loop-lag p99, the
+stalls, the route carrying the most CPU); the reference's capacity line
+is left out, as the reference's shell leaves it out before a master with
+no capacity result (the port's capacity probe waits for scenarios/).
 """
 
 from __future__ import annotations
@@ -111,6 +113,24 @@ def cmd_cluster_health(env: CommandEnv, flags: dict) -> str:
                   if a["state"] == "firing"]
         lines.append(f"alerts: {al.get('firing', 0)} firing"
                      + (f" ({', '.join(firing)})" if firing else ""))
+    except Exception:  # noqa: BLE001 - as the reference's shell
+        pass
+    # best-effort: the worst loop-lag p99 across the peers and the route
+    # carrying the most CPU; cluster.top drills down
+    try:
+        led = env.master_get("/cluster/ledger?top=1")
+        worst = max((s.get("loop_lag_p99_ms", 0.0)
+                     for s in led.get("servers") or []), default=0.0)
+        stalls = sum(s.get("stalls", 0)
+                     for s in led.get("servers") or [])
+        routes = led.get("routes") or []
+        if routes:
+            r = routes[0]
+            lines.append(
+                f"ledger: loop_lag_p99={worst:g}ms stalls={stalls} "
+                f"top_route={r['route']} "
+                f"({r.get('cpu_share', 0.0):.0%} cpu, "
+                f"{r.get('req_rate', 0.0):g} req/s) — cluster.top")
     except Exception:  # noqa: BLE001 - as the reference's shell
         pass
     t = doc["totals"]

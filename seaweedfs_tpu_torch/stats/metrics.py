@@ -30,7 +30,13 @@ families under the reference's names:
     (volume_server/needle_cache.py);
   - ``DegradedBindMetrics``: servers that came up without their
     framed-TCP plane, by ``role`` (the reference keeps this family in its
-    ``ECPipelineMetrics``).
+    ``ECPipelineMetrics``);
+  - ``HeatMetrics``: the master's merged heat per volume and its
+    imbalance by scope (server, rack), and the volume servers' lost heat
+    snapshots (observability/heat.py);
+  - ``LedgerMetrics``: the resource ledger's decayed CPU, queue-wait and
+    byte rates by route class, refreshed at each shipment, and its lost
+    snapshots (observability/ledger.py).
 
 A histogram keeps the last OpenMetrics exemplar of each label set (a
 sampled request's trace id on its latency bucket); the exposition shows
@@ -39,8 +45,8 @@ them only when asked, ``expose(exemplars=True)``, which a server's
 
 Not ported: the push gateway loop, and the families the port cannot have
 or has not ported: the rest of ``ECPipelineMetrics`` (parity-worker
-restarts and CPU fallbacks), the master's heartbeat family, heat and the
-resource ledger.
+restarts and CPU fallbacks), the master's heartbeat family, and the
+filer's and the S3 gateway's (their servers wait for the filer).
 """
 
 from __future__ import annotations
@@ -570,6 +576,51 @@ class DegradedBindMetrics:
         return {"degraded_binds": _total(self.degraded_binds)}
 
 
+class HeatMetrics:
+    """Heat (observability/heat.py).  The two gauges are the master's,
+    set at each heat ingest; the counter is a volume server's shipper
+    loss."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.volume_heat = registry.gauge(
+            "SeaweedFS_volume_heat",
+            "Merged decayed read+cache-hit heat per volume (1/s).",
+            labels=("volume",))
+        self.imbalance = registry.gauge(
+            "SeaweedFS_heat_imbalance_ratio",
+            "max/mean heat ratio across a scope (server, rack).",
+            labels=("scope",))
+        self.snapshots_dropped = registry.counter(
+            "SeaweedFS_heat_snapshots_dropped_total",
+            "Heat snapshots lost by the shipper (master unreachable "
+            "or buffer superseded).")
+
+
+class LedgerMetrics:
+    """The resource ledger (observability/ledger.py).  The gauges by
+    route are refreshed by the LedgerShipper at each shipment, never on
+    the request path; the counter is shipper loss."""
+
+    def __init__(self, registry: Registry = REGISTRY):
+        self.route_cpu = registry.gauge(
+            "SeaweedFS_ledger_route_cpu_rate",
+            "Decayed thread-CPU seconds/second per route class.",
+            labels=("route",))
+        self.route_qwait = registry.gauge(
+            "SeaweedFS_ledger_route_queue_wait_rate",
+            "Decayed dispatch-queue-wait seconds/second per route "
+            "class.",
+            labels=("route",))
+        self.route_bytes = registry.gauge(
+            "SeaweedFS_ledger_route_bytes_rate",
+            "Decayed bytes/second per route class and direction.",
+            labels=("route", "dir"))
+        self.snapshots_dropped = registry.counter(
+            "SeaweedFS_ledger_snapshots_dropped_total",
+            "Ledger snapshots lost by the shipper (master unreachable "
+            "or buffer superseded).")
+
+
 _singletons: dict[str, object] = {}
 _singleton_lock = threading.Lock()
 
@@ -611,3 +662,11 @@ def needle_cache_metrics() -> NeedleCacheMetrics:
 
 def degraded_bind_metrics() -> DegradedBindMetrics:
     return _singleton("degraded_binds", DegradedBindMetrics)
+
+
+def heat_metrics() -> HeatMetrics:
+    return _singleton("heat", HeatMetrics)
+
+
+def ledger_metrics() -> LedgerMetrics:
+    return _singleton("ledger", LedgerMetrics)

@@ -14,6 +14,15 @@ The port's copy of these routes of seaweedfs_tpu/utils/debug.py:
   GET /debug/events            the process's event journal; ?type=,
                                ?severity=, ?min_severity=, ?since_seq=,
                                ?since=<unix ts>, ?limit=N
+  GET /debug/reqlog            the process's request log
+                               (observability/reqlog.py): its sampled,
+                               redacted access records; ?route=,
+                               ?since=<unix ts>, ?limit=N (1-8192,
+                               default 512), and its ``config``
+  POST /debug/reqlog/start     start (or re-knob) recording; body:
+                               sample (0, 1], size, seed, include_ops,
+                               reset (default true); 400 out of range
+  POST /debug/reqlog/stop      stop; the ring keeps its records
   GET /debug/profile           a wall-clock sampling profile of every
                                thread of the process, collapsed stacks
                                (flamegraph.pl input); ?seconds= (default
@@ -38,8 +47,7 @@ The port's copy of these routes of seaweedfs_tpu/utils/debug.py:
 A capture holds the request's thread for its whole window; the sampler
 takes the GIL ``hz`` times a second from the threads it watches.
 
-Not ported: the request log and the status UI (so no index page links
-these routes).
+Not ported: the status UI (so no index page links these routes).
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from ..observability import (analyze, disable_tracing, enable_tracing,
                              get_tracer, render_report)
 from ..observability.events import get_journal
 from ..observability.flightrecorder import get_flightrecorder
+from ..observability.reqlog import get_recorder
 from ..stats import degraded_bind_metrics, ec_integrity_metrics
 from .httpd import HttpError, Request, Response, Router, qfloat
 
@@ -213,6 +222,56 @@ def register_debug_routes(router: Router) -> None:
         return Response({"events": events, "count": len(events),
                          "namespace": j.namespace,
                          "dropped": j.dropped})
+
+    @r.route("GET", "/debug/reqlog")
+    def debug_reqlog(req: Request) -> Response:
+        """This process's request log, filtered, with its knobs and loss
+        counts (``config``)."""
+        rl = get_recorder()
+        try:
+            since_ts = float(req.query.get("since") or 0.0)
+            # clamped both ways: a negative limit would slice [-0:]
+            limit = min(max(int(req.query.get("limit") or 512), 1), 8192)
+        except ValueError as e:
+            raise HttpError(400, f"bad query parameter: {e}")
+        records = rl.query(route=req.query.get("route") or None,
+                           since_ts=since_ts, limit=limit)
+        return Response({"records": records, "count": len(records),
+                         "config": rl.status()})
+
+    @r.route("POST", "/debug/reqlog/start")
+    def debug_reqlog_start(req: Request) -> Response:
+        """Start (or re-knob) recording in this process: what the shell's
+        workload.record sends to every server."""
+        try:
+            b = req.json()
+        except Exception:  # noqa: BLE001 - an empty or bad body: defaults
+            b = {}
+        try:
+            sample = float(b["sample"]) if "sample" in b else None
+            size = int(b["size"]) if "size" in b else None
+            seed = int(b["seed"]) if "seed" in b else None
+        except (TypeError, ValueError):
+            raise HttpError(400, "bad sample/size/seed")
+        # a knob out of range answers 400, never a recorder recording
+        # nothing
+        if sample is not None and not 0.0 < sample <= 1.0:
+            raise HttpError(400, f"sample={sample:g} out of (0, 1]")
+        if size is not None and size <= 0:
+            raise HttpError(400, f"size={size} must be positive")
+        rl = get_recorder()
+        rl.start(sample=sample, capacity=size, seed=seed,
+                 include_ops=(bool(b["include_ops"])
+                              if "include_ops" in b else None),
+                 reset=bool(b.get("reset", True)))
+        return Response(rl.status())
+
+    @r.route("POST", "/debug/reqlog/stop")
+    def debug_reqlog_stop(req: Request) -> Response:
+        """Stop recording; the ring keeps its records for export."""
+        rl = get_recorder()
+        rl.stop()
+        return Response(rl.status())
 
     @r.route("POST", "/debug/flightrecorder/capture")
     def flightrecorder_capture(req: Request) -> Response:

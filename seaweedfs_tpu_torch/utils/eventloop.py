@@ -46,6 +46,15 @@ one's.
 back to a thread per connection; ``-dataplane.workers N`` sizes the pool
 before the first server starts.
 
+The resource ledger (observability/ledger.py) reads the loop: a volume
+server with its ledger on sets ``stall_hook`` to ``RequestLedger.
+note_stall`` (the watchdog's stall then carries its route and exemplar
+trace) and hands ``loop_lag_stats`` to the ledger's snapshots; the loop
+thread is branded (``_weed_loop``) so a request settled on it past
+LOOP_STALL_THRESHOLD_S (the ledger's) counts as a stall; a framed op
+settles with its peer, the listener owner's ledger and its wait for a
+worker.
+
 Not ported: the loop's fault point.
 """
 
@@ -84,8 +93,6 @@ OPS_PRIORITY_PREFIXES = (
     "/heartbeat", "/dir/status", "/status", "/stats", "/raft",
 )
 
-# a loop iteration that holds every connection this long is a stall
-LOOP_STALL_THRESHOLD_S = 0.25
 _EVENT_MIN_INTERVAL_S = 5.0
 _HAS_SENDFILE = hasattr(os, "sendfile")
 
@@ -348,9 +355,10 @@ class Reactor:
         # (monotonic ts, busy s) of iterations that held the loop >= 1 ms
         self._lag_samples: deque = deque(maxlen=512)  # guarded-by: _lock
         self._last_stall_note = 0.0
-        # fn(route, lag_s, trace_id) called on a stall.  Unwired: the
-        # reference's resource ledger sets it, and the ledger is not
-        # ported; a stall only counts SeaweedFS_dataplane_loop_stalls_total
+        # fn(route, lag_s, trace_id) called on a stall: a volume server's
+        # RequestLedger.note_stall, which counts the loop_stalls family and
+        # names the route; None counts SeaweedFS_dataplane_loop_stalls_total
+        # alone
         self.stall_hook = None
 
     # --- lifecycle ---------------------------------------------------------
@@ -477,6 +485,8 @@ class Reactor:
     # --- the loop -----------------------------------------------------------
     def _run(self) -> None:
         self._sel.register(self._wake_r, selectors.EVENT_READ, "wake")
+        # the ledger asks "am I on the loop?" with one attribute read
+        threading.current_thread()._weed_loop = True
         while True:
             self._apply_pending()
             self._tick_ts = time.monotonic()
@@ -546,6 +556,8 @@ class Reactor:
         """Refresh the queue-depth and occupancy gauges, and see a blocked
         loop from outside it: the tick stamp older than the select timeout
         plus LOOP_STALL_THRESHOLD_S means nothing moves."""
+        from ..observability.ledger import LOOP_STALL_THRESHOLD_S
+
         while True:
             time.sleep(0.25)
             try:
@@ -850,9 +862,13 @@ class Reactor:
         lst = conn.listener
         with conn._lock:
             conn.busy = True
+        t_submit = time.monotonic()
 
         def run():
-            conn.enqueue(serve_frame(lst.handler, lst.name, op, key, body))
+            conn.enqueue(serve_frame(
+                lst.handler, lst.name, op, key, body, conn.peer[0],
+                ledger=getattr(lst.owner, "ledger", None),
+                queue_wait_s=time.monotonic() - t_submit))
             conn.request_done(close=False)
 
         _metrics().pool_dispatches.inc()

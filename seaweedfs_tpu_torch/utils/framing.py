@@ -20,9 +20,14 @@ a buffered reader (``read_exact``).  ``pack_fid_frames`` and
 ``unpack_fid_frames`` are the batch record stream the ``B``/``P`` ops and
 ``/batch/write`` share.
 
-Not ported: the request log's record and the resource ledger's settle in
-``serve_frame`` (they come with those modules), and the client's
-``net.*`` fault points.
+``serve_frame`` is also the framed plane's telemetry chokepoint: with
+the process's request log on, one sampled access record an op (its route
+class from the op byte, reqlog.py ``NATIVE_ROUTES``), and with a
+``ledger`` (the owning server's RequestLedger, read off ``FramedServer.
+ledger`` by either front) the op's thread CPU, bytes and wait for a
+worker settle into its route class and client.
+
+Not ported: the client's ``net.*`` fault points.
 """
 
 from __future__ import annotations
@@ -30,15 +35,19 @@ from __future__ import annotations
 import socket
 import struct
 import threading
+import time
 from typing import Callable, Optional
 
 from ..observability import context as _trace_context
 from ..observability import events as _events
 from ..observability import get_tracer as _get_tracer
+from ..observability import reqlog as _reqlog
 from ..stats import degraded_bind_metrics
 from . import deadline as _deadline
 
 TCP_PORT_OFFSET = 20000
+# the process's request log: read once a frame
+_RECORDER = _reqlog.get_recorder()
 U16 = struct.Struct(">H")
 U32 = struct.Struct(">I")
 
@@ -129,7 +138,8 @@ def note_degraded_bind(role: str, server: str, port: int) -> None:
 
 def serve_frame(handler: Callable[[bytes, str, bytes], bytes],
                 name: str, op: bytes, key: str, body: bytes,
-                send=None) -> bytes:
+                peer: str = "", send=None, ledger=None,
+                queue_wait_s: float = 0.0) -> bytes:
     """Serve one framed op: the one ingress both fronts share.  Returns
     the whole response frame (status, length, payload); an exception
     becomes a status-1 frame and never escapes.  ``send`` (the threaded
@@ -141,7 +151,14 @@ def serve_frame(handler: Callable[[bytes, str, bytes], bytes],
     It has no X-Weed-Deadline slot either, so each op runs with no
     budget: the thread's deadline slot is cleared for it and restored
     after, or a pooled worker would carry an earlier request's budget
-    into this frame."""
+    into this frame.
+
+    ``peer`` is the client's address; ``ledger`` the owning server's
+    RequestLedger or None; ``queue_wait_s`` the reactor's wait from parse
+    to worker (0 on the threaded front, which runs the frame inline)."""
+    t_frame0 = time.perf_counter() if _RECORDER.enabled else 0.0
+    # the ledger's stamp, on the thread that runs the frame
+    ltok = ledger.begin() if ledger is not None else None
     tracer = _get_tracer()
     prev_ctx = sampled = None
     traced = False
@@ -149,6 +166,7 @@ def serve_frame(handler: Callable[[bytes, str, bytes], bytes],
         sampled, prev_ctx = _trace_context.begin_request(None)
         traced = True
     _ddl, prev_ddl = _deadline.begin_request(None)
+    frame_status, out_len = 200, 0
     try:
         try:
             # unsampled ops build no span name
@@ -158,9 +176,12 @@ def serve_frame(handler: Callable[[bytes, str, bytes], bytes],
                     payload = handler(op, key, body)
             else:
                 payload = handler(op, key, body)
+            out_len = len(payload)
             frame = b"\x00" + U32.pack(len(payload)) + payload
         except Exception as e:  # noqa: BLE001 - the connection survives
+            frame_status = 500
             msg = f"{type(e).__name__}: {e}".encode()[:65536]
+            out_len = len(msg)
             frame = b"\x01" + U32.pack(len(msg)) + msg
         if send is not None:
             send(frame)
@@ -168,6 +189,26 @@ def serve_frame(handler: Callable[[bytes, str, bytes], bytes],
         _deadline.end_request(prev_ddl)
         if traced:
             _trace_context.end_request(prev_ctx)
+        if _RECORDER.enabled and t_frame0:
+            # a frame has no query string to redact
+            try:
+                _RECORDER.record(
+                    _reqlog.NATIVE_ROUTES.get(
+                        op, f"native_{op.decode('latin-1')}"),
+                    "TCP", "/" + key, frame_status,
+                    bytes_in=len(body), bytes_out=out_len,
+                    duration_ms=(time.perf_counter() - t_frame0) * 1e3,
+                    peer=peer, handler=name)
+            except Exception:  # noqa: BLE001 - recording never breaks serving
+                pass
+        if ledger is not None:
+            try:
+                ledger.settle_native(
+                    ltok, op, frame_status, len(body), out_len, peer,
+                    sampled.trace_id if sampled is not None else "",
+                    queue_wait_s)
+            except Exception:  # noqa: BLE001 - accounting never breaks serving
+                pass
     return frame
 
 
@@ -187,6 +228,9 @@ class FramedServer:
         self._sock: Optional[socket.socket] = None
         self._stop = threading.Event()
         self._reactor = None
+        # the owning server's RequestLedger (observability/ledger.py): each
+        # front reads it here (the reactor through its listener's owner)
+        self.ledger = None
 
     @property
     def alive(self) -> bool:
@@ -249,6 +293,10 @@ class FramedServer:
     def _serve_conn(self, conn: socket.socket) -> None:
         rfile = conn.makefile("rb", buffering=1 << 16)
         try:
+            peer = conn.getpeername()[0]
+        except OSError:
+            peer = ""
+        try:
             while not self._stop.is_set():
                 try:
                     op = read_exact(rfile, 1)
@@ -260,7 +308,7 @@ class FramedServer:
                     return
                 try:
                     serve_frame(self.handler, self.name, op, key, body,
-                                send=conn.sendall)
+                                peer, send=conn.sendall, ledger=self.ledger)
                 except OSError:
                     return  # the peer went away mid-send
         finally:

@@ -65,8 +65,16 @@ not exempt must take a slot before its handler runs, and one over the
 bound is answered 503 with ``Retry-After: 1`` at once.  The slot is given
 back after the response has been sent, whatever happened on the way.
 
-Not ported: heat and ledger accounting, the request log and the network
-fault points.
+Telemetry (``observability/``), after each response is sent: the request
+log (reqlog.py: with the process's recorder on, one sampled access record
+of the request, its query redacted first); heat (heat.py: with
+``Router.heat`` set, ``note_http`` for each object route); the resource
+ledger (ledger.py: with ``Router.ledger`` set, its stamp is taken on the
+thread that runs the request before anything else, and ``settle_http``
+charges its thread CPU, bytes and ``handler.queue_wait_s`` to its route
+class and client).  Off, each costs one attribute check a request.
+
+Not ported: the network fault points.
 """
 
 from __future__ import annotations
@@ -83,10 +91,15 @@ from http.server import BaseHTTPRequestHandler
 from typing import Callable, Optional
 
 from ..observability import context as _trace_context
+from ..observability import reqlog as _reqlog
 from ..observability.tracer import NOOP_SPAN as _NOOP_SPAN
 from ..observability.tracer import get_tracer as _get_tracer
 from . import deadline as _deadline
 from .deadline import DeadlineExceeded
+
+# the process's request log (observability/reqlog.py): both chokepoints
+# read its ``enabled`` once a request
+_RECORDER = _reqlog.get_recorder()
 
 
 class HttpError(Exception):
@@ -257,6 +270,13 @@ class Router:
         # True only for needles its needle cache holds; None sends every
         # request to the worker pool
         self.loop_fast_probe = None
+        # the volume server's HeatAccumulator (observability/heat.py): every
+        # object route's answer feeds it; None costs one attribute check
+        self.heat = None
+        # the server's RequestLedger (observability/ledger.py): every
+        # request settles its CPU, bytes and queue wait into it; None
+        # costs one attribute check
+        self.ledger = None
         # the deadline_exceeded event's rate limit (the counter counts
         # every 504); a lost race costs at most one extra event
         self._last_ddl_event = 0.0
@@ -299,6 +319,11 @@ class Router:
                                          headers={"Connection": "close"}))
             return
         path = urllib.parse.unquote(urllib.parse.urlparse(handler.path).path)
+        # the ledger's stamp is taken on the thread that runs the request:
+        # thread CPU clocks are per thread (the reactor's wait for a worker
+        # rides apart, in handler.queue_wait_s)
+        ledger = self.ledger
+        ltok = ledger.begin() if ledger is not None else None
         # the trace context governs this request only, like the deadline
         # below: gated on tracer.enabled, so a dormant tracer costs one
         # attribute check
@@ -320,7 +345,8 @@ class Router:
                 match = pattern.match(path)
                 if not match:
                     continue
-                self._run(handler, Request(handler, match), fn, ddl, tctx)
+                self._run(handler, Request(handler, match), fn, ddl, tctx,
+                          ltok)
                 return
             self._drain_body(handler)
             self._send(handler, Response(
@@ -332,12 +358,13 @@ class Router:
                 _trace_context.swap_server(prev_srv)
 
     def _run(self, handler: BaseHTTPRequestHandler, req: Request,
-             fn: Callable, ddl, tctx=None) -> None:
+             fn: Callable, ddl, tctx=None, ltok=None) -> None:
         """``tctx``: a sampled request's trace context; the handler then
-        runs inside its request span."""
+        runs inside its request span.  ``ltok``: the ledger's stamp."""
         t0 = time.perf_counter()
         admission = self.admission
         admitted = False
+        shed = False
         try:
             try:
                 if ddl is not None and ddl.expired():
@@ -352,6 +379,7 @@ class Router:
                     # over the inflight bound: a fast 503 in place of a
                     # late timeout (try_acquire counted and journaled it),
                     # and the connection closes
+                    shed = True
                     handler.close_connection = True
                     resp = Response({"error": "overloaded: request shed"},
                                     status=503,
@@ -402,11 +430,101 @@ class Router:
                 # parsed as the next request either
                 self._drain_body(handler)
             self._send(handler, resp)
+            self._account(handler, req, fn.__name__, resp, shed, ddl, t0,
+                          tctx, ltok)
         finally:
             # the slot goes back only once the response has left: for a
             # body streamed from disk the send is the work
             if admitted:
                 admission.release()
+
+    def _account(self, handler: BaseHTTPRequestHandler, req: Request,
+                 handler_name: str, resp: Response, shed: bool, ddl,
+                 t0: float, tctx, ltok) -> None:
+        """The request log, heat and the ledger, after the send (a
+        streamed body's send is the work, and an inline request's stall
+        is its whole hold of the loop).  Never raises into serving."""
+        method = handler.command
+        if _RECORDER.enabled:
+            self._record_access(handler, method, handler_name, req, resp,
+                                shed, ddl, t0)
+        heat = self.heat
+        if heat is not None:
+            # note_http's fid regex turns control routes away before any
+            # lock
+            try:
+                heat.note_http(method, req.path, resp.status,
+                               self._resp_bytes(resp),
+                               tctx.trace_id if tctx is not None else "")
+            except Exception:  # noqa: BLE001 - accounting never breaks serving
+                pass
+        ledger = self.ledger
+        if ledger is not None and ltok is not None:
+            try:
+                ledger.settle_http(
+                    ltok, method, req.path, handler_name, resp.status,
+                    len(req._body or b""), self._resp_bytes(resp),
+                    handler.client_address[0] if handler.client_address
+                    else "",
+                    tctx.trace_id if tctx is not None else "",
+                    getattr(handler, "queue_wait_s", 0.0), query=req.query)
+            except Exception:  # noqa: BLE001 - accounting never breaks serving
+                pass
+
+    @staticmethod
+    def _resp_bytes(resp: Response) -> int:
+        """The bytes out, from attributes alone (no syscall): a streamed
+        whole file reads 0, so byte rates are a floor."""
+        if resp.raw is not None:
+            return len(resp.raw)
+        if resp.file_range is not None:
+            _off, length = resp.file_range
+            return length if length >= 0 else 0
+        if resp.data is not None:
+            return len(str(resp.data))
+        return 0
+
+    @staticmethod
+    def _record_access(handler, method: str, handler_name: str,
+                       req: Request, resp: Response, shed: bool,
+                       ddl, t0: float) -> None:
+        """One sampled access record (observability/reqlog.py); the
+        costly parts (redaction, bytes) only past the recorder's gate."""
+        try:
+            if resp.raw is not None:
+                out = len(resp.raw)
+            elif resp.file_path is not None:
+                _off, length = resp.file_range or (0, -1)
+                out = length if length >= 0 else \
+                    os.path.getsize(resp.file_path)
+            elif resp.data is not None:
+                # an estimate that does not encode the body again
+                out = len(str(resp.data))
+            else:
+                out = 0
+            try:
+                bytes_in = int(handler.headers.get("Content-Length") or 0)
+            except (TypeError, ValueError):
+                bytes_in = 0
+            peer = ""
+            addr = getattr(handler, "client_address", None)
+            if addr:
+                peer = str(addr[0])
+            path = _reqlog.redact_query(handler.path)
+            dur_s = time.perf_counter() - t0
+            # the budget the caller sent, not what was left after
+            _RECORDER.record(
+                _reqlog.classify_route(method, req.path, handler_name,
+                                       query=req.query),
+                method, path, resp.status,
+                bytes_in=bytes_in, bytes_out=out,
+                duration_ms=dur_s * 1e3,
+                deadline_s=(ddl.remaining() + dur_s
+                            if ddl is not None else None),
+                shed=shed, degraded=resp.status >= 500, peer=peer,
+                handler=handler_name)
+        except Exception:  # noqa: BLE001 - recording never breaks serving
+            pass
 
     @staticmethod
     def _drain_body(handler: BaseHTTPRequestHandler) -> None:

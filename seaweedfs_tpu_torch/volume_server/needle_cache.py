@@ -21,8 +21,11 @@ can answer a cached GET on its loop.
 Counters ride stats.needle_cache_metrics(); ``status()`` is /status's
 ``NeedleCache``.
 
-Not ported: the heat and resource-ledger callbacks (``on_hit``,
-``on_admit``, ``on_miss``), whose accumulators the port has not.
+Callbacks, called outside the lock with their exceptions swallowed (set
+once by the volume server, observability/heat.py and ledger.py):
+``on_hit(vid, key, nbytes)`` and ``on_miss(vid, key)`` at each lookup,
+``on_admit(vid, key)`` at each admission.  The server composes heat's hit
+hook with the ledger's (one slot, both fed).
 """
 
 from __future__ import annotations
@@ -59,6 +62,10 @@ class NeedleCache:
         self._freq: dict[tuple, int] = {}  # guarded-by: _lock
         self._vols: dict[int, set] = {}  # vid -> cached keys  # guarded-by: _lock
         self._epochs: dict[int, int] = {}  # guarded-by: _lock
+        # accounting hooks, set once at the server's construction
+        self.on_hit = None       # fn(vid, key, nbytes): heat, the ledger
+        self.on_admit = None     # fn(vid, key): heat
+        self.on_miss = None      # fn(vid, key): the ledger
 
     @property
     def enabled(self) -> bool:
@@ -80,9 +87,21 @@ class NeedleCache:
         if n is not None:
             m.hits.inc()
             m.volume_hits.inc(str(vid))
+            hook = self.on_hit
+            if hook is not None:
+                try:
+                    hook(vid, key, len(n.data or b""))
+                except Exception:  # noqa: BLE001 - accounting never breaks a read
+                    pass
         else:
             m.misses.inc()
             m.volume_misses.inc(str(vid))
+            hook = self.on_miss
+            if hook is not None:
+                try:
+                    hook(vid, key)
+                except Exception:  # noqa: BLE001 - accounting never breaks a read
+                    pass
         return n
 
     def epoch(self, vid: int) -> int:
@@ -133,6 +152,12 @@ class NeedleCache:
         if admitted:
             m.admissions.inc()
             m.bytes.set(resident)
+            hook = self.on_admit
+            if hook is not None:
+                try:
+                    hook(vid, key)
+                except Exception:  # noqa: BLE001 - accounting never breaks a read
+                    pass
         else:
             m.rejections.inc()
         return admitted

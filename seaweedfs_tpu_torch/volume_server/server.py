@@ -38,7 +38,9 @@ off the card or onto it: a card server runs "tpu" and "mesh" requests
 (each on its own streaming encoder), a CPU server "cpu" ("tpu" too, on
 the CPU), and any other answers 400.  ``/status`` carries
 ``EcKernelLaunches``, the GF(2^8) kernels this process has launched (a
-port-only key: a drill reads it to see which server ran a repair).
+port-only key: a drill reads it to see which server ran a repair), and
+the port-only ``GET /debug/ec/kernel`` the same count with the launches
+by exact width.
 
 ``GET /debug/traces``, ``/debug/traces/analyze`` and ``/debug/events``
 serve the process's span ring and event journal, ``/debug/profile`` and
@@ -124,7 +126,24 @@ at the server's start and a failed build raises; it stops at ``stop()``.
 ``/admin/assign_volume`` takes ``offset_5`` (a volume past 32 GB, which
 the plane never takes).
 
-Not ported: heat, ledger and the request log.
+Telemetry (observability/): ``heat`` (on by default; ``-heat.off``) keeps
+a HeatAccumulator (heat.py, ``heat_halflife_s``, ``heat_topk`` needles)
+fed by the router at every object route, by the framed plane at every
+needle op (``TcpVolumeServer(heat=)``), by the batch routes per fid and by
+the needle cache's hit and admission callbacks; GET /debug/heat serves
+its snapshot, and a HeatShipper sends one to the masters each second.
+``ledger`` (on by default; ``-ledger.off``) keeps a RequestLedger
+(ledger.py, ``ledger_halflife_s``) settled by the router and by
+``serve_frame``, fed the needle cache's hits and misses, the reactor's
+loop-lag stats and stalls (``stall_hook``, unhooked at stop) and a
+WindowedProfiler's windows; GET /debug/ledger serves its snapshot, and a
+LedgerShipper sends one each second.  ``/status`` carries ``Heat`` and
+``Ledger`` (occupancy, shipped, dropped).  The process's request log
+(reqlog.py, off until ``-reqlog.sample`` or POST /debug/reqlog/start)
+records both planes; a ReqlogShipper sends its records to the masters'
+/cluster/workload.  The C++ plane (``dataplane="native"``) serves its
+frames with no Python, so they reach none of the three, as in the
+reference.
 """
 
 from __future__ import annotations
@@ -151,13 +170,18 @@ from ..observability import get_tracer
 from ..observability.collector import TraceShipper
 from ..observability.events import EventShipper, get_journal
 from ..observability.flightrecorder import get_flightrecorder
+from ..observability.heat import HeatAccumulator, HeatShipper
+from ..observability.ledger import LedgerShipper, RequestLedger
+from ..observability.profiler import WindowedProfiler
+from ..observability.reqlog import ReqlogShipper, get_recorder
 from ..ops import _build
 from ..ops.gf_matmul import gf_matmul, width_classes
 from ..query import execute_query
 from ..security import Guard, JwtError, decode_jwt, get_jwt
 from ..stats import (REGISTRY, dataplane_metrics, degraded_bind_metrics,
-                     ec_integrity_metrics, needle_cache_metrics,
-                     request_plane_metrics, volume_server_metrics)
+                     ec_integrity_metrics, heat_metrics, ledger_metrics,
+                     needle_cache_metrics, request_plane_metrics,
+                     volume_server_metrics)
 from ..stats.metrics import exemplars_requested
 from ..storage.file_id import FileId
 from ..storage.backend import configure_backends
@@ -178,6 +202,7 @@ from ..storage.volume import (
     volume_file_prefix,
 )
 from ..storage.volume_backup import records_since
+from ..utils import eventloop
 from ..utils.compression import ungzip_data
 from ..utils.admission import maybe_controller
 from ..utils.debug import register_debug_routes
@@ -246,7 +271,10 @@ class VolumeServer:
                  guard: Optional[Guard] = None,
                  backends: Optional[dict] = None, tls_context=None,
                  use_mmap: bool = False, dataplane: str = "python",
-                 ec_engine: str = "", ec_mesh_devices=None):
+                 ec_engine: str = "", ec_mesh_devices=None,
+                 heat: bool = True, heat_halflife_s: float = 30.0,
+                 heat_topk: int = 512, ledger: bool = True,
+                 ledger_halflife_s: float = 60.0):
         """A volume server for ``directories`` at host:port, heartbeating
         to ``master_url`` (comma-separated masters; heartbeats follow the
         raft leader).  ``device`` runs the EC work: "cuda" needs a card
@@ -259,7 +287,9 @@ class VolumeServer:
         HTTPS; ``use_mmap`` maps each `.dat`; ``dataplane`` "native"
         serves needle IO through the C++ plane.  ``ec_engine`` "mesh" runs
         EC over the lanes of ``ec_mesh_devices`` (Store); empty is the
-        device's own engine, "tpu" on a card and "cpu" on the CPU."""
+        device's own engine, "tpu" on a card and "cpu" on the CPU.
+        ``heat`` and ``ledger`` turn the two accounting feeds on (their
+        half-lives in seconds, ``heat_topk`` the needle sketch's size)."""
         if dataplane not in ("python", "native"):
             raise ValueError(f"dataplane {dataplane!r} is not python or "
                              "native")
@@ -324,6 +354,49 @@ class VolumeServer:
         self._event_shipper = EventShipper(
             get_journal(), server=self.url,
             master_url_fn=self._master_candidates)
+        # the process's request log ships to /cluster/workload; it is off
+        # until recording starts, and the shipper stands ready
+        self._reqlog_shipper = ReqlogShipper(
+            get_recorder(), server=self.url,
+            master_url_fn=self._master_candidates)
+        # heat, one accumulator a server (co-located servers must not pool
+        # it); off leaves router.heat and tcp.heat None
+        heat_metrics()
+        self.heat = HeatAccumulator(server=self.url,
+                                    half_life=heat_halflife_s,
+                                    top_k=heat_topk, enabled=heat)
+        self._heat_shipper = HeatShipper(
+            self.heat, server=self.url,
+            master_url_fn=self._master_candidates) if heat else None
+        cache = self.store.needle_cache
+        if heat:
+            cache.on_hit = self.heat.note_cache_hit
+            cache.on_admit = self.heat.note_cache_admit
+        # the resource ledger and its profiler; off leaves router.ledger
+        # and the framed plane's ledger None
+        ledger_metrics()
+        self.ledger = RequestLedger(
+            server=self.url, half_life=ledger_halflife_s) \
+            if ledger else None
+        self._ledger_shipper = LedgerShipper(
+            self.ledger, server=self.url,
+            master_url_fn=self._master_candidates) if ledger else None
+        self._profiler = WindowedProfiler() if ledger else None
+        if self.ledger is not None:
+            self.ledger.profile_fn = self._profiler.summary
+            # one hit slot, both fed: heat per volume, the ledger per
+            # request
+            heat_hit = cache.on_hit
+            if heat_hit is None:
+                cache.on_hit = RequestLedger.note_cache_hit
+            else:
+                def on_hit(vid, key, nbytes, _heat_hit=heat_hit):
+                    _heat_hit(vid, key, nbytes)
+                    RequestLedger.note_cache_hit(vid, key, nbytes)
+                cache.on_hit = on_hit
+            cache.on_miss = RequestLedger.note_cache_miss
+        self.router.heat = self.heat if heat else None
+        self.router.ledger = self.ledger
 
     @property
     def url(self) -> str:
@@ -366,14 +439,44 @@ class VolumeServer:
                     whitelist_ok=(g.check_white_list if g.is_write_active
                                   else None),
                     replicate_write=self._tcp_replicate_write,
-                    replicate_delete=self._tcp_replicate_delete).start(),
+                    replicate_delete=self._tcp_replicate_delete,
+                    heat=self.heat if self.heat.enabled else None).start(),
                 role="volume-tcp", server=self.url)
+            # serve_frame reads it off the FramedServer (either front)
+            self._tcp_server.ledger = self.ledger
+        if self.ledger is not None:
+            # loop-lag stats ride each snapshot, and the watchdog's stalls
+            # go through the ledger (it names the route)
+            if eventloop.reactor_enabled():
+                reactor = eventloop.get_reactor()
+                self.ledger.loop_stats_fn = reactor.loop_lag_stats
+                reactor.stall_hook = self.ledger.note_stall
+            self._profiler.start()
+        self._reqlog_shipper.attach()
+        if self._heat_shipper is not None:
+            self._heat_shipper.attach()
+        if self._ledger_shipper is not None:
+            self._ledger_shipper.attach()
         threading.Thread(target=self._heartbeat_loop, daemon=True,
                          name=f"heartbeat:{self.url}").start()
         return self
 
     def stop(self) -> None:
         self._stop.set()
+        self._reqlog_shipper.detach()
+        if self._heat_shipper is not None:
+            self._heat_shipper.detach()
+        if self._ledger_shipper is not None:
+            self._ledger_shipper.detach()
+        if self._profiler is not None:
+            self._profiler.stop()
+        if self.ledger is not None and eventloop.reactor_enabled():
+            # the process's reactor outlives this server: unhook it
+            reactor = eventloop.get_reactor()
+            if reactor.stall_hook == self.ledger.note_stall:
+                reactor.stall_hook = None
+            if self.ledger.loop_stats_fn == reactor.loop_lag_stats:
+                self.ledger.loop_stats_fn = None
         self.scrubber.stop(join_timeout=0.5)
         if self._tcp_server is not None:
             self._tcp_server.stop()
@@ -875,6 +978,7 @@ class VolumeServer:
             fids = req.json().get("fids", [])
             if not isinstance(fids, list) or len(fids) > 10000:
                 raise HttpError(400, "fids must be a list of <= 10000")
+            heat = self.router.heat
             out = []
             for fid_str in fids:
                 try:
@@ -885,6 +989,10 @@ class VolumeServer:
                         else n.data
                     out.append(b"\x00" + U32.pack(len(data)))
                     out.append(data)
+                    if heat is not None:
+                        # /batch/* never matches the router's fid regex
+                        heat.note_read(fid.volume_id, len(data),
+                                       fid=str(fid_str))
                 except Exception as e:  # noqa: BLE001 - a per-fid answer
                     msg = f"{type(e).__name__}: {e}".encode()[:4096]
                     out.append(b"\x01" + U32.pack(len(msg)) + msg)
@@ -908,6 +1016,7 @@ class VolumeServer:
                 items = unpack_fid_frames(req.body, with_data=True)
             except ValueError as e:
                 raise HttpError(400, str(e))
+            heat = self.router.heat
             results = []
             by_vid: dict[int, list[tuple[str, bytes]]] = {}
             for fid_str, data in items:
@@ -919,6 +1028,8 @@ class VolumeServer:
                     self.store.write_needle(fid.volume_id, n)
                     results.append({"fid": fid_str, "status": 201,
                                     "size": len(data)})
+                    if heat is not None:
+                        heat.note_write(fid.volume_id, len(data))
                     if req.query.get("type") != "replicate":
                         by_vid.setdefault(fid.volume_id, []).append(
                             (fid_str, data))
@@ -1083,6 +1194,13 @@ class VolumeServer:
                 "EcKernelWidths": width_classes(gf_matmul.widths),
                 "NeedleCache": self.store.needle_cache.status(),
                 "Dataplane": dataplane_metrics().totals(),
+                "Heat": {
+                    **self.heat.status(),
+                    "shipped": self._heat_shipper.shipped
+                    if self._heat_shipper is not None else 0,
+                    "dropped": self._heat_shipper.dropped
+                    if self._heat_shipper is not None else 0,
+                },
                 "EcScrub": {
                     "running": scrub["running"],
                     "passes": scrub["passes"],
@@ -1091,6 +1209,12 @@ class VolumeServer:
                                  for v, d in scrub["verdicts"].items()},
                 },
             }
+            if self.ledger is not None:
+                doc["Ledger"] = {
+                    **self.ledger.status(),
+                    "shipped": self._ledger_shipper.shipped,
+                    "dropped": self._ledger_shipper.dropped,
+                }
             plane = self.store.native_plane
             if plane is not None:
                 doc["NativeDataPlane"] = {
@@ -1100,6 +1224,48 @@ class VolumeServer:
                               "deleted_bytes": db, "fsync_passes": sp}
                         for vid, (ds, fc, _mk, db, sp)
                         in plane.stats_all().items()}}
+            return Response(doc)
+
+        @r.route("GET", "/debug/heat")
+        def debug_heat(req: Request) -> Response:
+            """This server's heat snapshot (?top= needles, default 64, at
+            most 1024), its accumulator's status and its shipper's
+            counts: the per-peer view /cluster/heat merges."""
+            try:
+                top = int(req.query.get("top", "64"))
+            except (TypeError, ValueError):
+                top = 64
+            doc = self.heat.snapshot(top_k=max(0, min(top, 1024)))
+            doc["status"] = self.heat.status()
+            if self._heat_shipper is not None:
+                doc["shipper"] = {
+                    "shipped": self._heat_shipper.shipped,
+                    "dropped": self._heat_shipper.dropped,
+                    "interval_s": self._heat_shipper.interval}
+            return Response(doc)
+
+        @r.route("GET", "/debug/ec/kernel")
+        def debug_ec_kernel(req: Request) -> Response:
+            """The GF(2^8) kernel's launches in this process, in all and
+            by exact launch width (a port-only route: /status
+            ``EcKernelWidths`` gives the width classes alone)."""
+            widths = dict(gf_matmul.widths)
+            return Response({"launches": gf_matmul.launches,
+                             "widths": {str(w): n for w, n in
+                                        sorted(widths.items())}})
+
+        @r.route("GET", "/debug/ledger")
+        def debug_ledger(req: Request) -> Response:
+            """This server's ledger snapshot: CPU, byte and queue-wait
+            rates by route class and client, the loop's lag, the
+            profiler's windows; 404 with the ledger off."""
+            if self.ledger is None:
+                return Response({"error": "ledger disabled"}, status=404)
+            doc = self.ledger.snapshot()
+            doc["shipper"] = {
+                "shipped": self._ledger_shipper.shipped,
+                "dropped": self._ledger_shipper.dropped,
+                "interval_s": self._ledger_shipper.interval}
             return Response(doc)
 
         @r.route("GET", "/metrics")

@@ -28,7 +28,11 @@ frame, reads included.  The volume server starts no framed plane at all
 under a write or read key, or under cluster TLS: a frame has no token
 slot and the plane no TLS.
 
-Not ported: heat accounting (it waits for observability/heat.py).
+``heat`` (the server's HeatAccumulator, observability/heat.py, or None)
+is fed once a needle op (a batch frame's per fid): the framed plane passes
+no router, so it notes its reads, writes and failures itself
+(``note_native``); the server's RequestLedger settles each frame in
+``serve_frame`` (``FramedServer.ledger``).
 """
 
 from __future__ import annotations
@@ -56,16 +60,41 @@ class TcpVolumeServer(FramedServer):
 
     def __init__(self, store, host: str = "127.0.0.1", port: int = 0,
                  whitelist_ok=None, replicate_write=None,
-                 replicate_delete=None):
+                 replicate_delete=None, heat=None):
         super().__init__(self._handle, host,
                          port or tcp_port_for(store.port),
                          whitelist_ok=whitelist_ok, name="tcp-volume")
         self.store = store
         self.replicate_write = replicate_write
         self.replicate_delete = replicate_delete
+        # None costs one attribute check an op
+        self.heat = heat
 
     def _handle_one(self, op: bytes, fid_str: str, body: bytes) -> bytes:
+        if self.heat is None:
+            return self._op(op, fid_str, body)
         fid = FileId.parse(fid_str)
+        try:
+            out = self._op(op, fid_str, body, fid=fid)
+        except Exception:
+            try:
+                self.heat.note_native(op.decode(), fid.volume_id, 0,
+                                      error=True)
+            except Exception:  # noqa: BLE001 - accounting never breaks serving
+                pass
+            raise
+        try:
+            self.heat.note_native(op.decode(), fid.volume_id,
+                                  len(out) if op == b"R" else len(body),
+                                  fid=fid_str)
+        except Exception:  # noqa: BLE001 - accounting never breaks serving
+            pass
+        return out
+
+    def _op(self, op: bytes, fid_str: str, body: bytes,
+            fid=None) -> bytes:
+        if fid is None:
+            fid = FileId.parse(fid_str)
         if op == b"W":
             n = Needle(cookie=fid.cookie, id=fid.key, data=body)
             size, _ = self.store.write_needle(fid.volume_id, n)

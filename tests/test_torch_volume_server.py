@@ -287,7 +287,7 @@ def test_port_answers_its_own_routes(servers):
                                           "EcPipeline", "EcIntegrity",
                                           "EcKernelLaunches", "EcScrub",
                                           "EcKernelWidths", "NeedleCache",
-                                          "Dataplane"}
+                                          "Dataplane", "Heat", "Ledger"}
     assert doc["EcScrub"] == {"running": False, "passes": 0,
                               "cursor": [0, 0], "verdicts": {}}
     # the process's kernel count: a CPU server launches none
