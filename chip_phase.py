@@ -15,7 +15,8 @@ constants, and prints the card's name and power limit,
 then one JSON line of the phase's numbers (``dataplane``: each front's
 healthy passes, ops/s and p50/p99 ms; ``native_plane``: its passes, the
 frames and dispatches each moved, and the client's and servers' CPU
-seconds; ``telemetry``: its checks and its on/off/on passes).  To hold one tree against another on one card,
+seconds; ``telemetry``: its checks, its on/off/on passes and its
+``scenarios`` leg).  To hold one tree against another on one card,
 unpack the other with ``git archive``, copy this script into it if it
 lacks one, and run it from each checkout in turns (other, this, this,
 other) in one call.  Needs a card.

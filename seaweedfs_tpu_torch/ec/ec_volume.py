@@ -77,6 +77,8 @@ class EcVolumeShard:
         self.size = os.fstat(self._f.fileno()).st_size
 
     def read_at(self, length: int, offset: int) -> bytes:
+        if faultinject._points:
+            faultinject.hit("shard.read")
         data = os.pread(self._f.fileno(), length, offset)
         if faultinject._points:
             # bit-rot drill: a deterministic flip the sidecar verify

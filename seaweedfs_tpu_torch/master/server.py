@@ -53,6 +53,10 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         ledger.py): CPU, bytes and queue wait by route,
                         client and server, loop lag, profiles, and the
                         loop_stall relay; ?top=
+  GET|POST /cluster/capacity
+                        the last capacity probe's document (scenarios/
+                        capacity.py, the shell's capacity.probe); 404
+                        until one has posted
   GET  /metrics         this process's Prometheus exposition: the
                         master's requests by route, the coordinator's and
                         the request plane's families (?exemplars=1 adds
@@ -131,9 +135,8 @@ front does not start under a write key or TLS: it has neither a token
 nor a TLS slot, and clients fall back to HTTP.
 
 Not ported: ``master/follower.py`` (it needs ``/cluster/watch`` and
-wdclient), the /cluster/ capacity (it waits for scenarios/capacity.py),
-autoscale (the heat journal's ``on_ingest`` consumer) and watch routes,
-and the maintenance scripts.
+wdclient), the /cluster/ autoscale (the heat journal's ``on_ingest``
+consumer) and watch routes, and the maintenance scripts.
 """
 
 from __future__ import annotations
@@ -284,6 +287,7 @@ class MasterServer:
         # master settles its own requests too, shipped locally
         ledger_metrics()
         self.ledger_journal = ClusterLedgerJournal()
+        self._capacity_doc: Optional[dict] = None
         self.ledger = RequestLedger(server=self.url)
         self._ledger_shipper = LedgerShipper(
             self.ledger, server=self.url,
@@ -1146,6 +1150,29 @@ class MasterServer:
             self._require_leader(req)
             top = min(qint(req.query, "top", 20), 256)
             return Response(self.ledger_journal.to_doc(top=top))
+
+        @r.route("GET", "/cluster/capacity")
+        def cluster_capacity(req: Request) -> Response:
+            """The last capacity-probe result parked on this master
+            (scenarios/capacity.py through the shell's capacity.probe):
+            the rps per route class a declared SLO sustains.  404 until
+            a probe has posted; cluster.health hints from it."""
+            if self._capacity_doc is None:
+                raise HttpError(404, "no capacity probe result; run "
+                                     "`weed shell capacity.probe`")
+            return Response(self._capacity_doc)
+
+        @r.route("POST", "/cluster/capacity")
+        def cluster_capacity_post(req: Request) -> Response:
+            doc = req.json()
+            if not isinstance(doc, dict) or not doc:
+                raise HttpError(400, "capacity document required")
+            doc = dict(doc)
+            doc.setdefault("posted_at", round(time.time(), 3))
+            # one rebind: the last probe wins, and a reader takes the
+            # whole document or None
+            self._capacity_doc = doc
+            return Response({"stored": True}, status=201)
 
         @r.route("POST", "/cluster/traces/ingest")
         def cluster_traces_ingest(req: Request) -> Response:

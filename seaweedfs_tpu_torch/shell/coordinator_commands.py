@@ -12,11 +12,11 @@ The shell's admin ``lock`` already pauses the coordinator (no dueling
 migrations); pause/resume is the operator's hold that outlives a lock
 session.  Output is stable line-per-record text, so scripts can grep it;
 -json prints the raw document.  cluster.health prints the masters line
-from /cluster/status, the alerts line from /cluster/alerts and the
+from /cluster/status, the alerts line from /cluster/alerts, the capacity
+line from /cluster/capacity (each route's sustained rps under the last
+probe's SLO, and the probe's age; none before a probe has posted) and the
 resource ledger's line from /cluster/ledger (the worst loop-lag p99, the
-stalls, the route carrying the most CPU); the reference's capacity line
-is left out, as the reference's shell leaves it out before a master with
-no capacity result (the port's capacity probe waits for scenarios/).
+stalls, the route carrying the most CPU).
 """
 
 from __future__ import annotations
@@ -113,6 +113,23 @@ def cmd_cluster_health(env: CommandEnv, flags: dict) -> str:
                   if a["state"] == "firing"]
         lines.append(f"alerts: {al.get('firing', 0)} firing"
                      + (f" ({', '.join(firing)})" if firing else ""))
+    except Exception:  # noqa: BLE001 - as the reference's shell
+        pass
+    # best-effort: the capacity hint when a probe result is parked on
+    # the master (the shell's capacity.probe); a 404 means none yet
+    try:
+        cap = env.master_get("/cluster/capacity")
+        slo = cap.get("slo") or {}
+        parts = [f"{route}~{res['capacity_rps']:g}rps"
+                 for route, res in sorted((cap.get("routes") or {}).items())
+                 if isinstance(res, dict) and res.get("capacity_rps")]
+        if parts:
+            age = int(time.time() - float(cap.get("posted_at")
+                                          or cap.get("probed_at") or 0))
+            lines.append(
+                f"capacity: {' '.join(parts)} "
+                f"(SLO p99<{slo.get('max_p99_ms', '?')}ms, "
+                f"probed {age}s ago)")
     except Exception:  # noqa: BLE001 - as the reference's shell
         pass
     # best-effort: the worst loop-lag p99 across the peers and the route

@@ -23,6 +23,11 @@ A peer's up -> down transition is journaled as a ``peer_stale`` event
 (once per loss, not per scrape), and a scrape carries the calling
 request's trace context onto its pool threads, so a sampled GET
 /cluster/health shows its fan-out as ``rpc.client`` hops.
+
+Unlike the reference, the pool threads only fetch: the scraping thread
+parses each peer's text in turn, each label set once per process, and
+hands the GIL over as it goes, so the master's requests never wait
+behind a scrape for more than about a millisecond at a time.
 """
 
 from __future__ import annotations
@@ -88,22 +93,55 @@ def _unescape(v: str) -> str:
     return v.replace("\\n", "\n").replace('\\"', '"').replace("\\\\", "\\")
 
 
+# a parse hands the GIL over every this many lines and after each family
+# (``_yield_interpreter``), so it holds it about a millisecond at a time:
+# the interpreter alone lets a CPU-bound thread run a 5 ms switch interval
+# before a thread that wants the GIL gets it, and the master's periodic
+# scrape would cost a request landing mid-parse that much at each of its
+# handoffs between threads
+_PAUSE_LINES = 128
+_PAUSE_S = 5e-5
+
+
+def _yield_interpreter() -> None:
+    """A sleep short enough to cost the scrape nothing and long enough
+    that a thread waiting for the GIL takes it."""
+    time.sleep(_PAUSE_S)
+
+
+# raw label text -> its parsed dict.  A server's exposition repeats the
+# same label sets scrape after scrape (a histogram's label set once per
+# bucket), so the master's periodic scrape parses each only once.  The
+# dicts are shared: no caller mutates one.
+_LABELS_SEEN: dict[str, dict[str, str]] = {}
+_LABELS_SEEN_MAX = 1 << 16
+
+
 def _parse_labels(raw: Optional[str]) -> dict[str, str]:
     if not raw:
         return {}
-    return {k: _unescape(v) for k, v in _LABEL_RE.findall(raw)}
+    labels = _LABELS_SEEN.get(raw)
+    if labels is None:
+        labels = {k: _unescape(v) for k, v in _LABEL_RE.findall(raw)}
+        if len(_LABELS_SEEN) >= _LABELS_SEEN_MAX:
+            _LABELS_SEEN.clear()
+        _LABELS_SEEN[raw] = labels
+    return labels
 
 
 def parse_prometheus_text(text: str) -> dict[str, object]:
     """Exposition text -> {family name: Counter|Gauge|Histogram}
     (unregistered collectors, ready for merge()).  Histogram _bucket
     series are de-cumulated back into per-bucket counts so the merge is
-    exact.  Untyped samples are gauges."""
+    exact.  Untyped samples are gauges.  Yields the GIL as it goes
+    (``_PAUSE_LINES``)."""
     types: dict[str, str] = {}
     helps: dict[str, str] = {}
     # family -> [(labels, suffix, value)]
     raw: dict[str, list] = {}
-    for line in text.splitlines():
+    for n, line in enumerate(text.splitlines()):
+        if n % _PAUSE_LINES == _PAUSE_LINES - 1:
+            _yield_interpreter()
         line = line.strip()
         if not line:
             continue
@@ -133,6 +171,7 @@ def parse_prometheus_text(text: str) -> dict[str, object]:
 
     out: dict[str, object] = {}
     for name, samples in raw.items():
+        _yield_interpreter()
         kind = types.get(name, "gauge")
         help_ = helps.get(name, "")
         if kind == "histogram":
@@ -320,7 +359,7 @@ class ClusterAggregator:
         def one(url: str):
             with _trace_context.scope(ctx):
                 try:
-                    fams = parse_prometheus_text(self._fetch(url))
+                    text = self._fetch(url)
                 except Exception as e:  # noqa: BLE001 - marked down
                     return url, None, f"{type(e).__name__}: {e}"[:200], None
                 scrub = None
@@ -329,12 +368,26 @@ class ClusterAggregator:
                         scrub = self._scrub_fetch(url)
                     except Exception:  # noqa: BLE001 - optional state
                         scrub = None
-                return url, fams, "", scrub
+                return url, text, "", scrub
 
         with concurrent.futures.ThreadPoolExecutor(
                 max_workers=min(8, len(urls)),
                 thread_name_prefix="metrics-scrape") as pool:
-            results = list(pool.map(one, urls))
+            fetched = list(pool.map(one, urls))
+        # the fetches wait on the wire in parallel; the parses, all CPU
+        # under the GIL, run one after another on this thread, so a
+        # request that lands mid-scrape waits on one parser, not on every
+        # peer's at once
+        results = []
+        for url, text, err, scrub in fetched:
+            families = None
+            if text is not None:
+                try:
+                    families = parse_prometheus_text(text)
+                except Exception as e:  # noqa: BLE001 - marked down
+                    err = f"{type(e).__name__}: {e}"[:200]
+                    scrub = None
+            results.append((url, families, err, scrub))
         lost: list[tuple[str, str]] = []
         with self._lock:
             for url, families, err, scrub in results:

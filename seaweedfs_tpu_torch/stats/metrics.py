@@ -245,27 +245,30 @@ class Histogram:
                f"# TYPE {self.name} histogram"]
         with self._lock:
             kept = dict(self._exemplars) if exemplars else {}
+        # every bucket line of a label set differs only in its le and its
+        # count: the text around them is built once per label set
+        les = [_num(b) for b in self.buckets] + ["+Inf"]
         for lv, (counts, total_sum, total) in sorted(self.snapshot().items()):
             ex = kept.get(lv)
+            labels = dict(zip(self.label_names, lv))
+            labels["le"] = ""
+            pairs = [f'{k}="{_escape_label_value(str(v))}"'
+                     for k, v in labels.items()]
+            j = list(labels).index("le")
+            head = (f"{self.name}_bucket{{"
+                    + "".join(p + "," for p in pairs[:j]) + 'le="')
+            tail = '"' + "".join("," + p for p in pairs[j + 1:]) + "} "
             cumulative = 0
-            for i, bound in enumerate(self.buckets):
-                cumulative += counts[i]
-                labels = dict(zip(self.label_names, lv))
-                labels["le"] = _num(bound)
-                pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
-                                 for k, v in labels.items())
-                line = f"{self.name}_bucket{{{pairs}}} {cumulative}"
-                if ex is not None and ex[0] == i:
+            for i, le in enumerate(les):
+                if i < len(self.buckets):
+                    cumulative += counts[i]
+                    at = i
+                else:
+                    cumulative, at = total, None
+                line = f"{head}{le}{tail}{cumulative}"
+                if ex is not None and ex[0] == at:
                     line += _fmt_exemplar(ex)
                 out.append(line)
-            labels = dict(zip(self.label_names, lv))
-            labels["le"] = "+Inf"
-            pairs = ",".join(f'{k}="{_escape_label_value(str(v))}"'
-                             for k, v in labels.items())
-            line = f"{self.name}_bucket{{{pairs}}} {total}"
-            if ex is not None and ex[0] is None:
-                line += _fmt_exemplar(ex)
-            out.append(line)
             plain = _fmt_labels(self.label_names, lv)
             out.append(f"{self.name}_sum{plain} {_num(total_sum)}")
             out.append(f"{self.name}_count{plain} {total}")
@@ -457,6 +460,17 @@ class RequestPlaneMetrics:
             "SeaweedFS_retry_budget_exhausted_total",
             "Retries denied by a drained per-destination retry budget.",
             labels=("kind",))
+
+    def totals(self) -> dict[str, int]:
+        """The three counters summed over their labels: what a scenario
+        run reads before and after its load."""
+        return {
+            "requests_shed": int(sum(self.shed.snapshot().values())),
+            "deadline_exceeded":
+                int(sum(self.deadline_exceeded.snapshot().values())),
+            "retry_budget_exhausted":
+                int(sum(self.retry_budget_exhausted.snapshot().values())),
+        }
 
 
 class DataplaneMetrics:

@@ -69,6 +69,8 @@ import time
 from collections import deque
 from typing import Callable, Optional
 
+from . import faultinject as _fi
+
 # per-connection bounds, mirroring the threaded servers' guards
 MAX_HEADER_BYTES = 1 << 16          # request line + headers
 MAX_HEADERS = 100
@@ -810,6 +812,10 @@ class Reactor:
             # the probe vouched that the answer is in memory: the whole
             # dispatch runs on the loop, no thread handoff
             self._loop_busy = path
+            if _fi._points:
+                # the loop-stall drill: a delay here blocks the whole
+                # data plane, as blocking IO on the fast path would
+                _fi.hit("loop.block")
             try:
                 router.dispatch(h, command)
             except Exception:  # noqa: BLE001

@@ -1,16 +1,23 @@
 """Fault injection: named fault points that raise or stall on chosen hits.
 
 The port's copy of seaweedfs_tpu/utils/faultinject.py, with the points the
-port's EC pipeline, its repair coordinator, its volumes' disk IO and
-their tier moves hit.  A
-point is free when nothing is armed (one dict-emptiness check at each
+port's EC pipeline, its repair coordinator, its volumes' disk IO, their
+tier moves, its network egress, its reactor and its EC shard reads hit.
+A point is free when nothing is armed (one dict-emptiness check at each
 site); tests and drills arm it:
 
     from seaweedfs_tpu_torch.utils import faultinject as fi
 
     fi.enable("ec.dispatch", error_rate=1.0, max_hits=1, after=12)
-    ...
+    fi.enable("net.partition", error_rate=1.0,
+              params={"peer": "127.0.0.1:8080"})   # one peer cut off
+    with fi.scoped("disk.sync", error_rate=1.0):   # armed for a block
+        ...
     fi.clear()
+
+The ``net.*`` points are peer-scoped (``hit_peer``, ``peer_delay``): armed
+with ``params={"peer": "host:port"}`` they fire only on sends to that
+peer, and with no peer on every send.
 
 A server started from the command line arms points from the
 ``WEED_FAULTS`` environment variable (``arm_from_env``).
@@ -24,6 +31,7 @@ a drill can fail the 13th dispatch of an encode and not the first.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import random
 import threading
@@ -34,9 +42,11 @@ _lock = threading.Lock()
 _points: dict[str, dict] = {}
 _counts: dict[str, int] = {}
 
-# every hit()/corrupt_block() site in the port names one of these, and
-# each is hit somewhere in the port (tests/test_torch_faultinject.py
-# checks both ways); the shell's fault.list prints the table
+# every hit()/hit_peer()/peer_delay()/corrupt_block() site in the port
+# names one of these, and each is hit somewhere in the port
+# (tests/test_torch_faultinject.py checks both ways); the points the
+# reference shares with the port since the scenario harness keep its
+# descriptions; the shell's fault.list prints the table
 FAULT_POINTS: dict[str, str] = {
     "ec.dispatch": "streaming encode, after a slot is filled and before "
                    "its dispatch is launched: an injected error fails the "
@@ -75,6 +85,29 @@ FAULT_POINTS: dict[str, str] = {
                   "executor posts: an injected error fails the current "
                   "repair or move, so the re-plan and no-orphan cleanup "
                   "paths run (ops/coordinator.py)",
+    "shard.read": "EC shard pread (ec/ec_volume.py)",
+    "net.request": "pooled HTTP client send (utils/httpd.py)",
+    "net.delay": "peer-scoped wire slowdown at the pooled-HTTP and "
+                 "framed egress: params={'peer': 'host:port'} (absent "
+                 "= all peers) + delay=<s>.  Applied deadline-aware "
+                 "(deadline.sleep_within), so a caller with an "
+                 "X-Weed-Deadline budget still returns on time — the "
+                 "scenario engine's slow-network drill "
+                 "(utils/httpd.py, utils/framing.py)",
+    "net.drop": "peer-scoped probabilistic request loss at the same "
+                "egress points: params={'peer': ...}, error_rate<1 "
+                "models packet loss / connection resets "
+                "(utils/httpd.py, utils/framing.py)",
+    "net.partition": "peer-scoped total partition: arm with "
+                     "error_rate=1.0 + params={'peer': ...} and every "
+                     "send to that peer fails instantly — the "
+                     "failure-under-load scenario's rack-loss stand-in "
+                     "(utils/httpd.py, utils/framing.py)",
+    "loop.block": "reactor inline fast path, ON the event-loop thread "
+                  "— delay-only arming blocks the WHOLE dataplane for "
+                  "the duration, the loop-stall drill behind the "
+                  "loop_lag health key and the loop_stall alert relay "
+                  "(utils/eventloop.py)",
 }
 
 
@@ -119,6 +152,16 @@ def clear() -> None:
 def fired(name: str) -> int:
     """How many times this point actually injected a fault."""
     return _counts.get(name, 0)
+
+
+@contextlib.contextmanager
+def scoped(name: str, **kwargs):
+    """Arm ``name`` (``enable``'s keywords) for the ``with`` block."""
+    enable(name, **kwargs)
+    try:
+        yield
+    finally:
+        disable(name)
 
 
 def _spent(p: dict) -> bool:
@@ -179,6 +222,46 @@ def arm_from_env(spec: Optional[str] = None) -> int:
         enable(name.strip(), **kwargs)
         armed += 1
     return armed
+
+
+def _peer_matches(p: Optional[dict], peer: str) -> bool:
+    """Does this armed point's scope cover ``peer``?  No params or no
+    'peer' key: every peer; otherwise an exact netloc match."""
+    if p is None:
+        return False
+    prm = p.get("params")
+    if not prm or prm.get("peer") is None:
+        return True
+    return str(prm.get("peer")) == peer
+
+
+def hit_peer(name: str, peer: str) -> None:
+    """``hit`` scoped to a destination: fires only when the armed point's
+    params name ``peer`` (or name none).  The net.drop and net.partition
+    egress sites call it, so a scenario can partition one peer while the
+    rest of the cluster serves."""
+    if not _points:
+        return
+    with _lock:
+        if not _peer_matches(_points.get(name), peer):
+            return
+    hit(name)
+
+
+def peer_delay(name: str, peer: str) -> float:
+    """The armed delay for a send to ``peer`` (counted as a hit), not
+    slept here, so the egress applies it deadline-aware
+    (``deadline.sleep_within``): a slow wire must not hold a caller past
+    its budget.  0.0 when unarmed, out of scope or spent."""
+    if not _points:
+        return 0.0
+    with _lock:
+        p = _points.get(name)
+        if not _peer_matches(p, peer) or not p["delay"] or _spent(p):
+            return 0.0
+        p["hits"] += 1
+        _counts[name] = _counts.get(name, 0) + 1
+        return p["delay"]
 
 
 def corrupt_block(name: str, shard_id: int, data, file_offset: int = 0):

@@ -44,6 +44,8 @@ from ..observability import get_tracer as _get_tracer
 from ..observability import reqlog as _reqlog
 from ..stats import degraded_bind_metrics
 from . import deadline as _deadline
+from . import faultinject as _fi
+from .httpd import net_faults as _net_faults
 
 TCP_PORT_OFFSET = 20000
 # the process's request log: read once a frame
@@ -349,7 +351,10 @@ class FramedClient(threading.local):
         """One framed op -> its payload; a status-1 answer raises OSError
         with the server's text.  The timeout is clamped to the caller's
         deadline; a failure on a reused connection is resent once on a
-        new one."""
+        new one.  The egress rides the pooled HTTP client's peer-scoped
+        net.* fault points."""
+        if _fi._points:
+            _net_faults(addr)
         op_timeout = _deadline.clamp(30.0)
         key_b = key.encode()
         frame = (op + U16.pack(len(key_b)) + key_b

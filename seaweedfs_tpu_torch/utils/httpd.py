@@ -95,6 +95,7 @@ from ..observability import reqlog as _reqlog
 from ..observability.tracer import NOOP_SPAN as _NOOP_SPAN
 from ..observability.tracer import get_tracer as _get_tracer
 from . import deadline as _deadline
+from . import faultinject as _fi
 from .deadline import DeadlineExceeded
 
 # the process's request log (observability/reqlog.py): both chokepoints
@@ -1078,6 +1079,19 @@ def _egress_span(method: str, parsed, **attrs):
     return _NOOP_SPAN, ctx
 
 
+def net_faults(netloc: str) -> None:
+    """The peer-scoped network faults of the scenario engine's wire, hit
+    by every egress (this module's pooled client and http_download, the
+    framed client): a partition or a drop fails the send at once
+    (OSError); a delay is slept deadline-aware, so a slow wire stalls the
+    request but never the caller past its budget."""
+    _fi.hit_peer("net.partition", netloc)
+    _fi.hit_peer("net.drop", netloc)
+    delay = _fi.peer_delay("net.delay", netloc)
+    if delay:
+        _deadline.sleep_within(delay)
+
+
 def _pooled_request(method: str, url: str, body: Optional[bytes],
                     headers: Optional[dict], timeout: Optional[float],
                     sink=None, **span_attrs) -> tuple[int, bytes, dict]:
@@ -1100,6 +1114,9 @@ def _pooled_request(method: str, url: str, body: Optional[bytes],
     key = (parsed.scheme, parsed.netloc)
     target = (parsed.path or "/") + (f"?{parsed.query}" if parsed.query
                                      else "")
+    if _fi._points and sink is None:  # http_download hits its own
+        _fi.hit("net.request")
+        net_faults(parsed.netloc)
     # the budget left; a spent one raises before anything is sent
     timeout = _deadline.clamp(timeout)
     span, ctx = _egress_span(method, parsed, **span_attrs)
@@ -1200,7 +1217,10 @@ def http_download(method: str, url: str, dest_path: str,
     leaves a torn file under the final name.  Returns the HTTP status
     (0 when the peer cannot be reached); only a 200 writes the file.  The
     pooled connection carries it; ``timeout`` bounds each wait for bytes,
-    clamped to the thread's deadline."""
+    clamped to the thread's deadline.  An armed net.* fault raises
+    OSError before anything is sent, as the reference's."""
+    if _fi._points:
+        net_faults(urllib.parse.urlsplit(_prep_url(url)[0]).netloc)
     tmp = dest_path + ".part"
     files: list = []
 

@@ -6,12 +6,16 @@ expositions go through ``parse_prometheus_text`` -> ``merge_families``
 -> ``expose`` to the same text; the reference's aggregator unit cases
 (stale peer, never-scraped peer, unregistered peer, min-interval rate
 limit) run on both ``ClusterAggregator``s; and ``health()`` documents are
-equal for the same fake fetches, the scrape ages masked.  Live: the
+equal for the same fake fetches, the scrape ages masked.  The port's
+parse yields the GIL as it goes, and its scrape parses on the scraping
+thread, to the same families.  Live: the
 port's volume server's ``GET /metrics`` parses with the reference's
 parser and carries its volume and EC-shard gauges.
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import pytest
@@ -88,6 +92,75 @@ def test_parse_merge_expose_equals_the_reference(seed):
                  't_h_bucket{le="+Inf",x="y"} 4\nt_h_sum{x="y"} 9\n'
                  't_h_count{x="y"} 4\nnot a sample line\n')
     assert _merged_text(port_agg, texts) == _merged_text(ref_agg, texts)
+
+
+@pytest.mark.parametrize("labels", [(), ("op",), ("le",), ("a", "le", "b"),
+                                    ("op", "code")])
+@pytest.mark.parametrize("exemplars", [False, True])
+def test_histogram_exposition_equals_the_reference_at_every_label_shape(
+        labels, exemplars):
+    """Bucket lines are built from one template per label set: the text
+    is the reference's, a label named ``le`` and exemplars included."""
+    rng = np.random.default_rng(len(labels) * 2 + exemplars)
+    hists = [m.Histogram("t_h", "h", labels=labels, buckets=(0.01, 1.0, 2.5))
+             for m, _a in PACKAGES]
+    for _ in range(40):
+        lv = [LABEL_VALUES[int(rng.integers(len(LABEL_VALUES)))]
+              for _l in labels]
+        obs = float(rng.choice([0.0, 0.005, 0.5, 2.0, 9.0]))
+        trace = ["", "t1", 'q"2'][int(rng.integers(3))] or None
+        for h in hists:
+            h.observe(*lv, obs, exemplar=trace)
+    hists[0]._exemplars = dict(hists[1]._exemplars)  # the same timestamps
+    assert hists[0].expose(exemplars=exemplars) == \
+        hists[1].expose(exemplars=exemplars)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_a_parse_that_yields_equals_the_reference_s(seed, monkeypatch):
+    """The parse hands the GIL over every _PAUSE_LINES lines and after
+    each family, and a cleared label cache parses the same: the families
+    are the reference's."""
+    text = "".join(seeded_registry(ref_metrics, seed * 3 + p).expose()
+                   for p in range(2))
+    pauses = []
+    monkeypatch.setattr(port_agg, "_yield_interpreter",
+                        lambda: pauses.append(1))
+    port_agg._LABELS_SEEN.clear()
+    fresh = port_agg.parse_prometheus_text(text)
+    cached = port_agg.parse_prometheus_text(text)
+    ref = ref_agg.parse_prometheus_text(text)
+    lines = len(text.splitlines())
+    assert len(pauses) == 2 * (lines // port_agg._PAUSE_LINES + len(ref))
+    assert sorted(fresh) == sorted(cached) == sorted(ref)
+    for name in ref:
+        assert fresh[name].expose() == cached[name].expose() == \
+            ref[name].expose()
+
+
+def test_the_scrape_fetches_in_its_pool_and_parses_on_its_own_thread(
+        monkeypatch):
+    """The peers' fetches run on the pool in parallel; their parses, all
+    CPU, run on the scraping thread one after another."""
+    fetched, parsed = [], []
+    parse = port_agg.parse_prometheus_text
+
+    def fetch(url):
+        fetched.append(threading.current_thread().name)
+        return "m_total 1\n"
+
+    def spy(text):
+        parsed.append(threading.current_thread().name)
+        return parse(text)
+
+    monkeypatch.setattr(port_agg, "parse_prometheus_text", spy)
+    a = port_agg.ClusterAggregator(lambda: ["a:1", "b:2", "c:3"],
+                                   fetch=fetch, min_interval=0.0)
+    a.scrape()
+    me = threading.current_thread().name
+    assert len(fetched) == 3 and me not in fetched
+    assert parsed == [me] * 3
+    assert a.peer_status()["b:2"]["up"]
 
 
 # --- the reference's aggregator unit cases, on both packages ----------------

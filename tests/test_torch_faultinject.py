@@ -3,9 +3,10 @@
 Every name a ``faultinject.hit()`` / ``faultinject.corrupt_block()`` call
 (or a ``drain_point=`` the streaming encoder hands to its drain) names in
 ``seaweedfs_tpu_torch/`` is in ``FAULT_POINTS``, and every registered
-point is named at such a site.  The reference's points the port has no
-code for (``ec.worker.ack``, ``ec.shm``, ``loop.block`` and the ``net.*``
-points) are not listed.
+point is named at such a site (the ``net.*`` points' peer-scoped
+``hit_peer`` and ``peer_delay`` count as sites).  The reference's points
+the port has no code for (``ec.worker.ack`` and ``ec.shm``, the CPU
+codec's worker processes) are not listed.
 """
 
 from __future__ import annotations
@@ -35,7 +36,8 @@ def site_names() -> dict[str, list[str]]:
             name = func.attr if isinstance(func, ast.Attribute) else \
                 getattr(func, "id", "")
             args = []
-            if name in ("hit", "corrupt_block") and node.args:
+            if name in ("hit", "corrupt_block", "hit_peer",
+                        "peer_delay") and node.args:
                 args.append(node.args[0])
             args += [kw.value for kw in node.keywords
                      if kw.arg == "drain_point"]
@@ -57,8 +59,9 @@ def test_every_site_is_registered_and_every_point_is_hit():
 def test_the_port_lists_a_subset_of_the_reference_s_points():
     assert set(fi.FAULT_POINTS) <= set(ref_fi.FAULT_POINTS)
     left_out = set(ref_fi.FAULT_POINTS) - set(fi.FAULT_POINTS)
-    assert {"ec.worker.ack", "ec.shm", "loop.block"} <= left_out
-    assert {"tier.upload", "tier.recall", "disk.read", "disk.write"} \
+    assert left_out == {"ec.worker.ack", "ec.shm"}
+    assert {"tier.upload", "tier.recall", "disk.read", "disk.write",
+            "loop.block", "shard.read", "net.partition"} \
         <= set(fi.FAULT_POINTS)
     assert fi.list_points() == sorted(fi.FAULT_POINTS.items())
 

@@ -753,3 +753,48 @@ def test_mesh_engine_serves_threads_at_once_on_the_card(cuda):
 
     with ThreadPoolExecutor(8) as pool:
         assert all(pool.map(call, range(len(cases))))
+
+
+def test_failover_drill_on_the_card(cuda, tmp_path, monkeypatch):
+    """scenarios.run_failover on card servers: a three-master quorum loses
+    its leader mid-repair and the drill passes the reference's budgets;
+    the encode's and each repair's kernel launches equal the dispatch
+    rule (one launch a dispatch of four rows or fewer)."""
+    from seaweedfs_tpu_torch.scenarios import (failover, master_failover,
+                                               run_failover)
+    from seaweedfs_tpu_torch.volume_server.store import Store
+
+    calls: list[dict] = []
+    make, rebuild = failover._make_ec_volume, Store.ec_rebuild
+
+    def counted_make(vs, vid, needles=30):
+        before = gf_matmul.launches
+        make(vs, vid, needles)
+        enc = vs.store.streaming_encoder()
+        dat = vs.store._ec_base(vid) + ".dat"
+        calls.append({"leg": "encode", "launches": gf_matmul.launches - before,
+                      "rule": enc.dispatches_for(os.path.getsize(dat))
+                      * enc.launches_per_dispatch()})
+
+    def counted_rebuild(self, vid, collection="", engine=None):
+        before = gf_matmul.launches
+        rebuilt = rebuild(self, vid, collection, engine)
+        enc = self.streaming_encoder(engine)
+        shard = self._ec_base(vid, collection) + to_ext(rebuilt[0]) \
+            if rebuilt else None
+        dispatches = -(-os.path.getsize(shard) // enc.dispatch_b) \
+            if shard else 0
+        calls.append({"leg": "rebuild", "launches":
+                      gf_matmul.launches - before,
+                      "rule": dispatches * -(-len(rebuilt) // 4)})
+        return rebuilt
+
+    monkeypatch.setattr(failover, "_make_ec_volume", counted_make)
+    monkeypatch.setattr(Store, "ec_rebuild", counted_rebuild)
+    res = run_failover(master_failover(), base_dir=str(tmp_path),
+                       device="cuda")
+    assert res["verdict"] == "pass", res["checks"]
+    assert calls[0]["leg"] == "encode" and calls[0]["rule"] > 0
+    assert any(c["leg"] == "rebuild" and c["rule"] > 0 for c in calls)
+    for c in calls:
+        assert c["launches"] == c["rule"], calls

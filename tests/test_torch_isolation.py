@@ -47,6 +47,29 @@ def test_the_sources_cover_the_mesh():
     assert {"parallel/__init__.py", "parallel/mesh.py"} <= rel
 
 
+def test_the_sources_cover_the_scenarios():
+    rel = {os.path.relpath(p, PORT) for p in _port_sources()}
+    assert {f"scenarios/{m}.py" for m in (
+        "__init__", "workload", "spec", "replay", "capacity", "engine",
+        "failover")} <= rel
+
+
+def test_the_scenarios_import_no_jax_and_nothing_of_the_reference():
+    code = ("import sys\n"
+            "import seaweedfs_tpu_torch.scenarios as s\n"
+            "import seaweedfs_tpu_torch.scenarios.engine\n"
+            "import seaweedfs_tpu_torch.scenarios.failover\n"
+            "import seaweedfs_tpu_torch.shell.workload_commands\n"
+            "mods = [m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'seaweedfs_tpu')]\n"
+            "assert not mods, mods\n")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+
+
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
     return top == "jax" or top.startswith("jax") or top == "seaweedfs_tpu"

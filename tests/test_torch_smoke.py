@@ -4,9 +4,12 @@ itself (``python3 chip_smoke.py``) has no CPU mode."""
 
 from __future__ import annotations
 
+import copy
+import json
 import os
 import subprocess
 import sys
+from collections import Counter
 
 import pytest
 import torch
@@ -323,7 +326,7 @@ def test_cluster_phase_on_cpu(tmp_path):
     assert all(c["bytes"] > 0 and c["wall_s"] > 0
                for c in hand["captures"].values())
     assert hand["alerts.capture_bundles"] == len(hand["captures"])
-    assert hand["fault_points"].startswith("fault points: 10 registered")
+    assert hand["fault_points"].startswith("fault points: 16 registered")
     assert alerts["evaluation"]["mean_ms"] > 0
     assert alerts["evaluation"]["peers"] >= 3
     for k in ("rot_to_heal_s", "kill_to_heal_s"):
@@ -388,3 +391,100 @@ def test_split_first_launches_keeps_each_server_s_first_apart():
     split = chip_smoke.split_first_launches([0.5, 0.25, 0.002, 0.01], marks)
     assert split["later_launches"]["n"] == 1
     assert split["later_launches"]["p50"] == pytest.approx(10.0)
+
+
+def _scenarios_inputs() -> dict:
+    """A passing set of the scenarios leg's inputs, as the shell prints
+    them: a recording of 4 GETs, the profile, replay and probe documents,
+    the parked document and cluster.health's text."""
+    recording = {"records": [
+        {"route": "http_read", "path": p} for p in
+        ("/3,01", "/3,01", "/3,01", "/4,02")] + [
+        {"route": "lookup", "path": "/dir/lookup"}]}
+    profile = {"records": 4, "read_fraction": 1.0, "zipf_s": 1.5,
+               "top_keys": [["/3,01", 3], ["/4,02", 1]],
+               "observed_rps": 40.0, "window_s": 0.1,
+               "heat_zipf": {"s": 1.1, "distinct": 9}}
+    check = {"check": "error_ratio", "ok": True, "value": 0.0,
+             "bound": 0.02}
+    replay = {"verdict": "pass", "total_ops": 320, "wall_s": 8.0,
+              "spec": {"target_rps": 40.0, "hot_set": 8},
+              "routes": {"read": {"rps": 40.0, "p50_ms": 1.0,
+                                  "p99_ms": 2.0}},
+              "checks": [check],
+              "fidelity": [dict(check, check="fidelity_op_mix")]}
+    probe = {"slo": {"max_p99_ms": 5.0, "max_error_ratio": 0.001},
+             "probed_at": 1.0, "master": "m:1",
+             "routes": {r: {"capacity_rps": 100.0 + i,
+                            "capacity_target_rps": 100.0,
+                            "capacity_p99_ms": 1.0, "knee_rps": 200.0,
+                            "knee": {"reason": "p99 9.0ms > 5ms"},
+                            "bounding": {"resource": "server"}}
+                        for i, r in enumerate(chip_smoke.SCENARIOS_ROUTES)}}
+    return {"recording": recording,
+            "gets": Counter({"/3,01": 3, "/4,02": 1}),
+            "profile": profile, "replay": replay, "probe": probe,
+            "parked": dict(copy.deepcopy(probe), posted_at=2.0),
+            "health": "peers: 3\ncapacity: http_read~100rps "
+                      "native_read~101rps http_write~102rps (SLO p99<5ms, "
+                      "probed 1s ago)\n", "step_s": 0.5}
+
+
+def _break(inputs: dict, what: str) -> dict:
+    bad = copy.deepcopy(inputs)
+    if what == "records":
+        bad["profile"]["records"] = 5
+    elif what == "read_fraction":
+        bad["profile"]["read_fraction"] = 0.75
+    elif what == "top_key":
+        bad["gets"]["/3,01"] = 2
+    elif what == "heat":
+        del bad["profile"]["heat_zipf"]
+    elif what == "verdict":
+        bad["replay"]["verdict"] = "degraded"
+    elif what == "fidelity":
+        bad["replay"]["fidelity"][0]["ok"] = False
+    elif what == "no_fidelity":
+        bad["replay"]["fidelity"] = []
+    elif what == "capacity":
+        bad["probe"]["routes"]["http_write"]["capacity_rps"] = 0.0
+        bad["parked"] = dict(copy.deepcopy(bad["probe"]), posted_at=2.0)
+    elif what == "route_error":
+        bad["probe"]["routes"]["native_read"] = {"error": "unknown route"}
+        bad["parked"] = dict(copy.deepcopy(bad["probe"]), posted_at=2.0)
+    elif what == "parked":
+        bad["parked"]["routes"]["http_read"]["capacity_rps"] = 1.0
+    elif what == "health":
+        bad["health"] = bad["health"].replace("native_read~101rps ", "")
+    return bad
+
+
+@pytest.mark.parametrize("what", [
+    "records", "read_fraction", "top_key", "heat", "verdict", "fidelity",
+    "no_fidelity", "capacity", "route_error", "parked", "health"])
+def test_scenarios_leg_checks_fail_on_each_fault(what):
+    """The scenarios leg's checks (chip_smoke.check_scenarios_leg): the
+    passing set passes with its numbers, and each broken piece fails the
+    leg."""
+    good = _scenarios_inputs()
+    res = chip_smoke.check_scenarios_leg(**good)
+    assert res["profile"]["top_key_gets"] == 3
+    assert res["replay"]["fidelity"] == {"fidelity_op_mix": [0.0, 0.02]}
+    assert res["capacity"]["native_read"]["capacity_rps"] == 101.0
+    assert res["capacity"]["http_read"]["knee"] == "p99 9.0ms > 5ms"
+    # each step's requests (rate x 0.5 s): 100 or fewer make its p99 its
+    # slowest one
+    assert res["capacity"]["http_read"]["capacity_step_requests"] == 50
+    assert res["capacity"]["http_read"]["knee_step_requests"] == 100
+    assert res["capacity"]["http_read"]["p99_is_slowest"] == {
+        "capacity_step_requests": True, "knee_step_requests": True}
+    with pytest.raises(AssertionError):
+        chip_smoke.check_scenarios_leg(**_break(good, what))
+
+
+def test_locked_json_reads_the_document_between_the_lock_lines():
+    doc = {"a": [1, 2], "b": {"c": "d"}}
+    text = "locked\n" + json.dumps(doc, indent=2) + "\nunlocked"
+    assert chip_smoke.locked_json(text) == doc
+    with pytest.raises(AssertionError):
+        chip_smoke.locked_json(json.dumps(doc))

@@ -35,7 +35,10 @@ the leader's records, and a snapshot round-trips ``workload``.
 
 chip_smoke.py's ``telemetry`` phase is rehearsed at a tiny size on CLI
 processes (``-ec.engine cpu``): its flash crowd pages, its recording
-holds one record per GET, and its on/off/on overhead passes run.
+holds one record per GET, its on/off/on overhead passes run, and its
+scenarios leg profiles the recording, replays it against the cluster
+(verdict pass, every fidelity check ok) and probes every route's
+capacity (a looser SLO than the card's, p99 < 250 ms).
 
 Shippers stop with their servers, and the recorders are off after.
 """
@@ -552,7 +555,8 @@ def test_master_health_counts_lost_records():
 def test_telemetry_phase_on_cpu(tmp_path):
     res = chip_smoke.run_telemetry_phase(
         "cpu", str(tmp_path), n=600, size=1024, clients=4, gets_a=400,
-        gets_b=150, volumes=3, halflife_s=2.0)
+        gets_b=150, volumes=3, halflife_s=2.0, replay_s=3.0,
+        probe_step_s=0.3, probe_p99_ms=250.0, probe_max_rps=400.0)
     checks = res["checks"]
     assert checks["flash_crowd"]["details"]["volume"] == \
         res["ec_volume"]["vid"]
@@ -570,3 +574,33 @@ def test_telemetry_phase_on_cpu(tmp_path):
     assert [r["accounting"] for r in res["overhead"]] == ["on", "off", "on"]
     assert all(r["gets"] == 150 for r in res["overhead"])
     assert res["ec_volume"]["lost_data_shards"] == [0]
+    # the scenarios leg, on the servers of the last overhead pass
+    scn = res["scenarios"]
+    assert scn["profile"]["records"] == 550
+    assert scn["profile"]["read_fraction"] == 1.0
+    assert scn["profile"]["top_key_count"] == scn["profile"]["top_key_gets"]
+    assert scn["profile"]["heat_zipf"]["distinct"] >= 3
+    assert scn["replay"]["verdict"] == "pass"
+    assert set(scn["replay"]["fidelity"]) == {
+        "fidelity_op_mix", "fidelity_size_mix", "fidelity_hot_head",
+        "fidelity_replayed_op_mix", "fidelity_pacing"}
+    assert set(scn["capacity"]) == set(chip_smoke.SCENARIOS_ROUTES)
+    assert all(r["capacity_rps"] > 0 for r in scn["capacity"].values())
+    # each knee and capacity step logs its requests (its rate times the
+    # 0.3 s step), and whether its p99 is its slowest request (100 or
+    # fewer)
+    for r in scn["capacity"].values():
+        n = r["capacity_step_requests"]
+        assert n == max(int(0.3 * r["capacity_target_rps"]), 1)
+        assert r["p99_is_slowest"]["capacity_step_requests"] == (n <= 100)
+        assert (r["knee_step_requests"] is None) == (r["knee_rps"] is None)
+    assert scn["slo"]["max_p99_ms"] == 250.0
+    assert scn["parked_equal"] and scn["health_line"].startswith("capacity:")
+    # one client's writes, split into the assign and POST hops
+    split = scn["write_split"]
+    assert split["n"] == chip_smoke.SCENARIOS_SPLIT_WRITES
+    assert split["slo_ms"] == 250.0
+    for hop in ("assign", "post", "write"):
+        assert 0 < split[hop]["p50"] <= split[hop]["p90"] <= split[hop]["p99"]
+        assert 0 <= split[hop]["over_slo"] <= split["n"]
+    assert not any(scn["launches"].values())
