@@ -3,20 +3,22 @@
 
     python3 chip_phase.py volume_store     # or: dataplane, secure_tier,
                                            #     native_plane, mesh,
-                                           #     telemetry
+                                           #     telemetry, autoscale
     python3 chip_phase.py dataplane parent  # the label printed with it
 
 Builds the native libraries from the checkout it runs in, runs
 ``run_volume_store_phase``, ``run_dataplane_phase``,
 ``run_secure_tier_phase``, ``run_native_plane_phase``,
-``run_telemetry_phase`` or, after the main path that writes its volume,
+``run_telemetry_phase``, ``run_autoscale_phase`` or, after the main path
+that writes its volume,
 ``run_mesh_phase`` with chip_smoke.py's
 constants, and prints the card's name and power limit,
 then one JSON line of the phase's numbers (``dataplane``: each front's
 healthy passes, ops/s and p50/p99 ms; ``native_plane``: its passes, the
 frames and dispatches each moved, and the client's and servers' CPU
 seconds; ``telemetry``: its checks, its on/off/on passes and its
-``scenarios`` leg).  To hold one tree against another on one card,
+``scenarios`` leg; ``autoscale``: the drill's verdict, checks and
+autoscale block).  To hold one tree against another on one card,
 unpack the other with ``git archive``, copy this script into it if it
 lacks one, and run it from each checkout in turns (other, this, this,
 other) in one call.  Needs a card.
@@ -38,7 +40,7 @@ PASSES = ("write", "read", "zipf", "read_again", "zipf_again")
 def main(argv: list[str]) -> int:
     if not argv or argv[0] not in ("volume_store", "dataplane",
                                    "secure_tier", "native_plane", "mesh",
-                                   "telemetry"):
+                                   "telemetry", "autoscale"):
         print(__doc__, file=sys.stderr)
         return 2
     import torch
@@ -90,6 +92,8 @@ def main(argv: list[str]) -> int:
                 halflife_s=cs.TELEMETRY_HALFLIFE_S,
                 event_timeout=cs.TELEMETRY_EVENT_S,
                 gets_overhead=cs.TELEMETRY_OVERHEAD)
+        elif phase == "autoscale":
+            res = cs.run_autoscale_phase("cuda", work)
         elif phase == "secure_tier":
             res = cs.run_secure_tier_phase(
                 "tpu", work, cs.SECURE_BYTES, cs.SECURE_THREADS,

@@ -69,7 +69,7 @@ result.  Phases, each of which fails the run on any mismatch:
     -metricsAggregationSeconds 1`` (its coordinator paused by the shell's
     ``coordinator.pause``) and five ``volume -ec.engine tpu`` processes
     on the card.  First the vacuum leg: a ``001`` volume of its own on
-    two servers, 1 GiB uploaded from eight threads, 40% of its bytes
+    two servers, 512 MiB uploaded from eight threads, 40% of its bytes
     deleted, ``shell -c "volume.vacuum -garbageThreshold 0.3"`` while a
     reader GETs survivors (no error allowed), each replica's compacted
     `.dat` equal to the plain compaction of its own pre-vacuum files at
@@ -92,8 +92,15 @@ result.  Phases, each of which fails the run on any mismatch:
     sha256 recorded), the holder of the most shards SIGKILLed and dropped
     by the master, 200 + 8x25 degraded GETs classed by whether the shard
     they need lies on another live server (a remote shard read) or was
-    lost (a reconstruction), then the same GETs again with tracing turned
-    on live on the master and every server (``/debug/traces?enable=1``,
+    lost (a reconstruction); the location watch (``follower_leg``):
+    ``master.follower`` in a subprocess, whose /dir/lookup must name the
+    master's servers for every volume id, plain and EC, and whose
+    /dir/assign answers 307, and a ``WeedClient(keep_connected=True)``
+    that writes and reads a plain volume and GETs 50 needles with a lost
+    shard through the pushed map (the written bytes, one launch per lost
+    interval, the master asked at most once); then the same GETs again
+    with tracing turned on live on the master and every server
+    (``/debug/traces?enable=1``,
     off again after), each under a sampled Traceparent of its own: every
     GET's trace must be stitched at the master's /cluster/traces/<id>,
     each class (b) trace hold an ``ec.reconstruct`` span on the server
@@ -160,7 +167,7 @@ result.  Phases, each of which fails the run on any mismatch:
     a repair as a typed ``ec.rebuild`` launched;
  7. master HA (``run_failover_phase``): three CLI masters (``-peers``,
     ``-mdir``, ``WEED_FAULTS="coord.exec:delay=0.5"``) and four ``volume
-    -ec.engine tpu -mserver m1,m2,m3`` on the card; a 1 GiB volume
+    -ec.engine tpu -mserver m1,m2,m3`` on the card; a 512 MiB volume
     uploaded through WeedClient and ec.encoded by the shell started at a
     follower; a rotted shard quarantined by its holder's scrub, and once
     ``scrub_unrepairable`` fires and a follower's own
@@ -179,12 +186,13 @@ result.  Phases, each of which fails the run on any mismatch:
     ``volume -ec.engine tpu`` servers, 7 volumes of collection
     "benchmark" grown up front, and the port's ``benchmark`` at upstream
     ``weed benchmark``'s shapes (``-size 1024 -c 16``, replication 000,
-    ``-n`` cut to 10,000): on the event-loop reactor the writes, every
-    fid read back shuffled and 5,000 reads drawn Zipf (theta 0.99); the
+    ``-n`` cut to 5,000): on the event-loop reactor the writes, every
+    fid read back shuffled and 2,500 reads drawn Zipf (theta 0.99); the
     servers restarted on the same directories with
-    ``WEED_DATAPLANE=threaded``: 1,000 more writes and the same reads;
+    ``WEED_DATAPLANE=threaded``: 500 more writes and the same reads;
     then ``ec.encode -collection benchmark``, the server with the most
-    data shards of the largest volume stopped, and 2,000 of its fids read
+    data shards of the largest volume stopped, and up to 2,000 of its
+    fids read
     by one client and by 16 at once on the reactor, classed (a) remote
     shard read, (b) reconstruction on the card or local;
     every answer must be the bytes written for its needle (each
@@ -218,7 +226,7 @@ result.  Phases, each of which fails the run on any mismatch:
     p50/p99, the group-commit worker's requests, batches and fsyncs, the
     fsyncs fewer than the writes, every needle read back); the CLI's
     ``backup`` of the big volume into a follower that starts from a file
-    copy of its first three quarters, 1,000 more needles and 100 deletes,
+    copy of its first seven eighths, 1,000 more needles and 100 deletes,
     ``backup`` again applying exactly those 1,100 records (the follower's
     `.dat` the source's, by sha256), ``fix`` of the follower (its `.idx`
     loads to the source's live map), ``export`` (a line a live needle),
@@ -240,7 +248,13 @@ result.  Phases, each of which fails the run on any mismatch:
     ``volume.tier.upload -dest cold`` and 200 seeded GETs from the tier
     (each its needle's bytes) beside the same GETs read locally before;
     ``ec.encode`` of the tiered volume prints the reference's failure;
-    ``volume.tier.download`` gives back the `.dat` by sha256; ``ec.encode``
+    ``volume.tier.download`` gives back the `.dat` by sha256; the master
+    (``-autoscale.tierBackend cold``) tiers it again through its heat
+    autoscaler for the shell's ``volume.tier`` (``autoscale_tier_leg``:
+    ``tier_pending`` then ``tier_done`` in its replicated records, the
+    ``tier_committed`` event, ``autoscale.status`` listing it tiered,
+    every needle read back from the remote copy) and ``volume.tier
+    -recall`` gives back the `.dat` by sha256; ``ec.encode``
     on the card (the dispatch rule's launches on its host); data shards 2
     and 7 deleted and 200 degraded GETs with read tokens, one launch and
     one reconstruction per lost interval, each server's first launching
@@ -248,7 +262,7 @@ result.  Phases, each of which fails the run on any mismatch:
 11. the native data plane (``run_native_plane_phase``): a CLI master and
     five ``volume -ec.engine tpu -dataplane native`` servers, 7 volumes of
     collection "benchmark", and ``benchmark -useTcp`` at the dataplane
-    phase's shapes (10,000 writes, every fid read back shuffled, 5,000
+    phase's shapes (5,000 writes, every fid read back shuffled, 2,500
     Zipf reads) over the C++ planes' framed ports, then the same passes
     over HTTP funnelled through the planes: each pass's ops/s and
     p50/p99 beside the dataplane phase's ``dataplane_tcp_reactor``, the
@@ -297,7 +311,14 @@ result.  Phases, each of which fails the run on any mismatch:
     equal to the posted document and cluster.health's capacity line;
     then 100 writes of one client split into their assign and POST hops
     (``write_split``); no server may launch a kernel across the leg;
-13. numbers from the card: leg times and rates, read latency; each
+13. the heat autoscaler (``run_autoscale_phase``), on a cluster of its
+    own after the telemetry phase's has stopped: the reference's drill
+    ``flash_crowd_autoscale`` unchanged (18 s, 8 clients, three
+    rack-diverse in-process ``VolumeServer(device="cuda")``, Zipf 1.3,
+    the head shifted onto a cold volume at 40%), whose verdict must be
+    pass under every reference expectation; it reads plain volumes, so
+    no kernel may launch;
+14. numbers from the card: leg times and rates, read latency; each
     phase's kernel launches by width class (``launch_widths``); kernel
     1's own time at the encode and rebuild's [10, 8 MiB], at 1 MiB, 64
     KiB and the width most degraded GETs launch at (``kernel_shapes``):
@@ -351,24 +372,31 @@ OVERLOAD_THREADS, OVERLOAD_READS_PER_THREAD, OVERLOAD_MAX_INFLIGHT = 32, 25, 4
 DECODED_READS = 50
 CLI_VOLUME_BYTES = 64 << 20
 CLI_READS = 20
-# the vacuum leg's volume: cut from the same 30,000 MB limit to 1 GiB
-VAC_BYTES = 1 << 30
-# the failover phase: a 1 GiB volume, each repair leg slowed by 0.5 s
-FAILOVER_BYTES = 1 << 30
+# the vacuum leg's volume: cut from the same 30,000 MB limit to 512 MiB
+# (1 GiB before the autoscale phase and its legs came)
+VAC_BYTES = 512 << 20
+# the failover phase: a 512 MiB volume (1 GiB before the autoscale phase
+# came), each repair leg slowed by 0.5 s
+FAILOVER_BYTES = 512 << 20
 FAILOVER_DELAY_S = 0.5
 # the drain leg's GETs: of needles on moved shards, then of needles on a
 # moved data shard deleted on its new holder
 DRAIN_READS, DRAIN_DELETED_READS = 50, 25
+# the follower leg: needles written to a plain volume through a
+# keep-connected client, then degraded GETs of the EC volume through it
+FOLLOWER_PLAIN_NEEDLES, FOLLOWER_READS = 20, 50
 # the dataplane phase: upstream weed benchmark's shapes
 # (weed/command/benchmark.go: -size 1024 -c 16, replication 000, collection
 # benchmark); -n cut from its 1,048,576 for the run's time limit (the
 # script aims at half of it), the Zipf and threaded-front passes with it;
 # then YCSB's default Zipf (theta 0.99) reads, and degraded GETs of the
 # largest volume once it is EC-encoded with a server down; the batch leg
-# reads 1,000 of the framed pass's needles 100 a request
-BENCH_N, BENCH_SIZE, BENCH_CLIENTS = 10_000, 1024, 16
-BENCH_ZIPF, BENCH_DEGRADED = 5_000, 2_000
-BENCH_THREADED_WRITES = 1_000
+# reads 1,000 of the framed pass's needles 100 a request.  -n was 10,000
+# (the Zipf reads 5,000, the threaded writes 1,000) before the autoscale
+# phase and its legs came
+BENCH_N, BENCH_SIZE, BENCH_CLIENTS = 5_000, 1024, 16
+BENCH_ZIPF, BENCH_DEGRADED = 2_500, 2_000
+BENCH_THREADED_WRITES = 500
 BATCH_NEEDLES, BATCH_SIZE = 1_000, 100
 # the volume_store phase: one volume of upstream weed benchmark's default
 # shape (weed/command/benchmark.go: -n 1048576 -size 1024), each needle's
@@ -381,10 +409,10 @@ STORE_BATCH_DELETES, STORE_MISSING = 1_000, 10
 STORE_GC_THREADS, STORE_GC_PER_THREAD = 16, 250
 STORE_MORE, STORE_MORE_DELETES = 1_000, 100
 STORE_DEGRADED = 200
-# the backup's follower starts from a file copy of the first three
-# quarters, so its first pass applies the last quarter: the phase's 240 s
-# budget
-STORE_FOLLOWER_SEED = STORE_NEEDLES * 3 // 4
+# the backup's follower starts from a file copy of the first seven
+# eighths (three quarters before the autoscale phase came), so its first
+# pass applies the last eighth: the phase's 240 s budget
+STORE_FOLLOWER_SEED = STORE_NEEDLES * 7 // 8
 # the budget is advisory: the phase reports within_budget and fails only
 # on its checks, since the card's host runs it at speeds that drift
 STORE_BUDGET_S = 240.0
@@ -2121,7 +2149,11 @@ def start_cli(args: list[str], log_path: str,
 def read_start_line(proc: subprocess.Popen, log_path: str, want: str,
                     timeout: float = 300) -> str:
     """The server's first line, which must start with ``want``."""
-    ready, _, _ = select.select([proc.stdout], [], [], timeout)
+    # poll, not select: select() refuses a descriptor past 1023, which a
+    # long-lived process (a test worker) can reach
+    poller = select.poll()
+    poller.register(proc.stdout, select.POLLIN)
+    ready = poller.poll(timeout * 1000)
     line = proc.stdout.readline().strip() if ready else ""
     if not line.startswith(want):
         raise AssertionError(f"start line {line!r}; log: "
@@ -3820,6 +3852,123 @@ def run_vacuum_leg(master: str, vs: dict, engine: str, vac_bytes: int,
     return res
 
 
+def follower_leg(master: str, work: str, vid: int, alive: list[str],
+                 needles: list[dict], fids: list[str], picks: list[int],
+                 plain_needles: int, seed: int) -> dict:
+    """The location watch beside a live cluster: ``python -m
+    seaweedfs_tpu_torch master.follower -masters <master>`` in a
+    subprocess, and a ``WeedClient(keep_connected=True)``.  A plain
+    volume of collection "follow" takes ``plain_needles`` writes through
+    the client, each read back; the follower's /dir/lookup must name the
+    master's servers for every volume id of the master's location map
+    (plain and EC), and its /dir/assign answer 307 to the master.  The
+    client, synced to the pushed map, then GETs EC volume ``vid``'s
+    needles ``picks`` (each with a lost shard): each its written bytes,
+    at most one /dir/lookup of the master among them; the servers'
+    launches across them are returned.  The "follow" collection is
+    deleted and the follower stopped (exit 0) before it returns.
+    -> {"gets": [(server, needle index, s)], "numbers": {...}}."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.utils.httpd import http_bytes, http_json
+
+    out: dict = {"seconds": {}}
+    t_leg = time.perf_counter()
+    port = free_port()
+    follower = f"127.0.0.1:{port}"
+    log_path = os.path.join(work, "follower.log")
+    proc = start_cli(["master.follower", "-masters", master, "-port",
+                      str(port)], log_path)
+    client = None
+    try:
+        out["start_line"] = read_start_line(proc, log_path,
+                                            "master.follower on")
+        client = WeedClient(master, keep_connected=True)
+        plain_vid = http_json("GET", f"http://{master}/vol/grow?collection="
+                                     "follow&count=1")["volumeIds"][0]
+        rng = np.random.default_rng([seed, 7])
+        written = {}
+        for i in range(plain_needles):
+            body = rng.bytes(int(rng.integers(1 << 10, 64 << 10)))
+            written[client.upload(body, collection="follow")] = body
+        if not client.wd.wait_synced(10):
+            raise AssertionError("the keep-connected client never synced")
+        for fid, body in written.items():
+            if client.download(fid) != body:
+                raise AssertionError(f"GET {fid} through the pushed map")
+
+        def lookup(at: str, v: int) -> set[str]:
+            doc = http_json("GET", f"http://{at}/dir/lookup?volumeId={v}")
+            return {loc["url"] for loc in doc["locations"]}
+
+        snap = http_json("GET", f"http://{master}/cluster/watch?since_seq=0")
+        vids = sorted({int(v) for v in snap["volumes"]}
+                      | {int(v) for v in snap["ec_volumes"]})
+        if vid not in vids or plain_vid not in vids:
+            raise AssertionError(f"the master's location map: {snap}")
+
+        def same() -> bool:
+            try:
+                return all(lookup(follower, v) == lookup(master, v)
+                           for v in vids)
+            except Exception:  # noqa: BLE001 - the push not there yet
+                return False
+
+        out["seconds"]["lookups_equal"] = wait_for(
+            "the follower's lookups to equal the master's", same, 30)
+        out["lookups"] = {str(v): sorted(lookup(follower, v)) for v in vids}
+        status, _, hdrs = http_bytes("GET", f"http://{follower}/dir/assign",
+                                     follow_redirects=False)
+        if status != 307 or not hdrs.get("Location", "").startswith(
+                f"http://{master}/dir/assign"):
+            raise AssertionError(f"follower /dir/assign: {status} {hdrs}")
+        if set(client.wd.lookup(vid)) != lookup(master, vid):
+            raise AssertionError("the pushed map's EC holders differ")
+        lookups0 = metric_value(master, "SeaweedFS_master_request_total",
+                                "lookup")
+        before = kernel_launches(alive)
+        gets = []
+        t0 = time.perf_counter()
+        for i in picks:
+            t1 = time.perf_counter()
+            body = client.download(fids[i])
+            lat = time.perf_counter() - t1
+            if body != needles[i]["data"]:
+                raise AssertionError(f"GET {fids[i]} through the pushed "
+                                     "map: wrong bytes")
+            gets.append((client.last_read_from, int(i), lat))
+        out["seconds"]["degraded_gets"] = time.perf_counter() - t0
+        after = kernel_launches(alive)
+        out["master_lookups_during_gets"] = metric_value(
+            master, "SeaweedFS_master_request_total", "lookup") - lookups0
+        if out["master_lookups_during_gets"] > 1:
+            raise AssertionError(f"the pushed map's GETs asked the master "
+                                 f"{out['master_lookups_during_gets']} "
+                                 "times")
+        out["launches"] = {u: after[u] - before[u] for u in alive
+                           if after[u] != before[u]}
+        out["gets"] = len(gets)
+        out["get_ms"] = percentiles([g[2] for g in gets])
+        out["plain"] = {"vid": plain_vid, "needles": len(written)}
+        run_shell(master, "collection.delete -collection follow")
+        client.close()
+        client = None
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=30) != 0:
+            raise AssertionError("master.follower did not exit 0")
+        stop = proc.stdout.read()
+        if "master.follower stopped" not in stop:
+            raise AssertionError(f"master.follower stop: {stop!r}")
+        out["seconds"]["leg"] = time.perf_counter() - t_leg
+        return {"gets": gets, "numbers": out}
+    finally:
+        if client is not None:
+            client.close()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        proc.stdout.close()
+
+
 def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                       reads: int, threads: int, per_thread: int,
                       decoded_reads: int, vac_bytes: int, servers: int = 5,
@@ -4011,6 +4160,23 @@ def run_cluster_phase(engine: str, work: str, volume_bytes: int,
                 if len(v) > 1 else None,
                 "rest_max": max(v[1:], default=None)}
             for u, v in sorted(first_b.items())}
+
+        # the location watch: master.follower and a keep-connected client
+        # reading needles with a lost shard through the pushed map
+        order = np.random.default_rng([seed, 11]).permutation(len(needles))
+        fpicks = [int(i) for i in order
+                  if any(s in lost for s in shards_of[i])][:FOLLOWER_READS]
+        fl = follower_leg(master, work, vid, alive, needles, fids, fpicks,
+                          FOLLOWER_PLAIN_NEEDLES, seed)
+        gets["follower_client"] = fl["gets"]
+        res["follower"] = fl["numbers"]
+        lost_intervals = sum(s in lost for i in fpicks for s in shards_of[i])
+        res["follower"]["lost_intervals"] = lost_intervals
+        if engine == "tpu" and sum(res["follower"]["launches"].values()) \
+                != lost_intervals:
+            raise AssertionError(f"the follower client's GETs launched "
+                                 f"{res['follower']['launches']}, one per "
+                                 f"lost interval gives {lost_intervals}")
 
         # the same GETs again with tracing on live on the master and every
         # live server, each GET under a sampled trace context of its own;
@@ -5752,6 +5918,91 @@ def security_toml(keys: dict, certs: dict | None) -> str:
 SECURE_COLLECTION = "securetier"
 
 
+def autoscale_tier_leg(master: str, server: str, base: str, cold: str,
+                       specs: list, fids: list, seed: int, threads: int,
+                       dat_sha: str, conf: str) -> dict:
+    """Volume 1 of ``server`` (files at ``base``, its `.dat` hashing to
+    ``dat_sha``) tiered by the shell's ``volume.tier`` through the
+    master's heat autoscaler, whose tier backend is "cold" (``-autoscale
+    .tierBackend``): upload and verify, the ``tier_pending`` record in the
+    raft log, then the commit.  The autoscaler's replicated records must
+    read ``tier_pending`` then ``tier_done``, its ``tier_committed`` event
+    be journaled, ``autoscale.status`` list the volume as tiered; every
+    needle must read back byte-equal from the remote copy (``threads``
+    clients); ``volume.tier -recall`` must give back the `.dat` with its
+    sha256, the remote object gone.  -> the leg's numbers."""
+    from seaweedfs_tpu_torch.client.operation import WeedClient
+    from seaweedfs_tpu_torch.utils.httpd import http_json
+
+    out: dict = {"seconds": {}}
+    t_leg = time.perf_counter()
+    dat_size = os.path.getsize(base + ".dat")
+    line, out["seconds"]["tier"] = run_shell(master, "volume.tier -volumeId 1",
+                                             cwd=conf)
+    if not line.startswith("volume 1 tiered -> cold:") or \
+            not line.endswith(f"(local .dat dropped on {server})") or \
+            os.path.exists(base + ".dat") or not os.listdir(cold):
+        raise AssertionError(f"volume.tier: {line!r}")
+    out["tier_line"] = line.replace(server, "<server>")
+    doc = http_json("GET", f"http://{master}/cluster/autoscale")
+    records = [r for r in doc["replicated"]["log"] if r["vid"] == 1]
+    if [r["op"] for r in records] != ["tier_pending", "tier_done"] or \
+            records[0]["file_size"] != dat_size or \
+            records[0]["server"] != server or \
+            doc["tiered"].get("1", {}).get("backend") != "cold" or \
+            doc["recent"][0]["action"] != "tier_committed":
+        raise AssertionError(f"/cluster/autoscale after volume.tier: {doc}")
+    out["records"] = [{k: r.get(k) for k in ("op", "server", "backend",
+                                              "key", "file_size", "crc32")}
+                      for r in records]
+
+    def committed() -> list:
+        return [e for e in http_json(
+            "GET", f"http://{master}/cluster/events?type=tier_committed"
+                   "&limit=0")["events"] if e["details"].get("vid") == 1]
+
+    # the master's own events reach its journal on the shipper's flush
+    wait_for("the tier_committed event in the master's journal", committed,
+             10)
+    status, _ = run_shell(master, "autoscale.status", cwd=conf)
+    if len(committed()) != 1 or "volume 1: TIERED -> cold:" not in status:
+        raise AssertionError(f"tier_committed events {committed()}; "
+                             f"autoscale.status {status!r}")
+    out["status_line"] = next(x.strip() for x in status.splitlines()
+                              if "TIERED" in x).replace(server, "<server>")
+    lat: list[float] = []
+
+    def reader(t: int) -> None:
+        client = WeedClient(master)
+        client.rng.seed(seed + t)
+        for i in range(t, len(specs), threads):
+            nid, _, size = specs[i]
+            t1 = time.perf_counter()
+            body = client.download(fids[i])
+            lat.append(time.perf_counter() - t1)
+            if body != needle_data(seed, nid, size):
+                raise AssertionError(f"GET {fids[i]} from the tier: wrong "
+                                     "bytes")
+
+    t0 = time.perf_counter()
+    run_threads(reader, threads, 600)
+    out["seconds"]["reads"] = time.perf_counter() - t0
+    out["reads"] = {"gets": len(lat), "ms": percentiles(lat)}
+    line, out["seconds"]["recall"] = run_shell(
+        master, "volume.tier -volumeId 1 -recall", cwd=conf)
+    if line != f"volume 1 recalled to local disk on {server}" or \
+            sha256_file(base + ".dat") != dat_sha or os.listdir(cold):
+        raise AssertionError(f"volume.tier -recall: {line!r}")
+    doc = http_json("GET", f"http://{master}/cluster/autoscale")
+    if doc["tiered"] or doc["replicated"]["log"][-1]["op"] != "recall_done" \
+            or doc["failures"]:
+        raise AssertionError(f"/cluster/autoscale after the recall: {doc}")
+    out["totals"] = {k: doc[k] for k in ("tiers", "recalls", "failures")}
+    out["dat_sha256_equal_after_recall"] = True
+    out["seconds"]["leg"] = time.perf_counter() - t_leg
+    return out
+
+
 def run_secure_tier_phase(engine: str, work: str, total_bytes: int,
                           threads: int, tier_gets: int, degraded: int,
                           seed: int = SEED + 29) -> dict:
@@ -5816,7 +6067,8 @@ def run_secure_tier_phase(engine: str, work: str, total_bytes: int,
             key_file=certs["key"])))
     try:
         mproc = start_cli(["master", "-port", str(mport), "-pulseSeconds",
-                           "0.5"], mlog, cwd=conf)
+                           "0.5", "-autoscale.tierBackend", "cold"], mlog,
+                          cwd=conf)
         procs.append(mproc)
         read_start_line(mproc, mlog, "master listening")
         for url, info in vs.items():
@@ -5937,7 +6189,13 @@ def run_secure_tier_phase(engine: str, work: str, total_bytes: int,
         if sha256_file(base + ".dat") != dat_sha:
             raise AssertionError("the recalled .dat differs")
 
-        # 6. ec.encode on the card
+        # 5b. the same volume tiered and recalled through the master's
+        # heat autoscaler (the shell's volume.tier)
+        res["autoscale_tier"] = autoscale_tier_leg(
+            master, mmap_url, base, cold, specs, fids, seed, threads,
+            dat_sha, conf)
+
+        # 6. ec.encode on the card, of the volume recalled twice
         before = kernel_launches(vs)
         t0 = time.perf_counter()
         run_shell(master, f"ec.encode -volumeId 1 -collection "
@@ -7004,6 +7262,50 @@ def run_telemetry_phase(engine: str, work: str, n: int, size: int,
 
 
 
+# --- the autoscale phase ---------------------------------------------------
+
+def run_autoscale_phase(device: str, work: str) -> dict:
+    """The reference's closed-loop drill, ``flash_crowd_autoscale`` as it
+    stands (18 s, 8 clients, three rack-diverse servers, Zipf 1.3 over a
+    hot set of 128, the head shifted onto a cold volume at 40%), through
+    ``run_scenario`` on in-process ``VolumeServer(device=...)`` and a
+    master running its heat autoscaler at one-second cycles.  Its verdict
+    must be pass under every reference expectation (a grow within 8 s of
+    the shift, a grow carrying its heat alert and exemplar trace, read
+    p99 back under 250 ms within 10 s, at most one grow/shrink cycle a
+    volume, errors at most 2%).  The drill reads plain volumes only, so
+    this process must launch no kernel across it.  -> its numbers."""
+    from seaweedfs_tpu_torch.scenarios import (flash_crowd_autoscale,
+                                               run_scenario)
+
+    spec = flash_crowd_autoscale()
+    zero_counts()
+    t0 = time.perf_counter()
+    doc = run_scenario(spec, base_dir=work, device=device)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    auto = doc.get("autoscale") or {}
+    res = {"verdict": doc["verdict"], "seconds": wall,
+           "spec": doc["spec"], "checks": doc["checks"],
+           "first_grow_after_shift_s": auto.get("first_grow_after_shift_s"),
+           "slo_recovery_s": auto.get("slo_recovery_s"),
+           "max_cycles_per_volume": auto.get("max_cycles_per_volume"),
+           "attributed": auto.get("attributed"),
+           "grow_events": auto.get("grow_events"),
+           "status": auto.get("status"),
+           "failures": (auto.get("status") or {}).get("failures"),
+           "routes": doc.get("routes"), "phases": doc.get("phases"),
+           "heat": doc.get("heat"), "launches": counts["gf_matmul"]}
+    if doc["verdict"] != "pass":
+        raise AssertionError(f"flash_crowd_autoscale: {doc['verdict']}: "
+                             f"{[c for c in doc['checks'] if not c['ok']]}"
+                             f" autoscale {auto}")
+    if counts["gf_matmul"] or counts["gf_table_build"]:
+        raise AssertionError(f"the autoscale drill launched kernels: "
+                             f"{counts}")
+    return res
+
+
 def split_first_launches(lat: list[float], marks: list[dict]) -> dict:
     """GET times split by launches: ``marks[j]`` holds each server's
     kernel count before GET j and ``marks[j + 1]`` after it.  Each
@@ -7506,8 +7808,10 @@ def main() -> int:
     log({"phase": "vacuum_done", "reduced": {
         "volume_bytes": VAC_BYTES,
         "from": "30,000 MB default volume size limit (weed master "
-                "-volumeSizeLimitMB)",
-        "why": "run time limit"},
+                "-volumeSizeLimitMB); 1 GiB before the autoscale phase "
+                "came",
+        "why": "run time limit: the autoscale phase and the follower and "
+               "tier legs came in"},
         "needles": vac["needles"], "written_bytes": vac["written_bytes"],
         "deleted_needles": vac["deleted_needles"],
         "deleted_bytes": vac["deleted_bytes"],
@@ -7576,6 +7880,9 @@ def main() -> int:
          "rebuild_launches": cluster["rebuild_launches"],
          "servers": cluster["servers"], "launches": cluster_launches,
          "first_b_ms": cluster["first_b_ms"], "nvidia_smi": card})
+    log({"phase": "follower", "on": "the cluster phase's cluster, after its "
+                                    "first degraded GET passes",
+         **cluster["follower"], "nvidia_smi": card})
 
     work = tempfile.mkdtemp(prefix="chip_smoke-failover-",
                             dir=_build.BUILD_DIR)
@@ -7589,8 +7896,10 @@ def main() -> int:
          "reduced": [
         {"volume_bytes": FAILOVER_BYTES,
          "from": "30,000 MB default volume size limit (weed master "
-                 "-volumeSizeLimitMB)",
-         "why": "run time limit"},
+                 "-volumeSizeLimitMB); 1 GiB before the autoscale phase "
+                 "came",
+         "why": "run time limit: the autoscale phase and the follower and "
+                "tier legs came in"},
         {"pulse_seconds": 0.5, "coordinator_seconds": 1.0,
          "metrics_aggregation_seconds": 1.0,
          "from": "weed master/volume -pulseSeconds 5, -coordinatorSeconds "
@@ -7634,11 +7943,14 @@ def main() -> int:
     log({"phase": "dataplane", "reduced": [
         {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
                                "weed/command/benchmark.go); 100,000 "
-                               "before the framed passes came",
+                               "before the framed passes came, 10,000 "
+                               "before the autoscale phase came",
          "why": "run time limit: the script aims at half of its 1200 s "
-                "with the framed-TCP passes in"},
+                "with the framed-TCP passes in, and the autoscale phase "
+                "and the follower and tier legs came in"},
         {"zipf_reads": BENCH_ZIPF, "threaded_writes": BENCH_THREADED_WRITES,
-         "from": "50,000 and 10,000 (n / 2 and n / 10) before",
+         "from": "50,000 and 10,000 (n / 2 and n / 10), then 5,000 and "
+                 "1,000, before",
          "why": "cut with n"},
         {"fill_through_write_needle": STORE_NEEDLES // 16,
          "from": STORE_NEEDLES,
@@ -7718,10 +8030,11 @@ def main() -> int:
                 "count: the run's time limit"},
         {"backup_first_pass_needles": STORE_NEEDLES - STORE_FOLLOWER_SEED,
          "from": STORE_NEEDLES,
-         "why": "the phase's 240 s budget: the follower starts from a "
-                "file copy of the first three quarters, so the first "
-                "backup pass applies the last quarter and the batch "
-                "deletes"},
+         "why": "the phase's 240 s budget, and since the autoscale phase "
+                "came the run's time limit: the follower starts from a "
+                "file copy of the first seven eighths (three quarters "
+                "before), so the first backup pass applies the last "
+                "eighth and the batch deletes"},
         {"fill_through_write_needle": STORE_NEEDLES // 16,
          "from": STORE_NEEDLES,
          "why": "the phase's 240 s budget: the other needles' records and "
@@ -7784,6 +8097,10 @@ def main() -> int:
         "seal": sec["seal"], "launches": secure_launches,
         "servers": sec["servers"], "seconds": sec["seconds"],
         "nvidia_smi": card})
+    log({"phase": "autoscale_tier", "on": "the secure_tier phase's cluster "
+                                          "(mTLS, tokens, whitelist), its "
+                                          "master -autoscale.tierBackend cold",
+         **sec["autoscale_tier"], "nvidia_smi": card})
 
     work = tempfile.mkdtemp(prefix="chip_smoke-native-",
                             dir=_build.BUILD_DIR)
@@ -7799,7 +8116,8 @@ def main() -> int:
         raise AssertionError("the native_plane phase launched no kernel")
     log({"phase": "native_plane", "reduced": [
         {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
-                               "weed/command/benchmark.go)",
+                               "weed/command/benchmark.go); 10,000 before "
+                               "the autoscale phase came",
          "why": "run time limit: the dataplane phase's cut, so the two "
                 "compare within one run"},
         {"zipf_reads": BENCH_ZIPF, "from": "n / 2, as the dataplane phase",
@@ -7852,7 +8170,8 @@ def main() -> int:
         raise AssertionError("the telemetry phase launched no kernel")
     log({"phase": "telemetry", "reduced": [
         {"n": BENCH_N, "from": "weed benchmark -n 1048576 (upstream "
-                               "weed/command/benchmark.go)",
+                               "weed/command/benchmark.go); 10,000 before "
+                               "the autoscale phase came",
          "why": "run time limit: the dataplane phase's cut"},
         {"heat_halflife_s": TELEMETRY_HALFLIFE_S,
          "from": "weed volume -heat.halflife 30 (the default)",
@@ -7903,6 +8222,24 @@ def main() -> int:
          "health_line": scn["health_line"],
          "write_split": scn["write_split"], "launches": scn["launches"],
          "nvidia_smi": card})
+
+    # its own in-process cluster, after the scenarios leg's has stopped
+    work = tempfile.mkdtemp(prefix="chip_smoke-autoscale-",
+                            dir=_build.BUILD_DIR)
+    try:
+        auto = run_autoscale_phase("cuda", work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log({"phase": "autoscale", "reduced": [
+        {"autoscale_seconds": 1.0, "cold_share": 0.02, "hold_down_s": 6.0,
+         "regrow_cooldown_s": 6.0, "move_rate": 2.0,
+         "actuation_deadline_s": 30.0,
+         "from": "-autoscaleSeconds 5 and the autoscaler's defaults "
+                 "(cold share 0.05, hold-down and cooldown 30 s, 1 move/s, "
+                 "600 s an actuation)",
+         "why": "the reference drill's own scale: a shrink could happen "
+                "inside its 18 s, so the thrash guard holds by hysteresis"}],
+        **auto, "nvidia_smi": card})
 
     dp_widths: dict[str, int] = {}
     for fr in dp["fronts"].values():

@@ -1,8 +1,8 @@
 """Command line: ``python -m seaweedfs_tpu_torch <subcommand>``.
 
 The ``weed`` subcommands master, volume, shell, compact, backup, fix,
-export, upload, download and benchmark (weed.py) with the flags this port
-serves:
+export, upload, download, benchmark and master.follower (weed.py) with the
+flags this port serves:
 
     python -m seaweedfs_tpu_torch master -port 9333 -volumeSizeLimitMB 30000 \\
         -coordinatorSeconds 15 -metricsAggregationSeconds 5
@@ -23,6 +23,10 @@ serves:
         -o out.bin 3,01637037d6
     python -m seaweedfs_tpu_torch benchmark -master 127.0.0.1:9333 \
         -n 100000 -size 1024 -c 16
+    python -m seaweedfs_tpu_torch master -autoscaleSeconds 5 \
+        -autoscale.tierBackend cold
+    python -m seaweedfs_tpu_torch master.follower -masters 127.0.0.1:9333 \
+        -port 9334
 
 ``-ec.engine tpu`` (the default) runs EC on the CUDA card: the server
 builds its kernel before it listens and fails without a card;
@@ -36,6 +40,14 @@ every N seconds (0, the default, leaves repair to the shell's
 ec.rebuild), logs each repair on standard error and journals it;
 ``-metricsAggregationSeconds N`` scrapes the volume servers every N
 seconds, so it finds a dead one sooner than the heartbeat timeout.
+``-autoscaleSeconds N`` runs the heat autoscaler every N seconds (and
+at once on heat): it grows read replicas of the volumes in the heat
+head, drops them after a cold hold-down, and with
+``-autoscale.tierBackend NAME`` tiers full cold single-replica volumes to
+that backend (configured on the volume servers, ``-tier.backends``),
+recalling them when heat returns; status at ``/cluster/autoscale``.
+``master.follower -masters M`` serves ``/dir/lookup`` from the master's
+location push and answers 307 to assigns and mutations.
 ``master -peers a,b -mdir DIR`` runs one master of a raft quorum with
 the other masters at ``a`` and ``b``, its log and state under ``DIR``
 (restarted on the same ``DIR`` it recovers them); start each master with
@@ -192,6 +204,27 @@ def parse_args(argv: list[str]) -> argparse.Namespace:
                         "k+1 first) and rebalance shard placement "
                         "rack-aware on server join/leave (0 = off; "
                         "status at GET /cluster/coordinator)")
+    m.add_argument("-autoscaleSeconds", type=float, default=0.0,
+                   help="run the heat autoscaler with this planning "
+                        "interval: grow read replicas for Zipf-head / "
+                        "flash-crowd volumes, shrink them after a "
+                        "sustained-cold hold-down, and (with "
+                        "-autoscale.tierBackend) tier full cold "
+                        "volumes to remote storage with automatic "
+                        "recall (0 = off; status at GET "
+                        "/cluster/autoscale)")
+    m.add_argument("-autoscale.tierBackend", dest="autoscale_tier_backend",
+                   default="",
+                   help="backend storage name the autoscaler tiers "
+                        "full cold volumes to (must be configured on "
+                        "the volume servers, e.g. -tier.backends); "
+                        "empty = no cold tiering")
+    mf = sub.add_parser("master.follower",
+                        help="serve lookups from the master's location "
+                             "push")
+    mf.add_argument("-masters", default="127.0.0.1:9333")
+    mf.add_argument("-ip", default="127.0.0.1")
+    mf.add_argument("-port", type=int, default=9334)
     v = sub.add_parser("volume", help="start a volume server")
     v.add_argument("-dir", default="./data",
                    help="comma-separated data directories")
@@ -431,6 +464,9 @@ def cmd_master(args: argparse.Namespace) -> int:
                           coordinator_seconds=args.coordinatorSeconds,
                           metrics_aggregation_seconds=(
                               args.metricsAggregationSeconds),
+                          autoscale_seconds=args.autoscaleSeconds,
+                          autoscale_tier_backend=(
+                              args.autoscale_tier_backend),
                           max_inflight=args.maxInflight,
                           peers=[p for p in args.peers.split(",") if p],
                           mdir=args.mdir, guard=master_guard(_security()),
@@ -446,6 +482,22 @@ def cmd_master(args: argparse.Namespace) -> int:
             if faultinject.fired(name)}
     print("master stopped" + (f", faults injected {json.dumps(hits)}"
                               if hits else ""), flush=True)
+    return 0
+
+
+def cmd_master_follower(args: argparse.Namespace) -> int:
+    """A read-only lookup server following the master's location push
+    (command/master_follower.go)."""
+    from .master.follower import MasterFollower
+
+    def start():
+        f = MasterFollower(args.masters, host=args.ip,
+                           port=args.port).start()
+        print(f"master.follower on {f.url} -> {args.masters}", flush=True)
+        return f.stop
+
+    _serve_until_signalled(start)
+    print("master.follower stopped", flush=True)
     return 0
 
 
@@ -909,7 +961,8 @@ def main(argv: list[str]) -> int:
             "shell": cmd_shell, "compact": cmd_compact,
             "backup": cmd_backup, "fix": cmd_fix, "export": cmd_export,
             "upload": cmd_upload, "download": cmd_download,
-            "benchmark": cmd_benchmark}[args.command](args)
+            "benchmark": cmd_benchmark,
+            "master.follower": cmd_master_follower}[args.command](args)
 
 
 if __name__ == "__main__":

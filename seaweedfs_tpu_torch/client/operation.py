@@ -18,8 +18,11 @@ reference's does: the assign's ``auth`` goes on the write as
 ``Authorization: BEARER``, the lookup's read token on every GET, and a
 delete asks the master for the fid's ``writeAuth``.
 
-Not ported: the push-updated location map (``keep_connected``,
-wdclient.py).
+``WeedClient(keep_connected=True)`` reads locations from a push-updated
+map (client/wdclient.py, the master's ``/cluster/watch``) once it has
+synced, and asks /dir/lookup before then; on a secured cluster (its
+first lookup carries a read token) it stops the watch and asks
+/dir/lookup, whose answer carries the tokens.  ``close()`` stops it.
 """
 
 from __future__ import annotations
@@ -110,9 +113,11 @@ class WeedClient:
     """One-shot operations against a master and its volume servers
     (operation/submit.go flavor).  Reads pick a holder at random from
     ``rng`` and fail over to the next; ``last_read_from`` names the
-    server that answered the last read."""
+    server that answered the last read.  ``keep_connected`` looks
+    locations up in a push-updated map (same ``data_center`` first)."""
 
-    def __init__(self, master_url: str):
+    def __init__(self, master_url: str, keep_connected: bool = False,
+                 data_center: str = ""):
         self.master = MasterClient(master_url)
         self.rng = random.Random()
         self.last_read_from = ""
@@ -120,6 +125,33 @@ class WeedClient:
         # whether the master's framed assign answered (None: not tried)
         self._tcp = None
         self._tcp_assign_ok: Optional[bool] = None
+        # whether the first lookup carried a read token (None: not yet)
+        self._secured: Optional[bool] = None
+        self.wd = None
+        if keep_connected:
+            from .wdclient import WdClient
+
+            self.wd = WdClient(master_url, data_center=data_center).start()
+
+    def close(self) -> None:
+        if self.wd is not None:
+            self.wd.stop()
+
+    def _locate(self, vid: int) -> tuple[list[str], str]:
+        """(urls, read token), from the push map on an open cluster."""
+        if self._secured is None:
+            urls, auth = self.master.lookup_with_auth(vid)
+            self._secured = bool(auth)
+            if self._secured and self.wd is not None:
+                # a secured cluster never reads the map: no long-poll
+                # parked on the master for nothing
+                self.wd.stop()
+                self.wd = None
+            return urls, auth
+        if self._secured or self.wd is None \
+                or not self.wd._synced.is_set():
+            return self.master.lookup_with_auth(vid)
+        return self.wd.lookup(vid), ""
 
     def upload(self, data: bytes, name: str = "", mime: str = "",
                collection: str = "", replication: str = "",
@@ -281,7 +313,7 @@ class WeedClient:
         and the next pulse re-registers it."""
         for attempt in range(3):
             try:
-                urls, auth = self.master.lookup_with_auth(vid)
+                urls, auth = self._locate(vid)
             except HttpError as e:
                 if e.status != 404 or attempt == 2:
                     raise

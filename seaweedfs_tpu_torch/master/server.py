@@ -57,6 +57,14 @@ server.py (weed/server/master_server*.go + master_grpc_server*.go):
                         the last capacity probe's document (scenarios/
                         capacity.py, the shell's capacity.probe); 404
                         until one has posted
+  GET  /cluster/autoscale, POST /cluster/autoscale/pause|resume|tier
+                        the heat autoscaler (ops/autoscaler.py): targets,
+                        tiered volumes, totals, replicated records; /tier
+                        tiers ({"volume_id", "backend"}) or recalls
+                        ({"recall": true}) one volume through its legs
+  GET  /cluster/watch   the location long-poll (?since_seq=, ?timeout= at
+                        most 55 s): the vid -> location events after the
+                        cursor, or a snapshot; stamped with the leader
   GET  /metrics         this process's Prometheus exposition: the
                         master's requests by route, the coordinator's and
                         the request plane's families (?exemplars=1 adds
@@ -74,8 +82,14 @@ A janitor thread unregisters volume servers that stopped heartbeating.
 ``coordinator_seconds`` > 0 starts the coordinator's loop with that
 interval (the routes answer either way); it pauses while the shell's
 admin lock is held, and it counts a registered server the aggregator
-cannot scrape as down.  ``metrics_aggregation_seconds`` > 0 scrapes every
-server that often and then evaluates the alert rules, so the coordinator
+cannot scrape as down.  ``autoscale_seconds`` > 0 (``-autoscaleSeconds``)
+starts the heat autoscaler's loop likewise, woken at once by the heat
+journal's ``on_ingest`` and by heat events and alerts in the cluster
+journal; ``autoscale_tier_backend`` (``-autoscale.tierBackend``) names
+the backend its cold path tiers to (none: no tiering), and
+``autoscale_opts`` passes its other knobs.
+``metrics_aggregation_seconds`` > 0 scrapes every server that often and
+then evaluates the alert rules, so the coordinator
 sees a dead server within a scrape and an alert fires with nobody polling;
 otherwise the /cluster/* routes scrape and /cluster/alerts evaluates on
 demand (each at most once per ``min_interval``).  A firing alert asks each
@@ -106,13 +120,17 @@ durable under ``mdir``).  The leader appends the volume-id allocation
 leader reissues an id), every batch its cluster journal accepts, the
 alert engine's state machines when an evaluation changed them, each
 repair record of the coordinator (quorum-committed before the repair
-runs), the EC registry when a heartbeat changed it, and every batch of
-access records its workload journal accepts (``workload`` entries; a
+runs), each lifecycle record of the autoscaler (``autoscale`` entries,
+quorum-committed before the move goes on), the EC registry when a
+heartbeat changed it, and every batch of access records its workload
+journal accepts (``workload`` entries; a
 snapshot carries the journal under ``workload``).  A follower
 applies committed entries to the same state machines, so a promoted
-follower serves the journal, resumes a firing alert and re-plans an
-orphaned repair under its original cause.  The vacuum scan, the
-coordinator and the telemetry loop run on the leader only.  A follower
+follower serves the journal, resumes a firing alert, re-plans an
+orphaned repair under its original cause and closes or resumes an
+orphaned replica add or tier commit.  The vacuum scan, the
+coordinator, the autoscaler and the telemetry loop run on the leader
+only.  A follower
 answers the control plane's GETs with 307 and ``Location`` at the
 leader (503 while no leader is elected), forwards POSTs to it, and
 answers a heartbeat with ``{"leader", "not_leader": true}``.  With no
@@ -134,9 +152,7 @@ token.  ``tls_context`` serves HTTPS (mTLS with a CA).  The framed assign
 front does not start under a write key or TLS: it has neither a token
 nor a TLS slot, and clients fall back to HTTP.
 
-Not ported: ``master/follower.py`` (it needs ``/cluster/watch`` and
-wdclient), the /cluster/ autoscale (the heat journal's ``on_ingest``
-consumer) and watch routes, and the maintenance scripts.
+Not ported: the maintenance scripts.
 """
 
 from __future__ import annotations
@@ -164,6 +180,7 @@ from ..observability.ledger import (ClusterLedgerJournal, LedgerShipper,
 from ..observability.reqlog import (ReqlogShipper, WorkloadJournal,
                                     dropped_total, get_recorder,
                                     summarize_records)
+from ..ops.autoscaler import HeatAutoscaler
 from ..ops.coordinator import EcCoordinator
 from ..security import Guard, gen_jwt_for_volume_server
 from ..stats import (REGISTRY, degraded_bind_metrics, heat_metrics,
@@ -218,9 +235,13 @@ class MasterServer:
                  metrics_aggregation_seconds: float = 0.0,
                  max_inflight: int = 0,
                  peers: Optional[list[str]] = None, mdir: str = "",
-                 guard: Optional[Guard] = None, tls_context=None):
+                 guard: Optional[Guard] = None, tls_context=None,
+                 autoscale_seconds: float = 0.0,
+                 autoscale_tier_backend: str = "",
+                 autoscale_opts: Optional[dict] = None):
         """A master at host:port.  Volume servers silent for ten pulses
         are dropped.  ``max_inflight`` > 0 turns admission control on.
+        ``autoscale_seconds`` > 0 runs the heat autoscaler's loop.
         ``peers``: the other masters' host:port (none: a single master,
         the leader at once); ``mdir``: the directory of its raft state.
         ``guard``: the keys it signs tokens with (none: no tokens);
@@ -279,10 +300,24 @@ class MasterServer:
             get_recorder(), server=self.url,
             local_journal=self.workload_journal)
         self.workload_journal.on_ingest = self._on_workload_records
-        # the volume servers' heat (observability/heat.py); its on_ingest
-        # stays unset: its one consumer is the heat autoscaler
+        # the volume servers' heat (observability/heat.py), whose every
+        # ingest wakes the heat autoscaler; the autoscaler's lifecycle
+        # records ride the raft log as "autoscale" entries
         heat_metrics()
         self.heat_journal = ClusterHeatJournal(rack_fn=self._rack_of)
+        self.autoscale_seconds = autoscale_seconds
+        self.autoscaler = HeatAutoscaler(
+            topo=self.topo, server=self.url,
+            heat_fn=lambda: self.heat_journal.to_doc(top_needles=0),
+            stale_peers_fn=self._stale_peers,
+            is_leader_fn=lambda: self.is_leader,
+            admin_locked_fn=self._admin_locked,
+            interval_s=autoscale_seconds or 5.0,
+            tier_backend=autoscale_tier_backend,
+            volume_size_limit=volume_size_limit_mb * 1024 * 1024,
+            replicate_fn=self._replicate_autoscale_record,
+            **dict(autoscale_opts or {}))
+        self.heat_journal.on_ingest = self.autoscaler.on_heat
         # every server's resource ledger (observability/ledger.py); the
         # master settles its own requests too, shipped locally
         ledger_metrics()
@@ -344,6 +379,8 @@ class MasterServer:
                              name="master-telemetry").start()
         if self.coordinator_seconds > 0:
             self.coordinator.start()
+        if self.autoscale_seconds > 0:
+            self.autoscaler.start()
         if self.vacuum_scan_seconds > 0:
             threading.Thread(target=self._vacuum_scan_loop, daemon=True,
                              name="master-vacuum-scan").start()
@@ -380,6 +417,7 @@ class MasterServer:
     def stop(self) -> None:
         self._stop.set()
         self.coordinator.stop()
+        self.autoscaler.stop()
         if self._tcp_server is not None:
             self._tcp_server.stop()
         self.raft.stop()
@@ -401,11 +439,12 @@ class MasterServer:
 
     def _local_health_contribution(self) -> dict:
         """The master's own totals in /cluster/health: the coordinator's,
-        and this process's lost access records (the master's registry is
-        never scraped, so the workload journal's evictions would miss the
-        reqlog_records_dropped alert).  Co-located servers in one process
+        the autoscaler's failed actuations, and this process's lost access
+        records (the master's registry is never scraped, so the workload
+        journal's evictions would miss the reqlog_records_dropped alert).  Co-located servers in one process
         may count the total twice: a warning too many, never one short."""
         extra = dict(self.coordinator.health_contribution() or {})
+        extra.update(self.autoscaler.health_contribution() or {})
         extra["reqlog_records_dropped"] = \
             extra.get("reqlog_records_dropped", 0) + dropped_total()
         return extra
@@ -452,6 +491,8 @@ class MasterServer:
             self.alert_engine.import_state(data.get("alerts") or {})
         elif kind == "coordinator":
             self.coordinator.apply_replicated(data)
+        elif kind == "autoscale":
+            self.autoscaler.apply_replicated(data)
         elif kind == "ec_registry":
             self._set_ec_registry_shadow(data)
 
@@ -466,6 +507,7 @@ class MasterServer:
             "workload": self.workload_journal.query(limit=0),
             "alerts": self.alert_engine.export_state(),
             "coordinator": self.coordinator.export_replicated(),
+            "autoscale": self.autoscaler.export_replicated(),
             "ec_registry": self._ec_registry_doc(),
         }
 
@@ -479,6 +521,7 @@ class MasterServer:
                                     state.get("workload") or [])
         self.alert_engine.import_state(state.get("alerts") or {})
         self.coordinator.import_replicated(state.get("coordinator") or {})
+        self.autoscaler.import_replicated(state.get("autoscale") or {})
         reg = state.get("ec_registry") or {}
         if reg:
             self._set_ec_registry_shadow(reg)
@@ -494,9 +537,11 @@ class MasterServer:
 
     def _on_cluster_events(self, accepted: list[dict]) -> None:
         """The cluster journal's ingest hook: each batch of newly accepted
-        events wakes the coordinator with their causes, and on a leader
-        enters the raft log (it rides the next replication round)."""
+        events wakes the coordinator and the autoscaler with their causes,
+        and on a leader enters the raft log (it rides the next replication
+        round)."""
         self.coordinator.on_events(accepted)
+        self.autoscaler.on_events(accepted)
         raft = self._leader_raft()
         if raft is not None:
             raft.append("event", {"events": accepted})
@@ -524,6 +569,16 @@ class MasterServer:
         raft = self._leader_raft()
         if raft is not None:
             raft.append("coordinator", record, sync=True)
+
+    def _replicate_autoscale_record(self, record: dict) -> None:
+        """The autoscaler's replicate_fn: a lifecycle record reaches a
+        quorum before the move goes on.  ``tier_pending`` is the tier's
+        commit point, and a leader killed mid replica add leaves its
+        ``grow_planned`` for the next leader to close or resume, never to
+        copy twice."""
+        raft = self._leader_raft()
+        if raft is not None:
+            raft.append("autoscale", record, sync=True)
 
     def _ec_registry_doc(self) -> dict:
         """The EC registry as plain urls (what ec_registry entries carry):
@@ -574,14 +629,18 @@ class MasterServer:
     def _on_role_change(self, role: str) -> None:
         """Raft's role hook (outside its lock).  A demoted master's loops
         idle on their own (each gates on is_leader every tick); a
-        promoted one re-arms the planned repairs it holds with their
-        original causes."""
+        promoted one re-arms the planned repairs and autoscaler moves it
+        holds with their original causes."""
         self.metrics.leader_gauge.set(1 if role == "leader" else 0)
         if role == "leader":
             try:
                 self.coordinator.resume_replicated()
             except Exception:  # noqa: BLE001 - the next cycle re-plans
                 log.exception("resuming the replicated repairs")
+            try:
+                self.autoscaler.resume_replicated()
+            except Exception:  # noqa: BLE001 - the next cycle re-plans
+                log.exception("resuming the replicated autoscaler moves")
 
     @property
     def is_leader(self) -> bool:
@@ -1024,6 +1083,64 @@ class MasterServer:
             self._require_leader(req)
             self.coordinator.resume()
             return Response(self.coordinator.status())
+
+        @r.route("GET", "/cluster/autoscale")
+        def cluster_autoscale(req: Request) -> Response:
+            """The heat autoscaler's state: enabled or paused, each
+            volume's added replicas, the tiered volumes, the totals, the
+            move budget, the knobs and the replicated records."""
+            self._require_leader(req)
+            return Response(self.autoscaler.status())
+
+        @r.route("POST", "/cluster/autoscale/pause")
+        def cluster_autoscale_pause(req: Request) -> Response:
+            """An operator's hold that outlives the admin lock: no new
+            grow, shrink, tier or recall starts until resume."""
+            self._require_leader(req)
+            self.autoscaler.pause("api")
+            return Response(self.autoscaler.status())
+
+        @r.route("POST", "/cluster/autoscale/resume")
+        def cluster_autoscale_resume(req: Request) -> Response:
+            self._require_leader(req)
+            self.autoscaler.resume()
+            return Response(self.autoscaler.status())
+
+        @r.route("POST", "/cluster/autoscale/tier")
+        def cluster_autoscale_tier(req: Request) -> Response:
+            """The shell's volume.tier: tier or recall one volume through
+            the autoscaler's own legs, so the move is journaled,
+            replicated and recalled when heat returns like its own.  An
+            operator's mistake answers 400, a failed leg 502."""
+            self._require_leader(req)
+            b = req.json() or {}
+            try:
+                vid = int(b.get("volume_id"))
+            except (TypeError, ValueError):
+                raise HttpError(400, "volume_id required")
+            try:
+                out = self.autoscaler.tier_volume(
+                    vid, backend=str(b.get("backend") or ""),
+                    recall=bool(b.get("recall")))
+            except ValueError as e:
+                raise HttpError(400, str(e))
+            except Exception as e:  # noqa: BLE001 - the leg's own error
+                raise HttpError(502, f"{type(e).__name__}: {e}")
+            return Response(out)
+
+        @r.route("GET", "/cluster/watch")
+        def cluster_watch(req: Request) -> Response:
+            """The location long-poll (master_grpc_server.go KeepConnected):
+            the events after ?since_seq=, or a snapshot.  On the leader
+            only (a follower's topology is empty, so it redirects); the
+            answer names the leader, so a client redirected here polls it
+            directly next time."""
+            self._require_leader(req)
+            since = qint(req.query, "since_seq", 0)
+            timeout = min(qfloat(req.query, "timeout", 14.0), 55.0)
+            doc = self.topo.watch_locations(since, timeout)
+            doc["leader"] = self.url
+            return Response(doc)
 
         @r.route("GET", "/cluster/events")
         def cluster_events(req: Request) -> Response:

@@ -9,9 +9,11 @@ node an assign names) draw from ``Topology.rng``, a ``random.Random`` of
 its own that a test may seed; the reference draws from the global
 ``random``.
 
-Not ported: the location-delta broadcast behind ``/cluster/watch``
-(``location_snapshot``, ``watch_locations``), which only the reference's
-push-updated client reads.
+Every volume and EC volume a node gains or loses is a location event
+(``location_seq``, a bounded history): ``/cluster/watch`` long-polls
+``watch_locations`` and the push-updated client (client/wdclient.py)
+applies the events to its map, or a ``location_snapshot`` when it is new
+or fell behind the history (master_grpc_server.go KeepConnected).
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from __future__ import annotations
 import random
 import threading
 import time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -266,6 +269,11 @@ class Topology:
         # EC registry: vid -> {shard_id -> [DataNode]} (topology_ec.go:69)
         self.ec_shard_locations: dict[int, dict[int, list[DataNode]]] = {}
         self.ec_collections: dict[int, str] = {}
+        # the location broadcast: long-pollers wait on _watch_cond for
+        # events past their cursor, kept in a bounded history
+        self._watch_cond = threading.Condition(self.lock)
+        self._loc_events: deque[dict] = deque(maxlen=10_000)
+        self.location_seq = 0
 
     # --- registration -----------------------------------------------------
     def get_or_create_dc(self, name: str) -> DataCenter:
@@ -301,6 +309,7 @@ class Topology:
                 old = node.volumes.pop(vid, None)
                 if old is not None:
                     self._layout_for_volume(old).unregister(vid, node)
+                    self._emit_location(vid, node, "del")
             for v in new_volumes:
                 self._register_volume(v, node)
             node.last_seen = time.time()
@@ -335,11 +344,14 @@ class Topology:
                 if vid not in new_ids:
                     old = node.volumes.pop(vid)
                     self._layout_for_volume(old).unregister(vid, node)
+                    self._emit_location(vid, node, "del")
             for v in volumes:
                 self._register_volume(v, node)
             node.last_seen = time.time()
 
     def _register_volume(self, v: VolumeInfo, node: DataNode) -> None:
+        if v.id not in node.volumes:
+            self._emit_location(v.id, node, "add")
         node.volumes[v.id] = v
         self.max_volume_id = max(self.max_volume_id, v.id)
         self._layout_for_volume(v).register(v, node)
@@ -370,11 +382,14 @@ class Topology:
 
     def _register_ec(self, e: EcVolumeInfo, node: DataNode) -> None:
         locs = self.ec_shard_locations.setdefault(e.volume_id, {})
+        held_before = any(node in ns for ns in locs.values())
         self.ec_collections[e.volume_id] = e.collection
         for sid in e.shard_bits.shard_ids():
             nodes = locs.setdefault(sid, [])
             if node not in nodes:
                 nodes.append(node)
+        if not held_before and e.shard_bits.count():
+            self._emit_location(e.volume_id, node, "add", kind="ec")
 
     def _unregister_ec(self, e: EcVolumeInfo, node: DataNode) -> None:
         locs = self.ec_shard_locations.get(e.volume_id, {})
@@ -384,6 +399,8 @@ class Topology:
         if not any(locs.values()):
             self.ec_shard_locations.pop(e.volume_id, None)
             self.ec_collections.pop(e.volume_id, None)
+        if not any(node in ns for ns in locs.values()):
+            self._emit_location(e.volume_id, node, "del", kind="ec")
 
     def unregister_node(self, node: DataNode) -> None:
         with self.lock:
@@ -391,6 +408,68 @@ class Topology:
             self.sync_node_ec_shards(node, [])
             if node.rack:
                 node.rack.nodes.pop(node.url, None)
+
+    # --- the location broadcast (wdclient's KeepConnected push) -----------
+    def _emit_location(self, vid: int, node: DataNode, op: str,
+                       kind: str = "volume") -> None:  # holds: lock
+        self.location_seq += 1
+        self._loc_events.append({
+            "seq": self.location_seq, "op": op, "kind": kind, "vid": vid,
+            "url": node.url, "public_url": node.public_url or node.url,
+            "data_center": node.rack.dc.name if node.rack else ""})
+        self._watch_cond.notify_all()
+
+    @staticmethod
+    def _location(node: DataNode) -> dict:
+        return {"url": node.url, "public_url": node.public_url or node.url,
+                "data_center": node.rack.dc.name if node.rack else ""}
+
+    def location_snapshot(self) -> dict:
+        """Every vid's locations, plain and EC (vid_map.go's contents),
+        with the seq they stand at."""
+        with self.lock:
+            vols: dict[str, list[dict]] = {}
+            for node in self.all_nodes():
+                for vid in node.volumes:
+                    vols.setdefault(str(vid), []).append(
+                        self._location(node))
+            ecs: dict[str, list[dict]] = {}
+            for vid, shards in self.ec_shard_locations.items():
+                seen: dict[str, dict] = {}
+                for nodes in shards.values():
+                    for node in nodes:
+                        seen[node.url] = self._location(node)
+                ecs[str(vid)] = list(seen.values())
+            return {"volumes": vols, "ec_volumes": ecs,
+                    "seq": self.location_seq}
+
+    def watch_locations(self, since_seq: int, timeout: float = 14.0) -> dict:
+        """Long-poll: the events after ``since_seq``, ``{"events": []}``
+        when none came within ``timeout``, or a snapshot for a new client
+        (cursor 0 on a cluster with locations), a cursor that fell off
+        the history, or one ahead of this master (a restart reset the
+        seq)."""
+        deadline = time.time() + timeout
+        with self._watch_cond:
+            if (since_seq == 0 and self.location_seq > 0) \
+                    or since_seq + 1 < self._oldest_seq() \
+                    or since_seq > self.location_seq:
+                return self.location_snapshot()
+            while self.location_seq <= since_seq:
+                remaining = deadline - time.time()
+                if remaining <= 0:
+                    return {"events": [], "seq": self.location_seq}
+                self._watch_cond.wait(remaining)
+            # events evicted while waiting are never skipped silently
+            if since_seq + 1 < self._oldest_seq():
+                return self.location_snapshot()
+            return {"events": [e for e in self._loc_events
+                               if e["seq"] > since_seq],
+                    "seq": self.location_seq}
+
+    def _oldest_seq(self) -> int:  # holds: lock
+        return self._loc_events[0]["seq"] if self._loc_events else \
+            self.location_seq + 1
 
     # --- lookup -----------------------------------------------------------
     def lookup(self, vid: int, collection: str = "") -> list[DataNode]:

@@ -98,5 +98,6 @@ def grow_volume(topo: Topology, collection: str, rp: ReplicaPlacement,
             for node in nodes:
                 node.volumes[vid] = info
                 layout.register(info, node)
+                topo._emit_location(vid, node, "add")
         grown.append(vid)
     return grown

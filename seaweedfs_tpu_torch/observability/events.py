@@ -89,17 +89,20 @@ EVENT_TYPES = {
     "flash_crowd": "error",
     # the resource ledger's stall relay (observability/ledger.py)
     "loop_stall": "error",
+    # the heat autoscaler (ops/autoscaler.py, master-side)
+    "replica_grow": "info",          # a read replica added for the head
+    "replica_shrink": "info",        # an added replica dropped when cold
+    "tier_committed": "info",        # a cold volume's .dat moved remote
+    "tier_recall": "info",           # a tiered volume brought back
+    "autoscale_failed": "error",     # an actuation leg failed
 }
 
 # the reference's other event types, whose emitters the port does not
-# have (worker supervision, engine fallback, the autoscaler): data only,
+# have (worker supervision, engine fallback): data only,
 # so a reference server's events keep their severity in the port's
 # journals
 REFERENCE_ONLY_EVENT_TYPES = {
     "worker_restart": "warning", "engine_fallback": "warning",
-    "replica_grow": "info", "replica_shrink": "info",
-    "tier_committed": "info", "tier_recall": "info",
-    "autoscale_failed": "error",
 }
 
 # HEALTH_FAMILIES key (stats/aggregate.py) -> the event type emitted where
@@ -116,6 +119,7 @@ HEALTH_EVENT_TYPES = {
     "reqlog_records_dropped": "reqlog_dropped",
     "dataplane_conn_aborts": "dataplane_conn_abort",
     "loop_lag": "loop_stall",
+    "autoscale_failures": "autoscale_failed",
 }
 
 # the reference's rows of that mapping for the families the port has no
@@ -124,7 +128,6 @@ HEALTH_EVENT_TYPES = {
 REFERENCE_ONLY_HEALTH_EVENT_TYPES = {
     "worker_restarts": "worker_restart",
     "engine_fallbacks": "engine_fallback",
-    "autoscale_failures": "autoscale_failed",
 }
 
 

@@ -187,17 +187,19 @@ def clean_deficits(view: ClusterView) -> dict[int, dict]:
     return out
 
 
-def placement_rank(view: ClusterView, vid: int, sid: int) -> list[str]:
+def placement_rank(view: ClusterView, vid: int, sid: int,
+                   exclude: tuple = ()) -> list[str]:
     """Candidate targets for one shard, best first: a rack not yet
     holding this volume's shards beats one that does, a fresh DC breaks
-    ties, then fewest EC shards and most free slots, then the url."""
+    ties, then fewest EC shards and most free slots, then the url.
+    ``exclude`` drops more urls (the autoscaler's replica holders)."""
     holders = set(view.shards.get(vid, {}).get(sid, []))
     rack_counts = view.rack_counts(vid)
     dc_counts: dict[str, int] = {}
     for key, c in rack_counts.items():
         dc_counts[key[0]] = dc_counts.get(key[0], 0) + c
     cands = [n for n in view.nodes.values()
-             if n.alive and n.url not in holders]
+             if n.alive and n.url not in holders and n.url not in exclude]
     cands.sort(key=lambda n: (
         rack_counts.get(n.rack_key, 0),    # rack diversity first
         dc_counts.get(n.dc, 0),            # then DC diversity
@@ -393,6 +395,13 @@ class PlanExecutor:
               timeout: Optional[float] = None) -> dict:
         faultinject.hit("coord.exec")
         return self._post_fn(server, path, payload, timeout or self.TIMEOUT)
+
+    def admin_post(self, server: str, path: str, payload: dict,
+                   timeout: Optional[float] = None) -> dict:
+        """An admin leg of the master's other loop, the heat autoscaler
+        (replica copy, tier, recall): the same transport, timeout and
+        ``coord.exec`` fault point as a repair's legs."""
+        return self._post(server, path, payload, timeout)
 
     def refresh_heartbeats(self, servers) -> None:
         """Nudge touched servers to re-heartbeat so the master registry

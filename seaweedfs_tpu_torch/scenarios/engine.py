@@ -3,10 +3,11 @@ cluster and emit a measured, verdicted result document.
 
 The port's copy of seaweedfs_tpu/scenarios/engine.py.  ``run_scenario``
 starts its volume servers on ``device`` ("cuda" by default: a card, and
-no server starts without one).  The port's master has no heat
-autoscaler yet, so a spec with ``autoscale=True`` is refused before any
-server starts (NotImplementedError); every other path is the
-reference's.
+no server starts without one); every other path is the reference's.  A
+spec with ``autoscale=True`` runs the master's heat autoscaler at drill
+scale (one-second cycles), re-looks up the hot volumes' locations every
+half second so clients find added replicas, and scores the loop in an
+``autoscale`` block.
 
 The engine spawns a master + N volume servers IN PROCESS (the chaos-
 drill shape: fault points armed here fire at every client AND server
@@ -433,8 +434,7 @@ def run_scenario(spec: ScenarioSpec, base_dir: Optional[str] = None,
     """Run one scenario end to end on volume servers whose EC work runs
     on ``device``; returns the result document.  Always cleans up
     (servers, fault points, retry-budget buckets): scenarios must
-    compose in one process.  A spec with ``autoscale=True`` raises
-    NotImplementedError before anything starts."""
+    compose in one process."""
     from ..master.server import MasterServer
     from ..observability import (disable_tracing, enable_tracing,
                                  get_tracer, set_sample_rate)
@@ -442,10 +442,6 @@ def run_scenario(spec: ScenarioSpec, base_dir: Optional[str] = None,
     from ..stats import request_plane_metrics
     from ..volume_server.server import VolumeServer
 
-    if spec.autoscale:
-        raise NotImplementedError(
-            f"scenario {spec.name!r} needs the master's heat autoscaler "
-            "(ops/autoscaler.py), which the port has not yet")
     say = log or (lambda _m: None)
     roots = [tempfile.mkdtemp(dir=base_dir)
              for _ in range(spec.n_volume_servers)]
@@ -469,8 +465,21 @@ def run_scenario(spec: ScenarioSpec, base_dir: Optional[str] = None,
         # started must still stop whatever came up — scenarios run
         # back-to-back in one bench process, and a leaked telemetry
         # loop would skew the next one's counters
+        # drill-scale autoscaler knobs: second-scale planning, a grow
+        # threshold the shifted Zipf head clears within one decay
+        # half-life, short hold-down/cooldown so a shrink could
+        # physically happen inside the run (the thrash guard must
+        # hold by HYSTERESIS, not by the run being too short to flap)
+        auto_opts = {"grow_share": 0.30, "cold_share": 0.02,
+                     "hold_down_s": 6.0, "regrow_cooldown_s": 6.0,
+                     "max_replicas": 3, "move_rate": 2.0,
+                     "move_burst": 4.0, "actuation_deadline_s": 30.0} \
+            if spec.autoscale else None
         master = MasterServer(port=_free_port(), pulse_seconds=0.3,
-                              metrics_aggregation_seconds=0.25).start()
+                              metrics_aggregation_seconds=0.25,
+                              autoscale_seconds=(
+                                  1.0 if spec.autoscale else 0.0),
+                              autoscale_opts=auto_opts).start()
         master.aggregator.min_interval = 0.0
         master.alert_engine.min_interval = 0.0
         if spec.fast_alerts:
@@ -584,6 +593,32 @@ def run_scenario(spec: ScenarioSpec, base_dir: Optional[str] = None,
                 "ranks onto cold volume {} at t={:.1f}s".format(
                     cold, shift_t[0]))
 
+        def replica_refresher():
+            # the autoscaler's grows only help if clients FIND the new
+            # replicas: re-lookup every distinct volume in the rank
+            # list and spread consecutive ranks round-robin across the
+            # current locations (tuple swaps are atomic under the GIL,
+            # so the client loops never see a torn entry)
+            while not stop.is_set():
+                if stop.wait(0.5):
+                    break
+                vols: dict[str, list[int]] = {}
+                for i, (fid, _u) in enumerate(ranks):
+                    vols.setdefault(fid.partition(",")[0], []).append(i)
+                for vol, idxs in vols.items():
+                    try:
+                        doc = http_json(
+                            "GET", f"http://{master.url}/dir/lookup"
+                                   f"?volumeId={vol}", timeout=5.0)
+                    except Exception:
+                        continue
+                    urls = [loc["url"]
+                            for loc in doc.get("locations") or []]
+                    if not urls:
+                        continue
+                    for k, i in enumerate(idxs):
+                        ranks[i] = (ranks[i][0], urls[k % len(urls)])
+
         def alert_poller():
             while not stop.is_set():
                 watch.sample()
@@ -615,6 +650,10 @@ def run_scenario(spec: ScenarioSpec, base_dir: Optional[str] = None,
             threads.append(threading.Thread(target=head_shifter,
                                             daemon=True,
                                             name="scn-shift"))
+        if spec.autoscale:
+            threads.append(threading.Thread(target=replica_refresher,
+                                            daemon=True,
+                                            name="scn-replicas"))
         if spec.vacuum_every_s > 0:
             threads.append(threading.Thread(target=vacuum_loop,
                                             daemon=True,
@@ -761,6 +800,54 @@ def run_scenario(spec: ScenarioSpec, base_dir: Optional[str] = None,
             except Exception:
                 pass
             result["heat"] = heat_block
+
+        if spec.autoscale:
+            # the closed-loop verdict, captured BEFORE teardown: did
+            # the autoscaler react to the shift, with attribution, and
+            # did the hot set's p99 come back inside the SLO?
+            st = master.autoscaler.status()
+            grows = [r for r in st.get("recent", ())
+                     if r.get("action") == "replica_grow"]
+            shift_wall = t0_wall + shift_t[0] if shift_t[0] else None
+            first_grow_s = None
+            if grows and shift_wall:
+                after = [r["at"] - shift_wall for r in grows
+                         if r.get("at", 0.0) >= shift_wall - 0.5]
+                if after:
+                    first_grow_s = round(min(after), 2)
+            cycles = [int(t.get("cycles") or 0)
+                      for t in st.get("targets", {}).values()]
+            auto_block = {
+                "status": {k: st.get(k) for k in
+                           ("cycles", "grows", "shrinks", "tiers",
+                            "recalls", "failures", "targets",
+                            "last_error")},
+                "grow_events": [{k: r.get(k) for k in
+                                 ("at", "vid", "src", "dst", "alert",
+                                  "cause_trace", "cause_event")}
+                                for r in grows],
+                "first_grow_after_shift_s": first_grow_s,
+                "attributed": any(r.get("alert") and r.get("cause_trace")
+                                  for r in grows),
+                "max_cycles_per_volume": max(cycles, default=0),
+            }
+            # SLO recovery: walk 1s windows of accepted read latency
+            # from the shift on; recovery is the end of the first
+            # window whose p99 is back inside the bound
+            slo_ms = spec.expectations.get("autoscale_slo_p99_ms")
+            if slo_ms and shift_t[0]:
+                rec_s = None
+                w = shift_t[0]
+                while w < wall:
+                    lat = sorted(o.lat for o in ops if o.ok
+                                 and o.route == "read"
+                                 and w <= o.t < w + 1.0)
+                    if lat and _percentile(lat, 0.99) * 1e3 <= slo_ms:
+                        rec_s = round(w + 1.0 - shift_t[0], 2)
+                        break
+                    w += 1.0
+                auto_block["slo_recovery_s"] = rec_s
+            result["autoscale"] = auto_block
 
         checks = _evaluate(spec, result, watch, fault_window)
         result["checks"] = checks

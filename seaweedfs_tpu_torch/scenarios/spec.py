@@ -64,11 +64,10 @@ class ScenarioSpec:
     # robin interleaving ranks across servers — a shift drill needs
     # the head's move to change WHICH VOLUME is hot
     preload_locality: bool = False
-    # run the master's heat autoscaler at drill scale: grows answer the
-    # Zipf head live, clients re-discover replica locations mid-run, and
-    # the result carries an `autoscale` block (grow latency, SLO
-    # recovery, thrash count).  The port's master has no autoscaler yet:
-    # run_scenario refuses such a spec before any server starts
+    # run the master's heat autoscaler (ops/autoscaler.py) at drill
+    # scale: grows answer the Zipf head live, clients re-discover
+    # replica locations mid-run, and the result carries an `autoscale`
+    # block (grow latency, SLO recovery, thrash count)
     autoscale: bool = False
     faults: tuple = ()                # FaultSpec entries
     fast_alerts: bool = True          # shrink SLO windows to drill scale

@@ -1,6 +1,7 @@
 """Admin shell package: importing it registers every command."""
 
 from . import alert_commands as alert_commands  # noqa: F401
+from . import autoscale_commands as autoscale_commands  # noqa: F401
 from . import commands as commands  # noqa: F401
 from . import coordinator_commands as coordinator_commands  # noqa: F401
 from . import ec_commands as ec_commands  # noqa: F401

@@ -1199,6 +1199,34 @@ def http_json(method: str, url: str, payload: Optional[dict] = None,
     return json.loads(body) if body else {}
 
 
+def http_json_retry(method: str, url: str, payload: Optional[dict] = None,
+                    timeout: float = 30.0, attempts: int = 3,
+                    budget_kind: str = "http") -> dict:
+    """http_json with up to ``attempts`` tries of an idempotent GET or
+    HEAD while the peer is unreachable or answers 503.  Each retry (never
+    the first try) takes a token of the peer's retry budget
+    (utils/backoff.py): a drained bucket ends the tries there, and never
+    past an active deadline.  Any other answer is the peer's, and raises
+    at once."""
+    from .backoff import jittered_backoff, retry_allowed
+
+    dest = urllib.parse.urlsplit(url).netloc
+    retriable = method.upper() in ("GET", "HEAD")
+    last: Optional[HttpError] = None
+    for i in range(max(1, int(attempts))):
+        if i:
+            if not retriable or not retry_allowed(dest, budget_kind):
+                break
+            _deadline.sleep_within(jittered_backoff(0.05, 1.0, i - 1))
+        try:
+            return http_json(method, url, payload, timeout=timeout)
+        except HttpError as e:
+            last = e
+            if e.status != 503:
+                raise
+    raise last  # type: ignore[misc]
+
+
 def http_bytes(method: str, url: str, payload: Optional[bytes] = None,
                headers: Optional[dict] = None, timeout: float = 60.0,
                follow_redirects: bool = True) -> tuple[int, bytes, dict]:

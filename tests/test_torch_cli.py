@@ -29,8 +29,10 @@ def _start(args: list[str], command: str = "volume") -> subprocess.Popen:
 
 
 def _first_line(proc: subprocess.Popen, timeout: float) -> str:
-    ready, _, _ = select.select([proc.stdout], [], [], timeout)
-    return proc.stdout.readline() if ready else ""
+    # poll, not select: select() refuses a descriptor past 1023
+    poller = select.poll()
+    poller.register(proc.stdout, select.POLLIN)
+    return proc.stdout.readline() if poller.poll(timeout * 1000) else ""
 
 
 def test_volume_cli_serves_on_the_cpu_and_stops_on_sigterm(tmp_path):

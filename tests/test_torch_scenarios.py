@@ -16,9 +16,10 @@ Live, on in-process servers with ``device="cpu"``:
   fault phase and recover after the clear;
 - ``run_failover(master_failover())`` passes, and its document has the
   reference's keys and checks;
-- a spec with ``autoscale=True`` is refused before any server starts (the
-  port's master has no autoscaler yet), and the default device needs a
-  card.
+- ``run_scenario(flash_crowd_autoscale())`` runs the master's heat
+  autoscaler: its ``autoscale`` block has the reference's keys and its
+  checks the reference's names (the timed expectations are the card's);
+  the default device needs a card.
 """
 
 from __future__ import annotations
@@ -140,18 +141,44 @@ def test_route_phase_stats_and_checks_as_the_reference(seed):
     assert got["port"] == got["ref"]
 
 
-def test_autoscale_spec_is_refused_before_any_server_starts(tmp_path,
-                                                            monkeypatch):
-    import seaweedfs_tpu_torch.master.server as port_master
+# the keys of the reference's autoscale block (seaweedfs_tpu/scenarios/
+# engine.py) and of its status digest
+AUTOSCALE_KEYS = {"status", "grow_events", "first_grow_after_shift_s",
+                  "attributed", "max_cycles_per_volume", "slo_recovery_s"}
+AUTOSCALE_STATUS_KEYS = {"cycles", "grows", "shrinks", "tiers", "recalls",
+                         "failures", "targets", "last_error"}
+GROW_EVENT_KEYS = {"at", "vid", "src", "dst", "alert", "cause_trace",
+                   "cause_event"}
 
-    def no_master(*_a, **_k):
-        raise AssertionError("a server started")
 
-    monkeypatch.setattr(port_master, "MasterServer", no_master)
-    with pytest.raises(NotImplementedError, match="heat autoscaler"):
-        port_scn.run_scenario(port_scn.flash_crowd_autoscale(),
-                              base_dir=str(tmp_path), device="cpu")
-    assert not list(tmp_path.iterdir())
+def test_flash_crowd_autoscale_runs_the_autoscaler_on_cpu(tmp_path):
+    """The closed-loop drill on in-process CPU servers.  Its grow, SLO
+    and thrash expectations are timed, and a loaded CPU can miss them:
+    they are held on the card.  Here the document's shape is held to the
+    reference's, and each check to the reference's _evaluate of it."""
+    spec = port_scn.flash_crowd_autoscale()
+    res = port_scn.run_scenario(spec, base_dir=str(tmp_path), device="cpu")
+    assert res["spec"] == ref_scn.flash_crowd_autoscale().to_dict()
+    auto = res["autoscale"]
+    assert set(auto) == AUTOSCALE_KEYS
+    assert set(auto["status"]) == AUTOSCALE_STATUS_KEYS
+    assert auto["status"]["cycles"] >= 1
+    assert auto["status"]["last_error"] == ""
+    for g in auto["grow_events"]:
+        assert set(g) == GROW_EVENT_KEYS
+    watch = ref_engine._AlertWatch(None, 0.0)
+    ref_checks = ref_engine._evaluate(
+        ref_scn.flash_crowd_autoscale(), res, watch, None)
+    assert [c["check"] for c in res["checks"]] == \
+        [c["check"] for c in ref_checks] == [
+            "error_ratio", "deadline_overrun_ms", "deadline_violations",
+            "alert_fired", "heat_alert_within_s", "heat_alert_named_volume",
+            "autoscale_grow_within_s", "autoscale_attribution",
+            "autoscale_recover_within_s", "autoscale_max_cycles"]
+    for got, want in zip(res["checks"], ref_checks):
+        if got["check"] != "alert_fired":
+            assert got == want
+    assert res["verdict"] in ("pass", "degraded")
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="a card is present")

@@ -153,6 +153,7 @@ def test_cluster_phase_on_cpu(tmp_path):
     """The master, five volume servers and the shell through the CLI, on
     the plain versions: the vacuum leg with the volume shell's leg, then
     upload, ec.encode, a SIGKILLed holder, degraded GETs of both classes,
+    the location watch's leg (master.follower, a keep-connected client),
     ec.rebuild, a rotted shard that ec.scrub -all quarantines and
     ec.rebuild heals, the coordinator's drill (a second rot and a second
     SIGKILLed server healed with no shell command), the drain of a third
@@ -193,6 +194,14 @@ def test_cluster_phase_on_cpu(tmp_path):
         assert drain["seconds"][leg] >= 0, leg
     assert {"a_1_client", "b_1_client", "a_3_clients",
             "b_3_clients"} <= set(res["gets_ms"])
+    # the location watch: the follower's lookups were the master's, and
+    # the keep-connected client's degraded GETs asked the master once
+    fol = res["follower"]
+    assert fol["start_line"].startswith("master.follower on")
+    assert fol["gets"] > 0 and fol["lost_intervals"] >= fol["gets"]
+    assert fol["master_lookups_during_gets"] <= 1
+    assert fol["launches"] == {}  # the plain versions
+    assert str(fol["plain"]["vid"]) in fol["lookups"]
     for leg in ("upload", "ec.encode", "encode_generate", "encode_spread",
                 "drop", "ec.rebuild", "rebuild_copy", "rebuild_rebuild",
                 "rebuild_spread", "ec.scrub", "ec.rebuild_after_scrub",
@@ -337,7 +346,8 @@ def test_cluster_phase_on_cpu(tmp_path):
 def test_secure_tier_phase_on_cpu(tmp_path):
     """The secure_tier phase at 24 MiB with ``-ec.engine cpu``: mTLS from
     openssl's certificates, the 401s, the tier round trip by sha256, the
-    reference's failure for ec.encode of the tiered volume, and one
+    reference's failure for ec.encode of the tiered volume, the same
+    round trip through the master's autoscaler (``volume.tier``), and one
     reconstruction per lost interval (the plain versions launch
     nothing)."""
     res = chip_smoke.run_secure_tier_phase("cpu", str(tmp_path), 24 << 20,
@@ -363,6 +373,39 @@ def test_secure_tier_phase_on_cpu(tmp_path):
         seal["lost_intervals"]
     assert [s["mmap"] for s in res["servers"].values()].count(True) == 1
     assert all("front threaded" in line for line in res["start_lines"])
+    # the same volume tiered and recalled through the master's autoscaler
+    tier = res["autoscale_tier"]
+    assert [r["op"] for r in tier["records"]] == ["tier_pending", "tier_done"]
+    assert tier["records"][0]["backend"] == "cold"
+    assert tier["tier_line"].startswith("volume 1 tiered -> cold:")
+    assert tier["reads"]["gets"] == res["needles"]
+    assert tier["dat_sha256_equal_after_recall"]
+    assert tier["totals"] == {"tiers": 1, "recalls": 1, "failures": 0}
+
+
+def test_a_start_line_is_read_past_descriptor_1023(tmp_path):
+    """A long-lived process (a test worker after many in-process
+    clusters) holds descriptors past 1023, which select() refuses."""
+    import resource
+
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if soft < 1200:
+        resource.setrlimit(resource.RLIMIT_NOFILE, (min(hard, 4096), hard))
+    held = [os.open(os.devnull, os.O_RDONLY) for _ in range(1100)]
+    proc = subprocess.Popen(
+        [sys.executable, "-c", "print('volume server listening on x')"],
+        stdout=subprocess.PIPE, text=True)
+    try:
+        assert proc.stdout.fileno() > 1023
+        assert chip_smoke.read_start_line(
+            proc, os.devnull, "volume server listening", 30) == \
+            "volume server listening on x"
+    finally:
+        proc.wait()
+        proc.stdout.close()
+        for fd in held:
+            os.close(fd)
+        resource.setrlimit(resource.RLIMIT_NOFILE, (soft, hard))
 
 
 def test_refuses_without_a_card_or_a_checkout(tmp_path):
